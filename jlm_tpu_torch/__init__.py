@@ -1,0 +1,22 @@
+"""jlm_tpu_torch — the PyTorch/CUDA port of :mod:`jlm_tpu` for one NVIDIA H100.
+
+The port owns only device code; the JAX-free host modules of ``jlm_tpu``
+(config, data, lattice, native builder, oracle, quantizer, parameter init)
+are imported, not copied.  Module names follow the JAX package so each
+counterpart is easy to find.  Importing the package builds and loads no
+kernel: ``ops/_build.py`` compiles ``csrc/*.cu`` on the first launch.
+
+Layer map (main path: streaming batched beam-10 conversion):
+
+- ``decoder.engine`` — ``BeamDecoder`` (``decode``, ``decode_batch``,
+  ``decode_stream``): host lattice build and pack, one device search per
+  chunk (a Python frame loop with no host sync), device backtrack, one
+  result fetch per chunk.
+- ``models.lstm``    — the plain LSTM LM functions (embed, cell step, head,
+  log-softmax): the fp32 parity forward and every kernel's reference.
+- ``models.params``  — numpy parameter pytree / npz checkpoint -> tensors.
+- ``ops``            — the hand-written Hopper kernels, each beside its plain
+  version: ``project`` (int8/bf16 head normalizer, online logsumexp),
+  ``lstm_cell`` (fused cell step), ``cand_dot`` (per-sentence candidate
+  dots).
+"""

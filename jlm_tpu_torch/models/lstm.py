@@ -1,0 +1,85 @@
+"""LSTM LM core as plain functions on tensors.
+
+Counterpart of :mod:`jlm_tpu.models.lstm` for the decode path: embedding
+(per-row int8 dequant), one fused-cell step through all layers (gate order
+i, j, f, o; ``config.forget_bias`` applied at run time), the full output
+head, max-subtracted fp32 log-softmax, and the full LM step.  All math is
+fp32; a caller that needs true fp32 on the card turns TF32 off (the
+engine's parity forward does).
+
+Only the full-softmax head is ported; a D-softmax ``{"blocks": ...}`` head
+raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from jlm_tpu.config import Config
+
+State = Tuple[torch.Tensor, torch.Tensor]  # (c, h) each [L, B, H]
+
+DSOFTMAX_TODO = ("D-softmax head not ported yet "
+                 "(ROADMAP.md queue 1, model core; queue 2, kernel 1)")
+
+
+def _w(leaf) -> torch.Tensor:
+    """An (optionally int8-quantized, per output column) weight as fp32."""
+    if isinstance(leaf, dict) and "q" in leaf:
+        return leaf["q"].float() * leaf["scale"][None, :]
+    return leaf
+
+
+def embed(params: Dict[str, Any], word_ids: torch.Tensor) -> torch.Tensor:
+    """Embedding row gather with per-row dequant for int8 tables."""
+    emb = params["embedding"]
+    if isinstance(emb, dict) and "q" in emb:
+        return emb["q"][word_ids].float() * emb["scale"][word_ids][..., None]
+    return emb[word_ids]
+
+
+def initial_state(config: Config, batch: int, device) -> State:
+    shape = (config.num_layers, batch, config.hidden_size)
+    return (torch.zeros(shape, dtype=torch.float32, device=device),
+            torch.zeros(shape, dtype=torch.float32, device=device))
+
+
+def lstm_step(params: Dict[str, Any], config: Config, x: torch.Tensor,
+              state: State) -> Tuple[torch.Tensor, State]:
+    """One step through all layers; returns ``(h_top [B, H], state')``."""
+    c, h = state
+    new_c, new_h = [], []
+    for l, layer in enumerate(params["lstm"]):
+        z = torch.cat([x, h[l]], dim=1) @ _w(layer["W"]) + layer["b"]
+        i, j, f, o = z.chunk(4, dim=1)
+        cl = torch.sigmoid(f + config.forget_bias) * c[l] + torch.sigmoid(i) * torch.tanh(j)
+        hl = torch.sigmoid(o) * torch.tanh(cl)
+        new_c.append(cl)
+        new_h.append(hl)
+        x = hl
+    return x, (torch.stack(new_c), torch.stack(new_h))
+
+
+def head_logits(params: Dict[str, Any], config: Config,
+                h_top: torch.Tensor) -> torch.Tensor:
+    """Output projection -> logits ``[B, V]`` (full head only)."""
+    head = params["head"]
+    if "blocks" in head:
+        raise NotImplementedError(DSOFTMAX_TODO)
+    return h_top @ _w(head["W"]) + head["b"]
+
+
+def log_softmax(logits: torch.Tensor) -> torch.Tensor:
+    """Max-subtracted fp32 log-softmax — the frozen parity numeric rule."""
+    logits = logits.float()
+    m = logits.amax(dim=-1, keepdim=True)
+    return logits - (m + torch.log(torch.exp(logits - m).sum(dim=-1, keepdim=True)))
+
+
+def step_logp(params: Dict[str, Any], config: Config, word_ids: torch.Tensor,
+              state: State) -> Tuple[torch.Tensor, State]:
+    """Full LM step: ids ``[B]`` -> ``(logp [B, V], state')``."""
+    h_top, state = lstm_step(params, config, embed(params, word_ids), state)
+    return log_softmax(head_logits(params, config, h_top)), state
