@@ -1,14 +1,15 @@
 """LSTM LM core as plain functions on tensors.
 
-Counterpart of :mod:`jlm_tpu.models.lstm` for the decode path: embedding
-(per-row int8 dequant), one fused-cell step through all layers (gate order
-i, j, f, o; ``config.forget_bias`` applied at run time), the full output
-head, max-subtracted fp32 log-softmax, and the full LM step.  All math is
-fp32; a caller that needs true fp32 on the card turns TF32 off (the
-engine's parity forward does).
+Counterpart of :mod:`jlm_tpu.models.lstm`: embedding (per-row int8
+dequant), one fused-cell step through all layers (gate order i, j, f, o;
+``config.forget_bias`` applied at run time), the output head (full or
+D-softmax, prefix and disjoint), max-subtracted fp32 log-softmax, the full
+LM step, and ``forward_hidden``, the training path's loop over a BPTT
+window.  The math runs in the dtype of the parameters it is given; a
+caller that needs true fp32 on the card turns TF32 off (the engine's
+parity forward does).
 
-Only the full-softmax head is ported; a D-softmax ``{"blocks": ...}`` head
-raises ``NotImplementedError``.
+The decode engine does not take a D-softmax head yet (``DSOFTMAX_TODO``).
 """
 
 from __future__ import annotations
@@ -16,13 +17,14 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from jlm_tpu.config import Config
 
 State = Tuple[torch.Tensor, torch.Tensor]  # (c, h) each [L, B, H]
 
-DSOFTMAX_TODO = ("D-softmax head not ported yet "
-                 "(ROADMAP.md queue 1, model core; queue 2, kernel 1)")
+DSOFTMAX_TODO = ("D-softmax decode head not ported yet "
+                 "(ROADMAP.md queue 1, D-softmax serving; queue 2, kernel 1)")
 
 
 def _w(leaf) -> torch.Tensor:
@@ -64,10 +66,21 @@ def lstm_step(params: Dict[str, Any], config: Config, x: torch.Tensor,
 
 def head_logits(params: Dict[str, Any], config: Config,
                 h_top: torch.Tensor) -> torch.Tensor:
-    """Output projection -> logits ``[B, V]`` (full head only)."""
+    """Output projection -> logits ``[B, V]``; full or D-softmax head.
+
+    Block k of a D-softmax head projects ``h[:, :d_k]`` (prefix mode) or
+    its own disjoint segment of ``h`` (disjoint mode) onto its ``s_k``
+    words; the blocks' logits are concatenated in vocab order."""
     head = params["head"]
     if "blocks" in head:
-        raise NotImplementedError(DSOFTMAX_TODO)
+        ds = config.dsoftmax
+        outs, offset = [], 0
+        for k, blk in enumerate(head["blocks"]):
+            d = ds.block_dims[k]
+            start = 0 if ds.mode == "prefix" else offset
+            offset += 0 if ds.mode == "prefix" else d
+            outs.append(h_top[:, start:start + d] @ _w(blk["W"]) + blk["b"])
+        return torch.cat(outs, dim=1)
     return h_top @ _w(head["W"]) + head["b"]
 
 
@@ -83,3 +96,23 @@ def step_logp(params: Dict[str, Any], config: Config, word_ids: torch.Tensor,
     """Full LM step: ids ``[B]`` -> ``(logp [B, V], state')``."""
     h_top, state = lstm_step(params, config, embed(params, word_ids), state)
     return log_softmax(head_logits(params, config, h_top)), state
+
+
+def forward_hidden(params: Dict[str, Any], config: Config, ids: torch.Tensor,
+                   state: State, remat: bool = False) -> Tuple[torch.Tensor, State]:
+    """Run the LSTM over a window: ids ``[B, T]`` -> ``(hs [B, T, H], state')``.
+
+    The training path's recurrent core (the caller applies the head and
+    loss).  ``remat=True`` checkpoints each step: the backward recomputes
+    the step's gates instead of keeping them, trading FLOPs for activation
+    memory, with the same gradients."""
+    xs = embed(params, ids)  # [B, T, E]
+    hs = []
+    for t in range(ids.shape[1]):
+        if remat:
+            h_top, state = checkpoint(lstm_step, params, config, xs[:, t], state,
+                                      use_reentrant=False)
+        else:
+            h_top, state = lstm_step(params, config, xs[:, t], state)
+        hs.append(h_top)
+    return torch.stack(hs, dim=1), state

@@ -40,6 +40,10 @@ _SIGNATURES = {
     "jlm_lstm_cell": [_P, _P, _P, _I, _P, _P, _P, _I, _P,
                       _I, _I, _I, ctypes.c_float, _P],
     "jlm_cand_dot": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
+    "jlm_ce_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "jlm_ce_bwd_dh": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _P],
+    "jlm_ce_bwd_dw": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,0 +1,319 @@
+"""Fused softmax cross-entropy over a large vocabulary, for training.
+
+Counterpart of :mod:`jlm_tpu.ops.softmax_ce`: the loss ``lse(l) - l[y]``
+of ``l = h @ W + b`` and its gradients without the ``[N, V]`` logits in
+device memory.  The pieces, as in the reference:
+
+- ``ce_fwd_raw`` -> per-row partial ``(m, s, t)``: running max, sum of
+  ``exp(l - m)``, and the target logit (0 where the target is outside
+  ``[0, V)``, e.g. -1 for "another block owns it");
+- ``ce_bwd`` -> ``(dh, dW, db)`` for the generalized cotangent
+  ``gp = ga * exp(l - lse) + gb * onehot(y)`` (``gb=None`` means ``-ga``),
+  through ``ce_bwd_dh`` and ``ce_bwd_dw``;
+- ``ce_loss_fused``: the per-row loss as an autograd Function;
+- ``ce_loss_fused_dsoftmax``: the D-softmax head, one call per frequency
+  block on its hidden slice, block partials merged into one lse;
+- ``ce_loss_ref``: plain CE over full fp32 logits.
+
+``compute_dtype`` is what h, W and gp are rounded to before each product
+(fp32 accumulation either way), as in the Pallas kernels; db sums the
+unrounded gp.  On a CUDA tensor the wrappers launch
+``csrc/softmax_ce.cu`` (bf16 compute only) or raise; on a CPU tensor they
+run the plain versions ``ce_fwd_raw_ref``, ``ce_bwd_dh_ref`` and
+``ce_bwd_dw_ref``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from jlm_tpu_torch.ops import _build
+
+# Block shapes of csrc/softmax_ce.cu: (rows, vocab columns) per block.
+_FWD_TILE = (128, 64)
+_DH_TILE = (32, 64)
+FP32_TODO = ("fp32-compute CE kernel not ported yet; the card computes the "
+             "fused CE in bf16 (ROADMAP.md queue 2, kernels 4-6)")
+
+Tensor = torch.Tensor
+
+
+# ---------------------------------------------------------------- plain
+
+def _logits_ref(h, W, b, compute_dtype):
+    return (h.to(compute_dtype).float() @ W.to(compute_dtype).float()
+            + b.float()[None, :])
+
+
+def ce_fwd_raw_ref(h, W, b, y, compute_dtype=torch.float32):
+    """Plain version of :func:`ce_fwd_raw` over the full logits."""
+    logits = _logits_ref(h, W, b, compute_dtype)
+    V = logits.shape[1]
+    m = logits.amax(dim=1)
+    s = torch.exp(logits - m[:, None]).sum(dim=1)
+    y = y.long()
+    own = (y >= 0) & (y < V)
+    t = logits.gather(1, y.clamp(0, V - 1)[:, None])[:, 0]
+    return m, s, torch.where(own, t, torch.zeros_like(t))
+
+
+def _gp_ref(h, W, b, y, lse, ga, gb, compute_dtype):
+    logits = _logits_ref(h, W, b, compute_dtype)
+    onehot = torch.arange(logits.shape[1], device=y.device)[None, :] == y.long()[:, None]
+    return ga.float()[:, None] * torch.exp(logits - lse[:, None]) + gb.float()[:, None] * onehot
+
+
+def ce_bwd_dh_ref(h, W, b, y, lse, ga, gb, compute_dtype=torch.float32):
+    """Plain version of :func:`ce_bwd_dh` over the full logits."""
+    gp = _gp_ref(h, W, b, y, lse, ga, gb, compute_dtype)
+    return gp.to(compute_dtype).float() @ W.to(compute_dtype).float().t()
+
+
+def ce_bwd_dw_ref(h, W, b, y, lse, ga, gb, compute_dtype=torch.float32):
+    """Plain version of :func:`ce_bwd_dw` over the full logits."""
+    gp = _gp_ref(h, W, b, y, lse, ga, gb, compute_dtype)
+    return h.to(compute_dtype).float().t() @ gp.to(compute_dtype).float(), gp.sum(dim=0)
+
+
+def ce_loss_ref(h, W, b, y) -> Tensor:
+    """Plain fp32 CE per row (the reference's ``ce_loss_ref``)."""
+    logits = h.float() @ W.float() + b.float()
+    m = logits.amax(dim=1, keepdim=True)
+    lse = m + torch.log(torch.exp(logits - m).sum(dim=1, keepdim=True))
+    return (lse - logits.gather(1, y.long()[:, None]))[:, 0]
+
+
+# ---------------------------------------------------------------- kernels
+
+def _kernel_args(h, W, b, y, compute_dtype):
+    """Cast and check the operands of a kernel launch; returns
+    ``(h bf16 [N, D], W bf16 [D, Vp], b fp32, y int32, N, D, V)``.  The
+    kernels read W in 16-byte row chunks, so a vocab that is not a
+    multiple of 8 is padded with zero columns (masked by ``col >= V``)."""
+    if compute_dtype != torch.bfloat16:
+        raise NotImplementedError(FP32_TODO)
+    N, D = h.shape
+    V = b.shape[0]
+    if tuple(W.shape) != (D, V):
+        raise ValueError(f"W must be [{D}, {V}], got {tuple(W.shape)}")
+    if D % 128 or D > 512:
+        raise ValueError(f"hidden slice {D} must be a multiple of 128, at most 512")
+    hb = h.to(torch.bfloat16).contiguous()
+    Wb = W.to(torch.bfloat16).contiguous()
+    if V % 8:
+        Wb = torch.nn.functional.pad(Wb, (0, 8 - V % 8))
+    for name, t in (("W", Wb), ("b", b), ("y", y)):
+        if t.device != h.device:
+            raise ValueError(f"{name} must be on {h.device}")
+    for t in (hb, Wb):
+        if t.data_ptr() % 16:
+            raise ValueError("h and W must be 16-byte aligned")
+    return (hb, Wb, b.float().contiguous(), y.to(torch.int32).contiguous(), N, D, V)
+
+
+def _splits(n_tiles: int, row_blocks: int, per_sm: int, device) -> Tuple[int, int]:
+    """Vocab splits over grid.y so one wave of ``per_sm`` blocks per SM is
+    filled; returns ``(splits, tiles_per_split)``."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    splits = max(1, min(n_tiles, per_sm * sms // row_blocks))
+    per_split = -(-n_tiles // splits)
+    return -(-n_tiles // per_split), per_split
+
+
+def _ptr(t: Optional[Tensor]):
+    return ctypes.c_void_p(t.data_ptr() if t is not None else None)
+
+
+def ce_fwd_raw(h: Tensor, W: Tensor, b: Tensor, y: Tensor,
+               compute_dtype=torch.float32):
+    """Per-row partial CE triple ``(m, s, t)``, each fp32 ``[N]``.
+
+    ``ce_fwd_raw.launches`` counts launches of the ``ce_fwd`` kernel."""
+    if not h.is_cuda:
+        return ce_fwd_raw_ref(h, W, b, y, compute_dtype)
+    hb, Wb, bf, yi, N, D, V = _kernel_args(h, W, b, y, compute_dtype)
+    out = torch.zeros((3, N), dtype=torch.float32, device=h.device)  # m, s, t
+    if N == 0:
+        return out[0], out[1], out[2]
+    n_tiles = -(-V // _FWD_TILE[1])
+    row_blocks = -(-N // _FWD_TILE[0])
+    splits, per_split = _splits(n_tiles, row_blocks, 1, h.device)
+    part = torch.empty((2, splits, N), dtype=torch.float32, device=h.device)
+    err = _build.lib().jlm_ce_fwd(
+        _ptr(hb), _ptr(Wb), _ptr(bf), _ptr(yi), _ptr(part[0]), _ptr(part[1]),
+        _ptr(out[0]), _ptr(out[1]), _ptr(out[2]), N, D, V, Wb.shape[1],
+        splits, per_split, ctypes.c_void_p(_build.stream_ptr(h)))
+    _build.check(err, "ce_fwd kernel")
+    ce_fwd_raw.launches += 1
+    return out[0], out[1], out[2]
+
+
+def _bwd_args(h, W, b, y, lse, ga, gb, compute_dtype):
+    hb, Wb, bf, yi, N, D, V = _kernel_args(h, W, b, y, compute_dtype)
+    f32 = [t.float().contiguous() for t in (lse, ga, gb)]
+    for t in f32:
+        if t.device != h.device or tuple(t.shape) != (N,):
+            raise ValueError(f"lse, ga and gb must be [{N}] on {h.device}")
+    return hb, Wb, bf, yi, f32, N, D, V
+
+
+def ce_bwd_dh(h, W, b, y, lse, ga, gb, compute_dtype=torch.float32) -> Tensor:
+    """``dh = gp @ W^T`` in fp32 ``[N, D]``; ``ce_bwd_dh.launches`` counts
+    launches of the ``ce_bwd_dh`` kernel."""
+    if not h.is_cuda:
+        return ce_bwd_dh_ref(h, W, b, y, lse, ga, gb, compute_dtype)
+    hb, Wb, bf, yi, (lse, ga, gb), N, D, V = _bwd_args(h, W, b, y, lse, ga, gb,
+                                                      compute_dtype)
+    dh = torch.empty((N, D), dtype=torch.float32, device=h.device)
+    if N == 0:
+        return dh
+    n_tiles = -(-V // _DH_TILE[1])
+    splits, per_split = _splits(n_tiles, -(-N // _DH_TILE[0]), 2, h.device)
+    part = dh if splits == 1 else torch.empty((splits, N, D), dtype=torch.float32,
+                                              device=h.device)
+    err = _build.lib().jlm_ce_bwd_dh(
+        _ptr(hb), _ptr(Wb), _ptr(bf), _ptr(yi), _ptr(ga), _ptr(gb), _ptr(lse),
+        _ptr(part), _ptr(dh), N, D, V, Wb.shape[1], splits, per_split,
+        ctypes.c_void_p(_build.stream_ptr(h)))
+    _build.check(err, "ce_bwd_dh kernel")
+    ce_bwd_dh.launches += 1
+    return dh
+
+
+def ce_bwd_dw(h, W, b, y, lse, ga, gb,
+              compute_dtype=torch.float32) -> Tuple[Tensor, Tensor]:
+    """``dW = h^T @ gp`` fp32 ``[D, V]`` and ``db = sum_rows gp`` fp32
+    ``[V]``; ``ce_bwd_dw.launches`` counts launches of the ``ce_bwd_dw``
+    kernel."""
+    if not h.is_cuda:
+        return ce_bwd_dw_ref(h, W, b, y, lse, ga, gb, compute_dtype)
+    hb, Wb, bf, yi, (lse, ga, gb), N, D, V = _bwd_args(h, W, b, y, lse, ga, gb,
+                                                      compute_dtype)
+    Vp = Wb.shape[1]
+    dW = torch.zeros((D, Vp), dtype=torch.float32, device=h.device)
+    db = torch.zeros((Vp,), dtype=torch.float32, device=h.device)
+    if N:
+        err = _build.lib().jlm_ce_bwd_dw(
+            _ptr(hb), _ptr(Wb), _ptr(bf), _ptr(yi), _ptr(ga), _ptr(gb), _ptr(lse),
+            _ptr(dW), _ptr(db), N, D, V, Vp, ctypes.c_void_p(_build.stream_ptr(h)))
+        _build.check(err, "ce_bwd_dw kernel")
+        ce_bwd_dw.launches += 1
+    if Vp != V:
+        return dW[:, :V].contiguous(), db[:V]
+    return dW, db
+
+
+ce_fwd_raw.launches = 0
+ce_bwd_dh.launches = 0
+ce_bwd_dw.launches = 0
+
+
+def ce_bwd(h, W, b, y, lse, ga, gb=None,
+           compute_dtype=torch.float32) -> Tuple[Tensor, Tensor, Tensor]:
+    """Backward of the fused CE with cotangent ``gp = ga*p + gb*onehot(y)``
+    (``gb=None``: plain CE, ``gb = -ga``): fp32 ``(dh, dW, db)``."""
+    gb = -ga if gb is None else gb
+    h, W = h.to(compute_dtype), W.to(compute_dtype)  # cast once for both kernels
+    dh = ce_bwd_dh(h, W, b, y, lse, ga, gb, compute_dtype)
+    dW, db = ce_bwd_dw(h, W, b, y, lse, ga, gb, compute_dtype)
+    return dh, dW, db
+
+
+# ------------------------------------------------------------ autograd
+
+class _FusedCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, W, b, y, compute_dtype):
+        m, s, t = ce_fwd_raw(h, W, b, y, compute_dtype)
+        lse = m + torch.log(s)
+        ctx.save_for_backward(h, W, b, y, lse)
+        ctx.compute_dtype = compute_dtype
+        return lse - t
+
+    @staticmethod
+    def backward(ctx, g):
+        h, W, b, y, lse = ctx.saved_tensors
+        dh, dW, db = ce_bwd(h, W, b, y, lse, g.float(), None, ctx.compute_dtype)
+        return dh.to(h.dtype), dW.to(W.dtype), db.to(b.dtype), None, None
+
+
+def ce_loss_fused(h: Tensor, W: Tensor, b: Tensor, y: Tensor,
+                  compute_dtype=torch.float32) -> Tensor:
+    """Per-row CE loss ``[N]`` without the logits in device memory.
+
+    Saves ``(h, W, b, y, lse)``; the backward returns ``dh`` in h's dtype
+    and ``dW``, ``db`` in the weights' dtypes."""
+    return _FusedCE.apply(h, W, b, y, compute_dtype)
+
+
+def _ds_blocks(block_sizes: Sequence[int], block_dims: Sequence[int], mode: str):
+    """``(vocab base, hidden start, hidden dim)`` per block."""
+    bases = np.concatenate([[0], np.cumsum(block_sizes)[:-1]]).astype(np.int64)
+    out, offset = [], 0
+    for base, d in zip(bases, block_dims):
+        out.append((int(base), 0 if mode == "prefix" else offset, d))
+        if mode != "prefix":
+            offset += d
+    return out
+
+
+def _local_targets(y, base, size):
+    own = (y >= base) & (y < base + size)
+    return torch.where(own, y - base, torch.full_like(y, -1))
+
+
+class _FusedCEDSoftmax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, y, spec, *wb):
+        block_sizes, block_dims, mode, compute_dtype = spec
+        K = len(block_sizes)
+        ms, ss, tgt = [], [], 0
+        for k, (base, start, d) in enumerate(_ds_blocks(block_sizes, block_dims, mode)):
+            m, s, t = ce_fwd_raw(h[:, start:start + d], wb[k], wb[K + k],
+                                 _local_targets(y, base, block_sizes[k]),
+                                 compute_dtype)
+            ms.append(m)
+            ss.append(s)
+            tgt = tgt + t
+        m_all, s_all = torch.stack(ms, dim=1), torch.stack(ss, dim=1)  # [N, K]
+        m_g = m_all.amax(dim=1)
+        s_g = (s_all * torch.exp(m_all - m_g[:, None])).sum(dim=1)
+        lse = m_g + torch.log(s_g)
+        ctx.save_for_backward(h, y, lse, *wb)
+        ctx.spec = spec
+        return lse - tgt
+
+    @staticmethod
+    def backward(ctx, g):
+        h, y, lse, *wb = ctx.saved_tensors
+        block_sizes, block_dims, mode, compute_dtype = ctx.spec
+        K = len(block_sizes)
+        dh = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
+        dws, dbs = [], []
+        for k, (base, start, d) in enumerate(_ds_blocks(block_sizes, block_dims, mode)):
+            dh_k, dw_k, db_k = ce_bwd(h[:, start:start + d], wb[k], wb[K + k],
+                                      _local_targets(y, base, block_sizes[k]), lse,
+                                      g.float(), None, compute_dtype)
+            dh[:, start:start + d] += dh_k
+            dws.append(dw_k.to(wb[k].dtype))
+            dbs.append(db_k.to(wb[K + k].dtype))
+        return (dh.to(h.dtype), None, None, *dws, *dbs)
+
+
+def ce_loss_fused_dsoftmax(h: Tensor, weights: Sequence[Tensor],
+                           biases: Sequence[Tensor], y: Tensor,
+                           block_sizes: Sequence[int], block_dims: Sequence[int],
+                           mode: str = "prefix", compute_dtype=torch.float32) -> Tensor:
+    """Per-row CE loss ``[N]`` for the D-softmax head: block k projects
+    its hidden slice (``h[:, :d_k]`` in prefix mode, its own segment in
+    disjoint mode) through the fused kernels with block-local targets
+    (-1 where another block owns the target), and the block partials merge
+    as ``m = max_k m_k``, ``s = sum_k s_k exp(m_k - m)``, ``t = sum_k t_k``.
+    The backward runs each block's kernels with the GLOBAL lse and adds
+    each block's dh into its slice in fp32."""
+    spec = (tuple(block_sizes), tuple(block_dims), mode, compute_dtype)
+    return _FusedCEDSoftmax.apply(h, y, spec, *weights, *biases)

@@ -1,0 +1,236 @@
+"""Single-device trainer with truncated BPTT.
+
+Counterpart of :mod:`jlm_tpu.train.trainer` on one device: the epoch loop
+over BPTT windows with the LSTM state carried between windows (detached:
+the reference carries it as a value between jitted steps) and reset to
+zeros at each epoch; global-norm clipping, Adam or SGD, gradient
+accumulation and the per-epoch (optionally dev-PPL-gated) learning-rate
+decay of :mod:`jlm_tpu_torch.train.optim`; bf16 mixed precision with fp32
+master parameters; dev perplexity; full-state checkpoints and resume.
+
+The loss is the full softmax (fused CE kernels with ``config.fused_ce``)
+or the log-uniform sampled softmax, drawn from a ``torch.Generator``
+seeded from ``config.seed``.  Loss sums stay on the device and are fetched
+once per epoch.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from jlm_tpu.config import Config
+from jlm_tpu.data.reader import bptt_batches
+from jlm_tpu.models.params import init_params
+from jlm_tpu_torch.models.heads import (
+    full_softmax_loss,
+    sample_log_uniform,
+    sampled_softmax_loss,
+)
+from jlm_tpu_torch.models.lstm import State, forward_hidden, initial_state
+from jlm_tpu_torch.models.params import params_to_torch, resolve_device
+from jlm_tpu_torch.train import checkpoint, optim
+
+SCAN_TODO = ("fused time-block LSTM scan (--pallas-scan) not ported yet "
+             "(ROADMAP.md queue 2, kernels 7-8)")
+
+
+def _tree_map(fn, tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def cast_floats(tree: Any, dtype) -> Any:
+    """Cast the float leaves of a parameter pytree to ``dtype``."""
+    return _tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t, tree)
+
+
+def epoch_lr(config: Config, epoch: int, decay_start=None) -> float:
+    """``lr * decay ** max(0, epoch - start)``; ``decay_start`` overrides
+    ``config.lr_decay_start_epoch`` (the PPL-gated schedule passes the
+    epoch after dev PPL first cleared the gate)."""
+    start = config.lr_decay_start_epoch if decay_start is None else decay_start
+    return config.learning_rate * (config.lr_decay ** max(0, epoch - start))
+
+
+class Trainer:
+    """Trains the LSTM LM on one device.
+
+    ``params`` is a parameter pytree (numpy or torch leaves; copied), by
+    default ``init_params(config)``."""
+
+    def __init__(self, config: Config, params: Optional[Any] = None, *, device):
+        if config.use_pallas_scan:
+            raise NotImplementedError(SCAN_TODO)
+        self.config = config
+        self.device = resolve_device(device)
+        params = init_params(config) if params is None else params
+        self.params = _tree_map(lambda p: p.detach().clone().requires_grad_(True),
+                                params_to_torch(params, self.device))
+        self.flat = checkpoint.flatten(self.params)  # path -> the same leaves
+        self.opt_state = optim.init_state(config, self.flat)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(config.seed)
+
+    # --- one window ----------------------------------------------------
+    def _forward(self, params, x, state: State) -> Tuple[torch.Tensor, State]:
+        cfg = self.config
+        if cfg.compute_dtype == "bfloat16":
+            # fp32 master params, bf16 forward; the casts' backward returns
+            # fp32 gradients
+            bf = torch.bfloat16
+            hs, (c, h) = forward_hidden(cast_floats(params, bf), cfg, x,
+                                        (state[0].to(bf), state[1].to(bf)),
+                                        remat=cfg.remat)
+            return hs, (c.float(), h.float())
+        return forward_hidden(params, cfg, x, state, remat=cfg.remat)
+
+    def _loss(self, params, x, y, state: State) -> Tuple[torch.Tensor, State]:
+        cfg = self.config
+        hs, state = self._forward(params, x, state)
+        if cfg.compute_dtype == "bfloat16":
+            params = cast_floats(params, torch.bfloat16)
+        if cfg.sampled_softmax_samples > 0:
+            sampled = sample_log_uniform(self.generator, cfg.vocab_size,
+                                         cfg.sampled_softmax_samples)
+            return sampled_softmax_loss(params, cfg, hs, y, sampled), state
+        return full_softmax_loss(params, cfg, hs, y), state
+
+    def _train_step(self, state: State, x, y, lr: float) -> Tuple[State, torch.Tensor]:
+        """Loss, gradients and one optimizer call; returns the carried
+        state (detached) and the loss."""
+        loss, state = self._loss(self.params, x, y, state)
+        keys = list(self.flat)
+        grads = torch.autograd.grad(loss, [self.flat[k] for k in keys])
+        optim.apply_gradients(self.flat, dict(zip(keys, grads)), self.opt_state,
+                              self.config, lr)
+        return (state[0].detach(), state[1].detach()), loss.detach()
+
+    @torch.no_grad()
+    def _eval_step(self, state: State, x, y) -> Tuple[torch.Tensor, State]:
+        hs, state = self._forward(self.params, x, state)
+        # the reference's bf16 hs meet fp32 head weights as fp32
+        return full_softmax_loss(self.params, self.config, hs.float(), y), state
+
+    # --- loops -----------------------------------------------------------
+    def _windows(self, ids: np.ndarray):
+        """BPTT windows ``(x, y)`` as views of ``ids`` uploaded once."""
+        cfg = self.config
+        ids_t = torch.from_numpy(np.asarray(ids, np.int64)).to(self.device)
+        return bptt_batches(ids_t, cfg.batch_size, cfg.num_steps)
+
+    def _perplexity(self, steps) -> float:
+        total, n = torch.zeros((), device=self.device), 0
+        for loss, tokens in steps:
+            total += loss * tokens
+            n += tokens
+        if n == 0:
+            return float("nan")
+        return float(np.exp(total.cpu().numpy() / max(1, n)))
+
+    def train_steps(self, ids: np.ndarray, epoch: int, decay_start=None):
+        """Train over the BPTT windows of ``ids`` at epoch ``epoch``'s
+        learning rate, from a zero state; yields ``(loss, tokens)`` per
+        window, the loss a device scalar (nothing waits for the device)."""
+        cfg = self.config
+        lr = epoch_lr(cfg, epoch, decay_start)
+        state = initial_state(cfg, cfg.batch_size, self.device)
+        for x, y in self._windows(ids):
+            state, loss = self._train_step(state, x, y, lr)
+            yield loss, x.numel()
+
+    def run_epoch(self, ids: np.ndarray, epoch: int, decay_start=None) -> float:
+        """One epoch of training; returns its training perplexity."""
+        return self._perplexity(self.train_steps(ids, epoch, decay_start))
+
+    def evaluate_ppl(self, ids: np.ndarray) -> float:
+        """Perplexity under the full-softmax objective (the sampled softmax
+        is a training-only approximation)."""
+        def steps():
+            state = initial_state(self.config, self.config.batch_size, self.device)
+            for x, y in self._windows(ids):
+                loss, state = self._eval_step(state, x, y)
+                yield loss, x.numel()
+
+        return self._perplexity(steps())
+
+    # --- full training state -------------------------------------------
+    def save_state(self, exp_dir: str, epoch: int) -> str:
+        """Write ``ckpt-latest.npz`` (+ ``config.json``) and the optimizer
+        state with the epoch just finished."""
+        os.makedirs(exp_dir, exist_ok=True)
+        checkpoint.save_checkpoint(exp_dir, self.params, self.config, tag="latest")
+        return checkpoint.save_opt_state(exp_dir, self.opt_state, epoch)
+
+    def load_state(self, exp_dir: str) -> int:
+        """Restore params and optimizer state; returns the next epoch (0
+        when the directory holds no optimizer state of the port)."""
+        params, _ = checkpoint.load_checkpoint(exp_dir, tag="latest")
+        loaded = checkpoint.flatten(params)
+        with torch.no_grad():
+            for k, p in self.flat.items():
+                p.copy_(torch.from_numpy(np.asarray(loaded[k])))
+        restored = checkpoint.load_opt_state(exp_dir, self.device)
+        if restored is None:
+            self.opt_state = optim.init_state(self.config, self.flat)
+            return 0
+        self.opt_state, epoch = restored
+        return epoch + 1
+
+
+def train_lm(config: Config, train_ids: np.ndarray, dev_ids: np.ndarray,
+             exp_dir: Optional[str] = None, log: bool = True, resume: bool = False,
+             save_every: int = 1, *, device) -> Tuple[Any, List[Dict[str, float]]]:
+    """Full training run; returns ``(params, per-epoch history)``.
+
+    ``resume=True`` restores params, optimizer state and epoch from
+    ``exp_dir``, drops log records of epochs after the restored one (they
+    are re-run), and continues.  ``save_every``: checkpoint every N epochs
+    and after the last."""
+    trainer = Trainer(config, device=device)
+    start_epoch = 0
+    if resume and exp_dir:
+        start_epoch = trainer.load_state(exp_dir)
+        if start_epoch:  # the port's optimizer state was restored
+            checkpoint.truncate_log(exp_dir, start_epoch - 1)
+            if log:
+                print(f"resumed {exp_dir} at epoch {start_epoch}")
+    history: List[Dict[str, float]] = []
+    # PPL-gated decay: full lr until dev PPL clears the gate, decay from the
+    # next epoch, never later than lr_decay_start_epoch; a resumed run
+    # recovers the gate epoch from the log
+    gate = float(config.lr_decay_gate_ppl or 0.0)
+    decay_start = None
+    if gate > 0:
+        decay_start = config.lr_decay_start_epoch
+        if resume and exp_dir:
+            for r in checkpoint.read_log(exp_dir):
+                if "decay_start" in r:
+                    decay_start = min(decay_start, int(r["decay_start"]))
+    for epoch in range(start_epoch, config.epochs):
+        t0 = time.time()
+        train_ppl = trainer.run_epoch(train_ids, epoch, decay_start)
+        dev_ppl = trainer.evaluate_ppl(dev_ids)
+        rec = {"epoch": epoch, "lr": epoch_lr(config, epoch, decay_start),
+               "train_ppl": train_ppl, "dev_ppl": dev_ppl,
+               "seconds": time.time() - t0}
+        if gate > 0 and dev_ppl < gate and epoch + 1 < decay_start:
+            decay_start = epoch + 1
+        if gate > 0:
+            rec["decay_start"] = decay_start
+        history.append(rec)
+        if log:
+            print(f"epoch {epoch}: train_ppl={train_ppl:.2f} dev_ppl={dev_ppl:.2f} "
+                  f"lr={rec['lr']:.4g} ({rec['seconds']:.1f}s)")
+        if exp_dir:
+            checkpoint.append_log(exp_dir, rec)
+            if (epoch + 1) % max(1, save_every) == 0 or epoch + 1 == config.epochs:
+                trainer.save_state(exp_dir, epoch)
+    return trainer.params, history

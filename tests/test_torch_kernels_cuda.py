@@ -97,3 +97,94 @@ def test_cand_dot_kernel_vs_plain(cuda, dtype):
     bias = torch.from_numpy(rng.normal(size=(S, C1)).astype(np.float32)).to(cuda)
     np.testing.assert_allclose(cand_dot(h3, cols, bias).cpu().numpy(),
                                cand_dot_ref(h3, cols, bias).cpu().numpy(), atol=1e-4)
+
+
+def _ce_case(cuda, seed, N, D, V, neg_every=0):
+    rng = np.random.default_rng(seed)
+    h = torch.from_numpy(rng.uniform(-1, 1, (N, D)).astype(np.float32)).to(cuda)
+    W = torch.from_numpy(rng.normal(0, 0.05, (D, V)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.normal(0, 0.1, V).astype(np.float32)).to(cuda)
+    y = rng.integers(0, V, N)
+    if neg_every:
+        y[::neg_every] = -1
+    g = torch.from_numpy(rng.normal(size=N).astype(np.float32)).to(cuda)
+    return h, W, b, torch.from_numpy(y).to(cuda), g
+
+
+def _rel(got, want):
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D,V,neg_every", [
+    (1024, 512, 50_000, 0),   # the training shape
+    (300, 256, 1000, 7),      # ragged rows and vocab tile, -1 targets
+    (77, 128, 1001, 3),       # vocab not a multiple of 8 (padded W)
+])
+def test_ce_kernels_vs_plain(cuda, N, D, V, neg_every):
+    """ce_fwd, ce_bwd_dh and ce_bwd_dw vs their plain versions on the same
+    bf16-rounded inputs.  Bounds: m + log s and t within 1e-4 abs (fp32
+    sums in another order); dh, dW and db within 1e-3 of their largest
+    magnitude (gp is rounded to bf16 on both sides and may round the other
+    way on a boundary)."""
+    from jlm_tpu_torch.ops import softmax_ce as ce
+
+    bf = torch.bfloat16
+    h, W, b, y, g = _ce_case(cuda, 13, N, D, V, neg_every)
+    n0 = (ce.ce_fwd_raw.launches, ce.ce_bwd_dh.launches, ce.ce_bwd_dw.launches)
+    m, s, t = ce.ce_fwd_raw(h, W, b, y, bf)
+    mp, sp, tp = ce.ce_fwd_raw_ref(h, W, b, y, bf)
+    lse = mp + torch.log(sp)
+    assert float((m + torch.log(s) - lse).abs().max()) <= 1e-4
+    assert float((t - tp).abs().max()) <= 1e-4
+    if neg_every:
+        assert float(t[::neg_every].abs().max()) == 0.0
+    dh = ce.ce_bwd_dh(h, W, b, y, lse, g, -g, bf)
+    dW, db = ce.ce_bwd_dw(h, W, b, y, lse, g, -g, bf)
+    assert (ce.ce_fwd_raw.launches, ce.ce_bwd_dh.launches, ce.ce_bwd_dw.launches) == \
+        tuple(n + 1 for n in n0)
+    torch.cuda.synchronize()
+    assert _rel(dh, ce.ce_bwd_dh_ref(h, W, b, y, lse, g, -g, bf)) <= 1e-3
+    dWp, dbp = ce.ce_bwd_dw_ref(h, W, b, y, lse, g, -g, bf)
+    assert dW.shape == (D, V) and db.shape == (V,)
+    assert _rel(dW, dWp) <= 1e-3 and _rel(db, dbp) <= 1e-3
+    # gb = 0: the p-term alone (the one-hot term sets max |plain| above)
+    zero = torch.zeros_like(g)
+    assert _rel(ce.ce_bwd_dh(h, W, b, y, lse, g, zero, bf),
+                ce.ce_bwd_dh_ref(h, W, b, y, lse, g, zero, bf)) <= 1e-3
+    for got, want in zip(ce.ce_bwd_dw(h, W, b, y, lse, g, zero, bf),
+                         ce.ce_bwd_dw_ref(h, W, b, y, lse, g, zero, bf)):
+        assert _rel(got, want) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_ce_fused_dsoftmax_block_slices_vs_plain(cuda):
+    """ce_loss_fused_dsoftmax on the card (blocks project h[:, :d] slices of
+    512, 256 and 128 dims) vs plain CE over head_logits: loss within 1e-3
+    abs, grads within 1e-2 of their largest magnitude (bf16 compute against
+    fp32 logits)."""
+    from jlm_tpu.config import Config, default_dsoftmax_blocks
+    from jlm_tpu_torch.models.heads import full_softmax_loss
+
+    cfg = Config(vocab_size=8000, hidden_size=512, head="dsoftmax", fused_ce=True,
+                 dsoftmax=default_dsoftmax_blocks(8000, 512))
+    rng = np.random.default_rng(14)
+    blocks = [{"W": torch.from_numpy(rng.normal(0, 0.05, (d, s)).astype(np.float32)).to(cuda),
+               "b": torch.from_numpy(rng.normal(0, 0.1, s).astype(np.float32)).to(cuda)}
+              for s, d in zip(cfg.dsoftmax.block_sizes, cfg.dsoftmax.block_dims)]
+    hs = torch.from_numpy(rng.uniform(-1, 1, (4, 64, 512)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.integers(0, 8000, (4, 64))).to(cuda)
+    y[0, :3] = torch.tensor([0, 1279, 1280], device=cuda)  # block edges
+
+    def run(c):
+        leaves = [hs] + [blk[k] for blk in blocks for k in ("W", "b")]
+        for leaf in leaves:
+            leaf.grad = None
+            leaf.requires_grad_(True)
+        loss = full_softmax_loss({"head": {"blocks": blocks}}, c, hs, y)
+        return (loss, *torch.autograd.grad(loss, leaves))
+
+    got, want = run(cfg), run(cfg.replace(fused_ce=False))
+    assert abs(got[0].item() - want[0].item()) <= 1e-3
+    for a, w in zip(got[1:], want[1:]):
+        assert _rel(a, w) <= 1e-2

@@ -44,9 +44,14 @@ def test_step_logp_matches_jax(quantized):
 
 
 def test_dsoftmax_head_raises():
-    """The D-softmax head is not ported: head_logits raises."""
+    """The D-softmax head is not ported to the decode path yet: building
+    its decode head raises (head_logits takes it; tests/test_torch_train.py
+    holds that to JAX)."""
+    from jlm_tpu_torch.decoder.engine import build_decode_head
+
     cfg = Config(vocab_size=256, embed_size=32, hidden_size=64, head="dsoftmax",
                  dsoftmax=DSoftmaxConfig(block_sizes=(64, 192), block_dims=(64, 32)), seed=5)
     tparams = params_to_torch(init_params(cfg), "cpu")
     with pytest.raises(NotImplementedError, match="D-softmax"):
-        torch_lstm.head_logits(tparams, cfg, torch.zeros(2, 64))
+        build_decode_head(tparams, cfg)
+    assert torch_lstm.head_logits(tparams, cfg, torch.zeros(2, 64)).shape == (2, 256)

@@ -1,0 +1,167 @@
+"""The port's fused softmax cross-entropy vs the JAX package's, on the CPU.
+
+Inputs are numpy-seeded and go through the JAX functions (their Pallas
+kernels in interpret mode, as tests/test_kernels.py runs them) and the
+port's wrappers, which run their plain versions on CPU tensors;
+tests/test_torch_kernels_cuda.py holds the CUDA kernels to those plain
+versions on the card.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from jlm_tpu.config import Config, DSoftmaxConfig
+from jlm_tpu.models.params import init_params
+from jlm_tpu.ops import softmax_ce as jax_ce
+from jlm_tpu_torch.models.heads import full_softmax_loss
+from jlm_tpu_torch.models.params import params_to_torch
+from jlm_tpu_torch.ops import softmax_ce as ce
+
+
+def _case(seed, B, D, V):
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(B, D)).astype(np.float32)
+    W = rng.normal(size=(D, V)).astype(np.float32) * 0.05
+    b = rng.normal(size=(V,)).astype(np.float32) * 0.01
+    y = rng.integers(0, V, B).astype(np.int32)
+    return rng, h, W, b, y
+
+
+def _t(*arrays, grad=False):
+    return [torch.from_numpy(a).requires_grad_(grad) for a in arrays]
+
+
+@pytest.mark.parametrize("B,D,V", [(16, 128, 1000), (32, 256, 4096)])
+def test_ce_forward_matches_jax(B, D, V):
+    """Per-row fp32 loss; tolerance 1e-5 (fp32 summation order)."""
+    _, h, W, b, y = _case(21, B, D, V)
+    out_j = jax_ce.ce_loss_fused(*map(jnp.asarray, (h, W, b, y)), 512, jnp.float32, True)
+    out_t = ce.ce_loss_fused(*_t(h, W, b, y), torch.float32)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), rtol=1e-5, atol=1e-5)
+    ref_t = ce.ce_loss_ref(*_t(h, W, b, y))
+    np.testing.assert_allclose(ref_t.numpy(), np.asarray(out_j), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_ce_grads_match_jax(dtype):
+    """Grads of (h, W, b) under a random row weighting, V = 1000 (not a
+    tile multiple).  fp32: atol/rtol 1e-4 (the JAX test's bound).  bf16
+    compute: both sides round h, W and gp to bf16 and sum in fp32, so the
+    loss agrees to 1e-5 and each grad to 1e-3 x its largest magnitude
+    (a gp that lands on a bf16 rounding boundary may round either way)."""
+    rng, h, W, b, y = _case(22, 24, 128, 1000)
+    gw = rng.normal(size=(24,)).astype(np.float32)
+    jd, td = (jnp.float32, torch.float32) if dtype == "fp32" else (jnp.bfloat16, torch.bfloat16)
+
+    def loss_j(h, W, b):
+        return jnp.sum(jax_ce.ce_loss_fused(h, W, b, jnp.asarray(y), 512, jd, True) * gw)
+
+    l_j, g_j = jax.value_and_grad(loss_j, argnums=(0, 1, 2))(*map(jnp.asarray, (h, W, b)))
+    ht, Wt, bt = _t(h, W, b, grad=True)
+    l_t = (ce.ce_loss_fused(ht, Wt, bt, torch.from_numpy(y), td) * torch.from_numpy(gw)).sum()
+    l_t.backward()
+    np.testing.assert_allclose(l_t.item(), float(l_j), rtol=1e-5)
+    for got, want, name in zip((ht.grad, Wt.grad, bt.grad), g_j, "hWb"):
+        want = np.asarray(want)
+        if dtype == "fp32":
+            np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4, err_msg=name)
+        else:
+            err = np.abs(got.numpy() - want).max() / np.abs(want).max()
+            assert err <= 1e-3, (name, err)
+
+
+def test_ce_raw_partials_with_unowned_targets():
+    """(m, s, t) of the per-block form: t = 0 where the target is -1;
+    tolerance 1e-5.  A target past V also gives 0 in the port (the
+    reference would read a padded column there)."""
+    _, h, W, b, y = _case(23, 20, 128, 1000)
+    y[::3] = -1
+    past = y.copy()
+    past[1] = 1000
+    assert float(ce.ce_fwd_raw(*_t(h, W, b, past))[2][1]) == 0.0
+    m_j, s_j, t_j = jax_ce._ce_fwd_raw(*map(jnp.asarray, (h, W)), None, jnp.asarray(b),
+                                      jnp.asarray(y), tile_v=512, compute_dtype=jnp.float32,
+                                      interpret=True)
+    m_t, s_t, t_t = ce.ce_fwd_raw(*_t(h, W, b, y))
+    assert float(t_t[0]) == 0.0
+    for got, want in ((m_t, m_j), (s_t, s_j), (t_t, t_j)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_ce_generalized_backward_matches_jax():
+    """``gp = ga*p + gb*onehot`` with independent coefficients (the block-
+    and vocab-partial form) vs ``_ce_bwd_impl``; -1 targets included.
+    Tolerance 1e-5 absolute and relative (fp32 sums)."""
+    rng, h, W, b, y = _case(24, 24, 128, 1000)
+    y[::4] = -1
+    ga = rng.normal(size=(24,)).astype(np.float32)
+    gb = rng.normal(size=(24,)).astype(np.float32)
+    lse = rng.normal(size=(24,)).astype(np.float32) + 7.0
+    want = jax_ce._ce_bwd_impl(*map(jnp.asarray, (h, W)), None, jnp.asarray(b),
+                               jnp.asarray(y), jnp.asarray(lse), jnp.asarray(ga),
+                               jnp.asarray(gb), tile_v=512, compute_dtype=jnp.float32,
+                               interpret=True)
+    got = ce.ce_bwd(*_t(h, W, b, y, lse, ga, gb))
+    for g, w, name in zip(got, want, ("dh", "dW", "db")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5, err_msg=name)
+    # gb=None is the plain CE backward, gb = -ga
+    got_plain = ce.ce_bwd(*_t(h, W, b, y, lse, ga), None)
+    got_neg = ce.ce_bwd(*_t(h, W, b, y, lse, ga, -ga))
+    for g, w in zip(got_plain, got_neg):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+@pytest.mark.parametrize("mode", ["prefix", "disjoint"])
+def test_ce_fused_dsoftmax_matches_jax(mode):
+    """The D-softmax fused CE (per-block calls, merged lse) vs JAX's, loss
+    and grads of every block and of hs, targets on block boundaries, as
+    tests/test_kernels.py::test_ce_fused_dsoftmax_matches_ref.  Tolerance
+    1e-5 on the loss, 1e-4 on the grads (the JAX test's)."""
+    from jlm_tpu.models.heads import full_softmax_loss as jax_loss
+
+    cfg = Config(vocab_size=768, embed_size=32, hidden_size=64, head="dsoftmax",
+                 dsoftmax=DSoftmaxConfig(block_sizes=(128, 256, 384),
+                                         block_dims=(64, 32, 16) if mode == "prefix"
+                                         else (32, 16, 16), mode=mode),
+                 fused_ce=True, seed=3)
+    params = init_params(cfg)
+    rng = np.random.default_rng(31)
+    hs = rng.normal(size=(4, 6, 64)).astype(np.float32) * 0.3
+    tgt = rng.integers(0, 768, (4, 6)).astype(np.int32)
+    tgt[0, :4] = [0, 127, 128, 767]
+
+    pj = jax.tree.map(jnp.asarray, params)
+    l_j, (g_j, gh_j) = jax.value_and_grad(
+        lambda p, x: jax_loss(p, cfg, x, jnp.asarray(tgt), precision="highest"),
+        argnums=(0, 1))(pj, jnp.asarray(hs))
+
+    pt = params_to_torch(params, "cpu")
+    for blk in pt["head"]["blocks"]:
+        blk["W"].requires_grad_(True)
+        blk["b"].requires_grad_(True)
+    ht = torch.from_numpy(hs).requires_grad_(True)
+    l_t = full_softmax_loss(pt, cfg, ht, torch.from_numpy(tgt), precision="highest")
+    l_t.backward()
+    np.testing.assert_allclose(l_t.item(), float(l_j), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ht.grad.numpy(), np.asarray(gh_j), atol=1e-4, rtol=1e-4)
+    for k, blk in enumerate(pt["head"]["blocks"]):
+        for name in ("W", "b"):
+            np.testing.assert_allclose(
+                blk[name].grad.numpy(), np.asarray(g_j["head"]["blocks"][k][name]),
+                atol=1e-4, rtol=1e-4, err_msg=f"{mode} d{name} block {k}")
+
+
+def test_cpu_ce_wrappers_do_not_count_launches():
+    """On CPU tensors the CE wrappers run their plain versions: no kernel,
+    no launch counted, no build."""
+    from jlm_tpu_torch.ops import _build
+
+    _, h, W, b, y = _case(25, 8, 128, 64)
+    before = (ce.ce_fwd_raw.launches, ce.ce_bwd_dh.launches, ce.ce_bwd_dw.launches)
+    ht, Wt, bt = _t(h, W, b, grad=True)
+    ce.ce_loss_fused(ht, Wt, bt, torch.from_numpy(y), torch.bfloat16).sum().backward()
+    assert (ce.ce_fwd_raw.launches, ce.ce_bwd_dh.launches, ce.ce_bwd_dw.launches) == before
+    assert _build._lib is None
