@@ -1,9 +1,10 @@
 """jlm_tpu_torch — the PyTorch/CUDA port of :mod:`jlm_tpu` for one NVIDIA H100.
 
-The port owns only device code; the JAX-free host modules of ``jlm_tpu``
-(config, data, lattice, native builder, oracle, quantizer, parameter init)
-are imported, not copied.  Module names follow the JAX package so each
-counterpart is easy to find.  Importing the package builds and loads no
+The port imports nothing of ``jlm_tpu``: it keeps its own copies of the
+host modules it needs (``config``, ``data``, ``decoder.lattice``, the
+``native`` lattice builder, ``oracle``, ``ops.quant`` and ``init_params``
+in ``models.params``), at the paths of the originals.  Module names follow
+the JAX package so each counterpart is easy to find.  Importing the package builds and loads no
 kernel: ``ops/_build.py`` compiles ``csrc/*.cu`` on the first launch.
 
 Layer map (serving: streaming batched beam-10 conversion; training: one

@@ -39,11 +39,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from jlm_tpu.config import Config, EOS_ID, UNK_ID
-from jlm_tpu.data.corpus import Vocab
-from jlm_tpu.data.lexicon import Lexicon
-from jlm_tpu.decoder.lattice import Lattice, build_lattice
-from jlm_tpu.oracle.decoder import DecodeResult
+from jlm_tpu_torch.config import Config, EOS_ID, UNK_ID
+from jlm_tpu_torch.data.corpus import Vocab
+from jlm_tpu_torch.data.lexicon import Lexicon
+from jlm_tpu_torch.decoder.lattice import Lattice, build_lattice
+from jlm_tpu_torch.oracle.decoder import DecodeResult
 from jlm_tpu_torch.models.lstm import DSOFTMAX_TODO, _w, embed, step_logp
 from jlm_tpu_torch.models.params import params_to_torch, resolve_device
 from jlm_tpu_torch.ops.cand_dot import cand_dot
@@ -372,7 +372,7 @@ class BeamDecoder:
         self.config = config
         self._native = None
         if use_native is not False:
-            from jlm_tpu import native as _native_mod
+            from jlm_tpu_torch import native as _native_mod
 
             if _native_mod.available():
                 self._native = _native_mod.NativeLatticeBuilder(lexicon, config)

@@ -14,7 +14,7 @@ from typing import Any, Dict
 
 import torch
 
-from jlm_tpu.config import Config
+from jlm_tpu_torch.config import Config
 from jlm_tpu_torch.models.lstm import _w, head_logits, log_softmax
 from jlm_tpu_torch.ops.softmax_ce import ce_loss_fused, ce_loss_fused_dsoftmax
 

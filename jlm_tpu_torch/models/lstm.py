@@ -4,10 +4,11 @@ Counterpart of :mod:`jlm_tpu.models.lstm`: embedding (per-row int8
 dequant), one fused-cell step through all layers (gate order i, j, f, o;
 ``config.forget_bias`` applied at run time), the output head (full or
 D-softmax, prefix and disjoint), max-subtracted fp32 log-softmax, the full
-LM step, and ``forward_hidden``, the training path's loop over a BPTT
-window.  The math runs in the dtype of the parameters it is given; a
-caller that needs true fp32 on the card turns TF32 off (the engine's
-parity forward does).
+LM step, ``forward_hidden``, the training path's loop over a BPTT window,
+and ``forward_hidden_scan``, the same window through the fused scan
+kernels of :mod:`jlm_tpu_torch.ops.lstm_scan`.  The math runs in the dtype
+of the parameters it is given; a caller that needs true fp32 on the card
+turns TF32 off (the engine's parity forward does).
 
 The decode engine does not take a D-softmax head yet (``DSOFTMAX_TODO``).
 """
@@ -19,7 +20,8 @@ from typing import Any, Dict, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from jlm_tpu.config import Config
+from jlm_tpu_torch.config import Config
+from jlm_tpu_torch.ops.lstm_scan import lstm_scan
 
 State = Tuple[torch.Tensor, torch.Tensor]  # (c, h) each [L, B, H]
 
@@ -116,3 +118,22 @@ def forward_hidden(params: Dict[str, Any], config: Config, ids: torch.Tensor,
             h_top, state = lstm_step(params, config, xs[:, t], state)
         hs.append(h_top)
     return torch.stack(hs, dim=1), state
+
+
+def forward_hidden_scan(params: Dict[str, Any], config: Config, ids: torch.Tensor,
+                        state: State, compute_dtype=torch.float32
+                        ) -> Tuple[torch.Tensor, State]:
+    """:func:`forward_hidden` through the fused scan: one forward launch per
+    layer over the whole window (and one backward launch per layer), the
+    ``(c, h)`` carry kept on chip.  ``compute_dtype`` rounds the products'
+    operands; hs and the state are fp32.  Counterpart of
+    ``forward_hidden_pallas``."""
+    c0, h0 = state
+    xs = embed(params, ids)
+    cs, hs_f = [], []
+    for l, layer in enumerate(params["lstm"]):
+        xs, c_f, h_f = lstm_scan(xs, _w(layer["W"]), layer["b"], c0[l], h0[l],
+                                 config.forget_bias, compute_dtype)
+        cs.append(c_f)
+        hs_f.append(h_f)
+    return xs, (torch.stack(cs), torch.stack(hs_f))

@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels (``jlm_tpu_torch/csrc``).
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` into a shared library with a
-plain C interface, loaded with ``ctypes`` — no PyTorch headers, so a build
-takes seconds rather than the minutes a ``torch.utils.cpp_extension`` build
-takes.  The library lands in ``build/kernels/`` at the repository root,
+One ``nvcc`` process per ``csrc/*.cu``, all started together, compiles
+each source to an object; one more links them into a shared library with
+a plain C interface, loaded with ``ctypes`` — no PyTorch headers, so a
+build takes seconds rather than the minutes a ``torch.utils.cpp_extension``
+build takes.  The library lands in ``build/kernels/`` at the repository root,
 named by a hash of the sources and flags, so an unchanged tree reuses it.
 
 Nothing here runs at import: the first kernel launch calls :func:`lib`.
@@ -28,7 +29,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -44,6 +45,9 @@ _SIGNATURES = {
     "jlm_ce_bwd_dh": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _P],
     "jlm_ce_bwd_dw": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "jlm_lstm_scan_max_blocks": [_I, _I, _I, _I, _I],
+    "jlm_lstm_scan_fwd": [_P] * 9 + [_I] * 4 + [ctypes.c_float, _I, _P],
+    "jlm_lstm_scan_bwd": [_P] * 14 + [_I] * 4 + [ctypes.c_float, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -82,16 +86,31 @@ def build() -> str:
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in sources():
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)))
+    logs = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+    cmd = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", tmp, *objs]
+    link = subprocess.run(cmd, capture_output=True, text=True)
+    for obj in objs:
+        os.remove(obj)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}): {' '.join(cmd)}\n"
+                           f"{link.stderr}")
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
     os.replace(tmp, so)  # atomic: concurrent builders race harmlessly
-    build_info.update(path=so, seconds=seconds, cached=False, log=proc.stderr)
+    build_info.update(path=so, seconds=seconds, cached=False, log="".join(logs))
     return so
 
 

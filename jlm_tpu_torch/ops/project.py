@@ -29,7 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from jlm_tpu.config import Config
+from jlm_tpu_torch.config import Config
 from jlm_tpu_torch.models.lstm import DSOFTMAX_TODO
 from jlm_tpu_torch.ops import _build
 

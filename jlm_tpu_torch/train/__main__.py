@@ -1,18 +1,20 @@
 """Training CLI of the port: ``scripts/train.py``'s flags on one device.
 
   python -m jlm_tpu_torch.train --data data/ --exp exp/h512-v50k \\
-      --fused-ce [--bf16] [--dsoftmax] [--sampled-softmax 1024] \\
+      --fused-ce [--pallas-scan] [--bf16] [--dsoftmax] [--sampled-softmax 1024] \\
       [--grad-accum 4] [--remat] [--resume] [--device cuda]
 
-The mesh flags (data, vocab and sequence parallelism) and ``--pallas-scan``
-are not ported yet and raise ``NotImplementedError``.
+``--pallas-scan`` runs the LSTM through the fused scan kernels on a CUDA
+device (their plain versions with ``--device cpu``).  The mesh flags (data,
+vocab and sequence parallelism) are not ported yet and raise
+``NotImplementedError``.
 """
 
 import argparse
 
-from jlm_tpu.config import Config, default_dsoftmax_blocks, pad_vocab_size
-from jlm_tpu.data.io import load_dataset
-from jlm_tpu_torch.train.trainer import SCAN_TODO, train_lm
+from jlm_tpu_torch.config import Config, default_dsoftmax_blocks, pad_vocab_size
+from jlm_tpu_torch.data.io import load_dataset
+from jlm_tpu_torch.train.trainer import train_lm
 
 MESH_TODO = ("parallel training (--mesh-data/--mesh-vocab/--mesh-seq) not "
              "ported yet (ROADMAP.md queue 1, parallelism)")
@@ -45,7 +47,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--fused-ce", action="store_true",
                     help="fused softmax-CE kernels: logits never in device memory")
     ap.add_argument("--pallas-scan", action="store_true",
-                    help="fused time-block LSTM scan (not ported)")
+                    help="fused time-block LSTM scan kernels (the flag keeps the "
+                         "reference's name)")
     ap.add_argument("--remat", action="store_true",
                     help="recompute LSTM activations in the backward")
     ap.add_argument("--model-vocab", type=int, default=0,
@@ -60,8 +63,6 @@ def main(argv=None):
     args = parse_args(argv)
     if args.mesh_data * args.mesh_vocab * args.mesh_seq > 1:
         raise NotImplementedError(MESH_TODO)
-    if args.pallas_scan:
-        raise NotImplementedError(SCAN_TODO)
     vocab, train, dev, _ = load_dataset(args.data)
     v_model = pad_vocab_size(max(len(vocab), args.model_vocab), args.mesh_vocab)
     cfg = Config(
@@ -85,6 +86,7 @@ def main(argv=None):
         grad_accum_steps=args.grad_accum,
         fused_ce=args.fused_ce,
         remat=args.remat,
+        use_pallas_scan=args.pallas_scan,
     )
     train_lm(cfg, train, dev, exp_dir=args.exp, resume=args.resume, device=args.device)
 

@@ -22,7 +22,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from jlm_tpu.config import Config
+from jlm_tpu_torch.config import Config
 from jlm_tpu_torch.models.params import load_npz_params
 from jlm_tpu_torch.train.optim import OptState
 

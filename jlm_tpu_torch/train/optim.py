@@ -21,7 +21,7 @@ from typing import Dict, List
 
 import torch
 
-from jlm_tpu.config import Config
+from jlm_tpu_torch.config import Config
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 

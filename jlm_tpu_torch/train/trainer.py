@@ -8,6 +8,12 @@ accumulation and the per-epoch (optionally dev-PPL-gated) learning-rate
 decay of :mod:`jlm_tpu_torch.train.optim`; bf16 mixed precision with fp32
 master parameters; dev perplexity; full-state checkpoints and resume.
 
+With ``config.use_pallas_scan`` the LSTM runs through the fused scan
+kernels (``forward_hidden_scan``): the fp32 master parameters go into the
+kernels, which round the products' operands to ``compute_dtype``, and the
+head is not cast to bf16 (the reference's ``--pallas-scan`` path does the
+same).
+
 The loss is the full softmax (fused CE kernels with ``config.fused_ce``)
 or the log-uniform sampled softmax, drawn from a ``torch.Generator``
 seeded from ``config.seed``.  Loss sums stay on the device and are fetched
@@ -23,20 +29,21 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from jlm_tpu.config import Config
-from jlm_tpu.data.reader import bptt_batches
-from jlm_tpu.models.params import init_params
+from jlm_tpu_torch.config import Config
+from jlm_tpu_torch.data.reader import bptt_batches
 from jlm_tpu_torch.models.heads import (
     full_softmax_loss,
     sample_log_uniform,
     sampled_softmax_loss,
 )
-from jlm_tpu_torch.models.lstm import State, forward_hidden, initial_state
-from jlm_tpu_torch.models.params import params_to_torch, resolve_device
+from jlm_tpu_torch.models.lstm import (
+    State,
+    forward_hidden,
+    forward_hidden_scan,
+    initial_state,
+)
+from jlm_tpu_torch.models.params import init_params, params_to_torch, resolve_device
 from jlm_tpu_torch.train import checkpoint, optim
-
-SCAN_TODO = ("fused time-block LSTM scan (--pallas-scan) not ported yet "
-             "(ROADMAP.md queue 2, kernels 7-8)")
 
 
 def _tree_map(fn, tree: Any) -> Any:
@@ -67,8 +74,6 @@ class Trainer:
     default ``init_params(config)``."""
 
     def __init__(self, config: Config, params: Optional[Any] = None, *, device):
-        if config.use_pallas_scan:
-            raise NotImplementedError(SCAN_TODO)
         self.config = config
         self.device = resolve_device(device)
         params = init_params(config) if params is None else params
@@ -82,6 +87,9 @@ class Trainer:
     # --- one window ----------------------------------------------------
     def _forward(self, params, x, state: State) -> Tuple[torch.Tensor, State]:
         cfg = self.config
+        if cfg.use_pallas_scan:
+            cd = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+            return forward_hidden_scan(params, cfg, x, state, compute_dtype=cd)
         if cfg.compute_dtype == "bfloat16":
             # fp32 master params, bf16 forward; the casts' backward returns
             # fp32 gradients
@@ -95,7 +103,7 @@ class Trainer:
     def _loss(self, params, x, y, state: State) -> Tuple[torch.Tensor, State]:
         cfg = self.config
         hs, state = self._forward(params, x, state)
-        if cfg.compute_dtype == "bfloat16":
+        if cfg.compute_dtype == "bfloat16" and not cfg.use_pallas_scan:
             params = cast_floats(params, torch.bfloat16)
         if cfg.sampled_softmax_samples > 0:
             sampled = sample_log_uniform(self.generator, cfg.vocab_size,

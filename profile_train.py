@@ -5,15 +5,18 @@ Run from the repository root on a machine with one CUDA card:
 ``python3 profile_train.py [--out chiprun_out/train_profile.json]``.  It
 trains ``chip_smoke.py``'s training configuration (V=50,000, E=256,
 H=512, one layer, batch 32 x window 32, Adam, fused CE) from the same
-weights and data, once through the CE kernels and once with each swapped
-for its plain version, in turns.  Per run: 3 warm-up steps, then the
-host-clock ms/step of 10 steps (ending in a synchronize), then 5 steps
-under ``torch.profiler``.  From the profile: device busy ms per step (the
-sum of device activity; one stream), the idle share of the profiled wall
-time and of the unprofiled step time, device activities per step, and each
-CE kernel's ms per step and share of device time.  Prints one JSON
-summary per run and writes them to ``--out``, each run's gzipped chrome
-trace beside it.
+weights and data in three ways, in turns: the LSTM as a loop of plain
+steps with the CE kernels, the same with each CE kernel swapped for its
+plain version, and ``--pallas-scan`` (the LSTM through the two scan
+kernels, CE kernels on).  Per run: 3 warm-up steps, then the host-clock
+ms/step of 10 steps (ending in a synchronize), then 5 steps under
+``torch.profiler``.  From the profile: device busy ms per step (the sum of
+device activity; one stream), the idle share of the profiled wall time and
+of the unprofiled step time, device activities per step, and each CE and
+scan kernel's ms per step and share of device time, matched by the exact
+function names of ``csrc/softmax_ce.cu`` and ``csrc/lstm_scan.cu``.
+Prints one JSON summary per run and writes them to ``--out``, each run's
+gzipped chrome trace beside it.
 """
 
 from __future__ import annotations
@@ -32,22 +35,27 @@ import torch
 
 from chip_smoke import N_CE, TB, TT, bench_data, plain_ce, training_corpus
 
-# the device functions of csrc/softmax_ce.cu
+# the device functions of csrc/softmax_ce.cu and csrc/lstm_scan.cu
 CE_KERNELS = ("ce_fwd_kernel", "ms_merge_kernel", "ce_bwd_dh_kernel",
               "sum_splits_kernel", "ce_bwd_dw_kernel")
+SCAN_KERNELS = ("lstm_scan_fwd_kernel", "lstm_scan_bwd_kernel")
 WARMUP, TIMED, PROFILED = 3, 10, 5
 
 
 def kernel_name(name: str) -> str:
-    """The bare function name of a device activity's demangled name."""
-    return name.replace("(anonymous namespace)::", "").split("(")[0].split(" ")[-1]
+    """The bare function name (no template arguments) of a device
+    activity's demangled name."""
+    name = name.replace("(anonymous namespace)::", "").split("(")[0]
+    return name.split("<")[0].split(" ")[-1]
 
 
-def profile_run(dev, config, params, train_ids, plain: bool, trace_path: str) -> dict:
+def profile_run(dev, config, params, train_ids, label: str, swap, trace_path: str) -> dict:
+    """One run of ``config``'s training steps, inside ``swap`` (a context
+    that swaps kernels for plain versions) if given."""
     from jlm_tpu_torch.train import Trainer
 
     trainer = Trainer(config, params, device=dev)
-    with plain_ce() if plain else contextlib.nullcontext():
+    with swap() if swap else contextlib.nullcontext():
         steps = trainer.train_steps(train_ids, epoch=0)
         for _ in range(WARMUP):
             next(steps)
@@ -78,9 +86,10 @@ def profile_run(dev, config, params, train_ids, plain: bool, trace_path: str) ->
             by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
     ce = {k: by_name.get(k, 0.0) / PROFILED for k in CE_KERNELS}
+    scan = {k: by_name.get(k, 0.0) / PROFILED for k in SCAN_KERNELS}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {
-        "run": "plain versions" if plain else "CE kernels",
+        "run": label,
         "steps_profiled": PROFILED,
         "unprofiled_ms_per_step": step_ms,
         "unprofiled_tokens_per_s": N_CE / step_ms * 1e3,
@@ -92,6 +101,9 @@ def profile_run(dev, config, params, train_ids, plain: bool, trace_path: str) ->
         "ce_kernels_ms_per_step": sum(ce.values()),
         "ce_share_of_device": sum(ce.values()) * PROFILED / busy if busy else 0.0,
         "ce_ms_per_step_by_kernel": ce,
+        "scan_kernels_ms_per_step": sum(scan.values()),
+        "scan_share_of_device": sum(scan.values()) * PROFILED / busy if busy else 0.0,
+        "scan_ms_per_step_by_kernel": scan,
         "top_ms_per_step": {k: v / PROFILED for k, v in top},
         "trace": trace_path + ".gz",
     }
@@ -114,11 +126,16 @@ def main(argv=None) -> int:
     os.makedirs(out_dir, exist_ok=True)
     config, vocab, _, params, _, _ = bench_data()
     config = config.replace(batch_size=TB, num_steps=TT, fused_ce=True)
+    runs_of = {"CE kernels": (config, None), "CE plain versions": (config, plain_ce),
+               "scan kernels": (config.replace(use_pallas_scan=True), None)}
     train_ids, _ = training_corpus(vocab)
     runs = []
-    for i, plain in enumerate((False, True, True, False)):
-        trace = os.path.join(out_dir, f"train_trace_{i}_{'plain' if plain else 'kernels'}.json")
-        summary = profile_run(dev, config, params, train_ids, plain, trace)
+    turns = ("CE kernels", "scan kernels", "CE plain versions",
+             "CE plain versions", "scan kernels", "CE kernels")
+    for i, label in enumerate(turns):
+        trace = os.path.join(out_dir, f"train_trace_{i}_{label.replace(' ', '_')}.json")
+        cfg, swap = runs_of[label]
+        summary = profile_run(dev, cfg, params, train_ids, label, swap, trace)
         print(json.dumps(summary, indent=1), flush=True)
         runs.append(summary)
     with open(args.out, "w") as f:

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from jlm_tpu.ops.quant import quantize_weight
+from jlm_tpu_torch.ops.quant import quantize_weight
 from jlm_tpu_torch.ops.cand_dot import cand_dot, cand_dot_ref
 from jlm_tpu_torch.ops.lstm_cell import lstm_cell_ref, lstm_cell_step
 from jlm_tpu_torch.ops.project import project_lse, project_lse_ref, project_ms
@@ -163,7 +163,7 @@ def test_ce_fused_dsoftmax_block_slices_vs_plain(cuda):
     512, 256 and 128 dims) vs plain CE over head_logits: loss within 1e-3
     abs, grads within 1e-2 of their largest magnitude (bf16 compute against
     fp32 logits)."""
-    from jlm_tpu.config import Config, default_dsoftmax_blocks
+    from jlm_tpu_torch.config import Config, default_dsoftmax_blocks
     from jlm_tpu_torch.models.heads import full_softmax_loss
 
     cfg = Config(vocab_size=8000, hidden_size=512, head="dsoftmax", fused_ce=True,
@@ -188,3 +188,89 @@ def test_ce_fused_dsoftmax_block_slices_vs_plain(cuda):
     assert abs(got[0].item() - want[0].item()) <= 1e-3
     for a, w in zip(got[1:], want[1:]):
         assert _rel(a, w) <= 1e-2
+
+
+def _scan_case(cuda, seed, B, T, E, H):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32) * scale).to(cuda)
+
+    return (t(B, T, E, scale=0.3), t(E + H, 4 * H, scale=0.05), t(4 * H, scale=0.1),
+            t(B, H, scale=0.3), t(B, H, scale=0.3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,E,H", [
+    (32, 32, 256, 512),   # the training shape
+    (40, 5, 64, 96),      # a second pass of batch rows, ragged
+    (3, 7, 512, 512),     # a second layer's input width (E = H)
+])
+def test_lstm_scan_kernels_vs_plain(cuda, B, T, E, H):
+    """lstm_scan_fwd and lstm_scan_bwd vs their plain versions on the card,
+    fp32 compute (exact fp32 products on both sides).  Bounds: hs, cs, c_T,
+    h_T within 1e-5 abs (fp32 sums in another order); dz, dx, dc0, dh0
+    within 2e-4 abs + 1e-4 rel (the reference tests' gradient bound)."""
+    from jlm_tpu_torch.ops import lstm_scan as ls
+
+    xs, W, b, c0, h0 = _scan_case(cuda, 21, B, T, E, H)
+    n0 = (ls.lstm_scan_fwd.launches, ls.lstm_scan_bwd.launches)
+    got = ls.lstm_scan_fwd(xs, W, b, c0, h0, 1.0)
+    want = ls.lstm_scan_ref(xs, W, b, c0, h0, 1.0)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=1e-5, rtol=0)
+    hs, cs = want[0], want[1]
+    rng = np.random.default_rng(22)
+    d_hs, d_cf, d_hf = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda)
+                        for s in ((B, T, H), (B, H), (B, H)))
+    got = ls.lstm_scan_bwd(xs, W, b, c0, h0, hs, cs, d_hs, d_cf, d_hf, 1.0)
+    want = ls.lstm_scan_bwd_ref(xs, W, b, c0, h0, hs, cs, d_hs, d_cf, d_hf, 1.0)
+    assert (ls.lstm_scan_fwd.launches, ls.lstm_scan_bwd.launches) == (n0[0] + 1, n0[1] + 1)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=2e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_lstm_scan_bf16_and_autograd_vs_plain(cuda):
+    """bf16 compute: hs within 2e-3 abs of the plain bf16 scan (an fp32
+    sum-order difference can flip one bf16 rounding of h_{t-1}, which later
+    steps carry); and every input's gradient through the autograd Function
+    (both kernels) vs autograd through the plain fp32 scan within 2e-4 abs
+    + 1e-4 rel."""
+    from jlm_tpu_torch.ops import lstm_scan as ls
+
+    bf = torch.bfloat16
+    xs, W, b, c0, h0 = _scan_case(cuda, 23, 32, 32, 256, 512)
+    got = ls.lstm_scan_fwd(xs, W, b, c0, h0, 1.0, bf)[0]
+    want = ls.lstm_scan_ref(xs, W, b, c0, h0, 1.0, bf)[0]
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=0)
+
+    leaves = [t.clone().requires_grad_(True) for t in (xs, W, b, c0, h0)]
+    rng = np.random.default_rng(24)
+    wh = torch.from_numpy(rng.normal(size=(32, 32, 512)).astype(np.float32)).to(cuda)
+    wc = torch.from_numpy(rng.normal(size=(32, 512)).astype(np.float32)).to(cuda)
+
+    def grads(scan):
+        hs, c_T, h_T = scan(*leaves)
+        loss = (hs * wh).sum() + (c_T * wc).sum() + (h_T * wc).sum()
+        return torch.autograd.grad(loss, leaves)
+
+    got = grads(lambda *a: ls.lstm_scan(*a, 1.0))
+    want = grads(lambda *a: [ls.lstm_scan_ref(*a, 1.0)[i] for i in (0, 2, 3)])
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=2e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_lstm_scan_refuses_what_it_cannot_take(cuda):
+    """H not a multiple of 4, or more dx columns per block than 4, raise."""
+    from jlm_tpu_torch.ops import lstm_scan as ls
+
+    xs, W, b, c0, h0 = _scan_case(cuda, 25, 2, 3, 8, 6)
+    with pytest.raises(ValueError, match="H % 4"):
+        ls.lstm_scan_fwd(xs, W, b, c0, h0)
+    xs, W, b, c0, h0 = _scan_case(cuda, 25, 2, 3, 128, 16)
+    hs, cs, _, _ = ls.lstm_scan_fwd(xs, W, b, c0, h0)
+    with pytest.raises(ValueError, match="E <= 16"):
+        ls.lstm_scan_bwd(xs, W, b, c0, h0, hs, cs, hs, c0, h0)

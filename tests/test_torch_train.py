@@ -6,6 +6,7 @@ CE runs its plain versions on CPU tensors.  Configurations are the
 ``small_cfg`` of tests/test_train.py.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -22,6 +23,7 @@ from jlm_tpu.data.reader import bptt_batches
 from jlm_tpu.models import heads as jax_heads
 from jlm_tpu.models import lstm as jax_lstm
 from jlm_tpu.models.params import init_params
+from jlm_tpu_torch.config import Config as PortConfig
 from jlm_tpu_torch.models import heads, lstm
 from jlm_tpu_torch.models.params import params_to_torch
 from jlm_tpu_torch.train import Trainer, checkpoint, train_lm
@@ -215,21 +217,23 @@ def test_adam_clip_steps_match_jax(encoded):
     _leaves_close(tt.flat, jt.params, atol=1e-5)
 
 
-@pytest.mark.parametrize("mode", ["fp32", "fused_ce", "bf16"])
+@pytest.mark.parametrize("mode", ["fp32", "fused_ce", "bf16", "pallas_scan"])
 def test_trainer_loss_trajectory_matches_jax(encoded, mode):
     """5 steps of the port's Trainer vs JAX's at small_cfg, then dev
-    perplexity over the trained weights.  Unfused fp32: rtol 1e-4.  With
-    ``fused_ce`` the CE computes in bf16 on both sides (the reference's
-    default precision) while the model stays fp32, and with a bf16 forward
-    (unfused) every matmul rounds to bf16: rtol 1e-3 for both.  (The
-    reference's bf16 forward with the fused CE does not trace: its custom
-    VJP returns an fp32 dh for a bf16 h.)"""
+    perplexity over the trained weights.  Unfused fp32, and fp32 through
+    the fused scan (JAX's Pallas kernels in interpret mode, the port's
+    plain versions): rtol 1e-4.  With ``fused_ce`` the CE computes in bf16
+    on both sides (the reference's default precision) while the model stays
+    fp32, and with a bf16 forward (unfused) every matmul rounds to bf16:
+    rtol 1e-3 for both.  (The reference's bf16 forward with the fused CE
+    does not trace: its custom VJP returns an fp32 dh for a bf16 h.)"""
     from jlm_tpu.train import Trainer as JaxTrainer
 
     train, dev, _ = encoded
     cfg = small_cfg(**{"fp32": {}, "fused_ce": dict(fused_ce=True),
-                       "bf16": dict(compute_dtype="bfloat16")}[mode])
-    rtol = 1e-4 if mode == "fp32" else 1e-3
+                       "bf16": dict(compute_dtype="bfloat16"),
+                       "pallas_scan": dict(use_pallas_scan=True)}[mode])
+    rtol = 1e-4 if mode in ("fp32", "pallas_scan") else 1e-3
     jt, tt = JaxTrainer(cfg), Trainer(cfg, device="cpu")
     st_j = jax_lstm.initial_state(cfg, 4)
     st_t = lstm.initial_state(cfg, 4, "cpu")
@@ -264,7 +268,9 @@ def test_checkpoint_cross_loads_both_ways(tmp_path):
 
     params = jax.tree.map(lambda a: a * 2.0, init_params(cfg))
     jax_save(jax_dir, params, cfg)
-    assert checkpoint.load_checkpoint(jax_dir)[1] == cfg
+    # the port reads config.json into its own Config, with the same fields
+    assert checkpoint.load_checkpoint(jax_dir)[1] == PortConfig(
+        **{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
     tr2 = Trainer(cfg, device="cpu")
     assert tr2.load_state(jax_dir) == 0  # no optimizer state of the port
     _leaves_close(tr2.flat, params, atol=0)
@@ -339,8 +345,7 @@ def test_trainer_variants_improve(encoded, kind):
 def test_cli_rejects_unported_options(tmp_path):
     from jlm_tpu_torch.train.__main__ import main
 
-    for flag in (["--mesh-data", "2"], ["--mesh-vocab", "4"], ["--mesh-seq", "2"],
-                 ["--pallas-scan"]):
+    for flag in (["--mesh-data", "2"], ["--mesh-vocab", "4"], ["--mesh-seq", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main(["--data", str(tmp_path), "--exp", str(tmp_path / "e"), *flag])
 
@@ -361,6 +366,30 @@ def test_cli_trains_from_a_data_dir(encoded, vocab, tmp_path):
                                        checkpoint.OPT_STATE_FILE]
     with open(os.path.join(exp, "config.json")) as f:
         assert json.load(f)["vocab_size"] == len(vocab)
+
+
+def test_cli_trains_with_pallas_scan(encoded, vocab, tmp_path):
+    """``--pallas-scan`` on the CPU trains through the scan's plain
+    versions: the config records it, dev perplexity falls below the
+    untrained model's, and no scan kernel is launched."""
+    from jlm_tpu.data.io import save_dataset
+    from jlm_tpu_torch.ops import lstm_scan as ls
+    from jlm_tpu_torch.train.__main__ import main
+
+    train, dev, test = encoded
+    data = str(tmp_path / "data")
+    save_dataset(data, vocab, train[:1600], dev[:200], test[:200])
+    exp = str(tmp_path / "exp")
+    n0 = (ls.lstm_scan_fwd.launches, ls.lstm_scan_bwd.launches)
+    main(["--data", data, "--exp", exp, "--embed-size", "16", "--hidden-size", "32",
+          "--batch-size", "4", "--num-steps", "8", "--epochs", "1", "--lr", "5e-3",
+          "--pallas-scan", "--device", "cpu"])
+    assert (ls.lstm_scan_fwd.launches, ls.lstm_scan_bwd.launches) == n0
+    with open(os.path.join(exp, "config.json")) as f:
+        assert json.load(f)["use_pallas_scan"] is True
+    (rec,) = checkpoint.read_log(exp)
+    untrained = Trainer(checkpoint.load_checkpoint(exp)[1], device="cpu")
+    assert rec["dev_ppl"] < untrained.evaluate_ppl(dev[:200])
 
 
 def test_training_modules_import_without_jax():
