@@ -8,19 +8,41 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
    kernels from ``jlm_tpu_torch/csrc`` with nvcc (sm_90a);
 2. compare each kernel with its plain PyTorch version on the card at the
    shapes its path gives it, with a stated bound, and time both (CUDA
-   events): the three decode kernels at the serving shapes, the three
-   fused-CE kernels and the two LSTM scan kernels at the training shapes,
-   and the D-softmax fused CE at the 100k D-softmax head; each backward
-   bound is also shown to catch a deliberately wrong plain backward (a
-   p-term off by ``P_SHIFT``, a forget gate off by ``F_SHIFT``); cuDNN's
-   LSTM is timed beside the scan kernels as a yardstick (the port never
-   calls it);
+   events): the three decode kernels at the serving shapes, the head in
+   its other modes (the 100k D-softmax head of BASELINE config 5 in int8
+   and bf16 at the serving rows, the int8 dequant head at 50k in bf16 at
+   the serving rows and in fp32 at the fp32 parity run's rows, fp32
+   weights at the config-5 head) and the fp32 cell at the fp32 parity
+   run's rows, the three fused-CE kernels and the two LSTM scan kernels at
+   the training shapes, and the D-softmax fused CE at the 100k D-softmax
+   head; each backward bound is also shown to catch a deliberately wrong
+   plain backward (a p-term off by ``P_SHIFT``, a forget gate off by
+   ``F_SHIFT``), the int8 D-softmax bound one whose activation scale is
+   taken over all H instead of each block's slice, the fp32 and fp32
+   dequant bounds a plain version whose operands are rounded to TF32, and
+   the bf16 dequant bound one that rescales the exact int8 product after
+   it instead of rounding ``q * scale`` to bf16 before it (these four
+   modes on weights of scale ``PEAKED``); cuDNN's LSTM is timed beside the
+   scan kernels as a yardstick (the port never calls it);
 3. drive the serving path — streaming beam-10 conversion at V=50,000,
    E=256, H=512, one layer, int8 head, speed mode — over one 2,048-lattice
    chunk through ``BeamDecoder.decode_stream``, and check that every decode
    kernel was launched by it;
 4. check top-1 path identity against the numpy oracle on the 50 test
    sentences: fp32 greedy, int8 beam-10, and bf16 beam-10 (50/50 each);
+3b. drive BASELINE config 5 on one card — 2 layers, V=100,000, D-softmax
+   prefix head (16,000 x 512, 34,000 x 256, 50,000 x 128), int8 weights,
+   native int8 head, speed mode — over the same 2,048-lattice chunk for
+   ``PASSES`` passes; the counting rule: every forward (the root forward
+   and one per frame) launches the projection kernel once per block (3),
+   the cell once per layer (2) and ``cand_dot`` once;
+4b. 50/50 top-1 path identity on the 50 test sentences for config 5 with
+   int8-MXU beam-10 (vs the int8 oracle), bf16 beam-10 (vs the fp32
+   oracle) and the fp32 kernel forward greedy (vs the fp32 oracle, scores
+   within 1e-3), and for the 50k int8 dequant head beam-10 (vs the int8
+   oracle) and the 50k fp32 int8-dequant kernel forward greedy (vs the
+   int8 oracle, scores within 1e-3); each run's launches are counted by
+   the same rule;
 5. drive the training path — ``Trainer`` at the same width, batch 32, BPTT
    window 32, Adam, fused CE — for 20 steps over the synthetic corpus, once
    through the CE kernels and once with each swapped for its plain
@@ -34,7 +56,8 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
 6. save the trained weights, reload the checkpoint, and decode the 50
    sentences fp32 greedy: 50/50 top-1 identity with the oracle on them.
 
-Weights are random (``init_params`` seed 0) before training.  The line
+Weights are random (``init_params`` seed 0) before training.  Phases 3b
+and 4b are the serving path's other modes; they run after phase 4.  The line
 before the card's is ``{"kernels": [...]}``: per kernel its launches on the
 main path, its error against the plain version, its time, the plain
 version's and the library call's where one PyTorch call computes the same
@@ -64,6 +87,18 @@ S, B, C1 = 2048, 10, 65
 V, E, H = 50_000, 256, 512
 R = S * B
 PASSES = 3
+# BASELINE config 5's D-softmax head (config.default_dsoftmax_blocks(100_000, 512))
+V5 = 100_000
+BLOCKS5 = ((16_000, 512), (34_000, 256), (50_000, 128))  # (words, dims) per block
+HEAD5 = sum(n * d for n, d in BLOCKS5)  # weights of the head: 23,296,000
+# the fp32 parity run: 50 sentences bucket to 64, greedy beam_pad 8
+R32 = 64 * 8
+# weight scale of the fp32 and dequant cases: h in (-1, 1) then gives
+# logits that spread over tens of units, so the largest few set the lse and
+# an operand rounding moves it by about the rounding of one logit; at the
+# serving weights' 0.05 the softmax is near uniform over the vocabulary and
+# such roundings average away in the lse
+PEAKED = 0.5
 # training shapes: batch 32 x BPTT window 32 = 1,024 CE rows per step
 TB, TT, TRAIN_STEPS = 32, 32, 20
 N_CE = TB * TT
@@ -73,6 +108,20 @@ BOUNDS = {  # kernel vs plain version, on the same inputs on the card
     "project_lse int8": 1e-4,   # abs, lse; the int32 product is exact
     "project_lse bf16": 1e-3,   # abs, lse; fp32 sums in another order
     "lstm_cell_step bf16": 2.0,  # bf16 ulps of c' and h' (see bf16_ulps)
+    # the head's other modes: per block as above, merged in fp32
+    "project_lse dsoftmax int8": 1e-4,  # abs, lse; exact int32 products
+    "project_lse dsoftmax bf16": 1e-3,  # abs, lse; fp32 sums in another order
+    # the next three on weights of scale PEAKED; each wrong call must read
+    # above its bound
+    "project_lse dequant bf16": 1e-3,   # abs, lse; bf16(q * scale) on both sides;
+                                        # wrong: the int8 product rescaled after
+    "project_lse fp32": 1e-4,           # abs, lse; exact fp32 products, sums in
+                                        # another order; wrong: TF32 operands
+    "project_lse dequant fp32": 1e-4,   # as fp32, q * scale rounded to fp32
+    # abs, lse, rows whose largest |h| lies outside the narrower blocks; a
+    # scale taken over all H must read above it
+    "project_lse dsoftmax int8 slice scale": 1e-4,
+    "lstm_cell_step fp32": 1e-5,  # abs, c' and h'; exact fp32 products
     "cand_dot bf16": 1e-3,      # abs error / max(1, max |plain|)
     "ce_fwd bf16": 1e-3,        # abs, per-row loss and lse; fp32 sums in another order
     # backward: abs error / max |plain| (of dh; of dW and db).  Both sides
@@ -196,6 +245,24 @@ def rel_err(got, want):
                for a, w in zip(got, want))
 
 
+def abs_err(k, p):
+    return float((k.float() - p.float()).abs().max())
+
+
+def lse_err(k, p):
+    return abs_err(k, p), abs_err(k, p)
+
+
+def torch_gates(W, b):
+    """(w_ih, w_hh, b_ih) of PyTorch's LSTM for fused ``W``, ``b``: gate
+    order i, j, f, o -> PyTorch's i, f, g(= j), o, the forget bias folded
+    into the bias."""
+    perm = torch.cat([torch.arange(g * H, (g + 1) * H) for g in (0, 2, 1, 3)]).to(W.device)
+    b = b.clone()
+    b[2 * H:3 * H] += 1.0  # forget_bias
+    return W[:-H, perm].t().contiguous(), W[-H:, perm].t().contiguous(), b[perm]
+
+
 def kernel_cases(dev, rng):
     """Returns the cases and the yardstick runs.  A case is (name, kernel
     call, plain call, error fn, wrong call or None, library call or None);
@@ -248,21 +315,6 @@ def kernel_cases(dev, rng):
     ga = torch.full((N_CE,), 1.0 / N_CE, device=dev)  # the mean loss's cotangent
     ga_p = t(rng.uniform(0.5, 1.5, N_CE) / N_CE)     # with gb = 0: the p-term alone
     cotangents = {"": (ga, -ga), " p-term": (ga_p, torch.zeros_like(ga_p))}
-
-    def abs_err(k, p):
-        return float((k.float() - p.float()).abs().max())
-
-    # gate order i, j, f, o -> PyTorch's i, f, g(= j), o
-    perm = torch.cat([torch.arange(g * H, (g + 1) * H) for g in (0, 2, 1, 3)]).to(dev)
-
-    def torch_gates(W, b):
-        """(w_ih, w_hh, b_ih) of PyTorch's LSTM for fused ``W``, ``b``."""
-        b = b.clone()
-        b[2 * H:3 * H] += 1.0  # forget_bias
-        return W[:-H, perm].t().contiguous(), W[-H:, perm].t().contiguous(), b[perm]
-
-    def lse_err(k, p):
-        return abs_err(k, p), abs_err(k, p)
 
     def cell_plain():
         c_new, h_new = lstm_cell_ref(x, h, c, Wc, bc, 1.0)
@@ -372,12 +424,11 @@ def kernel_cases(dev, rng):
     return [
         ("project_lse int8",
          lambda: project_lse(h, head_q, None, compute_dtype=bf, int8_mxu=True),
-         lambda: project_lse_ref(h, Wq, head_q["W"]["scale"], bias,
-                                 compute_dtype=bf, int8_mxu=True),
+         lambda: project_lse_ref(h, head_q, compute_dtype=bf, int8_mxu=True),
          lse_err, None, None),
         ("project_lse bf16",
          lambda: project_lse(h, head_b, None, compute_dtype=bf),
-         lambda: project_lse_ref(h, Wb, None, bias, compute_dtype=bf),
+         lambda: project_lse_ref(h, head_b, compute_dtype=bf),
          lse_err, None, None),
         ("lstm_cell_step bf16",
          lambda: lstm_cell_step(x, h, c, Wc, bc, 1.0, compute_dtype=bf,
@@ -395,6 +446,145 @@ def kernel_cases(dev, rng):
     ] + bwd_cases + scan_cases, yardsticks
 
 
+def config5():
+    """BASELINE config 5 on one card (scripts/bench_all.py:244-252): 2
+    layers, V = 100,000, the D-softmax prefix head; no mesh."""
+    from jlm_tpu_torch.config import Config, default_dsoftmax_blocks
+
+    cfg = Config(vocab_size=V5, num_layers=2, hidden_size=H, embed_size=E,
+                 head="dsoftmax", dsoftmax=default_dsoftmax_blocks(V5, H),
+                 beam_width=10, n_best_max=1, seed=0)
+    check(tuple(zip(cfg.dsoftmax.block_sizes, cfg.dsoftmax.block_dims)) == BLOCKS5,
+          f"config 5's blocks {cfg.dsoftmax}")
+    return cfg
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to TF32's 10-bit mantissa (to nearest, ties to even)."""
+    i = x.float().contiguous().view(torch.int32)
+    return ((i + 0x0FFF + ((i >> 13) & 1)) & ~0x1FFF).view(torch.float32)
+
+
+def head_mode_cases(dev, rng):
+    """The head kernel's other modes and the fp32 cell, as kernel_cases'
+    cases: the config-5 D-softmax head (int8-MXU and bf16 at the serving
+    rows, fp32 at the fp32 parity run's rows), the int8 dequant head at
+    50k (bf16 at the serving rows, fp32 at the fp32 rows), the fp32 cell,
+    and the per-slice activation scale: rows whose largest |h| (8x the
+    rest) lies in a column outside the 256- and 128-wide prefixes, checked
+    against a plain version that takes the int8 row scale over all H
+    (block 0's weights are zeroed in that column, so that its logits do
+    not swamp the lse).  The fp32 and dequant heads have weights of scale
+    ``PEAKED``; their wrong calls are the plain fp32 version on operands
+    rounded to TF32, and, for bf16 dequant, the exact int8 product
+    rescaled after it."""
+    from jlm_tpu_torch.ops.quant import quantize_weight
+    from jlm_tpu_torch.ops.lstm_cell import lstm_cell_ref, lstm_cell_step
+    from jlm_tpu_torch.ops.project import (
+        merge_ms, project_lse, project_lse_ref, quantize_rows)
+
+    cfg = config5()
+    bf = torch.bfloat16
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev).to(dtype)
+
+    def with_wt(blk, wt):
+        return {**blk, "WT": wt.t().contiguous()}
+
+    ws = [rng.normal(0, 0.05, (d, n)).astype(np.float32) for n, d in BLOCKS5]
+    bs = [t(rng.normal(0, 0.1, n)) for n, _ in BLOCKS5]
+    quant = [quantize_weight(w, axis=0) for w in ws]
+    head_q = {"blocks": [with_wt({"W": {"q": torch.from_numpy(q["q"]).to(dev),
+                                        "scale": t(q["scale"])}, "b": b},
+                                 torch.from_numpy(q["q"]).to(dev))
+                         for q, b in zip(quant, bs)]}
+    head_b = {"blocks": [with_wt({"W": t(w, bf), "b": b}, t(w, bf)) for w, b in zip(ws, bs)]}
+    wf = [t(rng.normal(0, PEAKED, (d, n))) for n, d in BLOCKS5]
+    head_f = {"blocks": [with_wt({"W": w, "b": b}, w) for w, b in zip(wf, bs)]}
+    h = t(rng.uniform(-1, 1, (R, H)), bf)
+    h32 = t(rng.uniform(-1, 1, (R32, H)))
+
+    w = rng.normal(0, PEAKED, (H, V)).astype(np.float32)
+    q = quantize_weight(w, axis=0)
+    Wq = torch.from_numpy(q["q"]).to(dev)
+    head_d = {"W": {"q": Wq, "scale": t(q["scale"])}, "b": t(rng.normal(0, 0.1, V)),
+              "WT": Wq.t().contiguous()}
+
+    # per-slice scale: column 300 lies in block 0's 512 only
+    h_out = t(rng.uniform(-3, 3, (R, H)), bf)
+    h_out[:, 300] = 24.0
+    q0 = head_q["blocks"][0]["W"]["q"].clone()
+    q0[300] = 0
+    head_s = {"blocks": [with_wt({**head_q["blocks"][0], "W": {**head_q["blocks"][0]["W"],
+                                                               "q": q0}}, q0)]
+              + head_q["blocks"][1:]}
+
+    def tf32_plain(hh, head):
+        """The plain fp32 version with its operands (h and the weights,
+        dequantized first) rounded to TF32."""
+        def rounded(blk):
+            W = blk["W"]
+            W = W["q"].float() * W["scale"][None, :] if isinstance(W, dict) else W
+            return {"W": tf32(W), "b": blk["b"]}
+
+        head_r = ({"blocks": [rounded(blk) for blk in head["blocks"]]}
+                  if "blocks" in head else rounded(head))
+        return project_lse_ref(tf32(hh), head_r, cfg, compute_dtype=torch.float32)
+
+    def rescaled_after():
+        """The dequant done wrong: the exact product with int8 weights,
+        rescaled by the column scale after it."""
+        acc = h.float() @ head_d["W"]["q"].float()
+        return torch.logsumexp(acc * head_d["W"]["scale"][None, :] + head_d["b"][None, :],
+                               dim=1, keepdim=True)
+
+    def global_scale():
+        """The wrong rule: one int8 row scale over all of h."""
+        _, s_all = quantize_rows(h_out)
+        ms, ss = [], []
+        for blk, (_, d) in zip(head_s["blocks"], BLOCKS5):
+            acc = torch.round(h_out[:, :d].float() / s_all) @ blk["W"]["q"].float()
+            logits = acc * s_all * blk["W"]["scale"][None, :] + blk["b"][None, :]
+            ms.append(logits.amax(dim=1, keepdim=True))
+            ss.append(torch.exp(logits - ms[-1]).sum(dim=1, keepdim=True))
+        m, s = merge_ms(ms, ss)
+        return m + torch.log(s)
+
+    xc = t(rng.normal(0, 0.3, (R32, E)))
+    hc = t(rng.uniform(-1, 1, (R32, H)))
+    cc = t(rng.normal(0, 1.0, (R32, H)))
+    Wc = t(rng.normal(0, 0.05, (E + H, 4 * H)))
+    bc = t(rng.normal(0, 0.1, 4 * H))
+    w_ih, w_hh, b_ih = torch_gates(Wc, bc)
+
+    def cell_err(k, p):
+        err = max(abs_err(k[0], p[0]), abs_err(k[1], p[1]))
+        return err, err
+
+    def lse_case(name, hh, head, cd, mxu, wrong=None):
+        return (name,
+                lambda: project_lse(hh, head, cfg, compute_dtype=cd, int8_mxu=mxu),
+                lambda: project_lse_ref(hh, head, cfg, compute_dtype=cd, int8_mxu=mxu),
+                lse_err, wrong, None)
+
+    return [
+        lse_case("project_lse dsoftmax int8", h, head_q, bf, True),
+        lse_case("project_lse dsoftmax bf16", h, head_b, bf, False),
+        lse_case("project_lse dequant bf16", h, head_d, bf, False, rescaled_after),
+        lse_case("project_lse fp32", h32, head_f, torch.float32, False,
+                 lambda: tf32_plain(h32, head_f)),
+        lse_case("project_lse dequant fp32", h32, head_d, torch.float32, False,
+                 lambda: tf32_plain(h32, head_d)),
+        lse_case("project_lse dsoftmax int8 slice scale", h_out, head_s, bf, True,
+                 global_scale),
+        ("lstm_cell_step fp32",
+         lambda: lstm_cell_step(xc, hc, cc, Wc, bc, 1.0),
+         lambda: lstm_cell_ref(xc, hc, cc, Wc, bc, 1.0), cell_err, None,
+         lambda: torch.lstm_cell(xc, (hc, cc), w_ih, w_hh, b_ih, torch.zeros_like(b_ih))),
+    ]
+
+
 def work():
     """(bytes, operations, type) of each kernel's function on its phase-2
     inputs: every input read once and every output written once, and the
@@ -409,6 +599,23 @@ def work():
                            2 * R * (E + H) * 4 * H, "bf16"),
         "cand_dot": (S * B * H * 2 + S * C1 * H * 2 + S * C1 * 4 + S * B * C1 * 4,
                      2 * S * B * C1 * H, "bf16"),
+        # the head's other modes: h (each block reads its slice), the blocks'
+        # weights (int8, bf16 or fp32), scales and biases -> lse
+        "project_lse dsoftmax int8": (R * H * 2 + HEAD5 + V5 * 8 + R * 4,
+                                      2 * R * HEAD5, "int8"),
+        "project_lse dsoftmax bf16": (R * H * 2 + HEAD5 * 2 + V5 * 4 + R * 4,
+                                      2 * R * HEAD5, "bf16"),
+        # int8 weights dequantized to bf16 operands: the product at the bf16 peak
+        "project_lse dequant bf16": (R * H * 2 + H * V + V * 8 + R * 4,
+                                     2 * R * H * V, "bf16"),
+        "project_lse fp32": (R32 * H * 4 + HEAD5 * 4 + V5 * 4 + R32 * 4,
+                             2 * R32 * HEAD5, "fp32"),
+        # int8 weights dequantized to fp32 operands: exact fp32 FMAs
+        "project_lse dequant fp32": (R32 * H * 4 + H * V + V * 8 + R32 * 4,
+                                     2 * R32 * H * V, "fp32"),
+        # x, h, c fp32, W fp32, b -> c', h' fp32
+        "lstm_cell_step fp32": (R32 * (E + 4 * H) * 4 + (E + H) * 4 * H * 4 + 4 * H * 4,
+                                2 * R32 * (E + H) * 4 * H, "fp32"),
         "ce_fwd": (ce_in + 3 * N_CE * 4, 2 * N_CE * H * V, "bf16"),
         # + lse, ga, gb; two products each (the logits again, then dh or dW)
         "ce_bwd_dh": (ce_in + 3 * N_CE * 4 + N_CE * H * 4, 4 * N_CE * H * V, "bf16"),
@@ -499,6 +706,19 @@ def bench_data():
     return config, vocab, lexicon, params, quantize_params(params), kanas
 
 
+def bench_data5():
+    """Config 5's config, vocab (``build_vocab`` of the same corpus at
+    100,000), lexicon, weights and their int8 quantization."""
+    from jlm_tpu_torch.data import Lexicon, build_vocab, generate_corpus
+    from jlm_tpu_torch.models.params import init_params
+    from jlm_tpu_torch.ops.quant import quantize_params
+
+    config = config5()
+    vocab = build_vocab(generate_corpus(2000, seed=1234), V5)
+    params = init_params(config)
+    return config, vocab, Lexicon.from_vocab(vocab), params, quantize_params(params)
+
+
 def training_corpus(vocab):
     """Train ids for exactly TRAIN_STEPS windows of TB x TT and dev ids for
     4 windows, encoded from the synthetic corpus with the serving vocab."""
@@ -561,7 +781,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from jlm_tpu_torch.oracle import OracleDecoder, OracleLM
-    from jlm_tpu_torch.decoder.engine import BeamDecoder
+    from jlm_tpu_torch.decoder.engine import BeamDecoder, make_kernel_forward
     from jlm_tpu_torch.models.params import load_npz_params
     from jlm_tpu_torch.ops import _build
     from jlm_tpu_torch.ops.cand_dot import cand_dot
@@ -592,8 +812,15 @@ def main() -> int:
     rng = np.random.default_rng(0)
     measured = {}
     wrong_p = f"a p-term {1 - math.exp(-P_SHIFT):.0%} low"
-    wrong_f = f"a forget gate sigmoid(f + {F_SHIFT:g}) in the backward"
+    wrongs = {  # what a case's wrong call gets wrong, where it is not wrong_p
+        "lstm_scan_bwd fp32": f"a forget gate sigmoid(f + {F_SHIFT:g}) in the backward",
+        "project_lse dsoftmax int8 slice scale": "an int8 row scale over all H",
+        "project_lse dequant bf16": "the exact int8 product rescaled after it",
+        "project_lse fp32": "operands rounded to TF32",
+        "project_lse dequant fp32": "operands rounded to TF32",
+    }
     cases, yardsticks = kernel_cases(dev, rng)
+    cases += head_mode_cases(dev, rng)
     for name, kernel, plain, err_fn, wrong, library in cases:
         want = plain()
         err, max_abs = err_fn(kernel(), want)
@@ -604,7 +831,7 @@ def main() -> int:
             + ("" if lib_ms is None else f", library call {lib_ms:.4f} ms"))
         check(err <= BOUNDS[name], f"{name}: error {err} exceeds {BOUNDS[name]}")
         if wrong is not None:
-            what = wrong_f if name.startswith("lstm_scan") else wrong_p
+            what = wrongs.get(name, wrong_p)
             caught = err_fn(wrong(), want)[0]
             log(f"  {name}: {what} reads {caught:.3e}")
             check(caught > BOUNDS[name], f"{name}: bound misses {what} ({caught})")
@@ -667,7 +894,8 @@ def main() -> int:
     log(f"greedy fp32 parity {n}/{len(kanas)} (top-1 path identity vs oracle)")
     check(n == len(kanas), "greedy parity")
     oracle_q = OracleDecoder(OracleLM(qp, config), lexicon, vocab, config)
-    n = identical(results[:len(kanas)], [oracle_q.decode(k)[0] for k in kanas])
+    oracle_q_results = [oracle_q.decode(k)[0] for k in kanas]
+    n = identical(results[:len(kanas)], oracle_q_results)
     log(f"beam-10 int8 parity {n}/{len(kanas)} (kernel path vs int8 oracle)")
     check(n == len(kanas), "int8 beam parity")
     bf16_engine = BeamDecoder(params, lexicon, vocab, config, precision="default",
@@ -679,6 +907,102 @@ def main() -> int:
     check(n == len(kanas), "bf16 beam parity")
     check("jax" not in sys.modules, "the port imported jax")
     del engine, greedy, bf16_engine
+    torch.cuda.empty_cache()
+
+    # ---- phase 3b: BASELINE config 5 serving (2 layers, 100k, D-softmax) ----
+    cfg5, vocab5, lexicon5, params5, qp5 = bench_data5()
+    n_blocks = len(cfg5.dsoftmax.block_sizes)
+
+    def expect(fwd, layers, blocks):
+        """Launches of ``fwd`` forwards: per forward one projection per
+        block, one cell per layer, one cand_dot."""
+        return {"project_lse": fwd * blocks, "lstm_cell_step": fwd * layers,
+                "cand_dot": fwd}
+
+    def counted(run):
+        """Run with the three counters set to 0; returns (result, counts)."""
+        for fn in counters:
+            fn.launches = 0
+        out = run()
+        return out, {fn.__name__: fn.launches for fn in counters}
+
+    engine5 = BeamDecoder(qp5, lexicon5, vocab5, cfg5, precision="default", device=dev)
+    t0 = time.perf_counter()
+    engine5.decode_stream(stream, chunk_size=S)
+    log(f"config 5: first decode_stream (warm-up): {time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    times5 = []
+
+    def passes5():
+        for _ in range(PASSES):
+            t0 = time.perf_counter()
+            res = engine5.decode_stream(stream, chunk_size=S, n_best=1)
+            times5.append(time.perf_counter() - t0)
+        return res
+
+    results5, launches5 = counted(passes5)
+    frames5 = min(engine5._t_bucket(max(len(k) for k in stream)), cfg5.max_kana_len)
+    forwards5 = PASSES * (frames5 + 1)
+    log(f"config 5 launches over {PASSES} passes ({frames5} frames each): {launches5}")
+    check(launches5 == expect(forwards5, cfg5.num_layers, n_blocks),
+          f"config 5 launch counts {launches5}, expected {forwards5} forwards x "
+          f"{n_blocks} blocks / {cfg5.num_layers} layers / 1")
+    med5 = statistics.median(times5)
+    log(f"config 5 serving (2 layers, V={V5}, D-softmax {cfg5.dsoftmax.block_sizes} @ "
+        f"{cfg5.dsoftmax.block_dims}, int8-MXU): {n_chars} chars per pass, passes "
+        f"{[round(t, 4) for t in times5]} s; median {n_chars / med5:.1f} chars/s, best "
+        f"{n_chars / min(times5):.1f} chars/s on {card}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(len(results5) == len(stream)
+          and all(len(r) == 1 and np.isfinite(r[0].score) for r in results5),
+          "config 5: every sentence has one finite top-1 result")
+
+    # ---- phase 4b: config-5 and int8-dequant parity on the 50 sentences ----
+    frames_50 = min(engine5._t_bucket(max(len(k) for k in kanas)), cfg5.max_kana_len)
+    oracle5_q = OracleDecoder(OracleLM(qp5, cfg5), lexicon5, vocab5, cfg5)
+    n = identical(results5[:len(kanas)], [oracle5_q.decode(k)[0] for k in kanas])
+    log(f"config 5 beam-10 int8 parity {n}/{len(kanas)} (kernel path vs int8 oracle)")
+    check(n == len(kanas), "config 5 int8 beam parity")
+    del engine5
+    torch.cuda.empty_cache()
+    mode_launches = {}
+
+    def parity_run(label, params_, lexicon_, vocab_, cfg_, oracle_results, blocks,
+                   score_tol=None, **kw):
+        eng = BeamDecoder(params_, lexicon_, vocab_, cfg_, device=dev, **kw)
+        res, counts = counted(lambda: eng.decode_batch(kanas))
+        n = identical(res, oracle_results)
+        worst = max(abs(r[0].score - o.score) for r, o in zip(res, oracle_results))
+        log(f"{label} parity {n}/{len(kanas)}; max |score - oracle| {worst:.3e}; "
+            f"launches {counts}")
+        check(n == len(kanas), f"{label} parity")
+        check(score_tol is None or worst <= score_tol,
+              f"{label}: score off the oracle by {worst} > {score_tol}")
+        check(counts == expect(frames_50 + 1, cfg_.num_layers, blocks),
+              f"{label}: launches {counts}, expected {frames_50 + 1} forwards")
+        return counts
+
+    oracle5 = OracleDecoder(OracleLM(params5, cfg5), lexicon5, vocab5, cfg5)
+    mode_launches["bf16 dsoftmax"] = parity_run(
+        "config 5 beam-10 bf16 (vs fp32 oracle)", params5, lexicon5, vocab5, cfg5,
+        [oracle5.decode(k)[0] for k in kanas], n_blocks, precision="default")
+    greedy5 = cfg5.replace(beam_width=1)
+    oracle5_g = OracleDecoder(OracleLM(params5, greedy5), lexicon5, vocab5, greedy5)
+    mode_launches["fp32"] = parity_run(
+        "config 5 greedy fp32 kernel forward (vs fp32 oracle)", params5, lexicon5, vocab5,
+        greedy5, [oracle5_g.decode(k)[0] for k in kanas], n_blocks, score_tol=1e-3,
+        forward_fn=make_kernel_forward(greedy5, torch.float32))
+    mode_launches["dequant"] = parity_run(
+        "50k beam-10 int8 dequant (vs int8 oracle)", qp, lexicon, vocab,
+        config.replace(int8_mxu=False), oracle_q_results, 1, precision="default")
+    oracle_qg = OracleDecoder(OracleLM(qp, greedy_cfg), lexicon, vocab, greedy_cfg)
+    mode_launches["dequant fp32"] = parity_run(
+        "50k greedy fp32 int8-dequant kernel forward (vs int8 oracle)", qp, lexicon, vocab,
+        greedy_cfg, [oracle_qg.decode(k)[0] for k in kanas], 1, score_tol=1e-3,
+        forward_fn=make_kernel_forward(greedy_cfg, torch.float32, int8_mxu=False))
+    check(not any(m.split(".")[0] in ("jax", "jlm_tpu") for m in sys.modules),
+          "the port imported jax or the JAX package")
+    del params5, qp5
     torch.cuda.empty_cache()
 
     # ---- phase 5: the training path, CE kernels vs their plain versions ----
@@ -767,7 +1091,28 @@ def main() -> int:
                           "lstm_scan_fwd fp32"),
         "lstm_scan_bwd": ("jlm_tpu_torch/csrc/lstm_scan.cu", "jlm_tpu/ops/lstm_scan.py:256",
                           "lstm_scan_bwd fp32"),
+        # the head's other modes and the fp32 cell: launches from their own runs
+        "project_lse dsoftmax int8": ("jlm_tpu_torch/csrc/project_lse.cu",
+                                      "jlm_tpu/ops/project.py:42", "project_lse dsoftmax int8"),
+        "project_lse dsoftmax bf16": ("jlm_tpu_torch/csrc/project_lse.cu",
+                                      "jlm_tpu/ops/project.py:42", "project_lse dsoftmax bf16"),
+        "project_lse dequant bf16": ("jlm_tpu_torch/csrc/project_lse.cu",
+                                     "jlm_tpu/ops/project.py:42", "project_lse dequant bf16"),
+        "project_lse fp32": ("jlm_tpu_torch/csrc/project_lse.cu", "jlm_tpu/ops/project.py:42",
+                             "project_lse fp32"),
+        "project_lse dequant fp32": ("jlm_tpu_torch/csrc/project_lse.cu",
+                                     "jlm_tpu/ops/project.py:42", "project_lse dequant fp32"),
+        "lstm_cell_step fp32": ("jlm_tpu_torch/csrc/lstm_cell.cu",
+                                "jlm_tpu/ops/lstm_cell.py:38", "lstm_cell_step fp32"),
     }
+    launches.update({
+        "project_lse dsoftmax int8": launches5["project_lse"],
+        "project_lse dsoftmax bf16": mode_launches["bf16 dsoftmax"]["project_lse"],
+        "project_lse dequant bf16": mode_launches["dequant"]["project_lse"],
+        "project_lse fp32": mode_launches["fp32"]["project_lse"],
+        "project_lse dequant fp32": mode_launches["dequant fp32"]["project_lse"],
+        "lstm_cell_step fp32": mode_launches["fp32"]["lstm_cell_step"],
+    })
     kernels = []
     for name, (src, replaces, case) in sources.items():
         err, ms, plain_ms, lib_ms = measured[case]

@@ -22,14 +22,17 @@ returns to the host.  In speed mode the state ring caches are bf16.
 
 The LM forward (``forward_fn(params, words [S, B], (c, h) [L, S*B, H],
 payload) -> (cand_logp [S, B, C], eos_logp [S, B], state)``) is chosen by
-``BeamDecoder``'s ``precision``: ``make_full_softmax_forward`` is the fp32
-parity forward, ``make_kernel_forward`` the speed forward through the
-three hand-written kernels.  A forward may carry ``prepare(params, look_w
-[S, T1, C]) -> payload``, run once per chunk; every payload leaf is
-TIME-MAJOR (``[T1, S, ...]``) so a frame's slice is contiguous.
+``BeamDecoder``'s ``precision`` or passed as its ``forward_fn``:
+``make_full_softmax_forward`` is the fp32 parity forward,
+``make_kernel_forward`` the forward through the three hand-written kernels
+(bf16 speed mode, or fp32 compute), with a full or D-softmax head and bf16,
+fp32 or int8 weights (native int8 x int8 or dequant).  A forward may carry
+``prepare(params, look_w [S, T1, C]) -> payload``, run once per chunk;
+every payload leaf is TIME-MAJOR (``[T1, S, ...]``) so a frame's slice is
+contiguous.
 
 Not ported yet (ROADMAP.md): ``decode_long`` and its chain/seed/export
-variants, the D-softmax head, sharded forwards.
+variants, sharded forwards.
 """
 
 from __future__ import annotations
@@ -44,11 +47,11 @@ from jlm_tpu_torch.data.corpus import Vocab
 from jlm_tpu_torch.data.lexicon import Lexicon
 from jlm_tpu_torch.decoder.lattice import Lattice, build_lattice
 from jlm_tpu_torch.oracle.decoder import DecodeResult
-from jlm_tpu_torch.models.lstm import DSOFTMAX_TODO, _w, embed, step_logp
+from jlm_tpu_torch.models.lstm import _w, embed, step_logp
 from jlm_tpu_torch.models.params import params_to_torch, resolve_device
 from jlm_tpu_torch.ops.cand_dot import cand_dot
 from jlm_tpu_torch.ops.lstm_cell import lstm_cell_step
-from jlm_tpu_torch.ops.project import project_lse
+from jlm_tpu_torch.ops.project import head_blocks, project_lse
 
 ForwardFn = Callable[..., Tuple[torch.Tensor, torch.Tensor, Any]]
 
@@ -108,42 +111,70 @@ def make_full_softmax_forward(config: Config) -> ForwardFn:
 
 
 def build_decode_head(params, config: Config, compute_dtype=torch.float32):
-    """One-time decode-side head prep, stashed under ``params["_decode"]``:
+    """One-time decode-side head prep, stashed under ``params["_decode"]``
+    (counterpart of the reference's, engine.py:159-225):
 
     - ``head_T [V, H]``: every word's output column as a row, dequantized,
-      in ``compute_dtype`` — the candidate rows ``prepare`` gathers;
-    - ``bias [V]`` fp32;
+      in ``compute_dtype`` — the candidate rows ``prepare`` gathers.  A
+      D-softmax block's rows are zero-padded to H, on the right in prefix
+      mode and around the block's own columns in disjoint mode, and the
+      blocks' rows are concatenated in vocab order;
+    - ``bias [V]`` fp32 (the blocks' biases concatenated);
     - ``head_c``: the projection head for ``project_lse`` — int8 dicts pass
-      through, fp weights are cast to ``compute_dtype`` — plus ``"WT"``,
-      the ``[V, H]`` transposed weight the kernel reads (the int8 ``q``
-      transposed, or ``head_T`` itself for fp heads);
+      through, fp weights are cast to ``compute_dtype`` — plus, per block,
+      ``"WT"``, the ``[V_k, d_k]`` transposed weight the kernel reads (the
+      int8 ``q`` transposed, or the cast weight transposed; ``head_T``
+      itself for a full fp head);
     - ``lstm_c``: per layer the dequantized cell weight in ``compute_dtype``
       and its fp32 bias.
     """
     head = params["head"]
-    if "blocks" in head:
-        raise NotImplementedError(DSOFTMAX_TODO)
+    H = config.hidden_size
     lstm_c = [
         {"W": _w(layer["W"]).to(compute_dtype).contiguous(),
          "b": layer["b"].float().contiguous()}
         for layer in params["lstm"]
     ]
-    W = head["W"]
-    head_T = _w(W).t().to(compute_dtype).contiguous()
-    if isinstance(W, dict):
-        head_c = {"W": W, "b": head["b"], "WT": W["q"].t().contiguous()}
-    else:
-        head_c = {"W": W.to(compute_dtype), "b": head["b"], "WT": head_T}
-    return {"head_T": head_T, "bias": head["b"].float(), "head_c": head_c,
-            "lstm_c": lstm_c}
+
+    def cast(W):  # -> (head_c weight, its [V_k, d_k] transpose)
+        if isinstance(W, dict):
+            return W, W["q"].t().contiguous()
+        W = W.to(compute_dtype)
+        return W, W.t().contiguous()
+
+    if "blocks" not in head:
+        W = head["W"]
+        head_T = _w(W).t().to(compute_dtype).contiguous()
+        W_c, WT = cast(W) if isinstance(W, dict) else (W.to(compute_dtype), head_T)
+        return {"head_T": head_T, "bias": head["b"].float(),
+                "head_c": {"W": W_c, "b": head["b"], "WT": WT}, "lstm_c": lstm_c}
+    rows, blocks_c = [], []
+    for off, d, blk in head_blocks(head, config, H):
+        rows.append(torch.nn.functional.pad(_w(blk["W"]).float().t(), (off, H - off - d)))
+        W_c, WT = cast(blk["W"])
+        blocks_c.append({"W": W_c, "b": blk["b"], "WT": WT})
+    return {"head_T": torch.cat(rows).to(compute_dtype).contiguous(),
+            "bias": torch.cat([blk["b"].float() for blk in head["blocks"]]),
+            "head_c": {"blocks": blocks_c}, "lstm_c": lstm_c}
 
 
-def make_kernel_forward(config: Config, compute_dtype=torch.bfloat16) -> ForwardFn:
+def make_kernel_forward(config: Config, compute_dtype=torch.bfloat16,
+                        int8_mxu: Optional[bool] = None) -> ForwardFn:
     """Batched forward through the three kernels (counterpart of
-    ``make_pallas_forward``): fused cell per layer, the vocab-tiled
-    normalizer ``project_lse`` (int8 heads per ``config.int8_mxu``), and
-    ``cand_dot`` over candidate head rows pre-gathered once per chunk by
-    ``prepare`` (EOS as the last column)."""
+    ``make_pallas_forward``, engine.py:228-323): fused cell per layer, the
+    vocab-tiled normalizer ``project_lse`` (full or D-softmax head; int8
+    heads take the native int8 x int8 product when ``int8_mxu``, default
+    ``config.int8_mxu``, else the dequant product), and ``cand_dot`` over
+    candidate head rows pre-gathered once per chunk by ``prepare`` (EOS as
+    the last column).  ``compute_dtype`` is bf16 (speed mode: bf16 ring
+    caches and ``c'``) or fp32 (exact fp32 products, TF32 off: the parity
+    mode)."""
+    if compute_dtype == torch.float32:
+        _set_fp32_matmuls()
+    elif compute_dtype != torch.bfloat16:
+        raise ValueError(f"compute_dtype must be bf16 or fp32, not {compute_dtype}")
+    if int8_mxu is None:
+        int8_mxu = config.int8_mxu
 
     def prepare(params, look_w):
         """[S, T1, C] ids -> time-major cols [T1, S, C+1, H], bias [T1, S, C+1]."""
@@ -168,7 +199,7 @@ def make_kernel_forward(config: Config, compute_dtype=torch.bfloat16) -> Forward
             new_h.append(h_l)
             x = h_l
         lse = project_lse(x, dec["head_c"], config, compute_dtype=compute_dtype,
-                          int8_mxu=config.int8_mxu)  # [S*B, 1]
+                          int8_mxu=int8_mxu)  # [S*B, 1]
         raw = cand_dot(x.reshape(S, B, -1), payload["cols"], payload["bias"])
         logp = raw - lse.reshape(S, B, 1)
         return logp[:, :, :-1], logp[:, :, -1], (torch.stack(new_c), torch.stack(new_h))
@@ -348,10 +379,13 @@ def _decode_scan(params, packed: torch.Tensor, lengths: torch.Tensor, *,
 class BeamDecoder:
     """Host wrapper: lattice build + pack -> one device search -> surfaces.
 
-    ``device`` is required; asking for ``"cuda"`` without a GPU raises.
+    ``device`` defaults to the card; asking for ``"cuda"`` without a GPU
+    raises.  Without ``forward_fn``,
     ``precision="default"`` selects the kernel forward in bf16 (int8 heads
-    use the native int8 x int8 product); ``"highest"`` the fp32
-    full-softmax parity forward.
+    per ``config.int8_mxu``) and ``"highest"`` the fp32 full-softmax parity
+    forward.  A forward with a ``prepare`` hook (e.g.
+    ``make_kernel_forward(config, torch.float32)``) gets the decode-side
+    head prep in its ``compute_dtype``.
     """
 
     def __init__(
@@ -360,10 +394,11 @@ class BeamDecoder:
         lexicon: Lexicon,
         vocab: Vocab,
         config: Config,
+        forward_fn: Optional[ForwardFn] = None,
         precision: str = "highest",
         use_native: Optional[bool] = None,
         *,
-        device,
+        device="cuda",
     ):
         self.device = resolve_device(device)
         self.params = params_to_torch(params, self.device)
@@ -378,14 +413,17 @@ class BeamDecoder:
                 self._native = _native_mod.NativeLatticeBuilder(lexicon, config)
             elif use_native is True:
                 raise RuntimeError("native lattice builder requested but unavailable")
-        if precision == "default":
+        if forward_fn is not None:
+            self._fwd = forward_fn
+        elif precision == "default":
             self._fwd = make_kernel_forward(config, compute_dtype=torch.bfloat16)
-            self.params["_decode"] = build_decode_head(
-                self.params, config, self._fwd.compute_dtype)
         elif precision == "highest":
             self._fwd = make_full_softmax_forward(config)
         else:
             raise ValueError(f"precision must be 'default' or 'highest', not {precision!r}")
+        if getattr(self._fwd, "prepare", None) is not None and "_decode" not in self.params:
+            self.params["_decode"] = build_decode_head(
+                self.params, config, self._fwd.compute_dtype)
 
     @staticmethod
     def _bucket(n: int) -> int:

@@ -10,7 +10,9 @@ kernels of :mod:`jlm_tpu_torch.ops.lstm_scan`.  The math runs in the dtype
 of the parameters it is given; a caller that needs true fp32 on the card
 turns TF32 off (the engine's parity forward does).
 
-The decode engine does not take a D-softmax head yet (``DSOFTMAX_TODO``).
+The decode engine serves a D-softmax head through these functions (its
+fp32 parity forward) and through the kernel forward, whose decode-side
+head prep (``build_decode_head``) transposes the blocks.
 """
 
 from __future__ import annotations
@@ -24,9 +26,6 @@ from jlm_tpu_torch.config import Config
 from jlm_tpu_torch.ops.lstm_scan import lstm_scan
 
 State = Tuple[torch.Tensor, torch.Tensor]  # (c, h) each [L, B, H]
-
-DSOFTMAX_TODO = ("D-softmax decode head not ported yet "
-                 "(ROADMAP.md queue 1, D-softmax serving; queue 2, kernel 1)")
 
 
 def _w(leaf) -> torch.Tensor:

@@ -36,9 +36,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point -> argtypes; every entry returns a cudaError_t as int.
 _SIGNATURES = {
-    "jlm_project_ms": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _P],
-    "jlm_lstm_cell": [_P, _P, _P, _I, _P, _P, _P, _I, _P,
+    "jlm_project_block": [_P, _I, _I, _P, _I, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _P],
+    "jlm_project_merge": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "jlm_lstm_cell": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _I,
                       _I, _I, _I, ctypes.c_float, _P],
     "jlm_cand_dot": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
     "jlm_ce_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

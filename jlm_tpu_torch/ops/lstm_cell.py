@@ -7,8 +7,8 @@ step ``z = [x, h] @ W + b`` with gates i, j, f, o, fp32 accumulation, and
 returned in ``c_out_dtype`` (default fp32) and ``h'`` in ``compute_dtype``.
 
 On a CUDA tensor the wrapper launches ``csrc/lstm_cell.cu`` (bf16 compute
-only: an fp32 cell kernel is not ported yet) or raises; on a CPU tensor it
-runs the plain version.
+on the tensor cores, or exact fp32 compute on the CUDA cores) or raises;
+on a CPU tensor it runs the plain version.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ def lstm_cell_ref(x, h, c, W, b, forget_bias: float = 1.0):
 def _launch(x, h, c, W, b, forget_bias, c_out_dtype):
     R, E = x.shape
     H = h.shape[1]
+    f32 = x.dtype == torch.float32
     if c_out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"c_out_dtype {c_out_dtype}")
     if c.dtype not in (torch.float32, torch.bfloat16):
@@ -46,14 +47,14 @@ def _launch(x, h, c, W, b, forget_bias, c_out_dtype):
     if b.dtype != torch.float32:
         raise ValueError("b must be fp32")
     c_new = torch.empty((R, H), dtype=c_out_dtype, device=x.device)
-    h_new = torch.empty((R, H), dtype=torch.bfloat16, device=x.device)
+    h_new = torch.empty((R, H), dtype=x.dtype, device=x.device)
     if R:
         P = ctypes.c_void_p
         err = _build.lib().jlm_lstm_cell(
             P(x.data_ptr()), P(h.data_ptr()), P(c.data_ptr()),
             int(c.dtype == torch.float32), P(W.data_ptr()), P(b.data_ptr()),
             P(c_new.data_ptr()), int(c_out_dtype == torch.float32),
-            P(h_new.data_ptr()), R, E, H, float(forget_bias),
+            P(h_new.data_ptr()), int(f32), R, E, H, float(forget_bias),
             P(_build.stream_ptr(x)),
         )
         _build.check(err, "lstm_cell kernel")
@@ -79,10 +80,8 @@ def lstm_cell_step(
     c_out_dtype = torch.float32 if c_out_dtype is None else c_out_dtype
     x, h, W = x.to(compute_dtype), h.to(compute_dtype), W.to(compute_dtype)
     if x.is_cuda:
-        if compute_dtype != torch.bfloat16:
-            raise NotImplementedError(
-                f"lstm_cell kernel computes in bf16, not {compute_dtype} "
-                "(fp32 cell kernel: ROADMAP.md queue 2, kernel 2)")
+        if compute_dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"lstm_cell kernel computes in bf16 or fp32, not {compute_dtype}")
         return _launch(x.contiguous(), h.contiguous(), c, W.contiguous(), b,
                        forget_bias, c_out_dtype)
     c_new, h_new = lstm_cell_ref(x, h, c, W, b, forget_bias)

@@ -1,42 +1,55 @@
 """Output projection with online logsumexp — the decode frame's normalizer.
 
-Counterpart of :mod:`jlm_tpu.ops.project` (its ``_proj_kernel``, LSE-only,
-full head).  ``project_ms`` returns the per-row partial softmax statistics
-``(m, s)`` of ``logits = h @ W + b`` (``lse = m + log s``) and
-``project_lse`` the log-sum-exp itself; ``[R, V]`` logits never reach
-device memory on the card.
+Counterpart of :mod:`jlm_tpu.ops.project` (its ``_proj_kernel``, LSE-only).
+``project_ms`` returns the per-row partial softmax statistics ``(m, s)`` of
+``logits = h @ W + b`` (``lse = m + log s``) and ``project_lse`` the
+log-sum-exp itself; ``[R, V]`` logits never reach device memory on the
+card.
 
-Weight modes, as in the reference:
+Heads, as in the reference (project.py:424-440): a full head ``{"W",
+"b"}``, or a D-softmax head ``{"blocks": [{"W", "b"}, ...]}`` whose block k
+projects ``h[:, :d_k]`` (prefix mode) or its own disjoint slice of ``h``
+(``config.dsoftmax``); the blocks' ``(m, s)`` merge as ``m_g = max_k m_k``,
+``s_g = sum_k s_k * exp(m_k - m_g)``.
 
-- fp32 weights (plain version only; the card has no fp32 kernel yet);
+Weight modes, per block:
+
+- fp32 weights (``compute_dtype=torch.float32``: exact fp32 products);
 - bf16 weights with fp32 accumulation;
 - int8 ``{"q", "scale"}`` weights with ``int8_mxu=True``: activations are
-  quantized per row (``s = max(max|h|, 1e-30) / 127``, round half to even)
-  and the product is int8 x int8 -> int32, rescaled by row and column
-  scale.  The in-kernel int8 *dequant* mode (``int8_mxu=False``), candidate
-  extraction and the D-softmax head are not ported yet (ROADMAP.md).
+  quantized per row over the block's own slice (``s = max(max|h|, 1e-30)
+  / 127``, round half to even) and the product is int8 x int8 -> int32,
+  rescaled by row and column scale;
+- int8 weights with ``int8_mxu=False`` (dequant): ``w = (q * scale)``
+  rounded once to ``compute_dtype`` before the product, fp32 accumulation.
 
-On a CUDA tensor the wrapper launches ``csrc/project_lse.cu`` or raises;
-on a CPU tensor it runs the plain version.  ``head`` may carry ``"WT"``, the
-``[V, H]`` transposed weight the kernel reads (``build_decode_head`` makes
-it once); without it the wrapper transposes per call.
+Candidate extraction (``project_candidates*``) is not ported (ROADMAP.md).
+
+On a CUDA tensor the wrapper launches ``csrc/project_lse.cu`` — one launch
+per block and one merge — or raises; on a CPU tensor it runs the plain
+version.  A block may carry ``"WT"``, the ``[V_k, d_k]`` transposed weight
+the kernel reads (``build_decode_head`` makes it once); without it the
+wrapper transposes per call.  A head whose every block carries ``"WT"`` is
+checked once and its plan kept under ``"_plan"`` (see ``_block_plan``):
+replace such a head's tensors only through ``build_decode_head``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from jlm_tpu_torch.config import Config
-from jlm_tpu_torch.models.lstm import DSOFTMAX_TODO
 from jlm_tpu_torch.ops import _build
 
-# Rows per block and vocab columns per tile of the kernel (project_lse.cu).
-_TR, _TV = 128, 64
-DEQUANT_TODO = ("int8 dequant head (int8_mxu=False) not ported yet "
-                "(ROADMAP.md queue 2, kernel 1)")
+# Kernel weight modes (project_lse.cu's ``Mode``); the rows per block of
+# each mode's kernel, and the vocab columns per tile of both kernels.
+BF16, INT8_MXU, DEQUANT_BF16, FP32, DEQUANT_FP32 = range(5)
+_ROWS = {BF16: 128, INT8_MXU: 128, DEQUANT_BF16: 128, FP32: 64, DEQUANT_FP32: 64}
+_TV = 64
 
 
 def quantize_rows(h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -52,115 +65,179 @@ def quantize_rows(h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.round(hf / s).to(torch.int8), s
 
 
-def _split_head(head: Dict[str, Any]):
-    if "blocks" in head:
-        raise NotImplementedError(DSOFTMAX_TODO)
-    W = head["W"]
+def head_blocks(head: Dict[str, Any], config: Optional[Config],
+                H: int) -> List[Tuple[int, int, Dict[str, Any]]]:
+    """``(first column, width, block)`` of each block of ``head`` over an
+    ``[R, H]`` activation; a full head is one block of width ``H``."""
+    if "blocks" not in head:
+        return [(0, H, head)]
+    if config is None or config.dsoftmax is None:
+        raise ValueError("a D-softmax head needs config.dsoftmax")
+    ds = config.dsoftmax
+    out, offset = [], 0
+    for blk, d in zip(head["blocks"], ds.block_dims):
+        out.append((0 if ds.mode == "prefix" else offset, d, blk))
+        if ds.mode == "disjoint":
+            offset += d
+    return out
+
+
+def _split_block(blk: Dict[str, Any]):
+    W = blk["W"]
     if isinstance(W, dict):
-        return W["q"], W["scale"], head["b"]
-    return W, None, head["b"]
+        return W["q"], W["scale"], blk["b"]
+    return W, None, blk["b"]
+
+
+def merge_ms(ms, ss) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge per-block partials: ``m_g = max m_k``, ``s_g = sum s_k e^(m_k - m_g)``."""
+    if len(ms) == 1:
+        return ms[0], ss[0]
+    m_all, s_all = torch.cat(ms, dim=1), torch.cat(ss, dim=1)
+    m_g = m_all.amax(dim=1, keepdim=True)
+    return m_g, (s_all * torch.exp(m_all - m_g)).sum(dim=1, keepdim=True)
 
 
 def _logits_ref(h, W, scale, bias, compute_dtype, int8_mxu) -> torch.Tensor:
     h = h.to(compute_dtype)
-    if scale is not None:
-        if not int8_mxu:
-            raise NotImplementedError(DEQUANT_TODO)
+    if scale is not None and int8_mxu:
         q, s = quantize_rows(h)
         # int8 @ int8 in torch returns int8 (wraps), so multiply as fp32:
         # every partial sum is an integer below 2**24 for H <= 1040, exact.
         acc = q.float() @ W.float()
         return acc * s * scale.float()[None, :] + bias.float()[None, :]
+    if scale is not None:  # dequant before the product, rounded once
+        W = W.float() * scale.float()[None, :]
     return h.float() @ W.to(compute_dtype).float() + bias.float()[None, :]
 
 
-def project_ms_ref(h, W, scale, bias, *, compute_dtype=torch.float32,
-                   int8_mxu: bool = False):
-    """Plain version: ``(m, s)`` each ``[R, 1]`` from full logits."""
-    logits = _logits_ref(h, W, scale, bias, compute_dtype, int8_mxu)
-    m = logits.amax(dim=1, keepdim=True)
-    return m, torch.exp(logits - m).sum(dim=1, keepdim=True)
+def project_ms_ref(h, head, config: Optional[Config] = None, *,
+                   compute_dtype=torch.float32, int8_mxu: bool = False):
+    """Plain version: ``(m, s)`` each ``[R, 1]`` from each block's full
+    logits (on the block's slice of ``h``), merged."""
+    ms, ss = [], []
+    for off, d, blk in head_blocks(head, config, h.shape[1]):
+        logits = _logits_ref(h[:, off:off + d], *_split_block(blk), compute_dtype, int8_mxu)
+        m = logits.amax(dim=1, keepdim=True)
+        ms.append(m)
+        ss.append(torch.exp(logits - m).sum(dim=1, keepdim=True))
+    return merge_ms(ms, ss)
 
 
-def project_lse_ref(h, W, scale, bias, *, compute_dtype=torch.float32,
-                    int8_mxu: bool = False) -> torch.Tensor:
+def project_lse_ref(h, head, config: Optional[Config] = None, *,
+                    compute_dtype=torch.float32, int8_mxu: bool = False) -> torch.Tensor:
     """Plain version of :func:`project_lse`: ``[R, 1]``."""
-    m, s = project_ms_ref(h, W, scale, bias, compute_dtype=compute_dtype,
+    m, s = project_ms_ref(h, head, config, compute_dtype=compute_dtype,
                           int8_mxu=int8_mxu)
     return m + torch.log(s)
 
 
-def _launch(h, head, compute_dtype, int8_mxu, want_lse: bool):
-    W, scale, bias = _split_head(head)
-    R, H = h.shape
-    V = bias.shape[0]
-    quantized = scale is not None
+def _mode(quantized: bool, compute_dtype, int8_mxu: bool) -> int:
+    if quantized and int8_mxu:
+        return INT8_MXU
+    if compute_dtype == torch.bfloat16:
+        return DEQUANT_BF16 if quantized else BF16
+    return DEQUANT_FP32 if quantized else FP32
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _block_plan(head, config, H, device, compute_dtype, int8_mxu):
+    """Per block ``(first column, width, W^T, mode, scale, bias, V)``, each
+    tensor checked against what the kernel reads.  A head whose every block
+    carries ``"WT"`` (as ``build_decode_head`` makes it) keeps its plan
+    under ``"_plan"``, so a decode checks it once, not on every frame."""
+    key = (H, device, compute_dtype, int8_mxu)
+    cached = head.get("_plan")
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    blocks, plan = head_blocks(head, config, H), []
+    for off, d, blk in blocks:
+        W, scale, bias = _split_block(blk)
+        V = bias.shape[0]
+        quantized = scale is not None
+        wt = blk.get("WT")
+        if wt is None:
+            wt = (W if quantized else W.to(compute_dtype)).t().contiguous()
+        want_w = torch.int8 if quantized else compute_dtype
+        for name, t in (("W^T", wt), ("bias", bias)) + (
+                (("scale", scale),) if quantized else ()):
+            if t.device != device or not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous on {device}")
+        if wt.dtype != want_w or tuple(wt.shape) != (V, d):
+            raise ValueError(f"W^T must be {want_w} [{V}, {d}], got "
+                             f"{wt.dtype} {tuple(wt.shape)}")
+        if bias.dtype != torch.float32 or (quantized and scale.dtype != torch.float32):
+            raise ValueError("bias and scale must be fp32")
+        if d % 32 or off % 32 or off + d > H:
+            raise ValueError(f"block columns [{off}, {off + d}) of {H}: width and "
+                             "offset must be multiples of 32")
+        plan.append((off, d, wt, _mode(quantized, compute_dtype, int8_mxu), scale, bias, V))
+    if all("WT" in blk for _, _, blk in blocks):
+        head["_plan"] = (key, plan)
+    return plan
+
+
+def _launch(h, head, config, compute_dtype, int8_mxu, want_lse: bool):
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"compute_dtype {compute_dtype}")
-    if quantized and not int8_mxu:
-        raise NotImplementedError(DEQUANT_TODO)
-    if not quantized and compute_dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"project kernel takes bf16 or int8 weights, not {compute_dtype} "
-            "(fp32 head kernel: ROADMAP.md queue 2, kernel 1)")
-    wt = head.get("WT")
-    if wt is None:
-        wt = (W if quantized else W.to(compute_dtype)).t().contiguous()
-    h = h.to(compute_dtype).contiguous()
-    want_w = torch.int8 if quantized else torch.bfloat16
-    for name, t in (("W^T", wt), ("bias", bias)) + (
-            (("scale", scale),) if quantized else ()):
-        if t.device != h.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {h.device}")
-    if wt.dtype != want_w or tuple(wt.shape) != (V, H):
-        raise ValueError(f"W^T must be {want_w} [{V}, {H}], got "
-                         f"{wt.dtype} {tuple(wt.shape)}")
-    if bias.dtype != torch.float32 or (quantized and scale.dtype != torch.float32):
-        raise ValueError("bias and scale must be fp32")
+    R, H = h.shape
     if H % 32:
         raise ValueError(f"hidden size {H} must be a multiple of 32")
+    h = h.to(compute_dtype).contiguous()
+    sms = _sm_count(h.device.index)
+    plans, total = [], 0
+    for off, d, wt, mode, scale, bias, V in _block_plan(head, config, H, h.device,
+                                                        compute_dtype, int8_mxu):
+        n_tiles, row_blocks = -(-V // _TV), -(-R // _ROWS[mode])
+        splits = min(n_tiles, max(1, -(-8 * sms // max(row_blocks, 1))))
+        per_split = -(-n_tiles // splits)
+        splits = -(-n_tiles // per_split)
+        plans.append((off, d, wt, mode, scale, bias, V, splits, per_split))
+        total += splits
 
-    if R == 0:
-        empty = torch.empty((0, 1), dtype=torch.float32, device=h.device)
-        return empty, empty, empty
-    n_tiles = -(-V // _TV)
-    row_blocks = -(-R // _TR)
-    sms = torch.cuda.get_device_properties(h.device).multi_processor_count
-    splits = min(n_tiles, max(1, -(-8 * sms // row_blocks)))
-    per_split = -(-n_tiles // splits)
-    splits = -(-n_tiles // per_split)
-    part = torch.empty((2, splits, R), dtype=torch.float32, device=h.device)
     def col():
         return torch.empty((R, 1), dtype=torch.float32, device=h.device)
 
+    if R == 0:
+        return col(), col(), col()
     outs = (None, None, col()) if want_lse else (col(), col(), None)
+    part = torch.empty((2, total, R), dtype=torch.float32, device=h.device)
     P = ctypes.c_void_p
     ptr = lambda t: P(t.data_ptr()) if t is not None else P(None)  # noqa: E731
-    err = _build.lib().jlm_project_ms(
-        ptr(h), int(h.dtype == torch.bfloat16), ptr(wt), int(quantized),
-        ptr(scale), ptr(bias), ptr(part[0]), ptr(part[1]),
-        ptr(outs[0]), ptr(outs[1]), ptr(outs[2]),
-        R, H, V, splits, per_split, P(_build.stream_ptr(h)),
-    )
-    _build.check(err, "project_lse kernel")
-    project_lse.launches += 1
+    stream = P(_build.stream_ptr(h))
+    lib, base = _build.lib(), 0
+    for off, d, wt, mode, scale, bias, V, splits, per_split in plans:
+        err = lib.jlm_project_block(
+            P(h.data_ptr() + off * h.element_size()), H, int(h.dtype == torch.bfloat16),
+            ptr(wt), mode, ptr(scale), ptr(bias), ptr(part[0, base]), ptr(part[1, base]),
+            R, d, V, splits, per_split, stream,
+        )
+        _build.check(err, "project_lse kernel")
+        project_lse.launches += 1
+        base += splits
+    err = lib.jlm_project_merge(ptr(part[0]), ptr(part[1]), ptr(outs[0]), ptr(outs[1]),
+                                ptr(outs[2]), R, total, stream)
+    _build.check(err, "project_lse merge kernel")
     return outs
 
 
 def project_ms(
     h: torch.Tensor,  # [R, H]
-    head: Dict[str, Any],  # {"W", "b"[, "WT"]}; W may be an int8 quant dict
-    config: Optional[Config] = None,
+    head: Dict[str, Any],  # {"W", "b"[, "WT"]} | {"blocks": [...]}; W may be int8
+    config: Optional[Config] = None,  # config.dsoftmax for a D-softmax head
     *,
     compute_dtype=torch.float32,
     int8_mxu: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row partial softmax statistics ``(m, s)``, each ``[R, 1]``."""
     if h.is_cuda:
-        m, s, _ = _launch(h, head, compute_dtype, int8_mxu, want_lse=False)
+        m, s, _ = _launch(h, head, config, compute_dtype, int8_mxu, want_lse=False)
         return m, s
-    W, scale, bias = _split_head(head)
-    return project_ms_ref(h, W, scale, bias, compute_dtype=compute_dtype,
+    return project_ms_ref(h, head, config, compute_dtype=compute_dtype,
                           int8_mxu=int8_mxu)
 
 
@@ -174,12 +251,12 @@ def project_lse(
 ) -> torch.Tensor:
     """Per-row log-sum-exp of the full output projection: ``[R, 1]``.
 
-    ``project_lse.launches`` counts kernel launches from either wrapper.
+    ``project_lse.launches`` counts kernel launches from either wrapper:
+    one per block of the head (the merge launch is not counted).
     """
     if h.is_cuda:
-        return _launch(h, head, compute_dtype, int8_mxu, want_lse=True)[2]
-    W, scale, bias = _split_head(head)
-    return project_lse_ref(h, W, scale, bias, compute_dtype=compute_dtype,
+        return _launch(h, head, config, compute_dtype, int8_mxu, want_lse=True)[2]
+    return project_lse_ref(h, head, config, compute_dtype=compute_dtype,
                            int8_mxu=int8_mxu)
 
 

@@ -71,9 +71,10 @@ class Trainer:
     """Trains the LSTM LM on one device.
 
     ``params`` is a parameter pytree (numpy or torch leaves; copied), by
-    default ``init_params(config)``."""
+    default ``init_params(config)``.  ``device`` defaults to the card
+    (``"cuda"`` without a GPU raises)."""
 
-    def __init__(self, config: Config, params: Optional[Any] = None, *, device):
+    def __init__(self, config: Config, params: Optional[Any] = None, *, device="cuda"):
         self.config = config
         self.device = resolve_device(device)
         params = init_params(config) if params is None else params
@@ -195,7 +196,7 @@ class Trainer:
 
 def train_lm(config: Config, train_ids: np.ndarray, dev_ids: np.ndarray,
              exp_dir: Optional[str] = None, log: bool = True, resume: bool = False,
-             save_every: int = 1, *, device) -> Tuple[Any, List[Dict[str, float]]]:
+             save_every: int = 1, *, device="cuda") -> Tuple[Any, List[Dict[str, float]]]:
     """Full training run; returns ``(params, per-epoch history)``.
 
     ``resume=True`` restores params, optimizer state and epoch from

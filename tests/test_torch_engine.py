@@ -224,13 +224,18 @@ def test_native_and_python_builders_agree(tiny_params, tiny_config, lexicon, voc
 
 
 def test_unported_paths_raise(engine, tiny_config, lexicon, vocab):
-    """decode_long (over-length input) and the D-softmax head are not
-    ported yet: both raise NotImplementedError."""
+    """decode_long (over-length input) is not ported yet and raises
+    NotImplementedError; the D-softmax head, which this test once saw
+    refused too, is served by the kernel forward: top-1 equals the oracle's
+    with the score within the bf16 speed mode's 0.1."""
     with pytest.raises(NotImplementedError):
         engine.decode("あ" * (tiny_config.max_kana_len + 1))
     cfg = Config(vocab_size=256, embed_size=32, hidden_size=64, head="dsoftmax",
                  dsoftmax=DSoftmaxConfig(block_sizes=(64, 192), block_dims=(64, 32)),
                  max_kana_len=30, seed=42)
-    with pytest.raises(NotImplementedError):
-        BeamDecoder(init_params(cfg), lexicon, vocab, cfg, precision="default",
-                    device="cpu")
+    params = init_params(cfg)
+    eng = BeamDecoder(params, lexicon, vocab, cfg, precision="default", device="cpu")
+    r_t = eng.decode("きょうはいい")[0]
+    r_o = OracleDecoder(OracleLM(params, cfg), lexicon, vocab, cfg).decode("きょうはいい")[0]
+    assert r_t.segments == r_o.segments
+    assert abs(r_t.score - r_o.score) < 0.1

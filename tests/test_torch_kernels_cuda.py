@@ -13,7 +13,8 @@ import torch
 from jlm_tpu_torch.ops.quant import quantize_weight
 from jlm_tpu_torch.ops.cand_dot import cand_dot, cand_dot_ref
 from jlm_tpu_torch.ops.lstm_cell import lstm_cell_ref, lstm_cell_step
-from jlm_tpu_torch.ops.project import project_lse, project_lse_ref, project_ms
+from jlm_tpu_torch.ops.project import (
+    head_blocks, project_lse, project_lse_ref, project_ms, quantize_rows)
 
 
 @pytest.fixture
@@ -52,11 +53,126 @@ def test_project_kernel_vs_plain(cuda, mode):
     n0 = project_lse.launches
     got = project_lse(h_t, head, None, compute_dtype=act, int8_mxu=True)
     assert project_lse.launches == n0 + 1
-    ref = project_lse_ref(h_t, W, scale, b_t, compute_dtype=act, int8_mxu=True)
+    ref = project_lse_ref(h_t, head, compute_dtype=act, int8_mxu=True)
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=1e-4)
     m, s = project_ms(h_t, head, None, compute_dtype=act, int8_mxu=True)
     assert project_lse.launches == n0 + 2
     np.testing.assert_allclose((m + torch.log(s)).cpu().numpy(), got.cpu().numpy(), atol=1e-6)
+
+
+# (compute dtype, quantized, int8_mxu, bound): the kernel's weight modes
+_BLOCK_MODES = {
+    "bf16": (torch.bfloat16, False, False, 1e-4),
+    "int8_mxu": (torch.bfloat16, True, True, 1e-4),
+    "int8_dequant_bf16": (torch.bfloat16, True, False, 1e-4),
+    "fp32": (torch.float32, False, False, 1e-4),
+    "int8_dequant_fp32": (torch.float32, True, False, 1e-4),
+}
+
+
+def _tf32(x):
+    """``x`` rounded to TF32's 10-bit mantissa (to nearest, ties to even)."""
+    i = x.float().contiguous().view(torch.int32)
+    return ((i + 0x0FFF + ((i >> 13) & 1)) & ~0x1FFF).view(torch.float32)
+
+
+def _wrong_lse(weights, h, head, cfg):
+    """The plain version with the fault that the mode's bound must catch,
+    or None: fp32 operands (the weights dequantized first) rounded to TF32;
+    the bf16 dequant's exact int8 product rescaled after it instead of
+    ``q * scale`` rounded to bf16 before it; the int8-MXU row scale taken
+    over all H instead of each block's slice."""
+    blocks = head_blocks(head, cfg, h.shape[1])
+
+    def lse(logits):  # logits(h slice, block) -> [R, V_k]; merged over blocks
+        parts = [torch.logsumexp(logits(h[:, off:off + d], blk) + blk["b"][None, :], 1,
+                                 keepdim=True) for off, d, blk in blocks]
+        return torch.logsumexp(torch.cat(parts, 1), 1, keepdim=True)
+
+    def dequant(W):
+        return W["q"].float() * W["scale"][None, :] if isinstance(W, dict) else W
+
+    if weights in ("fp32", "int8_dequant_fp32"):
+        return lse(lambda hs, blk: _tf32(hs) @ _tf32(dequant(blk["W"])))
+    if weights == "int8_dequant_bf16":
+        return lse(lambda hs, blk: hs.float() @ blk["W"]["q"].float()
+                   * blk["W"]["scale"][None, :])
+    if weights == "int8_mxu" and len(blocks) > 1:
+        _, s = quantize_rows(h)
+        return lse(lambda hs, blk: torch.round(hs.float() / s) @ blk["W"]["q"].float()
+                   * s * blk["W"]["scale"][None, :])
+    return None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", list(_BLOCK_MODES))
+@pytest.mark.parametrize("mode", ["full", "prefix", "disjoint"])
+def test_project_kernel_modes_vs_plain(cuda, mode, weights):
+    """Every weight mode on a full head and on D-softmax heads (one launch
+    per block on its slice of h, read in place; one merge) vs the plain
+    version on the card: 300 rows, ragged blocks.  The largest |h| of each
+    row lies outside the narrower blocks' prefixes, so an int8-MXU row
+    scale taken over all H would miss.  Weights of scale 0.5 make the
+    softmax peaked, so that the lse moves with the rounding of its largest
+    logits instead of averaging it away.  Bound 1e-4 (fp32 sums in another
+    order; the same bf16 or int8 roundings on both sides); the plain
+    version with the mode's likely fault (``_wrong_lse``) must read above
+    it."""
+    from jlm_tpu_torch.config import Config, DSoftmaxConfig
+
+    cd, quantized, int8_mxu, bound = _BLOCK_MODES[weights]
+    rng = np.random.default_rng(15)
+    H, sizes = 256, (1000, 2000, 3001)
+    dims = {"full": (H,), "prefix": (256, 128, 64), "disjoint": (128, 64, 64)}[mode]
+    if mode == "full":
+        sizes = (6001,)
+    cfg = Config(vocab_size=sum(sizes), hidden_size=H, head="dsoftmax",
+                 dsoftmax=DSoftmaxConfig(block_sizes=sizes, block_dims=dims,
+                                         mode="disjoint" if mode == "disjoint" else "prefix"))
+    h = rng.normal(size=(300, H)).astype(np.float32)
+    h[:, 200] = 9.0
+    blocks = []
+    for n, d in zip(sizes, dims):
+        w = rng.normal(size=(d, n)).astype(np.float32) * 0.5
+        b = torch.from_numpy(rng.normal(size=n).astype(np.float32) * 0.01).to(cuda)
+        if quantized:
+            q = quantize_weight(w, axis=0)
+            W = {"q": torch.from_numpy(q["q"]).to(cuda),
+                 "scale": torch.from_numpy(q["scale"]).to(cuda)}
+        else:
+            W = torch.from_numpy(w).to(cuda).to(cd)
+        blocks.append({"W": W, "b": b})
+    head = blocks[0] if mode == "full" else {"blocks": blocks}
+    h_t = torch.from_numpy(h).to(cuda).to(cd)
+    n0 = project_lse.launches
+    got = project_lse(h_t, head, cfg, compute_dtype=cd, int8_mxu=int8_mxu)
+    assert project_lse.launches == n0 + len(blocks)
+    ref = project_lse_ref(h_t, head, cfg, compute_dtype=cd, int8_mxu=int8_mxu)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=bound)
+    wrong = _wrong_lse(weights, h_t, head, cfg)
+    if wrong is not None:
+        assert float((wrong - ref).abs().max()) > bound
+
+
+@pytest.mark.cuda
+def test_lstm_cell_fp32_kernel_vs_plain(cuda):
+    """fp32 compute (exact fp32 FMAs): c' and h' fp32 within 1e-5 of the
+    plain version (sum order only), c read as fp32 or bf16."""
+    rng = np.random.default_rng(9)
+    R, E, H = 300, 64, 96
+
+    def t(*shape, scale=0.3):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32) * scale).to(cuda)
+
+    x, h, c, W, b = t(R, E), t(R, H), t(R, H), t(E + H, 4 * H, scale=0.1), t(4 * H, scale=0.01)
+    for c_in in (c, c.to(torch.bfloat16)):
+        n0 = lstm_cell_step.launches
+        c_k, h_k = lstm_cell_step(x, h, c_in, W, b, 1.0)
+        assert lstm_cell_step.launches == n0 + 1
+        assert c_k.dtype == h_k.dtype == torch.float32
+        c_r, h_r = lstm_cell_ref(x, h, c_in, W, b, 1.0)
+        np.testing.assert_allclose(c_k.cpu().numpy(), c_r.cpu().numpy(), atol=1e-5)
+        np.testing.assert_allclose(h_k.cpu().numpy(), h_r.cpu().numpy(), atol=1e-5)
 
 
 @pytest.mark.cuda

@@ -44,14 +44,29 @@ def test_step_logp_matches_jax(quantized):
 
 
 def test_dsoftmax_head_raises():
-    """The D-softmax head is not ported to the decode path yet: building
-    its decode head raises (head_logits takes it; tests/test_torch_train.py
-    holds that to JAX)."""
+    """The D-softmax decode head this test once saw refused is built now:
+    ``build_decode_head`` on a blocks head, prefix and disjoint, fp32 and
+    int8, equals JAX's ``head_T`` and ``bias`` bit for bit in fp32; the
+    projection head keeps each block's weight (int8 dicts pass through)
+    with its ``[s_k, d_k]`` transpose ``WT``.  (``head_logits`` takes the
+    head too; tests/test_torch_train.py holds that to JAX.)"""
+    from jlm_tpu.decoder.engine import build_decode_head as jax_head
     from jlm_tpu_torch.decoder.engine import build_decode_head
 
-    cfg = Config(vocab_size=256, embed_size=32, hidden_size=64, head="dsoftmax",
-                 dsoftmax=DSoftmaxConfig(block_sizes=(64, 192), block_dims=(64, 32)), seed=5)
-    tparams = params_to_torch(init_params(cfg), "cpu")
-    with pytest.raises(NotImplementedError, match="D-softmax"):
-        build_decode_head(tparams, cfg)
-    assert torch_lstm.head_logits(tparams, cfg, torch.zeros(2, 64)).shape == (2, 256)
+    for mode, dims in (("prefix", (64, 32)), ("disjoint", (32, 32))):
+        cfg = Config(vocab_size=256, embed_size=32, hidden_size=64, head="dsoftmax",
+                     dsoftmax=DSoftmaxConfig(block_sizes=(64, 192), block_dims=dims,
+                                             mode=mode), seed=5)
+        for params in (init_params(cfg), quantize_params(init_params(cfg))):
+            tparams = params_to_torch(params, "cpu")
+            got = build_decode_head(tparams, cfg)
+            want = jax_head(params, cfg, jnp.float32)
+            np.testing.assert_array_equal(got["head_T"].numpy(), np.asarray(want["head_T"]))
+            np.testing.assert_array_equal(got["bias"].numpy(), np.asarray(want["bias"]))
+            for blk, src, d in zip(got["head_c"]["blocks"], tparams["head"]["blocks"], dims):
+                W = src["W"]
+                q = W["q"] if isinstance(W, dict) else W
+                assert blk["W"] is W if isinstance(W, dict) else torch.equal(blk["W"], W)
+                assert blk["WT"].shape == (q.shape[1], d) and blk["WT"].is_contiguous()
+                assert torch.equal(blk["WT"], q.t())
+            assert torch_lstm.head_logits(tparams, cfg, torch.zeros(2, 64)).shape == (2, 256)

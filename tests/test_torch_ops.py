@@ -11,11 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from jlm_tpu.config import Config
+from jlm_tpu.config import Config, DSoftmaxConfig
 from jlm_tpu.ops.quant import quantize_weight
 from jlm_tpu_torch.ops.cand_dot import cand_dot
 from jlm_tpu_torch.ops.lstm_cell import lstm_cell_step
-from jlm_tpu_torch.ops.project import project_lse, project_ms, quantize_rows
+from jlm_tpu_torch.ops.project import merge_ms, project_lse, project_ms, quantize_rows
 
 DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -168,12 +168,146 @@ def test_cpu_wrappers_do_not_count_launches():
 
 
 def test_unported_modes_raise():
-    """int8 dequant mode and the D-softmax head are not ported: both raise."""
+    """The two modes this test once saw refused now run: the int8 dequant
+    mode (``int8_mxu=False``) equals JAX's exact-dequant kernel (1e-5: the
+    dequantized weight and the fp32 product are the same on both sides),
+    and a D-softmax head of one full-width block equals the full head."""
+    from jlm_tpu.ops.project import project_lse as jax_lse
+
     h, w, b, cfg = _lse_case()
     q = quantize_weight(w, axis=0)
     head = {"W": {"q": torch.from_numpy(q["q"]), "scale": torch.from_numpy(q["scale"])},
             "b": torch.from_numpy(b)}
-    with pytest.raises(NotImplementedError):
-        project_lse(torch.from_numpy(h), head, cfg, int8_mxu=False)
-    with pytest.raises(NotImplementedError):
-        project_lse(torch.from_numpy(h), {"blocks": []}, cfg)
+    lse_t = project_lse(torch.from_numpy(h), head, cfg, int8_mxu=False)
+    head_j = {"W": {"q": jnp.asarray(q["q"]), "scale": jnp.asarray(q["scale"])},
+              "b": jnp.asarray(b)}
+    lse_j = jax_lse(jnp.asarray(h), head_j, cfg, tile_v=512, interpret=True)
+    np.testing.assert_allclose(_np(lse_t), _np(lse_j), atol=1e-5)
+    one = cfg.replace(head="dsoftmax", dsoftmax=DSoftmaxConfig(
+        block_sizes=(cfg.vocab_size,), block_dims=(cfg.hidden_size,)))
+    lse_b = project_lse(torch.from_numpy(h), {"blocks": [head]}, one, int8_mxu=False)
+    np.testing.assert_array_equal(_np(lse_b), _np(lse_t))
+
+
+# D-softmax heads at a TINY size: V = 600 over blocks of 100, 200 and 300
+# words (ragged against the JAX kernel's 128-column tiles), H = 128.
+_BLOCK_SIZES = (100, 200, 300)
+_BLOCK_DIMS = {"prefix": (128, 64, 32), "disjoint": (64, 32, 32)}
+# weight x compute: (JAX compute dtype, port compute dtype, quantized,
+# int8_mxu, tolerance).  fp32: sum order only; bf16: both sides round the
+# same bf16 operands, fp32 sums (the stated 1e-3); int8: exact int32
+# products or one rounding of q * scale, fp32 sums.
+_BLOCK_MODES = {
+    "fp32": (jnp.float32, torch.float32, False, False, 1e-5),
+    "bf16": (jnp.bfloat16, torch.bfloat16, False, False, 1e-3),
+    "int8_mxu": (jnp.bfloat16, torch.bfloat16, True, True, 1e-4),
+    "int8_dequant": (jnp.float32, torch.float32, True, False, 1e-4),
+}
+
+
+def _blocks_case(mode, seed=21, R=8):
+    rng = np.random.default_rng(seed)
+    dims = _BLOCK_DIMS[mode]
+    H = 128
+    cfg = Config(vocab_size=sum(_BLOCK_SIZES), embed_size=64, hidden_size=H,
+                 head="dsoftmax", dsoftmax=DSoftmaxConfig(
+                     block_sizes=_BLOCK_SIZES, block_dims=dims, mode=mode))
+    h = rng.normal(size=(R, H)).astype(np.float32)
+    blocks = [(rng.normal(size=(d, n)).astype(np.float32) * 0.05,
+               rng.normal(size=(n,)).astype(np.float32) * 0.01)
+              for n, d in zip(_BLOCK_SIZES, dims)]
+    return h, blocks, cfg
+
+
+def _heads(blocks, quantized, jd, td):
+    """(JAX head, port head) of the same blocks; fp weights cast to the
+    compute dtype on both sides, as build_decode_head does."""
+    head_j, head_t = [], []
+    for w, b in blocks:
+        if quantized:
+            q = quantize_weight(w, axis=0)
+            head_j.append({"W": {"q": jnp.asarray(q["q"]), "scale": jnp.asarray(q["scale"])},
+                           "b": jnp.asarray(b)})
+            head_t.append({"W": {"q": torch.from_numpy(q["q"]),
+                                 "scale": torch.from_numpy(q["scale"])},
+                           "b": torch.from_numpy(b)})
+        else:
+            head_j.append({"W": jnp.asarray(w, jd), "b": jnp.asarray(b)})
+            head_t.append({"W": torch.from_numpy(w).to(td), "b": torch.from_numpy(b)})
+    return {"blocks": head_j}, {"blocks": head_t}
+
+
+@pytest.mark.parametrize("weights", list(_BLOCK_MODES))
+@pytest.mark.parametrize("mode", ["prefix", "disjoint"])
+def test_project_lse_blocks_matches_jax(mode, weights):
+    """A D-softmax head (one call per block on its slice of h, partials
+    merged) vs jlm_tpu.ops.project.project_lse in interpret mode, for each
+    weight mode; project_ms merges to the same lse."""
+    from jlm_tpu.ops.project import project_lse as jax_lse
+
+    jd, td, quantized, int8_mxu, tol = _BLOCK_MODES[weights]
+    h, blocks, cfg = _blocks_case(mode)
+    head_j, head_t = _heads(blocks, quantized, jd, td)
+    lse_j = jax_lse(jnp.asarray(h), head_j, cfg, tile_v=128, compute_dtype=jd,
+                    interpret=True, int8_mxu=int8_mxu)
+    lse_t = project_lse(torch.from_numpy(h), head_t, cfg, compute_dtype=td,
+                        int8_mxu=int8_mxu)
+    assert lse_t.shape == (8, 1)
+    np.testing.assert_allclose(_np(lse_t), _np(lse_j), atol=tol)
+    m, s = project_ms(torch.from_numpy(h), head_t, cfg, compute_dtype=td,
+                      int8_mxu=int8_mxu)
+    np.testing.assert_allclose(_np(m + torch.log(s)), _np(lse_t), atol=1e-6)
+
+
+def test_int8_activation_scale_is_per_slice():
+    """int8-MXU blocks quantize each row over the block's OWN slice of h
+    (project.py:430 passes the slice to :83-89), not over all H: with the
+    largest |h| outside every prefix but the first, the port equals JAX
+    (1e-4), and a scale taken over all H reads far outside that bound."""
+    from jlm_tpu.ops.project import project_lse as jax_lse
+
+    h, blocks, cfg = _blocks_case("prefix", seed=22)
+    h[:, 100] = 40.0  # column 100: inside block 0's 128, outside 64 and 32
+    blocks[0][0][100] = 0.0  # so that block 0's logits do not swamp the lse
+    head_j, head_t = _heads(blocks, True, jnp.float32, torch.float32)
+    lse_j = jax_lse(jnp.asarray(h), head_j, cfg, tile_v=128, interpret=True,
+                    int8_mxu=True)
+    ht = torch.from_numpy(h)
+    lse_t = project_lse(ht, head_t, cfg, int8_mxu=True)
+    np.testing.assert_allclose(_np(lse_t), _np(lse_j), atol=1e-4)
+
+    _, s_all = quantize_rows(ht)  # the wrong rule: one scale over all H
+    ms, ss = [], []
+    for blk, d in zip(head_t["blocks"], cfg.dsoftmax.block_dims):
+        q = torch.round(ht[:, :d] / s_all)
+        logits = (q @ blk["W"]["q"].float()) * s_all * blk["W"]["scale"] + blk["b"]
+        ms.append(logits.amax(1, keepdim=True))
+        ss.append(torch.exp(logits - ms[-1]).sum(1, keepdim=True))
+    m, s = merge_ms(ms, ss)
+    assert float((m + torch.log(s) - lse_t).abs().max()) > 1e-3
+
+
+def test_block_plan_is_kept_on_a_prepared_head():
+    """The launch plan of a head whose every block carries "WT" (as
+    build_decode_head makes it) is checked once and kept under "_plan";
+    a head without "WT" is planned on every call; another mode plans
+    anew; a tensor the kernel cannot read raises."""
+    from jlm_tpu_torch.ops.project import DEQUANT_FP32, INT8_MXU, _block_plan
+
+    _, blocks, cfg = _blocks_case("disjoint")
+    _, head = _heads(blocks, True, jnp.float32, torch.float32)
+    cpu = torch.device("cpu")
+    plan = _block_plan(head, cfg, 128, cpu, torch.float32, False)
+    assert "_plan" not in head
+    assert [p[:2] + (p[3],) for p in plan] == [
+        (0, 64, DEQUANT_FP32), (64, 32, DEQUANT_FP32), (96, 32, DEQUANT_FP32)]
+    for blk in head["blocks"]:
+        blk["WT"] = blk["W"]["q"].t().contiguous()
+    plan = _block_plan(head, cfg, 128, cpu, torch.float32, False)
+    assert head["_plan"][1] is plan
+    assert _block_plan(head, cfg, 128, cpu, torch.float32, False) is plan
+    mxu = _block_plan(head, cfg, 128, cpu, torch.bfloat16, True)
+    assert mxu is not plan and {p[3] for p in mxu} == {INT8_MXU}
+    bad = {"blocks": [dict(blk, b=blk["b"].double()) for blk in head["blocks"]]}
+    with pytest.raises(ValueError, match="fp32"):
+        _block_plan(bad, cfg, 128, cpu, torch.float32, False)
