@@ -23,13 +23,29 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
    the bf16 dequant bound one that rescales the exact int8 product after
    it instead of rounding ``q * scale`` to bf16 before it (these four
    modes on weights of scale ``PEAKED``); cuDNN's LSTM is timed beside the
-   scan kernels as a yardstick (the port never calls it);
+   scan kernels as a yardstick (the port never calls it); and the kernels
+   that finish the table: the fp32 fused CE at the training shape,
+   candidate extraction at ``scripts/bench_kernels.py``'s shape in five
+   weight modes and on config 5's head, and the fused cell + candidate
+   frame kernel in bf16 and fp32 (``port_cases``: TF32 operands, a
+   p-term off, or a candidate read from its neighbouring column must read
+   above the bounds);
+2b. candidate extraction through ``project_candidates`` and
+   ``project_candidates_dsoftmax`` as ``scripts/bench_kernels.py`` drives
+   them, one launch per block counted;
 3. drive the serving path — streaming beam-10 conversion at V=50,000,
    E=256, H=512, one layer, int8 head, speed mode — over one 2,048-lattice
    chunk through ``BeamDecoder.decode_stream``, and check that every decode
    kernel was launched by it;
 4. check top-1 path identity against the numpy oracle on the 50 test
    sentences: fp32 greedy, int8 beam-10, and bf16 beam-10 (50/50 each);
+3c. drive the same chunk through ``make_fused_frame_forward`` (kernel 9:
+   the fused cell + candidate dots, then ``project_lse``) for ``PASSES``
+   passes in turns with the split forward: per forward one
+   ``cell_cand_step`` and one ``project_lse``, no ``lstm_cell_step`` or
+   ``cand_dot``; chars/s of both; 50/50 beam-10 parity vs the int8 oracle;
+   and the fp32 fused frame greedy on the 50 sentences, 50/50 vs the fp32
+   oracle with scores within 1e-3;
 3b. drive BASELINE config 5 on one card — 2 layers, V=100,000, D-softmax
    prefix head (16,000 x 512, 34,000 x 256, 50,000 x 128), int8 weights,
    native int8 head, speed mode — over the same 2,048-lattice chunk for
@@ -53,11 +69,15 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
    plain version: the loss falls, the two runs agree, step 1 agrees with
    phase 5's loop run, and each scan kernel was launched once per layer
    per step;
+5c. ``full_softmax_loss(..., precision="highest")`` with ``fused_ce``
+   forward and backward through autograd on the 50k head and on config
+   5's D-softmax head (the fp32 CE kernels, one launch of each per block)
+   vs the plain fp32 log-softmax route;
 6. save the trained weights, reload the checkpoint, and decode the 50
    sentences fp32 greedy: 50/50 top-1 identity with the oracle on them.
 
-Weights are random (``init_params`` seed 0) before training.  Phases 3b
-and 4b are the serving path's other modes; they run after phase 4.  The line
+Weights are random (``init_params`` seed 0) before training.  Phases 3c,
+3b and 4b are the serving path's other modes; they run after phase 4.  The line
 before the card's is ``{"kernels": [...]}``: per kernel its launches on the
 main path, its error against the plain version, its time, the plain
 version's and the library call's where one PyTorch call computes the same
@@ -92,7 +112,11 @@ V5 = 100_000
 BLOCKS5 = ((16_000, 512), (34_000, 256), (50_000, 128))  # (words, dims) per block
 HEAD5 = sum(n * d for n, d in BLOCKS5)  # weights of the head: 23,296,000
 # the fp32 parity run: 50 sentences bucket to 64, greedy beam_pad 8
-R32 = 64 * 8
+S32 = 64
+R32 = S32 * 8
+# candidate extraction (scripts/bench_kernels.py:48): 50 sentences x 16 beam
+# rows, 65 candidates
+R_CAND, C_CAND = 800, 65
 # weight scale of the fp32 and dequant cases: h in (-1, 1) then gives
 # logits that spread over tens of units, so the largest few set the lse and
 # an operand rounding moves it by about the rounding of one logit; at the
@@ -144,6 +168,30 @@ BOUNDS = {  # kernel vs plain version, on the same inputs on the card
     # |plain|), the reference tests' gradient bound as one number; the plain
     # version with its forget gate off by F_SHIFT must read above it
     "lstm_scan_bwd fp32": 1.0,
+    # fp32 compute, weights of scale PEAKED; a plain version on operands
+    # rounded to TF32 must read above each bound
+    "ce_fwd fp32": 1e-4,        # abs, per-row loss and lse; exact fp32 products
+    "ce_bwd_dh fp32": 1e-4,     # abs error / max |plain|, the mean loss's cotangent;
+    "ce_bwd_dw fp32": 1e-4,     # gp is not rounded, so only the sum order differs
+    "ce_bwd_dh fp32 p-term": 1e-4,  # the p-term alone; a p-term off by P_SHIFT
+    "ce_bwd_dw fp32 p-term": 1e-4,  # must read above
+    # abs, candidate log-probs [R, C]; each raw logit is the value the online
+    # lse takes, so the error is the lse's; a candidate read from its
+    # neighbouring column must read above each bound
+    "project_candidates fp32": 1e-4,
+    "project_candidates dequant fp32": 1e-4,
+    "project_candidates dequant bf16": 1e-3,
+    "project_candidates int8": 1e-4,
+    "project_candidates dsoftmax int8": 1e-4,
+    "project_candidates dsoftmax fp32": 1e-4,
+    # the larger of lstm_cell_step bf16's reading over its bound 2.0 and
+    # the candidate error, beyond what h' elements rounded the other way
+    # explain, over 1e-4 of max(1, max |plain|) (see port_cases.frame_err);
+    # the dots on h' before its bf16 rounding must read above
+    "cell_cand_step bf16": 1.0,
+    # abs, c', h' and the candidate logits; exact fp32 products; wrong: TF32
+    # operands
+    "cell_cand_step fp32": 1e-5,
 }
 # lse + P_SHIFT in the plain backward: a p-term exp(-0.3) = 0.74 of its value
 P_SHIFT = 0.3
@@ -158,6 +206,10 @@ DSOFTMAX_BOUNDS = {  # the D-softmax fused CE (bf16 compute) at the 100k head
     "grads vs plain": 1e-4,  # the same code through the plain versions: as
     "p-term grads vs plain": 2e-3,  # the ce_bwd_* cases (p-term: no block
                                     # owns a target, random row weights)
+}
+FP32_CE_BOUNDS = {  # the fp32 fused CE vs the plain fp32 log-softmax route
+    "loss": 1e-5,    # abs, mean loss; exact fp32 products, sums in another order
+    "grads": 1e-4,   # abs error / max |plain| of hs and every W and b
 }
 TRAIN_BOUNDS = {  # a kernels' run vs the plain versions' run (and, at step 1,
                   # the scan run vs the loop run)
@@ -249,8 +301,26 @@ def abs_err(k, p):
     return float((k.float() - p.float()).abs().max())
 
 
-def lse_err(k, p):
-    return abs_err(k, p), abs_err(k, p)
+def abs_errs(k, p):
+    """(max absolute error, the same) over a tensor or a tuple of tensors."""
+    k, p = (k, p) if isinstance(k, tuple) else ((k,), (p,))
+    err = max(abs_err(a, b) for a, b in zip(k, p))
+    return err, err
+
+
+def ce_fwd_err(k, p):
+    """Of two ``(m, s, t)`` triples: the larger error of loss and lse."""
+    (mk, sk, tk), (mp, sp, tp) = k, p
+    lse_k, lse_p = mk + torch.log(sk), mp + torch.log(sp)
+    err = max(abs_err(lse_k - tk, lse_p - tp), abs_err(lse_k, lse_p))
+    return err, err
+
+
+def bwd_err(k, p):
+    """Error relative to max |plain| over a gradient or a tuple of them,
+    and the max absolute error."""
+    k, p = (k, p) if isinstance(k, tuple) else ((k,), (p,))
+    return rel_err(k, p), max(abs_err(a, b) for a, b in zip(k, p))
 
 
 def torch_gates(W, b):
@@ -327,20 +397,6 @@ def kernel_cases(dev, rng):
     def cand_err(k, p):
         return abs_err(k, p) / max(1.0, float(p.abs().max())), abs_err(k, p)
 
-    def ce_fwd_err(k, p):
-        (mk, sk, tk), (mp, sp, tp) = k, p
-        lse_k, lse_p = mk + torch.log(sk), mp + torch.log(sp)
-        err = max(abs_err(lse_k - tk, lse_p - tp), abs_err(lse_k, lse_p))
-        return err, err
-
-    def bwd_err(k, p):
-        k, p = (k, p) if isinstance(k, tuple) else ((k,), (p,))
-        return rel_err(k, p), max(abs_err(a, b) for a, b in zip(k, p))
-
-    def scan_fwd_err(k, p):
-        err = max(abs_err(a, w) for a, w in zip(k, p))
-        return err, err
-
     def scan_bwd_err(k, p):  # the allclose criterion of the reference's tests
         return (max(float(((a - w).abs() / (2e-4 + 1e-4 * w.abs())).max())
                     for a, w in zip(k, p)),
@@ -403,7 +459,7 @@ def kernel_cases(dev, rng):
     scan_cases = [
         (f"lstm_scan_fwd {name}",
          lambda cd=cd: lstm_scan_fwd(*scan_in, 1.0, cd),
-         lambda cd=cd: lstm_scan_ref(*scan_in, 1.0, cd), scan_fwd_err, None,
+         lambda cd=cd: lstm_scan_ref(*scan_in, 1.0, cd), abs_errs, None,
          cudnn_fwd if cd == torch.float32 else None)
         for name, cd in (("fp32", torch.float32), ("bf16", bf))
     ] + [("lstm_scan_bwd fp32",
@@ -425,11 +481,11 @@ def kernel_cases(dev, rng):
         ("project_lse int8",
          lambda: project_lse(h, head_q, None, compute_dtype=bf, int8_mxu=True),
          lambda: project_lse_ref(h, head_q, compute_dtype=bf, int8_mxu=True),
-         lse_err, None, None),
+         abs_errs, None, None),
         ("project_lse bf16",
          lambda: project_lse(h, head_b, None, compute_dtype=bf),
          lambda: project_lse_ref(h, head_b, compute_dtype=bf),
-         lse_err, None, None),
+         abs_errs, None, None),
         ("lstm_cell_step bf16",
          lambda: lstm_cell_step(x, h, c, Wc, bc, 1.0, compute_dtype=bf,
                                 c_out_dtype=bf),
@@ -558,15 +614,11 @@ def head_mode_cases(dev, rng):
     bc = t(rng.normal(0, 0.1, 4 * H))
     w_ih, w_hh, b_ih = torch_gates(Wc, bc)
 
-    def cell_err(k, p):
-        err = max(abs_err(k[0], p[0]), abs_err(k[1], p[1]))
-        return err, err
-
     def lse_case(name, hh, head, cd, mxu, wrong=None):
         return (name,
                 lambda: project_lse(hh, head, cfg, compute_dtype=cd, int8_mxu=mxu),
                 lambda: project_lse_ref(hh, head, cfg, compute_dtype=cd, int8_mxu=mxu),
-                lse_err, wrong, None)
+                abs_errs, wrong, None)
 
     return [
         lse_case("project_lse dsoftmax int8", h, head_q, bf, True),
@@ -580,9 +632,197 @@ def head_mode_cases(dev, rng):
                  global_scale),
         ("lstm_cell_step fp32",
          lambda: lstm_cell_step(xc, hc, cc, Wc, bc, 1.0),
-         lambda: lstm_cell_ref(xc, hc, cc, Wc, bc, 1.0), cell_err, None,
+         lambda: lstm_cell_ref(xc, hc, cc, Wc, bc, 1.0), abs_errs, None,
          lambda: torch.lstm_cell(xc, (hc, cc), w_ih, w_hh, b_ih, torch.zeros_like(b_ih))),
     ]
+
+
+def cand_ids(rng, sizes, n=C_CAND):
+    """``n`` candidate ids over a vocabulary of blocks ``sizes``, spread
+    over every block, with each block's first and last id among them."""
+    edges = np.cumsum((0,) + tuple(sizes))
+    ids = np.concatenate([[lo, hi - 1] for lo, hi in zip(edges[:-1], edges[1:])])
+    return np.concatenate([ids, rng.integers(0, edges[-1], n - len(ids))]).astype(np.int32)
+
+
+def port_cases(dev, rng):
+    """The kernels that finish the table, as kernel_cases' cases: the fp32
+    fused CE at the training shape (``precision="highest"``), candidate
+    extraction at ``scripts/bench_kernels.py``'s shape (R = 800, C = 65) in
+    fp32, dequant fp32, dequant bf16 and int8-MXU on the 50k head and in
+    int8-MXU and fp32 on config 5's D-softmax head, and the fused cell +
+    candidate frame kernel in bf16 at the serving frame and in fp32 at the
+    fp32 parity run's frame.  The CE and candidate
+    weights have scale ``PEAKED``.  Wrong calls: the plain version on
+    operands rounded to TF32 (fp32 modes), a p-term off by ``P_SHIFT``
+    (CE backward, the p-term alone), and every candidate read from its
+    neighbouring column, and the frame's dots on h' before its bf16
+    rounding.  Library calls (yardsticks only):
+    ``cross_entropy`` over ``h @ W + b`` for ce_fwd, and ``torch.lstm_cell``
+    followed by ``torch.baddbmm`` for the frame kernel (both dtypes)."""
+    from jlm_tpu_torch.ops.frame_step import cell_cand_ref, cell_cand_step
+    from jlm_tpu_torch.ops.lstm_cell import lstm_cell_ref
+    from jlm_tpu_torch.ops.project import (
+        project_candidates, project_candidates_dsoftmax, project_candidates_dsoftmax_ref,
+        project_candidates_ref)
+    from jlm_tpu_torch.ops.quant import quantize_weight
+    from jlm_tpu_torch.ops.softmax_ce import (
+        ce_bwd_dh, ce_bwd_dh_ref, ce_bwd_dw, ce_bwd_dw_ref, ce_fwd_raw, ce_fwd_raw_ref)
+
+    f32, bf = torch.float32, torch.bfloat16
+
+    def t(a, dtype=f32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev).to(dtype)
+
+    # fp32 fused CE at the training shape
+    h_ce = t(rng.uniform(-1, 1, (N_CE, H)))
+    W_ce = t(rng.normal(0, PEAKED, (H, V)))
+    b_ce = t(rng.normal(0, 0.1, V))
+    y_ce = torch.from_numpy(rng.integers(0, V, N_CE)).to(dev)
+    m, s = ce_fwd_raw_ref(h_ce, W_ce, b_ce, y_ce, f32)[:2]
+    lse_ce = m + torch.log(s)
+    ga = torch.full((N_CE,), 1.0 / N_CE, device=dev)
+    ga_p = t(rng.uniform(0.5, 1.5, N_CE) / N_CE)
+    h_r, W_r = tf32(h_ce), tf32(W_ce)
+    cases = [("ce_fwd fp32",
+              lambda: ce_fwd_raw(h_ce, W_ce, b_ce, y_ce, f32),
+              lambda: ce_fwd_raw_ref(h_ce, W_ce, b_ce, y_ce, f32), ce_fwd_err,
+              {"operands rounded to TF32": lambda: ce_fwd_raw_ref(h_r, W_r, b_ce, y_ce, f32)},
+              lambda: torch.nn.functional.cross_entropy(torch.addmm(b_ce, h_ce, W_ce), y_ce,
+                                                        reduction="none"))]
+    for name, kernel, ref in (("ce_bwd_dh", ce_bwd_dh, ce_bwd_dh_ref),
+                              ("ce_bwd_dw", ce_bwd_dw, ce_bwd_dw_ref)):
+        args = (h_ce, W_ce, b_ce, y_ce, lse_ce, ga, -ga, f32)
+        cases.append((f"{name} fp32", lambda k=kernel, a=args: k(*a),
+                      lambda r=ref, a=args: r(*a), bwd_err,
+                      {"operands rounded to TF32":
+                       lambda r=ref: r(h_r, W_r, b_ce, y_ce, lse_ce, ga, -ga, f32)}, None))
+        args = (h_ce, W_ce, b_ce, y_ce, lse_ce, ga_p, torch.zeros_like(ga_p), f32)
+        wrong = (h_ce, W_ce, b_ce, y_ce, lse_ce + P_SHIFT, ga_p, torch.zeros_like(ga_p), f32)
+        cases.append((f"{name} fp32 p-term", lambda k=kernel, a=args: k(*a),
+                      lambda r=ref, a=args: r(*a), bwd_err, lambda r=ref, a=wrong: r(*a),
+                      None))
+
+    # candidate extraction: bench_kernels.py's R, C; the 50k head and config 5's
+    cfg = config5()
+    h_c = t(rng.normal(0, 0.3, (R_CAND, H)))
+    h_cb = h_c.to(bf)
+    w = rng.normal(0, PEAKED, (H, V)).astype(np.float32)
+    q = quantize_weight(w, axis=0)
+    Wf, Wq, sq = t(w), torch.from_numpy(q["q"]).to(dev), t(q["scale"])
+    b_c = t(rng.normal(0, 0.1, V))
+    ids = torch.from_numpy(cand_ids(rng, (V,))).to(dev)
+    ws = [rng.normal(0, PEAKED, (d, n)).astype(np.float32) for n, d in BLOCKS5]
+    b5 = [t(rng.normal(0, 0.1, n)) for n, _ in BLOCKS5]
+    blocks_f = [{"W": t(w_k), "b": b_k} for w_k, b_k in zip(ws, b5)]
+    blocks_q = []
+    for w_k, b_k in zip(ws, b5):
+        q_k = quantize_weight(w_k, axis=0)
+        blocks_q.append({"W": {"q": torch.from_numpy(q_k["q"]).to(dev), "scale": t(q_k["scale"])},
+                         "b": b_k})
+    ids5 = torch.from_numpy(cand_ids(rng, [n for n, _ in BLOCKS5])).to(dev)
+
+    def neighbour(i, V_):
+        return torch.where(i >= 0, (i + 1) % V_, i)
+
+    def full(name, hh, W, scale, cd, mxu):
+        def run(fn, i):
+            return fn(hh, W, scale, b_c, i, compute_dtype=cd, int8_mxu=mxu)
+
+        wrong = {"the neighbouring column": lambda: run(project_candidates_ref, neighbour(ids, V))}
+        if cd == f32:  # int8 weights: the dequantized weights, rounded
+            Wd = W if scale is None else W.float() * scale[None, :]
+            wrong["operands rounded to TF32"] = lambda: project_candidates_ref(
+                tf32(hh), tf32(Wd), None, b_c, ids, compute_dtype=f32)
+        return (name, lambda: run(project_candidates, ids), lambda: run(project_candidates_ref, ids),
+                abs_errs, wrong, None)
+
+    def dsoftmax(name, hh, blocks, cd, mxu):
+        def run(fn, i, hh=hh, blocks=blocks):
+            return fn(hh, blocks, cfg, i, compute_dtype=cd, int8_mxu=mxu)
+
+        wrong = {"the neighbouring column":
+                 lambda: run(project_candidates_dsoftmax_ref, neighbour(ids5, V5))}
+        if cd == f32:
+            wrong["operands rounded to TF32"] = lambda: run(
+                project_candidates_dsoftmax_ref, ids5, tf32(hh),
+                [{"W": tf32(blk["W"]), "b": blk["b"]} for blk in blocks])
+        return (name, lambda: run(project_candidates_dsoftmax, ids5),
+                lambda: run(project_candidates_dsoftmax_ref, ids5), abs_errs, wrong, None)
+
+    cases += [
+        full("project_candidates fp32", h_c, Wf, None, f32, False),
+        full("project_candidates dequant fp32", h_c, Wq, sq, f32, False),
+        full("project_candidates dequant bf16", h_cb, Wq, sq, bf, False),
+        full("project_candidates int8", h_cb, Wq, sq, bf, True),
+        dsoftmax("project_candidates dsoftmax int8", h_cb, blocks_q, bf, True),
+        dsoftmax("project_candidates dsoftmax fp32", h_c, blocks_f, f32, False),
+    ]
+
+    # the fused cell + candidate frame kernel at the serving frame
+    x = t(rng.normal(0, 0.3, (R, E)), bf)
+    hf = t(rng.uniform(-1, 1, (R, H)), bf)
+    c = t(rng.normal(0, 1.0, (R, H)), bf)
+    Wc = t(rng.normal(0, 0.05, (E + H, 4 * H)), bf)
+    bc = t(rng.normal(0, 0.1, 4 * H))
+    cols = t(rng.normal(0, 0.05, (S, C1, H)), bf)
+    cbias = t(rng.normal(0, 0.1, (S, C1)))
+    w_ih, w_hh, b_ih = torch_gates(Wc, bc)
+    b_ih, b_hh = b_ih.to(bf), torch.zeros_like(b_ih, dtype=bf)
+    cbias_b, cols_t = cbias.to(bf)[:, None, :], cols.transpose(1, 2)
+
+    def frame_err(k, p):
+        """The larger of c' and h' error in bf16 ulps over its bound 2.0
+        and the candidate error beyond what h' elements rounded the other
+        way explain (sum of |h'_k - h'_p| |cols|), relative to
+        max(1, max |plain|), over its bound 1e-4 (what is left is fp32 sum
+        order): at most 1.0."""
+        slack = torch.einsum("sbh,sch->sbc",
+                             (k[1].float() - p[1].float()).abs().reshape(S, B, H),
+                             cols.float().abs())
+        cand = float(((k[2] - p[2]).abs() - slack).max()) / max(1.0, float(p[2].abs().max()))
+        state = max(bf16_ulps(k[0], p[0]), bf16_ulps(k[1], p[1]))
+        return max(state / 2.0, cand / 1e-4), max(abs_err(a, b) for a, b in zip(k, p))
+
+    def library_frame():
+        c_l, h_l = torch.lstm_cell(x, (hf, c), w_ih, w_hh, b_ih, b_hh)
+        return c_l, torch.baddbmm(cbias_b, h_l.reshape(S, B, H), cols_t)
+
+    def unrounded_dots():
+        """The dots on h' before its rounding to bf16."""
+        c_n, h_n = lstm_cell_ref(x, hf, c, Wc, bc, 1.0)
+        return c_n, h_n.to(bf), (torch.einsum("sbh,sch->sbc", h_n.reshape(S, B, H),
+                                              cols.float()) + cbias[:, None, :])
+
+    cases.append(("cell_cand_step bf16",
+                  lambda: cell_cand_step(x, hf, c, Wc, bc, cols, cbias, B, 1.0, compute_dtype=bf),
+                  lambda: cell_cand_ref(x, hf, c, Wc, bc, cols, cbias, B, 1.0, compute_dtype=bf),
+                  frame_err, {"the dots on h' before its bf16 rounding": unrounded_dots},
+                  library_frame))
+
+    # the same kernel in fp32 at the fp32 parity run's frame (greedy, beam pad 8)
+    B32 = R32 // S32
+    x32, h32 = t(rng.normal(0, 0.3, (R32, E))), t(rng.uniform(-1, 1, (R32, H)))
+    c32, W32 = t(rng.normal(0, 1.0, (R32, H))), t(rng.normal(0, 0.05, (E + H, 4 * H)))
+    b32 = t(rng.normal(0, 0.1, 4 * H))
+    cols32, cbias32 = t(rng.normal(0, 0.05, (S32, C1, H))), t(rng.normal(0, 0.1, (S32, C1)))
+    w_ih32, w_hh32, b_ih32 = torch_gates(W32, b32)
+
+    def library32():
+        c_l, h_l = torch.lstm_cell(x32, (h32, c32), w_ih32, w_hh32, b_ih32,
+                                   torch.zeros_like(b_ih32))
+        return c_l, torch.baddbmm(cbias32[:, None, :], h_l.reshape(S32, B32, H),
+                                  cols32.transpose(1, 2))
+
+    cases.append((
+        "cell_cand_step fp32",
+        lambda: cell_cand_step(x32, h32, c32, W32, b32, cols32, cbias32, B32, 1.0),
+        lambda: cell_cand_ref(x32, h32, c32, W32, b32, cols32, cbias32, B32, 1.0),
+        abs_errs,
+        {"operands rounded to TF32": lambda: cell_cand_ref(
+            tf32(x32), tf32(h32), c32, tf32(W32), b32, tf32(cols32), cbias32, B32, 1.0)},
+        library32))
+    return cases
 
 
 def work():
@@ -591,6 +831,7 @@ def work():
     products' operations (2 per multiply-add) at the peak of their type."""
     ce_in = N_CE * H * 4 + H * V * 4 + V * 4 + N_CE * 8  # h, W fp32; b; y int64
     scan_in = 4 * (TB * TT * E + (E + H) * 4 * H + 4 * H + 2 * TB * H)  # xs W b c0 h0
+    cand_io = C_CAND * 4 + R_CAND * C_CAND * 4  # ids in, log-probs out
     return {
         # h bf16, W int8 (one layout), scale, bias -> lse
         "project_lse": (R * H * 2 + H * V + V * 8 + R * 4, 2 * R * H * V, "int8"),
@@ -627,6 +868,32 @@ def work():
         "lstm_scan_bwd": (scan_in + 4 * (3 * TB * TT * H + 2 * TB * H + TB * TT * 4 * H
                                          + TB * TT * E + 2 * TB * H),
                           4 * TB * TT * (E + H) * 4 * H, "fp32"),
+        # fp32 compute: the same bytes, the products at the fp32 peak
+        "ce_fwd fp32": (ce_in + 3 * N_CE * 4, 2 * N_CE * H * V, "fp32"),
+        "ce_bwd_dh fp32": (ce_in + 3 * N_CE * 4 + N_CE * H * 4, 4 * N_CE * H * V, "fp32"),
+        "ce_bwd_dw fp32": (ce_in + 3 * N_CE * 4 + H * V * 4 + V * 4, 4 * N_CE * H * V, "fp32"),
+        # h (fp32, or bf16 where the product is), the head, scales, biases, ids
+        # -> [R, C] log-probs
+        "project_candidates fp32": (R_CAND * H * 4 + H * V * 4 + V * 4 + cand_io,
+                                    2 * R_CAND * H * V, "fp32"),
+        "project_candidates dequant fp32": (R_CAND * H * 4 + H * V + V * 8 + cand_io,
+                                            2 * R_CAND * H * V, "fp32"),
+        "project_candidates dequant bf16": (R_CAND * H * 2 + H * V + V * 8 + cand_io,
+                                            2 * R_CAND * H * V, "bf16"),
+        "project_candidates int8": (R_CAND * H * 2 + H * V + V * 8 + cand_io,
+                                    2 * R_CAND * H * V, "int8"),
+        "project_candidates dsoftmax int8": (R_CAND * H * 2 + HEAD5 + V5 * 8 + cand_io,
+                                             2 * R_CAND * HEAD5, "int8"),
+        "project_candidates dsoftmax fp32": (R_CAND * H * 4 + HEAD5 * 4 + V5 * 4 + cand_io,
+                                             2 * R_CAND * HEAD5, "fp32"),
+        # x, h, c bf16, W bf16, b, cols bf16, cbias -> c' fp32, h' bf16, cand fp32
+        "cell_cand_step": (R * (E + 2 * H) * 2 + (E + H) * 4 * H * 2 + 4 * H * 4
+                           + S * C1 * (H * 2 + 4) + R * H * (4 + 2) + R * C1 * 4,
+                           2 * R * (E + H) * 4 * H + 2 * R * C1 * H, "bf16"),
+        # the same in fp32 at the fp32 parity run's frame (R32 rows, S32 sentences)
+        "cell_cand_step fp32": (R32 * (E + 2 * H) * 4 + (E + H) * 4 * H * 4 + 4 * H * 4
+                                + S32 * C1 * (H * 4 + 4) + R32 * H * 8 + R32 * C1 * 4,
+                                2 * R32 * (E + H) * 4 * H + 2 * R32 * C1 * H, "fp32"),
     }
 
 
@@ -688,6 +955,122 @@ def dsoftmax_case(dev, rng):
     }
     return (readings, cuda_ms(mean_loss, reps=5),
             cuda_ms(lambda: mean_loss(cfg.replace(fused_ce=False)), reps=5))
+
+
+def candidate_run(dev, rng):
+    """Candidate extraction through its entry points as
+    ``scripts/bench_kernels.py:48-77`` drives them (R = 800 rows of
+    N(0, 0.3), C = 65 random ids, the 50k head of N(0, 0.05) weights, zero
+    bias): fp32, int8 dequant in fp32 and in bf16, int8-MXU, and config
+    5's D-softmax head in int8-MXU and fp32.  Each call runs with the
+    candidate counter set to 0 just before it and is held to its plain
+    version at its phase-2 bound; returns the launches by kernel-line name
+    (one per block of the head)."""
+    from jlm_tpu_torch.ops.project import (
+        project_candidates, project_candidates_dsoftmax, project_candidates_dsoftmax_ref,
+        project_candidates_ref)
+    from jlm_tpu_torch.ops.quant import quantize_weight
+
+    f32, bf = torch.float32, torch.bfloat16
+    cfg = config5()
+    h = torch.from_numpy(rng.normal(0, 0.3, (R_CAND, H)).astype(np.float32)).to(dev)
+    w = rng.normal(0, 0.05, (H, V)).astype(np.float32)
+    q = quantize_weight(w, axis=0)
+    Wf, Wq = torch.from_numpy(w).to(dev), torch.from_numpy(q["q"]).to(dev)
+    sq = torch.from_numpy(q["scale"]).to(dev)
+    b = torch.zeros(V, device=dev)
+    ids = torch.from_numpy(rng.integers(0, V, C_CAND).astype(np.int32)).to(dev)
+    blocks_f, blocks_q = [], []
+    for n, d in BLOCKS5:
+        w_k = rng.normal(0, 0.05, (d, n)).astype(np.float32)
+        q_k = quantize_weight(w_k, axis=0)
+        blocks_f.append({"W": torch.from_numpy(w_k).to(dev), "b": torch.zeros(n, device=dev)})
+        blocks_q.append({"W": {"q": torch.from_numpy(q_k["q"]).to(dev),
+                               "scale": torch.from_numpy(q_k["scale"]).to(dev)},
+                         "b": blocks_f[-1]["b"]})
+    ids5 = torch.from_numpy(cand_ids(rng, [n for n, _ in BLOCKS5])).to(dev)
+    runs = {  # kernel-line name -> (kernel, plain, args, compute dtype, int8_mxu, blocks)
+        "project_candidates fp32": (project_candidates, project_candidates_ref,
+                                    (h, Wf, None, b, ids), f32, False, 1),
+        "project_candidates dequant fp32": (project_candidates, project_candidates_ref,
+                                            (h, Wq, sq, b, ids), f32, False, 1),
+        "project_candidates dequant bf16": (project_candidates, project_candidates_ref,
+                                            (h, Wq, sq, b, ids), bf, False, 1),
+        "project_candidates int8": (project_candidates, project_candidates_ref,
+                                    (h, Wq, sq, b, ids), bf, True, 1),
+        "project_candidates dsoftmax int8": (
+            project_candidates_dsoftmax, project_candidates_dsoftmax_ref,
+            (h, blocks_q, cfg, ids5), bf, True, len(BLOCKS5)),
+        "project_candidates dsoftmax fp32": (
+            project_candidates_dsoftmax, project_candidates_dsoftmax_ref,
+            (h, blocks_f, cfg, ids5), f32, False, len(BLOCKS5)),
+    }
+    launches = {}
+    for name, (kernel, plain, args, cd, mxu, blocks) in runs.items():
+        project_candidates.launches = 0
+        got = kernel(*args, compute_dtype=cd, int8_mxu=mxu)
+        launches[name] = project_candidates.launches
+        err = abs_err(got, plain(*args, compute_dtype=cd, int8_mxu=mxu))
+        log(f"candidate run {name}: [{R_CAND}, {args[-1].shape[0]}] log-probs, "
+            f"{launches[name]} launch(es), err vs plain {err:.3e} (bound {BOUNDS[name]:g})")
+        check(launches[name] == blocks, f"{name}: {launches[name]} launches, expected {blocks}")
+        check(bool(torch.isfinite(got).all()) and bool((got < 0).all()),
+              f"{name}: log-probs finite and negative")
+        check(err <= BOUNDS[name], f"candidate run {name}: error {err} exceeds {BOUNDS[name]}")
+    return launches
+
+
+def fp32_ce_run(dev, rng):
+    """``full_softmax_loss(..., precision="highest")`` with ``fused_ce``
+    forward and backward through ``torch.autograd`` at the training shape,
+    on the 50k head and on config 5's D-softmax head: the fp32 CE kernels
+    (per block), each counter set to 0 just before, held to the plain fp32
+    log-softmax route with TF32 off (bounds ``FP32_CE_BOUNDS``).  Returns
+    the launches of the runs by counter name."""
+    from jlm_tpu_torch.models.heads import full_softmax_loss
+    from jlm_tpu_torch.ops import softmax_ce as ce
+
+    counters = dict(zip(CE_COUNTERS, (ce.ce_fwd_raw, ce.ce_bwd_dh, ce.ce_bwd_dw)))
+    total = dict.fromkeys(CE_COUNTERS, 0)
+    from jlm_tpu_torch.config import Config
+
+    cfg50 = Config(vocab_size=V, embed_size=E, hidden_size=H, fused_ce=True)
+    for label, cfg, shapes in (("50k head", cfg50, [(H, V)]),
+                               ("config 5 D-softmax head", config5().replace(fused_ce=True),
+                                [(d, n) for n, d in BLOCKS5])):
+        blocks = [{"W": torch.from_numpy(rng.normal(0, 0.05, s).astype(np.float32)).to(dev),
+                   "b": torch.from_numpy(rng.normal(0, 0.1, s[1]).astype(np.float32)).to(dev)}
+                  for s in shapes]
+        head = blocks[0] if len(blocks) == 1 else {"blocks": blocks}
+        hs = torch.from_numpy(rng.uniform(-1, 1, (TB, TT, H)).astype(np.float32)).to(dev)
+        y = torch.from_numpy(rng.integers(0, cfg.vocab_size, (TB, TT))).to(dev)
+        leaves = [hs] + [blk[k] for blk in blocks for k in ("W", "b")]
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+
+        def run(c):
+            loss = full_softmax_loss({"head": head}, c, hs, y, precision="highest")
+            return (loss, *torch.autograd.grad(loss, leaves))
+
+        for fn in counters.values():
+            fn.launches = 0
+        got = run(cfg)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        want = run(cfg.replace(fused_ce=False))
+        loss_err, grad_err = abs(got[0].item() - want[0].item()), rel_err(got[1:], want[1:])
+        ms, plain_ms = cuda_ms(lambda: run(cfg), reps=5), cuda_ms(
+            lambda: run(cfg.replace(fused_ce=False)), reps=5)
+        log(f"fp32 fused CE ({label}): loss {got[0].item():.6f} vs plain fp32 "
+            f"{want[0].item():.6f}, diff {loss_err:.3e} (bound {FP32_CE_BOUNDS['loss']:g}); "
+            f"grads rel err {grad_err:.3e} (bound {FP32_CE_BOUNDS['grads']:g}); launches "
+            f"{launches}; fwd+bwd {ms:.4f} ms, plain fp32 route {plain_ms:.4f} ms")
+        check(loss_err <= FP32_CE_BOUNDS["loss"], f"fp32 fused CE ({label}): loss {loss_err}")
+        check(grad_err <= FP32_CE_BOUNDS["grads"], f"fp32 fused CE ({label}): grads {grad_err}")
+        check(launches == dict.fromkeys(CE_COUNTERS, len(blocks)),
+              f"fp32 fused CE ({label}): launches {launches}, one of each per block")
+        for name in CE_COUNTERS:
+            total[name] += launches[name]
+    return total
 
 
 def bench_data():
@@ -781,10 +1164,12 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from jlm_tpu_torch.oracle import OracleDecoder, OracleLM
-    from jlm_tpu_torch.decoder.engine import BeamDecoder, make_kernel_forward
+    from jlm_tpu_torch.decoder.engine import (
+        BeamDecoder, make_fused_frame_forward, make_kernel_forward)
     from jlm_tpu_torch.models.params import load_npz_params
     from jlm_tpu_torch.ops import _build
     from jlm_tpu_torch.ops.cand_dot import cand_dot
+    from jlm_tpu_torch.ops.frame_step import cell_cand_step
     from jlm_tpu_torch.ops.lstm_cell import lstm_cell_step
     from jlm_tpu_torch.ops.project import project_lse
 
@@ -820,7 +1205,7 @@ def main() -> int:
         "project_lse dequant fp32": "operands rounded to TF32",
     }
     cases, yardsticks = kernel_cases(dev, rng)
-    cases += head_mode_cases(dev, rng)
+    cases += head_mode_cases(dev, rng) + port_cases(dev, rng)
     for name, kernel, plain, err_fn, wrong, library in cases:
         want = plain()
         err, max_abs = err_fn(kernel(), want)
@@ -830,9 +1215,10 @@ def main() -> int:
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
             + ("" if lib_ms is None else f", library call {lib_ms:.4f} ms"))
         check(err <= BOUNDS[name], f"{name}: error {err} exceeds {BOUNDS[name]}")
-        if wrong is not None:
-            what = wrongs.get(name, wrong_p)
-            caught = err_fn(wrong(), want)[0]
+        if callable(wrong):
+            wrong = {wrongs.get(name, wrong_p): wrong}
+        for what, call in (wrong or {}).items():
+            caught = err_fn(call(), want)[0]
             log(f"  {name}: {what} reads {caught:.3e}")
             check(caught > BOUNDS[name], f"{name}: bound misses {what} ({caught})")
         measured[name] = (max_abs, ms, plain_ms, lib_ms)
@@ -850,6 +1236,10 @@ def main() -> int:
               f"D-softmax fused CE {what}: bound misses {wrong_p} ({caught})")
     log(f"ce_loss_fused_dsoftmax fwd+bwd: kernels {ds_ms:.4f} ms, "
         f"plain fp32 CE {ds_plain_ms:.4f} ms")
+    torch.cuda.empty_cache()
+
+    # ---- phase 2b: candidate extraction through its entry points ----
+    launches_cand = candidate_run(dev, rng)
     torch.cuda.empty_cache()
 
     # ---- phase 3: the main path, streaming beam-10 at flagship width ----
@@ -890,7 +1280,8 @@ def main() -> int:
     oracle = OracleDecoder(OracleLM(params, greedy_cfg), lexicon, vocab, greedy_cfg)
     greedy = BeamDecoder(params, lexicon, vocab, greedy_cfg, precision="highest",
                          device=dev)
-    n = identical(greedy.decode_batch(kanas), [oracle.decode(k)[0] for k in kanas])
+    oracle_g_results = [oracle.decode(k)[0] for k in kanas]
+    n = identical(greedy.decode_batch(kanas), oracle_g_results)
     log(f"greedy fp32 parity {n}/{len(kanas)} (top-1 path identity vs oracle)")
     check(n == len(kanas), "greedy parity")
     oracle_q = OracleDecoder(OracleLM(qp, config), lexicon, vocab, config)
@@ -906,7 +1297,60 @@ def main() -> int:
     log(f"beam-10 bf16 parity {n}/{len(kanas)} (kernel path vs fp32 oracle)")
     check(n == len(kanas), "bf16 beam parity")
     check("jax" not in sys.modules, "the port imported jax")
-    del engine, greedy, bf16_engine
+    del greedy, bf16_engine
+
+    # ---- phase 3c: the fused frame (kernel 9) on the same chunk, in turns ----
+    fused = BeamDecoder(qp, lexicon, vocab, config, device=dev,
+                        forward_fn=make_fused_frame_forward(config))
+    t0 = time.perf_counter()
+    fused.decode_stream(stream, chunk_size=S)
+    log(f"fused frame: first decode_stream (warm-up): {time.perf_counter() - t0:.3f} s")
+    frame_counters = (project_lse, cell_cand_step, lstm_cell_step, cand_dot)
+    launches_f = dict.fromkeys((fn.__name__ for fn in frame_counters), 0)
+    times_split, times_fused = [], []
+    for _ in range(PASSES):  # split, fused in turns
+        t0 = time.perf_counter()
+        engine.decode_stream(stream, chunk_size=S, n_best=1)
+        times_split.append(time.perf_counter() - t0)
+        for fn in frame_counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        results_f = fused.decode_stream(stream, chunk_size=S, n_best=1)
+        times_fused.append(time.perf_counter() - t0)
+        for fn in frame_counters:
+            launches_f[fn.__name__] += fn.launches
+    log(f"fused frame launches over {PASSES} passes ({frames} frames each): {launches_f}")
+    check(launches_f == {"project_lse": forwards, "cell_cand_step": forwards,
+                         "lstm_cell_step": 0, "cand_dot": 0},
+          f"fused frame launch counts {launches_f}, expected {forwards} forwards")
+    med_s, med_f = statistics.median(times_split), statistics.median(times_fused)
+    log(f"fused frame vs split frame (in turns): split passes "
+        f"{[round(t, 4) for t in times_split]} s, median {n_chars / med_s:.1f} chars/s; "
+        f"fused passes {[round(t, 4) for t in times_fused]} s, median "
+        f"{n_chars / med_f:.1f} chars/s on {card}")
+    check(len(results_f) == len(stream)
+          and all(len(r) == 1 and np.isfinite(r[0].score) for r in results_f),
+          "fused frame: every sentence has one finite top-1 result")
+    n = identical(results_f[:len(kanas)], oracle_q_results)
+    log(f"fused frame beam-10 int8 parity {n}/{len(kanas)} (vs int8 oracle)")
+    check(n == len(kanas), "fused frame int8 beam parity")
+    # the fp32 fused frame (the parity mode) greedy on the 50 sentences
+    fused32 = BeamDecoder(params, lexicon, vocab, greedy_cfg, device=dev,
+                          forward_fn=make_fused_frame_forward(greedy_cfg, torch.float32))
+    for fn in frame_counters:
+        fn.launches = 0
+    res32 = fused32.decode_batch(kanas)
+    launches_f32 = {fn.__name__: fn.launches for fn in frame_counters}
+    n = identical(res32, oracle_g_results)
+    worst = max(abs(r[0].score - o.score) for r, o in zip(res32, oracle_g_results))
+    fwd32 = min(fused32._t_bucket(max(len(k) for k in kanas)), config.max_kana_len) + 1
+    log(f"fused frame greedy fp32 parity {n}/{len(kanas)} (vs fp32 oracle); max |score - "
+        f"oracle| {worst:.3e}; launches {launches_f32}")
+    check(n == len(kanas) and worst <= 1e-3, "fused frame greedy fp32 parity")
+    check(launches_f32 == {"project_lse": fwd32, "cell_cand_step": fwd32,
+                           "lstm_cell_step": 0, "cand_dot": 0},
+          f"fp32 fused frame launches {launches_f32}, expected {fwd32} forwards")
+    del engine, fused, fused32
     torch.cuda.empty_cache()
 
     # ---- phase 3b: BASELINE config 5 serving (2 layers, 100k, D-softmax) ----
@@ -1058,6 +1502,10 @@ def main() -> int:
                           **dict.fromkeys(SCAN_COUNTERS, 0)},
           f"plain scan run launched {launches_sp}")
     launches.update((k, launches_s[k]) for k in SCAN_COUNTERS)
+    torch.cuda.empty_cache()
+
+    # ---- phase 5c: the fp32 fused CE through autograd ----
+    launches_ce32 = fp32_ce_run(dev, rng)
 
     # ---- phase 6: train -> serve: reload the checkpoint, greedy parity ----
     with tempfile.TemporaryDirectory() as exp:
@@ -1104,6 +1552,19 @@ def main() -> int:
                                      "jlm_tpu/ops/project.py:42", "project_lse dequant fp32"),
         "lstm_cell_step fp32": ("jlm_tpu_torch/csrc/lstm_cell.cu",
                                 "jlm_tpu/ops/lstm_cell.py:38", "lstm_cell_step fp32"),
+        # the kernels that finish the table: launches from phases 2b, 3c, 5c
+        "ce_fwd fp32": ("jlm_tpu_torch/csrc/softmax_ce.cu", "jlm_tpu/ops/softmax_ce.py:111",
+                        "ce_fwd fp32"),
+        "ce_bwd_dh fp32": ("jlm_tpu_torch/csrc/softmax_ce.cu",
+                           "jlm_tpu/ops/softmax_ce.py:157", "ce_bwd_dh fp32"),
+        "ce_bwd_dw fp32": ("jlm_tpu_torch/csrc/softmax_ce.cu",
+                           "jlm_tpu/ops/softmax_ce.py:207", "ce_bwd_dw fp32"),
+        **{name: ("jlm_tpu_torch/csrc/project_lse.cu", "jlm_tpu/ops/project.py:140", name)
+           for name in launches_cand},
+        "cell_cand_step": ("jlm_tpu_torch/csrc/cell_cand.cu", "jlm_tpu/ops/frame_step.py:47",
+                           "cell_cand_step bf16"),
+        "cell_cand_step fp32": ("jlm_tpu_torch/csrc/cell_cand.cu",
+                                "jlm_tpu/ops/frame_step.py:47", "cell_cand_step fp32"),
     }
     launches.update({
         "project_lse dsoftmax int8": launches5["project_lse"],
@@ -1112,6 +1573,10 @@ def main() -> int:
         "project_lse fp32": mode_launches["fp32"]["project_lse"],
         "project_lse dequant fp32": mode_launches["dequant fp32"]["project_lse"],
         "lstm_cell_step fp32": mode_launches["fp32"]["lstm_cell_step"],
+        **{f"{name} fp32": launches_ce32[name] for name in CE_COUNTERS},
+        **launches_cand,
+        "cell_cand_step": launches_f["cell_cand_step"],
+        "cell_cand_step fp32": launches_f32["cell_cand_step"],
     })
     kernels = []
     for name, (src, replaces, case) in sources.items():

@@ -24,7 +24,9 @@ device, truncated BPTT):
   sampled softmax.
 - ``models.params``  — numpy parameter pytree / npz checkpoint -> tensors.
 - ``ops``            — the hand-written Hopper kernels, each beside its plain
-  version: ``project`` (int8/bf16 head normalizer, online logsumexp),
-  ``lstm_cell`` (fused cell step), ``cand_dot`` (per-sentence candidate
-  dots), ``softmax_ce`` (fused softmax cross-entropy forward and backward).
+  version: ``project`` (head normalizer with online logsumexp, and
+  candidate extraction), ``lstm_cell`` (fused cell step), ``cand_dot``
+  (per-sentence candidate dots), ``frame_step`` (fused cell + candidate
+  dots), ``softmax_ce`` (fused softmax cross-entropy forward and
+  backward), ``lstm_scan`` (the LSTM over a BPTT window).
 """

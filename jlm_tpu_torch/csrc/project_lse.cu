@@ -2,9 +2,10 @@
 // lse = m + log(s) of  logits = h @ W + b  over a full head or over the
 // blocks of a D-softmax head.
 //
-// Replaces jlm_tpu/ops/project.py::_proj_kernel (LSE-only path): the decode
-// frame's normalizer, called once per frame on every beam row, once per
-// D-softmax block.
+// Replaces jlm_tpu/ops/project.py::_proj_kernel: the LSE-only path (the
+// decode frame's normalizer, called once per frame on every beam row, once
+// per D-softmax block) and, with the CAND template flag, candidate
+// extraction (project_candidates*: log softmax(h @ W + b)[:, cand]).
 //
 // Bound: compute.  At the serving shapes (R = 20,480 beam rows) one call is
 // 2*R*sum_k(d_k*s_k) operations: 1.05 TOP for the 50k full head (H = 512),
@@ -50,6 +51,18 @@
 //   4 x 4 tile of logits; the online (m, s) is as above.
 // - The ragged vocab edge is masked (columns >= V contribute exp(-inf) = 0),
 //   equivalent to the reference's -1e30 bias padding; m starts at -1e30.
+// - Candidate extraction (CAND, off for the lse-only calls): the wrapper
+//   passes the candidate ids sorted (with their output slots).  Per vocab
+//   tile, one thread per column binary-searches the run of candidates equal
+//   to that column's global id (id_base + n; a D-softmax block's columns
+//   are a range of global ids), and the epilogue stores each logit that a
+//   candidate asks for -- the same fp32 value the online lse takes, from
+//   the register that holds it -- into its [R, C] slot.  A column lies in
+//   one tile of one split of one block, so each store is plain, with no
+//   atomics and no sum, and repeated ids get one store each.  The merge
+//   launch turns the raw logits into raw - (m + log s); an id that no
+//   column matches keeps 0 (the caller zeroes the buffer) and gets -lse, as
+//   the reference's one-hot product gives it.
 // Simple first: no cp.async/TMA pipeline and no wgmma yet; two blocks share
 // an SM in the tensor-core modes so one block's loads overlap the other's
 // math.
@@ -89,18 +102,63 @@ __host__ __device__ constexpr int row_bytes(int mode, int D) {
   return D * (mode == kInt8Mxu ? 1 : 2);
 }
 
-size_t smem_bytes(int mode, int D) {
+size_t smem_bytes(int mode, int D, bool cand) {
   const int ld = row_bytes(mode, D) + 16;
-  return (size_t)(TR + TV) * ld + (2 * TV + 3 * TR) * sizeof(float);
+  return (size_t)(TR + TV) * ld + (2 * TV + 3 * TR) * sizeof(float) +
+         (cand ? 2 * TV * sizeof(int) : 0);
 }
 
-template <int MODE>
+// Candidates of one launch: ids [C] sorted ascending with their output
+// slots, the global id of the block's column 0, and out [R, C] fp32.
+struct Cand {
+  const int* ids;
+  const int* slots;
+  int C;
+  int id_base;
+  float* out;
+};
+
+// First index p in ids[0, C) with ids[p] >= v.
+__device__ __forceinline__ int first_at_least(const int* ids, int C, int v) {
+  int lo = 0, hi = C;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (ids[mid] < v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// The candidate run [lo[i], hi[i]) of each column n0 + i of a tile (empty
+// past V).
+__device__ __forceinline__ void cand_table(int* lo, int* hi, const Cand& cd, int n0,
+                                           int cols, int V) {
+  for (int i = threadIdx.x; i < cols; i += THREADS) {
+    const int n = n0 + i;
+    int a = 0, b = 0;
+    if (n < V) {
+      a = first_at_least(cd.ids, cd.C, cd.id_base + n);
+      b = first_at_least(cd.ids, cd.C, cd.id_base + n + 1);
+    }
+    lo[i] = a;
+    hi[i] = b;
+  }
+}
+
+// Store logit v of (row, column i of the tile) into every slot that asks
+// for it.
+__device__ __forceinline__ void cand_store(const Cand& cd, const int* lo, const int* hi,
+                                           int i, int row, int R, float v) {
+  if (row >= R) return;
+  for (int p = lo[i]; p < hi[i]; ++p) cd.out[(size_t)row * cd.C + cd.slots[p]] = v;
+}
+
+template <int MODE, bool CAND>
 __global__ void __launch_bounds__(THREADS, 2)
 proj_ms_kernel(const void* __restrict__ h, int ldh, int h_bf16,
                const void* __restrict__ wt, const float* __restrict__ scale,
                const float* __restrict__ bias, float* __restrict__ m_part,
                float* __restrict__ s_part, int R, int D, int V,
-               int tiles_per_split) {
+               int tiles_per_split, Cand cd) {
   constexpr bool S8 = MODE == kInt8Mxu;
   using Acc = typename std::conditional<S8, int, float>::type;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -112,6 +170,8 @@ proj_ms_kernel(const void* __restrict__ h, int ldh, int h_bf16,
   float* sBias = sScale + TV;                            // [TV]
   float* sHs = sBias + TV;                               // [TR] row scales
   float* sRed = sHs + TR;                                // [2][TR]
+  int* sLo = reinterpret_cast<int*>(sRed + 2 * TR);      // [TV] (CAND)
+  int* sHi = sLo + TV;                                   // [TV] (CAND)
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 1, wn = warp & 1;
@@ -204,6 +264,7 @@ proj_ms_kernel(const void* __restrict__ h, int ldh, int h_bf16,
       sScale[i] = (S8 && n < V) ? scale[n] : 1.0f;
       sBias[i] = n < V ? bias[n] : 0.0f;
     }
+    if constexpr (CAND) cand_table(sLo, sHi, cd, n0, TV, V);
     __syncthreads();
 
     Acc acc[2][4][4];
@@ -260,6 +321,7 @@ proj_ms_kernel(const void* __restrict__ h, int ldh, int h_bf16,
             else
               v = av + sBias[cl];
             if (n0 + cl >= V) v = -INFINITY;
+            if constexpr (CAND) cand_store(cd, sLo, sHi, cl, row0 + rl, R, v);
             x[ni * 2 + e] = v;
             tmax = fmaxf(tmax, v);
           }
@@ -310,15 +372,16 @@ proj_ms_kernel(const void* __restrict__ h, int ldh, int h_bf16,
 // with per-row (vocab) scales dequantized in shared memory (Q8).  Thread
 // (ty, tx) of a 16 x 16 grid owns rows ty*4..ty*4+3 and columns
 // tx*4..tx*4+3 of each 64 x 64 tile.
-template <bool Q8>
+template <bool Q8, bool CAND>
 __global__ void __launch_bounds__(THREADS)
 proj_ms_f32_kernel(const float* __restrict__ h, int ldh,
                    const void* __restrict__ wt, const float* __restrict__ scale,
                    const float* __restrict__ bias, float* __restrict__ m_part,
                    float* __restrict__ s_part, int R, int D, int V,
-                   int tiles_per_split) {
+                   int tiles_per_split, Cand cd) {
   __shared__ __align__(16) float sA[FK][FR];  // [k][row]
   __shared__ __align__(16) float sB[FK][FV];  // [k][col]
+  __shared__ int sLo[CAND ? FV : 1], sHi[CAND ? FV : 1];
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int row0 = blockIdx.x * FR;
   const int n_tiles = (V + FV - 1) / FV;
@@ -371,6 +434,11 @@ proj_ms_f32_kernel(const float* __restrict__ h, int ldh,
         sB[4 * kq + 2][c] = v.z;
         sB[4 * kq + 3][c] = v.w;
       }
+      // between this chunk's two barriers: every thread has left the
+      // previous tile's epilogue, which read the table
+      if constexpr (CAND) {
+        if (k0 == 0) cand_table(sLo, sHi, cd, n0, FV, V);
+      }
       __syncthreads();
 #pragma unroll 8
       for (int k = 0; k < FK; ++k) {
@@ -396,6 +464,7 @@ proj_ms_f32_kernel(const float* __restrict__ h, int ldh,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         x[j] = n0 + tx * 4 + j < V ? acc[i][j] + bj[j] : -INFINITY;
+        if constexpr (CAND) cand_store(cd, sLo, sHi, tx * 4 + j, row0 + ty * 4 + i, R, x[j]);
         tmax = fmaxf(tmax, x[j]);
       }
       const float m_new = fmaxf(m_run[i], tmax);
@@ -429,12 +498,14 @@ proj_ms_f32_kernel(const float* __restrict__ h, int ldh,
 }
 
 // Second pass: merge the vocab splits (of every block) of each row.  Any
-// output may be null.
+// output may be null; cand [R, C] raw candidate logits become
+// raw - (m + log s).
 __global__ void lse_merge_kernel(const float* __restrict__ m_part,
                                  const float* __restrict__ s_part,
                                  float* __restrict__ m_out,
                                  float* __restrict__ s_out,
-                                 float* __restrict__ lse_out, int R,
+                                 float* __restrict__ lse_out,
+                                 float* __restrict__ cand, int C, int R,
                                  int splits) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= R) return;
@@ -445,34 +516,63 @@ __global__ void lse_merge_kernel(const float* __restrict__ m_part,
     s += s_part[(size_t)k * R + row] * expf(m_part[(size_t)k * R + row] - m);
   if (m_out) m_out[row] = m;
   if (s_out) s_out[row] = s;
-  if (lse_out) lse_out[row] = m + logf(s);
+  const float lse = m + logf(s);
+  if (lse_out) lse_out[row] = lse;
+  if (cand)
+    for (int j = 0; j < C; ++j) cand[(size_t)row * C + j] -= lse;
 }
 
-template <int MODE>
+template <int MODE, bool CAND>
 cudaError_t launch_tc(const void* h, int ldh, int h_bf16, const void* wt,
                       const float* scale, const float* bias, float* m_part,
                       float* s_part, int R, int D, int V, int splits,
-                      int tiles_per_split, cudaStream_t stream) {
-  const size_t smem = smem_bytes(MODE, D);
+                      int tiles_per_split, const Cand& cd, cudaStream_t stream) {
+  const size_t smem = smem_bytes(MODE, D, CAND);
   cudaError_t err = cudaFuncSetAttribute(
-      proj_ms_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      proj_ms_kernel<MODE, CAND>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((R + TR - 1) / TR, splits);
-  proj_ms_kernel<MODE><<<grid, THREADS, smem, stream>>>(
-      h, ldh, h_bf16, wt, scale, bias, m_part, s_part, R, D, V, tiles_per_split);
+  proj_ms_kernel<MODE, CAND><<<grid, THREADS, smem, stream>>>(
+      h, ldh, h_bf16, wt, scale, bias, m_part, s_part, R, D, V, tiles_per_split, cd);
   return cudaGetLastError();
 }
 
-template <bool Q8>
+template <bool Q8, bool CAND>
 cudaError_t launch_f32(const void* h, int ldh, const void* wt, const float* scale,
                        const float* bias, float* m_part, float* s_part, int R,
                        int D, int V, int splits, int tiles_per_split,
-                       cudaStream_t stream) {
+                       const Cand& cd, cudaStream_t stream) {
   dim3 grid((R + FR - 1) / FR, splits);
-  proj_ms_f32_kernel<Q8><<<grid, THREADS, 0, stream>>>(
+  proj_ms_f32_kernel<Q8, CAND><<<grid, THREADS, 0, stream>>>(
       static_cast<const float*>(h), ldh, wt, scale, bias, m_part, s_part, R, D,
-      V, tiles_per_split);
+      V, tiles_per_split, cd);
   return cudaGetLastError();
+}
+
+template <bool CAND>
+cudaError_t launch_mode(const void* h, int ldh, int h_bf16, const void* wt, int mode,
+                        const float* scale, const float* bias, float* m_part,
+                        float* s_part, int R, int D, int V, int splits,
+                        int tiles_per_split, const Cand& cd, cudaStream_t st) {
+  switch (mode) {
+    case kBf16:
+      return launch_tc<kBf16, CAND>(h, ldh, 1, wt, scale, bias, m_part, s_part, R, D,
+                                    V, splits, tiles_per_split, cd, st);
+    case kInt8Mxu:
+      return launch_tc<kInt8Mxu, CAND>(h, ldh, h_bf16, wt, scale, bias, m_part, s_part,
+                                       R, D, V, splits, tiles_per_split, cd, st);
+    case kDequantBf16:
+      return launch_tc<kDequantBf16, CAND>(h, ldh, 1, wt, scale, bias, m_part, s_part,
+                                           R, D, V, splits, tiles_per_split, cd, st);
+    case kFp32:
+      return launch_f32<false, CAND>(h, ldh, wt, scale, bias, m_part, s_part, R, D, V,
+                                     splits, tiles_per_split, cd, st);
+    case kDequantFp32:
+      return launch_f32<true, CAND>(h, ldh, wt, scale, bias, m_part, s_part, R, D, V,
+                                    splits, tiles_per_split, cd, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -484,39 +584,32 @@ extern "C" {
 // h_bf16 says which).  wt [V, D] W^T: bf16 (mode 0), int8 (modes 1, 2, 4)
 // or fp32 (mode 3); scale [V] (int8 modes); bias [V] fp32; m_part/s_part
 // point at this block's first split of [splits_total, R] scratch.
+// Candidate extraction when cand_ids is not null: cand_ids [C] sorted
+// ascending, cand_slots [C] their columns in cand_out [R, C] fp32, id_base
+// the global id of this block's column 0.
 int jlm_project_block(const void* h, int ldh, int h_bf16, const void* wt,
                       int mode, const float* scale, const float* bias,
                       float* m_part, float* s_part, int R, int D, int V,
-                      int splits, int tiles_per_split, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kBf16:
-      return (int)launch_tc<kBf16>(h, ldh, 1, wt, scale, bias, m_part, s_part, R,
-                                   D, V, splits, tiles_per_split, st);
-    case kInt8Mxu:
-      return (int)launch_tc<kInt8Mxu>(h, ldh, h_bf16, wt, scale, bias, m_part,
-                                      s_part, R, D, V, splits, tiles_per_split, st);
-    case kDequantBf16:
-      return (int)launch_tc<kDequantBf16>(h, ldh, 1, wt, scale, bias, m_part,
-                                          s_part, R, D, V, splits, tiles_per_split, st);
-    case kFp32:
-      return (int)launch_f32<false>(h, ldh, wt, scale, bias, m_part, s_part, R,
-                                    D, V, splits, tiles_per_split, st);
-    case kDequantFp32:
-      return (int)launch_f32<true>(h, ldh, wt, scale, bias, m_part, s_part, R,
-                                   D, V, splits, tiles_per_split, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-// Merge [splits, R] partials into m_out/s_out/lse_out [R] (each may be null).
-int jlm_project_merge(const float* m_part, const float* s_part, float* m_out,
-                      float* s_out, float* lse_out, int R, int splits,
+                      int splits, int tiles_per_split, const int* cand_ids,
+                      const int* cand_slots, int C, int id_base, float* cand_out,
                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  lse_merge_kernel<<<(R + 255) / 256, 256, 0, st>>>(m_part, s_part, m_out,
-                                                     s_out, lse_out, R, splits);
+  const Cand cd{cand_ids, cand_slots, C, id_base, cand_out};
+  if (cand_ids)
+    return (int)launch_mode<true>(h, ldh, h_bf16, wt, mode, scale, bias, m_part, s_part,
+                                  R, D, V, splits, tiles_per_split, cd, st);
+  return (int)launch_mode<false>(h, ldh, h_bf16, wt, mode, scale, bias, m_part, s_part,
+                                 R, D, V, splits, tiles_per_split, cd, st);
+}
+
+// Merge [splits, R] partials into m_out/s_out/lse_out [R] (each may be
+// null); cand [R, C] (or null) goes from raw logits to log-probs.
+int jlm_project_merge(const float* m_part, const float* s_part, float* m_out,
+                      float* s_out, float* lse_out, float* cand, int C, int R,
+                      int splits, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  lse_merge_kernel<<<(R + 255) / 256, 256, 0, st>>>(m_part, s_part, m_out, s_out,
+                                                     lse_out, cand, C, R, splits);
   return (int)cudaGetLastError();
 }
 

@@ -7,14 +7,18 @@
 // 205 MB, written once and read twice per step).
 //
 // Replaces jlm_tpu/ops/softmax_ce.py::_ce_fwd_kernel, _ce_bwd_dh_kernel and
-// _ce_bwd_dw_kernel in their bf16-compute form: h and W arrive as bf16,
-// products accumulate in fp32, gp is rounded to bf16 before both backward
-// products, and db sums the unrounded fp32 gp, as the Pallas kernels do.
+// _ce_bwd_dw_kernel in both compute dtypes.  bf16 compute: h and W arrive
+// as bf16, products accumulate in fp32, gp is rounded to bf16 before both
+// backward products, and db sums the unrounded fp32 gp, as the Pallas
+// kernels do.  fp32 compute (``precision="highest"``, the parity mode): h
+// and W stay fp32, gp is not rounded, and every product is an exact fp32
+// FMA on the CUDA cores -- TF32 would round the operands.
 //
 // Bound: compute.  Each product is 2*N*D*V flops (52 GFLOP at N = 1,024,
 // D = 512, V = 50,000; the forward runs one, each backward kernel two,
-// the logits recomputed) against ~51 MB of bf16 W, which stays mostly in
-// the 50 MB L2 while the row blocks re-stream it.
+// the logits recomputed) against ~51 MB of bf16 W (102 MB in fp32), which
+// the L2 serves while the row blocks re-stream it.  In fp32 the bound is
+// the 67 TFLOP/s of the CUDA cores: ~0.78 ms a product.
 //
 // Layouts: h [N, D] and W [D, V] bf16 row-major, W in its own layout: the
 // wrapper casts the [D, V] fp32 master to bf16 once per forward and once
@@ -40,6 +44,16 @@
 // - ce_bwd_dw: a block owns 32 vocab columns and loops over the rows in
 //   chunks of 64; it accumulates dW [D, 32] (64 registers a thread) and
 //   db, and writes each once.
+// fp32 compute (the *_f32 kernels; the bf16 tiling does not carry over:
+// 128 rows x D of fp32 h would be 256 KB at D = 512):
+// - ce_fwd_f32: a block owns 64 rows, K streams through shared memory in
+//   chunks of 32 (h transposed, W in its own [D, V] layout); each thread
+//   keeps a 4 x 4 tile of logits and an online (m, s) for its 4 rows.
+// - ce_bwd_dh_f32: a block owns 32 rows, all of h's D columns resident; per
+//   64-column tile the whole W tile is staged once, transposed, and read
+//   twice (logits, then gp @ W^T); dh [32, D] lives in registers.
+// - ce_bwd_dw_f32: a block owns 32 vocab columns (their W staged once,
+//   transposed) and loops over the rows in chunks of 32.
 #include "common.cuh"
 
 namespace {
@@ -555,6 +569,376 @@ ce_bwd_dw_kernel(const bf16* __restrict__ h, const bf16* __restrict__ W,
       }
 }
 
+// ---------------------------------------------------------- fp32 compute
+
+constexpr int G_R = 64, G_V = 64, G_K = 32;  // ce_fwd_f32: rows, columns, K stage
+constexpr int GH_R = 32, GH_V = 64;          // ce_bwd_dh_f32: rows, tile columns
+constexpr int GW_R = 32, GW_V = 32;          // ce_bwd_dw_f32: row chunk, columns
+constexpr int MAX_DJ = 8;                    // D / 64 at D = 512
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float dot4(float acc, float4 a, float4 b) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// Rows [row0, row0 + rows) of h [N, D] fp32 -> s [rows][D + 4], zero past N.
+__device__ __forceinline__ void stage_rows_f32(float* s, const float* h, int row0,
+                                               int rows, int N, int D) {
+  const int q = D / 4, ld = D + 4;
+  for (int i = threadIdx.x; i < rows * q; i += THREADS) {
+    const int r = i / q, kq = i % q, row = row0 + r;
+    *reinterpret_cast<float4*>(s + r * ld + 4 * kq) =
+        row < N ? ld4(h + (size_t)row * D + 4 * kq) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// Columns [n0, n0 + cols) of W [D, V] fp32 -> s [cols][D + 4] (transposed),
+// zero past V.
+__device__ __forceinline__ void stage_cols_t_f32(float* s, const float* W, int n0,
+                                                 int cols, int D, int V) {
+  const int ld = D + 4;
+  for (int i = threadIdx.x; i < D * cols; i += THREADS) {
+    const int k = i / cols, c = i % cols, n = n0 + c;
+    s[c * ld + k] = n < V ? W[(size_t)k * V + n] : 0.0f;
+  }
+}
+
+// gp of one logit: ga * exp(l - lse) + gb * onehot(y); 0 past N or V.
+__device__ __forceinline__ float gp_of(float logit, int n, int V, bool row_ok,
+                                       float ga, float gb, float lse, int y) {
+  if (n >= V || !row_ok) return 0.0f;
+  return ga * expf(logit - lse) + (n == y ? gb : 0.0f);
+}
+
+// Thread (ty, tx) of a 16 x 16 grid owns rows ty*4..ty*4+3 and columns
+// tx*4..tx*4+3 of each 64 x 64 logits tile.
+__global__ void __launch_bounds__(THREADS)
+ce_fwd_f32_kernel(const float* __restrict__ h, const float* __restrict__ W,
+                  const float* __restrict__ bias, const int* __restrict__ y,
+                  float* __restrict__ m_part, float* __restrict__ s_part,
+                  float* __restrict__ t_out, int N, int D, int V,
+                  int tiles_per_split) {
+  __shared__ __align__(16) float sA[G_K][G_R];  // [k][row]
+  __shared__ __align__(16) float sB[G_K][G_V];  // [k][col]
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int row0 = blockIdx.x * G_R;
+  const int n_tiles = (V + G_V - 1) / G_V;
+  const int vt_begin = blockIdx.y * tiles_per_split;
+  const int vt_end = min(vt_begin + tiles_per_split, n_tiles);
+
+  int yr[4];
+  float m_run[4], s_run[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + ty * 4 + i;
+    yr[i] = row < N ? y[row] : -1;
+    m_run[i] = NEG;
+    s_run[i] = 0.0f;
+  }
+  for (int vt = vt_begin; vt < vt_end; ++vt) {
+    const int n0 = vt * G_V;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+    for (int k0 = 0; k0 < D; k0 += G_K) {
+      __syncthreads();  // previous stage consumed
+      for (int i = tid; i < G_R * G_K / 4; i += THREADS) {
+        const int r = i % G_R, kq = i / G_R, row = row0 + r;
+        const float4 v = row < N ? ld4(h + (size_t)row * D + k0 + 4 * kq)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+        sA[4 * kq + 0][r] = v.x;
+        sA[4 * kq + 1][r] = v.y;
+        sA[4 * kq + 2][r] = v.z;
+        sA[4 * kq + 3][r] = v.w;
+      }
+      for (int i = tid; i < G_K * G_V; i += THREADS) {
+        const int k = i / G_V, c = i % G_V, n = n0 + c;
+        sB[k][c] = n < V ? W[(size_t)(k0 + k) * V + n] : 0.0f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int k = 0; k < G_K; ++k) {
+        const float4 a = ld4(&sA[k][ty * 4]), b = ld4(&sB[k][tx * 4]);
+        const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float x[4], tmax = NEG;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + tx * 4 + j;
+        x[j] = n < V ? acc[i][j] + bias[n] : -INFINITY;
+        if (n < V && n == yr[i]) t_out[row0 + ty * 4 + i] = x[j];  // the one match
+        tmax = fmaxf(tmax, x[j]);
+      }
+      const float m_new = fmaxf(m_run[i], tmax);
+      float s = s_run[i] * expf(m_run[i] - m_new);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s += expf(x[j] - m_new);
+      m_run[i] = m_new;
+      s_run[i] = s;
+    }
+  }
+
+  // ---- merge the 16 column threads of each row group (one half-warp) ----
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int off = 1; off <= 8; off <<= 1) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, m_run[i], off);
+      const float s2 = __shfl_xor_sync(0xffffffffu, s_run[i], off);
+      merge_ms(m_run[i], s_run[i], m2, s2);
+    }
+  if (tx == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + ty * 4 + i;
+      if (row < N) {
+        m_part[(size_t)blockIdx.y * N + row] = m_run[i];
+        s_part[(size_t)blockIdx.y * N + row] = s_run[i];
+      }
+    }
+  }
+}
+
+size_t dh_f32_smem(int D) {
+  return ((size_t)(GH_R + GH_V) * (D + 4) + GH_R * (GH_V + 1) + GH_V + 4 * GH_R) *
+         sizeof(float);
+}
+
+// Thread (ty, tx): logits of rows ty*2, ty*2+1 at columns tx + 16j (j < 4);
+// dh of the same rows at columns tx*4 + 64jj + e (jj < D/64, e < 4).
+__global__ void __launch_bounds__(THREADS, 1)
+ce_bwd_dh_f32_kernel(const float* __restrict__ h, const float* __restrict__ W,
+                     const float* __restrict__ bias, const int* __restrict__ y,
+                     const float* __restrict__ ga, const float* __restrict__ gb,
+                     const float* __restrict__ lse, float* __restrict__ dh_part,
+                     int N, int D, int V, int tiles_per_split) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ld = D + 4, ldg = GH_V + 1;
+  float* sH = reinterpret_cast<float*>(smem);  // [GH_R][ld]   h rows
+  float* sWT = sH + GH_R * ld;                 // [GH_V][ld]   W tile, transposed
+  float* sG = sWT + GH_V * ld;                 // [GH_R][ldg]  gp
+  float* sBias = sG + GH_R * ldg;              // [GH_V]
+  float* sGa = sBias + GH_V;                   // [GH_R] each
+  float* sGb = sGa + GH_R;
+  float* sLse = sGb + GH_R;
+  int* sY = reinterpret_cast<int*>(sLse + GH_R);
+
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int nj = D / 64;
+  const int row0 = blockIdx.x * GH_R;
+  const int n_tiles = (V + GH_V - 1) / GH_V;
+  const int vt_begin = blockIdx.y * tiles_per_split;
+  const int vt_end = min(vt_begin + tiles_per_split, n_tiles);
+
+  stage_rows_f32(sH, h, row0, GH_R, N, D);
+  stage_row_terms(sY, sGa, sGb, sLse, y, ga, gb, lse, row0, GH_R, N);
+
+  float acc[2][MAX_DJ][4];  // dh [row][64-column group][column]
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int jj = 0; jj < MAX_DJ; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][jj][e] = 0.0f;
+
+  for (int vt = vt_begin; vt < vt_end; ++vt) {
+    __syncthreads();  // previous tile's W and gp consumed (and rows staged)
+    const int n0 = vt * GH_V;
+    stage_cols_t_f32(sWT, W, n0, GH_V, D, V);
+    for (int i = tid; i < GH_V; i += THREADS) sBias[i] = n0 + i < V ? bias[n0 + i] : 0.0f;
+    __syncthreads();
+
+    // ---- recompute the tile's logits ----
+    float lg[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) lg[i][j] = 0.0f;
+    for (int k = 0; k < D; k += 4) {
+      const float4 a0 = ld4(sH + (ty * 2) * ld + k), a1 = ld4(sH + (ty * 2 + 1) * ld + k);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 b = ld4(sWT + (tx + 16 * j) * ld + k);
+        lg[0][j] = dot4(lg[0][j], a0, b);
+        lg[1][j] = dot4(lg[1][j], a1, b);
+      }
+    }
+
+    // ---- gp = ga * exp(l - lse) + gb * onehot(y), kept in fp32 ----
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int rl = ty * 2 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int cl = tx + 16 * j;
+        sG[rl * ldg + cl] = gp_of(lg[i][j] + sBias[cl], n0 + cl, V, row0 + rl < N,
+                                  sGa[rl], sGb[rl], sLse[rl], sY[rl]);
+      }
+    }
+    __syncthreads();
+
+    // ---- dh[rows, :] += gp @ W_tile^T ----
+    for (int n = 0; n < GH_V; ++n) {
+      const float g0 = sG[(ty * 2) * ldg + n], g1 = sG[(ty * 2 + 1) * ldg + n];
+#pragma unroll
+      for (int jj = 0; jj < MAX_DJ; ++jj) {
+        if (jj < nj) {
+          const float4 w = ld4(sWT + n * ld + tx * 4 + 64 * jj);
+          acc[0][jj][0] = fmaf(g0, w.x, acc[0][jj][0]);
+          acc[0][jj][1] = fmaf(g0, w.y, acc[0][jj][1]);
+          acc[0][jj][2] = fmaf(g0, w.z, acc[0][jj][2]);
+          acc[0][jj][3] = fmaf(g0, w.w, acc[0][jj][3]);
+          acc[1][jj][0] = fmaf(g1, w.x, acc[1][jj][0]);
+          acc[1][jj][1] = fmaf(g1, w.y, acc[1][jj][1]);
+          acc[1][jj][2] = fmaf(g1, w.z, acc[1][jj][2]);
+          acc[1][jj][3] = fmaf(g1, w.w, acc[1][jj][3]);
+        }
+      }
+    }
+  }
+
+  float* out = dh_part + (size_t)blockIdx.y * N * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + ty * 2 + i;
+#pragma unroll
+    for (int jj = 0; jj < MAX_DJ; ++jj)
+      if (jj < nj && row < N)
+        *reinterpret_cast<float4*>(out + (size_t)row * D + tx * 4 + 64 * jj) =
+            make_float4(acc[i][jj][0], acc[i][jj][1], acc[i][jj][2], acc[i][jj][3]);
+  }
+}
+
+size_t dw_f32_smem(int D) {
+  return ((size_t)(GW_V + GW_R) * (D + 4) + GW_R * (GW_V + 2) + GW_V + 4 * GW_R +
+          16 * GW_V) * sizeof(float);
+}
+
+// Thread (ty, tx): logits of chunk rows ty*2, ty*2+1 at columns tx + 16j
+// (j < 2), whose gp it sums into db; dW at columns tx*2, tx*2+1 and rows
+// ty*4 + 64jj + e (jj < D/64, e < 4).
+__global__ void __launch_bounds__(THREADS, 1)
+ce_bwd_dw_f32_kernel(const float* __restrict__ h, const float* __restrict__ W,
+                     const float* __restrict__ bias, const int* __restrict__ y,
+                     const float* __restrict__ ga, const float* __restrict__ gb,
+                     const float* __restrict__ lse, float* __restrict__ dW,
+                     float* __restrict__ db, int N, int D, int V) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ld = D + 4, ldg = GW_V + 2;
+  float* sWT = reinterpret_cast<float*>(smem);  // [GW_V][ld]   W columns, transposed
+  float* sH = sWT + GW_V * ld;                  // [GW_R][ld]   h rows
+  float* sG = sH + GW_R * ld;                   // [GW_R][ldg]  gp
+  float* sBias = sG + GW_R * ldg;               // [GW_V]
+  float* sGa = sBias + GW_V;                    // [GW_R] each
+  float* sGb = sGa + GW_R;
+  float* sLse = sGb + GW_R;
+  float* sDb = sLse + GW_R;                     // [16][GW_V]
+  int* sY = reinterpret_cast<int*>(sDb + 16 * GW_V);
+
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int nj = D / 64;
+  const int n0 = blockIdx.x * GW_V;
+
+  stage_cols_t_f32(sWT, W, n0, GW_V, D, V);
+  for (int i = tid; i < GW_V; i += THREADS) sBias[i] = n0 + i < V ? bias[n0 + i] : 0.0f;
+
+  float acc[MAX_DJ][4][2];  // dW [64-row group][row][column]
+#pragma unroll
+  for (int jj = 0; jj < MAX_DJ; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[jj][e][0] = acc[jj][e][1] = 0.0f;
+  float dbacc[2] = {0.0f, 0.0f};  // columns tx, tx + 16
+
+  for (int r0 = 0; r0 < N; r0 += GW_R) {
+    __syncthreads();  // previous chunk's rows and gp consumed
+    stage_rows_f32(sH, h, r0, GW_R, N, D);
+    stage_row_terms(sY, sGa, sGb, sLse, y, ga, gb, lse, r0, GW_R, N);
+    __syncthreads();
+
+    // ---- recompute the chunk's logits [32, 32] ----
+    float lg[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+    for (int k = 0; k < D; k += 4) {
+      const float4 a0 = ld4(sH + (ty * 2) * ld + k), a1 = ld4(sH + (ty * 2 + 1) * ld + k);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float4 b = ld4(sWT + (tx + 16 * j) * ld + k);
+        lg[0][j] = dot4(lg[0][j], a0, b);
+        lg[1][j] = dot4(lg[1][j], a1, b);
+      }
+    }
+
+    // ---- gp in fp32, its column sums ----
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int rl = ty * 2 + i;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int cl = tx + 16 * j;
+        const float g = gp_of(lg[i][j] + sBias[cl], n0 + cl, V, r0 + rl < N, sGa[rl],
+                              sGb[rl], sLse[rl], sY[rl]);
+        sG[rl * ldg + cl] = g;
+        dbacc[j] += g;
+      }
+    }
+    __syncthreads();
+
+    // ---- dW += h_chunk^T @ gp ----
+    for (int r = 0; r < GW_R; ++r) {
+      const float2 g = *reinterpret_cast<const float2*>(sG + r * ldg + tx * 2);
+#pragma unroll
+      for (int jj = 0; jj < MAX_DJ; ++jj) {
+        if (jj < nj) {
+          const float4 a = ld4(sH + r * ld + ty * 4 + 64 * jj);
+          const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[jj][e][0] = fmaf(av[e], g.x, acc[jj][e][0]);
+            acc[jj][e][1] = fmaf(av[e], g.y, acc[jj][e][1]);
+          }
+        }
+      }
+    }
+  }
+
+  // ---- db: the 16 row threads of each column ----
+#pragma unroll
+  for (int j = 0; j < 2; ++j) sDb[ty * GW_V + tx + 16 * j] = dbacc[j];
+  __syncthreads();
+  for (int c = tid; c < GW_V; c += THREADS) {
+    float s = 0.0f;
+    for (int t = 0; t < 16; ++t) s += sDb[t * GW_V + c];
+    if (n0 + c < V) db[n0 + c] = s;
+  }
+#pragma unroll
+  for (int jj = 0; jj < MAX_DJ; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = ty * 4 + 64 * jj + e;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int n = n0 + tx * 2 + q;
+        if (jj < nj && n < V) dW[(size_t)d * V + n] = acc[jj][e][q];
+      }
+    }
+}
+
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -566,22 +950,31 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
 extern "C" {
 
 // h [N, D] bf16; W [D, ldw] bf16 (ldw >= V, a multiple of 8; columns >= V
-// are masked); bias [V] fp32; y [N] int32 (a target outside [0, V) matches
-// no column); m_part/s_part [splits, N] scratch;
-// m_out/s_out [N]; t_out [N] must be zeroed by the caller (rows whose
-// target is in range get their logit written).
+// are masked); or, when f32, h [N, D] and W [D, V] fp32 (ldw == V); bias
+// [V] fp32; y [N] int32 (a target outside [0, V) matches no column);
+// m_part/s_part [splits, N] scratch; m_out/s_out [N]; t_out [N] must be
+// zeroed by the caller (rows whose target is in range get their logit
+// written).
 int jlm_ce_fwd(const void* h, const void* W, const float* bias, const int* y,
                float* m_part, float* s_part, float* m_out, float* s_out,
-               float* t_out, int N, int D, int V, int ldw, int splits,
+               float* t_out, int N, int D, int V, int ldw, int f32, int splits,
                int tiles_per_split, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = fwd_smem(D);
-  cudaError_t err = set_smem(ce_fwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + F_TR - 1) / F_TR, splits);
-  ce_fwd_kernel<<<grid, THREADS, smem, st>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(W), bias, y,
-      m_part, s_part, t_out, N, D, V, ldw, tiles_per_split);
+  cudaError_t err;
+  if (f32) {
+    dim3 grid((N + G_R - 1) / G_R, splits);
+    ce_fwd_f32_kernel<<<grid, THREADS, 0, st>>>(
+        static_cast<const float*>(h), static_cast<const float*>(W), bias, y, m_part,
+        s_part, t_out, N, D, V, tiles_per_split);
+  } else {
+    const size_t smem = fwd_smem(D);
+    err = set_smem(ce_fwd_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((N + F_TR - 1) / F_TR, splits);
+    ce_fwd_kernel<<<grid, THREADS, smem, st>>>(
+        static_cast<const bf16*>(h), static_cast<const bf16*>(W), bias, y,
+        m_part, s_part, t_out, N, D, V, ldw, tiles_per_split);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   ms_merge_kernel<<<(N + 255) / 256, 256, 0, st>>>(m_part, s_part, m_out,
@@ -594,16 +987,27 @@ int jlm_ce_fwd(const void* h, const void* W, const float* bias, const int* y,
 int jlm_ce_bwd_dh(const void* h, const void* W, const float* bias,
                   const int* y, const float* ga, const float* gb,
                   const float* lse, float* dh_part, float* dh, int N, int D,
-                  int V, int ldw, int splits, int tiles_per_split,
+                  int V, int ldw, int f32, int splits, int tiles_per_split,
                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = dh_smem(D);
-  cudaError_t err = set_smem(ce_bwd_dh_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + H_TR - 1) / H_TR, splits);
-  ce_bwd_dh_kernel<<<grid, THREADS, smem, st>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(W), bias, y, ga,
-      gb, lse, dh_part, N, D, V, ldw, tiles_per_split);
+  cudaError_t err;
+  if (f32) {
+    const size_t smem = dh_f32_smem(D);
+    err = set_smem(ce_bwd_dh_f32_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((N + GH_R - 1) / GH_R, splits);
+    ce_bwd_dh_f32_kernel<<<grid, THREADS, smem, st>>>(
+        static_cast<const float*>(h), static_cast<const float*>(W), bias, y, ga, gb,
+        lse, dh_part, N, D, V, tiles_per_split);
+  } else {
+    const size_t smem = dh_smem(D);
+    err = set_smem(ce_bwd_dh_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((N + H_TR - 1) / H_TR, splits);
+    ce_bwd_dh_kernel<<<grid, THREADS, smem, st>>>(
+        static_cast<const bf16*>(h), static_cast<const bf16*>(W), bias, y, ga,
+        gb, lse, dh_part, N, D, V, ldw, tiles_per_split);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const size_t count = (size_t)N * D;
@@ -617,15 +1021,25 @@ int jlm_ce_bwd_dh(const void* h, const void* W, const float* bias,
 int jlm_ce_bwd_dw(const void* h, const void* W, const float* bias,
                   const int* y, const float* ga, const float* gb,
                   const float* lse, float* dW, float* db, int N, int D, int V,
-                  int ldw, void* stream) {
+                  int ldw, int f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = dw_smem(D);
-  cudaError_t err = set_smem(ce_bwd_dw_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((V + W_TV - 1) / W_TV);
-  ce_bwd_dw_kernel<<<grid, THREADS, smem, st>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(W), bias, y, ga,
-      gb, lse, dW, db, N, D, V, ldw);
+  cudaError_t err;
+  if (f32) {
+    const size_t smem = dw_f32_smem(D);
+    err = set_smem(ce_bwd_dw_f32_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    ce_bwd_dw_f32_kernel<<<(V + GW_V - 1) / GW_V, THREADS, smem, st>>>(
+        static_cast<const float*>(h), static_cast<const float*>(W), bias, y, ga, gb,
+        lse, dW, db, N, D, V);
+  } else {
+    const size_t smem = dw_smem(D);
+    err = set_smem(ce_bwd_dw_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((V + W_TV - 1) / W_TV);
+    ce_bwd_dw_kernel<<<grid, THREADS, smem, st>>>(
+        static_cast<const bf16*>(h), static_cast<const bf16*>(W), bias, y, ga,
+        gb, lse, dW, db, N, D, V, ldw);
+  }
   return (int)cudaGetLastError();
 }
 

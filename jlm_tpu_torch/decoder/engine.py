@@ -26,7 +26,10 @@ payload) -> (cand_logp [S, B, C], eos_logp [S, B], state)``) is chosen by
 ``make_full_softmax_forward`` is the fp32 parity forward,
 ``make_kernel_forward`` the forward through the three hand-written kernels
 (bf16 speed mode, or fp32 compute), with a full or D-softmax head and bf16,
-fp32 or int8 weights (native int8 x int8 or dequant).  A forward may carry
+fp32 or int8 weights (native int8 x int8 or dequant), and
+``make_fused_frame_forward`` the reference's ``fusedcand`` frame (one
+layer): the fused cell + candidate-dot kernel, then the head normalizer.
+A forward may carry
 ``prepare(params, look_w [S, T1, C]) -> payload``, run once per chunk;
 every payload leaf is TIME-MAJOR (``[T1, S, ...]``) so a frame's slice is
 contiguous.
@@ -50,6 +53,7 @@ from jlm_tpu_torch.oracle.decoder import DecodeResult
 from jlm_tpu_torch.models.lstm import _w, embed, step_logp
 from jlm_tpu_torch.models.params import params_to_torch, resolve_device
 from jlm_tpu_torch.ops.cand_dot import cand_dot
+from jlm_tpu_torch.ops.frame_step import cell_cand_step
 from jlm_tpu_torch.ops.lstm_cell import lstm_cell_step
 from jlm_tpu_torch.ops.project import head_blocks, project_lse
 
@@ -205,6 +209,40 @@ def make_kernel_forward(config: Config, compute_dtype=torch.bfloat16,
         return logp[:, :, :-1], logp[:, :, -1], (torch.stack(new_c), torch.stack(new_h))
 
     forward.prepare = prepare
+    forward.compute_dtype = compute_dtype
+    return forward
+
+
+def make_fused_frame_forward(config: Config, compute_dtype=torch.bfloat16,
+                             int8_mxu: Optional[bool] = None) -> ForwardFn:
+    """The one-layer frame through two kernels (counterpart of the
+    ``fusedcand`` variant of scripts/profile_frame_combos.py:75-121): the
+    fused cell + candidate dots ``cell_cand_step``, whose h' never leaves
+    the kernel between the cell and the dots, then ``project_lse`` on h'.
+    ``prepare``, ``compute_dtype`` and ``int8_mxu`` as in
+    :func:`make_kernel_forward`, which stays the default forward, as the
+    reference engine keeps the split frame."""
+    if config.num_layers != 1:
+        raise ValueError(f"the fused frame takes one layer, not {config.num_layers}")
+    base = make_kernel_forward(config, compute_dtype, int8_mxu)
+    if int8_mxu is None:
+        int8_mxu = config.int8_mxu
+
+    def forward(params, words, state, payload):
+        S, B = words.shape
+        dec = params["_decode"]
+        x = embed(params, words.reshape(S * B))
+        c, h = state
+        layer = dec["lstm_c"][0]
+        c_l, h_top, raw = cell_cand_step(
+            x, h[0], c[0], layer["W"], layer["b"], payload["cols"], payload["bias"], B,
+            config.forget_bias, compute_dtype=compute_dtype)
+        lse = project_lse(h_top, dec["head_c"], config, compute_dtype=compute_dtype,
+                          int8_mxu=int8_mxu)  # [S*B, 1]
+        logp = raw - lse.reshape(S, B, 1)
+        return logp[:, :, :-1], logp[:, :, -1], (c_l[None], h_top[None])
+
+    forward.prepare = base.prepare
     forward.compute_dtype = compute_dtype
     return forward
 

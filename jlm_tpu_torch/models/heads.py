@@ -27,7 +27,8 @@ def full_softmax_loss(params: Dict[str, Any], config: Config, hs: torch.Tensor,
     CE kernels (per block for a D-softmax head), logits never in device
     memory; otherwise plain ``log_softmax`` over the head's logits.  As in
     the reference, the fused route computes in bf16 unless ``precision``
-    is ``"highest"``, whatever the parameters' dtype."""
+    is ``"highest"``, whatever the parameters' dtype; ``"highest"`` takes
+    the fp32 CE kernels on the card (exact fp32 products, no TF32)."""
     B, T, H = hs.shape
     head = params["head"]
     h, y = hs.reshape(B * T, H), targets.reshape(B * T)

@@ -37,15 +37,15 @@ _I = ctypes.c_int
 # C entry point -> argtypes; every entry returns a cudaError_t as int.
 _SIGNATURES = {
     "jlm_project_block": [_P, _I, _I, _P, _I, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _P],
-    "jlm_project_merge": [_P, _P, _P, _P, _P, _I, _I, _P],
+                          _I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P],
+    "jlm_project_merge": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "jlm_lstm_cell": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _I,
                       _I, _I, _I, ctypes.c_float, _P],
     "jlm_cand_dot": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
-    "jlm_ce_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "jlm_ce_bwd_dh": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _P],
-    "jlm_ce_bwd_dw": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "jlm_cell_cand": [_P, _P, _P, _I] + [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P],
+    "jlm_ce_fwd": [_P] * 9 + [_I] * 7 + [_P],
+    "jlm_ce_bwd_dh": [_P] * 9 + [_I] * 7 + [_P],
+    "jlm_ce_bwd_dw": [_P] * 9 + [_I] * 5 + [_P],
     "jlm_lstm_scan_max_blocks": [_I, _I, _I, _I, _I],
     "jlm_lstm_scan_fwd": [_P] * 9 + [_I] * 4 + [ctypes.c_float, _I, _P],
     "jlm_lstm_scan_bwd": [_P] * 14 + [_I] * 4 + [ctypes.c_float, _I, _P],

@@ -1,0 +1,103 @@
+"""Fused decode-frame row step: the LSTM cell and the candidate dots.
+
+Counterpart of :mod:`jlm_tpu.ops.frame_step` (its ``_cell_cand_kernel``):
+one cell step over the ``R = S * B`` sentence-major beam rows, ``z = [x, h]
+@ W + b`` with gates i, j, f, o and fp32 accumulation, then per sentence
+``cand[s] = h'[s] @ cols[s]^T + cbias[s]`` against the pre-gathered
+candidate columns (the ``prepare`` payload's frame slice, EOS last).  The
+dots read h' rounded to the compute dtype, the value the split frame's
+``cand_dot`` reads.  Returns ``(c' fp32 [R, H], h' compute dtype [R, H],
+cand fp32 [S, B, C1])``.
+
+On a CUDA tensor the wrapper launches ``csrc/cell_cand.cu`` (bf16 compute
+on the tensor cores, or exact fp32 compute on the CUDA cores) or raises; on
+a CPU tensor it runs the plain version ``cell_cand_ref``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from jlm_tpu_torch.ops import _build
+from jlm_tpu_torch.ops.lstm_cell import lstm_cell_ref
+
+_MAX_B = 16  # beam rows per sentence the kernel's dot holds in registers
+
+
+def cell_cand_ref(x, h, c, W, b, cols, cbias, B: int, forget_bias: float = 1.0, *,
+                  compute_dtype=torch.float32):
+    """Plain version: the plain cell, h' rounded to ``compute_dtype``, and
+    an fp32 batched product of it with the candidate columns."""
+    c_new, h_new = lstm_cell_ref(x, h, c, W, b, forget_bias)
+    hc = h_new.to(compute_dtype)
+    S = cols.shape[0]
+    cand = (torch.einsum("sbh,sch->sbc", hc.float().reshape(S, B, -1), cols.float())
+            + cbias.float()[:, None, :])
+    return c_new, hc, cand
+
+
+def _launch(x, h, c, W, b, cols, cbias, B, forget_bias):
+    R, E = x.shape
+    H = h.shape[1]
+    S, C1 = cols.shape[:2]
+    if c.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"c dtype {c.dtype}")
+    if R != S * B or not 1 <= B <= _MAX_B:
+        raise ValueError(f"need R = S * B with B <= {_MAX_B}, got R={R} S={S} B={B}")
+    if E % 32 or H % 64:
+        raise ValueError(f"E={E} must be a multiple of 32 and H={H} of 64")
+    shapes = {"h": (h, (R, H)), "c": (c, (R, H)), "W": (W, (E + H, 4 * H)),
+              "b": (b, (4 * H,)), "cols": (cols, (S, C1, H)), "cbias": (cbias, (S, C1))}
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {shape} on {x.device}")
+    if b.dtype != torch.float32 or cbias.dtype != torch.float32:
+        raise ValueError("b and cbias must be fp32")
+    c_new = torch.empty((R, H), dtype=torch.float32, device=x.device)
+    h_new = torch.empty((R, H), dtype=x.dtype, device=x.device)
+    cand = torch.empty((S, B, C1), dtype=torch.float32, device=x.device)
+    if S:
+        P = ctypes.c_void_p
+        err = _build.lib().jlm_cell_cand(
+            P(x.data_ptr()), P(h.data_ptr()), P(c.data_ptr()), int(c.dtype == torch.float32),
+            P(W.data_ptr()), P(b.data_ptr()), P(cols.data_ptr()), P(cbias.data_ptr()),
+            P(c_new.data_ptr()), P(h_new.data_ptr()), P(cand.data_ptr()),
+            S, B, E, H, C1, int(x.dtype == torch.float32), float(forget_bias),
+            P(_build.stream_ptr(x)),
+        )
+        _build.check(err, "cell_cand kernel")
+        cell_cand_step.launches += 1
+    return c_new, h_new, cand
+
+
+def cell_cand_step(
+    x: torch.Tensor,  # [R, E] (R = S*B, sentence-major beam rows)
+    h: torch.Tensor,  # [R, H]
+    c: torch.Tensor,  # [R, H] fp32 or bf16
+    W: torch.Tensor,  # [(E+H), 4H]
+    b: torch.Tensor,  # [4H] fp32
+    cols: torch.Tensor,  # [S, C1, H] candidate columns (the payload's frame slice)
+    cbias: torch.Tensor,  # [S, C1] fp32
+    B: int,
+    forget_bias: float = 1.0,
+    *,
+    compute_dtype=torch.float32,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused frame row step: ``(c', h', cand)``; ``cand`` holds the raw
+    candidate logits with bias (the caller subtracts the lse).
+
+    ``cell_cand_step.launches`` counts kernel launches."""
+    x, h, W, cols = (t.to(compute_dtype) for t in (x, h, W, cols))
+    if not x.is_cuda:
+        return cell_cand_ref(x, h, c, W, b, cols, cbias, B, forget_bias,
+                             compute_dtype=compute_dtype)
+    if compute_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the cell_cand kernel computes in bf16 or fp32, not {compute_dtype}")
+    return _launch(x.contiguous(), h.contiguous(), c, W.contiguous(), b,
+                   cols.contiguous(), cbias, B, forget_bias)
+
+
+cell_cand_step.launches = 0

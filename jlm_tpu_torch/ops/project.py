@@ -1,10 +1,12 @@
 """Output projection with online logsumexp — the decode frame's normalizer.
 
-Counterpart of :mod:`jlm_tpu.ops.project` (its ``_proj_kernel``, LSE-only).
+Counterpart of :mod:`jlm_tpu.ops.project` (its ``_proj_kernel``).
 ``project_ms`` returns the per-row partial softmax statistics ``(m, s)`` of
-``logits = h @ W + b`` (``lse = m + log s``) and ``project_lse`` the
-log-sum-exp itself; ``[R, V]`` logits never reach device memory on the
-card.
+``logits = h @ W + b`` (``lse = m + log s``), ``project_lse`` the
+log-sum-exp itself, and ``project_candidates`` /
+``project_candidates_dsoftmax`` the candidate log-probs
+``log softmax(logits)[:, cand]``; ``[R, V]`` logits never reach device
+memory on the card.
 
 Heads, as in the reference (project.py:424-440): a full head ``{"W",
 "b"}``, or a D-softmax head ``{"blocks": [{"W", "b"}, ...]}`` whose block k
@@ -23,7 +25,11 @@ Weight modes, per block:
 - int8 weights with ``int8_mxu=False`` (dequant): ``w = (q * scale)``
   rounded once to ``compute_dtype`` before the product, fp32 accumulation.
 
-Candidate extraction (``project_candidates*``) is not ported (ROADMAP.md).
+Candidate extraction runs the same kernel with its candidate epilogue on:
+each candidate's logit, the fp32 value the online lse takes, is stored
+from the register that holds it, and the merge launch subtracts the lse.
+Ids may repeat; an id outside ``[0, V)`` matches no column and gets
+``-lse``, as the reference's one-hot product gives it.
 
 On a CUDA tensor the wrapper launches ``csrc/project_lse.cu`` — one launch
 per block and one merge — or raises; on a CPU tensor it runs the plain
@@ -132,6 +138,41 @@ def project_lse_ref(h, head, config: Optional[Config] = None, *,
     return m + torch.log(s)
 
 
+def _full_head(weight, scale, bias) -> Dict[str, Any]:
+    return {"W": weight if scale is None else {"q": weight, "scale": scale}, "b": bias}
+
+
+def _candidates_ref(h, head, config, cand_ids, compute_dtype, int8_mxu):
+    logits = [_logits_ref(h[:, off:off + d], *_split_block(blk), compute_dtype, int8_mxu)
+              for off, d, blk in head_blocks(head, config, h.shape[1])]
+    ms = [l.amax(dim=1, keepdim=True) for l in logits]
+    m, s = merge_ms(ms, [torch.exp(l - mk).sum(dim=1, keepdim=True)
+                         for l, mk in zip(logits, ms)])
+    full = torch.cat(logits, dim=1)
+    V = full.shape[1]
+    ids = cand_ids.to(full.device).long()
+    raw = full[:, ids.clamp(0, V - 1)]
+    raw = torch.where(((ids >= 0) & (ids < V))[None, :], raw, torch.zeros_like(raw))
+    return raw - (m + torch.log(s))
+
+
+def project_candidates_ref(h, weight, scale, bias, cand_ids, *,
+                           compute_dtype=torch.float32, int8_mxu: bool = False):
+    """Plain version of :func:`project_candidates`: the full logits, their
+    lse, and the candidate columns gathered."""
+    return _candidates_ref(h, _full_head(weight, scale, bias), None, cand_ids,
+                           compute_dtype, int8_mxu)
+
+
+def project_candidates_dsoftmax_ref(h, blocks, config: Config, cand_ids, *,
+                                    compute_dtype=torch.float32, int8_mxu: bool = False):
+    """Plain version of :func:`project_candidates_dsoftmax`: each block's
+    logits on its slice of h, the merged lse, the candidate columns of the
+    blocks' logits side by side."""
+    return _candidates_ref(h, {"blocks": list(blocks)}, config, cand_ids,
+                           compute_dtype, int8_mxu)
+
+
 def _mode(quantized: bool, compute_dtype, int8_mxu: bool) -> int:
     if quantized and int8_mxu:
         return INT8_MXU
@@ -181,7 +222,10 @@ def _block_plan(head, config, H, device, compute_dtype, int8_mxu):
     return plan
 
 
-def _launch(h, head, config, compute_dtype, int8_mxu, want_lse: bool):
+def _launch(h, head, config, compute_dtype, int8_mxu, want: str, cand_ids=None):
+    """One kernel launch per block of ``head`` and one merge.  ``want``:
+    ``"ms"`` -> ``(m, s)``; ``"lse"`` -> ``lse``, each ``[R, 1]``;
+    ``"cand"`` -> the log-probs ``[R, C]`` of ``cand_ids``."""
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"compute_dtype {compute_dtype}")
     R, H = h.shape
@@ -202,27 +246,48 @@ def _launch(h, head, config, compute_dtype, int8_mxu, want_lse: bool):
     def col():
         return torch.empty((R, 1), dtype=torch.float32, device=h.device)
 
-    if R == 0:
-        return col(), col(), col()
-    outs = (None, None, col()) if want_lse else (col(), col(), None)
+    m = s = lse = cand = ids = slots = None
+    if want == "cand":
+        C = cand_ids.shape[0]
+        cand = torch.zeros((R, C), dtype=torch.float32, device=h.device)
+        if R == 0 or C == 0:
+            return cand
+        # sorted ids (the kernel binary-searches them) and their columns
+        ids, slots = torch.sort(cand_ids.to(device=h.device, dtype=torch.int32),
+                                stable=True)
+        ids, slots = ids.contiguous(), slots.to(torch.int32).contiguous()
+    elif want == "lse":
+        lse = col()
+        if R == 0:
+            return lse
+    else:
+        m, s = col(), col()
+        if R == 0:
+            return m, s
     part = torch.empty((2, total, R), dtype=torch.float32, device=h.device)
     P = ctypes.c_void_p
     ptr = lambda t: P(t.data_ptr()) if t is not None else P(None)  # noqa: E731
     stream = P(_build.stream_ptr(h))
-    lib, base = _build.lib(), 0
+    counter = project_candidates if want == "cand" else project_lse
+    lib, base, id_base = _build.lib(), 0, 0
     for off, d, wt, mode, scale, bias, V, splits, per_split in plans:
         err = lib.jlm_project_block(
             P(h.data_ptr() + off * h.element_size()), H, int(h.dtype == torch.bfloat16),
             ptr(wt), mode, ptr(scale), ptr(bias), ptr(part[0, base]), ptr(part[1, base]),
-            R, d, V, splits, per_split, stream,
+            R, d, V, splits, per_split, ptr(ids), ptr(slots),
+            0 if ids is None else ids.shape[0], id_base, ptr(cand), stream,
         )
         _build.check(err, "project_lse kernel")
-        project_lse.launches += 1
+        counter.launches += 1
         base += splits
-    err = lib.jlm_project_merge(ptr(part[0]), ptr(part[1]), ptr(outs[0]), ptr(outs[1]),
-                                ptr(outs[2]), R, total, stream)
+        id_base += V
+    err = lib.jlm_project_merge(ptr(part[0]), ptr(part[1]), ptr(m), ptr(s), ptr(lse),
+                                ptr(cand), 0 if cand is None else cand.shape[1], R,
+                                total, stream)
     _build.check(err, "project_lse merge kernel")
-    return outs
+    if want == "cand":
+        return cand
+    return lse if want == "lse" else (m, s)
 
 
 def project_ms(
@@ -235,8 +300,7 @@ def project_ms(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row partial softmax statistics ``(m, s)``, each ``[R, 1]``."""
     if h.is_cuda:
-        m, s, _ = _launch(h, head, config, compute_dtype, int8_mxu, want_lse=False)
-        return m, s
+        return _launch(h, head, config, compute_dtype, int8_mxu, "ms")
     return project_ms_ref(h, head, config, compute_dtype=compute_dtype,
                           int8_mxu=int8_mxu)
 
@@ -255,9 +319,50 @@ def project_lse(
     one per block of the head (the merge launch is not counted).
     """
     if h.is_cuda:
-        return _launch(h, head, config, compute_dtype, int8_mxu, want_lse=True)[2]
+        return _launch(h, head, config, compute_dtype, int8_mxu, "lse")
     return project_lse_ref(h, head, config, compute_dtype=compute_dtype,
                            int8_mxu=int8_mxu)
 
 
+def project_candidates(
+    h: torch.Tensor,  # [R, H]
+    weight: torch.Tensor,  # [H, V] fp32, bf16 or int8
+    scale: Optional[torch.Tensor],  # [V] fp32 column scales of int8 weights, or None
+    bias: torch.Tensor,  # [V] fp32
+    cand_ids: torch.Tensor,  # [C] global vocab ids
+    *,
+    compute_dtype=torch.float32,
+    int8_mxu: bool = False,
+) -> torch.Tensor:
+    """Candidate log-probs ``[R, C]`` fp32: ``log softmax(h @ W + b)[:, cand]``.
+
+    ``project_candidates.launches`` counts kernel launches of either
+    candidate wrapper: one per block of the head."""
+    if h.is_cuda:
+        return _launch(h, _full_head(weight, scale, bias), None, compute_dtype, int8_mxu,
+                       "cand", cand_ids)
+    return project_candidates_ref(h, weight, scale, bias, cand_ids,
+                                  compute_dtype=compute_dtype, int8_mxu=int8_mxu)
+
+
+def project_candidates_dsoftmax(
+    h: torch.Tensor,  # [R, H]
+    blocks,  # [{"W": [d_k, s_k] or {"q", "scale"}, "b": [s_k][, "WT"]}, ...]
+    config: Config,  # config.dsoftmax
+    cand_ids: torch.Tensor,  # [C] global vocab ids
+    *,
+    compute_dtype=torch.float32,
+    int8_mxu: bool = False,
+) -> torch.Tensor:
+    """D-softmax candidate log-probs ``[R, C]``: one launch per block on its
+    slice of h, each storing only its own ids into one ``[R, C]`` buffer
+    zeroed once, and one merge that subtracts the blocks' global lse."""
+    if h.is_cuda:
+        return _launch(h, {"blocks": list(blocks)}, config, compute_dtype, int8_mxu,
+                       "cand", cand_ids)
+    return project_candidates_dsoftmax_ref(h, blocks, config, cand_ids,
+                                           compute_dtype=compute_dtype, int8_mxu=int8_mxu)
+
+
 project_lse.launches = 0
+project_candidates.launches = 0

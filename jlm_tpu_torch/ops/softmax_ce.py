@@ -17,10 +17,10 @@ device memory.  The pieces, as in the reference:
 
 ``compute_dtype`` is what h, W and gp are rounded to before each product
 (fp32 accumulation either way), as in the Pallas kernels; db sums the
-unrounded gp.  On a CUDA tensor the wrappers launch
-``csrc/softmax_ce.cu`` (bf16 compute only) or raise; on a CPU tensor they
-run the plain versions ``ce_fwd_raw_ref``, ``ce_bwd_dh_ref`` and
-``ce_bwd_dw_ref``.
+unrounded gp.  On a CUDA tensor the wrappers launch ``csrc/softmax_ce.cu``
+(bf16 compute on the tensor cores, or fp32 compute as exact fp32 FMAs on
+the CUDA cores, no TF32) or raise; on a CPU tensor they run the plain
+versions ``ce_fwd_raw_ref``, ``ce_bwd_dh_ref`` and ``ce_bwd_dw_ref``.
 """
 
 from __future__ import annotations
@@ -33,11 +33,10 @@ import torch
 
 from jlm_tpu_torch.ops import _build
 
-# Block shapes of csrc/softmax_ce.cu: (rows, vocab columns) per block.
-_FWD_TILE = (128, 64)
-_DH_TILE = (32, 64)
-FP32_TODO = ("fp32-compute CE kernel not ported yet; the card computes the "
-             "fused CE in bf16 (ROADMAP.md queue 2, kernels 4-6)")
+# Block shapes of csrc/softmax_ce.cu per compute dtype: (rows, vocab
+# columns) per block and the blocks an SM runs at once.
+_FWD_TILE = {torch.bfloat16: (128, 64, 1), torch.float32: (64, 64, 2)}
+_DH_TILE = {torch.bfloat16: (32, 64, 2), torch.float32: (32, 64, 1)}
 
 Tensor = torch.Tensor
 
@@ -91,20 +90,21 @@ def ce_loss_ref(h, W, b, y) -> Tensor:
 
 def _kernel_args(h, W, b, y, compute_dtype):
     """Cast and check the operands of a kernel launch; returns
-    ``(h bf16 [N, D], W bf16 [D, Vp], b fp32, y int32, N, D, V)``.  The
-    kernels read W in 16-byte row chunks, so a vocab that is not a
-    multiple of 8 is padded with zero columns (masked by ``col >= V``)."""
-    if compute_dtype != torch.bfloat16:
-        raise NotImplementedError(FP32_TODO)
+    ``(h [N, D], W [D, Vp], b fp32, y int32, N, D, V)``, h and W in the
+    compute dtype.  The bf16 kernels read W in 16-byte row chunks, so a
+    vocab that is not a multiple of 8 is padded with zero columns (masked
+    by ``col >= V``); the fp32 kernels read W as it is (``Vp == V``)."""
+    if compute_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the CE kernels compute in bf16 or fp32, not {compute_dtype}")
     N, D = h.shape
     V = b.shape[0]
     if tuple(W.shape) != (D, V):
         raise ValueError(f"W must be [{D}, {V}], got {tuple(W.shape)}")
     if D % 128 or D > 512:
         raise ValueError(f"hidden slice {D} must be a multiple of 128, at most 512")
-    hb = h.to(torch.bfloat16).contiguous()
-    Wb = W.to(torch.bfloat16).contiguous()
-    if V % 8:
+    hb = h.to(compute_dtype).contiguous()
+    Wb = W.to(compute_dtype).contiguous()
+    if V % 8 and compute_dtype == torch.bfloat16:
         Wb = torch.nn.functional.pad(Wb, (0, 8 - V % 8))
     for name, t in (("W", Wb), ("b", b), ("y", y)):
         if t.device != h.device:
@@ -139,14 +139,14 @@ def ce_fwd_raw(h: Tensor, W: Tensor, b: Tensor, y: Tensor,
     out = torch.zeros((3, N), dtype=torch.float32, device=h.device)  # m, s, t
     if N == 0:
         return out[0], out[1], out[2]
-    n_tiles = -(-V // _FWD_TILE[1])
-    row_blocks = -(-N // _FWD_TILE[0])
-    splits, per_split = _splits(n_tiles, row_blocks, 1, h.device)
+    rows, cols, per_sm = _FWD_TILE[compute_dtype]
+    splits, per_split = _splits(-(-V // cols), -(-N // rows), per_sm, h.device)
     part = torch.empty((2, splits, N), dtype=torch.float32, device=h.device)
     err = _build.lib().jlm_ce_fwd(
         _ptr(hb), _ptr(Wb), _ptr(bf), _ptr(yi), _ptr(part[0]), _ptr(part[1]),
         _ptr(out[0]), _ptr(out[1]), _ptr(out[2]), N, D, V, Wb.shape[1],
-        splits, per_split, ctypes.c_void_p(_build.stream_ptr(h)))
+        int(compute_dtype == torch.float32), splits, per_split,
+        ctypes.c_void_p(_build.stream_ptr(h)))
     _build.check(err, "ce_fwd kernel")
     ce_fwd_raw.launches += 1
     return out[0], out[1], out[2]
@@ -171,14 +171,14 @@ def ce_bwd_dh(h, W, b, y, lse, ga, gb, compute_dtype=torch.float32) -> Tensor:
     dh = torch.empty((N, D), dtype=torch.float32, device=h.device)
     if N == 0:
         return dh
-    n_tiles = -(-V // _DH_TILE[1])
-    splits, per_split = _splits(n_tiles, -(-N // _DH_TILE[0]), 2, h.device)
+    rows, cols, per_sm = _DH_TILE[compute_dtype]
+    splits, per_split = _splits(-(-V // cols), -(-N // rows), per_sm, h.device)
     part = dh if splits == 1 else torch.empty((splits, N, D), dtype=torch.float32,
                                               device=h.device)
     err = _build.lib().jlm_ce_bwd_dh(
         _ptr(hb), _ptr(Wb), _ptr(bf), _ptr(yi), _ptr(ga), _ptr(gb), _ptr(lse),
-        _ptr(part), _ptr(dh), N, D, V, Wb.shape[1], splits, per_split,
-        ctypes.c_void_p(_build.stream_ptr(h)))
+        _ptr(part), _ptr(dh), N, D, V, Wb.shape[1], int(compute_dtype == torch.float32),
+        splits, per_split, ctypes.c_void_p(_build.stream_ptr(h)))
     _build.check(err, "ce_bwd_dh kernel")
     ce_bwd_dh.launches += 1
     return dh
@@ -199,7 +199,8 @@ def ce_bwd_dw(h, W, b, y, lse, ga, gb,
     if N:
         err = _build.lib().jlm_ce_bwd_dw(
             _ptr(hb), _ptr(Wb), _ptr(bf), _ptr(yi), _ptr(ga), _ptr(gb), _ptr(lse),
-            _ptr(dW), _ptr(db), N, D, V, Vp, ctypes.c_void_p(_build.stream_ptr(h)))
+            _ptr(dW), _ptr(db), N, D, V, Vp, int(compute_dtype == torch.float32),
+            ctypes.c_void_p(_build.stream_ptr(h)))
         _build.check(err, "ce_bwd_dw kernel")
         ce_bwd_dw.launches += 1
     if Vp != V:

@@ -3,19 +3,22 @@
 
 Run from the repository root on a machine with one CUDA card:
 ``python3 profile_serve.py [--out chiprun_out/serve_profile.json]``.  It
-serves ``chip_smoke.py``'s two serving cells — the 50k flagship (1 layer,
-full int8 head) and BASELINE config 5 (2 layers, V=100,000, D-softmax
-int8 head), both int8-MXU speed mode — over the same 2,048-lattice chunk,
-in turns (50k, config 5, config 5, 50k).  Per run: 1 warm-up pass, the
-host-clock time of 3 passes (each ending in the result fetch), then 1 pass
-under ``torch.profiler``.  From the profile: device busy ms per pass (the
-sum of device activity; one stream), the idle share of the profiled wall
-time and of the unprofiled median pass, device activities per forward,
-and each decode kernel's ms per pass and share of device time, matched by
-the function names of ``csrc/project_lse.cu``, ``csrc/lstm_cell.cu`` and
-``csrc/cand_dot.cu``; the rest is PyTorch's glue.  Prints one JSON summary
-per run and writes them to ``--out``, each run's gzipped chrome trace
-beside it.
+serves ``chip_smoke.py``'s serving cells — the 50k flagship (1 layer,
+full int8 head) with the split frame (the default forward:
+``lstm_cell_step``, ``cand_dot``, ``project_lse``) and with the fused
+frame (``50k fused``: ``make_fused_frame_forward``, ``cell_cand_step``
+then ``project_lse``), and BASELINE config 5 (2 layers, V=100,000,
+D-softmax int8 head), all int8-MXU speed mode — over the same
+2,048-lattice chunk, in the turns of ``RUNS``.  Per run: 1 warm-up pass,
+the host-clock time of 3 passes (each ending in the result fetch), then 1
+pass under ``torch.profiler``.  From the profile: device busy ms per pass
+(the sum of device activity; one stream), the idle share of the profiled
+wall time and of the unprofiled median pass, device activities per
+forward, and each decode kernel's ms per pass and share of device time,
+matched by the function names of ``csrc/project_lse.cu``,
+``csrc/lstm_cell.cu``, ``csrc/cand_dot.cu`` and ``csrc/cell_cand.cu``; the
+rest is PyTorch's glue.  Prints one JSON summary per run and writes them
+to ``--out``, each run's gzipped chrome trace beside it.
 """
 
 from __future__ import annotations
@@ -38,16 +41,20 @@ from profile_train import kernel_name
 # the device functions of the three decode kernels' sources
 DECODE_KERNELS = {"project_lse": ("proj_ms_kernel", "lse_merge_kernel"),
                   "lstm_cell_step": ("lstm_cell_kernel",),
-                  "cand_dot": ("cand_dot_kernel",)}
+                  "cand_dot": ("cand_dot_kernel",),
+                  "cell_cand_step": ("cell_cand_kernel",)}
+RUNS = ("50k", "50k fused", "config 5", "config 5", "50k fused", "50k")
 TIMED = 3
 
 
 def profile_run(dev, cell, trace_path: str) -> dict:
     """Warm-up, timed and profiled passes of one serving cell."""
-    from jlm_tpu_torch.decoder.engine import BeamDecoder
+    from jlm_tpu_torch.decoder.engine import BeamDecoder, make_fused_frame_forward
 
     label, config, vocab, lexicon, params, kanas = cell
-    engine = BeamDecoder(params, lexicon, vocab, config, precision="default", device=dev)
+    fwd = make_fused_frame_forward(config) if label.endswith("fused") else None
+    engine = BeamDecoder(params, lexicon, vocab, config, precision="default", device=dev,
+                         forward_fn=fwd)
     stream = (kanas * (-(-S // len(kanas))))[:S]
     n_chars = sum(len(k) for k in stream)
     frames = min(engine._t_bucket(max(len(k) for k in stream)), config.max_kana_len)
@@ -118,9 +125,10 @@ def main(argv=None) -> int:
     config, vocab, lexicon, _, qp, kanas = bench_data()
     cfg5, vocab5, lexicon5, _, qp5 = bench_data5()
     cells = {"50k": ("50k", config, vocab, lexicon, qp, kanas),
+             "50k fused": ("50k fused", config, vocab, lexicon, qp, kanas),
              "config 5": ("config 5", cfg5, vocab5, lexicon5, qp5, kanas)}
     runs = []
-    for i, label in enumerate(("50k", "config 5", "config 5", "50k")):
+    for i, label in enumerate(RUNS):
         trace = os.path.join(out_dir, f"serve_trace_{i}_{label.replace(' ', '_')}.json")
         summary = profile_run(dev, cells[label], trace)
         print(json.dumps(summary, indent=1), flush=True)

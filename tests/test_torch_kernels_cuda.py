@@ -215,10 +215,10 @@ def test_cand_dot_kernel_vs_plain(cuda, dtype):
                                cand_dot_ref(h3, cols, bias).cpu().numpy(), atol=1e-4)
 
 
-def _ce_case(cuda, seed, N, D, V, neg_every=0):
+def _ce_case(cuda, seed, N, D, V, neg_every=0, scale=0.05):
     rng = np.random.default_rng(seed)
     h = torch.from_numpy(rng.uniform(-1, 1, (N, D)).astype(np.float32)).to(cuda)
-    W = torch.from_numpy(rng.normal(0, 0.05, (D, V)).astype(np.float32)).to(cuda)
+    W = torch.from_numpy(rng.normal(0, scale, (D, V)).astype(np.float32)).to(cuda)
     b = torch.from_numpy(rng.normal(0, 0.1, V).astype(np.float32)).to(cuda)
     y = rng.integers(0, V, N)
     if neg_every:
@@ -390,3 +390,336 @@ def test_lstm_scan_refuses_what_it_cannot_take(cuda):
     hs, cs, _, _ = ls.lstm_scan_fwd(xs, W, b, c0, h0)
     with pytest.raises(ValueError, match="E <= 16"):
         ls.lstm_scan_bwd(xs, W, b, c0, h0, hs, cs, hs, c0, h0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D,V,neg_every", [
+    (1024, 512, 50_000, 0),   # the training shape
+    (300, 256, 1000, 7),      # ragged rows and vocab tile, -1 targets
+    (77, 128, 1001, 3),       # vocab not a multiple of 8
+])
+def test_ce_fp32_kernels_vs_plain(cuda, N, D, V, neg_every):
+    """fp32 compute (``precision="highest"``): ce_fwd, ce_bwd_dh and
+    ce_bwd_dw vs their plain fp32 versions, TF32 off on both sides.
+    Bounds: m + log s and t within 1e-5 abs, dh, dW and db within 1e-5 of
+    their largest magnitude (exact fp32 products; fp32 sums in another
+    order)."""
+    from jlm_tpu_torch.ops import softmax_ce as ce
+
+    f32 = torch.float32
+    h, W, b, y, g = _ce_case(cuda, 16, N, D, V, neg_every)
+    n0 = (ce.ce_fwd_raw.launches, ce.ce_bwd_dh.launches, ce.ce_bwd_dw.launches)
+    m, s, t = ce.ce_fwd_raw(h, W, b, y, f32)
+    mp, sp, tp = ce.ce_fwd_raw_ref(h, W, b, y, f32)
+    lse = mp + torch.log(sp)
+    assert float((m + torch.log(s) - lse).abs().max()) <= 1e-5
+    assert float((t - tp).abs().max()) <= 1e-5
+    if neg_every:
+        assert float(t[::neg_every].abs().max()) == 0.0
+    dh = ce.ce_bwd_dh(h, W, b, y, lse, g, -g, f32)
+    dW, db = ce.ce_bwd_dw(h, W, b, y, lse, g, -g, f32)
+    assert (ce.ce_fwd_raw.launches, ce.ce_bwd_dh.launches, ce.ce_bwd_dw.launches) == \
+        tuple(n + 1 for n in n0)
+    torch.cuda.synchronize()
+    assert _rel(dh, ce.ce_bwd_dh_ref(h, W, b, y, lse, g, -g, f32)) <= 1e-5
+    dWp, dbp = ce.ce_bwd_dw_ref(h, W, b, y, lse, g, -g, f32)
+    assert dW.shape == (D, V) and db.shape == (V,)
+    assert _rel(dW, dWp) <= 1e-5 and _rel(db, dbp) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_ce_fp32_bounds_catch_tf32(cuda):
+    """On weights of scale 0.5 (a peaked softmax, where an operand rounding
+    moves the lse instead of averaging away), the plain fp32 version with h
+    and W rounded to TF32 reads above each bound of
+    ``test_ce_fp32_kernels_vs_plain`` while the kernels read within it."""
+    from jlm_tpu_torch.ops import softmax_ce as ce
+
+    f32 = torch.float32
+    h, W, b, y, g = _ce_case(cuda, 17, 300, 256, 1000, scale=0.5)
+    hr, Wr = _tf32(h), _tf32(W)
+    mp, sp, tp = ce.ce_fwd_raw_ref(h, W, b, y, f32)
+    lse = mp + torch.log(sp)
+    mw, sw, tw = ce.ce_fwd_raw_ref(hr, Wr, b, y, f32)
+    m, s, t = ce.ce_fwd_raw(h, W, b, y, f32)
+    assert float((m + torch.log(s) - lse).abs().max()) <= 1e-5
+    assert float((mw + torch.log(sw) - lse).abs().max()) > 1e-5
+    dh_p = ce.ce_bwd_dh_ref(h, W, b, y, lse, g, -g, f32)
+    assert _rel(ce.ce_bwd_dh(h, W, b, y, lse, g, -g, f32), dh_p) <= 1e-5
+    assert _rel(ce.ce_bwd_dh_ref(hr, Wr, b, y, lse, g, -g, f32), dh_p) > 1e-5
+    dW_p = ce.ce_bwd_dw_ref(h, W, b, y, lse, g, -g, f32)[0]
+    assert _rel(ce.ce_bwd_dw(h, W, b, y, lse, g, -g, f32)[0], dW_p) <= 1e-5
+    assert _rel(ce.ce_bwd_dw_ref(hr, Wr, b, y, lse, g, -g, f32)[0], dW_p) > 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", ["full", "dsoftmax"])
+def test_fp32_fused_loss_vs_plain_log_softmax(cuda, head):
+    """``full_softmax_loss(precision="highest")`` with ``fused_ce`` on the
+    card (the fp32 CE kernels, per block for a D-softmax head with blocks
+    of 512, 256 and 128 dims) vs the plain fp32 log-softmax route, TF32
+    off: loss within 1e-5 abs, every gradient within 1e-5 of its largest
+    magnitude; one launch of each CE kernel per block."""
+    from jlm_tpu_torch.config import Config, default_dsoftmax_blocks
+    from jlm_tpu_torch.models.heads import full_softmax_loss
+    from jlm_tpu_torch.ops import softmax_ce as ce
+
+    rng = np.random.default_rng(18)
+    V = 8000
+    cfg = Config(vocab_size=V, hidden_size=512, fused_ce=True)
+    if head == "dsoftmax":
+        cfg = cfg.replace(head="dsoftmax", dsoftmax=default_dsoftmax_blocks(V, 512))
+        shapes = list(zip(cfg.dsoftmax.block_dims, cfg.dsoftmax.block_sizes))
+    else:
+        shapes = [(512, V)]
+    blocks = [{"W": torch.from_numpy(rng.normal(0, 0.05, s).astype(np.float32)).to(cuda),
+               "b": torch.from_numpy(rng.normal(0, 0.1, s[1]).astype(np.float32)).to(cuda)}
+              for s in shapes]
+    params = {"head": blocks[0] if head == "full" else {"blocks": blocks}}
+    hs = torch.from_numpy(rng.uniform(-1, 1, (4, 64, 512)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.integers(0, V, (4, 64))).to(cuda)
+    leaves = [hs] + [blk[k] for blk in blocks for k in ("W", "b")]
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+
+    def run(c):
+        loss = full_softmax_loss(params, c, hs, y, precision="highest")
+        return (loss, *torch.autograd.grad(loss, leaves))
+
+    n0 = (ce.ce_fwd_raw.launches, ce.ce_bwd_dh.launches, ce.ce_bwd_dw.launches)
+    got = run(cfg)
+    assert (ce.ce_fwd_raw.launches, ce.ce_bwd_dh.launches, ce.ce_bwd_dw.launches) == \
+        tuple(n + len(blocks) for n in n0)
+    want = run(cfg.replace(fused_ce=False))
+    assert abs(got[0].item() - want[0].item()) <= 1e-5
+    for a, w in zip(got[1:], want[1:]):
+        assert _rel(a, w) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_ce_kernels_refuse_what_they_cannot_take(cuda):
+    """A hidden slice that is not a multiple of 128, or wider than 512, and
+    a compute dtype other than bf16 or fp32 raise on the card."""
+    from jlm_tpu_torch.ops import softmax_ce as ce
+
+    for D in (96, 640):
+        h, W, b, y, _ = _ce_case(cuda, 19, 8, D, 300)
+        with pytest.raises(ValueError, match="multiple of 128"):
+            ce.ce_fwd_raw(h, W, b, y, torch.float32)
+    h, W, b, y, _ = _ce_case(cuda, 19, 8, 128, 300)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        ce.ce_fwd_raw(h, W, b, y, torch.float16)
+
+
+def _cand_ids(rng, sizes, C=150):
+    """C candidate ids over a vocab of blocks ``sizes``: every block edge,
+    repeats, and -1 (no column)."""
+    V = sum(sizes)
+    edges = np.cumsum((0,) + tuple(sizes))
+    ids = rng.integers(0, V, C)
+    fixed = sorted({int(e) for e in edges[:-1]} | {int(e) - 1 for e in edges[1:]})
+    ids[:len(fixed)] = fixed
+    ids[len(fixed):len(fixed) + 3] = [fixed[0], fixed[-1], -1]
+    return torch.from_numpy(ids.astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", list(_BLOCK_MODES))
+@pytest.mark.parametrize("mode", ["full", "prefix", "disjoint"])
+def test_project_candidates_kernel_vs_plain(cuda, mode, weights):
+    """Candidate extraction in every weight mode on a full head and on
+    D-softmax heads vs the plain versions on the card: 300 rows, ragged
+    blocks, 150 ids with every block edge, repeats and -1.  Bound 1e-4
+    abs (the lse's: fp32 sums in another order; each candidate's raw logit
+    is the value the online lse takes).  On weights of scale 0.5 the plain
+    version read one column to the right must read above it.  The
+    candidate wrappers count their launches, one per block, and not
+    project_lse's; an id of -1 gets -lse."""
+    from jlm_tpu_torch.config import Config, DSoftmaxConfig
+    from jlm_tpu_torch.ops.project import (
+        project_candidates, project_candidates_dsoftmax, project_candidates_dsoftmax_ref,
+        project_candidates_ref)
+
+    cd, quantized, int8_mxu, bound = _BLOCK_MODES[weights]
+    rng = np.random.default_rng(26)
+    H, sizes = 256, (1000, 2000, 3001)
+    dims = {"full": (H,), "prefix": (256, 128, 64), "disjoint": (128, 64, 64)}[mode]
+    if mode == "full":
+        sizes = (6001,)
+    cfg = Config(vocab_size=sum(sizes), hidden_size=H, head="dsoftmax",
+                 dsoftmax=DSoftmaxConfig(block_sizes=sizes, block_dims=dims,
+                                         mode="disjoint" if mode == "disjoint" else "prefix"))
+    blocks = []
+    for n, d in zip(sizes, dims):
+        w = rng.normal(size=(d, n)).astype(np.float32) * 0.5
+        b = torch.from_numpy(rng.normal(size=n).astype(np.float32) * 0.01).to(cuda)
+        if quantized:
+            q = quantize_weight(w, axis=0)
+            W = {"q": torch.from_numpy(q["q"]).to(cuda),
+                 "scale": torch.from_numpy(q["scale"]).to(cuda)}
+        else:
+            W = torch.from_numpy(w).to(cuda).to(cd)
+        blocks.append({"W": W, "b": b})
+    h = torch.from_numpy(rng.normal(size=(300, H)).astype(np.float32)).to(cuda).to(cd)
+    ids = _cand_ids(rng, sizes).to(cuda)
+    shifted = torch.where(ids >= 0, (ids + 1) % sum(sizes), ids)
+    kw = dict(compute_dtype=cd, int8_mxu=int8_mxu)
+    if mode == "full":
+        W, scale = ((blocks[0]["W"]["q"], blocks[0]["W"]["scale"]) if quantized
+                    else (blocks[0]["W"], None))
+
+        def run(fn, i):
+            return fn(h, W, scale, blocks[0]["b"], i, **kw)
+
+        kernel, plain = project_candidates, project_candidates_ref
+    else:
+        def run(fn, i):
+            return fn(h, blocks, cfg, i, **kw)
+
+        kernel, plain = project_candidates_dsoftmax, project_candidates_dsoftmax_ref
+    n0 = (project_candidates.launches, project_lse.launches)
+    got = run(kernel, ids)
+    assert (project_candidates.launches, project_lse.launches) == (n0[0] + len(blocks), n0[1])
+    assert got.shape == (300, ids.shape[0]) and got.dtype == torch.float32
+    want = run(plain, ids)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=bound)
+    assert float((run(plain, shifted) - want).abs().max()) > bound
+    head = blocks[0] if mode == "full" else {"blocks": blocks}
+    lse = project_lse(h, head, cfg, **kw)
+    none = int((ids < 0).nonzero()[0, 0])
+    np.testing.assert_allclose(got[:, none].cpu().numpy(), -lse[:, 0].cpu().numpy(), atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,B,E,H,C1", [
+    (12, 10, 64, 128, 17),    # test_cell_cand_fused's shapes
+    (4, 8, 32, 64, 9),
+    (37, 16, 256, 512, 65),   # the widest sentence the kernel takes
+    (345, 10, 256, 512, 65),  # the serving widths, a ragged last block
+])
+def test_cell_cand_kernel_vs_plain(cuda, S, B, E, H, C1, c_dtype):
+    """The fused cell + candidate kernel (bf16) vs its plain version on the
+    card.  Bounds: c' within 1e-4 abs (fp32 sums of the same bf16 products
+    in another order), h' within one bf16 rounding (8e-3 at |h'| < 1), the
+    candidate logits within 1e-4 of the plain dot of the kernel's own h'
+    (the dot alone) and within 1e-4 of the plain version beyond what the
+    h' elements that the two round the other way explain (sum over them of
+    |h'_k - h'_r| |cols|)."""
+    from jlm_tpu_torch.ops.frame_step import cell_cand_ref, cell_cand_step
+
+    bf = torch.bfloat16
+    rng = np.random.default_rng(27)
+
+    def t(*shape, scale, dtype=bf):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32) * scale).to(cuda).to(dtype)
+
+    R = S * B
+    x, h, c = t(R, E, scale=1.0), t(R, H, scale=0.1), t(R, H, scale=0.5, dtype=c_dtype)
+    W, b = t(E + H, 4 * H, scale=0.05), t(4 * H, scale=0.01, dtype=torch.float32)
+    cols, cbias = t(S, C1, H, scale=0.1), t(S, C1, scale=0.01, dtype=torch.float32)
+    n0 = cell_cand_step.launches
+    c_k, h_k, cand_k = cell_cand_step(x, h, c, W, b, cols, cbias, B, 1.0, compute_dtype=bf)
+    assert cell_cand_step.launches == n0 + 1
+    assert (c_k.dtype, h_k.dtype, cand_k.dtype) == (torch.float32, bf, torch.float32)
+    c_r, h_r, cand_r = cell_cand_ref(x, h, c, W, b, cols, cbias, B, 1.0, compute_dtype=bf)
+    np.testing.assert_allclose(c_k.cpu().numpy(), c_r.cpu().numpy(), atol=1e-4)
+    np.testing.assert_allclose(h_k.float().cpu().numpy(), h_r.float().cpu().numpy(), atol=8e-3)
+    own = torch.einsum("sbh,sch->sbc", h_k.float().reshape(S, B, H), cols.float()) \
+        + cbias[:, None, :]
+    np.testing.assert_allclose(cand_k.cpu().numpy(), own.cpu().numpy(), atol=1e-4)
+    slack = torch.einsum("sbh,sch->sbc", (h_k.float() - h_r.float()).abs().reshape(S, B, H),
+                         cols.float().abs())
+    assert float(((cand_k - cand_r).abs() - slack).max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,B,E,H,C1", [
+    (12, 10, 64, 128, 17),    # test_cell_cand_fused's shapes
+    (4, 8, 32, 64, 9),
+    (64, 8, 256, 512, 65),    # the fp32 parity run's frame (greedy, beam pad 8)
+])
+def test_cell_cand_fp32_kernel_vs_plain(cuda, S, B, E, H, C1, c_dtype):
+    """fp32 compute (exact fp32 FMAs, TF32 off): c', h' and the candidate
+    logits within 1e-5 abs of the plain version (fp32 sums in another
+    order); h' is fp32."""
+    from jlm_tpu_torch.ops.frame_step import cell_cand_ref, cell_cand_step
+
+    f32 = torch.float32
+    rng = np.random.default_rng(28)
+
+    def t(*shape, scale, dtype=f32):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32) * scale).to(cuda).to(dtype)
+
+    R = S * B
+    x, h, c = t(R, E, scale=1.0), t(R, H, scale=0.1), t(R, H, scale=0.5, dtype=c_dtype)
+    W, b = t(E + H, 4 * H, scale=0.05), t(4 * H, scale=0.01)
+    cols, cbias = t(S, C1, H, scale=0.1), t(S, C1, scale=0.01)
+    n0 = cell_cand_step.launches
+    got = cell_cand_step(x, h, c, W, b, cols, cbias, B, 1.0, compute_dtype=f32)
+    assert cell_cand_step.launches == n0 + 1
+    assert all(a.dtype == f32 for a in got)
+    want = cell_cand_ref(x, h, c, W, b, cols, cbias, B, 1.0, compute_dtype=f32)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cell_cand_refuses_what_it_cannot_take(cuda):
+    """fp16 compute, more than 16 rows a sentence, E not a multiple of 32,
+    H not a multiple of 64, and a cols slice of the wrong shape raise."""
+    from jlm_tpu_torch.ops.frame_step import cell_cand_step
+
+    bf = torch.bfloat16
+
+    def args(S, B, E, H, C1):
+        z = lambda *s, dtype=bf: torch.zeros(s, dtype=dtype, device=cuda)  # noqa: E731
+        return (z(S * B, E), z(S * B, H), z(S * B, H, dtype=torch.float32), z(E + H, 4 * H),
+                z(4 * H, dtype=torch.float32), z(S, C1, H), z(S, C1, dtype=torch.float32), B)
+
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        cell_cand_step(*args(2, 8, 32, 64, 9), compute_dtype=torch.float16)
+    for shape, match in (((2, 17, 32, 64, 9), "B <= 16"), ((2, 8, 48, 64, 9), "E=48"),
+                         ((2, 8, 32, 96, 9), "H=96")):
+        with pytest.raises(ValueError, match=match):
+            cell_cand_step(*args(*shape), compute_dtype=bf)
+    a = list(args(2, 8, 32, 64, 9))
+    a[5] = a[5][:, :, :32]
+    with pytest.raises(ValueError, match="cols"):
+        cell_cand_step(*a, compute_dtype=bf)
+
+
+@pytest.mark.cuda
+def test_fused_frame_forward_on_the_card(cuda):
+    """``BeamDecoder`` with ``make_fused_frame_forward`` (bf16, int8 head)
+    on the card vs the default split forward: the same top-1 paths, scores
+    within 1e-2 (the split frame rounds c' to bf16, the fused frame keeps
+    it fp32); per forward one ``cell_cand_step`` and one ``project_lse``
+    launch, no ``lstm_cell_step`` or ``cand_dot``."""
+    from jlm_tpu_torch.config import Config
+    from jlm_tpu_torch.data import Lexicon, build_vocab, generate_corpus, generate_test_set
+    from jlm_tpu_torch.decoder.engine import BeamDecoder, make_fused_frame_forward
+    from jlm_tpu_torch.models.params import init_params
+    from jlm_tpu_torch.ops.frame_step import cell_cand_step
+    from jlm_tpu_torch.ops.quant import quantize_params
+
+    cfg = Config(vocab_size=2000, embed_size=64, hidden_size=128, beam_width=10,
+                 n_best_max=1, seed=3)
+    vocab = build_vocab(generate_corpus(800, seed=1234), cfg.vocab_size)
+    lexicon = Lexicon.from_vocab(vocab)
+    qp = quantize_params(init_params(cfg))
+    kanas = [k for k, _ in generate_test_set(12, seed=777)]
+    split = BeamDecoder(qp, lexicon, vocab, cfg, precision="default", device=cuda)
+    want = split.decode_batch(kanas)
+    fused = BeamDecoder(qp, lexicon, vocab, cfg, device=cuda,
+                        forward_fn=make_fused_frame_forward(cfg))
+    counters = (cell_cand_step, project_lse, lstm_cell_step, cand_dot)
+    for fn in counters:
+        fn.launches = 0
+    got = fused.decode_batch(kanas)
+    counts = [fn.launches for fn in counters]
+    assert counts[0] > 0 and counts == [counts[0], counts[0], 0, 0]
+    for g, w in zip(got, want):
+        assert g[0].segments == w[0].segments
+        assert abs(g[0].score - w[0].score) <= 1e-2

@@ -167,8 +167,8 @@ def test_cpu_wrappers_do_not_count_launches():
     assert _build._lib is None
 
 
-def test_unported_modes_raise():
-    """The two modes this test once saw refused now run: the int8 dequant
+def test_dequant_and_one_block_heads_run():
+    """Two modes the port once refused run: the int8 dequant
     mode (``int8_mxu=False``) equals JAX's exact-dequant kernel (1e-5: the
     dequantized weight and the fp32 product are the same on both sides),
     and a D-softmax head of one full-width block equals the full head."""

@@ -154,14 +154,45 @@ def test_ce_fused_dsoftmax_matches_jax(mode):
                 atol=1e-4, rtol=1e-4, err_msg=f"{mode} d{name} block {k}")
 
 
-def test_cpu_ce_wrappers_do_not_count_launches():
-    """On CPU tensors the CE wrappers run their plain versions: no kernel,
-    no launch counted, no build."""
+def test_full_softmax_loss_highest_fused_matches_jax():
+    """``full_softmax_loss(precision="highest")`` with ``fused_ce`` on a full
+    head (the fp32 fused CE, kernels 4-6 in fp32) vs JAX's, loss and the
+    grads of hs, W and b, as tests/test_kernels.py's fused-CE tests: loss
+    within 1e-5, grads within 1e-4 abs and rel.  V = 1000 is not a tile
+    multiple."""
+    from jlm_tpu.models.heads import full_softmax_loss as jax_loss
+
+    cfg = Config(vocab_size=1000, embed_size=32, hidden_size=128, fused_ce=True, seed=4)
+    rng = np.random.default_rng(32)
+    hs = rng.normal(size=(4, 6, 128)).astype(np.float32) * 0.3
+    W = rng.normal(size=(128, 1000)).astype(np.float32) * 0.05
+    b = rng.normal(size=(1000,)).astype(np.float32) * 0.01
+    tgt = rng.integers(0, 1000, (4, 6)).astype(np.int32)
+    tgt[0, :2] = [0, 999]
+
+    l_j, g_j = jax.value_and_grad(
+        lambda h, W, b: jax_loss({"head": {"W": W, "b": b}}, cfg, h, jnp.asarray(tgt),
+                                 precision="highest"),
+        argnums=(0, 1, 2))(*map(jnp.asarray, (hs, W, b)))
+    ht, Wt, bt = _t(hs, W, b, grad=True)
+    l_t = full_softmax_loss({"head": {"W": Wt, "b": bt}}, cfg, ht, torch.from_numpy(tgt),
+                            precision="highest")
+    l_t.backward()
+    np.testing.assert_allclose(l_t.item(), float(l_j), rtol=1e-5, atol=1e-5)
+    for got, want, name in zip((ht.grad, Wt.grad, bt.grad), g_j, "hWb"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cpu_ce_wrappers_do_not_count_launches(dtype):
+    """On CPU tensors the CE wrappers run their plain versions in either
+    compute dtype: no kernel, no launch counted, no build."""
     from jlm_tpu_torch.ops import _build
 
     _, h, W, b, y = _case(25, 8, 128, 64)
     before = (ce.ce_fwd_raw.launches, ce.ce_bwd_dh.launches, ce.ce_bwd_dw.launches)
     ht, Wt, bt = _t(h, W, b, grad=True)
-    ce.ce_loss_fused(ht, Wt, bt, torch.from_numpy(y), torch.bfloat16).sum().backward()
+    ce.ce_loss_fused(ht, Wt, bt, torch.from_numpy(y), dtype).sum().backward()
     assert (ce.ce_fwd_raw.launches, ce.ce_bwd_dh.launches, ce.ce_bwd_dw.launches) == before
     assert _build._lib is None
