@@ -8,7 +8,9 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
    kernels from ``jlm_tpu_torch/csrc`` with nvcc (sm_90a);
 2. compare each kernel with its plain PyTorch version on the card at the
    shapes its path gives it, with a stated bound, and time both (CUDA
-   events): the three decode kernels at the serving shapes, the head in
+   events): the three decode kernels at the
+   serving shapes (the int8 head's bound shown to catch its ragged last
+   vocab tile left unmasked, the bf16 cell's two gates swapped), the head in
    its other modes (the 100k D-softmax head of BASELINE config 5 in int8
    and bf16 at the serving rows, the int8 dequant head at 50k in bf16 at
    the serving rows and in fp32 at the fp32 parity run's rows, fp32
@@ -57,8 +59,10 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
    oracle) and the fp32 kernel forward greedy (vs the fp32 oracle, scores
    within 1e-3), and for the 50k int8 dequant head beam-10 (vs the int8
    oracle) and the 50k fp32 int8-dequant kernel forward greedy (vs the
-   int8 oracle, scores within 1e-3); each run's launches are counted by
-   the same rule;
+   int8 oracle, scores within 1e-3); then the fp32 greedy runs again (50k
+   and config-5 kernel forward, 50k dequant, 50k fused frame) on head
+   weights of scale ``PEAKED``, where an operand rounded to TF32 would
+   move a score; each run's launches are counted by the same rule;
 5. drive the training path — ``Trainer`` at the same width, batch 32, BPTT
    window 32, Adam, fused CE — for 20 steps over the synthetic corpus, once
    through the CE kernels and once with each swapped for its plain
@@ -81,8 +85,10 @@ Weights are random (``init_params`` seed 0) before training.  Phases 3c,
 before the card's is ``{"kernels": [...]}``: per kernel its launches on the
 main path, its error against the plain version, its time, the plain
 version's and the library call's where one PyTorch call computes the same
-function, and its bound (the least time the card could take, from the
-bytes and operations of this run's inputs).  The last line is
+function, its bound (the least time the card could take, from the bytes
+and operations of this run's inputs and, for the head, its R x V
+exponentials at 16 a clock per SM and the card's max SM clock) and the
+CUDA function behind it.  The last line is
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
 Nothing of JAX or of the JAX package is imported (the oracle is numpy).
 """
@@ -345,10 +351,10 @@ def kernel_cases(dev, rng):
     and the scan's autograd Function, each forward plus backward."""
     from jlm_tpu_torch.ops.quant import quantize_weight
     from jlm_tpu_torch.ops.cand_dot import cand_dot, cand_dot_ref
-    from jlm_tpu_torch.ops.lstm_cell import lstm_cell_ref, lstm_cell_step
+    from jlm_tpu_torch.ops.lstm_cell import cell_weight_tiles, lstm_cell_ref, lstm_cell_step
     from jlm_tpu_torch.ops.lstm_scan import (
         lstm_scan, lstm_scan_bwd, lstm_scan_bwd_ref, lstm_scan_fwd, lstm_scan_ref)
-    from jlm_tpu_torch.ops.project import project_lse, project_lse_ref
+    from jlm_tpu_torch.ops.project import project_lse, project_lse_ref, quantize_rows
     from jlm_tpu_torch.ops.softmax_ce import (
         ce_bwd_dh, ce_bwd_dh_ref, ce_bwd_dw, ce_bwd_dw_ref, ce_fwd_raw, ce_fwd_raw_ref)
 
@@ -386,9 +392,23 @@ def kernel_cases(dev, rng):
     ga_p = t(rng.uniform(0.5, 1.5, N_CE) / N_CE)     # with gb = 0: the p-term alone
     cotangents = {"": (ga, -ga), " p-term": (ga_p, torch.zeros_like(ga_p))}
 
-    def cell_plain():
-        c_new, h_new = lstm_cell_ref(x, h, c, Wc, bc, 1.0)
+    cell_weight_tiles(Wc, E, H)  # made once and kept on Wc, as build_decode_head makes it
+
+    def cell_plain(W=Wc, b=bc):
+        c_new, h_new = lstm_cell_ref(x, h, c, W, b, 1.0)
         return c_new.to(bf), h_new.to(bf)
+
+    def swap_jf(t):  # gates i, j, f, o -> i, f, j, o
+        i, j, f, o = t.chunk(4, dim=-1)
+        return torch.cat([i, f, j, o], dim=-1)
+
+    def unmasked_edge():
+        """The int8 head's ragged last vocab tile left unmasked: its columns
+        past V, which TMA fills with zeros, enter the lse as logits of 0."""
+        q, s = quantize_rows(h)
+        logits = (q.float() @ Wq.float()) * s * head_q["W"]["scale"][None, :] + bias[None, :]
+        pad = -V % 64
+        return torch.logsumexp(torch.nn.functional.pad(logits, (0, pad)), dim=1, keepdim=True)
 
     def cell_err(k, p):
         return (max(bf16_ulps(k[0], p[0]), bf16_ulps(k[1], p[1])),
@@ -481,7 +501,7 @@ def kernel_cases(dev, rng):
         ("project_lse int8",
          lambda: project_lse(h, head_q, None, compute_dtype=bf, int8_mxu=True),
          lambda: project_lse_ref(h, head_q, compute_dtype=bf, int8_mxu=True),
-         abs_errs, None, None),
+         abs_errs, unmasked_edge, None),
         ("project_lse bf16",
          lambda: project_lse(h, head_b, None, compute_dtype=bf),
          lambda: project_lse_ref(h, head_b, compute_dtype=bf),
@@ -489,7 +509,7 @@ def kernel_cases(dev, rng):
         ("lstm_cell_step bf16",
          lambda: lstm_cell_step(x, h, c, Wc, bc, 1.0, compute_dtype=bf,
                                 c_out_dtype=bf),
-         cell_plain, cell_err, None,
+         cell_plain, cell_err, lambda: cell_plain(swap_jf(Wc), swap_jf(bc)),
          lambda: torch.lstm_cell(x, (h, c), w_ih, w_hh, b_ih, b_hh)),
         ("cand_dot bf16",
          lambda: cand_dot(h3, cols, cbias),
@@ -825,6 +845,22 @@ def port_cases(dev, rng):
     return cases
 
 
+# exponentials of each head case: one per logit (R x V)
+EXPS = {
+    "project_lse": R * V, "project_lse dsoftmax int8": R * V5,
+    "project_lse dsoftmax bf16": R * V5, "project_lse dequant bf16": R * V,
+    "project_lse fp32": R32 * V5, "project_lse dequant fp32": R32 * V,
+    "project_candidates fp32": R_CAND * V, "project_candidates dequant fp32": R_CAND * V,
+    "project_candidates dequant bf16": R_CAND * V, "project_candidates int8": R_CAND * V,
+    "project_candidates dsoftmax int8": R_CAND * V5,
+    "project_candidates dsoftmax fp32": R_CAND * V5,
+}
+SFU_PER_CLOCK = 16  # exponentials a clock per SM (the special-function units)
+# exponentials per second of the card: set in main from the SM count and
+# nvidia-smi's clocks.max.sm
+SFU_RATE = {"exp": None}
+
+
 def work():
     """(bytes, operations, type) of each kernel's function on its phase-2
     inputs: every input read once and every output written once, and the
@@ -898,10 +934,14 @@ def work():
 
 
 def bound_of(name):
-    """(least ms the card could take, "bytes" or "operations")."""
+    """(least ms the card could take, "bytes", "operations" or "exp"): the
+    largest of the bytes over the memory rate, the operations over their
+    peak and, for the head, its R x V exponentials over the SFU rate."""
     nbytes, ops, kind = work()[name]
-    by_bytes, by_ops = nbytes / PEAK["bytes"] * 1e3, ops / PEAK[kind] * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+    terms = [(nbytes / PEAK["bytes"] * 1e3, "bytes"), (ops / PEAK[kind] * 1e3, "operations")]
+    if name in EXPS:
+        terms.append((EXPS[name] / SFU_RATE["exp"] * 1e3, "exp"))
+    return max(terms, key=lambda t: t[0])
 
 
 def dsoftmax_case(dev, rng):
@@ -1113,6 +1153,24 @@ def training_corpus(vocab):
     return train[:n_train], dev[:n_dev]
 
 
+def kernel_fn(name: str) -> str:
+    """The CUDA function behind a ``kernels`` entry, with its design."""
+    if name in ("project_lse", "project_lse dsoftmax int8", "project_candidates int8",
+                "project_candidates dsoftmax int8"):
+        return "proj_int8_kernel (wgmma + TMA; quantize_rows_kernel before it)"
+    if name == "lstm_cell_step":
+        return "lstm_cell_wgmma_kernel (wgmma + TMA)"
+    if name.startswith("project_") and ("fp32" in name):
+        return "proj_ms_f32_kernel"
+    if name.startswith("project_"):
+        return "proj_ms_kernel (mma.sync)"
+    fns = {"lstm_cell_step fp32": "lstm_cell_f32_kernel", "cand_dot": "cand_dot_kernel",
+           "cell_cand_step": "cell_cand_kernel", "cell_cand_step fp32": "cell_cand_f32_kernel"}
+    if name in fns:
+        return fns[name]
+    return name.replace(" fp32", "_f32") + "_kernel"
+
+
 CE_COUNTERS = ("ce_fwd", "ce_bwd_dh", "ce_bwd_dw")
 SCAN_COUNTERS = ("lstm_scan_fwd", "lstm_scan_bwd")
 
@@ -1154,6 +1212,20 @@ def training_run(dev, config, params, train_ids, dev_ids, label, swap=None):
     return trainer, losses, ms, launches, ppl
 
 
+def peaked(params):
+    """``params`` with every head weight (each block's) scaled to standard
+    deviation ``PEAKED``: peaked softmaxes, where an operand rounded to TF32
+    moves a log-prob by about the rounding of one logit instead of
+    averaging away."""
+    def scale(blk):
+        W = np.asarray(blk["W"], np.float32)
+        return {**blk, "W": W * np.float32(PEAKED / W.std())}
+
+    head = params["head"]
+    return {**params, "head": ({"blocks": [scale(b) for b in head["blocks"]]}
+                               if "blocks" in head else scale(head))}
+
+
 def identical(results, oracle_results) -> int:
     return sum(r[0].segments == o.segments for r, o in zip(results, oracle_results))
 
@@ -1183,6 +1255,13 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(f"card: {card}")
+    max_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    SFU_RATE["exp"] = SFU_PER_CLOCK * sms * max_mhz * 1e6
+    log(f"exponentials: {SFU_PER_CLOCK} a clock x {sms} SMs x {max_mhz:g} MHz = "
+        f"{SFU_RATE['exp']:.4g}/s")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
     _build.lib()
@@ -1200,6 +1279,8 @@ def main() -> int:
     wrongs = {  # what a case's wrong call gets wrong, where it is not wrong_p
         "lstm_scan_bwd fp32": f"a forget gate sigmoid(f + {F_SHIFT:g}) in the backward",
         "project_lse dsoftmax int8 slice scale": "an int8 row scale over all H",
+        "project_lse int8": "the ragged last vocab tile's zero-filled columns unmasked",
+        "lstm_cell_step bf16": "gates j and f swapped (a gate-tile mapping fault)",
         "project_lse dequant bf16": "the exact int8 product rescaled after it",
         "project_lse fp32": "operands rounded to TF32",
         "project_lse dequant fp32": "operands rounded to TF32",
@@ -1358,17 +1439,17 @@ def main() -> int:
     n_blocks = len(cfg5.dsoftmax.block_sizes)
 
     def expect(fwd, layers, blocks):
-        """Launches of ``fwd`` forwards: per forward one projection per
-        block, one cell per layer, one cand_dot."""
+        """Launches of ``fwd`` split-frame forwards: per forward one
+        projection per block, one cell per layer, one cand_dot."""
         return {"project_lse": fwd * blocks, "lstm_cell_step": fwd * layers,
-                "cand_dot": fwd}
+                "cand_dot": fwd, "cell_cand_step": 0}
 
     def counted(run):
-        """Run with the three counters set to 0; returns (result, counts)."""
-        for fn in counters:
+        """Run with the four frame counters set to 0; returns (result, counts)."""
+        for fn in frame_counters:
             fn.launches = 0
         out = run()
-        return out, {fn.__name__: fn.launches for fn in counters}
+        return out, {fn.__name__: fn.launches for fn in frame_counters}
 
     engine5 = BeamDecoder(qp5, lexicon5, vocab5, cfg5, precision="default", device=dev)
     t0 = time.perf_counter()
@@ -1412,7 +1493,7 @@ def main() -> int:
     mode_launches = {}
 
     def parity_run(label, params_, lexicon_, vocab_, cfg_, oracle_results, blocks,
-                   score_tol=None, **kw):
+                   score_tol=None, want=None, **kw):
         eng = BeamDecoder(params_, lexicon_, vocab_, cfg_, device=dev, **kw)
         res, counts = counted(lambda: eng.decode_batch(kanas))
         n = identical(res, oracle_results)
@@ -1422,8 +1503,8 @@ def main() -> int:
         check(n == len(kanas), f"{label} parity")
         check(score_tol is None or worst <= score_tol,
               f"{label}: score off the oracle by {worst} > {score_tol}")
-        check(counts == expect(frames_50 + 1, cfg_.num_layers, blocks),
-              f"{label}: launches {counts}, expected {frames_50 + 1} forwards")
+        want = want or expect(frames_50 + 1, cfg_.num_layers, blocks)
+        check(counts == want, f"{label}: launches {counts}, expected {want}")
         return counts
 
     oracle5 = OracleDecoder(OracleLM(params5, cfg5), lexicon5, vocab5, cfg5)
@@ -1444,9 +1525,34 @@ def main() -> int:
         "50k greedy fp32 int8-dequant kernel forward (vs int8 oracle)", qp, lexicon, vocab,
         greedy_cfg, [oracle_qg.decode(k)[0] for k in kanas], 1, score_tol=1e-3,
         forward_fn=make_kernel_forward(greedy_cfg, torch.float32, int8_mxu=False))
+    # the fp32 gates at head weights of scale PEAKED (where TF32 would show)
+    from jlm_tpu_torch.ops.quant import quantize_params
+
+    def greedy_oracle(params_, lexicon_, vocab_, cfg_):
+        o = OracleDecoder(OracleLM(params_, cfg_), lexicon_, vocab_, cfg_)
+        return [o.decode(k)[0] for k in kanas]
+
+    pk, pk5 = peaked(params), peaked(params5)
+    qpk = quantize_params(pk)
+    fwd = frames_50 + 1
+    parity_run("50k greedy fp32 kernel forward, PEAKED head (vs fp32 oracle)", pk, lexicon,
+               vocab, greedy_cfg, greedy_oracle(pk, lexicon, vocab, greedy_cfg), 1,
+               score_tol=1e-3, forward_fn=make_kernel_forward(greedy_cfg, torch.float32))
+    parity_run("config 5 greedy fp32 kernel forward, PEAKED head (vs fp32 oracle)", pk5,
+               lexicon5, vocab5, greedy5, greedy_oracle(pk5, lexicon5, vocab5, greedy5),
+               n_blocks, score_tol=1e-3, forward_fn=make_kernel_forward(greedy5, torch.float32))
+    parity_run("50k greedy fp32 int8-dequant kernel forward, PEAKED head (vs int8 oracle)",
+               qpk, lexicon, vocab, greedy_cfg, greedy_oracle(qpk, lexicon, vocab, greedy_cfg),
+               1, score_tol=1e-3,
+               forward_fn=make_kernel_forward(greedy_cfg, torch.float32, int8_mxu=False))
+    parity_run("50k greedy fp32 fused frame, PEAKED head (vs fp32 oracle)", pk, lexicon, vocab,
+               greedy_cfg, greedy_oracle(pk, lexicon, vocab, greedy_cfg), 1, score_tol=1e-3,
+               want={"project_lse": fwd, "cell_cand_step": fwd, "lstm_cell_step": 0,
+                     "cand_dot": 0},
+               forward_fn=make_fused_frame_forward(greedy_cfg, torch.float32))
     check(not any(m.split(".")[0] in ("jax", "jlm_tpu") for m in sys.modules),
           "the port imported jax or the JAX package")
-    del params5, qp5
+    del params5, qp5, pk, pk5, qpk
     torch.cuda.empty_cache()
 
     # ---- phase 5: the training path, CE kernels vs their plain versions ----
@@ -1585,7 +1691,8 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                        "kernel": kernel_fn(name)})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,66 +7,115 @@
 // per D-softmax block) and, with the CAND template flag, candidate
 // extraction (project_candidates*: log softmax(h @ W + b)[:, cand]).
 //
-// Bound: compute.  At the serving shapes (R = 20,480 beam rows) one call is
+// Bound.  At the serving shapes (R = 20,480 beam rows) one call is
 // 2*R*sum_k(d_k*s_k) operations: 1.05 TOP for the 50k full head (H = 512),
 // 0.954 TOP for the 100k D-softmax head of BASELINE config 5 (blocks of
-// 16,000 x 512, 34,000 x 256, 50,000 x 128).  The int8 heads (25.6 and
-// 23.3 MB) stay in the 50 MB L2 while row blocks stream them, so device
-// memory traffic is small.  Logits never leave registers.
+// 16,000 x 512, 34,000 x 256, 50,000 x 128), 0.53 and 0.48 ms at the int8
+// peak.  The head (25.6 and 23.3 MB in int8) stays in the 50 MB L2, so
+// device memory traffic is small.  Every logit also takes one exponential:
+// R*V = 1.02e9 (50k) and 2.05e9 (config 5) of them, 0.245 and 0.49 ms at
+// the SFU's 16 a clock per SM (132 SMs, 1,980 MHz) -- as much as the
+// product at 50k, more at config 5, whose 50,000 x 128 block is bound by
+// its exponentials alone.  Logits never leave registers.
 //
-// Design:
-// - One launch per block of the head (a full head is one block).  A block
-//   reads its hidden slice in place: h points at the slice's first column
-//   and ldh is the row stride of the whole [R, H] activation, so the
-//   D-softmax prefix h[:, :d_k] and a disjoint slice cost no copy.  Every
-//   launch writes its vocab splits' partial (m, s) into one shared
-//   [2, splits, R] buffer, and one merge launch combines splits and blocks:
-//   m_g = max_k m_k,  s_g = sum_k s_k * exp(m_k - m_g)  (project.py:436-440).
-// - Tensor-core modes: a block owns TR = 128 rows and loops over its share
-//   of the vocab in tiles of TV = 64 columns (the TPU kernel's sequential
-//   vocab grid axis becomes this loop); the vocab is also split across
-//   blocks (grid.y = splits) so that a small row count still fills the card.
-//   * int8 x int8 -> int32 (``int8_mxu``): each block quantizes its rows
-//     once into shared memory exactly as project.py:83-89, over the BLOCK'S
-//     OWN SLICE of h: s = max(max|h[:, slice]|, 1e-30) / 127 (IEEE
-//     division), q = round-half-even(h / s); mma.sync m16n8k32 s8
-//     accumulates exactly in int32 and the epilogue rescales
-//     acc * s_row * scale_col + bias.
-//   * bf16 weights: the rows are copied, mma.sync m16n8k16, fp32 accumulate.
-//   * int8 dequant (``int8_mxu=False``, bf16 compute; project.py:114-119):
-//     each int8 W^T row is staged and dequantized in shared memory to
-//     bf16(q * scale_col), rounded once, before the product; then the bf16
-//     path.  The dequant precedes the product; it is not a rescale after.
+// Launches: one per block of the head (a full head is one block), each
+// writing its vocab splits' partial (m, s) into one shared [2, splits, R]
+// buffer, and one merge launch that combines splits and blocks:
+// m_g = max_k m_k,  s_g = sum_k s_k * exp(m_k - m_g)  (project.py:436-440).
+//
+// int8 x int8 -> int32 (``int8_mxu``, the serving mode): wgmma + TMA.
+// - quantize_rows_kernel, one launch for every block of the head: each
+//   row's activation slice of each block to int8 exactly as
+//   project.py:83-89 over the BLOCK'S OWN SLICE of h: s = max(max|h|,
+//   1e-30) / 127 (an IEEE division: no --use_fast_math), q =
+//   __float2int_rn(h / s) (round half to even), zero columns up to the
+//   slice's padded width dp (128, 256, 512 or 1,024; zeros change neither
+//   the scale nor the product).  The [R, sum dp] int8 buffer and the
+//   [blocks, R] row scales are read by every vocab split, so a row is
+//   quantized once a call, not once a split.
+// - proj_int8_kernel, per block: a block owns BM = 256 rows (128 where dp
+//   = 1,024), loaded once by TMA and kept in shared memory, and walks its
+//   vocab split in tiles of BN = 64 columns (32 where dp = 1,024).  Four
+//   consumer warpgroups (two where dp = 1,024), one m64 tile of rows each,
+//   and one producer warpgroup: its first thread streams the W^T [V, dp]
+//   tiles (the head's transposed copy: K-major, the only layout 8-bit
+//   wgmma takes) through a ring of TMA stages, and its second warp writes
+//   each tile's column parameters (scale, bias log2e, and for CAND the
+//   candidate runs and biases) beside it; full/empty mbarriers pace the
+//   ring.  Each consumer runs wgmma m64nBNk32 s8.s8.s32 from shared
+//   memory, 128-byte swizzled, the dp / 32 k-steps unrolled.  Shared
+//   memory at dp = 512: 256 x 512 B of rows (128 KB) + 3 stages of
+//   64 x 512 B + 512 B (97.5 KB) of the 227 KB a block may use; the stages
+//   are as many as fit (up to 8).  L2 traffic: each row block reads the
+//   head once per call, R/256 = 80 times at 50k (2.0 GB; the mma.sync
+//   kernel it replaces read it 160 times, 4.1 GB), plus its rows once a
+//   split.
+// - The consumers take turns on the tensor cores, in a ring of named
+//   barriers: each issues its product of a tile once the one before it has
+//   issued its own, waits for it, and runs its epilogue while the others'
+//   products run -- three epilogues a scheduler hide each other's
+//   latencies.  (Two accumulator sets a warpgroup, the next tile's
+//   product under this tile's epilogue, made the compiler serialize the
+//   wgmma groups; two warpgroups in turn left one epilogue warp a
+//   scheduler, latency-bound and longer than the products.)
+// - The epilogue works in log2 units: u = (float(acc) * s_row log2e) *
+//   scale_col + bias log2e, exp(v - m) = 2^(u - m) on ex2.approx (2 ulp),
+//   log2e folded into the row scale and the bias, not into the product;
+//   the lse is within ~1e-6 of the reference's order of operations.  A
+//   candidate's logit is recomputed in the reference's order (below), so
+//   it equals the plain version's bit for bit.  Where dp <= 256, float(acc)
+//   by an exact integer-add trick instead of the conversion instruction,
+//   which shares the special-function unit with the exponentials.
+// - What bounds it (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py cases):
+//   at 50k the call takes ~1.06 ms against a 0.53 ms operations bound, and
+//   the products with their loads alone, in this ring, ~0.79 ms: one m64
+//   tile a turn leaves gaps on the tensor cores (two warpgroups issuing
+//   two m64 tiles each ran them in 0.57 ms, but left their epilogues
+//   exposed).  At config 5 (~1.6 ms against 0.49) the 50,000 x 128
+//   block's exponentials and epilogue dominate.
+// - Splits: grid.y splits the vocab so that the row blocks x splits fill
+//   whole waves of the card (the wrapper's plan).
+//
+// Other modes keep the mma.sync kernels of the first port:
+// - bf16 weights: a block owns TR = 128 rows, loops over its share of the
+//   vocab in tiles of TV = 64 columns; mma.sync m16n8k16, fp32 accumulate.
+// - int8 dequant (``int8_mxu=False``, bf16 compute; project.py:114-119):
+//   each int8 W^T row is staged and dequantized in shared memory to
+//   bf16(q * scale_col), rounded once, before the product; then the bf16
+//   path.  The dequant precedes the product; it is not a rescale after.
 //   8 warps in a 4 x 2 grid, each a 32 x 32 tile of the block's 128 x 64
 //   output tile; each thread keeps an online (m, s) for its 4 rows over its
 //   columns; quads and the two column warps merge at the end.  The head is
-//   read as its transposed copy W^T [V, d] (K contiguous), the layout mma's
-//   col-major B operand wants; shared-memory rows are padded by 16 bytes so
-//   ldmatrix reads are free of bank conflicts.
+//   read as W^T [V, d] (K contiguous), the layout mma's col-major B operand
+//   wants; shared-memory rows are padded by 16 bytes so ldmatrix reads are
+//   free of bank conflicts.  No cp.async/TMA pipeline and no wgmma; two
+//   blocks share an SM so one block's loads overlap the other's math.
 // - fp32 compute (fp32 weights, or int8 dequantized to fp32 in shared
 //   memory): exact fp32 FMAs on the CUDA cores -- TF32 would round the
 //   operands and break the parity mode.  A block owns FR = 64 rows; K
 //   streams through shared memory in chunks of 32, transposed so that each
 //   of the 256 threads reads float4s of 4 rows and 4 columns and keeps a
 //   4 x 4 tile of logits; the online (m, s) is as above.
-// - The ragged vocab edge is masked (columns >= V contribute exp(-inf) = 0),
-//   equivalent to the reference's -1e30 bias padding; m starts at -1e30.
-// - Candidate extraction (CAND, off for the lse-only calls): the wrapper
-//   passes the candidate ids sorted (with their output slots).  Per vocab
-//   tile, one thread per column binary-searches the run of candidates equal
-//   to that column's global id (id_base + n; a D-softmax block's columns
-//   are a range of global ids), and the epilogue stores each logit that a
-//   candidate asks for -- the same fp32 value the online lse takes, from
-//   the register that holds it -- into its [R, C] slot.  A column lies in
-//   one tile of one split of one block, so each store is plain, with no
-//   atomics and no sum, and repeated ids get one store each.  The merge
-//   launch turns the raw logits into raw - (m + log s); an id that no
-//   column matches keeps 0 (the caller zeroes the buffer) and gets -lse, as
-//   the reference's one-hot product gives it.
-// Simple first: no cp.async/TMA pipeline and no wgmma yet; two blocks share
-// an SM in the tensor-core modes so one block's loads overlap the other's
-// math.
+// The ragged vocab edge is masked (columns >= V contribute exp(-inf) = 0),
+// equivalent to the reference's -1e30 bias padding; m starts at -1e30.
+//
+// Candidate extraction (CAND, off for the lse-only calls): the wrapper
+// passes the candidate ids sorted (with their output slots).  Per vocab
+// tile, a thread (in the int8 kernel, the producer's parameter warp)
+// binary-searches, for each column, the run of candidates equal to that
+// column's global id (id_base + n; a D-softmax block's columns are a
+// range of global ids), and the epilogue stores each logit that a
+// candidate asks for into its [R, C] slot: the same fp32 value the online
+// lse takes, from the register that holds it (the int8 kernel recomputes
+// it in the reference's rounding from the same accumulator).  A
+// column lies in one tile of one split of one block, so each store is
+// plain, with no atomics and no sum, and repeated ids get one store each.
+// The merge launch turns the raw logits into raw - (m + log s); an id that
+// no column matches keeps 0 (the caller zeroes the buffer) and gets -lse,
+// as the reference's one-hot product gives it.
 #include "common.cuh"
+#include "hopper.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -97,14 +146,9 @@ __device__ __forceinline__ float s8_at(uint32_t word, int b) {
   return static_cast<float>(static_cast<signed char>((word >> (8 * b)) & 0xffu));
 }
 
-// Bytes of one shared-memory row of K values (A and B alike).
-__host__ __device__ constexpr int row_bytes(int mode, int D) {
-  return D * (mode == kInt8Mxu ? 1 : 2);
-}
-
-size_t smem_bytes(int mode, int D, bool cand) {
-  const int ld = row_bytes(mode, D) + 16;
-  return (size_t)(TR + TV) * ld + (2 * TV + 3 * TR) * sizeof(float) +
+size_t smem_bytes(int D, bool cand) {
+  const int ld = 2 * D + 16;
+  return (size_t)(TR + TV) * ld + (TV + 2 * TR) * sizeof(float) +
          (cand ? 2 * TV * sizeof(int) : 0);
 }
 
@@ -144,32 +188,29 @@ __device__ __forceinline__ void cand_table(int* lo, int* hi, const Cand& cd, int
   }
 }
 
-// Store logit v of (row, column i of the tile) into every slot that asks
-// for it.
-__device__ __forceinline__ void cand_store(const Cand& cd, const int* lo, const int* hi,
-                                           int i, int row, int R, float v) {
+// Store logit v of row into every slot [lo, hi) that asks for its column.
+__device__ __forceinline__ void cand_store(const Cand& cd, int lo, int hi, int row, int R,
+                                           float v) {
   if (row >= R) return;
-  for (int p = lo[i]; p < hi[i]; ++p) cd.out[(size_t)row * cd.C + cd.slots[p]] = v;
+  for (int p = lo; p < hi; ++p) cd.out[(size_t)row * cd.C + cd.slots[p]] = v;
 }
 
+// bf16 weights (MODE kBf16) or int8 weights dequantized to bf16
+// (kDequantBf16); h bf16.
 template <int MODE, bool CAND>
 __global__ void __launch_bounds__(THREADS, 2)
-proj_ms_kernel(const void* __restrict__ h, int ldh, int h_bf16,
+proj_ms_kernel(const __nv_bfloat16* __restrict__ h, int ldh,
                const void* __restrict__ wt, const float* __restrict__ scale,
                const float* __restrict__ bias, float* __restrict__ m_part,
                float* __restrict__ s_part, int R, int D, int V,
                int tiles_per_split, Cand cd) {
-  constexpr bool S8 = MODE == kInt8Mxu;
-  using Acc = typename std::conditional<S8, int, float>::type;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int kb = row_bytes(MODE, D);  // bytes per shared row
-  const int ld = kb + 16;             // padded shared-memory row stride
+  const int kb = 2 * D;    // bytes per shared row
+  const int ld = kb + 16;  // padded shared-memory row stride
   unsigned char* sA = smem;                              // [TR][ld]
   unsigned char* sB = sA + TR * ld;                      // [TV][ld]
-  float* sScale = reinterpret_cast<float*>(sB + TV * ld);  // [TV]
-  float* sBias = sScale + TV;                            // [TV]
-  float* sHs = sBias + TV;                               // [TR] row scales
-  float* sRed = sHs + TR;                                // [2][TR]
+  float* sBias = reinterpret_cast<float*>(sB + TV * ld);   // [TV]
+  float* sRed = sBias + TV;                              // [2][TR]
   int* sLo = reinterpret_cast<int*>(sRed + 2 * TR);      // [TV] (CAND)
   int* sHi = sLo + TV;                                   // [TV] (CAND)
 
@@ -182,31 +223,14 @@ proj_ms_kernel(const void* __restrict__ h, int ldh, int h_bf16,
   const int vt_end = min(vt_begin + tiles_per_split, n_tiles);
 
   // ---- stage the block's activation rows (its slice of h) ----
-  if constexpr (S8) {
-    for (int r = warp; r < TR; r += THREADS / 32) {
-      const int row = row0 + r;
-      float amax = 0.0f;
-      if (row < R)
-        for (int k = lane; k < D; k += 32)
-          amax = fmaxf(amax, fabsf(load_act(h, h_bf16, (size_t)row * ldh + k)));
-      for (int off = 16; off > 0; off >>= 1)
-        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-      const float s = fmaxf(amax, 1e-30f) / 127.0f;
-      for (int k = lane; k < D; k += 32) {
-        const float v = row < R ? load_act(h, h_bf16, (size_t)row * ldh + k) : 0.0f;
-        sA[r * ld + k] = static_cast<unsigned char>(
-            static_cast<signed char>(__float2int_rn(v / s)));
-      }
-      if (lane == 0) sHs[r] = s;
-    }
-  } else {
+  {
     const int chunks = kb / 16;
     for (int i = tid; i < TR * chunks; i += THREADS) {
       const int r = i / chunks, cc = i % chunks, row = row0 + r;
       uint4 v = make_uint4(0, 0, 0, 0);
       if (row < R)
         v = *reinterpret_cast<const uint4*>(
-            static_cast<const unsigned char*>(h) + (size_t)row * ldh * 2 + cc * 16);
+            reinterpret_cast<const unsigned char*>(h) + (size_t)row * ldh * 2 + cc * 16);
       *reinterpret_cast<uint4*>(sA + r * ld + cc * 16) = v;
     }
   }
@@ -259,15 +283,11 @@ proj_ms_kernel(const void* __restrict__ h, int ldh, int h_bf16,
         *reinterpret_cast<uint4*>(sB + r * ld + cc * 16) = v;
       }
     }
-    for (int i = tid; i < TV; i += THREADS) {
-      const int n = n0 + i;
-      sScale[i] = (S8 && n < V) ? scale[n] : 1.0f;
-      sBias[i] = n < V ? bias[n] : 0.0f;
-    }
+    for (int i = tid; i < TV; i += THREADS) sBias[i] = n0 + i < V ? bias[n0 + i] : 0.0f;
     if constexpr (CAND) cand_table(sLo, sHi, cd, n0, TV, V);
     __syncthreads();
 
-    Acc acc[2][4][4];
+    float acc[2][4][4];
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -292,12 +312,7 @@ proj_ms_kernel(const void* __restrict__ h, int ldh, int h_bf16,
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          if constexpr (S8)
-            jlm::mma_s8(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
-          else
-            jlm::mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
-        }
+        for (int ni = 0; ni < 4; ++ni) jlm::mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
     }
 
     // ---- epilogue: logits in registers -> online (m, s) per row ----
@@ -306,7 +321,6 @@ proj_ms_kernel(const void* __restrict__ h, int ldh, int h_bf16,
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int rl = wm * 32 + mi * 16 + half * 8 + gid;
-        const float hs = S8 ? sHs[rl] : 1.0f;
         float x[8];
         float tmax = NEG;
 #pragma unroll
@@ -314,14 +328,9 @@ proj_ms_kernel(const void* __restrict__ h, int ldh, int h_bf16,
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int cl = wn * 32 + ni * 8 + tig * 2 + e;
-            const Acc av = acc[mi][ni][half * 2 + e];
-            float v;
-            if constexpr (S8)
-              v = static_cast<float>(av) * hs * sScale[cl] + sBias[cl];
-            else
-              v = av + sBias[cl];
+            float v = acc[mi][ni][half * 2 + e] + sBias[cl];
             if (n0 + cl >= V) v = -INFINITY;
-            if constexpr (CAND) cand_store(cd, sLo, sHi, cl, row0 + rl, R, v);
+            if constexpr (CAND) cand_store(cd, sLo[cl], sHi[cl], row0 + rl, R, v);
             x[ni * 2 + e] = v;
             tmax = fmaxf(tmax, v);
           }
@@ -464,7 +473,8 @@ proj_ms_f32_kernel(const float* __restrict__ h, int ldh,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         x[j] = n0 + tx * 4 + j < V ? acc[i][j] + bj[j] : -INFINITY;
-        if constexpr (CAND) cand_store(cd, sLo, sHi, tx * 4 + j, row0 + ty * 4 + i, R, x[j]);
+        if constexpr (CAND)
+          cand_store(cd, sLo[tx * 4 + j], sHi[tx * 4 + j], row0 + ty * 4 + i, R, x[j]);
         tmax = fmaxf(tmax, x[j]);
       }
       const float m_new = fmaxf(m_run[i], tmax);
@@ -522,18 +532,342 @@ __global__ void lse_merge_kernel(const float* __restrict__ m_part,
     for (int j = 0; j < C; ++j) cand[(size_t)row * C + j] -= lse;
 }
 
+// ------------------------------------------------------------ int8 x int8
+
+constexpr int QMAX_BLOCKS = 8;
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may use
+constexpr int MAX_STAGES = 8;
+constexpr int WG_THREADS = 128;
+
+struct QuantBlocks {
+  int n;
+  int off[QMAX_BLOCKS], d[QMAX_BLOCKS], dp[QMAX_BLOCKS], qcol[QMAX_BLOCKS];
+};
+
+// One warp per row, every block of the head: block k's slice h[row, off:
+// off + d] to int8 q[row, qcol : qcol + dp] (zeros past d) with its row
+// scale hs[k * R + row] (project.py:83-89).
+__global__ void quantize_rows_kernel(const void* __restrict__ h, int ldh, int h_bf16, int R,
+                                     QuantBlocks qb, signed char* __restrict__ q, int ldq,
+                                     float* __restrict__ hs) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  if (row >= R) return;
+  for (int k = 0; k < qb.n; ++k) {
+    const size_t base = (size_t)row * ldh + qb.off[k];
+    const int d = qb.d[k];
+    float amax = 0.0f;
+    for (int i = lane; i < d; i += 32) amax = fmaxf(amax, fabsf(load_act(h, h_bf16, base + i)));
+    for (int off = 16; off > 0; off >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    const float s = fmaxf(amax, 1e-30f) / 127.0f;
+    signed char* qr = q + (size_t)row * ldq + qb.qcol[k];
+    for (int i = lane; i < qb.dp[k]; i += 32) {
+      const float v = i < d ? load_act(h, h_bf16, base + i) : 0.0f;
+      qr[i] = static_cast<signed char>(__float2int_rn(v / s));
+    }
+    if (lane == 0) hs[(size_t)k * R + row] = s;
+  }
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// 2^x on the special-function unit alone (one MUFU.EX2; 2 ulp).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// float(a), exactly: for |a| < 2^22 (SMALL) by the mantissa of 1.5 * 2^23
+// (one integer and one float add, off the special-function unit that the
+// conversion instruction shares with the exponentials), else by the
+// conversion.
+template <bool SMALL>
+__device__ __forceinline__ float to_float(int a) {
+  if constexpr (SMALL)
+    return __int_as_float(a + 0x4B400000) - 12582912.0f;
+  else
+    return static_cast<float>(a);
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_s8(int (&d)[BN / 2], uint64_t a, uint64_t b, int acc) {
+  if constexpr (BN == 64)
+    jlm::wgmma_s8_n64(d, a, b, acc);
+  else
+    jlm::wgmma_s8_n32(d, a, b, acc);
+}
+
+// One vocab tile's product into acc: 4 NKA wgmma k32 steps of the
+// warpgroup's m64 tile of the resident rows sa (BM = 64 NC rows) and the
+// stage's W^T tile sb (each K-major, 128-byte rows of K in NKA regions),
+// unrolled.
+template <int BN, int NKA, int NC>
+__device__ __forceinline__ void issue_tile(int (&acc)[BN / 2], const unsigned char* sa,
+                                           const unsigned char* sb, int wg) {
+  constexpr int BM = 64 * NC;
+  jlm::fence_regs(acc);
+  jlm::wgmma_fence();
+  const unsigned char* a = sa + wg * 64 * 128;
+#pragma unroll
+  for (int ks = 0; ks < 4 * NKA; ++ks) {
+    const int ka = ks >> 2, kb = (ks & 3) * 32;
+    wgmma_s8<BN>(acc, jlm::smem_desc(a + ka * BM * 128 + kb),
+                 jlm::smem_desc(sb + ka * BN * 128 + kb), ks > 0);
+  }
+  jlm::wgmma_commit();
+}
+
+// Column parameters of a vocab tile, per stage beside its W^T tile: scale
+// [BN] and bias log2e [BN], and with CAND each column's candidate run
+// lo [BN], hi [BN] (ints) and its bias [BN].  A column past V has scale 0
+// and bias -inf: its logit is 0 * ... + -inf = -inf, its exponential 0,
+// and its run is empty.
+template <int BN, bool CAND>
+__host__ __device__ constexpr int param_floats() { return (CAND ? 5 : 2) * BN; }
+
+// A consumer warp is done with a stage.
+__device__ __forceinline__ void release(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) jlm::mbar_arrive(empty);
+}
+
+// The online logsumexp of one tile from acc: the thread's two rows of its
+// warpgroup's m64 tile over its BN / 4 columns of the tile, prm the tile's
+// column parameters, the stage (empty) released once they are read.  Each
+// logit in log2 units, u = (float(acc) * rs) * scale_col + bias log2e with
+// rs = s_row log2e (one FMUL and one FMA), m in log2 units, exp(v - m) as
+// 2^(u - m): a few ulp from the reference's rounding of the logit, far
+// inside the lse's 1e-4.  A logit that a candidate asks for (CAND) is
+// computed again in the reference's order and rounding,
+// ((float(acc) * s_row) * scale_col) + bias, with no contraction into an
+// FMA, so that it equals the plain version's bit for bit (the int32
+// product is exact).  Max and sum run as trees of 4 partials a row.
+template <int BN, bool CAND, bool SMALL>
+__device__ __forceinline__ void tile_epilogue(const int (&acc)[BN / 2], float (&m_run)[2],
+                                              float (&s_run)[2], const float (&hsr)[2],
+                                              const float (&rs)[2], const float* prm,
+                                              uint64_t* empty, int row_first, int R,
+                                              const Cand& cd, int lane) {
+  constexpr int NJ = BN / 8, NX = 2 * NJ;  // the thread's columns of the tile
+  const int* lo = reinterpret_cast<const int*>(prm + 2 * BN);
+  const int* hi = lo + BN;
+  const float* bias = prm + 4 * BN;
+  float x[2][NX];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    const float2 s2 = *reinterpret_cast<const float2*>(prm + col);
+    const float2 b2 = *reinterpret_cast<const float2*>(prm + BN + col);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float a = to_float<SMALL>(acc[4 * j + 2 * i + e]);
+        const float sc = e ? s2.y : s2.x;
+        x[i][2 * j + e] = fmaf(a * rs[i], sc, e ? b2.y : b2.x);
+        if constexpr (CAND) {
+          if (lo[col + e] < hi[col + e])
+            cand_store(cd, lo[col + e], hi[col + e], row_first + 8 * i, R,
+                       __fadd_rn(__fmul_rn(__fmul_rn(a, hsr[i]), sc), bias[col + e]));
+        }
+      }
+  }
+  release(empty, lane);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx[4], sm[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) mx[p] = x[i][p];
+#pragma unroll
+    for (int q = 4; q < NX; ++q) mx[q & 3] = fmaxf(mx[q & 3], x[i][q]);
+    const float m_new = fmaxf(m_run[i], fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3])));
+#pragma unroll
+    for (int p = 0; p < 4; ++p) sm[p] = 0.0f;
+#pragma unroll
+    for (int q = 0; q < NX; ++q) sm[q & 3] += ex2(x[i][q] - m_new);
+    s_run[i] = s_run[i] * ex2(m_run[i] - m_new) + ((sm[0] + sm[1]) + (sm[2] + sm[3]));
+    m_run[i] = m_new;
+  }
+}
+
+// tm_a: the block's quantized rows [R, dp] int8 (dp = 128 NKA), boxes of
+// BM = 64 NC rows x 128; tm_b: W^T [V, dp] int8, boxes of BN rows x 128.
+// hs: the block's row scales [R].  stages: W^T tiles in the ring.  NC
+// consumer warpgroups, one m64 tile of rows each, and one producer.
+template <int NC, int BN, int NKA, bool CAND, bool SMALL>
+__global__ void __launch_bounds__((NC + 1) * WG_THREADS, 1)
+proj_int8_kernel(const __grid_constant__ CUtensorMap tm_a,
+                 const __grid_constant__ CUtensorMap tm_b, const float* __restrict__ hs,
+                 const float* __restrict__ scale, const float* __restrict__ bias,
+                 float* __restrict__ m_part, float* __restrict__ s_part, int R, int V,
+                 int tiles_per_split, int stages, Cand cd) {
+  constexpr int BM = 64 * NC;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  constexpr int PF = param_floats<BN, CAND>();
+  constexpr int a_bytes = NKA * BM * 128, b_bytes = NKA * BN * 128;
+  unsigned char* sa = smem;
+  unsigned char* sb = smem + a_bytes;
+  float* sp = reinterpret_cast<float*>(sb + stages * b_bytes);  // [stages][PF]
+  uint64_t* a_full = reinterpret_cast<uint64_t*>(sp + stages * PF);
+  uint64_t* full = a_full + 1;
+  uint64_t* empty = full + stages;
+  const int row0 = blockIdx.x * BM;
+  const int n_tiles = (V + BN - 1) / BN;
+  const int vt_begin = blockIdx.y * tiles_per_split;
+  const int nt = min(vt_begin + tiles_per_split, n_tiles) - vt_begin;
+  const int wg = threadIdx.x / WG_THREADS;
+  if (nt <= 0) return;  // (the wrapper's plan gives every split a tile)
+
+  if (threadIdx.x == 0) {
+    jlm::mbar_init(a_full, 1);
+    for (int s = 0; s < stages; ++s) {
+      jlm::mbar_init(&full[s], 1 + 32);  // the TMA thread and the parameter warp
+      jlm::mbar_init(&empty[s], NC * WG_THREADS / 32);  // every consumer warp
+    }
+    jlm::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == NC) {
+    // ---- producer: the rows once, then the W^T tiles of the split (one
+    // thread, TMA) and their column parameters (one warp) ----
+    const int pt = threadIdx.x - NC * WG_THREADS;
+    if (pt == 0) {
+      jlm::prefetch_map(&tm_a);
+      jlm::prefetch_map(&tm_b);
+      jlm::mbar_expect_tx(a_full, a_bytes);
+      for (int ka = 0; ka < NKA; ++ka)
+        jlm::tma_load(sa + ka * BM * 128, &tm_a, a_full, ka * 128, row0);
+      for (int t = 0; t < nt; ++t) {
+        const int s = t % stages;
+        if (t >= stages) jlm::mbar_wait(&empty[s], ((t / stages) - 1) & 1);
+        jlm::mbar_expect_tx(&full[s], b_bytes);
+        for (int ka = 0; ka < NKA; ++ka)
+          jlm::tma_load(sb + s * b_bytes + ka * BN * 128, &tm_b, &full[s], ka * 128,
+                        (vt_begin + t) * BN);
+      }
+    } else if (pt >= 32 && pt < 64) {
+      for (int t = 0; t < nt; ++t) {
+        const int s = t % stages;
+        if (t >= stages) jlm::mbar_wait(&empty[s], ((t / stages) - 1) & 1);
+        float* p = sp + s * PF;
+        int* lo = reinterpret_cast<int*>(p + 2 * BN);
+        for (int i = pt - 32; i < BN; i += 32) {
+          const int n = (vt_begin + t) * BN + i;
+          p[i] = n < V ? scale[n] : 0.0f;
+          p[BN + i] = n < V ? bias[n] * LOG2E : -INFINITY;
+          if constexpr (CAND) {
+            lo[i] = n < V ? first_at_least(cd.ids, cd.C, cd.id_base + n) : 0;
+            lo[BN + i] = n < V ? first_at_least(cd.ids, cd.C, cd.id_base + n + 1) : 0;
+            p[4 * BN + i] = n < V ? bias[n] : 0.0f;
+          }
+        }
+        jlm::mbar_arrive(&full[s]);  // release: the consumers' wait sees the stores
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns rows wg * 64 .. + 63 ----
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x / 32) & 3;
+    const int row_first = row0 + wg * 64 + warp * 16 + lane / 4;
+    float m_run[2], s_run[2], hsr[2], rs[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row_first + 8 * i;
+      m_run[i] = NEG;
+      s_run[i] = 0.0f;
+      hsr[i] = row < R ? hs[row] : 1.0f;
+      rs[i] = hsr[i] * LOG2E;
+    }
+    int acc[BN / 2];
+
+    // The warpgroups take turns on the tensor cores, in order 0 .. NC - 1
+    // (a ring of named barriers 1 .. NC): each issues tile t's product once
+    // the one before it has issued its own, then waits for it and runs its
+    // epilogue while the others' products run.
+    jlm::mbar_wait(a_full, 0);
+    for (int t = 0; t < nt; ++t) {
+      const int s = t % stages;
+      jlm::mbar_wait(&full[s], (t / stages) & 1);
+      if (wg > 0 || t > 0) jlm::named_sync(1 + wg, 2 * WG_THREADS);
+      issue_tile<BN, NKA, NC>(acc, sa, sb + s * b_bytes, wg);
+      if (wg < NC - 1 || t + 1 < nt) jlm::named_arrive(1 + (wg + 1) % NC, 2 * WG_THREADS);
+      jlm::wgmma_wait<0>();
+      jlm::fence_regs(acc);
+      tile_epilogue<BN, CAND, SMALL>(acc, m_run, s_run, hsr, rs, sp + s * PF, &empty[s],
+                                     row_first, R, cd, lane);
+    }
+
+    // ---- merge the 4 lanes of each row's quad; store the split's (m, s) ----
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m_run[i] *= LN2;  // back to natural units
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float m2 = __shfl_xor_sync(0xffffffffu, m_run[i], off);
+        const float s2 = __shfl_xor_sync(0xffffffffu, s_run[i], off);
+        merge_ms(m_run[i], s_run[i], m2, s2);
+      }
+    }
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = row_first + 8 * i;
+        if (row < R) {
+          m_part[(size_t)blockIdx.y * R + row] = m_run[i];
+          s_part[(size_t)blockIdx.y * R + row] = s_run[i];
+        }
+      }
+    }
+  }
+}
+
+template <int NC, int BN, int NKA, bool CAND, bool SMALL>
+cudaError_t launch_int8(const void* q, int ldq, int R, const void* wt, const float* scale,
+                        const float* bias, const float* hs, float* m_part, float* s_part,
+                        int V, int splits, int tiles_per_split, const Cand& cd,
+                        cudaStream_t stream) {
+  constexpr int BM = 64 * NC, dp = 128 * NKA;
+  const int a_bytes = NKA * BM * 128;
+  const int stage_bytes = NKA * BN * 128 + param_floats<BN, CAND>() * 4;
+  const int fixed = a_bytes + 1024 + (1 + 2 * MAX_STAGES) * 8;
+  const int fit = (SMEM_MAX - fixed) / stage_bytes;
+  const int stages = fit < MAX_STAGES ? fit : MAX_STAGES;
+  if (stages < 2) return cudaErrorInvalidValue;
+  const int smem = a_bytes + stages * stage_bytes + (1 + 2 * stages) * 8 + 1024;
+  CUtensorMap ta, tb;
+  if (!jlm::tensor_map(&ta, q, 1, R, dp, ldq, BM, 128) ||
+      !jlm::tensor_map(&tb, wt, 1, V, dp, dp, BN, 128))
+    return cudaErrorInvalidValue;
+  auto kernel = proj_int8_kernel<NC, BN, NKA, CAND, SMALL>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((R + BM - 1) / BM, splits);
+  kernel<<<grid, (NC + 1) * WG_THREADS, smem, stream>>>(ta, tb, hs, scale, bias, m_part,
+                                                         s_part, R, V, tiles_per_split,
+                                                         stages, cd);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------ other modes
+
 template <int MODE, bool CAND>
-cudaError_t launch_tc(const void* h, int ldh, int h_bf16, const void* wt,
-                      const float* scale, const float* bias, float* m_part,
-                      float* s_part, int R, int D, int V, int splits,
-                      int tiles_per_split, const Cand& cd, cudaStream_t stream) {
-  const size_t smem = smem_bytes(MODE, D, CAND);
+cudaError_t launch_tc(const void* h, int ldh, const void* wt, const float* scale,
+                      const float* bias, float* m_part, float* s_part, int R, int D, int V,
+                      int splits, int tiles_per_split, const Cand& cd, cudaStream_t stream) {
+  const size_t smem = smem_bytes(D, CAND);
   cudaError_t err = cudaFuncSetAttribute(
       proj_ms_kernel<MODE, CAND>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((R + TR - 1) / TR, splits);
   proj_ms_kernel<MODE, CAND><<<grid, THREADS, smem, stream>>>(
-      h, ldh, h_bf16, wt, scale, bias, m_part, s_part, R, D, V, tiles_per_split, cd);
+      static_cast<const __nv_bfloat16*>(h), ldh, wt, scale, bias, m_part, s_part, R, D, V,
+      tiles_per_split, cd);
   return cudaGetLastError();
 }
 
@@ -550,27 +884,24 @@ cudaError_t launch_f32(const void* h, int ldh, const void* wt, const float* scal
 }
 
 template <bool CAND>
-cudaError_t launch_mode(const void* h, int ldh, int h_bf16, const void* wt, int mode,
-                        const float* scale, const float* bias, float* m_part,
-                        float* s_part, int R, int D, int V, int splits,
-                        int tiles_per_split, const Cand& cd, cudaStream_t st) {
+cudaError_t launch_mode(const void* h, int ldh, const void* wt, int mode, const float* scale,
+                        const float* bias, float* m_part, float* s_part, int R, int D,
+                        int V, int splits, int tiles_per_split, const Cand& cd,
+                        cudaStream_t st) {
   switch (mode) {
     case kBf16:
-      return launch_tc<kBf16, CAND>(h, ldh, 1, wt, scale, bias, m_part, s_part, R, D,
-                                    V, splits, tiles_per_split, cd, st);
-    case kInt8Mxu:
-      return launch_tc<kInt8Mxu, CAND>(h, ldh, h_bf16, wt, scale, bias, m_part, s_part,
-                                       R, D, V, splits, tiles_per_split, cd, st);
+      return launch_tc<kBf16, CAND>(h, ldh, wt, scale, bias, m_part, s_part, R, D, V,
+                                    splits, tiles_per_split, cd, st);
     case kDequantBf16:
-      return launch_tc<kDequantBf16, CAND>(h, ldh, 1, wt, scale, bias, m_part, s_part,
-                                           R, D, V, splits, tiles_per_split, cd, st);
+      return launch_tc<kDequantBf16, CAND>(h, ldh, wt, scale, bias, m_part, s_part, R, D,
+                                           V, splits, tiles_per_split, cd, st);
     case kFp32:
       return launch_f32<false, CAND>(h, ldh, wt, scale, bias, m_part, s_part, R, D, V,
                                      splits, tiles_per_split, cd, st);
     case kDequantFp32:
       return launch_f32<true, CAND>(h, ldh, wt, scale, bias, m_part, s_part, R, D, V,
                                     splits, tiles_per_split, cd, st);
-    default:
+    default:  // kInt8Mxu goes through jlm_project_int8
       return cudaErrorInvalidValue;
   }
 }
@@ -579,27 +910,78 @@ cudaError_t launch_mode(const void* h, int ldh, int h_bf16, const void* wt, int 
 
 extern "C" {
 
-// One block of the head.  h: the block's first activation column; row
-// stride ldh elements; bf16, or fp32 (fp32 modes; int8 mode takes either,
-// h_bf16 says which).  wt [V, D] W^T: bf16 (mode 0), int8 (modes 1, 2, 4)
-// or fp32 (mode 3); scale [V] (int8 modes); bias [V] fp32; m_part/s_part
-// point at this block's first split of [splits_total, R] scratch.
-// Candidate extraction when cand_ids is not null: cand_ids [C] sorted
-// ascending, cand_slots [C] their columns in cand_out [R, C] fp32, id_base
-// the global id of this block's column 0.
-int jlm_project_block(const void* h, int ldh, int h_bf16, const void* wt,
-                      int mode, const float* scale, const float* bias,
-                      float* m_part, float* s_part, int R, int D, int V,
+// Quantize every int8-MXU block's activation slice once: h [R, ldh] (bf16
+// when h_bf16, else fp32); block k reads columns [off[k], off[k] + d[k])
+// and writes q[:, qcol[k] : qcol[k] + dp[k]] (int8, row stride ldq bytes)
+// and hs[k * R : (k + 1) * R] (fp32).  At most 8 blocks.
+int jlm_project_quantize(const void* h, int ldh, int h_bf16, int R, int n, const int* off,
+                         const int* d, const int* dp, const int* qcol, void* q, int ldq,
+                         float* hs, void* stream) {
+  if (n < 1 || n > QMAX_BLOCKS) return (int)cudaErrorInvalidValue;
+  QuantBlocks qb;
+  qb.n = n;
+  for (int k = 0; k < n; ++k) {
+    qb.off[k] = off[k];
+    qb.d[k] = d[k];
+    qb.dp[k] = dp[k];
+    qb.qcol[k] = qcol[k];
+  }
+  quantize_rows_kernel<<<(R + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      h, ldh, h_bf16, R, qb, static_cast<signed char*>(q), ldq, hs);
+  return (int)cudaGetLastError();
+}
+
+// One int8-MXU block: q [R, dp] int8 (row stride ldq bytes; dp 128, 256,
+// 512 or 1,024: the slice's width padded), wt [V, dp] int8 W^T, scale [V],
+// bias [V], hs [R] its row scales; m_part/s_part and the candidate
+// arguments as in jlm_project_block.  dp <= 512 takes 256-row blocks and
+// 64-column tiles, dp = 1,024 128-row blocks and 32-column tiles (the
+// wrapper plans the splits with the same numbers).
+int jlm_project_int8(const void* q, int ldq, int R, int dp, const void* wt,
+                     const float* scale, const float* bias, const float* hs, float* m_part,
+                     float* s_part, int V, int splits, int tiles_per_split,
+                     const int* cand_ids, const int* cand_slots, int C, int id_base,
+                     float* cand_out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Cand cd{cand_ids, cand_slots, C, id_base, cand_out};
+#define JLM_INT8(NC, BN, NKA, SMALL)                                                       \
+  (int)(cand_ids ? launch_int8<NC, BN, NKA, true, SMALL>(q, ldq, R, wt, scale, bias, hs,     \
+                                                         m_part, s_part, V, splits,          \
+                                                         tiles_per_split, cd, st)            \
+                 : launch_int8<NC, BN, NKA, false, SMALL>(q, ldq, R, wt, scale, bias, hs,    \
+                                                          m_part, s_part, V, splits,         \
+                                                          tiles_per_split, cd, st))
+  // |acc| <= dp * 128 * 127 < 2^22 for dp <= 256: to_float's integer trick
+  switch (dp) {
+    case 128: return JLM_INT8(4, 64, 1, true);
+    case 256: return JLM_INT8(4, 64, 2, true);
+    case 512: return JLM_INT8(4, 64, 4, false);
+    case 1024: return JLM_INT8(2, 32, 8, false);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef JLM_INT8
+}
+
+// One block of the head in the other modes.  h: the block's first
+// activation column; row stride ldh elements; bf16 (modes 0, 2) or fp32
+// (modes 3, 4).  wt [V, D] W^T: bf16 (mode 0), int8 (modes 2, 4) or fp32
+// (mode 3); scale [V] (int8 modes); bias [V] fp32; m_part/s_part point at
+// this block's first split of [splits_total, R] scratch.  Candidate
+// extraction when cand_ids is not null: cand_ids [C] sorted ascending,
+// cand_slots [C] their columns in cand_out [R, C] fp32, id_base the global
+// id of this block's column 0.
+int jlm_project_block(const void* h, int ldh, const void* wt, int mode, const float* scale,
+                      const float* bias, float* m_part, float* s_part, int R, int D, int V,
                       int splits, int tiles_per_split, const int* cand_ids,
                       const int* cand_slots, int C, int id_base, float* cand_out,
                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Cand cd{cand_ids, cand_slots, C, id_base, cand_out};
   if (cand_ids)
-    return (int)launch_mode<true>(h, ldh, h_bf16, wt, mode, scale, bias, m_part, s_part,
-                                  R, D, V, splits, tiles_per_split, cd, st);
-  return (int)launch_mode<false>(h, ldh, h_bf16, wt, mode, scale, bias, m_part, s_part,
-                                 R, D, V, splits, tiles_per_split, cd, st);
+    return (int)launch_mode<true>(h, ldh, wt, mode, scale, bias, m_part, s_part, R, D, V,
+                                  splits, tiles_per_split, cd, st);
+  return (int)launch_mode<false>(h, ldh, wt, mode, scale, bias, m_part, s_part, R, D, V,
+                                 splits, tiles_per_split, cd, st);
 }
 
 // Merge [splits, R] partials into m_out/s_out/lse_out [R] (each may be

@@ -54,7 +54,7 @@ from jlm_tpu_torch.models.lstm import _w, embed, step_logp
 from jlm_tpu_torch.models.params import params_to_torch, resolve_device
 from jlm_tpu_torch.ops.cand_dot import cand_dot
 from jlm_tpu_torch.ops.frame_step import cell_cand_step
-from jlm_tpu_torch.ops.lstm_cell import lstm_cell_step
+from jlm_tpu_torch.ops.lstm_cell import cell_weight_tiles, lstm_cell_step
 from jlm_tpu_torch.ops.project import head_blocks, project_lse
 
 ForwardFn = Callable[..., Tuple[torch.Tensor, torch.Tensor, Any]]
@@ -130,15 +130,17 @@ def build_decode_head(params, config: Config, compute_dtype=torch.float32):
       int8 ``q`` transposed, or the cast weight transposed; ``head_T``
       itself for a full fp head);
     - ``lstm_c``: per layer the dequantized cell weight in ``compute_dtype``
-      and its fp32 bias.
+      (for bf16 with the gate-tiled copy the bf16 cell kernel reads,
+      ``cell_weight_tiles``, made here and kept on it) and its fp32 bias.
     """
     head = params["head"]
     H = config.hidden_size
-    lstm_c = [
-        {"W": _w(layer["W"]).to(compute_dtype).contiguous(),
-         "b": layer["b"].float().contiguous()}
-        for layer in params["lstm"]
-    ]
+    lstm_c = []
+    for layer in params["lstm"]:
+        W = _w(layer["W"]).to(compute_dtype).contiguous()
+        lstm_c.append({"W": W, "b": layer["b"].float().contiguous()})
+        if compute_dtype == torch.bfloat16:
+            cell_weight_tiles(W, W.shape[0] - H, H)
 
     def cast(W):  # -> (head_c weight, its [V_k, d_k] transpose)
         if isinstance(W, dict):

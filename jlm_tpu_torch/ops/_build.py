@@ -36,11 +36,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point -> argtypes; every entry returns a cudaError_t as int.
 _SIGNATURES = {
-    "jlm_project_block": [_P, _I, _I, _P, _I, _P, _P, _P, _P,
+    "jlm_project_quantize": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
+    "jlm_project_int8": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _P, _P, _I, _I, _P, _P],
+    "jlm_project_block": [_P, _I, _P, _I, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P],
     "jlm_project_merge": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "jlm_lstm_cell": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _I,
-                      _I, _I, _I, ctypes.c_float, _P],
+    "jlm_lstm_cell_f32": [_P, _P, _P, _I, _P, _P, _P, _I, _P,
+                          _I, _I, _I, ctypes.c_float, _P],
+    "jlm_lstm_cell_bf16": [_P, _P, _P, _I, _P, _P, _P, _I, _P,
+                           _I, _I, _I, ctypes.c_float, _P],
     "jlm_cand_dot": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
     "jlm_cell_cand": [_P, _P, _P, _I] + [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P],
     "jlm_ce_fwd": [_P] * 9 + [_I] * 7 + [_P],

@@ -7,6 +7,10 @@ Counterpart of :mod:`jlm_tpu.ops.cand_dot` (its ``_cand_kernel``):
 
 On a CUDA tensor the wrapper launches ``csrc/cand_dot.cu`` (bf16 or fp32,
 fp32 accumulation) or raises; on a CPU tensor it runs the plain version.
+The kernel holds at most 16 beam rows of a sentence: wider beams go in
+groups of at most 16 rows (``beam_groups``), one launch each; a hidden size
+that is not a multiple of 4 is zero-padded (``pad_cols``), which leaves
+every dot unchanged.
 """
 
 from __future__ import annotations
@@ -16,8 +20,15 @@ import ctypes
 import torch
 
 from jlm_tpu_torch.ops import _build
+from jlm_tpu_torch.ops.project import pad_cols
 
 _MAX_B = 16  # beam rows per sentence the kernel holds in registers
+
+
+def beam_groups(B: int, size: int = _MAX_B):
+    """``[(first, end), ...]``: the beam rows of a sentence in groups of at
+    most ``size``."""
+    return [(b, min(b + size, B)) for b in range(0, B, size)]
 
 
 def cand_dot_ref(h3, cols, bias) -> torch.Tensor:
@@ -28,7 +39,8 @@ def cand_dot_ref(h3, cols, bias) -> torch.Tensor:
 def cand_dot(h3: torch.Tensor, cols: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """Per-sentence candidate logits ``[S, B, C1]`` fp32 (bias added).
 
-    ``cand_dot.launches`` counts kernel launches.
+    ``cand_dot.launches`` counts kernel launches: one per group of beam
+    rows.
     """
     if not h3.is_cuda:
         return cand_dot_ref(h3, cols, bias)
@@ -42,19 +54,23 @@ def cand_dot(h3: torch.Tensor, cols: torch.Tensor, bias: torch.Tensor) -> torch.
                            ("bias", bias, (S, C1))):
         if tuple(t.shape) != shape or t.device != h3.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous {shape} on {h3.device}")
-    if B > _MAX_B or H % 4:
-        raise ValueError(f"need B <= {_MAX_B} and H % 4 == 0, got B={B} H={H}")
-    out = torch.empty((S, B, C1), dtype=torch.float32, device=h3.device)
-    if S:
-        P = ctypes.c_void_p
-        err = _build.lib().jlm_cand_dot(
-            P(h3.data_ptr()), P(cols.data_ptr()), int(h3.dtype == torch.float32),
-            P(bias.data_ptr()), P(out.data_ptr()), S, B, C1, H,
-            P(_build.stream_ptr(h3)),
-        )
-        _build.check(err, "cand_dot kernel")
-        cand_dot.launches += 1
-    return out
+    Hp = -(-H // 4) * 4
+    h3, cols = pad_cols(h3, Hp), pad_cols(cols, Hp)
+    outs = []
+    for b0, b1 in beam_groups(B):
+        hg = h3[:, b0:b1].contiguous()
+        out = torch.empty((S, b1 - b0, C1), dtype=torch.float32, device=h3.device)
+        if S:
+            P = ctypes.c_void_p
+            err = _build.lib().jlm_cand_dot(
+                P(hg.data_ptr()), P(cols.data_ptr()), int(h3.dtype == torch.float32),
+                P(bias.data_ptr()), P(out.data_ptr()), S, b1 - b0, C1, Hp,
+                P(_build.stream_ptr(h3)),
+            )
+            _build.check(err, "cand_dot kernel")
+            cand_dot.launches += 1
+        outs.append(out)
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
 cand_dot.launches = 0

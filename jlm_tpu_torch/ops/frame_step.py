@@ -11,7 +11,10 @@ cand fp32 [S, B, C1])``.
 
 On a CUDA tensor the wrapper launches ``csrc/cell_cand.cu`` (bf16 compute
 on the tensor cores, or exact fp32 compute on the CUDA cores) or raises; on
-a CPU tensor it runs the plain version ``cell_cand_ref``.
+a CPU tensor it runs the plain version ``cell_cand_ref``.  The kernel holds
+at most 16 beam rows of a sentence: wider beams go in groups of at most 16
+rows (``beam_groups``), one launch each, the rows of each group gathered
+into their own ``[S * b, ...]`` operands.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Tuple
 import torch
 
 from jlm_tpu_torch.ops import _build
+from jlm_tpu_torch.ops.cand_dot import beam_groups
 from jlm_tpu_torch.ops.lstm_cell import lstm_cell_ref
 
 _MAX_B = 16  # beam rows per sentence the kernel's dot holds in registers
@@ -89,15 +93,29 @@ def cell_cand_step(
     """Fused frame row step: ``(c', h', cand)``; ``cand`` holds the raw
     candidate logits with bias (the caller subtracts the lse).
 
-    ``cell_cand_step.launches`` counts kernel launches."""
+    ``cell_cand_step.launches`` counts kernel launches: one per group of
+    beam rows."""
     x, h, W, cols = (t.to(compute_dtype) for t in (x, h, W, cols))
     if not x.is_cuda:
         return cell_cand_ref(x, h, c, W, b, cols, cbias, B, forget_bias,
                              compute_dtype=compute_dtype)
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"the cell_cand kernel computes in bf16 or fp32, not {compute_dtype}")
-    return _launch(x.contiguous(), h.contiguous(), c, W.contiguous(), b,
-                   cols.contiguous(), cbias, B, forget_bias)
+    groups = beam_groups(B, _MAX_B)
+    if len(groups) == 1 or x.shape[0] != cols.shape[0] * B:
+        return _launch(x.contiguous(), h.contiguous(), c, W.contiguous(), b,
+                       cols.contiguous(), cbias, B, forget_bias)
+    S = cols.shape[0]
+
+    def rows(t, b0, b1):  # the group's beam rows of every sentence
+        return t.reshape(S, B, -1)[:, b0:b1].reshape(S * (b1 - b0), -1).contiguous()
+
+    parts = [_launch(rows(x, b0, b1), rows(h, b0, b1), rows(c, b0, b1), W.contiguous(), b,
+                     cols.contiguous(), cbias, b1 - b0, forget_bias) for b0, b1 in groups]
+    c_new, h_new = (torch.cat([p[i].reshape(S, b1 - b0, -1)
+                               for p, (b0, b1) in zip(parts, groups)], dim=1).reshape(S * B, -1)
+                    for i in (0, 1))
+    return c_new, h_new, torch.cat([p[2] for p in parts], dim=1)
 
 
 cell_cand_step.launches = 0

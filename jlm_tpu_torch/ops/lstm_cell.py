@@ -7,8 +7,12 @@ step ``z = [x, h] @ W + b`` with gates i, j, f, o, fp32 accumulation, and
 returned in ``c_out_dtype`` (default fp32) and ``h'`` in ``compute_dtype``.
 
 On a CUDA tensor the wrapper launches ``csrc/lstm_cell.cu`` (bf16 compute
-on the tensor cores, or exact fp32 compute on the CUDA cores) or raises;
-on a CPU tensor it runs the plain version.
+on ``wgmma`` with TMA loads, or exact fp32 compute on the CUDA cores) or
+raises; on a CPU tensor it runs the plain version.  The bf16 kernel reads
+the weight as its gate-tiled copy (:func:`cell_weight_tiles`), which is
+kept on the weight tensor and remade only after the weight changes in
+place; ``build_decode_head`` makes it once per layer.  A caller that hands
+a weight in another dtype gets a new cast, and so a new copy, every call.
 """
 
 from __future__ import annotations
@@ -20,6 +24,13 @@ import torch
 
 from jlm_tpu_torch.ops import _build
 
+UNITS = 64  # hidden units per block of the bf16 kernel (4 gates: 256 columns)
+KC = 64     # K per stage of the bf16 kernel
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
 
 def lstm_cell_ref(x, h, c, W, b, forget_bias: float = 1.0):
     """Plain cell in fp32 on the given values (mirrors ``lstm_cell_ref``)."""
@@ -27,6 +38,44 @@ def lstm_cell_ref(x, h, c, W, b, forget_bias: float = 1.0):
     i, j, f, o = z.chunk(4, dim=1)
     c_new = torch.sigmoid(f + forget_bias) * c.float() + torch.sigmoid(i) * torch.tanh(j)
     return c_new, torch.sigmoid(o) * torch.tanh(c_new)
+
+
+def pad_gates(W: torch.Tensor, E: int, H: int, Ep: int, Hp: int) -> torch.Tensor:
+    """``W [E+H, 4H]`` zero-padded to ``[Ep + Hp, 4, Hp]``: x's rows up to
+    ``Ep``, h's rows up to ``Hp`` and each gate's columns up to ``Hp``."""
+    pad = torch.nn.functional.pad
+    Wg = pad(W.reshape(E + H, 4, H), (0, Hp - H))  # [K, gate, Hp]
+    return torch.cat([pad(Wg[:E], (0, 0, 0, 0, 0, Ep - E)),
+                      pad(Wg[E:], (0, 0, 0, 0, 0, Hp - H))])
+
+
+def _tiles(W: torch.Tensor, E: int, H: int) -> torch.Tensor:
+    Ex, Hp = _round_up(E, KC), _round_up(H, UNITS)
+    return (pad_gates(W, E, H, Ex, Hp).reshape(Ex + Hp, 4, Hp // UNITS, UNITS)
+            .permute(2, 1, 3, 0).reshape(4 * Hp, Ex + Hp).contiguous())
+
+
+def cell_weight_tiles(W: torch.Tensor, E: int, H: int) -> torch.Tensor:
+    """The bf16 kernel's copy of ``W [E+H, 4H]``: ``[4 Hp, Ex + Hp]``,
+    K-major, with ``Ex`` and ``Hp`` = E and H rounded up to 64.  Row
+    ``ub*256 + g*64 + u`` is gate g's column for unit ``ub*64 + u``, so a
+    block of 64 units reads its four gates as one 256-row tile; K holds
+    x's rows of W, zeros up to ``Ex``, then h's rows, zeros up to ``Hp``.
+    Units past H are zero rows.  The copy is kept on ``W`` and remade when
+    W's version counter moves (an inference tensor has none: its copy is
+    made on every call)."""
+    if W.is_inference():
+        return _tiles(W, E, H)
+    kept = getattr(W, "_cell_tiles", None)
+    if kept is None or kept[0] != W._version:
+        kept = W._cell_tiles = (W._version, _tiles(W, E, H))
+    return kept[1]
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (TMA's rule)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _launch(x, h, c, W, b, forget_bias, c_out_dtype):
@@ -37,10 +86,18 @@ def _launch(x, h, c, W, b, forget_bias, c_out_dtype):
         raise ValueError(f"c_out_dtype {c_out_dtype}")
     if c.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"c dtype {c.dtype}")
-    if E % 32 or H % 32:
-        raise ValueError(f"E={E} and H={H} must be multiples of 32")
-    shapes = {"h": (h, (R, H)), "c": (c, (R, H)), "W": (W, (E + H, 4 * H)),
-              "b": (b, (4 * H,))}
+    if f32 and (E % 32 or H % 32):
+        raise ValueError(f"the fp32 kernel needs E={E} and H={H} multiples of 32")
+    if not f32 and (E % 8 or H % 8):
+        raise ValueError(f"the bf16 kernel needs E={E} and H={H} multiples of 8")
+    shapes = {"h": (h, (R, H)), "c": (c, (R, H)), "b": (b, (4 * H,))}
+    if f32:
+        shapes["W"] = (W, (E + H, 4 * H))
+    else:
+        w_tiles = cell_weight_tiles(W, E, H)
+        shapes["w_tiles"] = (w_tiles, (4 * _round_up(H, UNITS),
+                                       _round_up(E, KC) + _round_up(H, UNITS)))
+        x, h, w_tiles = _aligned(x), _aligned(h), _aligned(w_tiles)
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape or t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous {shape} on {x.device}")
@@ -50,12 +107,13 @@ def _launch(x, h, c, W, b, forget_bias, c_out_dtype):
     h_new = torch.empty((R, H), dtype=x.dtype, device=x.device)
     if R:
         P = ctypes.c_void_p
-        err = _build.lib().jlm_lstm_cell(
+        lib = _build.lib()
+        entry = lib.jlm_lstm_cell_f32 if f32 else lib.jlm_lstm_cell_bf16
+        err = entry(
             P(x.data_ptr()), P(h.data_ptr()), P(c.data_ptr()),
-            int(c.dtype == torch.float32), P(W.data_ptr()), P(b.data_ptr()),
-            P(c_new.data_ptr()), int(c_out_dtype == torch.float32),
-            P(h_new.data_ptr()), int(f32), R, E, H, float(forget_bias),
-            P(_build.stream_ptr(x)),
+            int(c.dtype == torch.float32), P((W if f32 else w_tiles).data_ptr()),
+            P(b.data_ptr()), P(c_new.data_ptr()), int(c_out_dtype == torch.float32),
+            P(h_new.data_ptr()), R, E, H, float(forget_bias), P(_build.stream_ptr(x)),
         )
         _build.check(err, "lstm_cell kernel")
         lstm_cell_step.launches += 1
@@ -78,7 +136,9 @@ def lstm_cell_step(
     ``lstm_cell_step.launches`` counts kernel launches.
     """
     c_out_dtype = torch.float32 if c_out_dtype is None else c_out_dtype
-    x, h, W = x.to(compute_dtype), h.to(compute_dtype), W.to(compute_dtype)
+    x, h = x.to(compute_dtype), h.to(compute_dtype)
+    if W.dtype != compute_dtype:
+        W = W.to(compute_dtype)
     if x.is_cuda:
         if compute_dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"lstm_cell kernel computes in bf16 or fp32, not {compute_dtype}")

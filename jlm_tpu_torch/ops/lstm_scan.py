@@ -22,7 +22,11 @@ carries are fp32 either way.  On a CUDA tensor the wrappers launch
 so fp32 compute is exact fp32, never TF32); on a CPU tensor they run the
 plain versions ``lstm_scan_ref`` and ``lstm_scan_bwd_ref``.  One launch covers
 the whole window, so the reference's ``time_block`` and its VMEM fallback
-have no counterpart; shapes the kernels do not take raise.
+have no counterpart.  E and H that are not multiples of 4 are zero-padded
+(``pad_scan``): a padded unit has zero weights and bias and starts at c = h
+= 0, so it stays at c = h = 0 and feeds nothing back; the padding is
+dropped from the outputs and the gradients.  Other shapes the kernels do
+not take raise.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from typing import Optional, Tuple
 import torch
 
 from jlm_tpu_torch.ops import _build
+from jlm_tpu_torch.ops.lstm_cell import pad_gates
 
 Tensor = torch.Tensor
 
@@ -119,6 +124,27 @@ def _f32(t: Tensor, shape, device, name: str) -> Tensor:
     return t.float().contiguous()
 
 
+def _round4(n: int) -> int:
+    return -(-n // UNITS) * UNITS
+
+
+def pad_scan(xs: Tensor, W: Tensor, b: Tensor, c0: Tensor, h0: Tensor):
+    """The scan's operands with E and H zero-padded to multiples of 4: xs
+    ``[B, T, Ep]``, W ``[Ep + Hp, 4 Hp]`` (each gate's columns and h's rows
+    padded, x's rows padded), b ``[4 Hp]``, c0 and h0 ``[B, Hp]``."""
+    E, H = xs.shape[-1], h0.shape[-1]
+    Ep, Hp = _round4(E), _round4(H)
+    pad = torch.nn.functional.pad
+    Wp = pad_gates(W, E, H, Ep, Hp).reshape(Ep + Hp, 4 * Hp)
+    return (pad(xs, (0, Ep - E)), Wp, pad(b.reshape(4, H), (0, Hp - H)).reshape(4 * Hp),
+            pad(c0, (0, Hp - H)), pad(h0, (0, Hp - H)))
+
+
+def unpad_gates(z: Tensor, H: int) -> Tensor:
+    """``[..., 4 Hp]`` gate columns -> ``[..., 4 H]``."""
+    return z.reshape(*z.shape[:-1], 4, -1)[..., :H].reshape(*z.shape[:-1], 4 * H)
+
+
 def _check_fit(bwd: int, B: int, E: int, H: int, device) -> None:
     """Raise unless the kernel takes these dims and its grid of ``H / 4``
     blocks can be co-resident (the grid-wide barrier needs every block)."""
@@ -155,6 +181,10 @@ def lstm_scan_fwd(xs: Tensor, W: Tensor, b: Tensor, c0: Tensor, h0: Tensor,
     W = _f32(W, (E + H, 4 * H), dev, "W")
     b = _f32(b, (4 * H,), dev, "b")
     c0, h0 = _f32(c0, (B, H), dev, "c0"), _f32(h0, (B, H), dev, "h0")
+    if E % UNITS or H % UNITS:
+        hs, cs, c_T, h_T = lstm_scan_fwd(*pad_scan(xs, W, b, c0, h0), forget_bias,
+                                         compute_dtype)
+        return tuple(t[..., :H].contiguous() for t in (hs, cs, c_T, h_T))
     hs = torch.empty((B, T, H), dtype=torch.float32, device=dev)
     cs = torch.empty((B, T, H), dtype=torch.float32, device=dev)
     c_T = torch.empty((B, H), dtype=torch.float32, device=dev)
@@ -191,6 +221,15 @@ def lstm_scan_bwd(xs: Tensor, W: Tensor, b: Tensor, c0: Tensor, h0: Tensor,
     hs, cs, d_hs = (_f32(t, (B, T, H), dev, n) for t, n in
                     ((hs, "hs"), (cs, "cs"), (d_hs, "d_hs")))
     d_cf, d_hf = _f32(d_cf, (B, H), dev, "d_cf"), _f32(d_hf, (B, H), dev, "d_hf")
+    if E % UNITS or H % UNITS:
+        pad = torch.nn.functional.pad
+        Hp = _round4(H)
+        dz, dx, dc0, dh0 = lstm_scan_bwd(
+            *pad_scan(xs, W, b, c0, h0),
+            *(pad(t, (0, Hp - H)) for t in (hs, cs, d_hs, d_cf, d_hf)),
+            forget_bias, compute_dtype)
+        return (unpad_gates(dz, H).contiguous(), dx[..., :E].contiguous(),
+                dc0[:, :H].contiguous(), dh0[:, :H].contiguous())
     dz = torch.empty((B, T, 4 * H), dtype=torch.float32, device=dev)
     dx = torch.empty((B, T, E), dtype=torch.float32, device=dev)
     dc0 = torch.empty((B, H), dtype=torch.float32, device=dev)

@@ -26,18 +26,28 @@ Weight modes, per block:
   rounded once to ``compute_dtype`` before the product, fp32 accumulation.
 
 Candidate extraction runs the same kernel with its candidate epilogue on:
-each candidate's logit, the fp32 value the online lse takes, is stored
-from the register that holds it, and the merge launch subtracts the lse.
+the epilogue that feeds the online lse stores each candidate's logit, in
+the plain version's rounding, and the merge launch subtracts the lse.
 Ids may repeat; an id outside ``[0, V)`` matches no column and gets
 ``-lse``, as the reference's one-hot product gives it.
 
 On a CUDA tensor the wrapper launches ``csrc/project_lse.cu`` — one launch
-per block and one merge — or raises; on a CPU tensor it runs the plain
-version.  A block may carry ``"WT"``, the ``[V_k, d_k]`` transposed weight
-the kernel reads (``build_decode_head`` makes it once); without it the
-wrapper transposes per call.  A head whose every block carries ``"WT"`` is
-checked once and its plan kept under ``"_plan"`` (see ``_block_plan``):
+per block and one merge, and for int8-MXU heads first one launch that
+quantizes every block's activation slice — or raises; on a CPU tensor it
+runs the plain version.  The int8-MXU blocks run the ``wgmma`` + TMA
+kernel (hidden slices up to 1,024 wide), the other modes the ``mma.sync``
+and fp32 kernels.  A block may carry ``"WT"``, the ``[V_k, d_k]`` transposed
+weight the kernel reads (``build_decode_head`` makes it once); without it
+the wrapper transposes per call.  A head whose every block carries ``"WT"``
+is checked once and its plan kept under ``"_plan"`` (see ``_block_plan``):
 replace such a head's tensors only through ``build_decode_head``.
+
+Widths and offsets that are not multiples of 32 (``padded_width``): the
+plan pads each block's W^T with zero columns to the next multiple of 32
+once (an int8-MXU block to 128, 256, 512 or 1,024: ``int8_width``), and
+each call copies the block's h slice into a zero-padded buffer (the int8
+quantization pass writes its zero columns itself); zeros change neither a
+product nor an int8 row scale.
 """
 
 from __future__ import annotations
@@ -54,8 +64,38 @@ from jlm_tpu_torch.ops import _build
 # Kernel weight modes (project_lse.cu's ``Mode``); the rows per block of
 # each mode's kernel, and the vocab columns per tile of both kernels.
 BF16, INT8_MXU, DEQUANT_BF16, FP32, DEQUANT_FP32 = range(5)
-_ROWS = {BF16: 128, INT8_MXU: 128, DEQUANT_BF16: 128, FP32: 64, DEQUANT_FP32: 64}
+_ROWS = {BF16: 128, DEQUANT_BF16: 128, FP32: 64, DEQUANT_FP32: 64}
 _TV = 64
+_ALIGN = 32  # hidden columns per kernel K step
+_INT8_MAX_D = 1024  # widest hidden slice the int8 kernel keeps resident
+
+
+def _int8_tile(dp: int) -> Tuple[int, int]:
+    """(rows per block, vocab columns per tile) of the int8 kernel."""
+    return (256, 64) if dp <= 512 else (128, 32)
+
+
+def padded_width(d: int, multiple: int = _ALIGN) -> int:
+    """``d`` rounded up to a multiple of ``multiple``."""
+    return -(-d // multiple) * multiple
+
+
+def int8_width(d: int) -> int:
+    """The int8 kernel's padded width of a ``d``-wide slice: 128, 256, 512
+    or 1,024 (its K loop is unrolled for each)."""
+    w = 128
+    while w < d:
+        w *= 2
+    return w
+
+
+def pad_cols(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t [..., n]`` zero-padded on the right to ``[..., width]``,
+    contiguous (``t`` itself where it is already so)."""
+    n = t.shape[-1]
+    if n == width:
+        return t.contiguous()
+    return torch.nn.functional.pad(t, (0, width - n)).contiguous()
 
 
 def quantize_rows(h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -187,10 +227,11 @@ def _sm_count(index: int) -> int:
 
 
 def _block_plan(head, config, H, device, compute_dtype, int8_mxu):
-    """Per block ``(first column, width, W^T, mode, scale, bias, V)``, each
-    tensor checked against what the kernel reads.  A head whose every block
-    carries ``"WT"`` (as ``build_decode_head`` makes it) keeps its plan
-    under ``"_plan"``, so a decode checks it once, not on every frame."""
+    """Per block ``(first column, width, W^T, mode, scale, bias, V, padded
+    width)``, each tensor checked against what the kernel reads, W^T
+    zero-padded to the padded width.  A head whose every block carries
+    ``"WT"`` (as ``build_decode_head`` makes it) keeps its plan under
+    ``"_plan"``, so a decode checks and pads it once, not on every frame."""
     key = (H, device, compute_dtype, int8_mxu)
     cached = head.get("_plan")
     if cached is not None and cached[0] == key:
@@ -213,34 +254,55 @@ def _block_plan(head, config, H, device, compute_dtype, int8_mxu):
                              f"{wt.dtype} {tuple(wt.shape)}")
         if bias.dtype != torch.float32 or (quantized and scale.dtype != torch.float32):
             raise ValueError("bias and scale must be fp32")
-        if d % 32 or off % 32 or off + d > H:
-            raise ValueError(f"block columns [{off}, {off + d}) of {H}: width and "
-                             "offset must be multiples of 32")
-        plan.append((off, d, wt, _mode(quantized, compute_dtype, int8_mxu), scale, bias, V))
+        if off + d > H:
+            raise ValueError(f"block columns [{off}, {off + d}) exceed the hidden size {H}")
+        mode = _mode(quantized, compute_dtype, int8_mxu)
+        dp = int8_width(d) if mode == INT8_MXU else padded_width(d)
+        if mode == INT8_MXU and dp > _INT8_MAX_D:
+            raise ValueError(f"the int8-MXU kernel takes hidden slices up to {_INT8_MAX_D} "
+                             f"wide, not {d}")
+        plan.append((off, d, pad_cols(wt, dp), mode, scale, bias, V, dp))
     if all("WT" in blk for _, _, blk in blocks):
         head["_plan"] = (key, plan)
     return plan
 
 
+def int8_splits(n_tiles: int, row_blocks: int, sms: int) -> Tuple[int, int]:
+    """``(splits, tiles per split)`` of the int8 kernel's vocab: the split
+    count whose waves of one block an SM take the fewest tile times, each
+    block paying about 4 tiles' worth to load its rows."""
+    best = None
+    for sp in range(1, min(n_tiles, 64) + 1):
+        per = -(-n_tiles // sp)
+        sp = -(-n_tiles // per)
+        cost = -(-row_blocks * sp // sms) * (per + 4)
+        if best is None or cost < best[0]:
+            best = (cost, sp, per)
+    return best[1], best[2]
+
+
 def _launch(h, head, config, compute_dtype, int8_mxu, want: str, cand_ids=None):
-    """One kernel launch per block of ``head`` and one merge.  ``want``:
-    ``"ms"`` -> ``(m, s)``; ``"lse"`` -> ``lse``, each ``[R, 1]``;
-    ``"cand"`` -> the log-probs ``[R, C]`` of ``cand_ids``."""
+    """One kernel launch per block of ``head`` and one merge (and, for an
+    int8-MXU head, one quantization launch first).  ``want``: ``"ms"`` ->
+    ``(m, s)``; ``"lse"`` -> ``lse``, each ``[R, 1]``; ``"cand"`` -> the
+    log-probs ``[R, C]`` of ``cand_ids``."""
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"compute_dtype {compute_dtype}")
     R, H = h.shape
-    if H % 32:
-        raise ValueError(f"hidden size {H} must be a multiple of 32")
     h = h.to(compute_dtype).contiguous()
     sms = _sm_count(h.device.index)
     plans, total = [], 0
-    for off, d, wt, mode, scale, bias, V in _block_plan(head, config, H, h.device,
-                                                        compute_dtype, int8_mxu):
-        n_tiles, row_blocks = -(-V // _TV), -(-R // _ROWS[mode])
-        splits = min(n_tiles, max(1, -(-8 * sms // max(row_blocks, 1))))
-        per_split = -(-n_tiles // splits)
-        splits = -(-n_tiles // per_split)
-        plans.append((off, d, wt, mode, scale, bias, V, splits, per_split))
+    for off, d, wt, mode, scale, bias, V, dp in _block_plan(head, config, H, h.device,
+                                                            compute_dtype, int8_mxu):
+        if mode == INT8_MXU:
+            rows, cols = _int8_tile(dp)
+            splits, per_split = int8_splits(-(-V // cols), -(-R // rows), sms)
+        else:
+            n_tiles, row_blocks = -(-V // _TV), -(-R // _ROWS[mode])
+            splits = min(n_tiles, max(1, -(-8 * sms // max(row_blocks, 1))))
+            per_split = -(-n_tiles // splits)
+            splits = -(-n_tiles // per_split)
+        plans.append((off, d, wt, mode, scale, bias, V, dp, splits, per_split))
         total += splits
 
     def col():
@@ -270,13 +332,34 @@ def _launch(h, head, config, compute_dtype, int8_mxu, want: str, cand_ids=None):
     stream = P(_build.stream_ptr(h))
     counter = project_candidates if want == "cand" else project_lse
     lib, base, id_base = _build.lib(), 0, 0
-    for off, d, wt, mode, scale, bias, V, splits, per_split in plans:
-        err = lib.jlm_project_block(
-            P(h.data_ptr() + off * h.element_size()), H, int(h.dtype == torch.bfloat16),
-            ptr(wt), mode, ptr(scale), ptr(bias), ptr(part[0, base]), ptr(part[1, base]),
-            R, d, V, splits, per_split, ptr(ids), ptr(slots),
-            0 if ids is None else ids.shape[0], id_base, ptr(cand), stream,
-        )
+    C = 0 if ids is None else ids.shape[0]
+    if plans[0][3] == INT8_MXU:  # every block of a head shares the mode
+        n = len(plans)
+        qcol = [sum(p[7] for p in plans[:k]) for k in range(n)]
+        ldq = qcol[-1] + plans[-1][7]
+        q = torch.empty((R, ldq), dtype=torch.int8, device=h.device)
+        hs = torch.empty((n, R), dtype=torch.float32, device=h.device)
+        ints = lambda vals: (ctypes.c_int * n)(*vals)  # noqa: E731
+        err = lib.jlm_project_quantize(
+            ptr(h), H, int(h.dtype == torch.bfloat16), R, n, ints(p[0] for p in plans),
+            ints(p[1] for p in plans), ints(p[7] for p in plans), ints(qcol), ptr(q), ldq,
+            ptr(hs), stream)
+        _build.check(err, "project_lse quantization kernel")
+    for k, (off, d, wt, mode, scale, bias, V, dp, splits, per_split) in enumerate(plans):
+        if mode == INT8_MXU:
+            err = lib.jlm_project_int8(
+                P(q.data_ptr() + qcol[k]), ldq, R, dp, ptr(wt), ptr(scale), ptr(bias),
+                ptr(hs[k]), ptr(part[0, base]), ptr(part[1, base]), V, splits, per_split,
+                ptr(ids), ptr(slots), C, id_base, ptr(cand), stream)
+        else:
+            if dp != d or off % _ALIGN or H % _ALIGN:
+                hk, ldh = pad_cols(h[:, off:off + d], dp), dp
+            else:
+                hk, ldh = h[:, off:], H
+            err = lib.jlm_project_block(
+                ptr(hk), ldh, ptr(wt), mode, ptr(scale), ptr(bias), ptr(part[0, base]),
+                ptr(part[1, base]), R, dp, V, splits, per_split, ptr(ids), ptr(slots), C,
+                id_base, ptr(cand), stream)
         _build.check(err, "project_lse kernel")
         counter.launches += 1
         base += splits

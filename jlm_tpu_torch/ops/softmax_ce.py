@@ -21,6 +21,10 @@ unrounded gp.  On a CUDA tensor the wrappers launch ``csrc/softmax_ce.cu``
 (bf16 compute on the tensor cores, or fp32 compute as exact fp32 FMAs on
 the CUDA cores, no TF32) or raise; on a CPU tensor they run the plain
 versions ``ce_fwd_raw_ref``, ``ce_bwd_dh_ref`` and ``ce_bwd_dw_ref``.
+The kernels take hidden slices of 128, 256, 384 or 512: a narrower slice
+that is not a multiple of 128 is zero-padded (``pad_hidden``: zero columns
+of h, zero rows of W), which changes no logit, and the padding's rows of
+dh and dW are dropped.
 """
 
 from __future__ import annotations
@@ -88,22 +92,35 @@ def ce_loss_ref(h, W, b, y) -> Tensor:
 
 # ---------------------------------------------------------------- kernels
 
+def pad_hidden(h: Tensor, W: Tensor, multiple: int = 128) -> Tuple[Tensor, Tensor]:
+    """``h [N, D]`` with zero columns and ``W [D, V]`` with zero rows up to
+    the next multiple of ``multiple``: the same logits."""
+    D = h.shape[1]
+    Dp = -(-D // multiple) * multiple
+    if Dp == D:
+        return h, W
+    pad = torch.nn.functional.pad
+    return pad(h, (0, Dp - D)), pad(W, (0, 0, 0, Dp - D))
+
+
 def _kernel_args(h, W, b, y, compute_dtype):
-    """Cast and check the operands of a kernel launch; returns
-    ``(h [N, D], W [D, Vp], b fp32, y int32, N, D, V)``, h and W in the
-    compute dtype.  The bf16 kernels read W in 16-byte row chunks, so a
-    vocab that is not a multiple of 8 is padded with zero columns (masked
-    by ``col >= V``); the fp32 kernels read W as it is (``Vp == V``)."""
+    """Cast, pad and check the operands of a kernel launch; returns
+    ``(h [N, Dp], W [Dp, Vp], b fp32, y int32, N, Dp, V)``, h and W in the
+    compute dtype, D zero-padded to ``Dp``, a multiple of 128.  The bf16
+    kernels read W in 16-byte row chunks, so a vocab that is not a multiple
+    of 8 is padded with zero columns (masked by ``col >= V``); the fp32
+    kernels read W as it is (``Vp == V``)."""
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"the CE kernels compute in bf16 or fp32, not {compute_dtype}")
     N, D = h.shape
     V = b.shape[0]
     if tuple(W.shape) != (D, V):
         raise ValueError(f"W must be [{D}, {V}], got {tuple(W.shape)}")
-    if D % 128 or D > 512:
-        raise ValueError(f"hidden slice {D} must be a multiple of 128, at most 512")
-    hb = h.to(compute_dtype).contiguous()
-    Wb = W.to(compute_dtype).contiguous()
+    if D > 512:
+        raise ValueError(f"hidden slice {D} is wider than 512, the most the CE kernels take")
+    h, W = pad_hidden(h.to(compute_dtype), W.to(compute_dtype))
+    D = h.shape[1]
+    hb, Wb = h.contiguous(), W.contiguous()
     if V % 8 and compute_dtype == torch.bfloat16:
         Wb = torch.nn.functional.pad(Wb, (0, 8 - V % 8))
     for name, t in (("W", Wb), ("b", b), ("y", y)):
@@ -168,9 +185,11 @@ def ce_bwd_dh(h, W, b, y, lse, ga, gb, compute_dtype=torch.float32) -> Tensor:
         return ce_bwd_dh_ref(h, W, b, y, lse, ga, gb, compute_dtype)
     hb, Wb, bf, yi, (lse, ga, gb), N, D, V = _bwd_args(h, W, b, y, lse, ga, gb,
                                                       compute_dtype)
-    dh = torch.empty((N, D), dtype=torch.float32, device=h.device)
+    dh = torch.empty((N, h.shape[1]), dtype=torch.float32, device=h.device)
     if N == 0:
         return dh
+    if D != h.shape[1]:
+        dh = torch.empty((N, D), dtype=torch.float32, device=h.device)
     rows, cols, per_sm = _DH_TILE[compute_dtype]
     splits, per_split = _splits(-(-V // cols), -(-N // rows), per_sm, h.device)
     part = dh if splits == 1 else torch.empty((splits, N, D), dtype=torch.float32,
@@ -181,7 +200,7 @@ def ce_bwd_dh(h, W, b, y, lse, ga, gb, compute_dtype=torch.float32) -> Tensor:
         splits, per_split, ctypes.c_void_p(_build.stream_ptr(h)))
     _build.check(err, "ce_bwd_dh kernel")
     ce_bwd_dh.launches += 1
-    return dh
+    return dh[:, :h.shape[1]].contiguous() if D != h.shape[1] else dh
 
 
 def ce_bwd_dw(h, W, b, y, lse, ga, gb,
@@ -203,8 +222,8 @@ def ce_bwd_dw(h, W, b, y, lse, ga, gb,
             ctypes.c_void_p(_build.stream_ptr(h)))
         _build.check(err, "ce_bwd_dw kernel")
         ce_bwd_dw.launches += 1
-    if Vp != V:
-        return dW[:, :V].contiguous(), db[:V]
+    if (D, Vp) != tuple(W.shape):
+        return dW[:W.shape[0], :V].contiguous(), db[:V]
     return dW, db
 
 

@@ -15,7 +15,8 @@ pass under ``torch.profiler``.  From the profile: device busy ms per pass
 (the sum of device activity; one stream), the idle share of the profiled
 wall time and of the unprofiled median pass, device activities per
 forward, and each decode kernel's ms per pass and share of device time,
-matched by the function names of ``csrc/project_lse.cu``,
+matched by the function names of ``csrc/project_lse.cu`` (the int8 head's
+quantization pass and merge counted with it),
 ``csrc/lstm_cell.cu``, ``csrc/cand_dot.cu`` and ``csrc/cell_cand.cu``; the
 rest is PyTorch's glue.  Prints one JSON summary per run and writes them
 to ``--out``, each run's gzipped chrome trace beside it.
@@ -39,8 +40,9 @@ from chip_smoke import S, bench_data, bench_data5
 from profile_train import kernel_name
 
 # the device functions of the three decode kernels' sources
-DECODE_KERNELS = {"project_lse": ("proj_ms_kernel", "lse_merge_kernel"),
-                  "lstm_cell_step": ("lstm_cell_kernel",),
+DECODE_KERNELS = {"project_lse": ("proj_int8_kernel", "quantize_rows_kernel", "proj_ms_kernel",
+                                  "lse_merge_kernel"),
+                  "lstm_cell_step": ("lstm_cell_wgmma_kernel", "lstm_cell_f32_kernel"),
                   "cand_dot": ("cand_dot_kernel",),
                   "cell_cand_step": ("cell_cand_kernel",)}
 RUNS = ("50k", "50k fused", "config 5", "config 5", "50k fused", "50k")

@@ -25,7 +25,7 @@ def test_engine_import_is_jax_free_and_builds_nothing():
 
 
 def test_port_runs_without_the_jax_package():
-    """Every module of the port, chip_smoke and profile_train import, and a
+    """Every module of the port and the root scripts import, and a
     tiny CPU decode and a tiny ``--pallas-scan`` training step run, with no
     module of JAX or of ``jlm_tpu`` loaded and no kernel built."""
     code = (

@@ -380,16 +380,45 @@ def test_lstm_scan_bf16_and_autograd_vs_plain(cuda):
 
 @pytest.mark.cuda
 def test_lstm_scan_refuses_what_it_cannot_take(cuda):
-    """H not a multiple of 4, or more dx columns per block than 4, raise."""
+    """More dx columns per block than 4 raise, and so does H = E = 1,024,
+    whose H / 4 blocks cannot all be co-resident on the card."""
     from jlm_tpu_torch.ops import lstm_scan as ls
 
-    xs, W, b, c0, h0 = _scan_case(cuda, 25, 2, 3, 8, 6)
-    with pytest.raises(ValueError, match="H % 4"):
-        ls.lstm_scan_fwd(xs, W, b, c0, h0)
     xs, W, b, c0, h0 = _scan_case(cuda, 25, 2, 3, 128, 16)
     hs, cs, _, _ = ls.lstm_scan_fwd(xs, W, b, c0, h0)
     with pytest.raises(ValueError, match="E <= 16"):
         ls.lstm_scan_bwd(xs, W, b, c0, h0, hs, cs, hs, c0, h0)
+    xs, W, b, c0, h0 = _scan_case(cuda, 25, 32, 4, 1024, 1024)
+    with pytest.raises(ValueError, match="co-resident"):
+        hs, cs, _, _ = ls.lstm_scan_fwd(xs, W, b, c0, h0)
+        ls.lstm_scan_bwd(xs, W, b, c0, h0, hs, cs, hs, c0, h0)
+
+
+@pytest.mark.cuda
+def test_lstm_scan_pads_e_and_h(cuda):
+    """E = H = 30 (not multiples of 4): the wrappers pad both to 32 and
+    drop the padding; forward within 1e-5 abs and backward within 2e-4 abs
+    + 1e-4 rel of the plain versions at the unpadded shapes, one launch of
+    each kernel."""
+    from jlm_tpu_torch.ops import lstm_scan as ls
+
+    xs, W, b, c0, h0 = _scan_case(cuda, 29, 5, 6, 30, 30)
+    n0 = (ls.lstm_scan_fwd.launches, ls.lstm_scan_bwd.launches)
+    got = ls.lstm_scan_fwd(xs, W, b, c0, h0, 1.0)
+    want = ls.lstm_scan_ref(xs, W, b, c0, h0, 1.0)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        torch.testing.assert_close(a, w, atol=1e-5, rtol=0)
+    hs, cs = want[0], want[1]
+    rng = np.random.default_rng(30)
+    d_hs, d_cf, d_hf = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda)
+                        for s in ((5, 6, 30), (5, 30), (5, 30)))
+    got = ls.lstm_scan_bwd(xs, W, b, c0, h0, hs, cs, d_hs, d_cf, d_hf, 1.0)
+    want = ls.lstm_scan_bwd_ref(xs, W, b, c0, h0, hs, cs, d_hs, d_cf, d_hf, 1.0)
+    assert (ls.lstm_scan_fwd.launches, ls.lstm_scan_bwd.launches) == (n0[0] + 1, n0[1] + 1)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        torch.testing.assert_close(a, w, atol=2e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda
@@ -498,17 +527,41 @@ def test_fp32_fused_loss_vs_plain_log_softmax(cuda, head):
 
 @pytest.mark.cuda
 def test_ce_kernels_refuse_what_they_cannot_take(cuda):
-    """A hidden slice that is not a multiple of 128, or wider than 512, and
-    a compute dtype other than bf16 or fp32 raise on the card."""
+    """A hidden slice wider than 512 and a compute dtype other than bf16 or
+    fp32 raise on the card."""
     from jlm_tpu_torch.ops import softmax_ce as ce
 
-    for D in (96, 640):
-        h, W, b, y, _ = _ce_case(cuda, 19, 8, D, 300)
-        with pytest.raises(ValueError, match="multiple of 128"):
-            ce.ce_fwd_raw(h, W, b, y, torch.float32)
+    h, W, b, y, _ = _ce_case(cuda, 19, 8, 640, 300)
+    with pytest.raises(ValueError, match="wider than 512"):
+        ce.ce_fwd_raw(h, W, b, y, torch.float32)
     h, W, b, y, _ = _ce_case(cuda, 19, 8, 128, 300)
     with pytest.raises(ValueError, match="bf16 or fp32"):
         ce.ce_fwd_raw(h, W, b, y, torch.float16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ce_kernels_pad_a_narrow_hidden_slice(cuda, dtype):
+    """D = 192 (and 96): the wrappers pad h and W to 256 (128) with zeros
+    and drop the padding's dh rows and dW rows; the kernels within the
+    bounds of test_ce_kernels_vs_plain / test_ce_fp32_kernels_vs_plain of
+    the plain versions at the unpadded shapes."""
+    from jlm_tpu_torch.ops import softmax_ce as ce
+
+    fwd_tol, bwd_tol = (1e-4, 1e-3) if dtype == torch.bfloat16 else (1e-5, 1e-5)
+    for D in (192, 96):
+        h, W, b, y, g = _ce_case(cuda, 31, 300, D, 1001, neg_every=7)
+        m, s, t = ce.ce_fwd_raw(h, W, b, y, dtype)
+        mp, sp, tp = ce.ce_fwd_raw_ref(h, W, b, y, dtype)
+        lse = mp + torch.log(sp)
+        assert float((m + torch.log(s) - lse).abs().max()) <= fwd_tol
+        assert float((t - tp).abs().max()) <= fwd_tol
+        dh = ce.ce_bwd_dh(h, W, b, y, lse, g, -g, dtype)
+        dW, db = ce.ce_bwd_dw(h, W, b, y, lse, g, -g, dtype)
+        assert dh.shape == (300, D) and dW.shape == (D, 1001) and db.shape == (1001,)
+        assert _rel(dh, ce.ce_bwd_dh_ref(h, W, b, y, lse, g, -g, dtype)) <= bwd_tol
+        dWp, dbp = ce.ce_bwd_dw_ref(h, W, b, y, lse, g, -g, dtype)
+        assert _rel(dW, dWp) <= bwd_tol and _rel(db, dbp) <= bwd_tol
 
 
 def _cand_ids(rng, sizes, C=150):
@@ -667,8 +720,8 @@ def test_cell_cand_fp32_kernel_vs_plain(cuda, S, B, E, H, C1, c_dtype):
 
 @pytest.mark.cuda
 def test_cell_cand_refuses_what_it_cannot_take(cuda):
-    """fp16 compute, more than 16 rows a sentence, E not a multiple of 32,
-    H not a multiple of 64, and a cols slice of the wrong shape raise."""
+    """fp16 compute, E not a multiple of 32, H not a multiple of 64, and a
+    cols slice of the wrong shape raise."""
     from jlm_tpu_torch.ops.frame_step import cell_cand_step
 
     bf = torch.bfloat16
@@ -680,8 +733,7 @@ def test_cell_cand_refuses_what_it_cannot_take(cuda):
 
     with pytest.raises(ValueError, match="bf16 or fp32"):
         cell_cand_step(*args(2, 8, 32, 64, 9), compute_dtype=torch.float16)
-    for shape, match in (((2, 17, 32, 64, 9), "B <= 16"), ((2, 8, 48, 64, 9), "E=48"),
-                         ((2, 8, 32, 96, 9), "H=96")):
+    for shape, match in (((2, 8, 48, 64, 9), "E=48"), ((2, 8, 32, 96, 9), "H=96")):
         with pytest.raises(ValueError, match=match):
             cell_cand_step(*args(*shape), compute_dtype=bf)
     a = list(args(2, 8, 32, 64, 9))
@@ -723,3 +775,153 @@ def test_fused_frame_forward_on_the_card(cuda):
     for g, w in zip(got, want):
         assert g[0].segments == w[0].segments
         assert abs(g[0].score - w[0].score) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,E,H,tiles", [
+    (1000, 256, 512, True),   # the serving widths, tiles made first (the engine's way)
+    (300, 64, 96, False),     # H not a multiple of the 64-unit block, tiles made by the call
+    (77, 40, 24, True),       # E, H multiples of 8 only; fewer rows than a block
+])
+def test_lstm_cell_wgmma_kernel_shapes(cuda, R, E, H, tiles):
+    """The bf16 cell kernel (wgmma + TMA) on ragged rows, units and K vs the
+    plain version: c' fp32 within 1e-4 abs (fp32 sums of the same bf16
+    products in another order), h' within one bf16 rounding (8e-3 at
+    |h'| < 1); one launch."""
+    from jlm_tpu_torch.ops.lstm_cell import cell_weight_tiles
+
+    rng = np.random.default_rng(32)
+    bf = torch.bfloat16
+
+    def t(*shape, scale, dtype=bf):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32) * scale).to(cuda).to(dtype)
+
+    x, h, c = t(R, E, scale=0.5), t(R, H, scale=0.5), t(R, H, scale=0.5)
+    W, b = t(E + H, 4 * H, scale=0.1), t(4 * H, scale=0.1, dtype=torch.float32)
+    if tiles:
+        cell_weight_tiles(W, E, H)
+    n0 = lstm_cell_step.launches
+    c_k, h_k = lstm_cell_step(x, h, c, W, b, 1.0, compute_dtype=bf)
+    assert lstm_cell_step.launches == n0 + 1
+    assert W._cell_tiles[1] is cell_weight_tiles(W, E, H)  # kept on W
+    c_r, h_r = lstm_cell_ref(x, h, c, W, b, 1.0)
+    np.testing.assert_allclose(c_k.cpu().numpy(), c_r.cpu().numpy(), atol=1e-4)
+    np.testing.assert_allclose(h_k.float().cpu().numpy(), h_r.cpu().numpy(), atol=8e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,H,V", [
+    (1, 512, 5000),      # one row
+    (257, 512, 3201),    # a row past the 256-row block; a ragged last vocab tile
+    (300, 640, 3001),    # a slice over 512: 128-row blocks, 32-column tiles
+    (130, 1024, 2000),   # the widest slice the kernel keeps resident
+    (600, 80, 4999),     # a slice padded from 80 to 128
+])
+def test_project_int8_wgmma_kernel_edges(cuda, R, H, V):
+    """The int8-MXU head (quantization pass + wgmma kernel) at ragged R, V
+    and slice widths vs the plain version on weights of scale 0.5: lse and
+    candidate log-probs within 1e-4 abs (exact int32 products, the logit
+    rounded as the plain version rounds it, fp32 sums in another order); a
+    candidate read from its neighbouring column reads above the bound."""
+    from jlm_tpu_torch.ops.project import project_candidates, project_candidates_ref
+
+    rng = np.random.default_rng(33)
+    h = torch.from_numpy(rng.uniform(-1, 1, (R, H)).astype(np.float32)).to(cuda).to(torch.bfloat16)
+    q = quantize_weight(rng.normal(0, 0.5, (H, V)).astype(np.float32), axis=0)
+    W, scale = torch.from_numpy(q["q"]).to(cuda), torch.from_numpy(q["scale"]).to(cuda)
+    b = torch.from_numpy(rng.normal(0, 0.1, V).astype(np.float32)).to(cuda)
+    head = {"W": {"q": W, "scale": scale}, "b": b}
+    kw = dict(compute_dtype=torch.bfloat16, int8_mxu=True)
+    n0 = project_lse.launches
+    got = project_lse(h, head, None, **kw)
+    assert project_lse.launches == n0 + 1
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               project_lse_ref(h, head, **kw).cpu().numpy(), atol=1e-4)
+    ids = _cand_ids(rng, (V,), C=40).to(cuda)
+    cand = project_candidates(h, W, scale, b, ids, **kw)
+    want = project_candidates_ref(h, W, scale, b, ids, **kw)
+    np.testing.assert_allclose(cand.cpu().numpy(), want.cpu().numpy(), atol=1e-4)
+    shifted = torch.where(ids >= 0, (ids + 1) % V, ids)
+    assert float((project_candidates_ref(h, W, scale, b, shifted, **kw) - want).abs().max()) > 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", list(_BLOCK_MODES))
+@pytest.mark.parametrize("mode", ["prefix", "disjoint"])
+def test_project_pads_h192_dsoftmax_blocks(cuda, mode, weights):
+    """scripts/eval_quality.py's D-softmax heads at H = 192 (dims 96/48/48;
+    disjoint offsets 96 and 144): every weight mode pads the blocks to
+    multiples of 32 and launches, within the bound of
+    test_project_kernel_modes_vs_plain of the plain version, for the lse
+    and the candidate log-probs."""
+    from jlm_tpu_torch.config import Config, DSoftmaxConfig
+    from jlm_tpu_torch.ops.project import (
+        project_candidates_dsoftmax, project_candidates_dsoftmax_ref)
+
+    cd, quantized, int8_mxu, bound = _BLOCK_MODES[weights]
+    rng = np.random.default_rng(34)
+    H, sizes, dims = 192, (700, 900, 1401), (96, 48, 48)
+    cfg = Config(vocab_size=sum(sizes), hidden_size=H, head="dsoftmax",
+                 dsoftmax=DSoftmaxConfig(block_sizes=sizes, block_dims=dims, mode=mode))
+    blocks = []
+    for n, d in zip(sizes, dims):
+        w = rng.normal(size=(d, n)).astype(np.float32) * 0.5
+        b = torch.from_numpy(rng.normal(size=n).astype(np.float32) * 0.01).to(cuda)
+        if quantized:
+            q = quantize_weight(w, axis=0)
+            W = {"q": torch.from_numpy(q["q"]).to(cuda),
+                 "scale": torch.from_numpy(q["scale"]).to(cuda)}
+        else:
+            W = torch.from_numpy(w).to(cuda).to(cd)
+        blocks.append({"W": W, "b": b})
+    h = torch.from_numpy(rng.normal(size=(300, H)).astype(np.float32)).to(cuda).to(cd)
+    kw = dict(compute_dtype=cd, int8_mxu=int8_mxu)
+    n0 = project_lse.launches
+    got = project_lse(h, {"blocks": blocks}, cfg, **kw)
+    assert project_lse.launches == n0 + 3
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               project_lse_ref(h, {"blocks": blocks}, cfg, **kw).cpu().numpy(),
+                               atol=bound)
+    ids = _cand_ids(rng, sizes, C=60).to(cuda)
+    np.testing.assert_allclose(
+        project_candidates_dsoftmax(h, blocks, cfg, ids, **kw).cpu().numpy(),
+        project_candidates_dsoftmax_ref(h, blocks, cfg, ids, **kw).cpu().numpy(), atol=bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wide_beams_go_in_groups_of_16(cuda, dtype):
+    """B = 20 beam rows a sentence: cand_dot (and at H = 130, padded to 132)
+    and cell_cand_step launch twice (rows 0-15, 16-19) and match their plain
+    versions within the bounds of their own tests (cand 1e-4; the fused
+    frame's c' 1e-4 and h' one bf16 rounding in bf16, 1e-5 in fp32)."""
+    from jlm_tpu_torch.ops.frame_step import cell_cand_ref, cell_cand_step
+
+    rng = np.random.default_rng(35)
+
+    def t(*shape, scale, dt=dtype):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32) * scale).to(cuda).to(dt)
+
+    S, B, C1 = 9, 20, 17
+    for H in (128, 130):
+        h3, cols = t(S, B, H, scale=0.3), t(S, C1, H, scale=0.3)
+        bias = t(S, C1, scale=1.0, dt=torch.float32)
+        n0 = cand_dot.launches
+        got = cand_dot(h3, cols, bias)
+        assert cand_dot.launches == n0 + 2 and got.shape == (S, B, C1)
+        np.testing.assert_allclose(got.cpu().numpy(), cand_dot_ref(h3, cols, bias).cpu().numpy(),
+                                   atol=1e-4)
+    E, H = 64, 128
+    x, h, c = t(S * B, E, scale=1.0), t(S * B, H, scale=0.1), t(S * B, H, scale=0.5)
+    W, b = t(E + H, 4 * H, scale=0.05), t(4 * H, scale=0.01, dt=torch.float32)
+    cols, cbias = t(S, C1, H, scale=0.1), t(S, C1, scale=0.01, dt=torch.float32)
+    n0 = cell_cand_step.launches
+    c_k, h_k, cand_k = cell_cand_step(x, h, c, W, b, cols, cbias, B, 1.0, compute_dtype=dtype)
+    assert cell_cand_step.launches == n0 + 2
+    c_r, h_r, cand_r = cell_cand_ref(x, h, c, W, b, cols, cbias, B, 1.0, compute_dtype=dtype)
+    tol = 8e-3 if dtype == torch.bfloat16 else 1e-5
+    np.testing.assert_allclose(c_k.cpu().numpy(), c_r.cpu().numpy(), atol=1e-4 if tol > 1e-5 else tol)
+    np.testing.assert_allclose(h_k.float().cpu().numpy(), h_r.float().cpu().numpy(), atol=tol)
+    slack = torch.einsum("sbh,sch->sbc", (h_k.float() - h_r.float()).abs().reshape(S, B, H),
+                         cols.float().abs())
+    assert float(((cand_k - cand_r).abs() - slack).max()) <= 1e-4
