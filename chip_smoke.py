@@ -31,7 +31,10 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
    weight modes and on config 5's head, and the fused cell + candidate
    frame kernel in bf16 and fp32 (``port_cases``: TF32 operands, a
    p-term off, or a candidate read from its neighbouring column must read
-   above the bounds);
+   above the bounds); and the widths past 512 (``wide_cases``, H = E =
+   1,024: the bf16 and dequant-bf16 heads on a 1,024-wide slice, the
+   fused CE at D = 1,024 in bf16 and fp32, the scan in fp32 and bf16
+   forward and backward, each with a wrong version);
 2b. candidate extraction through ``project_candidates`` and
    ``project_candidates_dsoftmax`` as ``scripts/bench_kernels.py`` drives
    them, one launch per block counted;
@@ -77,6 +80,10 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
    forward and backward through autograd on the 50k head and on config
    5's D-softmax head (the fp32 CE kernels, one launch of each per block)
    vs the plain fp32 log-softmax route;
+5d. the paths at H = E = 1,024 (``wide_run``): ``WIDE_STEPS``
+   ``--pallas-scan --fused-ce`` training steps against the loop path
+   (launches counted), the fp32 fused CE, the bf16 scan through autograd
+   and the 1,024-wide bf16 and dequant heads through their entry points;
 6. save the trained weights, reload the checkpoint, and decode the 50
    sentences fp32 greedy: 50/50 top-1 identity with the oracle on them.
 
@@ -132,6 +139,9 @@ PEAKED = 0.5
 # training shapes: batch 32 x BPTT window 32 = 1,024 CE rows per step
 TB, TT, TRAIN_STEPS = 32, 32, 20
 N_CE = TB * TT
+# the widest width the port trains and serves (python -m jlm_tpu_torch.train
+# --hidden-size 1024; E = H), driven for WIDE_STEPS training steps
+HW, WIDE_STEPS = 1024, 3
 # the card's published dense peaks at 700 W (NVIDIA H100 SXM data sheet)
 PEAK = {"int8": 1979e12, "bf16": 989e12, "fp32": 67e12, "bytes": 3.35e12}
 BOUNDS = {  # kernel vs plain version, on the same inputs on the card
@@ -198,6 +208,26 @@ BOUNDS = {  # kernel vs plain version, on the same inputs on the card
     # abs, c', h' and the candidate logits; exact fp32 products; wrong: TF32
     # operands
     "cell_cand_step fp32": 1e-5,
+    # the widths past 512 (H = E = 1,024), each with the bound and the reason
+    # of its 512-wide counterpart above; the bf16 scan backward: abs error /
+    # max |plain| over dz, dx, dc0, dh0 (dz rounded to bf16 on both sides; a
+    # flipped bf16 rounding of h_{t-1} is carried back through the window)
+    "project_lse bf16 D1024": 1e-3,
+    "project_lse dequant bf16 D1024": 1e-3,
+    "ce_fwd bf16 D1024": 1e-3,
+    "ce_bwd_dh bf16 D1024": 1e-4,
+    "ce_bwd_dw bf16 D1024": 1e-4,
+    "ce_fwd fp32 D1024": 1e-4,
+    "ce_bwd_dh fp32 D1024": 1e-4,
+    "ce_bwd_dw fp32 D1024": 1e-4,
+    "lstm_scan_fwd fp32 H1024": 1e-5,
+    # abs: a flipped bf16 rounding of h_{t-1} (up to 2^-8 |h| = 3.9e-3 at
+    # |h| < 1) is carried through the window, and at H = 1,024 each step
+    # has twice the sums that can flip one; a forget bias off by F_SHIFT
+    # reads ~0.17
+    "lstm_scan_fwd bf16 H1024": 1e-2,
+    "lstm_scan_bwd fp32 H1024": 1.0,
+    "lstm_scan_bwd bf16 H1024": 1e-2,
 }
 # lse + P_SHIFT in the plain backward: a p-term exp(-0.3) = 0.74 of its value
 P_SHIFT = 0.3
@@ -249,6 +279,26 @@ def cuda_ms(fn, reps: int = 10) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def in_a_row(fn, n: int = 50):
+    """(ms a call between two CUDA events around ``n`` calls in a row, host
+    ms a call before the card is waited for): the first is the device's
+    time where the device is the slower side, the second the caller's
+    Python and launch time, which a one-call time (``cuda_ms``) adds in
+    front of the device's."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        fn()
+    stop.record()
+    host = (time.perf_counter() - t0) / n * 1e3
+    stop.synchronize()
+    return start.elapsed_time(stop) / n, host
 
 
 def bf16_ulps(a: torch.Tensor, ref: torch.Tensor) -> float:
@@ -312,6 +362,22 @@ def abs_errs(k, p):
     k, p = (k, p) if isinstance(k, tuple) else ((k,), (p,))
     err = max(abs_err(a, b) for a, b in zip(k, p))
     return err, err
+
+
+def scan_bwd_err(k, p):
+    """The allclose criterion of the reference's tests as one number: max
+    over the tensors of |kernel - plain| / (2e-4 + 1e-4 |plain|)."""
+    return (max(float(((a - w).abs() / (2e-4 + 1e-4 * w.abs())).max()) for a, w in zip(k, p)),
+            max(abs_err(a, w) for a, w in zip(k, p)))
+
+
+def second_half_fault(h, block_rows):
+    """Rows of every second group of ``block_rows`` replaced by the group
+    before it: what the bf16 head gives if its second consumer warpgroup
+    (rows 64 .. 127 of a 128-row block) read the first's rows."""
+    rows = torch.arange(h.shape[0], device=h.device)
+    second = (rows // block_rows) % 2 == 1
+    return h[torch.where(second, rows - block_rows, rows)]
 
 
 def ce_fwd_err(k, p):
@@ -417,11 +483,6 @@ def kernel_cases(dev, rng):
     def cand_err(k, p):
         return abs_err(k, p) / max(1.0, float(p.abs().max())), abs_err(k, p)
 
-    def scan_bwd_err(k, p):  # the allclose criterion of the reference's tests
-        return (max(float(((a - w).abs() / (2e-4 + 1e-4 * w.abs())).max())
-                    for a, w in zip(k, p)),
-                max(abs_err(a, w) for a, w in zip(k, p)))
-
     w_ih, w_hh, b_ih = torch_gates(Wc, bc)
     b_ih, b_hh = b_ih.to(bf), torch.zeros_like(b_ih, dtype=bf)
     cbias_b = cbias.to(bf)[:, None, :]
@@ -505,7 +566,8 @@ def kernel_cases(dev, rng):
         ("project_lse bf16",
          lambda: project_lse(h, head_b, None, compute_dtype=bf),
          lambda: project_lse_ref(h, head_b, compute_dtype=bf),
-         abs_errs, None, None),
+         abs_errs,
+         lambda: project_lse_ref(second_half_fault(h, 64), head_b, compute_dtype=bf), None),
         ("lstm_cell_step bf16",
          lambda: lstm_cell_step(x, h, c, Wc, bc, 1.0, compute_dtype=bf,
                                 c_out_dtype=bf),
@@ -652,7 +714,8 @@ def head_mode_cases(dev, rng):
                  global_scale),
         ("lstm_cell_step fp32",
          lambda: lstm_cell_step(xc, hc, cc, Wc, bc, 1.0),
-         lambda: lstm_cell_ref(xc, hc, cc, Wc, bc, 1.0), abs_errs, None,
+         lambda: lstm_cell_ref(xc, hc, cc, Wc, bc, 1.0), abs_errs,
+         lambda: lstm_cell_ref(tf32(xc), tf32(hc), cc, tf32(Wc), bc, 1.0),
          lambda: torch.lstm_cell(xc, (hc, cc), w_ih, w_hh, b_ih, torch.zeros_like(b_ih))),
     ]
 
@@ -845,9 +908,209 @@ def port_cases(dev, rng):
     return cases
 
 
+def wide_cases(dev, rng):
+    """The widths past 512 (H = E = HW = 1,024), as kernel_cases' cases: the
+    bf16 and dequant-bf16 heads on a 1,024-wide slice at the serving rows
+    (50k), the fused CE at N = 1,024, D = 1,024, V = 50,000 in bf16 and fp32
+    (the mean loss's cotangent), and the scan at B = T = 32 in fp32 and
+    bf16, forward and backward.  Wrong calls: the rows of each block's
+    second warpgroup taken from the first's (bf16 head); the exact int8 product rescaled after it (dequant, weights of
+    scale PEAKED); the logits of the first 512 of K alone (bf16 CE
+    forward); operands rounded to TF32 (fp32 CE, weights of scale PEAKED);
+    a p-term off by P_SHIFT (bf16 CE backward); a forget bias off by
+    F_SHIFT (scan)."""
+    from jlm_tpu_torch.ops.lstm_scan import (
+        lstm_scan_bwd, lstm_scan_bwd_ref, lstm_scan_fwd, lstm_scan_ref)
+    from jlm_tpu_torch.ops.project import project_lse, project_lse_ref
+    from jlm_tpu_torch.ops.quant import quantize_weight
+    from jlm_tpu_torch.ops.softmax_ce import (
+        ce_bwd_dh, ce_bwd_dh_ref, ce_bwd_dw, ce_bwd_dw_ref, ce_fwd_raw, ce_fwd_raw_ref)
+
+    f32, bf = torch.float32, torch.bfloat16
+
+    def t(a, dtype=f32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev).to(dtype)
+
+    # the heads at the serving rows
+    h = t(rng.uniform(-1, 1, (R, HW)), bf)
+    bias = t(rng.normal(0, 0.1, V))
+    Wb = t(rng.normal(0, 0.05, (HW, V)), bf)
+    head_b = {"W": Wb, "b": bias, "WT": Wb.t().contiguous()}
+    q = quantize_weight(rng.normal(0, PEAKED, (HW, V)).astype(np.float32), axis=0)
+    Wq, sq = torch.from_numpy(q["q"]).to(dev), t(q["scale"])
+    head_d = {"W": {"q": Wq, "scale": sq}, "b": bias, "WT": Wq.t().contiguous()}
+
+    def rescaled_after():
+        acc = h.float() @ Wq.float()
+        return torch.logsumexp(acc * sq[None, :] + bias[None, :], dim=1, keepdim=True)
+
+    def head_case(name, head, wrong):
+        return (name, lambda: project_lse(h, head, None, compute_dtype=bf),
+                lambda: project_lse_ref(h, head, compute_dtype=bf), abs_errs, wrong, None)
+
+    cases = [
+        head_case("project_lse bf16 D1024", head_b,
+                  lambda: project_lse_ref(second_half_fault(h, 64), head_b, compute_dtype=bf)),
+        head_case("project_lse dequant bf16 D1024", head_d, rescaled_after),
+    ]
+
+    # the fused CE at the training rows
+    hc = t(rng.uniform(-1, 1, (N_CE, HW)))
+    yc = torch.from_numpy(rng.integers(0, V, N_CE)).to(dev)
+    bc = t(rng.normal(0, 0.1, V))
+    ga = torch.full((N_CE,), 1.0 / N_CE, device=dev)
+    for cd, scale in ((bf, 0.05), (f32, PEAKED)):
+        Wc = t(rng.normal(0, scale, (HW, V)))
+        m, s_ = ce_fwd_raw_ref(hc, Wc, bc, yc, cd)[:2]
+        lse = m + torch.log(s_)
+        name = "bf16" if cd == bf else "fp32"
+        if cd == bf:
+            wrong_fwd = {"the logits of the first 512 of K alone":
+                         lambda Wc=Wc: ce_fwd_raw_ref(hc[:, :512], Wc[:512], bc, yc, bf)}
+        else:
+            wrong_fwd = {"operands rounded to TF32":
+                         lambda Wc=Wc: ce_fwd_raw_ref(tf32(hc), tf32(Wc), bc, yc, f32)}
+        cases.append((f"ce_fwd {name} D1024", lambda Wc=Wc, cd=cd: ce_fwd_raw(hc, Wc, bc, yc, cd),
+                      lambda Wc=Wc, cd=cd: ce_fwd_raw_ref(hc, Wc, bc, yc, cd), ce_fwd_err,
+                      wrong_fwd, None))
+        for kname, kernel, ref in (("ce_bwd_dh", ce_bwd_dh, ce_bwd_dh_ref),
+                                   ("ce_bwd_dw", ce_bwd_dw, ce_bwd_dw_ref)):
+            args = (hc, Wc, bc, yc, lse, ga, -ga, cd)
+            if cd == bf:
+                wrong = (lambda r=ref, Wc=Wc, lse=lse:
+                         r(hc, Wc, bc, yc, lse + P_SHIFT, ga, -ga, bf))
+            else:
+                wrong = {"operands rounded to TF32": lambda r=ref, Wc=Wc, lse=lse:
+                         r(tf32(hc), tf32(Wc), bc, yc, lse, ga, -ga, f32)}
+            cases.append((f"{kname} {name} D1024", lambda k=kernel, a=args: k(*a),
+                          lambda r=ref, a=args: r(*a), bwd_err, wrong, None))
+
+    # the scan at the training batch and window
+    xs = t(rng.normal(0, 0.3, (TB, TT, HW)))
+    Ws = t(rng.normal(0, 0.05, (2 * HW, 4 * HW)))
+    bs = t(rng.normal(0, 0.1, 4 * HW))
+    c0, h0 = t(rng.normal(0, 0.3, (TB, HW))), t(rng.normal(0, 0.3, (TB, HW)))
+    scan_in = (xs, Ws, bs, c0, h0)
+    grads = (t(rng.normal(0, 1, (TB, TT, HW))), t(rng.normal(0, 1, (TB, HW))),
+             t(rng.normal(0, 1, (TB, HW))))
+    for cd in (f32, bf):
+        name = "bf16" if cd == bf else "fp32"
+        hs, cs = lstm_scan_ref(*scan_in, 1.0, cd)[:2]
+        saved = scan_in + (hs, cs) + grads
+        cases += [
+            (f"lstm_scan_fwd {name} H1024", lambda cd=cd: lstm_scan_fwd(*scan_in, 1.0, cd),
+             lambda cd=cd: lstm_scan_ref(*scan_in, 1.0, cd), abs_errs,
+             {f"a forget bias off by {F_SHIFT:g}":
+              lambda cd=cd: lstm_scan_ref(*scan_in, 1.0 + F_SHIFT, cd)}, None),
+            (f"lstm_scan_bwd {name} H1024", lambda a=saved, cd=cd: lstm_scan_bwd(*a, 1.0, cd),
+             lambda a=saved, cd=cd: lstm_scan_bwd_ref(*a, 1.0, cd),
+             scan_bwd_err if cd == f32 else bwd_err,
+             {f"a forget gate sigmoid(f + {F_SHIFT:g}) in the backward":
+              lambda a=saved, cd=cd: lstm_scan_bwd_ref(*a, 1.0 + F_SHIFT, cd)}, None),
+        ]
+    return cases
+
+
+def wide_run(dev, rng, config, vocab, dev_ids):
+    """The paths at H = E = HW = 1,024 through their entry points, each
+    counter set to 0 just before: WIDE_STEPS training steps with
+    ``--pallas-scan --fused-ce`` (the scan kernels in fp32, the CE kernels
+    in bf16) against the same steps through the loop path (plain cell steps,
+    the same CE kernels): step-1 loss and last loss within TRAIN_BOUNDS,
+    every counter of the scan run above 0; then the fp32 fused CE through
+    autograd (``precision="highest"``, vs the plain fp32 route within
+    FP32_CE_BOUNDS), the bf16 scan through autograd, and one call of the
+    bf16 and dequant-bf16 heads on a 1,024-wide slice (finite, of shape
+    [R, 1]).  Returns the launches by kernels-line name."""
+    from jlm_tpu_torch.models.heads import full_softmax_loss
+    from jlm_tpu_torch.models.params import init_params
+    from jlm_tpu_torch.ops import lstm_scan as ls
+    from jlm_tpu_torch.ops import softmax_ce as ce
+    from jlm_tpu_torch.ops.project import project_lse
+    from jlm_tpu_torch.ops.quant import quantize_weight
+
+    wcfg = config.replace(hidden_size=HW, embed_size=HW, batch_size=TB, num_steps=TT,
+                          fused_ce=True)
+    params = init_params(wcfg)
+    train_ids = training_corpus(vocab)[0][:N_CE * WIDE_STEPS + 1]
+    _, loss_l, ms_l, launches_l, _ = training_run(dev, wcfg, params, train_ids, dev_ids,
+                                                  f"H = E = {HW}, loop path")
+    _, loss_s, ms_s, launches_s, _ = training_run(
+        dev, wcfg.replace(use_pallas_scan=True), params, train_ids, dev_ids,
+        f"H = E = {HW}, --pallas-scan")
+    step1, last = abs(loss_s[0] - loss_l[0]), abs(loss_s[-1] / loss_l[-1] - 1)
+    log(f"H = E = {HW} training, scan vs loop path: step 1 loss diff {step1:.3e} (bound "
+        f"{TRAIN_BOUNDS['step 1 loss']:g}), last loss rel diff {last:.3e} (bound "
+        f"{TRAIN_BOUNDS['last loss']:g}); {ms_l:.3f} / {ms_s:.3f} ms/step")
+    check(np.isfinite(loss_s).all() and np.isfinite(loss_l).all(), "H = 1024 loss finite")
+    check(step1 <= TRAIN_BOUNDS["step 1 loss"], "H = 1024 step 1 loss: scan vs loop")
+    check(last <= TRAIN_BOUNDS["last loss"], "H = 1024 last loss: scan vs loop")
+    want = {**dict.fromkeys(CE_COUNTERS, WIDE_STEPS),
+            **dict.fromkeys(SCAN_COUNTERS, WIDE_STEPS * wcfg.num_layers)}
+    check(launches_s == want, f"H = 1024 scan run launches {launches_s}, expected {want}")
+    check(launches_l == {**want, **dict.fromkeys(SCAN_COUNTERS, 0)},
+          f"H = 1024 loop run launches {launches_l}")
+    launches = {f"{k} D1024": launches_s[k] for k in CE_COUNTERS}
+    launches.update({f"{k} H1024": launches_s[k] for k in SCAN_COUNTERS})
+    del params
+    torch.cuda.empty_cache()
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    counters = (ce.ce_fwd_raw, ce.ce_bwd_dh, ce.ce_bwd_dw, ls.lstm_scan_fwd, ls.lstm_scan_bwd,
+                project_lse)
+    for fn in counters:
+        fn.launches = 0
+    head = {"W": t(rng.normal(0, 0.05, (HW, V))), "b": t(rng.normal(0, 0.1, V))}
+    hs = t(rng.uniform(-1, 1, (TB, TT, HW)))
+    y = torch.from_numpy(rng.integers(0, V, (TB, TT))).to(dev)
+    leaves = [hs, head["W"], head["b"]]
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    def fp32_loss(c):
+        loss = full_softmax_loss({"head": head}, c, hs, y, precision="highest")
+        return (loss, *torch.autograd.grad(loss, leaves))
+
+    got = fp32_loss(wcfg)
+    ce_counts = {f"{k} fp32 D1024": fn.launches for k, fn in zip(CE_COUNTERS, counters[:3])}
+    want_ = fp32_loss(wcfg.replace(fused_ce=False))
+    loss_err, grad_err = abs(got[0].item() - want_[0].item()), rel_err(got[1:], want_[1:])
+    log(f"fp32 fused CE at D = {HW}: loss diff {loss_err:.3e} (bound "
+        f"{FP32_CE_BOUNDS['loss']:g}), grads rel err {grad_err:.3e} (bound "
+        f"{FP32_CE_BOUNDS['grads']:g}); launches {ce_counts}")
+    check(loss_err <= FP32_CE_BOUNDS["loss"] and grad_err <= FP32_CE_BOUNDS["grads"],
+          f"fp32 fused CE at D = {HW}")
+    launches.update(ce_counts)
+    xs = t(rng.normal(0, 0.3, (TB, TT, HW)))
+    scan_leaves = [a.requires_grad_(True) for a in (
+        xs, t(rng.normal(0, 0.05, (2 * HW, 4 * HW))), t(rng.normal(0, 0.1, 4 * HW)),
+        t(rng.normal(0, 0.3, (TB, HW))), t(rng.normal(0, 0.3, (TB, HW))))]
+    outs = ls.lstm_scan(*scan_leaves, 1.0, torch.bfloat16)
+    scan_grads = torch.autograd.grad(sum(o.sum() for o in outs), scan_leaves)
+    check(all(bool(torch.isfinite(g).all()) for g in scan_grads), "bf16 scan grads finite")
+    launches.update({f"{k} bf16 H1024": fn.launches for k, fn in zip(SCAN_COUNTERS, counters[3:5])})
+    del scan_leaves, outs, scan_grads
+    bf = torch.bfloat16
+    h = t(rng.uniform(-1, 1, (R, HW))).to(bf)
+    q = quantize_weight(rng.normal(0, 0.05, (HW, V)).astype(np.float32), axis=0)
+    head_q = {"W": {"q": torch.from_numpy(q["q"]).to(dev), "scale": t(q["scale"])},
+              "b": head["b"].detach()}
+    for name, hd in (("project_lse bf16 D1024", {"W": head["W"].detach().to(bf),
+                                                  "b": head["b"].detach()}),
+                     ("project_lse dequant bf16 D1024", head_q)):
+        project_lse.launches = 0
+        lse = project_lse(h, hd, None, compute_dtype=bf)
+        check(lse.shape == (R, 1) and bool(torch.isfinite(lse).all()), f"{name}: finite [R, 1]")
+        launches[name] = project_lse.launches
+    log(f"H = {HW} paths' launches: {launches}")
+    return launches
+
+
 # exponentials of each head case: one per logit (R x V)
 EXPS = {
-    "project_lse": R * V, "project_lse dsoftmax int8": R * V5,
+    "project_lse": R * V, "project_lse bf16": R * V, "project_lse bf16 D1024": R * V,
+    "project_lse dequant bf16 D1024": R * V, "project_lse dsoftmax int8": R * V5,
     "project_lse dsoftmax bf16": R * V5, "project_lse dequant bf16": R * V,
     "project_lse fp32": R32 * V5, "project_lse dequant fp32": R32 * V,
     "project_candidates fp32": R_CAND * V, "project_candidates dequant fp32": R_CAND * V,
@@ -867,10 +1130,33 @@ def work():
     products' operations (2 per multiply-add) at the peak of their type."""
     ce_in = N_CE * H * 4 + H * V * 4 + V * 4 + N_CE * 8  # h, W fp32; b; y int64
     scan_in = 4 * (TB * TT * E + (E + H) * 4 * H + 4 * H + 2 * TB * H)  # xs W b c0 h0
+    ce_in_w = N_CE * HW * 4 + HW * V * 4 + V * 4 + N_CE * 8  # the same at D = HW
+    scan_in_w = 4 * (TB * TT * HW + 2 * HW * 4 * HW + 4 * HW + 2 * TB * HW)
+    ce_w = {  # the three CE kernels at D = HW: bytes, operations
+        "ce_fwd": (ce_in_w + 3 * N_CE * 4, 2 * N_CE * HW * V),
+        "ce_bwd_dh": (ce_in_w + 3 * N_CE * 4 + N_CE * HW * 4, 4 * N_CE * HW * V),
+        "ce_bwd_dw": (ce_in_w + 3 * N_CE * 4 + HW * V * 4 + V * 4, 4 * N_CE * HW * V)}
+    scan_w = {  # the scan kernels at H = E = HW: fp32 products, or (bf16) products
+        # of bf16-rounded x, h, W and dz summed in fp32, at the bf16 peak
+        "lstm_scan_fwd": (scan_in_w + 4 * (2 * TB * TT * HW + 2 * TB * HW),
+                          2 * TB * TT * 2 * HW * 4 * HW),
+        "lstm_scan_bwd": (scan_in_w + 4 * (3 * TB * TT * HW + 2 * TB * HW + TB * TT * 4 * HW
+                                           + TB * TT * HW + 2 * TB * HW),
+                          4 * TB * TT * 2 * HW * 4 * HW)}
     cand_io = C_CAND * 4 + R_CAND * C_CAND * 4  # ids in, log-probs out
     return {
         # h bf16, W int8 (one layout), scale, bias -> lse
         "project_lse": (R * H * 2 + H * V + V * 8 + R * 4, 2 * R * H * V, "int8"),
+        # h bf16, W bf16, bias -> lse
+        "project_lse bf16": (R * H * 2 + H * V * 2 + V * 4 + R * 4, 2 * R * H * V, "bf16"),
+        "project_lse bf16 D1024": (R * HW * 2 + HW * V * 2 + V * 4 + R * 4, 2 * R * HW * V,
+                                   "bf16"),
+        "project_lse dequant bf16 D1024": (R * HW * 2 + HW * V + V * 8 + R * 4,
+                                           2 * R * HW * V, "bf16"),
+        **{f"{k} D1024": (*ce_w[k], "bf16") for k in ce_w},
+        **{f"{k} fp32 D1024": (*ce_w[k], "fp32") for k in ce_w},
+        **{f"{k} H1024": (*scan_w[k], "fp32") for k in scan_w},
+        **{f"{k} bf16 H1024": (*scan_w[k], "bf16") for k in scan_w},
         # x, h, c bf16, W bf16, b -> c', h' bf16
         "lstm_cell_step": (R * (E + 4 * H) * 2 + (E + H) * 4 * H * 2 + 4 * H * 4,
                            2 * R * (E + H) * 4 * H, "bf16"),
@@ -1155,6 +1441,10 @@ def training_corpus(vocab):
 
 def kernel_fn(name: str) -> str:
     """The CUDA function behind a ``kernels`` entry, with its design."""
+    if name.endswith(" H1024"):
+        return kernel_fn(name[:-6].replace(" bf16", "")) + " (W streamed from the L2)"
+    if name.endswith(" D1024") and name.startswith("ce_"):
+        return kernel_fn(name[:-6]) + " (K in chunks of 512)"
     if name in ("project_lse", "project_lse dsoftmax int8", "project_candidates int8",
                 "project_candidates dsoftmax int8"):
         return "proj_int8_kernel (wgmma + TMA; quantize_rows_kernel before it)"
@@ -1163,8 +1453,9 @@ def kernel_fn(name: str) -> str:
     if name.startswith("project_") and ("fp32" in name):
         return "proj_ms_f32_kernel"
     if name.startswith("project_"):
-        return "proj_ms_kernel (mma.sync)"
-    fns = {"lstm_cell_step fp32": "lstm_cell_f32_kernel", "cand_dot": "cand_dot_kernel",
+        return "proj_bf16_kernel (wgmma m64n256 + TMA; h and W^T streamed)"
+    fns = {"lstm_cell_step fp32": "lstm_cell_f32_kernel (register-tiled; a cp.async ring a K part)",
+           "cand_dot": "cand_dot_kernel",
            "cell_cand_step": "cell_cand_kernel", "cell_cand_step fp32": "cell_cand_f32_kernel"}
     if name in fns:
         return fns[name]
@@ -1284,9 +1575,13 @@ def main() -> int:
         "project_lse dequant bf16": "the exact int8 product rescaled after it",
         "project_lse fp32": "operands rounded to TF32",
         "project_lse dequant fp32": "operands rounded to TF32",
+        "project_lse bf16": "the second warpgroup's rows from the first's",
+        "project_lse bf16 D1024": "the second warpgroup's rows from the first's",
+        "project_lse dequant bf16 D1024": "the exact int8 product rescaled after it",
+        "lstm_cell_step fp32": "operands rounded to TF32",
     }
     cases, yardsticks = kernel_cases(dev, rng)
-    cases += head_mode_cases(dev, rng) + port_cases(dev, rng)
+    cases += head_mode_cases(dev, rng) + port_cases(dev, rng) + wide_cases(dev, rng)
     for name, kernel, plain, err_fn, wrong, library in cases:
         want = plain()
         err, max_abs = err_fn(kernel(), want)
@@ -1303,6 +1598,11 @@ def main() -> int:
             log(f"  {name}: {what} reads {caught:.3e}")
             check(caught > BOUNDS[name], f"{name}: bound misses {what} ({caught})")
         measured[name] = (max_abs, ms, plain_ms, lib_ms)
+        if name == "lstm_cell_step fp32":  # rule 2's one-call yardstick: split it
+            for who, fn in (("kernel", kernel), ("library call", library)):
+                row_ms, host_ms = in_a_row(fn)
+                log(f"  {name} {who}, 50 calls in a row: {row_ms:.4f} ms a call "
+                    f"(events), host {host_ms:.4f} ms a call")
     for name, run in yardsticks.items():
         log(f"{name}: {cuda_ms(run):.4f} ms")
     del cases, yardsticks
@@ -1373,8 +1673,10 @@ def main() -> int:
     bf16_engine = BeamDecoder(params, lexicon, vocab, config, precision="default",
                               device=dev)
     oracle_f = OracleDecoder(OracleLM(params, config), lexicon, vocab, config)
-    n = identical(bf16_engine.decode_batch(kanas),
-                  [oracle_f.decode(k)[0] for k in kanas])
+    project_lse.launches = 0  # the 50k bf16 head's launches on this run
+    results_bf16 = bf16_engine.decode_batch(kanas)
+    launches_bf16 = project_lse.launches
+    n = identical(results_bf16, [oracle_f.decode(k)[0] for k in kanas])
     log(f"beam-10 bf16 parity {n}/{len(kanas)} (kernel path vs fp32 oracle)")
     check(n == len(kanas), "bf16 beam parity")
     check("jax" not in sys.modules, "the port imported jax")
@@ -1610,6 +1912,10 @@ def main() -> int:
     launches.update((k, launches_s[k]) for k in SCAN_COUNTERS)
     torch.cuda.empty_cache()
 
+    # ---- phase 5d: the paths at H = E = 1,024 ----
+    launches_wide = wide_run(dev, rng, config, vocab, dev_ids)
+    torch.cuda.empty_cache()
+
     # ---- phase 5c: the fp32 fused CE through autograd ----
     launches_ce32 = fp32_ce_run(dev, rng)
 
@@ -1671,6 +1977,22 @@ def main() -> int:
                            "cell_cand_step bf16"),
         "cell_cand_step fp32": ("jlm_tpu_torch/csrc/cell_cand.cu",
                                 "jlm_tpu/ops/frame_step.py:47", "cell_cand_step fp32"),
+        # the bf16 head at 50k (phase 4's bf16 run), and the widths past 512
+        # (launches from phase 5d)
+        "project_lse bf16": ("jlm_tpu_torch/csrc/project_lse.cu", "jlm_tpu/ops/project.py:42",
+                             "project_lse bf16"),
+        **{name: ("jlm_tpu_torch/csrc/project_lse.cu", "jlm_tpu/ops/project.py:42", name)
+           for name in ("project_lse bf16 D1024", "project_lse dequant bf16 D1024")},
+        **{f"{k} D1024": ("jlm_tpu_torch/csrc/softmax_ce.cu", f"jlm_tpu/ops/softmax_ce.py:{ln}",
+                          f"{k} bf16 D1024") for k, ln in zip(CE_COUNTERS, (111, 157, 207))},
+        **{f"{k} fp32 D1024": ("jlm_tpu_torch/csrc/softmax_ce.cu",
+                               f"jlm_tpu/ops/softmax_ce.py:{ln}", f"{k} fp32 D1024")
+           for k, ln in zip(CE_COUNTERS, (111, 157, 207))},
+        **{f"{k} H1024": ("jlm_tpu_torch/csrc/lstm_scan.cu", f"jlm_tpu/ops/lstm_scan.py:{ln}",
+                          f"{k} fp32 H1024") for k, ln in zip(SCAN_COUNTERS, (92, 256))},
+        **{f"{k} bf16 H1024": ("jlm_tpu_torch/csrc/lstm_scan.cu",
+                               f"jlm_tpu/ops/lstm_scan.py:{ln}", f"{k} bf16 H1024")
+           for k, ln in zip(SCAN_COUNTERS, (92, 256))},
     }
     launches.update({
         "project_lse dsoftmax int8": launches5["project_lse"],
@@ -1683,6 +2005,8 @@ def main() -> int:
         **launches_cand,
         "cell_cand_step": launches_f["cell_cand_step"],
         "cell_cand_step fp32": launches_f32["cell_cand_step"],
+        "project_lse bf16": launches_bf16,
+        **launches_wide,
     })
     kernels = []
     for name, (src, replaces, case) in sources.items():

@@ -56,15 +56,17 @@ inline EncodeTiled encode_tiled() {
 
 // A 2-D row-major tensor [rows, cols] of elem_bytes-wide elements (int8 or
 // bf16) at ptr with a row stride of ld elements, read in boxes of
-// box_rows x box_cols (box_cols * elem_bytes == 128: one swizzle row).
-// Elements past the tensor's edge read as zero.  Returns false if the
-// driver refuses the map (an address or stride not 16-byte aligned).
+// box_rows x box_cols: with the 128-byte swizzle (swizzled, the default)
+// box_cols * elem_bytes == 128, one swizzle row; unswizzled, the box lands
+// as dense rows.  Elements past the tensor's edge read as zero.  Returns
+// false if cuTensorMapEncodeTiled refuses the map (an address or stride
+// not 16-byte aligned).
 inline bool tensor_map(CUtensorMap* out, const void* ptr, int elem_bytes, int rows,
-                       int cols, int ld, int box_rows, int box_cols) {
-  using Key = std::tuple<const void*, int, int, int, int, int, int>;
+                       int cols, int ld, int box_rows, int box_cols, bool swizzled = true) {
+  using Key = std::tuple<const void*, int, int, int, int, int, int, bool>;
   static std::map<Key, CUtensorMap> cache;
   static std::mutex mu;
-  const Key key{ptr, elem_bytes, rows, cols, ld, box_rows, box_cols};
+  const Key key{ptr, elem_bytes, rows, cols, ld, box_rows, box_cols, swizzled};
   std::lock_guard<std::mutex> lock(mu);
   auto it = cache.find(key);
   if (it != cache.end()) {
@@ -81,7 +83,8 @@ inline bool tensor_map(CUtensorMap* out, const void* ptr, int elem_bytes, int ro
   const CUresult r = encode(
       &map, elem_bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
       2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzled ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return false;
   if (cache.size() >= 4096) cache.clear();
@@ -135,6 +138,12 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(smem_u32(bar))
       : "memory");
+}
+
+// Order this thread's shared-memory stores before later reads of the same
+// bytes by the async proxy (wgmma operands).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Named barrier id (1-15; 0 is __syncthreads') over count threads: sync

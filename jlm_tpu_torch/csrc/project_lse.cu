@@ -76,20 +76,35 @@
 // - Splits: grid.y splits the vocab so that the row blocks x splits fill
 //   whole waves of the card (the wrapper's plan).
 //
-// Other modes keep the mma.sync kernels of the first port:
-// - bf16 weights: a block owns TR = 128 rows, loops over its share of the
-//   vocab in tiles of TV = 64 columns; mma.sync m16n8k16, fp32 accumulate.
-// - int8 dequant (``int8_mxu=False``, bf16 compute; project.py:114-119):
-//   each int8 W^T row is staged and dequantized in shared memory to
-//   bf16(q * scale_col), rounded once, before the product; then the bf16
-//   path.  The dequant precedes the product; it is not a rescale after.
-//   8 warps in a 4 x 2 grid, each a 32 x 32 tile of the block's 128 x 64
-//   output tile; each thread keeps an online (m, s) for its 4 rows over its
-//   columns; quads and the two column warps merge at the end.  The head is
-//   read as W^T [V, d] (K contiguous), the layout mma's col-major B operand
-//   wants; shared-memory rows are padded by 16 bytes so ldmatrix reads are
-//   free of bank conflicts.  No cp.async/TMA pipeline and no wgmma; two
-//   blocks share an SM so one block's loads overlap the other's math.
+// bf16 weights and int8 weights dequantized to bf16 (``int8_mxu=False``,
+// project.py:114-119): wgmma + TMA as well (proj_bf16_kernel).
+// - Bound at 50k (R = 20,480, dp = 512): 1.05 TOP at the bf16 peak, 1.06
+//   ms.  The first port's mma.sync kernel took 6.1 ms: W^T tiles staged
+//   synchronously, mma.sync (about half of the bf16 rate), its 160 row
+//   blocks of 128 re-reading the 51.2 MB bf16 W^T from the L2 (8.2 GB a
+//   call, ~1.4 ms at the L2's ~5.8 TB/s), and it stopped at dp = 576.
+// - The design is the bf16 cell's (lstm_cell.cu): a block owns 128 rows
+//   and walks its vocab split in tiles of 256 columns; per K chunk of 64
+//   one TMA load brings h's 128 x 64 and one W^T's 256 x 64 (48 KB) into a
+//   ring of 4 stages; two consumer warpgroups (64 rows each) run wgmma
+//   m64n256k16 on every chunk (an m64n256 product reads 80 bytes of shared
+//   memory a clock at the bf16 rate, under the 128 the SM serves; n64 tiles
+//   would need all 128) and release a stage as the product past it
+//   completes; the gate epilogue of the cell becomes the online lse (log2
+//   units, bias log2e from a ring of column parameters that a producer
+//   warp writes).  h is streamed with W^T, not kept resident, so any width
+//   launches; the L2 traffic is W^T once per 128 rows plus h once per 256
+//   columns: 12.3 GB a call at 50k.
+// - Dequant: the int8 W^T chunk (16 KB, half the bytes) arrives by TMA;
+//   two producer warps write bf16(q * scale_col), rounded once, 128-byte
+//   swizzled, into the stage's bf16 chunk: the dequant precedes the
+//   product, as in the reference, and is not a rescale after it.
+// - Measured against a first design of this kernel (PERF.md):
+//   256 resident rows' worth of 64-column tiles, m64n64, two warpgroups
+//   taking tiles in turn and a 2-CTA cluster multicasting each W^T chunk
+//   ran slower than the mma.sync kernel: its 8 KB chunks left a fixed cost
+//   each (a wait for the chunk before last, a cross-CTA release) that the
+//   one chunk in flight could not hide.
 // - fp32 compute (fp32 weights, or int8 dequantized to fp32 in shared
 //   memory): exact fp32 FMAs on the CUDA cores -- TF32 would round the
 //   operands and break the parity mode.  A block owns FR = 64 rows; K
@@ -122,8 +137,6 @@ namespace {
 // Weight modes; the numbering is the wrapper's (ops/project.py).
 enum Mode : int { kBf16 = 0, kInt8Mxu = 1, kDequantBf16 = 2, kFp32 = 3, kDequantFp32 = 4 };
 
-constexpr int TR = 128;
-constexpr int TV = 64;
 constexpr int THREADS = 256;
 constexpr int FR = 64;  // fp32 kernel: rows per block
 constexpr int FV = 64;  //              vocab columns per tile
@@ -144,12 +157,6 @@ __device__ __forceinline__ float load_act(const void* h, int h_bf16, size_t i) {
 // Byte b (0..3) of a little-endian word, as a signed int8 value.
 __device__ __forceinline__ float s8_at(uint32_t word, int b) {
   return static_cast<float>(static_cast<signed char>((word >> (8 * b)) & 0xffu));
-}
-
-size_t smem_bytes(int D, bool cand) {
-  const int ld = 2 * D + 16;
-  return (size_t)(TR + TV) * ld + (TV + 2 * TR) * sizeof(float) +
-         (cand ? 2 * TV * sizeof(int) : 0);
 }
 
 // Candidates of one launch: ids [C] sorted ascending with their output
@@ -193,188 +200,6 @@ __device__ __forceinline__ void cand_store(const Cand& cd, int lo, int hi, int r
                                            float v) {
   if (row >= R) return;
   for (int p = lo; p < hi; ++p) cd.out[(size_t)row * cd.C + cd.slots[p]] = v;
-}
-
-// bf16 weights (MODE kBf16) or int8 weights dequantized to bf16
-// (kDequantBf16); h bf16.
-template <int MODE, bool CAND>
-__global__ void __launch_bounds__(THREADS, 2)
-proj_ms_kernel(const __nv_bfloat16* __restrict__ h, int ldh,
-               const void* __restrict__ wt, const float* __restrict__ scale,
-               const float* __restrict__ bias, float* __restrict__ m_part,
-               float* __restrict__ s_part, int R, int D, int V,
-               int tiles_per_split, Cand cd) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int kb = 2 * D;    // bytes per shared row
-  const int ld = kb + 16;  // padded shared-memory row stride
-  unsigned char* sA = smem;                              // [TR][ld]
-  unsigned char* sB = sA + TR * ld;                      // [TV][ld]
-  float* sBias = reinterpret_cast<float*>(sB + TV * ld);   // [TV]
-  float* sRed = sBias + TV;                              // [2][TR]
-  int* sLo = reinterpret_cast<int*>(sRed + 2 * TR);      // [TV] (CAND)
-  int* sHi = sLo + TV;                                   // [TV] (CAND)
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int row0 = blockIdx.x * TR;
-  const int n_tiles = (V + TV - 1) / TV;
-  const int vt_begin = blockIdx.y * tiles_per_split;
-  const int vt_end = min(vt_begin + tiles_per_split, n_tiles);
-
-  // ---- stage the block's activation rows (its slice of h) ----
-  {
-    const int chunks = kb / 16;
-    for (int i = tid; i < TR * chunks; i += THREADS) {
-      const int r = i / chunks, cc = i % chunks, row = row0 + r;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (row < R)
-        v = *reinterpret_cast<const uint4*>(
-            reinterpret_cast<const unsigned char*>(h) + (size_t)row * ldh * 2 + cc * 16);
-      *reinterpret_cast<uint4*>(sA + r * ld + cc * 16) = v;
-    }
-  }
-
-  float m_run[4], s_run[4];  // rows wm*32 + mi*16 + half*8 + gid, idx mi*2+half
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = NEG;
-    s_run[i] = 0.0f;
-  }
-
-  const int mat = lane >> 3, mr = lane & 7;
-  for (int vt = vt_begin; vt < vt_end; ++vt) {
-    __syncthreads();  // previous tile fully consumed (and rows staged)
-    const int n0 = vt * TV;
-    if constexpr (MODE == kDequantBf16) {
-      // int8 W^T rows, 16 values a chunk, to bf16(q * scale) in shared memory
-      const int chunks = D / 16;
-      for (int i = tid; i < TV * chunks; i += THREADS) {
-        const int r = i / chunks, cc = i % chunks, n = n0 + r;
-        uint4 q = make_uint4(0, 0, 0, 0);
-        float sc = 0.0f;
-        if (n < V) {
-          q = *reinterpret_cast<const uint4*>(
-              static_cast<const signed char*>(wt) + (size_t)n * D + cc * 16);
-          sc = scale[n];
-        }
-        const uint32_t words[4] = {q.x, q.y, q.z, q.w};
-        uint32_t w[8];  // 16 bf16, two to a word, in K order
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const uint32_t word = words[e >> 1];
-          const int b = (e & 1) * 2;
-          const __nv_bfloat162 p = __floats2bfloat162_rn(
-              s8_at(word, b) * sc, s8_at(word, b + 1) * sc);
-          w[e] = *reinterpret_cast<const uint32_t*>(&p);
-        }
-        uint4* dst = reinterpret_cast<uint4*>(sB + r * ld + cc * 32);
-        dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
-        dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
-      }
-    } else {
-      const int chunks = kb / 16;
-      for (int i = tid; i < TV * chunks; i += THREADS) {
-        const int r = i / chunks, cc = i % chunks, n = n0 + r;
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (n < V)
-          v = *reinterpret_cast<const uint4*>(
-              static_cast<const unsigned char*>(wt) + (size_t)n * kb + cc * 16);
-        *reinterpret_cast<uint4*>(sB + r * ld + cc * 16) = v;
-      }
-    }
-    for (int i = tid; i < TV; i += THREADS) sBias[i] = n0 + i < V ? bias[n0 + i] : 0.0f;
-    if constexpr (CAND) cand_table(sLo, sHi, cd, n0, TV, V);
-    __syncthreads();
-
-    float acc[2][4][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-
-    for (int kk = 0; kk < kb; kk += 32) {  // 32 bytes = one mma depth
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = wm * 32 + mi * 16 + (mat & 1) * 8 + mr;
-        jlm::ldsm_x4(a[mi][0], a[mi][1], a[mi][2], a[mi][3],
-                sA + r * ld + kk + (mat >> 1) * 16);
-      }
-#pragma unroll
-      for (int nj = 0; nj < 4; nj += 2) {
-        const int n = wn * 32 + nj * 8 + (mat >> 1) * 8 + mr;
-        jlm::ldsm_x4(b[nj][0], b[nj][1], b[nj + 1][0], b[nj + 1][1],
-                sB + n * ld + kk + (mat & 1) * 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) jlm::mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
-    }
-
-    // ---- epilogue: logits in registers -> online (m, s) per row ----
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int rl = wm * 32 + mi * 16 + half * 8 + gid;
-        float x[8];
-        float tmax = NEG;
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int cl = wn * 32 + ni * 8 + tig * 2 + e;
-            float v = acc[mi][ni][half * 2 + e] + sBias[cl];
-            if (n0 + cl >= V) v = -INFINITY;
-            if constexpr (CAND) cand_store(cd, sLo[cl], sHi[cl], row0 + rl, R, v);
-            x[ni * 2 + e] = v;
-            tmax = fmaxf(tmax, v);
-          }
-        const int i = mi * 2 + half;
-        const float m_new = fmaxf(m_run[i], tmax);
-        float s = s_run[i] * expf(m_run[i] - m_new);
-#pragma unroll
-        for (int q = 0; q < 8; ++q) s += expf(x[q] - m_new);
-        m_run[i] = m_new;
-        s_run[i] = s;
-      }
-  }
-
-  // ---- merge partials: the 4 lanes of a quad, then the 2 column warps ----
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, m_run[i], off);
-      const float s2 = __shfl_xor_sync(0xffffffffu, s_run[i], off);
-      merge_ms(m_run[i], s_run[i], m2, s2);
-    }
-  if (wn == 1 && tig == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int rl = wm * 32 + (i >> 1) * 16 + (i & 1) * 8 + gid;
-      sRed[rl] = m_run[i];
-      sRed[TR + rl] = s_run[i];
-    }
-  }
-  __syncthreads();
-  if (wn == 0 && tig == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int rl = wm * 32 + (i >> 1) * 16 + (i & 1) * 8 + gid;
-      const int row = row0 + rl;
-      float m = m_run[i], s = s_run[i];
-      merge_ms(m, s, sRed[rl], sRed[TR + rl]);
-      if (row < R) {
-        m_part[(size_t)blockIdx.y * R + row] = m;
-        s_part[(size_t)blockIdx.y * R + row] = s;
-      }
-    }
-  }
 }
 
 // fp32 compute: h fp32 [R, ldh] (its slice), W^T fp32 [V, D] or int8 [V, D]
@@ -854,22 +679,289 @@ cudaError_t launch_int8(const void* q, int ldq, int R, const void* wt, const flo
   return cudaGetLastError();
 }
 
-// ------------------------------------------------------------ other modes
+// ------------------------------------------------------------ bf16 x bf16
 
-template <int MODE, bool CAND>
-cudaError_t launch_tc(const void* h, int ldh, const void* wt, const float* scale,
-                      const float* bias, float* m_part, float* s_part, int R, int D, int V,
-                      int splits, int tiles_per_split, const Cand& cd, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D, CAND);
-  cudaError_t err = cudaFuncSetAttribute(
-      proj_ms_kernel<MODE, CAND>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+constexpr int BBM = 128;                   // rows per block: two consumer warpgroups
+constexpr int BBN = 256;                   // vocab columns per tile: one m64n256k16 row
+constexpr int BKB = 64;                    // K per stage: one 128-byte swizzle row of bf16
+constexpr int A_CHUNK = BBM * BKB * 2;     // 16 KB of h
+constexpr int B_CHUNK = BBN * BKB * 2;     // 32 KB of bf16 W^T
+constexpr int Q_CHUNK = BBN * BKB;         // 16 KB of int8 W^T (dequant)
+constexpr int PSLOTS = 2;                  // column-parameter ring, in tiles
+
+// Column parameters of a tile: bias log2e [BBN] (-inf past V), and with
+// CAND each column's candidate run lo [BBN], hi [BBN] (ints) and its bias.
+template <bool CAND>
+__host__ __device__ constexpr int bparam_floats() { return (CAND ? 4 : 1) * BBN; }
+
+template <bool DEQ>
+__host__ __device__ constexpr int bf16_stages() { return DEQ ? 3 : 4; }
+
+template <bool DEQ>
+__host__ __device__ constexpr int bf16_stage_bytes() {
+  return A_CHUNK + B_CHUNK + (DEQ ? Q_CHUNK : 0);
+}
+
+// The online logsumexp of one tile from acc, the warpgroup's m64 x 256
+// fragment (d[4 j + 2 i + e]: row 16 warp + lane / 4 + 8 i, column 8 j +
+// 2 (lane % 4) + e): u = acc log2e + bias log2e (one FMA, in place), m in
+// log2 units, exp(v - m) as 2^(u - m).  A logit that a candidate asks for
+// (CAND) is stored as acc + bias, the value the lse takes.  Max and sum
+// run as trees of 4 partials a row.
+template <bool CAND>
+__device__ __forceinline__ void bf16_epilogue(float (&acc)[BBN / 2], float (&m_run)[2],
+                                              float (&s_run)[2], const float* prm,
+                                              int row_first, int R, const Cand& cd,
+                                              int lane) {
+  constexpr int NJ = BBN / 8;
+  const int* lo = reinterpret_cast<const int*>(prm + BBN);
+  const int* hi = lo + BBN;
+  const float* braw = prm + 3 * BBN;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    const float2 b2 = *reinterpret_cast<const float2*>(prm + col);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& v = acc[4 * j + 2 * i + e];
+        if constexpr (CAND) {
+          if (lo[col + e] < hi[col + e])
+            cand_store(cd, lo[col + e], hi[col + e], row_first + 8 * i, R,
+                       __fadd_rn(v, braw[col + e]));
+        }
+        v = fmaf(v, LOG2E, e ? b2.y : b2.x);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx[4], sm[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) mx[p] = acc[2 * i + (p & 1) + 4 * (p >> 1)];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        mx[(j & 1) * 2 + e] = fmaxf(mx[(j & 1) * 2 + e], acc[4 * j + 2 * i + e]);
+    const float m_new = fmaxf(m_run[i], fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3])));
+#pragma unroll
+    for (int p = 0; p < 4; ++p) sm[p] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) sm[(j & 1) * 2 + e] += ex2(acc[4 * j + 2 * i + e] - m_new);
+    s_run[i] = s_run[i] * ex2(m_run[i] - m_new) + ((sm[0] + sm[1]) + (sm[2] + sm[3]));
+    m_run[i] = m_new;
+  }
+}
+
+// bf16 weights (DEQ false) or int8 weights dequantized to bf16 (DEQ).
+// tm_a: the block's activation slice, bf16 [R, dp], boxes of 128 rows x
+// 64; tm_b: W^T [V, dp], bf16 boxes of 256 rows x 64 (128-byte swizzle),
+// or int8 boxes of 256 rows x 64 (unswizzled).  nkb: K chunks of 64.
+// Warpgroups 0 and 1 consume (rows 64 wg .. + 63 of the block, over every
+// tile), warpgroup 2 produces.
+template <bool DEQ, bool CAND>
+__global__ void __launch_bounds__(3 * WG_THREADS, 1)
+proj_bf16_kernel(const __grid_constant__ CUtensorMap tm_a,
+                 const __grid_constant__ CUtensorMap tm_b, const float* __restrict__ scale,
+                 const float* __restrict__ bias, float* __restrict__ m_part,
+                 float* __restrict__ s_part, int R, int V, int nkb, int tiles_per_split,
+                 Cand cd) {
+  constexpr int STAGES = bf16_stages<DEQ>(), STAGE = bf16_stage_bytes<DEQ>();
+  constexpr int PF = bparam_floats<CAND>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // stage s: h chunk [128][128 B], W^T chunk [256][128 B], (DEQ) int8 [256][64]
+  float* sp = reinterpret_cast<float*>(smem + STAGES * STAGE);  // [PSLOTS][PF]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sp + PSLOTS * PF);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qfull = empty + STAGES;  // the int8 chunk landed (DEQ)
+  uint64_t* pfull = qfull + STAGES;
+  uint64_t* pempty = pfull + PSLOTS;
+  const int row0 = blockIdx.x * BBM;
+  const int n_tiles = (V + BBN - 1) / BBN;
+  const int vt_begin = blockIdx.y * tiles_per_split;
+  const int nt = min(vt_begin + tiles_per_split, n_tiles) - vt_begin;
+  const int wg = threadIdx.x / WG_THREADS;
+  if (nt <= 0) return;  // (the wrapper's plan gives every split a tile)
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      // the TMA thread's bytes, and (DEQ) the 64 converter threads' stores
+      jlm::mbar_init(&full[s], DEQ ? 1 + 64 : 1);
+      jlm::mbar_init(&empty[s], 2 * WG_THREADS / 32);  // every consumer warp
+      jlm::mbar_init(&qfull[s], 1);
+    }
+    for (int p = 0; p < PSLOTS; ++p) {
+      jlm::mbar_init(&pfull[p], 32);
+      jlm::mbar_init(&pempty[p], 2 * WG_THREADS / 32);
+    }
+    jlm::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int n_chunks = nt * nkb;
+  if (wg == 2) {
+    // ---- producer: thread 0 the TMA loads, warp 1 the column parameters,
+    // warps 2-3 (DEQ) the int8 -> bf16 conversion ----
+    jlm::setmaxnreg_dec<40>();
+    const int pt = threadIdx.x - 2 * WG_THREADS, pw = pt / 32, lane = pt & 31;
+    if (pt == 0) {
+      jlm::prefetch_map(&tm_a);
+      jlm::prefetch_map(&tm_b);
+      for (int i = 0; i < n_chunks; ++i) {
+        const int s = i % STAGES, col = (i % nkb) * BKB, vrow = (vt_begin + i / nkb) * BBN;
+        unsigned char* st = smem + s * STAGE;
+        if (i >= STAGES) jlm::mbar_wait(&empty[s], ((i / STAGES) - 1) & 1);
+        jlm::mbar_expect_tx(&full[s], DEQ ? A_CHUNK : A_CHUNK + B_CHUNK);
+        jlm::tma_load(st, &tm_a, &full[s], col, row0);
+        if constexpr (DEQ) {
+          jlm::mbar_expect_tx(&qfull[s], Q_CHUNK);
+          jlm::tma_load(st + A_CHUNK + B_CHUNK, &tm_b, &qfull[s], col, vrow);
+        } else {
+          jlm::tma_load(st + A_CHUNK, &tm_b, &full[s], col, vrow);
+        }
+      }
+    } else if (pw == 1) {
+      for (int t = 0; t < nt; ++t) {
+        const int p = t % PSLOTS;
+        if (t >= PSLOTS) jlm::mbar_wait(&pempty[p], ((t / PSLOTS) - 1) & 1);
+        float* prm = sp + p * PF;
+        int* lo = reinterpret_cast<int*>(prm + BBN);
+        for (int c = lane; c < BBN; c += 32) {
+          const int n = (vt_begin + t) * BBN + c;
+          prm[c] = n < V ? bias[n] * LOG2E : -INFINITY;
+          if constexpr (CAND) {
+            lo[c] = n < V ? first_at_least(cd.ids, cd.C, cd.id_base + n) : 0;
+            lo[BBN + c] = n < V ? first_at_least(cd.ids, cd.C, cd.id_base + n + 1) : 0;
+            prm[3 * BBN + c] = n < V ? bias[n] : 0.0f;
+          }
+        }
+        jlm::mbar_arrive(&pfull[p]);  // release: the consumers' wait sees the stores
+      }
+    } else if (DEQ && pw >= 2) {
+      // 64 threads; a chunk is 256 rows x 64 int8 = 1,024 pieces of 16:
+      // thread q converts pieces q + 64 j (row p / 4, K 16 (p % 4) .. + 15)
+      // to bf16(q8 * scale[row]) and stores them 128-byte swizzled into the
+      // stage's W^T chunk, whose previous readers the TMA thread waited for
+      const int q = pt - 64;
+      for (int i = 0; i < n_chunks; ++i) {
+        const int s = i % STAGES, vrow = (vt_begin + i / nkb) * BBN;
+        unsigned char* st = smem + s * STAGE;
+        jlm::mbar_wait(&qfull[s], (i / STAGES) & 1);
+#pragma unroll 2
+        for (int j = 0; j < BBN * 4 / 64; ++j) {
+          const int piece = q + 64 * j, r = piece >> 2, k16 = piece & 3, n = vrow + r;
+          const float sc = n < V ? __ldg(scale + n) : 0.0f;
+          const uint4 w = *reinterpret_cast<const uint4*>(st + A_CHUNK + B_CHUNK + r * BKB +
+                                                          k16 * 16);
+          const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+          uint32_t o[8];  // 16 bf16, two to a word, in K order
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const uint32_t word = words[e >> 1];
+            const int bsh = (e & 1) * 2;
+            const __nv_bfloat162 pr = __floats2bfloat162_rn(s8_at(word, bsh) * sc,
+                                                            s8_at(word, bsh + 1) * sc);
+            o[e] = *reinterpret_cast<const uint32_t*>(&pr);
+          }
+          unsigned char* row_p = st + A_CHUNK + r * 128;
+          const int c0 = (2 * k16) ^ (r & 7), c1 = (2 * k16 + 1) ^ (r & 7);
+          *reinterpret_cast<uint4*>(row_p + c0 * 16) = make_uint4(o[0], o[1], o[2], o[3]);
+          *reinterpret_cast<uint4*>(row_p + c1 * 16) = make_uint4(o[4], o[5], o[6], o[7]);
+        }
+        jlm::fence_proxy_async();  // the stores, before wgmma reads them
+        jlm::mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns rows 64 wg .. + 63 over every tile ----
+    jlm::setmaxnreg_inc<232>();
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x / 32) & 3;
+    const int row_first = row0 + wg * 64 + warp * 16 + lane / 4;
+    auto release = [&](int i) {  // the stage of chunk i
+      __syncwarp();
+      if (lane == 0) jlm::mbar_arrive(&empty[i % STAGES]);
+    };
+    float m_run[2] = {NEG, NEG}, s_run[2] = {0.0f, 0.0f};
+    float acc[BBN / 2];
+    for (int t = 0; t < nt; ++t) {
+      for (int kc = 0; kc < nkb; ++kc) {
+        const int i = t * nkb + kc, s = i % STAGES;
+        jlm::mbar_wait(&full[s], (i / STAGES) & 1);
+        const unsigned char* a = smem + s * STAGE + wg * 64 * 128;
+        const unsigned char* b = smem + s * STAGE + A_CHUNK;
+        jlm::wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < BKB / 16; ++k)
+          jlm::wgmma_bf16_n256(acc, jlm::smem_desc(a + k * 32), jlm::smem_desc(b + k * 32),
+                               (kc | k) > 0);
+        jlm::wgmma_commit();
+        if (kc > 0) {  // the previous chunk's group is done: release its stage
+          jlm::wgmma_wait<1>();
+          release(i - 1);
+        }
+      }
+      jlm::wgmma_wait<0>();
+      jlm::fence_regs(acc);
+      release(t * nkb + nkb - 1);
+      const int p = t % PSLOTS;
+      jlm::mbar_wait(&pfull[p], (t / PSLOTS) & 1);
+      bf16_epilogue<CAND>(acc, m_run, s_run, sp + p * PF, row_first, R, cd, lane);
+      __syncwarp();
+      if (lane == 0) jlm::mbar_arrive(&pempty[p]);
+    }
+
+    // ---- merge the 4 lanes of each row's quad; store the split's (m, s) ----
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m_run[i] *= LN2;  // back to natural units
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float m2 = __shfl_xor_sync(0xffffffffu, m_run[i], off);
+        const float s2 = __shfl_xor_sync(0xffffffffu, s_run[i], off);
+        merge_ms(m_run[i], s_run[i], m2, s2);
+      }
+    }
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = row_first + 8 * i;
+        if (row < R) {
+          m_part[(size_t)blockIdx.y * R + row] = m_run[i];
+          s_part[(size_t)blockIdx.y * R + row] = s_run[i];
+        }
+      }
+    }
+  }
+}
+
+template <bool DEQ, bool CAND>
+cudaError_t launch_bf16(const void* h, int ldh, int R, int dp, const void* wt,
+                        const float* scale, const float* bias, float* m_part,
+                        float* s_part, int V, int splits, int tiles_per_split,
+                        const Cand& cd, cudaStream_t stream) {
+  const int smem = bf16_stages<DEQ>() * (bf16_stage_bytes<DEQ>() + 3 * 8) +
+                   PSLOTS * (bparam_floats<CAND>() * 4 + 2 * 8) + 1024;
+  CUtensorMap ta, tb;
+  if (!jlm::tensor_map(&ta, h, 2, R, dp, ldh, BBM, BKB) ||
+      !(DEQ ? jlm::tensor_map(&tb, wt, 1, V, dp, dp, BBN, BKB, false)
+            : jlm::tensor_map(&tb, wt, 2, V, dp, dp, BBN, BKB)))
+    return cudaErrorInvalidValue;
+  auto kernel = proj_bf16_kernel<DEQ, CAND>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((R + TR - 1) / TR, splits);
-  proj_ms_kernel<MODE, CAND><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(h), ldh, wt, scale, bias, m_part, s_part, R, D, V,
-      tiles_per_split, cd);
+  dim3 grid((R + BBM - 1) / BBM, splits);
+  kernel<<<grid, 3 * WG_THREADS, smem, stream>>>(ta, tb, scale, bias, m_part, s_part, R, V,
+                                                 (dp + BKB - 1) / BKB, tiles_per_split, cd);
   return cudaGetLastError();
 }
+
+// ------------------------------------------------------------ other modes
 
 template <bool Q8, bool CAND>
 cudaError_t launch_f32(const void* h, int ldh, const void* wt, const float* scale,
@@ -890,11 +982,11 @@ cudaError_t launch_mode(const void* h, int ldh, const void* wt, int mode, const 
                         cudaStream_t st) {
   switch (mode) {
     case kBf16:
-      return launch_tc<kBf16, CAND>(h, ldh, wt, scale, bias, m_part, s_part, R, D, V,
-                                    splits, tiles_per_split, cd, st);
+      return launch_bf16<false, CAND>(h, ldh, R, D, wt, scale, bias, m_part, s_part, V,
+                                      splits, tiles_per_split, cd, st);
     case kDequantBf16:
-      return launch_tc<kDequantBf16, CAND>(h, ldh, wt, scale, bias, m_part, s_part, R, D,
-                                           V, splits, tiles_per_split, cd, st);
+      return launch_bf16<true, CAND>(h, ldh, R, D, wt, scale, bias, m_part, s_part, V,
+                                     splits, tiles_per_split, cd, st);
     case kFp32:
       return launch_f32<false, CAND>(h, ldh, wt, scale, bias, m_part, s_part, R, D, V,
                                      splits, tiles_per_split, cd, st);
@@ -966,7 +1058,10 @@ int jlm_project_int8(const void* q, int ldq, int R, int dp, const void* wt,
 // activation column; row stride ldh elements; bf16 (modes 0, 2) or fp32
 // (modes 3, 4).  wt [V, D] W^T: bf16 (mode 0), int8 (modes 2, 4) or fp32
 // (mode 3); scale [V] (int8 modes); bias [V] fp32; m_part/s_part point at
-// this block's first split of [splits_total, R] scratch.  Candidate
+// this block's first split of [splits_total, R] scratch.  Modes 0 and 2
+// (the wgmma kernel: 128-row blocks, 256-column tiles, which the wrapper
+// plans its splits with) take any D (h and W^T 16-byte aligned, rows of
+// 16-byte multiples).  Candidate
 // extraction when cand_ids is not null: cand_ids [C] sorted ascending,
 // cand_slots [C] their columns in cand_out [R, C] fp32, id_base the global
 // id of this block's column 0.

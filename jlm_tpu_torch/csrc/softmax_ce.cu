@@ -28,7 +28,17 @@
 // as [n][k] gives W^T's fragment for dh.
 // Columns >= V are masked (p = 0, no target), as the reference's -1e30
 // bias padding does; V must be a multiple of 8 (16-byte row chunks) and
-// D a multiple of 128, at most 512.
+// D a multiple of 128.
+//
+// Hidden slices wider than KW = 512: what a kernel keeps D-wide on chip
+// (h rows and W tiles in shared memory, dh or dW in registers) is cut into
+// K chunks of at most 512.  The logits accumulate over the chunks, each
+// staged in turn into the buffers a 512-wide slice uses (at D <= 512 one
+// chunk, staged as before); a D-wide output is split over the grid (dh
+// over grid.z, dW over grid.y), each slice of at most 512 recomputing the
+// logits and taking its chunk last, so that the chunk left in shared
+// memory is the one its product needs.  Only ce_fwd_f32 needs no change:
+// it streams K in chunks of 32 at every D.
 //
 // Design (simple first: mma.sync m16n8k16, no cp.async/TMA pipeline):
 // - ce_fwd: a block owns 128 rows and loops over its share of 64-column
@@ -71,27 +81,36 @@ __device__ __forceinline__ uint4 ld16(const bf16* p, bool ok) {
   return ok ? *reinterpret_cast<const uint4*>(p) : make_uint4(0, 0, 0, 0);
 }
 
-// Rows [row0, row0 + rows) of h [N, D] -> s [rows][ld], zero past N.
-__device__ __forceinline__ void stage_rows(bf16* s, int ld, const bf16* h,
-                                           int row0, int rows, int N, int D) {
-  const int chunks = D / 8;
+// Columns [0, width) of rows [row0, row0 + rows) of h [N, hld] -> s
+// [rows][ld], zero past N.
+__device__ __forceinline__ void stage_rows(bf16* s, int ld, const bf16* h, int hld,
+                                           int row0, int rows, int N, int width) {
+  const int chunks = width / 8;
   for (int i = threadIdx.x; i < rows * chunks; i += THREADS) {
     const int r = i / chunks, cc = i % chunks, row = row0 + r;
     *reinterpret_cast<uint4*>(s + r * ld + cc * 8) =
-        ld16(h + (size_t)row * D + cc * 8, row < N);
+        ld16(h + (size_t)row * hld + cc * 8, row < N);
   }
 }
 
-// Columns [n0, n0 + cols) of W [D, ldw] -> s [D][ld], zero past ldw.
+// Columns [n0, n0 + cols) of rows [0, depth) of W [., ldw] -> s [depth][ld],
+// zero past ldw.
 __device__ __forceinline__ void stage_cols(bf16* s, int ld, const bf16* W,
-                                           int n0, int cols, int D, int ldw) {
+                                           int n0, int cols, int depth, int ldw) {
   const int chunks = cols / 8;
-  for (int i = threadIdx.x; i < D * chunks; i += THREADS) {
+  for (int i = threadIdx.x; i < depth * chunks; i += THREADS) {
     const int k = i / chunks, cc = i % chunks, n = n0 + cc * 8;
     *reinterpret_cast<uint4*>(s + k * ld + cc * 8) =
         ld16(W + (size_t)k * ldw + n, n < ldw);
   }
 }
+
+// K chunks of a D-wide product: chunk c covers [c * KW, c * KW + kw).
+constexpr int KW = 512;
+__device__ __forceinline__ int n_chunks(int D) { return (D + KW - 1) / KW; }
+__device__ __forceinline__ int chunk_width(int D, int c) { return min(KW, D - c * KW); }
+// The i-th chunk a slice z walks: z's own chunk last.
+__device__ __forceinline__ int chunk_at(int i, int z, int nkc) { return (z + 1 + i) % nkc; }
 
 // Per-row inputs of the backward kernels; rows past N get ga = gb = 0 and
 // are masked again where gp is formed.
@@ -124,6 +143,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // ---------------------------------------------------------------- forward
 
 size_t fwd_smem(int D) {
+  D = D < KW ? D : KW;  // a wider slice goes in chunks of KW
   return (size_t)F_TR * (D + 8) * 2 + (size_t)D * (F_TV + 8) * 2 +
          (F_TV + 3 * F_TR) * sizeof(float);
 }
@@ -135,10 +155,11 @@ ce_fwd_kernel(const bf16* __restrict__ h, const bf16* __restrict__ W,
               float* __restrict__ t_out, int N, int D, int V,
               int ldw, int tiles_per_split) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int lda = D + 8, ldb = F_TV + 8;
+  const int nkc = n_chunks(D), DC = min(D, KW);
+  const int lda = DC + 8, ldb = F_TV + 8;
   bf16* sA = reinterpret_cast<bf16*>(smem);                 // [F_TR][lda]
-  bf16* sB = sA + F_TR * lda;                                // [D][ldb]
-  float* sBias = reinterpret_cast<float*>(sB + D * ldb);     // [F_TV]
+  bf16* sB = sA + F_TR * lda;                                // [DC][ldb]
+  float* sBias = reinterpret_cast<float*>(sB + DC * ldb);    // [F_TV]
   int* sY = reinterpret_cast<int*>(sBias + F_TV);            // [F_TR]
   float* sRed = reinterpret_cast<float*>(sY + F_TR);         // [2][F_TR]
 
@@ -151,7 +172,7 @@ ce_fwd_kernel(const bf16* __restrict__ h, const bf16* __restrict__ W,
   const int vt_begin = blockIdx.y * tiles_per_split;
   const int vt_end = min(vt_begin + tiles_per_split, n_tiles);
 
-  stage_rows(sA, lda, h, row0, F_TR, N, D);
+  if (nkc == 1) stage_rows(sA, lda, h, D, row0, F_TR, N, D);  // resident
   for (int i = tid; i < F_TR; i += THREADS) sY[i] = row0 + i < N ? y[row0 + i] : -1;
 
   float m_run[4], s_run[4];  // rows wm*32 + mi*16 + half*8 + gid, idx mi*2+half
@@ -164,9 +185,7 @@ ce_fwd_kernel(const bf16* __restrict__ h, const bf16* __restrict__ W,
   for (int vt = vt_begin; vt < vt_end; ++vt) {
     __syncthreads();  // previous tile consumed (and rows staged)
     const int n0 = vt * F_TV;
-    stage_cols(sB, ldb, W, n0, F_TV, D, ldw);
     for (int i = tid; i < F_TV; i += THREADS) sBias[i] = n0 + i < V ? bias[n0 + i] : 0.0f;
-    __syncthreads();
 
     float acc[2][4][4];
 #pragma unroll
@@ -176,26 +195,33 @@ ce_fwd_kernel(const bf16* __restrict__ h, const bf16* __restrict__ W,
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
 
-    for (int k0 = 0; k0 < D; k0 += 16) {
-      uint32_t a[2][4], b[4][2];
+    for (int c = 0; c < nkc; ++c) {
+      const int kw = chunk_width(D, c);
+      if (c > 0) __syncthreads();  // the previous chunk consumed
+      if (nkc > 1) stage_rows(sA, lda, h + c * KW, D, row0, F_TR, N, kw);
+      stage_cols(sB, ldb, W + (size_t)c * KW * ldw, n0, F_TV, kw, ldw);
+      __syncthreads();
+      for (int k0 = 0; k0 < kw; k0 += 16) {
+        uint32_t a[2][4], b[4][2];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = wm * 32 + mi * 16 + (mat & 1) * 8 + mr;
-        jlm::ldsm_x4(a[mi][0], a[mi][1], a[mi][2], a[mi][3],
-                     sA + r * lda + k0 + (mat >> 1) * 8);
+        for (int mi = 0; mi < 2; ++mi) {
+          const int r = wm * 32 + mi * 16 + (mat & 1) * 8 + mr;
+          jlm::ldsm_x4(a[mi][0], a[mi][1], a[mi][2], a[mi][3],
+                       sA + r * lda + k0 + (mat >> 1) * 8);
+        }
+#pragma unroll
+        for (int nj = 0; nj < 4; nj += 2) {
+          const int kr = k0 + (mat & 1) * 8 + mr;
+          const int col = wn * 32 + nj * 8 + (mat >> 1) * 8;
+          jlm::ldsm_x4_trans(b[nj][0], b[nj][1], b[nj + 1][0], b[nj + 1][1],
+                             sB + kr * ldb + col);
+        }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+            jlm::mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
       }
-#pragma unroll
-      for (int nj = 0; nj < 4; nj += 2) {
-        const int kr = k0 + (mat & 1) * 8 + mr;
-        const int col = wn * 32 + nj * 8 + (mat >> 1) * 8;
-        jlm::ldsm_x4_trans(b[nj][0], b[nj][1], b[nj + 1][0], b[nj + 1][1],
-                           sB + kr * ldb + col);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          jlm::mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
     }
 
     // ---- epilogue: logits in registers -> online (m, s), target logit ----
@@ -283,21 +309,25 @@ __global__ void ms_merge_kernel(const float* __restrict__ m_part,
 // ------------------------------------------------------------ backward dh
 
 size_t dh_smem(int D) {
+  D = D < KW ? D : KW;
   return (size_t)H_TR * (D + 8) * 2 + (size_t)D * (H_TV + 8) * 2 +
          (size_t)H_TR * (H_TV + 8) * 2 + (H_TV + 4 * H_TR) * sizeof(float);
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
+// grid.z: the 512-wide slice of dh's columns a block writes.  Two blocks
+// an SM (the wrapper's plan, _DH_TILE): at most 128 registers a thread.
+__global__ void __launch_bounds__(THREADS, 2)
 ce_bwd_dh_kernel(const bf16* __restrict__ h, const bf16* __restrict__ W,
                  const float* __restrict__ bias, const int* __restrict__ y,
                  const float* __restrict__ ga, const float* __restrict__ gb,
                  const float* __restrict__ lse, float* __restrict__ dh_part,
                  int N, int D, int V, int ldw_g, int tiles_per_split) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int lda = D + 8, ldw = H_TV + 8, ldg = H_TV + 8;
+  const int nkc = n_chunks(D), DC = min(D, KW), z = blockIdx.z;
+  const int lda = DC + 8, ldw = H_TV + 8, ldg = H_TV + 8;
   bf16* sA = reinterpret_cast<bf16*>(smem);               // [H_TR][lda]  h rows
-  bf16* sW = sA + H_TR * lda;                              // [D][ldw]     W tile
-  bf16* sG = sW + D * ldw;                                 // [H_TR][ldg]  gp
+  bf16* sW = sA + H_TR * lda;                              // [DC][ldw]    W tile
+  bf16* sG = sW + DC * ldw;                                // [H_TR][ldg]  gp
   float* sBias = reinterpret_cast<float*>(sG + H_TR * ldg);  // [H_TV]
   float* sGa = sBias + H_TV;                               // [H_TR] each
   float* sGb = sGa + H_TR;
@@ -307,16 +337,17 @@ ce_bwd_dh_kernel(const bf16* __restrict__ h, const bf16* __restrict__ W,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int mat = lane >> 3, mr = lane & 7;
-  // logits: 2 x 4 warps of 16 rows x 16 columns; dh: warp owns D/8 columns
+  // logits: 2 x 4 warps of 16 rows x 16 columns; dh: warp owns 1/8 of the
+  // slice's columns
   const int wm = warp >> 2, wn = warp & 3;
-  const int nt = D / 64;  // n8 tiles of dh per warp (2, 4, 6 or 8)
+  const int nt = chunk_width(D, z) / 64;  // n8 tiles of dh per warp (2, 4, 6 or 8)
   const int dcol0 = warp * nt * 8;
   const int row0 = blockIdx.x * H_TR;
   const int n_tiles = (V + H_TV - 1) / H_TV;
   const int vt_begin = blockIdx.y * tiles_per_split;
   const int vt_end = min(vt_begin + tiles_per_split, n_tiles);
 
-  stage_rows(sA, lda, h, row0, H_TR, N, D);
+  if (nkc == 1) stage_rows(sA, lda, h, D, row0, H_TR, N, D);  // resident
   stage_row_terms(sY, sGa, sGb, sLse, y, ga, gb, lse, row0, H_TR, N);
 
   float acc[2][8][4];  // dh [m16 tile][n8 tile][fragment]
@@ -330,24 +361,29 @@ ce_bwd_dh_kernel(const bf16* __restrict__ h, const bf16* __restrict__ W,
   for (int vt = vt_begin; vt < vt_end; ++vt) {
     __syncthreads();  // previous tile's W and gp consumed
     const int n0 = vt * H_TV;
-    stage_cols(sW, ldw, W, n0, H_TV, D, ldw_g);
     for (int i = tid; i < H_TV; i += THREADS) sBias[i] = n0 + i < V ? bias[n0 + i] : 0.0f;
-    __syncthreads();
 
-    // ---- recompute the tile's logits ----
+    // ---- recompute the tile's logits, chunk by chunk (z's chunk last) ----
     float lg[2][4];
 #pragma unroll
     for (int ni = 0; ni < 2; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) lg[ni][e] = 0.0f;
-    for (int k0 = 0; k0 < D; k0 += 16) {
-      uint32_t a[4], b0, b1, b2, b3;
-      jlm::ldsm_x4(a[0], a[1], a[2], a[3],
-                   sA + (wm * 16 + (mat & 1) * 8 + mr) * lda + k0 + (mat >> 1) * 8);
-      jlm::ldsm_x4_trans(b0, b1, b2, b3,
-                         sW + (k0 + (mat & 1) * 8 + mr) * ldw + wn * 16 + (mat >> 1) * 8);
-      jlm::mma_bf16(lg[0], a, b0, b1);
-      jlm::mma_bf16(lg[1], a, b2, b3);
+    for (int i = 0; i < nkc; ++i) {
+      const int c = chunk_at(i, z, nkc), kw = chunk_width(D, c);
+      if (i > 0) __syncthreads();  // the previous chunk consumed
+      if (nkc > 1) stage_rows(sA, lda, h + c * KW, D, row0, H_TR, N, kw);
+      stage_cols(sW, ldw, W + (size_t)c * KW * ldw_g, n0, H_TV, kw, ldw_g);
+      __syncthreads();
+      for (int k0 = 0; k0 < kw; k0 += 16) {
+        uint32_t a[4], b0, b1, b2, b3;
+        jlm::ldsm_x4(a[0], a[1], a[2], a[3],
+                     sA + (wm * 16 + (mat & 1) * 8 + mr) * lda + k0 + (mat >> 1) * 8);
+        jlm::ldsm_x4_trans(b0, b1, b2, b3,
+                           sW + (k0 + (mat & 1) * 8 + mr) * ldw + wn * 16 + (mat >> 1) * 8);
+        jlm::mma_bf16(lg[0], a, b0, b1);
+        jlm::mma_bf16(lg[1], a, b2, b3);
+      }
     }
 
     // ---- gp = ga * exp(l - lse) + gb * onehot(y), staged as bf16 ----
@@ -371,7 +407,7 @@ ce_bwd_dh_kernel(const bf16* __restrict__ h, const bf16* __restrict__ W,
       }
     __syncthreads();
 
-    // ---- dh[:, warp's columns] += gp @ W_tile^T ----
+    // ---- dh[:, warp's columns of slice z] += gp @ W_tile^T (sW: chunk z) ----
 #pragma unroll
     for (int ks = 0; ks < H_TV; ks += 16) {
       uint32_t a[2][4];
@@ -395,7 +431,7 @@ ce_bwd_dh_kernel(const bf16* __restrict__ h, const bf16* __restrict__ W,
     }
   }
 
-  float* out = dh_part + (size_t)blockIdx.y * N * D;
+  float* out = dh_part + (size_t)blockIdx.y * N * D + z * KW;
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -424,11 +460,13 @@ __global__ void sum_splits_kernel(const float* __restrict__ part,
 // ------------------------------------------------------- backward dW, db
 
 size_t dw_smem(int D) {
+  D = D < KW ? D : KW;
   return (size_t)D * (W_TV + 8) * 2 + (size_t)W_TR * (D + 8) * 2 +
          (size_t)W_TR * (W_TV + 8) * 2 +
          (W_TV + 4 * W_TR + 4 * W_TV) * sizeof(float);
 }
 
+// grid.y: the 512-row slice of dW a block writes (slice 0 also writes db).
 __global__ void __launch_bounds__(THREADS, 1)
 ce_bwd_dw_kernel(const bf16* __restrict__ h, const bf16* __restrict__ W,
                  const float* __restrict__ bias, const int* __restrict__ y,
@@ -436,9 +474,10 @@ ce_bwd_dw_kernel(const bf16* __restrict__ h, const bf16* __restrict__ W,
                  const float* __restrict__ lse, float* __restrict__ dW,
                  float* __restrict__ db, int N, int D, int V, int ldw_g) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ldw = W_TV + 8, lda = D + 8, ldg = W_TV + 8;
-  bf16* sW = reinterpret_cast<bf16*>(smem);               // [D][ldw]     W tile
-  bf16* sA = sW + D * ldw;                                 // [W_TR][lda]  h rows
+  const int nkc = n_chunks(D), DC = min(D, KW), z = blockIdx.y;
+  const int ldw = W_TV + 8, lda = DC + 8, ldg = W_TV + 8;
+  bf16* sW = reinterpret_cast<bf16*>(smem);               // [DC][ldw]    W columns
+  bf16* sA = sW + DC * ldw;                                // [W_TR][lda]  h rows
   bf16* sG = sA + W_TR * lda;                              // [W_TR][ldg]  gp
   float* sBias = reinterpret_cast<float*>(sG + W_TR * ldg);  // [W_TV]
   float* sGa = sBias + W_TV;                               // [W_TR] each
@@ -451,12 +490,12 @@ ce_bwd_dw_kernel(const bf16* __restrict__ h, const bf16* __restrict__ W,
   const int gid = lane >> 2, tig = lane & 3;
   const int mat = lane >> 3, mr = lane & 7;
   // logits: 4 x 2 warps of 16 rows x 16 columns; dW: warp owns the m16
-  // tiles warp, warp + 8, ... of the D rows
+  // tiles warp, warp + 8, ... of the slice's rows
   const int wm = warp >> 1, wn = warp & 1;
-  const int mt = D / 16;
+  const int mt = chunk_width(D, z) / 16;
   const int n0 = blockIdx.x * W_TV;
 
-  stage_cols(sW, ldw, W, n0, W_TV, D, ldw_g);
+  if (nkc == 1) stage_cols(sW, ldw, W, n0, W_TV, D, ldw_g);  // resident
   for (int i = tid; i < W_TV; i += THREADS) sBias[i] = n0 + i < V ? bias[n0 + i] : 0.0f;
 
   float acc[4][4][4];  // dW [m16 tile j][n8 tile][fragment]
@@ -470,24 +509,29 @@ ce_bwd_dw_kernel(const bf16* __restrict__ h, const bf16* __restrict__ W,
 
   for (int r0 = 0; r0 < N; r0 += W_TR) {
     __syncthreads();  // previous chunk's rows and gp consumed
-    stage_rows(sA, lda, h, r0, W_TR, N, D);
     stage_row_terms(sY, sGa, sGb, sLse, y, ga, gb, lse, r0, W_TR, N);
-    __syncthreads();
 
-    // ---- recompute the chunk's logits [64, 32] ----
+    // ---- recompute the chunk's logits [64, 32], K chunk by K chunk (z's last) ----
     float lg[2][4];
 #pragma unroll
     for (int ni = 0; ni < 2; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) lg[ni][e] = 0.0f;
-    for (int k0 = 0; k0 < D; k0 += 16) {
-      uint32_t a[4], b0, b1, b2, b3;
-      jlm::ldsm_x4(a[0], a[1], a[2], a[3],
-                   sA + (wm * 16 + (mat & 1) * 8 + mr) * lda + k0 + (mat >> 1) * 8);
-      jlm::ldsm_x4_trans(b0, b1, b2, b3,
-                         sW + (k0 + (mat & 1) * 8 + mr) * ldw + wn * 16 + (mat >> 1) * 8);
-      jlm::mma_bf16(lg[0], a, b0, b1);
-      jlm::mma_bf16(lg[1], a, b2, b3);
+    for (int i = 0; i < nkc; ++i) {
+      const int c = chunk_at(i, z, nkc), kw = chunk_width(D, c);
+      if (i > 0) __syncthreads();  // the previous K chunk consumed
+      stage_rows(sA, lda, h + c * KW, D, r0, W_TR, N, kw);
+      if (nkc > 1) stage_cols(sW, ldw, W + (size_t)c * KW * ldw_g, n0, W_TV, kw, ldw_g);
+      __syncthreads();
+      for (int k0 = 0; k0 < kw; k0 += 16) {
+        uint32_t a[4], b0, b1, b2, b3;
+        jlm::ldsm_x4(a[0], a[1], a[2], a[3],
+                     sA + (wm * 16 + (mat & 1) * 8 + mr) * lda + k0 + (mat >> 1) * 8);
+        jlm::ldsm_x4_trans(b0, b1, b2, b3,
+                           sW + (k0 + (mat & 1) * 8 + mr) * ldw + wn * 16 + (mat >> 1) * 8);
+        jlm::mma_bf16(lg[0], a, b0, b1);
+        jlm::mma_bf16(lg[1], a, b2, b3);
+      }
     }
 
     // ---- gp, its fp32 column sums, and its bf16 copy ----
@@ -512,7 +556,7 @@ ce_bwd_dw_kernel(const bf16* __restrict__ h, const bf16* __restrict__ W,
       }
     __syncthreads();
 
-    // ---- dW += h_chunk^T @ gp ----
+    // ---- dW[slice z] += h_chunk^T @ gp (sA: h's columns of chunk z) ----
 #pragma unroll
     for (int ks = 0; ks < W_TR; ks += 16) {
       uint32_t b[4][2];
@@ -534,7 +578,7 @@ ce_bwd_dw_kernel(const bf16* __restrict__ h, const bf16* __restrict__ W,
     }
   }
 
-  // ---- db: sum over the 8 row groups of a warp, then over the 4 row warps ----
+  // ---- db (slice 0): sum over the 8 row groups of a warp, then the 4 row warps ----
 #pragma unroll
   for (int ni = 0; ni < 2; ++ni)
 #pragma unroll
@@ -550,7 +594,7 @@ ce_bwd_dw_kernel(const bf16* __restrict__ h, const bf16* __restrict__ W,
   }
   __syncthreads();
   for (int c = tid; c < W_TV; c += THREADS) {
-    if (n0 + c < V)
+    if (z == 0 && n0 + c < V)
       db[n0 + c] = sDb[c] + sDb[W_TV + c] + sDb[2 * W_TV + c] + sDb[3 * W_TV + c];
   }
 
@@ -561,7 +605,7 @@ ce_bwd_dw_kernel(const bf16* __restrict__ h, const bf16* __restrict__ W,
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int t = warp + 8 * j;
-        const int d = t * 16 + half * 8 + gid;
+        const int d = z * KW + t * 16 + half * 8 + gid;
         const int n = n0 + ni * 8 + tig * 2;  // even; n + 1 < ldw_g
         if (t < mt && n < V)
           *reinterpret_cast<float2*>(dW + (size_t)d * ldw_g + n) =
@@ -587,23 +631,23 @@ __device__ __forceinline__ float dot4(float acc, float4 a, float4 b) {
   return fmaf(a.w, b.w, acc);
 }
 
-// Rows [row0, row0 + rows) of h [N, D] fp32 -> s [rows][D + 4], zero past N.
-__device__ __forceinline__ void stage_rows_f32(float* s, const float* h, int row0,
-                                               int rows, int N, int D) {
-  const int q = D / 4, ld = D + 4;
+// Columns [0, width) of rows [row0, row0 + rows) of h [N, hld] fp32 -> s
+// [rows][ld], zero past N.
+__device__ __forceinline__ void stage_rows_f32(float* s, int ld, const float* h, int hld,
+                                               int row0, int rows, int N, int width) {
+  const int q = width / 4;
   for (int i = threadIdx.x; i < rows * q; i += THREADS) {
     const int r = i / q, kq = i % q, row = row0 + r;
     *reinterpret_cast<float4*>(s + r * ld + 4 * kq) =
-        row < N ? ld4(h + (size_t)row * D + 4 * kq) : make_float4(0.f, 0.f, 0.f, 0.f);
+        row < N ? ld4(h + (size_t)row * hld + 4 * kq) : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
-// Columns [n0, n0 + cols) of W [D, V] fp32 -> s [cols][D + 4] (transposed),
-// zero past V.
-__device__ __forceinline__ void stage_cols_t_f32(float* s, const float* W, int n0,
-                                                 int cols, int D, int V) {
-  const int ld = D + 4;
-  for (int i = threadIdx.x; i < D * cols; i += THREADS) {
+// Columns [n0, n0 + cols) of rows [0, depth) of W [., V] fp32 -> s [cols][ld]
+// (transposed), zero past V.
+__device__ __forceinline__ void stage_cols_t_f32(float* s, int ld, const float* W, int n0,
+                                                 int cols, int depth, int V) {
+  for (int i = threadIdx.x; i < depth * cols; i += THREADS) {
     const int k = i / cols, c = i % cols, n = n0 + c;
     s[c * ld + k] = n < V ? W[(size_t)k * V + n] : 0.0f;
   }
@@ -717,12 +761,14 @@ ce_fwd_f32_kernel(const float* __restrict__ h, const float* __restrict__ W,
 }
 
 size_t dh_f32_smem(int D) {
+  D = D < KW ? D : KW;
   return ((size_t)(GH_R + GH_V) * (D + 4) + GH_R * (GH_V + 1) + GH_V + 4 * GH_R) *
          sizeof(float);
 }
 
 // Thread (ty, tx): logits of rows ty*2, ty*2+1 at columns tx + 16j (j < 4);
-// dh of the same rows at columns tx*4 + 64jj + e (jj < D/64, e < 4).
+// dh of the same rows at columns tx*4 + 64jj + e (jj < 8, e < 4) of the
+// 512-wide slice grid.z.
 __global__ void __launch_bounds__(THREADS, 1)
 ce_bwd_dh_f32_kernel(const float* __restrict__ h, const float* __restrict__ W,
                      const float* __restrict__ bias, const int* __restrict__ y,
@@ -730,7 +776,8 @@ ce_bwd_dh_f32_kernel(const float* __restrict__ h, const float* __restrict__ W,
                      const float* __restrict__ lse, float* __restrict__ dh_part,
                      int N, int D, int V, int tiles_per_split) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = D + 4, ldg = GH_V + 1;
+  const int nkc = n_chunks(D), z = blockIdx.z;
+  const int ld = min(D, KW) + 4, ldg = GH_V + 1;
   float* sH = reinterpret_cast<float*>(smem);  // [GH_R][ld]   h rows
   float* sWT = sH + GH_R * ld;                 // [GH_V][ld]   W tile, transposed
   float* sG = sWT + GH_V * ld;                 // [GH_R][ldg]  gp
@@ -741,13 +788,13 @@ ce_bwd_dh_f32_kernel(const float* __restrict__ h, const float* __restrict__ W,
   int* sY = reinterpret_cast<int*>(sLse + GH_R);
 
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int nj = D / 64;
+  const int nj = chunk_width(D, z) / 64;
   const int row0 = blockIdx.x * GH_R;
   const int n_tiles = (V + GH_V - 1) / GH_V;
   const int vt_begin = blockIdx.y * tiles_per_split;
   const int vt_end = min(vt_begin + tiles_per_split, n_tiles);
 
-  stage_rows_f32(sH, h, row0, GH_R, N, D);
+  if (nkc == 1) stage_rows_f32(sH, ld, h, D, row0, GH_R, N, D);  // resident
   stage_row_terms(sY, sGa, sGb, sLse, y, ga, gb, lse, row0, GH_R, N);
 
   float acc[2][MAX_DJ][4];  // dh [row][64-column group][column]
@@ -761,23 +808,28 @@ ce_bwd_dh_f32_kernel(const float* __restrict__ h, const float* __restrict__ W,
   for (int vt = vt_begin; vt < vt_end; ++vt) {
     __syncthreads();  // previous tile's W and gp consumed (and rows staged)
     const int n0 = vt * GH_V;
-    stage_cols_t_f32(sWT, W, n0, GH_V, D, V);
     for (int i = tid; i < GH_V; i += THREADS) sBias[i] = n0 + i < V ? bias[n0 + i] : 0.0f;
-    __syncthreads();
 
-    // ---- recompute the tile's logits ----
+    // ---- recompute the tile's logits, chunk by chunk (z's chunk last) ----
     float lg[2][4];
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) lg[i][j] = 0.0f;
-    for (int k = 0; k < D; k += 4) {
-      const float4 a0 = ld4(sH + (ty * 2) * ld + k), a1 = ld4(sH + (ty * 2 + 1) * ld + k);
+    for (int i = 0; i < nkc; ++i) {
+      const int c = chunk_at(i, z, nkc), kw = chunk_width(D, c);
+      if (i > 0) __syncthreads();  // the previous chunk consumed
+      if (nkc > 1) stage_rows_f32(sH, ld, h + c * KW, D, row0, GH_R, N, kw);
+      stage_cols_t_f32(sWT, ld, W + (size_t)c * KW * V, n0, GH_V, kw, V);
+      __syncthreads();
+      for (int k = 0; k < kw; k += 4) {
+        const float4 a0 = ld4(sH + (ty * 2) * ld + k), a1 = ld4(sH + (ty * 2 + 1) * ld + k);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 b = ld4(sWT + (tx + 16 * j) * ld + k);
-        lg[0][j] = dot4(lg[0][j], a0, b);
-        lg[1][j] = dot4(lg[1][j], a1, b);
+        for (int j = 0; j < 4; ++j) {
+          const float4 b = ld4(sWT + (tx + 16 * j) * ld + k);
+          lg[0][j] = dot4(lg[0][j], a0, b);
+          lg[1][j] = dot4(lg[1][j], a1, b);
+        }
       }
     }
 
@@ -794,7 +846,7 @@ ce_bwd_dh_f32_kernel(const float* __restrict__ h, const float* __restrict__ W,
     }
     __syncthreads();
 
-    // ---- dh[rows, :] += gp @ W_tile^T ----
+    // ---- dh[rows, slice z] += gp @ W_tile^T (sWT: chunk z) ----
     for (int n = 0; n < GH_V; ++n) {
       const float g0 = sG[(ty * 2) * ldg + n], g1 = sG[(ty * 2 + 1) * ldg + n];
 #pragma unroll
@@ -814,7 +866,7 @@ ce_bwd_dh_f32_kernel(const float* __restrict__ h, const float* __restrict__ W,
     }
   }
 
-  float* out = dh_part + (size_t)blockIdx.y * N * D;
+  float* out = dh_part + (size_t)blockIdx.y * N * D + z * KW;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + ty * 2 + i;
@@ -827,13 +879,14 @@ ce_bwd_dh_f32_kernel(const float* __restrict__ h, const float* __restrict__ W,
 }
 
 size_t dw_f32_smem(int D) {
+  D = D < KW ? D : KW;
   return ((size_t)(GW_V + GW_R) * (D + 4) + GW_R * (GW_V + 2) + GW_V + 4 * GW_R +
           16 * GW_V) * sizeof(float);
 }
 
 // Thread (ty, tx): logits of chunk rows ty*2, ty*2+1 at columns tx + 16j
 // (j < 2), whose gp it sums into db; dW at columns tx*2, tx*2+1 and rows
-// ty*4 + 64jj + e (jj < D/64, e < 4).
+// ty*4 + 64jj + e (jj < 8, e < 4) of the 512-row slice grid.y.
 __global__ void __launch_bounds__(THREADS, 1)
 ce_bwd_dw_f32_kernel(const float* __restrict__ h, const float* __restrict__ W,
                      const float* __restrict__ bias, const int* __restrict__ y,
@@ -841,7 +894,8 @@ ce_bwd_dw_f32_kernel(const float* __restrict__ h, const float* __restrict__ W,
                      const float* __restrict__ lse, float* __restrict__ dW,
                      float* __restrict__ db, int N, int D, int V) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = D + 4, ldg = GW_V + 2;
+  const int nkc = n_chunks(D), z = blockIdx.y;
+  const int ld = min(D, KW) + 4, ldg = GW_V + 2;
   float* sWT = reinterpret_cast<float*>(smem);  // [GW_V][ld]   W columns, transposed
   float* sH = sWT + GW_V * ld;                  // [GW_R][ld]   h rows
   float* sG = sH + GW_R * ld;                   // [GW_R][ldg]  gp
@@ -853,10 +907,10 @@ ce_bwd_dw_f32_kernel(const float* __restrict__ h, const float* __restrict__ W,
   int* sY = reinterpret_cast<int*>(sDb + 16 * GW_V);
 
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int nj = D / 64;
+  const int nj = chunk_width(D, z) / 64;
   const int n0 = blockIdx.x * GW_V;
 
-  stage_cols_t_f32(sWT, W, n0, GW_V, D, V);
+  if (nkc == 1) stage_cols_t_f32(sWT, ld, W, n0, GW_V, D, V);  // resident
   for (int i = tid; i < GW_V; i += THREADS) sBias[i] = n0 + i < V ? bias[n0 + i] : 0.0f;
 
   float acc[MAX_DJ][4][2];  // dW [64-row group][row][column]
@@ -868,19 +922,24 @@ ce_bwd_dw_f32_kernel(const float* __restrict__ h, const float* __restrict__ W,
 
   for (int r0 = 0; r0 < N; r0 += GW_R) {
     __syncthreads();  // previous chunk's rows and gp consumed
-    stage_rows_f32(sH, h, r0, GW_R, N, D);
     stage_row_terms(sY, sGa, sGb, sLse, y, ga, gb, lse, r0, GW_R, N);
-    __syncthreads();
 
-    // ---- recompute the chunk's logits [32, 32] ----
+    // ---- recompute the chunk's logits [32, 32], K chunk by K chunk (z's last) ----
     float lg[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
-    for (int k = 0; k < D; k += 4) {
-      const float4 a0 = ld4(sH + (ty * 2) * ld + k), a1 = ld4(sH + (ty * 2 + 1) * ld + k);
+    for (int i = 0; i < nkc; ++i) {
+      const int c = chunk_at(i, z, nkc), kw = chunk_width(D, c);
+      if (i > 0) __syncthreads();  // the previous K chunk consumed
+      stage_rows_f32(sH, ld, h + c * KW, D, r0, GW_R, N, kw);
+      if (nkc > 1) stage_cols_t_f32(sWT, ld, W + (size_t)c * KW * V, n0, GW_V, kw, V);
+      __syncthreads();
+      for (int k = 0; k < kw; k += 4) {
+        const float4 a0 = ld4(sH + (ty * 2) * ld + k), a1 = ld4(sH + (ty * 2 + 1) * ld + k);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float4 b = ld4(sWT + (tx + 16 * j) * ld + k);
-        lg[0][j] = dot4(lg[0][j], a0, b);
-        lg[1][j] = dot4(lg[1][j], a1, b);
+        for (int j = 0; j < 2; ++j) {
+          const float4 b = ld4(sWT + (tx + 16 * j) * ld + k);
+          lg[0][j] = dot4(lg[0][j], a0, b);
+          lg[1][j] = dot4(lg[1][j], a1, b);
+        }
       }
     }
 
@@ -899,7 +958,7 @@ ce_bwd_dw_f32_kernel(const float* __restrict__ h, const float* __restrict__ W,
     }
     __syncthreads();
 
-    // ---- dW += h_chunk^T @ gp ----
+    // ---- dW[slice z] += h_chunk^T @ gp (sH: h's columns of chunk z) ----
     for (int r = 0; r < GW_R; ++r) {
       const float2 g = *reinterpret_cast<const float2*>(sG + r * ldg + tx * 2);
 #pragma unroll
@@ -917,20 +976,20 @@ ce_bwd_dw_f32_kernel(const float* __restrict__ h, const float* __restrict__ W,
     }
   }
 
-  // ---- db: the 16 row threads of each column ----
+  // ---- db (slice 0): the 16 row threads of each column ----
 #pragma unroll
   for (int j = 0; j < 2; ++j) sDb[ty * GW_V + tx + 16 * j] = dbacc[j];
   __syncthreads();
   for (int c = tid; c < GW_V; c += THREADS) {
     float s = 0.0f;
     for (int t = 0; t < 16; ++t) s += sDb[t * GW_V + c];
-    if (n0 + c < V) db[n0 + c] = s;
+    if (z == 0 && n0 + c < V) db[n0 + c] = s;
   }
 #pragma unroll
   for (int jj = 0; jj < MAX_DJ; ++jj)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int d = ty * 4 + 64 * jj + e;
+      const int d = z * KW + ty * 4 + 64 * jj + e;
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         const int n = n0 + tx * 2 + q;
@@ -983,7 +1042,8 @@ int jlm_ce_fwd(const void* h, const void* W, const float* bias, const int* y,
 }
 
 // As jlm_ce_fwd, plus ga, gb, lse [N] fp32; dh_part [splits, N, D] fp32
-// scratch (may equal dh when splits == 1); dh [N, D] fp32.
+// scratch (may equal dh when splits == 1); dh [N, D] fp32.  The grid is
+// row blocks x splits x the 512-wide slices of D.
 int jlm_ce_bwd_dh(const void* h, const void* W, const float* bias,
                   const int* y, const float* ga, const float* gb,
                   const float* lse, float* dh_part, float* dh, int N, int D,
@@ -995,7 +1055,7 @@ int jlm_ce_bwd_dh(const void* h, const void* W, const float* bias,
     const size_t smem = dh_f32_smem(D);
     err = set_smem(ce_bwd_dh_f32_kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid((N + GH_R - 1) / GH_R, splits);
+    dim3 grid((N + GH_R - 1) / GH_R, splits, (D + KW - 1) / KW);
     ce_bwd_dh_f32_kernel<<<grid, THREADS, smem, st>>>(
         static_cast<const float*>(h), static_cast<const float*>(W), bias, y, ga, gb,
         lse, dh_part, N, D, V, tiles_per_split);
@@ -1003,7 +1063,7 @@ int jlm_ce_bwd_dh(const void* h, const void* W, const float* bias,
     const size_t smem = dh_smem(D);
     err = set_smem(ce_bwd_dh_kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid((N + H_TR - 1) / H_TR, splits);
+    dim3 grid((N + H_TR - 1) / H_TR, splits, (D + KW - 1) / KW);
     ce_bwd_dh_kernel<<<grid, THREADS, smem, st>>>(
         static_cast<const bf16*>(h), static_cast<const bf16*>(W), bias, y, ga,
         gb, lse, dh_part, N, D, V, ldw, tiles_per_split);
@@ -1017,7 +1077,7 @@ int jlm_ce_bwd_dh(const void* h, const void* W, const float* bias,
 }
 
 // As jlm_ce_bwd_dh; dW [D, ldw] and db [V] fp32, each element of the first V
-// columns written once.
+// columns written once.  The grid is column blocks x the 512-row slices of D.
 int jlm_ce_bwd_dw(const void* h, const void* W, const float* bias,
                   const int* y, const float* ga, const float* gb,
                   const float* lse, float* dW, float* db, int N, int D, int V,
@@ -1028,14 +1088,15 @@ int jlm_ce_bwd_dw(const void* h, const void* W, const float* bias,
     const size_t smem = dw_f32_smem(D);
     err = set_smem(ce_bwd_dw_f32_kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    ce_bwd_dw_f32_kernel<<<(V + GW_V - 1) / GW_V, THREADS, smem, st>>>(
+    dim3 grid((V + GW_V - 1) / GW_V, (D + KW - 1) / KW);
+    ce_bwd_dw_f32_kernel<<<grid, THREADS, smem, st>>>(
         static_cast<const float*>(h), static_cast<const float*>(W), bias, y, ga, gb,
         lse, dW, db, N, D, V);
   } else {
     const size_t smem = dw_smem(D);
     err = set_smem(ce_bwd_dw_kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid((V + W_TV - 1) / W_TV);
+    dim3 grid((V + W_TV - 1) / W_TV, (D + KW - 1) / KW);
     ce_bwd_dw_kernel<<<grid, THREADS, smem, st>>>(
         static_cast<const bf16*>(h), static_cast<const bf16*>(W), bias, y, ga,
         gb, lse, dW, db, N, D, V, ldw);

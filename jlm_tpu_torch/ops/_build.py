@@ -51,9 +51,9 @@ _SIGNATURES = {
     "jlm_ce_fwd": [_P] * 9 + [_I] * 7 + [_P],
     "jlm_ce_bwd_dh": [_P] * 9 + [_I] * 7 + [_P],
     "jlm_ce_bwd_dw": [_P] * 9 + [_I] * 5 + [_P],
-    "jlm_lstm_scan_max_blocks": [_I, _I, _I, _I, _I],
-    "jlm_lstm_scan_fwd": [_P] * 9 + [_I] * 4 + [ctypes.c_float, _I, _P],
-    "jlm_lstm_scan_bwd": [_P] * 14 + [_I] * 4 + [ctypes.c_float, _I, _P],
+    "jlm_lstm_scan_max_blocks": [_I] * 8,
+    "jlm_lstm_scan_fwd": [_P] * 9 + [_I] * 4 + [ctypes.c_float] + [_I] * 4 + [_P],
+    "jlm_lstm_scan_bwd": [_P] * 14 + [_I] * 4 + [ctypes.c_float] + [_I] * 4 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -140,7 +140,9 @@ def check(err: int, what: str) -> None:
 
 
 def stream_ptr(t) -> int:
-    """Handle of PyTorch's current stream on ``t``'s device."""
+    """Handle of PyTorch's current stream on ``t``'s device (the raw getter
+    PyTorch's own generated code calls: no ``torch.cuda.Stream`` object is
+    made before every launch)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -17,7 +17,6 @@ a weight in another dtype gets a new cast, and so a new copy, every call.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
@@ -79,6 +78,9 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(x, h, c, W, b, forget_bias, c_out_dtype):
+    """Check and launch; x, h and W are contiguous in the compute dtype.
+    Straight-line checks: this Python runs before every launch, and a
+    one-call time counts it."""
     R, E = x.shape
     H = h.shape[1]
     f32 = x.dtype == torch.float32
@@ -90,30 +92,35 @@ def _launch(x, h, c, W, b, forget_bias, c_out_dtype):
         raise ValueError(f"the fp32 kernel needs E={E} and H={H} multiples of 32")
     if not f32 and (E % 8 or H % 8):
         raise ValueError(f"the bf16 kernel needs E={E} and H={H} multiples of 8")
-    shapes = {"h": (h, (R, H)), "c": (c, (R, H)), "b": (b, (4 * H,))}
     if f32:
-        shapes["W"] = (W, (E + H, 4 * H))
+        w, w_shape = W, (E + H, 4 * H)
     else:
-        w_tiles = cell_weight_tiles(W, E, H)
-        shapes["w_tiles"] = (w_tiles, (4 * _round_up(H, UNITS),
-                                       _round_up(E, KC) + _round_up(H, UNITS)))
-        x, h, w_tiles = _aligned(x), _aligned(h), _aligned(w_tiles)
-    for name, (t, shape) in shapes.items():
-        if tuple(t.shape) != shape or t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous {shape} on {x.device}")
+        w = _aligned(cell_weight_tiles(W, E, H))
+        w_shape = (4 * _round_up(H, UNITS), _round_up(E, KC) + _round_up(H, UNITS))
+        x, h = _aligned(x), _aligned(h)
+    dev = x.device
+    for name, t, shape in (("h", h, (R, H)), ("c", c, (R, H)), ("b", b, (4 * H,)),
+                           ("W", w, w_shape)):
+        if t.shape != shape or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {shape} on {dev}")
     if b.dtype != torch.float32:
         raise ValueError("b must be fp32")
-    c_new = torch.empty((R, H), dtype=c_out_dtype, device=x.device)
-    h_new = torch.empty((R, H), dtype=x.dtype, device=x.device)
+    ptrs = [t.data_ptr() for t in (x, h, c, w, b)]
+    if f32 and (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3] | ptrs[4]) % 16:
+        # the fp32 kernel's cp.async moves 16-byte pieces of all five
+        x, h, c, w, b = (_aligned(t) for t in (x, h, c, w, b))
+        ptrs = [t.data_ptr() for t in (x, h, c, w, b)]
+    # new_empty: less Python before the launch than torch.empty(..., device=)
+    h_new = h.new_empty((R, H))
+    c_new = h.new_empty((R, H)) if c_out_dtype == h.dtype else h.new_empty(
+        (R, H), dtype=c_out_dtype)
     if R:
-        P = ctypes.c_void_p
         lib = _build.lib()
         entry = lib.jlm_lstm_cell_f32 if f32 else lib.jlm_lstm_cell_bf16
         err = entry(
-            P(x.data_ptr()), P(h.data_ptr()), P(c.data_ptr()),
-            int(c.dtype == torch.float32), P((W if f32 else w_tiles).data_ptr()),
-            P(b.data_ptr()), P(c_new.data_ptr()), int(c_out_dtype == torch.float32),
-            P(h_new.data_ptr()), R, E, H, float(forget_bias), P(_build.stream_ptr(x)),
+            ptrs[0], ptrs[1], ptrs[2], int(c.dtype == torch.float32), ptrs[3], ptrs[4],
+            c_new.data_ptr(), int(c_out_dtype == torch.float32), h_new.data_ptr(),
+            R, E, H, float(forget_bias), _build.stream_ptr(x),
         )
         _build.check(err, "lstm_cell kernel")
         lstm_cell_step.launches += 1
@@ -136,7 +143,10 @@ def lstm_cell_step(
     ``lstm_cell_step.launches`` counts kernel launches.
     """
     c_out_dtype = torch.float32 if c_out_dtype is None else c_out_dtype
-    x, h = x.to(compute_dtype), h.to(compute_dtype)
+    if x.dtype != compute_dtype:
+        x = x.to(compute_dtype)
+    if h.dtype != compute_dtype:
+        h = h.to(compute_dtype)
     if W.dtype != compute_dtype:
         W = W.to(compute_dtype)
     if x.is_cuda:

@@ -25,8 +25,14 @@ the whole window, so the reference's ``time_block`` and its VMEM fallback
 have no counterpart.  E and H that are not multiples of 4 are zero-padded
 (``pad_scan``): a padded unit has zero weights and bias and starts at c = h
 = 0, so it stays at c = h = 0 and feeds nothing back; the padding is
-dropped from the outputs and the gradients.  Other shapes the kernels do
-not take raise.
+dropped from the outputs and the gradients.
+
+The kernels' grid (``_plan``): one block per group of 4 units with the
+group's columns of W resident in shared memory where all H / 4 such blocks
+fit on the card at once (H = 512); else W streamed from device memory each
+step (fp32, or a bf16 copy in bf16 mode) by as many blocks as fit, each
+owning several groups (H = E = 1,024).  Only a shape at which not even one
+streamed block fits on an SM raises.
 """
 
 from __future__ import annotations
@@ -41,8 +47,7 @@ from jlm_tpu_torch.ops.lstm_cell import pad_gates
 
 Tensor = torch.Tensor
 
-UNITS = 4           # hidden units per block: 16 gate columns of W
-MAX_DX_ROWS = 4     # dx columns per block in the backward (E <= 4 * H / UNITS)
+UNITS = 4           # hidden units per group: 16 gate columns of W
 
 
 # ---------------------------------------------------------------- plain
@@ -145,24 +150,42 @@ def unpad_gates(z: Tensor, H: int) -> Tensor:
     return z.reshape(*z.shape[:-1], 4, -1)[..., :H].reshape(*z.shape[:-1], 4 * H)
 
 
-def _check_fit(bwd: int, B: int, E: int, H: int, device) -> None:
-    """Raise unless the kernel takes these dims and its grid of ``H / 4``
-    blocks can be co-resident (the grid-wide barrier needs every block)."""
+def _plan(bwd: int, B: int, E: int, H: int, compute_dtype, device) -> Tuple[int, int, int]:
+    """``(streamed, grid, groups per block)`` of a launch: the resident
+    mode's ``H / 4`` blocks where they can all be co-resident (the
+    grid-wide barrier needs every block), else the streamed mode with as
+    many blocks as fit, each owning ``ceil(H / 4 / grid)`` unit groups."""
     if H % UNITS or E % 4:
         raise ValueError(f"lstm_scan kernels need H % {UNITS} == 0 and E % 4 == 0 "
                          f"(E={E}, H={H})")
-    grid = H // UNITS
-    if bwd and -(-E // grid) > MAX_DX_ROWS:
-        raise ValueError(f"lstm_scan backward takes E <= {MAX_DX_ROWS * grid} "
-                         f"at H={H} (E={E})")
-    fits = _build.lib().jlm_lstm_scan_max_blocks(bwd, B, E, H, device.index or 0)
-    if fits < 0:
-        _build.check(-fits, "lstm_scan occupancy query")
-    if fits < grid:
-        raise ValueError(
-            f"lstm_scan {'backward' if bwd else 'forward'} at B={B}, E={E}, H={H} "
-            f"needs {grid} co-resident blocks, the card holds {fits} "
-            "(shared memory per block grows with E + H and H)")
+    groups, bf16 = H // UNITS, _mode(compute_dtype)
+    lib, index = _build.lib(), device.index or 0
+
+    def fits(streamed, nvb):
+        n = lib.jlm_lstm_scan_max_blocks(bwd, streamed, bf16, nvb, B, E, H, index)
+        if n < 0:
+            _build.check(-n, "lstm_scan occupancy query")
+        return n
+
+    if fits(0, 1) >= groups:
+        return 0, groups, 1
+    nvb = 1
+    while True:  # a block's carries grow with its groups: settle grid and nvb together
+        grid = -(-groups // nvb)
+        n = fits(1, nvb)
+        if n >= grid:
+            return 1, grid, nvb
+        if n == 0:
+            raise ValueError(
+                f"lstm_scan {'backward' if bwd else 'forward'} at B={B}, E={E}, H={H}: "
+                f"not one block of {nvb} unit groups fits on an SM (its carries take "
+                f"{2 if bwd else 1} x B x {UNITS * nvb} floats of shared memory)")
+        nvb = -(-groups // n)
+
+
+def _launch_args(W, compute_dtype, streamed):
+    """W as the kernel reads it: fp32, or its bf16 copy in streamed bf16 mode."""
+    return W.to(torch.bfloat16) if streamed and compute_dtype == torch.bfloat16 else W
 
 
 def lstm_scan_fwd(xs: Tensor, W: Tensor, b: Tensor, c0: Tensor, h0: Tensor,
@@ -191,11 +214,12 @@ def lstm_scan_fwd(xs: Tensor, W: Tensor, b: Tensor, c0: Tensor, h0: Tensor,
     h_T = torch.empty((B, H), dtype=torch.float32, device=dev)
     if B * T == 0:
         return hs, cs, c0.clone(), h0.clone()
-    _check_fit(0, B, E, H, dev)
+    streamed, grid, nvb = _plan(0, B, E, H, compute_dtype, dev)
+    Wk = _launch_args(W, compute_dtype, streamed)
     err = _build.lib().jlm_lstm_scan_fwd(
-        _ptr(xs), _ptr(W), _ptr(b), _ptr(c0), _ptr(h0), _ptr(hs), _ptr(cs),
+        _ptr(xs), _ptr(Wk), _ptr(b), _ptr(c0), _ptr(h0), _ptr(hs), _ptr(cs),
         _ptr(c_T), _ptr(h_T), B, T, E, H, ctypes.c_float(forget_bias), mode,
-        ctypes.c_void_p(_build.stream_ptr(xs)))
+        streamed, grid, nvb, ctypes.c_void_p(_build.stream_ptr(xs)))
     _build.check(err, "lstm_scan_fwd kernel")
     lstm_scan_fwd.launches += 1
     return hs, cs, c_T, h_T
@@ -236,11 +260,12 @@ def lstm_scan_bwd(xs: Tensor, W: Tensor, b: Tensor, c0: Tensor, h0: Tensor,
     dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
     if B * T == 0:
         return dz, dx, d_cf.clone(), d_hf.clone()
-    _check_fit(1, B, E, H, dev)
+    streamed, grid, nvb = _plan(1, B, E, H, compute_dtype, dev)
+    Wk = _launch_args(W, compute_dtype, streamed)
     err = _build.lib().jlm_lstm_scan_bwd(
-        _ptr(xs), _ptr(W), _ptr(b), _ptr(c0), _ptr(h0), _ptr(hs), _ptr(cs),
+        _ptr(xs), _ptr(Wk), _ptr(b), _ptr(c0), _ptr(h0), _ptr(hs), _ptr(cs),
         _ptr(d_hs), _ptr(d_cf), _ptr(d_hf), _ptr(dz), _ptr(dx), _ptr(dc0), _ptr(dh0),
-        B, T, E, H, ctypes.c_float(forget_bias), mode,
+        B, T, E, H, ctypes.c_float(forget_bias), mode, streamed, grid, nvb,
         ctypes.c_void_p(_build.stream_ptr(xs)))
     _build.check(err, "lstm_scan_bwd kernel")
     lstm_scan_bwd.launches += 1

@@ -34,13 +34,14 @@ Ids may repeat; an id outside ``[0, V)`` matches no column and gets
 On a CUDA tensor the wrapper launches ``csrc/project_lse.cu`` — one launch
 per block and one merge, and for int8-MXU heads first one launch that
 quantizes every block's activation slice — or raises; on a CPU tensor it
-runs the plain version.  The int8-MXU blocks run the ``wgmma`` + TMA
-kernel (hidden slices up to 1,024 wide), the other modes the ``mma.sync``
-and fp32 kernels.  A block may carry ``"WT"``, the ``[V_k, d_k]`` transposed
-weight the kernel reads (``build_decode_head`` makes it once); without it
-the wrapper transposes per call.  A head whose every block carries ``"WT"``
-is checked once and its plan kept under ``"_plan"`` (see ``_block_plan``):
-replace such a head's tensors only through ``build_decode_head``.
+runs the plain version.  The int8-MXU, bf16 and bf16-dequant blocks run
+``wgmma`` + TMA kernels (int8-MXU: hidden slices up to 1,024 wide; the
+bf16 modes any width), the fp32 modes the fp32 kernel.  A block may carry
+``"WT"``, the ``[V_k, d_k]`` transposed weight the kernel reads
+(``build_decode_head`` makes it once); without it the wrapper transposes
+per call.  A head whose every block carries ``"WT"`` is checked once and
+its plan kept under ``"_plan"`` (see ``_block_plan``): replace such a
+head's tensors only through ``build_decode_head``.
 
 Widths and offsets that are not multiples of 32 (``padded_width``): the
 plan pads each block's W^T with zero columns to the next multiple of 32
@@ -61,11 +62,11 @@ import torch
 from jlm_tpu_torch.config import Config
 from jlm_tpu_torch.ops import _build
 
-# Kernel weight modes (project_lse.cu's ``Mode``); the rows per block of
-# each mode's kernel, and the vocab columns per tile of both kernels.
+# Kernel weight modes (project_lse.cu's ``Mode``); the (rows per block,
+# vocab columns per tile) of the bf16 and fp32 kernels.
 BF16, INT8_MXU, DEQUANT_BF16, FP32, DEQUANT_FP32 = range(5)
-_ROWS = {BF16: 128, DEQUANT_BF16: 128, FP32: 64, DEQUANT_FP32: 64}
-_TV = 64
+_BF16_TILE = (128, 256)
+_FP32_TILE = (64, 64)
 _ALIGN = 32  # hidden columns per kernel K step
 _INT8_MAX_D = 1024  # widest hidden slice the int8 kernel keeps resident
 
@@ -267,15 +268,22 @@ def _block_plan(head, config, H, device, compute_dtype, int8_mxu):
     return plan
 
 
-def int8_splits(n_tiles: int, row_blocks: int, sms: int) -> Tuple[int, int]:
-    """``(splits, tiles per split)`` of the int8 kernel's vocab: the split
-    count whose waves of one block an SM take the fewest tile times, each
-    block paying about 4 tiles' worth to load its rows."""
+# Each block's fixed cost in tile times, for vocab_splits: the int8 kernel
+# loads its resident rows (about 4 tiles); the bf16 kernel streams h with
+# every tile, and pays its ring's fill and its epilogue (about 1).
+INT8_BLOCK_TILES = 4
+BF16_BLOCK_TILES = 1
+
+
+def vocab_splits(n_tiles: int, row_blocks: int, sms: int, fixed: int) -> Tuple[int, int]:
+    """``(splits, tiles per split)`` of a kernel's vocab: the split count
+    whose waves of one block an SM take the fewest tile times, each block
+    paying ``fixed`` tile times besides its own tiles."""
     best = None
     for sp in range(1, min(n_tiles, 64) + 1):
         per = -(-n_tiles // sp)
         sp = -(-n_tiles // per)
-        cost = -(-row_blocks * sp // sms) * (per + 4)
+        cost = -(-row_blocks * sp // sms) * (per + fixed)
         if best is None or cost < best[0]:
             best = (cost, sp, per)
     return best[1], best[2]
@@ -296,9 +304,15 @@ def _launch(h, head, config, compute_dtype, int8_mxu, want: str, cand_ids=None):
                                                             compute_dtype, int8_mxu):
         if mode == INT8_MXU:
             rows, cols = _int8_tile(dp)
-            splits, per_split = int8_splits(-(-V // cols), -(-R // rows), sms)
+            splits, per_split = vocab_splits(-(-V // cols), -(-R // rows), sms,
+                                             INT8_BLOCK_TILES)
+        elif mode in (BF16, DEQUANT_BF16):
+            rows, cols = _BF16_TILE
+            splits, per_split = vocab_splits(-(-V // cols), -(-R // rows), sms,
+                                             BF16_BLOCK_TILES)
         else:
-            n_tiles, row_blocks = -(-V // _TV), -(-R // _ROWS[mode])
+            rows, cols = _FP32_TILE
+            n_tiles, row_blocks = -(-V // cols), -(-R // rows)
             splits = min(n_tiles, max(1, -(-8 * sms // max(row_blocks, 1))))
             per_split = -(-n_tiles // splits)
             splits = -(-n_tiles // per_split)
@@ -356,6 +370,8 @@ def _launch(h, head, config, compute_dtype, int8_mxu, want: str, cand_ids=None):
                 hk, ldh = pad_cols(h[:, off:off + d], dp), dp
             else:
                 hk, ldh = h[:, off:], H
+            if hk.data_ptr() % 16:  # vector loads and TMA read 16-byte aligned rows
+                hk, ldh = hk[:, :dp].clone(), dp
             err = lib.jlm_project_block(
                 ptr(hk), ldh, ptr(wt), mode, ptr(scale), ptr(bias), ptr(part[0, base]),
                 ptr(part[1, base]), R, dp, V, splits, per_split, ptr(ids), ptr(slots), C,

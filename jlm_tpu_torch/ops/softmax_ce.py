@@ -21,10 +21,11 @@ unrounded gp.  On a CUDA tensor the wrappers launch ``csrc/softmax_ce.cu``
 (bf16 compute on the tensor cores, or fp32 compute as exact fp32 FMAs on
 the CUDA cores, no TF32) or raise; on a CPU tensor they run the plain
 versions ``ce_fwd_raw_ref``, ``ce_bwd_dh_ref`` and ``ce_bwd_dw_ref``.
-The kernels take hidden slices of 128, 256, 384 or 512: a narrower slice
-that is not a multiple of 128 is zero-padded (``pad_hidden``: zero columns
-of h, zero rows of W), which changes no logit, and the padding's rows of
-dh and dW are dropped.
+The kernels take any hidden slice that is a multiple of 128: another
+width is zero-padded (``pad_hidden``: zero columns of h, zero rows of W),
+which changes no logit, and the padding's rows of dh and dW are dropped.
+A slice wider than 512 goes through the kernels in K chunks of 512, and
+dh and dW are written in slices of 512 over the grid (``KW``).
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from jlm_tpu_torch.ops import _build
 # columns) per block and the blocks an SM runs at once.
 _FWD_TILE = {torch.bfloat16: (128, 64, 1), torch.float32: (64, 64, 2)}
 _DH_TILE = {torch.bfloat16: (32, 64, 2), torch.float32: (32, 64, 1)}
+KW = 512  # widest K chunk of a kernel; dh and dW are written in slices of it
 
 Tensor = torch.Tensor
 
@@ -116,8 +118,6 @@ def _kernel_args(h, W, b, y, compute_dtype):
     V = b.shape[0]
     if tuple(W.shape) != (D, V):
         raise ValueError(f"W must be [{D}, {V}], got {tuple(W.shape)}")
-    if D > 512:
-        raise ValueError(f"hidden slice {D} is wider than 512, the most the CE kernels take")
     h, W = pad_hidden(h.to(compute_dtype), W.to(compute_dtype))
     D = h.shape[1]
     hb, Wb = h.contiguous(), W.contiguous()
@@ -191,7 +191,8 @@ def ce_bwd_dh(h, W, b, y, lse, ga, gb, compute_dtype=torch.float32) -> Tensor:
     if D != h.shape[1]:
         dh = torch.empty((N, D), dtype=torch.float32, device=h.device)
     rows, cols, per_sm = _DH_TILE[compute_dtype]
-    splits, per_split = _splits(-(-V // cols), -(-N // rows), per_sm, h.device)
+    slices = -(-D // KW)  # grid.z: the kernel's 512-wide slices of dh
+    splits, per_split = _splits(-(-V // cols), -(-N // rows) * slices, per_sm, h.device)
     part = dh if splits == 1 else torch.empty((splits, N, D), dtype=torch.float32,
                                               device=h.device)
     err = _build.lib().jlm_ce_bwd_dh(

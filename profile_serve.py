@@ -7,9 +7,10 @@ serves ``chip_smoke.py``'s serving cells — the 50k flagship (1 layer,
 full int8 head) with the split frame (the default forward:
 ``lstm_cell_step``, ``cand_dot``, ``project_lse``) and with the fused
 frame (``50k fused``: ``make_fused_frame_forward``, ``cell_cand_step``
-then ``project_lse``), and BASELINE config 5 (2 layers, V=100,000,
-D-softmax int8 head), all int8-MXU speed mode — over the same
-2,048-lattice chunk, in the turns of ``RUNS``.  Per run: 1 warm-up pass,
+then ``project_lse``), BASELINE config 5 (2 layers, V=100,000, D-softmax
+int8 head), all int8-MXU speed mode, and BASELINE config 2 on one card
+(``50k bf16``: the same 50k model with bf16 weights, beam 10, the split
+frame) — over the same 2,048-lattice chunk, in the turns of ``RUNS``.  Per run: 1 warm-up pass,
 the host-clock time of 3 passes (each ending in the result fetch), then 1
 pass under ``torch.profiler``.  From the profile: device busy ms per pass
 (the sum of device activity; one stream), the idle share of the profiled
@@ -40,12 +41,12 @@ from chip_smoke import S, bench_data, bench_data5
 from profile_train import kernel_name
 
 # the device functions of the three decode kernels' sources
-DECODE_KERNELS = {"project_lse": ("proj_int8_kernel", "quantize_rows_kernel", "proj_ms_kernel",
+DECODE_KERNELS = {"project_lse": ("proj_int8_kernel", "quantize_rows_kernel", "proj_bf16_kernel",
                                   "lse_merge_kernel"),
                   "lstm_cell_step": ("lstm_cell_wgmma_kernel", "lstm_cell_f32_kernel"),
                   "cand_dot": ("cand_dot_kernel",),
                   "cell_cand_step": ("cell_cand_kernel",)}
-RUNS = ("50k", "50k fused", "config 5", "config 5", "50k fused", "50k")
+RUNS = ("50k", "50k fused", "50k bf16", "config 5", "config 5", "50k bf16", "50k fused", "50k")
 TIMED = 3
 
 
@@ -124,10 +125,11 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     out_dir = os.path.dirname(os.path.abspath(args.out))
     os.makedirs(out_dir, exist_ok=True)
-    config, vocab, lexicon, _, qp, kanas = bench_data()
+    config, vocab, lexicon, params, qp, kanas = bench_data()
     cfg5, vocab5, lexicon5, _, qp5 = bench_data5()
     cells = {"50k": ("50k", config, vocab, lexicon, qp, kanas),
              "50k fused": ("50k fused", config, vocab, lexicon, qp, kanas),
+             "50k bf16": ("50k bf16", config, vocab, lexicon, params, kanas),
              "config 5": ("config 5", cfg5, vocab5, lexicon5, qp5, kanas)}
     runs = []
     for i, label in enumerate(RUNS):

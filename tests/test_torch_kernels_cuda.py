@@ -155,11 +155,15 @@ def test_project_kernel_modes_vs_plain(cuda, mode, weights):
 
 
 @pytest.mark.cuda
-def test_lstm_cell_fp32_kernel_vs_plain(cuda):
+@pytest.mark.parametrize("R,E,H", [
+    (300, 64, 96),      # ragged rows; three 32-unit blocks
+    (512, 256, 512),    # the fp32 parity run's frame
+    (77, 1024, 1024),   # the widest training width, fewer rows than a block
+])
+def test_lstm_cell_fp32_kernel_vs_plain(cuda, R, E, H):
     """fp32 compute (exact fp32 FMAs): c' and h' fp32 within 1e-5 of the
     plain version (sum order only), c read as fp32 or bf16."""
     rng = np.random.default_rng(9)
-    R, E, H = 300, 64, 96
 
     def t(*shape, scale=0.3):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32) * scale).to(cuda)
@@ -173,6 +177,13 @@ def test_lstm_cell_fp32_kernel_vs_plain(cuda):
         c_r, h_r = lstm_cell_ref(x, h, c_in, W, b, 1.0)
         np.testing.assert_allclose(c_k.cpu().numpy(), c_r.cpu().numpy(), atol=1e-5)
         np.testing.assert_allclose(h_k.cpu().numpy(), h_r.cpu().numpy(), atol=1e-5)
+    # c' stored in bf16: c' rounded once (one bf16 ulp where a sum-order
+    # difference meets a rounding boundary)
+    c_b, _ = lstm_cell_step(x, h, c, W, b, 1.0, c_out_dtype=torch.bfloat16)
+    c_r, _ = lstm_cell_ref(x, h, c, W, b, 1.0)
+    assert c_b.dtype == torch.bfloat16
+    np.testing.assert_allclose(c_b.float().cpu().numpy(), c_r.cpu().numpy(),
+                               rtol=2.0 ** -7, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -236,6 +247,8 @@ def _rel(got, want):
     (1024, 512, 50_000, 0),   # the training shape
     (300, 256, 1000, 7),      # ragged rows and vocab tile, -1 targets
     (77, 128, 1001, 3),       # vocab not a multiple of 8 (padded W)
+    (200, 640, 3001, 5),      # a slice over 512: K chunks of 512 and 128, two dh/dW slices
+    (70, 1024, 2003, 4),      # H = 1,024: two full chunks; ragged rows and vocab
 ])
 def test_ce_kernels_vs_plain(cuda, N, D, V, neg_every):
     """ce_fwd, ce_bwd_dh and ce_bwd_dw vs their plain versions on the same
@@ -321,6 +334,8 @@ def _scan_case(cuda, seed, B, T, E, H):
     (32, 32, 256, 512),   # the training shape
     (40, 5, 64, 96),      # a second pass of batch rows, ragged
     (3, 7, 512, 512),     # a second layer's input width (E = H)
+    (32, 4, 1024, 1024),  # H = E = 1,024: W streamed from the L2
+    (5, 3, 2048, 512),    # E > H: more than 4 dx columns a unit group
 ])
 def test_lstm_scan_kernels_vs_plain(cuda, B, T, E, H):
     """lstm_scan_fwd and lstm_scan_bwd vs their plain versions on the card,
@@ -380,18 +395,33 @@ def test_lstm_scan_bf16_and_autograd_vs_plain(cuda):
 
 @pytest.mark.cuda
 def test_lstm_scan_refuses_what_it_cannot_take(cuda):
-    """More dx columns per block than 4 raise, and so does H = E = 1,024,
-    whose H / 4 blocks cannot all be co-resident on the card."""
+    """The two shapes once refused launch and match the plain versions (the
+    bounds of test_lstm_scan_kernels_vs_plain): 32 dx columns for 4 unit
+    groups (E = 128, H = 16), and H = E = 1,024 in bf16 (W streamed as its
+    bf16 copy; forward within 2e-3 abs, backward within 1e-2 of max |plain|).
+    What still raises: a batch whose carries leave no streamed block room
+    on an SM."""
     from jlm_tpu_torch.ops import lstm_scan as ls
 
     xs, W, b, c0, h0 = _scan_case(cuda, 25, 2, 3, 128, 16)
-    hs, cs, _, _ = ls.lstm_scan_fwd(xs, W, b, c0, h0)
-    with pytest.raises(ValueError, match="E <= 16"):
-        ls.lstm_scan_bwd(xs, W, b, c0, h0, hs, cs, hs, c0, h0)
+    hs, cs, _, _ = ls.lstm_scan_ref(xs, W, b, c0, h0)
+    got = ls.lstm_scan_bwd(xs, W, b, c0, h0, hs, cs, hs, c0, h0)
+    for a, w in zip(got, ls.lstm_scan_bwd_ref(xs, W, b, c0, h0, hs, cs, hs, c0, h0)):
+        torch.testing.assert_close(a, w, atol=2e-4, rtol=1e-4)
+    bf = torch.bfloat16
     xs, W, b, c0, h0 = _scan_case(cuda, 25, 32, 4, 1024, 1024)
-    with pytest.raises(ValueError, match="co-resident"):
-        hs, cs, _, _ = ls.lstm_scan_fwd(xs, W, b, c0, h0)
-        ls.lstm_scan_bwd(xs, W, b, c0, h0, hs, cs, hs, c0, h0)
+    got = ls.lstm_scan_fwd(xs, W, b, c0, h0, 1.0, bf)
+    want = ls.lstm_scan_ref(xs, W, b, c0, h0, 1.0, bf)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=2e-3, rtol=0)
+    hs, cs = want[0], want[1]
+    got = ls.lstm_scan_bwd(xs, W, b, c0, h0, hs, cs, hs, c0, h0, 1.0, bf)
+    want = ls.lstm_scan_bwd_ref(xs, W, b, c0, h0, hs, cs, hs, c0, h0, 1.0, bf)
+    for a, w in zip(got, want):
+        assert _rel(a, w) <= 1e-2
+    xs, W, b, c0, h0 = _scan_case(cuda, 25, 16384, 1, 16, 1024)
+    with pytest.raises(ValueError, match="not one block"):
+        ls.lstm_scan_fwd(xs, W, b, c0, h0)
 
 
 @pytest.mark.cuda
@@ -426,6 +456,8 @@ def test_lstm_scan_pads_e_and_h(cuda):
     (1024, 512, 50_000, 0),   # the training shape
     (300, 256, 1000, 7),      # ragged rows and vocab tile, -1 targets
     (77, 128, 1001, 3),       # vocab not a multiple of 8
+    (200, 640, 3001, 5),      # a slice over 512 (K chunks, dh/dW slices)
+    (70, 1024, 2003, 4),      # H = 1,024
 ])
 def test_ce_fp32_kernels_vs_plain(cuda, N, D, V, neg_every):
     """fp32 compute (``precision="highest"``): ce_fwd, ce_bwd_dh and
@@ -527,13 +559,15 @@ def test_fp32_fused_loss_vs_plain_log_softmax(cuda, head):
 
 @pytest.mark.cuda
 def test_ce_kernels_refuse_what_they_cannot_take(cuda):
-    """A hidden slice wider than 512 and a compute dtype other than bf16 or
-    fp32 raise on the card."""
+    """A compute dtype other than bf16 or fp32 raises on the card; a hidden
+    slice wider than 512, once refused, launches and matches the plain
+    version (1e-5 abs on the lse in fp32)."""
     from jlm_tpu_torch.ops import softmax_ce as ce
 
     h, W, b, y, _ = _ce_case(cuda, 19, 8, 640, 300)
-    with pytest.raises(ValueError, match="wider than 512"):
-        ce.ce_fwd_raw(h, W, b, y, torch.float32)
+    m, s, _ = ce.ce_fwd_raw(h, W, b, y, torch.float32)
+    mp, sp, _ = ce.ce_fwd_raw_ref(h, W, b, y, torch.float32)
+    assert float((m + torch.log(s) - mp - torch.log(sp)).abs().max()) <= 1e-5
     h, W, b, y, _ = _ce_case(cuda, 19, 8, 128, 300)
     with pytest.raises(ValueError, match="bf16 or fp32"):
         ce.ce_fwd_raw(h, W, b, y, torch.float16)
@@ -925,3 +959,47 @@ def test_wide_beams_go_in_groups_of_16(cuda, dtype):
     slack = torch.einsum("sbh,sch->sbc", (h_k.float() - h_r.float()).abs().reshape(S, B, H),
                          cols.float().abs())
     assert float(((cand_k - cand_r).abs() - slack).max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["bf16", "int8_dequant_bf16"])
+@pytest.mark.parametrize("R,H,V", [
+    (257, 128, 3001),    # ragged rows (a block's second warpgroup past R) and vocab
+    (300, 256, 5000),
+    (1000, 512, 4999),   # 8 K chunks a tile; a ragged last 256-column tile
+    (200, 544, 3000),    # a K chunk half zero-filled; the first port's kernel refused > 576
+    (130, 1024, 2000),   # 16 K chunks a tile
+    (64, 1280, 700),     # wider than any slice kept resident: h is streamed too
+])
+def test_project_bf16_wgmma_kernel_edges(cuda, weights, R, H, V):
+    """The bf16 and dequant-bf16 head (wgmma + TMA, h and W^T streamed in K
+    chunks) at ragged R, V and slice widths vs the plain version: lse and
+    candidate log-probs (repeated ids, the vocab edges, a -1) within the
+    bound of test_project_kernel_modes_vs_plain; a candidate read from its
+    neighbouring column reads above the bound."""
+    from jlm_tpu_torch.ops import project as port
+
+    cd, quantized, int8_mxu, bound = _BLOCK_MODES[weights]
+    rng = np.random.default_rng(36)
+    h = torch.from_numpy(rng.normal(size=(R, H)).astype(np.float32)).to(cuda).to(cd)
+    w = rng.normal(0, 0.05, (H, V)).astype(np.float32)
+    b = torch.from_numpy(rng.normal(0, 0.1, V).astype(np.float32)).to(cuda)
+    if quantized:
+        q = quantize_weight(w, axis=0)
+        W, scale = torch.from_numpy(q["q"]).to(cuda), torch.from_numpy(q["scale"]).to(cuda)
+    else:
+        W, scale = torch.from_numpy(w).to(cuda).to(cd), None
+    head = port._full_head(W, scale, b)
+    kw = dict(compute_dtype=cd, int8_mxu=int8_mxu)
+    n0 = project_lse.launches
+    got = project_lse(h, head, None, **kw)
+    assert project_lse.launches == n0 + 1
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               project_lse_ref(h, head, **kw).cpu().numpy(), atol=bound)
+    ids = _cand_ids(rng, (V,), C=40).to(cuda)  # edges, repeats and a -1
+    cand = port.project_candidates(h, W, scale, b, ids, **kw)
+    want = port.project_candidates_ref(h, W, scale, b, ids, **kw)
+    np.testing.assert_allclose(cand.cpu().numpy(), want.cpu().numpy(), atol=bound)
+    shifted = torch.where(ids >= 0, (ids + 1) % V, ids)
+    assert float((port.project_candidates_ref(h, W, scale, b, shifted, **kw)
+                  - want).abs().max()) > bound

@@ -190,16 +190,18 @@ def test_block_plan_pads_the_h192_head():
 
 
 def test_int8_split_plan_fills_whole_waves():
-    """The int8 kernel's vocab splits: at the serving rows (80 row blocks
-    of 256, 782 tiles at 50k) the chosen split count wastes under 10% of
-    its waves of 132 blocks; a few rows (R = 800) spread the vocab over
-    most of the card; every tile lies in exactly one split."""
-    for rb, n_tiles in ((80, 782), (4, 782), (80, 250), (1, 3)):
-        sp, per = project.int8_splits(n_tiles, rb, 132)
+    """The int8 and bf16 kernels' vocab splits: at the serving rows (80
+    row blocks of 256, 782 tiles at 50k) the int8 split count wastes under
+    10% of its waves of 132 blocks; a few rows (R = 800) spread the vocab
+    over most of the card; every tile lies in exactly one split, whatever
+    a block's fixed cost."""
+    for rb, n_tiles, fixed in ((80, 782, 4), (4, 782, 4), (80, 250, 4), (1, 3, 4),
+                               (160, 196, 1), (7, 196, 0)):
+        sp, per = project.vocab_splits(n_tiles, rb, 132, fixed)
         assert (sp - 1) * per < n_tiles <= sp * per
-    sp, _ = project.int8_splits(782, 80, 132)
+    sp, _ = project.vocab_splits(782, 80, 132, project.INT8_BLOCK_TILES)
     assert 80 * sp / (-(-80 * sp // 132) * 132) >= 0.9
-    sp, _ = project.int8_splits(782, 4, 132)
+    sp, _ = project.vocab_splits(782, 4, 132, project.INT8_BLOCK_TILES)
     assert 4 * sp >= 66
 
 

@@ -1,0 +1,258 @@
+"""The port at the widths past 512 that the JAX package takes, on the CPU.
+
+The fused CE at hidden slices of 640 and 1,024, the LSTM scan at
+H = E = 1,024, and the bf16 and dequant-bf16 heads at a 1,024-wide slice:
+numpy-seeded inputs go through the JAX functions (Pallas in interpret mode,
+as tests/test_kernels.py runs them; the JAX scan takes its jnp fallback at
+these widths) and through the port's wrappers, which run their plain
+versions on CPU tensors.  tests/test_torch_kernels_cuda.py holds the CUDA
+kernels to those plain versions on the card at the same widths.  The scan's
+launch plan (resident or streamed W, blocks and unit groups) is checked
+here against an occupancy table of the card's shape.  Tolerances as in
+test_torch_softmax_ce.py, test_torch_lstm_scan.py and test_torch_ops.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from jlm_tpu.config import Config
+from jlm_tpu.ops import project as jax_project
+from jlm_tpu.ops import softmax_ce as jax_ce
+from jlm_tpu.ops.lstm_scan import lstm_scan as jax_scan
+from jlm_tpu.ops.quant import quantize_weight
+from jlm_tpu_torch.ops import lstm_scan as ls
+from jlm_tpu_torch.ops import project as port
+from jlm_tpu_torch.ops import softmax_ce as ce
+
+DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else jnp.asarray(x, jnp.float32))
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("D", [640, 1024])
+def test_ce_wide_matches_jax(D, dtype):
+    """The per-row triple (m, s, t) and the generalized backward (dh, dW,
+    db; independent ga, gb; -1 targets) at a slice wider than 512, V = 700.
+    fp32: 1e-5 abs and rel (sum order only).  bf16: the triple within 1e-5
+    (both sides round h and W to bf16 and sum in fp32); each gradient within
+    1e-3 of its largest magnitude (a gp on a bf16 rounding boundary may
+    round either way)."""
+    jd, td = DTYPES[dtype]
+    N, V = 16, 700
+    rng = np.random.default_rng(51)
+    h = rng.normal(size=(N, D)).astype(np.float32)
+    W = rng.normal(size=(D, V)).astype(np.float32) * 0.05
+    b = rng.normal(size=(V,)).astype(np.float32) * 0.01
+    y = rng.integers(0, V, N).astype(np.int32)
+    y[::5] = -1
+    ga = rng.normal(size=(N,)).astype(np.float32)
+    gb = rng.normal(size=(N,)).astype(np.float32)
+    kw = dict(tile_v=512, compute_dtype=jd, interpret=True)
+    m_j, s_j, t_j = jax_ce._ce_fwd_raw(*map(jnp.asarray, (h, W)), None, jnp.asarray(b),
+                                      jnp.asarray(y), **kw)
+    hT, WT, bT, yT = (torch.from_numpy(a) for a in (h, W, b, y))
+    m_t, s_t, t_t = ce.ce_fwd_raw(hT, WT, bT, yT, td)
+    for got, want in ((m_t, m_j), (s_t, s_j), (t_t, t_j)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    lse = (m_j + jnp.log(s_j)).astype(jnp.float32)
+    want = jax_ce._ce_bwd_impl(*map(jnp.asarray, (h, W)), None, jnp.asarray(b),
+                               jnp.asarray(y), lse, jnp.asarray(ga), jnp.asarray(gb), **kw)
+    got = ce.ce_bwd(hT, WT, bT, yT, torch.from_numpy(np.array(lse)), torch.from_numpy(ga),
+                    torch.from_numpy(gb), td)
+    for g, w, name in zip(got, want, ("dh", "dW", "db")):
+        assert tuple(g.shape) == tuple(w.shape), name
+        if dtype == "fp32":
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5,
+                                       err_msg=name)
+        else:
+            assert _rel(g.numpy(), np.asarray(w, np.float32)) <= 1e-3, name
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_lstm_scan_1024_matches_jax(dtype):
+    """H = E = 1,024, B = 2, T = 3: hs, c_T, h_T and the grads of xs, W, b,
+    c0, h0 from all three outputs through the port's autograd Function (its
+    forward and backward wrappers) vs JAX's.  At this width the JAX package
+    takes its jnp fallback, which computes in fp32 whatever the compute
+    dtype.  fp32: outputs 1e-5, grads 2e-4 abs + 1e-4 rel.  bf16 (x, h and
+    W rounded to bf16 before each product in the port, not in the
+    fallback): outputs within 2e-3 abs (the bf16 scan kernel's bound on the
+    card) and each grad within 1e-2 of its largest magnitude."""
+    jd, td = DTYPES[dtype]
+    B, T, E, H = 2, 3, 1024, 1024
+    rng = np.random.default_rng(52)
+    args = (rng.normal(size=(B, T, E)).astype(np.float32) * 0.1,
+            rng.normal(size=(E + H, 4 * H)).astype(np.float32) * 0.03,
+            rng.normal(size=(4 * H,)).astype(np.float32) * 0.01,
+            rng.normal(size=(B, H)).astype(np.float32) * 0.1,
+            rng.normal(size=(B, H)).astype(np.float32) * 0.1)
+    wh = rng.normal(size=(B, T, H)).astype(np.float32)
+    wc = rng.normal(size=(B, H)).astype(np.float32)
+
+    def loss_j(*a):
+        hs, cf, hf = jax_scan(*a, 1.0, T, jd, True)
+        return jnp.sum(hs * wh) + jnp.sum(cf * wc) + jnp.sum(hf * wc), (hs, cf, hf)
+
+    (_, outs_j), grads_j = jax.value_and_grad(loss_j, argnums=(0, 1, 2, 3, 4), has_aux=True)(
+        *map(jnp.asarray, args))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    n0 = (ls.lstm_scan_fwd.launches, ls.lstm_scan_bwd.launches)
+    hs, cf, hf = ls.lstm_scan(*leaves, 1.0, td)
+    loss = ((hs * torch.from_numpy(wh)).sum() + (cf * torch.from_numpy(wc)).sum()
+            + (hf * torch.from_numpy(wc)).sum())
+    grads = torch.autograd.grad(loss, leaves)
+    assert (ls.lstm_scan_fwd.launches, ls.lstm_scan_bwd.launches) == n0
+    for got, want in zip((hs, cf, hf), outs_j):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   atol=1e-5 if dtype == "fp32" else 2e-3)
+    for got, want, name in zip(grads, grads_j, ["xs", "W", "b", "c0", "h0"]):
+        if dtype == "fp32":
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, rtol=1e-4,
+                                       err_msg=name)
+        else:
+            assert _rel(got.numpy(), np.asarray(want)) <= 1e-2, name
+
+
+class _Occupancy:
+    """Stands in for the kernel library's occupancy query with the numbers
+    of a 132-SM card: a resident block (its W columns in shared memory)
+    fits once an SM up to E + H = 2,560 (its ~128 KB at E = H = 1,024 is
+    more than half an SM's 227 KB), a streamed block twice, while its
+    carries fit."""
+
+    def __init__(self):
+        self.calls = []
+
+    def jlm_lstm_scan_max_blocks(self, bwd, streamed, bf16, nvb, B, E, H, device):
+        self.calls.append((bwd, streamed, nvb))
+        if not streamed:
+            return 132 if (E + H) * 64 + (bwd * 8 * 4 * H * 4) < 232448 else 0
+        carries = (2 if bwd else 1) * nvb * B * 4 * 4
+        return 264 if carries < 100_000 else (132 if carries < 300_000 else 0)
+
+
+@pytest.mark.parametrize("B,E,H,bwd,want", [
+    (32, 256, 512, 0, (0, 128, 1)),    # the 50k training shape: resident W, H / 4 blocks
+    (32, 256, 512, 1, (0, 128, 1)),
+    (32, 1024, 1024, 0, (1, 256, 1)),  # H = E = 1,024: W streamed, two blocks an SM
+    (32, 1024, 1024, 1, (1, 256, 1)),
+    (32, 2048, 2048, 1, (1, 256, 2)),  # more groups than blocks: two groups a block
+    (4096, 1024, 1024, 1, (1, 128, 2)),  # large carries: one block an SM
+])
+def test_lstm_scan_plan(monkeypatch, B, E, H, bwd, want):
+    """``_plan`` keeps the resident design where all H / 4 blocks fit and
+    otherwise streams W with a grid that the card holds at once, each block
+    owning ceil(H / 4 / grid) unit groups."""
+    from jlm_tpu_torch.ops import _build
+
+    fake = _Occupancy()
+    monkeypatch.setattr(_build, "lib", lambda: fake)
+    assert ls._plan(bwd, B, E, H, torch.float32, torch.device("cpu")) == want
+    streamed, grid, nvb = want
+    assert grid * nvb >= H // 4 and (not streamed or grid <= 264)
+
+
+def test_lstm_scan_plan_refuses_only_what_no_grid_holds(monkeypatch):
+    """A shape at which not one streamed block fits on an SM raises, with
+    the reason; E and H must be multiples of 4 (the wrappers pad them)."""
+    from jlm_tpu_torch.ops import _build
+
+    fake = _Occupancy()
+    monkeypatch.setattr(_build, "lib", lambda: fake)
+    with pytest.raises(ValueError, match="not one block"):
+        ls._plan(1, 16384, 1024, 1024, torch.float32, torch.device("cpu"))
+    with pytest.raises(ValueError, match="multiple|% 4"):
+        ls._plan(0, 2, 30, 30, torch.float32, torch.device("cpu"))
+
+
+# weights: (quantized, JAX / port compute dtype, tolerance) -- bf16 operands
+# on both sides, fp32 sums (test_torch_ops.py's 1e-3)
+_HEADS = {
+    "bf16": (False, jnp.bfloat16, torch.bfloat16, 1e-3),
+    "dequant_bf16": (True, jnp.bfloat16, torch.bfloat16, 1e-3),
+}
+
+
+def _head_case(weights, H=1024, V=1000, R=8, seed=53):
+    quantized, jd, td, tol = _HEADS[weights]
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(R, H)).astype(np.float32)
+    w = rng.normal(size=(H, V)).astype(np.float32) * 0.05
+    b = rng.normal(size=(V,)).astype(np.float32) * 0.01
+    if quantized:
+        q = quantize_weight(w, axis=0)
+        wj, sj = jnp.asarray(q["q"]), jnp.asarray(q["scale"])
+        wt, st = torch.from_numpy(q["q"]), torch.from_numpy(q["scale"])
+    else:
+        wj, sj, wt, st = jnp.asarray(w, jd), None, torch.from_numpy(w).to(td), None
+    return h, b, (wj, sj), (wt, st), Config(vocab_size=V, embed_size=64, hidden_size=H)
+
+
+@pytest.mark.parametrize("weights", list(_HEADS))
+def test_project_lse_1024_matches_jax(weights):
+    """A full head on a 1,024-wide slice, V = 1000 (ragged against every
+    tile), bf16 weights or int8 weights dequantized to bf16, vs JAX's
+    project_lse in interpret mode; project_ms merges to the same lse."""
+    _, jd, td, tol = _HEADS[weights]
+    h, b, (wj, sj), (wt, st), cfg = _head_case(weights)
+    head_j = {"W": wj if sj is None else {"q": wj, "scale": sj}, "b": jnp.asarray(b)}
+    head_t = port._full_head(wt, st, torch.from_numpy(b))
+    lse_j = jax_project.project_lse(jnp.asarray(h), head_j, cfg, tile_v=512, compute_dtype=jd,
+                                    interpret=True, int8_mxu=False)
+    lse_t = port.project_lse(torch.from_numpy(h), head_t, cfg, compute_dtype=td,
+                             int8_mxu=False)
+    assert lse_t.shape == (8, 1)
+    np.testing.assert_allclose(_np(lse_t), _np(lse_j), atol=tol)
+    m, s = port.project_ms(torch.from_numpy(h), head_t, cfg, compute_dtype=td, int8_mxu=False)
+    np.testing.assert_allclose(_np(m + torch.log(s)), _np(lse_t), atol=1e-6)
+
+
+@pytest.mark.parametrize("weights", list(_HEADS))
+def test_project_candidates_1024_matches_jax(weights):
+    """Candidate log-probs on a 1,024-wide slice: C = 40 ids with repeats,
+    the vocab edges and a -1 (no column: -lse), vs JAX's
+    project_candidates in interpret mode."""
+    _, jd, td, tol = _HEADS[weights]
+    h, b, (wj, sj), (wt, st), cfg = _head_case(weights, seed=54)
+    rng = np.random.default_rng(55)
+    cand = rng.integers(0, 1000, 40).astype(np.int32)
+    cand[:5] = [0, 999, 321, 321, -1]
+    out_j = jax_project.project_candidates(
+        jnp.asarray(h), wj, sj, jnp.asarray(b), jnp.asarray(cand), tile_v=512,
+        compute_dtype=jd, interpret=True, int8_mxu=False)
+    out_t = port.project_candidates(torch.from_numpy(h), wt, st, torch.from_numpy(b),
+                                    torch.from_numpy(cand), compute_dtype=td, int8_mxu=False)
+    assert out_t.shape == (8, 40) and out_t.dtype == torch.float32
+    np.testing.assert_allclose(out_t.numpy(), _np(out_j), atol=tol)
+    np.testing.assert_array_equal(out_t[:, 2].numpy(), out_t[:, 3].numpy())
+    lse = port.project_lse(torch.from_numpy(h), port._full_head(wt, st, torch.from_numpy(b)),
+                           compute_dtype=td, int8_mxu=False)
+    np.testing.assert_allclose(out_t[:, 4].numpy(), -lse[:, 0].numpy(), atol=1e-6)
+
+
+def test_head_plan_widths():
+    """The bf16 and dequant-bf16 plans take any slice width (the kernel
+    streams h in K chunks; 1,056 here, padded to a multiple of 32); the
+    int8-MXU plan refuses a slice wider than 1,024 before any launch."""
+    for weights in _HEADS:
+        _, _, _, (wt, st), _ = _head_case(weights, H=1050, V=64)
+        head = port._full_head(wt, st, torch.zeros(64))
+        head["WT"] = wt.t().contiguous()
+        plan = port._block_plan(head, None, 1050, torch.device("cpu"), torch.bfloat16, False)
+        assert plan[0][7] == 1056 and tuple(plan[0][2].shape) == (64, 1056)
+    _, _, _, (wt, st), _ = _head_case("dequant_bf16", H=1050, V=64)
+    head = port._full_head(wt, st, torch.zeros(64))
+    head["WT"] = wt.t().contiguous()
+    with pytest.raises(ValueError, match="up to 1024"):
+        port._block_plan(head, None, 1050, torch.device("cpu"), torch.bfloat16, True)
