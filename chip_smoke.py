@@ -34,7 +34,14 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
    above the bounds); and the widths past 512 (``wide_cases``, H = E =
    1,024: the bf16 and dequant-bf16 heads on a 1,024-wide slice, the
    fused CE at D = 1,024 in bf16 and fp32, the scan in fp32 and bf16
-   forward and backward, each with a wrong version);
+   forward and backward, each with a wrong version); ``cand_dot`` in fp32
+   and at a beam of 20 (wrong: beam rows 8 on read from rows 0 on) and
+   the width repairs (``odd_width_cases``: the int8-MXU head on 1,536- and
+   2,048-wide slices, wrong: K past 1,024 dropped; both cells at E = 30,
+   H = 20 and the fused frame at E = 40, H = 24, wrong: W padded at its
+   end instead of per gate); every case is timed one call at a time and 50
+   calls in a row (``in_a_row``), the fused frame beside the split pair it
+   replaces;
 2b. candidate extraction through ``project_candidates`` and
    ``project_candidates_dsoftmax`` as ``scripts/bench_kernels.py`` drives
    them, one launch per block counted;
@@ -84,15 +91,21 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
    ``--pallas-scan --fused-ce`` training steps against the loop path
    (launches counted), the fp32 fused CE, the bf16 scan through autograd
    and the 1,024-wide bf16 and dequant heads through their entry points;
+5e. the width repairs through their entry points (``odd_width_run``):
+   ``BeamDecoder`` at E = 30, H = 20 greedy fp32 (50/50 vs the oracle),
+   beam-10 and beam-20 bf16; the fused frame at E = 40, H = 24 greedy
+   fp32 (50/50) and beam-10 int8; ``BeamDecoder`` at H = 2,048 with an
+   int8-MXU head; one ``project_lse`` on a 1,536-wide int8 slice;
 6. save the trained weights, reload the checkpoint, and decode the 50
    sentences fp32 greedy: 50/50 top-1 identity with the oracle on them.
 
 Weights are random (``init_params`` seed 0) before training.  Phases 3c,
 3b and 4b are the serving path's other modes; they run after phase 4.  The line
 before the card's is ``{"kernels": [...]}``: per kernel its launches on the
-main path, its error against the plain version, its time, the plain
-version's and the library call's where one PyTorch call computes the same
-function, its bound (the least time the card could take, from the bytes
+main path, its error against the plain version, its time (one call, and
+50 calls in a row: ``row_ms``, ``row_host_ms``), the plain
+version's and the library call's (``library_ms``, ``library_row_ms``)
+where one PyTorch call computes the same function, its bound (the least time the card could take, from the bytes
 and operations of this run's inputs and, for the head, its R x V
 exponentials at 16 a clock per SM and the card's max SM clock) and the
 CUDA function behind it.  The last line is
@@ -228,6 +241,20 @@ BOUNDS = {  # kernel vs plain version, on the same inputs on the card
     "lstm_scan_fwd bf16 H1024": 1e-2,
     "lstm_scan_bwd fp32 H1024": 1.0,
     "lstm_scan_bwd bf16 H1024": 1e-2,
+    # cand_dot's other modes: abs error / max(1, max |plain|); fp32: exact
+    # fp32 FMAs, sums in another order; each wrong call (beam rows 8 on read
+    # from rows 0 on) must read above
+    "cand_dot fp32": 1e-5,
+    "cand_dot bf16 B20": 1e-3,
+    "cand_dot fp32 B20": 1e-5,
+    # the width repairs, each with the bound and the reason of its aligned
+    # counterpart above (the int8 head past 1,024: exact int32 products)
+    "project_lse int8 D1536": 1e-4,
+    "project_lse int8 D2048": 1e-4,
+    "lstm_cell_step bf16 E30 H20": 2.0,
+    "lstm_cell_step fp32 E30 H20": 1e-5,
+    "cell_cand_step bf16 E40 H24": 1.0,
+    "cell_cand_step fp32 E40 H24": 1e-5,
 }
 # lse + P_SHIFT in the plain backward: a p-term exp(-0.3) = 0.74 of its value
 P_SHIFT = 0.3
@@ -395,14 +422,51 @@ def bwd_err(k, p):
     return rel_err(k, p), max(abs_err(a, b) for a, b in zip(k, p))
 
 
+def frame_err_of(cols):
+    """The fused frame's error fn for candidate columns ``cols [S, C1,
+    H]``: the larger of c' and h' error in bf16 ulps over its bound 2.0 and
+    the candidate error beyond what h' elements rounded the other way
+    explain (sum of |h'_k - h'_p| |cols|), relative to max(1, max |plain|),
+    over its bound 1e-4 (what is left is fp32 sum order): at most 1.0."""
+    S_, _, H_ = cols.shape
+
+    def frame_err(k, p):
+        slack = torch.einsum("sbh,sch->sbc",
+                             (k[1].float() - p[1].float()).abs().reshape(S_, -1, H_),
+                             cols.float().abs())
+        cand = float(((k[2] - p[2]).abs() - slack).max()) / max(1.0, float(p[2].abs().max()))
+        state = max(bf16_ulps(k[0], p[0]), bf16_ulps(k[1], p[1]))
+        return max(state / 2.0, cand / 1e-4), max(abs_err(a, b) for a, b in zip(k, p))
+
+    return frame_err
+
+
+def gates_padded_at_the_end(x, h, c, W, b, m):
+    """The cell's padding done wrong, for widths off the kernel's multiple
+    ``m``: W's 4H gate columns and its E + H rows, and b, padded at their
+    ends instead of per gate and per operand, then the plain cell on the
+    padded operands, sliced back: the gates and the h rows fall out of
+    place."""
+    from jlm_tpu_torch.ops.lstm_cell import lstm_cell_ref
+
+    E_, H_ = x.shape[1], h.shape[1]
+    Ep, Hp = -(-E_ // m) * m, -(-H_ // m) * m
+    pad = torch.nn.functional.pad
+    Wn = pad(W.float(), (0, 4 * (Hp - H_), 0, Ep + Hp - E_ - H_))
+    c_n, h_n = lstm_cell_ref(pad(x, (0, Ep - E_)), pad(h, (0, Hp - H_)), pad(c, (0, Hp - H_)),
+                             Wn, pad(b, (0, 4 * (Hp - H_))), 1.0)
+    return c_n[:, :H_], h_n[:, :H_]
+
+
 def torch_gates(W, b):
     """(w_ih, w_hh, b_ih) of PyTorch's LSTM for fused ``W``, ``b``: gate
     order i, j, f, o -> PyTorch's i, f, g(= j), o, the forget bias folded
     into the bias."""
-    perm = torch.cat([torch.arange(g * H, (g + 1) * H) for g in (0, 2, 1, 3)]).to(W.device)
+    H_ = b.shape[0] // 4
+    perm = torch.cat([torch.arange(g * H_, (g + 1) * H_) for g in (0, 2, 1, 3)]).to(W.device)
     b = b.clone()
-    b[2 * H:3 * H] += 1.0  # forget_bias
-    return W[:-H, perm].t().contiguous(), W[-H:, perm].t().contiguous(), b[perm]
+    b[2 * H_:3 * H_] += 1.0  # forget_bias
+    return W[:-H_, perm].t().contiguous(), W[-H_:, perm].t().contiguous(), b[perm]
 
 
 def kernel_cases(dev, rng):
@@ -444,6 +508,7 @@ def kernel_cases(dev, rng):
     bc = t(rng.normal(0, 0.1, 4 * H))
 
     h3 = t(rng.uniform(-1, 1, (S, B, H)), bf)
+    h3_20 = t(rng.uniform(-1, 1, (S, 20, H)), bf)  # a beam of 20: two groups of rows
     cols = t(rng.normal(0, 0.05, (S, C1, H)), bf)
     cbias = t(rng.normal(0, 0.1, (S, C1)))
 
@@ -483,10 +548,20 @@ def kernel_cases(dev, rng):
     def cand_err(k, p):
         return abs_err(k, p) / max(1.0, float(p.abs().max())), abs_err(k, p)
 
+    def second_half_rows(hh):
+        """Beam rows 8 on read from rows 0 on: what the dot gives if its
+        m16 tile's second half took the first half's rows."""
+        hw = hh.clone()
+        hw[:, 8:] = hh[:, :hh.shape[1] - 8]
+        return hw
+
+    def cand_case(name, hh, cc):
+        return (name, lambda: cand_dot(hh, cc, cbias), lambda: cand_dot_ref(hh, cc, cbias),
+                cand_err, lambda: cand_dot_ref(second_half_rows(hh), cc, cbias),
+                lambda: torch.baddbmm(cbias.to(hh.dtype)[:, None, :], hh, cc.transpose(1, 2)))
+
     w_ih, w_hh, b_ih = torch_gates(Wc, bc)
     b_ih, b_hh = b_ih.to(bf), torch.zeros_like(b_ih, dtype=bf)
-    cbias_b = cbias.to(bf)[:, None, :]
-    cols_t = cols.transpose(1, 2)
 
     xs = t(rng.normal(0, 0.3, (TB, TT, E)))
     Ws = t(rng.normal(0, 0.05, (E + H, 4 * H)))
@@ -573,10 +648,10 @@ def kernel_cases(dev, rng):
                                 c_out_dtype=bf),
          cell_plain, cell_err, lambda: cell_plain(swap_jf(Wc), swap_jf(bc)),
          lambda: torch.lstm_cell(x, (h, c), w_ih, w_hh, b_ih, b_hh)),
-        ("cand_dot bf16",
-         lambda: cand_dot(h3, cols, cbias),
-         lambda: cand_dot_ref(h3, cols, cbias),
-         cand_err, None, lambda: torch.baddbmm(cbias_b, h3, cols_t)),
+        cand_case("cand_dot bf16", h3, cols),
+        cand_case("cand_dot fp32", h3.float(), cols.float()),
+        cand_case("cand_dot bf16 B20", h3_20, cols),
+        cand_case("cand_dot fp32 B20", h3_20.float(), cols.float()),
         ("ce_fwd bf16",
          lambda: ce_fwd_raw(h_ce, W_ce, b_ce, y_ce, bf),
          lambda: ce_fwd_raw_ref(h_ce, W_ce, b_ce, y_ce, bf),
@@ -720,6 +795,11 @@ def head_mode_cases(dev, rng):
     ]
 
 
+# case name -> the split pair (lstm_cell_step + cand_dot) its fused kernel
+# replaces, timed beside it in phase 2
+SPLIT_PAIRS = {}
+
+
 def cand_ids(rng, sizes, n=C_CAND):
     """``n`` candidate ids over a vocabulary of blocks ``sizes``, spread
     over every block, with each block's first and last id among them."""
@@ -743,8 +823,9 @@ def port_cases(dev, rng):
     rounding.  Library calls (yardsticks only):
     ``cross_entropy`` over ``h @ W + b`` for ce_fwd, and ``torch.lstm_cell``
     followed by ``torch.baddbmm`` for the frame kernel (both dtypes)."""
+    from jlm_tpu_torch.ops.cand_dot import cand_dot
     from jlm_tpu_torch.ops.frame_step import cell_cand_ref, cell_cand_step
-    from jlm_tpu_torch.ops.lstm_cell import lstm_cell_ref
+    from jlm_tpu_torch.ops.lstm_cell import cell_weight_tiles, lstm_cell_ref, lstm_cell_step
     from jlm_tpu_torch.ops.project import (
         project_candidates, project_candidates_dsoftmax, project_candidates_dsoftmax_ref,
         project_candidates_ref)
@@ -854,19 +935,7 @@ def port_cases(dev, rng):
     b_ih, b_hh = b_ih.to(bf), torch.zeros_like(b_ih, dtype=bf)
     cbias_b, cols_t = cbias.to(bf)[:, None, :], cols.transpose(1, 2)
 
-    def frame_err(k, p):
-        """The larger of c' and h' error in bf16 ulps over its bound 2.0
-        and the candidate error beyond what h' elements rounded the other
-        way explain (sum of |h'_k - h'_p| |cols|), relative to
-        max(1, max |plain|), over its bound 1e-4 (what is left is fp32 sum
-        order): at most 1.0."""
-        slack = torch.einsum("sbh,sch->sbc",
-                             (k[1].float() - p[1].float()).abs().reshape(S, B, H),
-                             cols.float().abs())
-        cand = float(((k[2] - p[2]).abs() - slack).max()) / max(1.0, float(p[2].abs().max()))
-        state = max(bf16_ulps(k[0], p[0]), bf16_ulps(k[1], p[1]))
-        return max(state / 2.0, cand / 1e-4), max(abs_err(a, b) for a, b in zip(k, p))
-
+    frame_err = frame_err_of(cols)
     def library_frame():
         c_l, h_l = torch.lstm_cell(x, (hf, c), w_ih, w_hh, b_ih, b_hh)
         return c_l, torch.baddbmm(cbias_b, h_l.reshape(S, B, H), cols_t)
@@ -877,6 +946,12 @@ def port_cases(dev, rng):
         return c_n, h_n.to(bf), (torch.einsum("sbh,sch->sbc", h_n.reshape(S, B, H),
                                               cols.float()) + cbias[:, None, :])
 
+    def split_pair():
+        c_n, h_n = lstm_cell_step(x, hf, c, Wc, bc, 1.0, compute_dtype=bf, c_out_dtype=bf)
+        return c_n, cand_dot(h_n.reshape(S, B, H), cols, cbias)
+
+    cell_weight_tiles(Wc, E, H)  # kept on Wc, as build_decode_head makes it
+    SPLIT_PAIRS["cell_cand_step bf16"] = split_pair
     cases.append(("cell_cand_step bf16",
                   lambda: cell_cand_step(x, hf, c, Wc, bc, cols, cbias, B, 1.0, compute_dtype=bf),
                   lambda: cell_cand_ref(x, hf, c, Wc, bc, cols, cbias, B, 1.0, compute_dtype=bf),
@@ -993,20 +1068,44 @@ def wide_cases(dev, rng):
     scan_in = (xs, Ws, bs, c0, h0)
     grads = (t(rng.normal(0, 1, (TB, TT, HW))), t(rng.normal(0, 1, (TB, HW))),
              t(rng.normal(0, 1, (TB, HW))))
+    def cudnn(cd):
+        """cuDNN's LSTM (``torch.nn.LSTM``) on the same weights in ``cd``
+        (TF32 off): its forward, and its backward alone on a retained
+        graph, as the yardsticks of the scan kernels."""
+        lstm = torch.nn.LSTM(HW, HW, batch_first=True).to(dev)
+        with torch.no_grad():
+            for param, value in zip((lstm.weight_ih_l0, lstm.weight_hh_l0, lstm.bias_ih_l0),
+                                    torch_gates(Ws, bs)):
+                param.copy_(value)
+            lstm.bias_hh_l0.zero_()
+        lstm = lstm.to(cd)
+        leaves = ([a.to(cd).clone().requires_grad_(True) for a in (xs, h0, c0)]
+                  + list(lstm.parameters()))
+
+        def fwd():
+            with torch.no_grad():
+                return lstm(leaves[0], (leaves[1][None], leaves[2][None]))
+
+        hs_l, (h_T, c_T) = lstm(leaves[0], (leaves[1][None], leaves[2][None]))
+        d_out = (grads[0].to(cd), grads[2][None].to(cd), grads[1][None].to(cd))
+        return fwd, lambda: torch.autograd.grad((hs_l, h_T, c_T), leaves, d_out,
+                                                retain_graph=True)
+
     for cd in (f32, bf):
         name = "bf16" if cd == bf else "fp32"
         hs, cs = lstm_scan_ref(*scan_in, 1.0, cd)[:2]
         saved = scan_in + (hs, cs) + grads
+        cudnn_fwd, cudnn_bwd = cudnn(cd)
         cases += [
             (f"lstm_scan_fwd {name} H1024", lambda cd=cd: lstm_scan_fwd(*scan_in, 1.0, cd),
              lambda cd=cd: lstm_scan_ref(*scan_in, 1.0, cd), abs_errs,
              {f"a forget bias off by {F_SHIFT:g}":
-              lambda cd=cd: lstm_scan_ref(*scan_in, 1.0 + F_SHIFT, cd)}, None),
+              lambda cd=cd: lstm_scan_ref(*scan_in, 1.0 + F_SHIFT, cd)}, cudnn_fwd),
             (f"lstm_scan_bwd {name} H1024", lambda a=saved, cd=cd: lstm_scan_bwd(*a, 1.0, cd),
              lambda a=saved, cd=cd: lstm_scan_bwd_ref(*a, 1.0, cd),
              scan_bwd_err if cd == f32 else bwd_err,
              {f"a forget gate sigmoid(f + {F_SHIFT:g}) in the backward":
-              lambda a=saved, cd=cd: lstm_scan_bwd_ref(*a, 1.0 + F_SHIFT, cd)}, None),
+              lambda a=saved, cd=cd: lstm_scan_bwd_ref(*a, 1.0 + F_SHIFT, cd)}, cudnn_bwd),
         ]
     return cases
 
@@ -1107,6 +1206,234 @@ def wide_run(dev, rng, config, vocab, dev_ids):
     return launches
 
 
+# widths the kernels take only padded: the cells at E = 30, H = 20 (off the
+# fp32 kernel's 32 and the bf16 kernel's 8), the fused frame at E = 40,
+# H = 24 (off the fp32 kernel's 32 / 64), and int8-MXU head slices past the
+# 1,024 its resident kernel holds (python -m jlm_tpu_torch.train
+# --hidden-size 2048 checkpoints served int8)
+ODD_CELL, ODD_FRAME, INT8_WIDE = (30, 20), (40, 24), (1536, 2048)
+
+
+def odd_width_cases(dev, rng):
+    """The width repairs, as kernel_cases' cases: the int8-MXU head at
+    INT8_WIDE slices (R = 20,480, V = 50,000; wrong: the slice's K past
+    1,024 dropped, a streamed kernel stopping at the resident width), the
+    bf16 cell at the serving rows and the fp32 cell at the fp32 parity
+    run's rows at ODD_CELL, and the fused frame at ODD_FRAME in bf16 (the
+    serving frame) and fp32 (the parity run's frame); the wrong version
+    pads W and b at their ends instead of per gate
+    (``gates_padded_at_the_end``): to the kernel's multiple for the cells,
+    to the 64 units of a gate tile for the frames.  Library calls as for the 512-wide
+    cases."""
+    from jlm_tpu_torch.ops.frame_step import cell_cand_ref, cell_cand_step
+    from jlm_tpu_torch.ops.lstm_cell import lstm_cell_ref, lstm_cell_step
+    from jlm_tpu_torch.ops.project import project_lse, project_lse_ref, quantize_rows
+    from jlm_tpu_torch.ops.quant import quantize_weight
+
+    f32, bf = torch.float32, torch.bfloat16
+
+    def t(a, dtype=f32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev).to(dtype)
+
+    cases = []
+    bias = t(rng.normal(0, 0.1, V))
+    for d in INT8_WIDE:
+        h = t(rng.uniform(-1, 1, (R, d)), bf)
+        q = quantize_weight(rng.normal(0, 0.05, (d, V)).astype(np.float32), axis=0)
+        Wq, sq = torch.from_numpy(q["q"]).to(dev), t(q["scale"])
+        head = {"W": {"q": Wq, "scale": sq}, "b": bias, "WT": Wq.t().contiguous()}
+
+        def first_1024(h=h, Wq=Wq, sq=sq):
+            qh, s_ = quantize_rows(h)
+            acc = qh[:, :1024].double() @ Wq[:1024].double()
+            return torch.logsumexp(acc.float() * s_ * sq[None, :] + bias[None, :], dim=1,
+                                   keepdim=True)
+
+        cases.append((f"project_lse int8 D{d}",
+                      lambda h=h, head=head: project_lse(h, head, None, compute_dtype=bf,
+                                                         int8_mxu=True),
+                      lambda h=h, head=head: project_lse_ref(h, head, compute_dtype=bf,
+                                                             int8_mxu=True),
+                      abs_errs, {"the slice's K past 1,024 dropped": first_1024}, None))
+
+    def cell_err(k, p):
+        return (max(bf16_ulps(k[0], p[0]), bf16_ulps(k[1], p[1])),
+                max(abs_err(k[0], p[0]), abs_err(k[1], p[1])))
+
+    Eo, Ho = ODD_CELL
+    for cd, rows in ((bf, R), (f32, R32)):
+        x, h, c = (t(rng.normal(0, 0.3, (rows, Eo)), cd), t(rng.uniform(-1, 1, (rows, Ho)), cd),
+                   t(rng.normal(0, 1.0, (rows, Ho)), cd))
+        W, b = t(rng.normal(0, 0.05, (Eo + Ho, 4 * Ho)), cd), t(rng.normal(0, 0.1, 4 * Ho))
+        w_ih, w_hh, b_ih = torch_gates(W, b)
+        b_ih, b_hh = b_ih.to(cd), torch.zeros_like(b_ih, dtype=cd)
+        if cd == bf:
+            cases.append((f"lstm_cell_step bf16 E{Eo} H{Ho}",
+                          lambda x=x, h=h, c=c, W=W, b=b: lstm_cell_step(
+                              x, h, c, W, b, 1.0, compute_dtype=bf, c_out_dtype=bf),
+                          lambda x=x, h=h, c=c, W=W, b=b: tuple(
+                              a.to(bf) for a in lstm_cell_ref(x, h, c, W, b, 1.0)),
+                          cell_err,
+                          {"W and b padded at their ends, not per gate":
+                           lambda x=x, h=h, c=c, W=W, b=b: tuple(
+                               a.to(bf) for a in gates_padded_at_the_end(x, h, c, W, b, 8))},
+                          lambda x=x, h=h, c=c, w_ih=w_ih, w_hh=w_hh, b_ih=b_ih, b_hh=b_hh:
+                          torch.lstm_cell(x, (h, c), w_ih, w_hh, b_ih, b_hh)))
+        else:
+            cases.append((f"lstm_cell_step fp32 E{Eo} H{Ho}",
+                          lambda x=x, h=h, c=c, W=W, b=b: lstm_cell_step(x, h, c, W, b, 1.0),
+                          lambda x=x, h=h, c=c, W=W, b=b: lstm_cell_ref(x, h, c, W, b, 1.0),
+                          abs_errs,
+                          {"W and b padded at their ends, not per gate":
+                           lambda x=x, h=h, c=c, W=W, b=b: gates_padded_at_the_end(
+                               x, h, c, W, b, 32)},
+                          lambda x=x, h=h, c=c, w_ih=w_ih, w_hh=w_hh, b_ih=b_ih, b_hh=b_hh:
+                          torch.lstm_cell(x, (h, c), w_ih, w_hh, b_ih, b_hh)))
+
+    Eo, Ho = ODD_FRAME
+    for cd, nsent, beam in ((bf, S, B), (f32, S32, R32 // S32)):
+        rows = nsent * beam
+        x, h = t(rng.normal(0, 0.3, (rows, Eo)), cd), t(rng.uniform(-1, 1, (rows, Ho)), cd)
+        c = t(rng.normal(0, 1.0, (rows, Ho)), cd)
+        W, b = t(rng.normal(0, 0.05, (Eo + Ho, 4 * Ho)), cd), t(rng.normal(0, 0.1, 4 * Ho))
+        cols, cbias = t(rng.normal(0, 0.05, (nsent, C1, Ho)), cd), t(rng.normal(0, 0.1, (nsent, C1)))
+        w_ih, w_hh, b_ih = torch_gates(W, b)
+        b_ih, b_hh = b_ih.to(cd), torch.zeros_like(b_ih, dtype=cd)
+
+        def wrong(x=x, h=h, c=c, W=W, b=b, cols=cols, cbias=cbias, cd=cd, nsent=nsent):
+            c_n, h_n = gates_padded_at_the_end(x, h, c, W, b, 64)
+            hc = h_n.to(cd)
+            return c_n, hc, (torch.einsum("sbh,sch->sbc", hc.float().reshape(nsent, -1, Ho),
+                                          cols.float()) + cbias[:, None, :])
+
+        def library(x=x, h=h, c=c, cols=cols, cbias=cbias, w_ih=w_ih, w_hh=w_hh, b_ih=b_ih,
+                    b_hh=b_hh, nsent=nsent, cd=cd):
+            c_l, h_l = torch.lstm_cell(x, (h, c), w_ih, w_hh, b_ih, b_hh)
+            return c_l, torch.baddbmm(cbias.to(cd)[:, None, :], h_l.reshape(nsent, -1, Ho),
+                                      cols.transpose(1, 2))
+
+        name = "bf16" if cd == bf else "fp32"
+        cases.append((f"cell_cand_step {name} E{Eo} H{Ho}",
+                      lambda x=x, h=h, c=c, W=W, b=b, cols=cols, cbias=cbias, beam=beam, cd=cd:
+                      cell_cand_step(x, h, c, W, b, cols, cbias, beam, 1.0, compute_dtype=cd),
+                      lambda x=x, h=h, c=c, W=W, b=b, cols=cols, cbias=cbias, beam=beam, cd=cd:
+                      cell_cand_ref(x, h, c, W, b, cols, cbias, beam, 1.0, compute_dtype=cd),
+                      frame_err_of(cols) if cd == bf else abs_errs,
+                      {"W and b padded at their ends, not per gate": wrong}, library))
+    return cases
+
+
+def odd_width_run(dev, vocab, lexicon, kanas):
+    """The width repairs through their entry points, each counter set to 0
+    just before each run: ``BeamDecoder`` at E, H = ODD_CELL (50k, 1 layer)
+    greedy through the fp32 kernel forward against the numpy oracle (50/50,
+    scores within 1e-3),
+    beam-10 in bf16 and beam-20 in bf16 (two groups of beam rows: finite
+    results); the fused frame at ODD_FRAME greedy in fp32 against the
+    oracle (50/50, 1e-3) and beam-10 int8 (finite); ``BeamDecoder`` at
+    H = 2,048 (E = 256) with an int8-MXU head, beam-10 (finite; every
+    forward one launch of each split-frame kernel); and one ``project_lse``
+    call on a 1,536-wide int8 slice at the serving rows (finite, [R, 1]).
+    Returns the launches by kernels-line name."""
+    from jlm_tpu_torch.config import Config
+    from jlm_tpu_torch.decoder.engine import (
+        BeamDecoder, make_fused_frame_forward, make_kernel_forward)
+    from jlm_tpu_torch.models.params import init_params
+    from jlm_tpu_torch.oracle import OracleDecoder, OracleLM
+    from jlm_tpu_torch.ops.cand_dot import cand_dot
+    from jlm_tpu_torch.ops.frame_step import cell_cand_step
+    from jlm_tpu_torch.ops.lstm_cell import lstm_cell_step
+    from jlm_tpu_torch.ops.project import project_lse
+    from jlm_tpu_torch.ops.quant import quantize_params, quantize_weight
+
+    counters = (project_lse, lstm_cell_step, cand_dot, cell_cand_step)
+
+    def counted(run):
+        for fn in counters:
+            fn.launches = 0
+        out = run()
+        return out, {fn.__name__: fn.launches for fn in counters}
+
+    def finite(res, label):
+        check(len(res) == len(kanas) and all(len(r) >= 1 and np.isfinite(r[0].score)
+                                            for r in res), f"{label}: finite top-1 results")
+
+    def greedy_parity(params_, cfg_, label, **kw):
+        eng = BeamDecoder(params_, lexicon, vocab, cfg_, device=dev, **kw)
+        res, counts = counted(lambda: eng.decode_batch(kanas))
+        oracle = OracleDecoder(OracleLM(params_, cfg_), lexicon, vocab, cfg_)
+        want = [oracle.decode(k)[0] for k in kanas]
+        n = identical(res, want)
+        worst = max(abs(r[0].score - o.score) for r, o in zip(res, want))
+        log(f"{label}: parity {n}/{len(kanas)} (vs fp32 oracle), max |score - oracle| "
+            f"{worst:.3e}; launches {counts}")
+        check(n == len(kanas) and worst <= 1e-3, f"{label}: greedy fp32 parity")
+        return counts
+
+    def beam_run(params_, cfg_, label, **kw):
+        eng = BeamDecoder(params_, lexicon, vocab, cfg_, device=dev, **kw)
+        res, counts = counted(lambda: eng.decode_batch(kanas))
+        finite(res, label)
+        log(f"{label}: launches {counts}")
+        return counts
+
+    launches = {}
+    Eo, Ho = ODD_CELL
+    cfg = Config(vocab_size=V, embed_size=Eo, hidden_size=Ho, num_layers=1, beam_width=10,
+                 n_best_max=1, seed=0)
+    params = init_params(cfg)
+    greedy = cfg.replace(beam_width=1)
+    counts = greedy_parity(params, greedy, f"E = {Eo}, H = {Ho} greedy fp32 kernel forward",
+                           forward_fn=make_kernel_forward(greedy, torch.float32))
+    launches[f"lstm_cell_step fp32 E{Eo} H{Ho}"] = counts["lstm_cell_step"]
+    counts = beam_run(params, cfg, f"E = {Eo}, H = {Ho} beam-10 bf16", precision="default")
+    launches[f"lstm_cell_step E{Eo} H{Ho}"] = counts["lstm_cell_step"]
+    counts = beam_run(params, cfg.replace(beam_width=20), f"E = {Eo}, H = {Ho} beam-20 bf16",
+                      precision="default")
+    check(counts["cand_dot"] == 2 * counts["project_lse"],
+          f"beam-20: two cand_dot launches a forward, got {counts}")
+    launches["cand_dot B20"] = counts["cand_dot"]
+
+    Eo, Ho = ODD_FRAME
+    cfg = cfg.replace(embed_size=Eo, hidden_size=Ho)
+    params = init_params(cfg)
+    greedy = cfg.replace(beam_width=1)
+    counts = greedy_parity(params, greedy, f"E = {Eo}, H = {Ho} fused frame greedy fp32",
+                           forward_fn=make_fused_frame_forward(greedy, torch.float32))
+    launches[f"cell_cand_step fp32 E{Eo} H{Ho}"] = counts["cell_cand_step"]
+    counts = beam_run(quantize_params(params), cfg,
+                      f"E = {Eo}, H = {Ho} fused frame beam-10 int8",
+                      forward_fn=make_fused_frame_forward(cfg))
+    check(counts["cell_cand_step"] == counts["project_lse"] > 0
+          and counts["lstm_cell_step"] == counts["cand_dot"] == 0,
+          f"fused frame at E = {Eo}, H = {Ho}: launches {counts}")
+    launches[f"cell_cand_step E{Eo} H{Ho}"] = counts["cell_cand_step"]
+    del params
+
+    wide = Config(vocab_size=V, embed_size=E, hidden_size=INT8_WIDE[1], num_layers=1,
+                  beam_width=10, n_best_max=1, seed=0)
+    qp = quantize_params(init_params(wide))
+    counts = beam_run(qp, wide, f"H = {INT8_WIDE[1]} beam-10 int8-MXU", precision="default")
+    check(counts["project_lse"] == counts["lstm_cell_step"] == counts["cand_dot"] > 0,
+          f"H = {INT8_WIDE[1]}: launches {counts}")
+    launches[f"project_lse D{INT8_WIDE[1]}"] = counts["project_lse"]
+    del qp
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(8)
+    d = INT8_WIDE[0]
+    q = quantize_weight(rng.normal(0, 0.05, (d, V)).astype(np.float32), axis=0)
+    head = {"W": {"q": torch.from_numpy(q["q"]).to(dev),
+                  "scale": torch.from_numpy(q["scale"]).to(dev)},
+            "b": torch.zeros(V, device=dev)}
+    h = torch.from_numpy(rng.uniform(-1, 1, (R, d)).astype(np.float32)).to(dev)
+    lse, counts = counted(lambda: project_lse(h.to(torch.bfloat16), head, None,
+                                              compute_dtype=torch.bfloat16, int8_mxu=True))
+    check(lse.shape == (R, 1) and bool(torch.isfinite(lse).all()), f"D{d} int8: finite [R, 1]")
+    launches[f"project_lse D{d}"] = counts["project_lse"]
+    log(f"width repairs' launches: {launches}")
+    return launches
+
+
 # exponentials of each head case: one per logit (R x V)
 EXPS = {
     "project_lse": R * V, "project_lse bf16": R * V, "project_lse bf16 D1024": R * V,
@@ -1117,6 +1444,7 @@ EXPS = {
     "project_candidates dequant bf16": R_CAND * V, "project_candidates int8": R_CAND * V,
     "project_candidates dsoftmax int8": R_CAND * V5,
     "project_candidates dsoftmax fp32": R_CAND * V5,
+    **{f"project_lse D{d}": R * V for d in INT8_WIDE},
 }
 SFU_PER_CLOCK = 16  # exponentials a clock per SM (the special-function units)
 # exponentials per second of the card: set in main from the SM count and
@@ -1144,6 +1472,7 @@ def work():
                                            + TB * TT * HW + 2 * TB * HW),
                           4 * TB * TT * 2 * HW * 4 * HW)}
     cand_io = C_CAND * 4 + R_CAND * C_CAND * 4  # ids in, log-probs out
+    (eo, ho), (fe, fh) = ODD_CELL, ODD_FRAME
     return {
         # h bf16, W int8 (one layout), scale, bias -> lse
         "project_lse": (R * H * 2 + H * V + V * 8 + R * 4, 2 * R * H * V, "int8"),
@@ -1216,6 +1545,28 @@ def work():
         "cell_cand_step fp32": (R32 * (E + 2 * H) * 4 + (E + H) * 4 * H * 4 + 4 * H * 4
                                 + S32 * C1 * (H * 4 + 4) + R32 * H * 8 + R32 * C1 * 4,
                                 2 * R32 * (E + H) * 4 * H + 2 * R32 * C1 * H, "fp32"),
+        # cand_dot's other modes: fp32 at the serving frame; a beam of 20
+        "cand_dot fp32": (S * B * H * 4 + S * C1 * H * 4 + S * C1 * 4 + S * B * C1 * 4,
+                          2 * S * B * C1 * H, "fp32"),
+        "cand_dot B20": (S * 20 * H * 2 + S * C1 * H * 2 + S * C1 * 4 + S * 20 * C1 * 4,
+                         2 * S * 20 * C1 * H, "bf16"),
+        # the width repairs (odd_width_cases' shapes)
+        **{f"project_lse D{d}": (R * d * 2 + d * V + V * 8 + R * 4, 2 * R * d * V, "int8")
+           for d in INT8_WIDE},
+        f"lstm_cell_step E{eo} H{ho}": (R * (eo + 4 * ho) * 2 + (eo + ho) * 4 * ho * 2
+                                        + 4 * ho * 4, 2 * R * (eo + ho) * 4 * ho, "bf16"),
+        f"lstm_cell_step fp32 E{eo} H{ho}": (R32 * (eo + 4 * ho) * 4 + (eo + ho) * 4 * ho * 4
+                                             + 4 * ho * 4, 2 * R32 * (eo + ho) * 4 * ho,
+                                             "fp32"),
+        f"cell_cand_step E{fe} H{fh}": (R * (fe + 2 * fh) * 2 + (fe + fh) * 4 * fh * 2
+                                        + 4 * fh * 4 + S * C1 * (fh * 2 + 4) + R * fh * 6
+                                        + R * C1 * 4,
+                                        2 * R * (fe + fh) * 4 * fh + 2 * R * C1 * fh, "bf16"),
+        f"cell_cand_step fp32 E{fe} H{fh}": (R32 * (fe + 2 * fh) * 4 + (fe + fh) * 4 * fh * 4
+                                             + 4 * fh * 4 + S32 * C1 * (fh * 4 + 4)
+                                             + R32 * fh * 8 + R32 * C1 * 4,
+                                             2 * R32 * (fe + fh) * 4 * fh
+                                             + 2 * R32 * C1 * fh, "fp32"),
     }
 
 
@@ -1448,6 +1799,20 @@ def kernel_fn(name: str) -> str:
     if name in ("project_lse", "project_lse dsoftmax int8", "project_candidates int8",
                 "project_candidates dsoftmax int8"):
         return "proj_int8_kernel (wgmma + TMA; quantize_rows_kernel before it)"
+    if name in tuple(f"project_lse D{d}" for d in INT8_WIDE):
+        return ("proj_bf16_kernel<Q8> (wgmma m64n256k32 s8 + TMA; the rows streamed "
+                "with W^T; quantize_rows_kernel before it)")
+    if name.startswith("lstm_cell_step E"):
+        return "lstm_cell_wgmma_kernel (wgmma + TMA; E, H padded to multiples of 8)"
+    if name.startswith("lstm_cell_step fp32 E"):
+        return kernel_fn("lstm_cell_step fp32") + " (E, H padded to multiples of 32)"
+    if name.startswith("cell_cand_step E"):
+        return kernel_fn("cell_cand_step") + " (E, H padded to multiples of 8)"
+    if name.startswith("cell_cand_step fp32 E"):
+        return "cell_cand_f32_kernel (E padded to a multiple of 32, H of 64)"
+    if name.startswith("cand_dot"):
+        return ("cand_dot_kernel (a persistent ring of bulk copies; "
+                + ("exact fp32 dots)" if "fp32" in name else "mma.sync m16n8k16 bf16)"))
     if name == "lstm_cell_step":
         return "lstm_cell_wgmma_kernel (wgmma + TMA)"
     if name.startswith("project_") and ("fp32" in name):
@@ -1455,8 +1820,9 @@ def kernel_fn(name: str) -> str:
     if name.startswith("project_"):
         return "proj_bf16_kernel (wgmma m64n256 + TMA; h and W^T streamed)"
     fns = {"lstm_cell_step fp32": "lstm_cell_f32_kernel (register-tiled; a cp.async ring a K part)",
-           "cand_dot": "cand_dot_kernel",
-           "cell_cand_step": "cell_cand_kernel", "cell_cand_step fp32": "cell_cand_f32_kernel"}
+           "cell_cand_step": ("cell_cand_kernel (wgmma + TMA over unit groups; each group's "
+                              "candidate share by mma.sync)"),
+           "cell_cand_step fp32": "cell_cand_f32_kernel"}
     if name in fns:
         return fns[name]
     return name.replace(" fp32", "_f32") + "_kernel"
@@ -1579,17 +1945,28 @@ def main() -> int:
         "project_lse bf16 D1024": "the second warpgroup's rows from the first's",
         "project_lse dequant bf16 D1024": "the exact int8 product rescaled after it",
         "lstm_cell_step fp32": "operands rounded to TF32",
+        **{name: "beam rows 8 on read from rows 0 on (the m16 tile's second half)"
+           for name in ("cand_dot bf16", "cand_dot fp32", "cand_dot bf16 B20",
+                        "cand_dot fp32 B20")},
     }
     cases, yardsticks = kernel_cases(dev, rng)
     cases += head_mode_cases(dev, rng) + port_cases(dev, rng) + wide_cases(dev, rng)
+    cases += odd_width_cases(dev, rng)
     for name, kernel, plain, err_fn, wrong, library in cases:
         want = plain()
         err, max_abs = err_fn(kernel(), want)
         ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
         lib_ms = cuda_ms(library) if library is not None else None
+        # in a row: the device's time where it is the slower side (a
+        # one-call time adds the wrapper's Python before the launch)
+        row_ms, host_ms = in_a_row(kernel)
+        lib_row = in_a_row(library) if library is not None else (None, None)
         log(f"{name}: err {err:.3e} (bound {BOUNDS[name]:g}; max abs {max_abs:.3e}), "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-            + ("" if lib_ms is None else f", library call {lib_ms:.4f} ms"))
+            + ("" if lib_ms is None else f", library call {lib_ms:.4f} ms")
+            + f"; 50 in a row: kernel {row_ms:.4f} ms a call (host {host_ms:.4f})"
+            + ("" if lib_row[0] is None else
+               f", library call {lib_row[0]:.4f} (host {lib_row[1]:.4f})"))
         check(err <= BOUNDS[name], f"{name}: error {err} exceeds {BOUNDS[name]}")
         if callable(wrong):
             wrong = {wrongs.get(name, wrong_p): wrong}
@@ -1597,12 +1974,12 @@ def main() -> int:
             caught = err_fn(call(), want)[0]
             log(f"  {name}: {what} reads {caught:.3e}")
             check(caught > BOUNDS[name], f"{name}: bound misses {what} ({caught})")
-        measured[name] = (max_abs, ms, plain_ms, lib_ms)
-        if name == "lstm_cell_step fp32":  # rule 2's one-call yardstick: split it
-            for who, fn in (("kernel", kernel), ("library call", library)):
-                row_ms, host_ms = in_a_row(fn)
-                log(f"  {name} {who}, 50 calls in a row: {row_ms:.4f} ms a call "
-                    f"(events), host {host_ms:.4f} ms a call")
+        measured[name] = (max_abs, ms, plain_ms, lib_ms, row_ms, host_ms, lib_row[0])
+        if name in SPLIT_PAIRS:  # the fused frame against the split pair it replaces
+            pair = SPLIT_PAIRS[name]
+            p_row, p_host = in_a_row(pair)
+            log(f"  {name}: the split pair lstm_cell_step + cand_dot {cuda_ms(pair):.4f} ms "
+                f"one call; 50 in a row {p_row:.4f} ms a call (host {p_host:.4f})")
     for name, run in yardsticks.items():
         log(f"{name}: {cuda_ms(run):.4f} ms")
     del cases, yardsticks
@@ -1916,6 +2293,10 @@ def main() -> int:
     launches_wide = wide_run(dev, rng, config, vocab, dev_ids)
     torch.cuda.empty_cache()
 
+    # ---- phase 5e: the width repairs through their entry points ----
+    launches_odd = odd_width_run(dev, vocab, lexicon, kanas)
+    torch.cuda.empty_cache()
+
     # ---- phase 5c: the fp32 fused CE through autograd ----
     launches_ce32 = fp32_ce_run(dev, rng)
 
@@ -1993,6 +2374,27 @@ def main() -> int:
         **{f"{k} bf16 H1024": ("jlm_tpu_torch/csrc/lstm_scan.cu",
                                f"jlm_tpu/ops/lstm_scan.py:{ln}", f"{k} bf16 H1024")
            for k, ln in zip(SCAN_COUNTERS, (92, 256))},
+        # the redesigned cand_dot's other modes (launches: phase 4b's fp32
+        # run, phase 5e's beam-20 run) and the width repairs (phase 5e)
+        "cand_dot fp32": ("jlm_tpu_torch/csrc/cand_dot.cu", "jlm_tpu/ops/cand_dot.py:31",
+                          "cand_dot fp32"),
+        "cand_dot B20": ("jlm_tpu_torch/csrc/cand_dot.cu", "jlm_tpu/ops/cand_dot.py:31",
+                         "cand_dot bf16 B20"),
+        **{f"project_lse D{d}": ("jlm_tpu_torch/csrc/project_lse.cu",
+                                 "jlm_tpu/ops/project.py:42", f"project_lse int8 D{d}")
+           for d in INT8_WIDE},
+        f"lstm_cell_step E{ODD_CELL[0]} H{ODD_CELL[1]}": (
+            "jlm_tpu_torch/csrc/lstm_cell.cu", "jlm_tpu/ops/lstm_cell.py:38",
+            f"lstm_cell_step bf16 E{ODD_CELL[0]} H{ODD_CELL[1]}"),
+        f"lstm_cell_step fp32 E{ODD_CELL[0]} H{ODD_CELL[1]}": (
+            "jlm_tpu_torch/csrc/lstm_cell.cu", "jlm_tpu/ops/lstm_cell.py:38",
+            f"lstm_cell_step fp32 E{ODD_CELL[0]} H{ODD_CELL[1]}"),
+        f"cell_cand_step E{ODD_FRAME[0]} H{ODD_FRAME[1]}": (
+            "jlm_tpu_torch/csrc/cell_cand.cu", "jlm_tpu/ops/frame_step.py:47",
+            f"cell_cand_step bf16 E{ODD_FRAME[0]} H{ODD_FRAME[1]}"),
+        f"cell_cand_step fp32 E{ODD_FRAME[0]} H{ODD_FRAME[1]}": (
+            "jlm_tpu_torch/csrc/cell_cand.cu", "jlm_tpu/ops/frame_step.py:47",
+            f"cell_cand_step fp32 E{ODD_FRAME[0]} H{ODD_FRAME[1]}"),
     }
     launches.update({
         "project_lse dsoftmax int8": launches5["project_lse"],
@@ -2007,16 +2409,33 @@ def main() -> int:
         "cell_cand_step fp32": launches_f32["cell_cand_step"],
         "project_lse bf16": launches_bf16,
         **launches_wide,
+        "cand_dot fp32": mode_launches["fp32"]["cand_dot"],
+        **launches_odd,
     })
     kernels = []
     for name, (src, replaces, case) in sources.items():
-        err, ms, plain_ms, lib_ms = measured[case]
+        err, ms, plain_ms, lib_ms, row_ms, host_ms, lib_row_ms = measured[case]
         bound_ms, bound_by = bound_of(name)
+        # launches a timed call makes: one a block of config 5's D-softmax
+        # head (the fp32 head case is that head too), one a group of 16 beam
+        # rows
+        per_call = (len(BLOCKS5) if "dsoftmax" in name or name == "project_lse fp32"
+                    else 2 if name == "cand_dot B20" else 1)
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "calls": launches[name] // per_call,
+                        "max_abs_err": err, "ms": ms, "row_ms": row_ms,
+                        "row_host_ms": host_ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-                        "kernel": kernel_fn(name)})
+                        "library_row_ms": lib_row_ms, "kernel": kernel_fn(name)})
+    # rule 2's second key: calls on the path x (ms in a row - bound), in the
+    # unit of the time beside it
+    score = sorted(((k["calls"] * (k["row_ms"] - k["bound_ms"]), k["name"]) for k in kernels),
+                   reverse=True)
+    log("calls x (row_ms - bound_ms): "
+        + ", ".join(f"{name} {ms:.1f}" for ms, name in score[:16]))
+    idle = [k["name"] for k in kernels if k["launches"] <= 0]
+    check(not idle, f"kernels the paths never launched: {idle}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -14,66 +14,93 @@
 // make_fused_frame_forward.
 //
 // Bound: device memory.  At the serving frame (S = 2,048 sentences of
-// B = 10 rows, E = 256, H = 512, C1 = 65) the cell is 64 GFLOP and the
-// candidate dots 1.4, against ~261 MB of x, h, c (bf16) in, c', h', the
-// candidate logits out and the 136 MB of cols: ~0.078 ms at 3.35 TB/s.
-// The candidate dots read h' from shared memory, so h' makes no
-// device-memory round trip between the cell and the dots.
+// B = 10 rows, E = 256, H = 512, C1 = 65) the cell is 64 GFLOP (0.065 ms
+// at the bf16 peak) and the candidate dots 1.4, against ~261 MB of x, h, c
+// (bf16) in, c', h', the candidate logits out and the 136 MB of cols:
+// ~0.078 ms at 3.35 TB/s.  h' makes no device-memory round trip between
+// the cell and the dots.
 //
-// Design:
-// - The dots need whole h' rows of a sentence, so a block owns whole
-//   sentences: G = 64 / B of them (6 at B = 10: 60 of its 64 row slots)
-//   and all H units.  It loops over chunks of TJ = 64 units; for each it
-//   computes the columns of those units in all four gates, streaming K
-//   (x for k < E, then h) and W through shared memory in chunks of 32 --
-//   the fused W (3 MB of bf16 at E = 256, H = 512) is far beyond shared
-//   memory, so it streams from the L2 as in lstm_cell.cu.  mma.sync
-//   m16n8k16 bf16 -> fp32; 8 warps in a 2 x 4 grid, a warp owns 32 rows x
-//   (4 gates x 16 units), so each thread holds all four gates of its units
-//   and the cell runs in registers (lstm_cell.cu's epilogue).
-// - The epilogue writes c' (fp32) and h' (bf16) to device memory and h',
-//   rounded to bf16 -- the value the split path's cand_dot reads -- into a
-//   [64, H] shared-memory buffer (66 KB at H = 512).
-// - Then cand_dot.cu's dot: each warp takes (sentence, candidate) pairs;
-//   its lanes read the candidate's cols row once with coalesced vector
-//   loads, keep B fp32 partial dots against h' in shared memory, and
-//   reduce them with shuffles.
-// - fp32 compute (the parity mode): exact fp32 FMAs on the CUDA cores, no
-//   TF32, as lstm_cell.cu's fp32 kernel: per chunk of FJ = 16 units a
-//   thread keeps 4 rows of one unit in all four gates; h' stays fp32, in a
-//   [64, H] shared-memory buffer (132 KB at H = 512), and the same dots
-//   read it.
-// Simple first: one shared-memory stage per K chunk, no cp.async pipeline;
-// the W chunks are read again by every block (342 at the serving frame).
+// bf16 design (cell_cand_kernel; wgmma + TMA, sm_90a), the bf16 cell's
+// main loop (lstm_cell.cu) with the candidate dots folded in:
+// - Block (g, sb) owns unit group g (64 units) of G = 128 / B whole
+//   sentences (12 at B = 10: 120 of 128 row slots): 8 x 171 = 1,368
+//   blocks at the serving frame, the bf16 cell's 1,280 blocks' grain.
+//   Warpgroups 0 and 1 (64 rows each) run wgmma m64n256k16 over K (x's
+//   chunks, then h's) on the gate-tiled weight copy (cell_weight_tiles: a
+//   group's 4 gates are one 256-row tile), fed by one producer thread's
+//   TMA loads of x|h (128 rows x 64) and the weight copy (256 x 64) into a
+//   ring of 4 stages of 48 KB, 128-byte swizzled; the gate epilogue runs in
+//   registers (c prefetched during the product).
+// - The candidate dot is a sum over units, so each unit group computes its
+//   share: the epilogue also writes the group's h' (bf16, 128 rows x 64
+//   units, 16 KB, swizzled as TMA swizzles) to shared memory; the group's
+//   64 columns of its sentences' cols arrive through the same ring right
+//   after the product's chunks (a TMA box of C1 rows x 64 a sentence, each
+//   at a 1,024-byte aligned slot, 5 sentences a stage at C1 = 65); the
+//   consumer warps take (sentence, pair of n8 tiles) units and run
+//   cand_dot.cu's product, mma.sync m16n8k16 bf16 -> fp32 with ldmatrix on
+//   both swizzled tiles, into the block's slice of a scratch buffer of
+//   partial sums [sb][g][G B C1] (26 KB a block; no full-H h' buffer, and
+//   h' never reaches device memory between the cell and the dots).
+// - The last of a sentence block's groups to finish (a counter a sentence
+//   block, left zeroed for the next launch) sums the groups' partials in
+//   group order, so the sums come out the same every run, adds cbias and
+//   stores the logits coalesced.
+// - What holds it at ~1.03x the split pair (lstm_cell_step + cand_dot;
+//   chip runs, PERF.md): the last block's sum over the groups (~0.018 ms
+//   in all), each block's wait for its 100 KB of cols from device memory
+//   after its product (~0.02-0.04), fp32 c' and the h' tile (the product
+//   part alone ~0.17 ms against the bf16 cell's ~0.165).  Tried on the
+//   H100 and dropped: one block of 12 sentences looping over the 8 groups
+//   (171 blocks, two long waves: ~0.56 ms); clusters of the 8 group blocks
+//   summing in distributed shared memory (their scheduling cost ~0.06 ms:
+//   ~0.30); the cols prefetched into the L2 while the product runs (by TMA
+//   or by the idle producer warps: ~0.02 ms slower each).
+// - x and h need 16-byte rows (E, H multiples of 8); units past H have zero
+//   weights and bias, so their c' and h' are 0 and cols' columns past H
+//   (zero-filled by TMA) add nothing.  C1 <= 256 (one TMA box).
+// - fp32 compute (the parity mode, cell_cand_f32_kernel, not redesigned):
+//   exact fp32 FMAs on the CUDA cores, no TF32: a block owns G = 64 / B
+//   sentences and all H units; per chunk of FJ = 16 units a thread keeps 4
+//   rows of one unit in all four gates; h' stays fp32 in a [64, H]
+//   shared-memory buffer (132 KB at H = 512), and cand_dots reads it: a
+//   warp per (sentence, candidate), lanes over K, shuffles at the end.  One
+//   shared-memory stage per K chunk, no cp.async pipeline.
 #include "common.cuh"
+#include "hopper.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using jlm::fast_sigmoid;
+using jlm::fast_tanh;
+using jlm::PairOf;
+using jlm::store2;
+using jlm::to_float2;
 
-constexpr int THREADS = 256;
-constexpr int WM = 2, WN = 4;  // warp grid: rows x units
-constexpr int TR = WM * 32;    // row slots of a block
-constexpr int TJ = WN * 16;    // units per chunk
-constexpr int KC = 32;
-constexpr int LDA = KC + 8;      // bf16 per shared row of the x|h tile
-constexpr int LDB = 4 * TJ + 8;  // bf16 per shared row of the W tile
-constexpr int MAXB = 16;         // rows of a sentence the dot holds in registers
-constexpr int FJ = 16;           // fp32 kernel: units per chunk
+constexpr int THREADS = 256;   // fp32 kernel
+constexpr int TR = 64;         // fp32 kernel: row slots of a block
+constexpr int KC = 32;         // fp32 kernel: K per shared-memory chunk
+constexpr int MAXB = 16;       // rows of a sentence: one m16 tile of the dot
+constexpr int FJ = 16;         // fp32 kernel: units per chunk
+
+// bf16 kernel
+constexpr int BM = 128;                 // row slots of a block (2 consumer warpgroups)
+constexpr int UNITS = 64;               // hidden units a group
+constexpr int BN = 4 * UNITS;           // gate columns a group
+constexpr int WKC = 64;                 // K per stage (one 128-byte swizzle row)
+constexpr int STAGES = 4;
+constexpr int A_BYTES = BM * WKC * 2;   // 16 KB of x|h
+constexpr int STAGE_BYTES = A_BYTES + BN * WKC * 2;  // + 32 KB of W: 48 KB
+constexpr int H_BYTES = BM * UNITS * 2;  // the group's h', 16 KB
+constexpr int WG_THREADS = 128;
+constexpr int MAX_C1 = 256;              // candidate rows of a sentence: one TMA box
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + H_BYTES + BN * 4 + 2 * STAGES * 8 + 16 +
+                           1024;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-// Four bf16 at p (8-byte aligned) as floats.
-__device__ __forceinline__ void load4(const bf16* p, float (&v)[4]) {
-  const uint2 t = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
-  v[0] = __low2float(lo);
-  v[1] = __high2float(lo);
-  v[2] = __low2float(hi);
-  v[3] = __high2float(hi);
-}
 
 // Four fp32 at p (16-byte aligned).
 __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
@@ -84,20 +111,20 @@ __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
   v[3] = t.w;
 }
 
-// The candidate dots of a block's ns sentences from h' in shared memory
-// (sH [ns * B][ldh]): a warp per (sentence, candidate) pair; its lanes read
-// the candidate's cols row once with vector loads, keep B partial dots
-// against h', and reduce them with shuffles.
-template <typename T>
-__device__ __forceinline__ void cand_dots(const T* sH, int ldh, const T* __restrict__ cols,
+// The candidate dots of the fp32 kernel's ns sentences from h' in shared
+// memory (sH [ns * B][ldh]): a warp per (sentence, candidate) pair; its
+// lanes read the candidate's cols row once with vector loads, keep B
+// partial dots against h', and reduce them with shuffles.
+__device__ __forceinline__ void cand_dots(const float* sH, int ldh,
+                                          const float* __restrict__ cols,
                                           const float* __restrict__ cbias,
                                           float* __restrict__ cand_out, int s0, int ns,
                                           int B, int H, int C1) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int pair = warp; pair < ns * C1; pair += THREADS / 32) {
     const int s = pair / C1, cj = pair % C1;
-    const T* col = cols + ((size_t)(s0 + s) * C1 + cj) * H;
-    const T* hs = sH + s * B * ldh;
+    const float* col = cols + ((size_t)(s0 + s) * C1 + cj) * H;
+    const float* hs = sH + s * B * ldh;
     float acc[MAXB];
 #pragma unroll
     for (int bb = 0; bb < MAXB; ++bb) acc[bb] = 0.0f;
@@ -125,115 +152,259 @@ __device__ __forceinline__ void cand_dots(const T* sH, int ldh, const T* __restr
   }
 }
 
-size_t smem_bytes(int H) {
-  return ((size_t)TR * LDA + (size_t)KC * LDB + (size_t)TR * (H + 8)) * sizeof(bf16);
+// Byte offset of 16-byte piece `chunk` of row `row` in a 128-byte-swizzled
+// tile of 128-byte rows (1,024-byte aligned): what a TMA load with
+// CU_TENSOR_MAP_SWIZZLE_128B writes.
+__device__ __forceinline__ int swz(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
 }
 
+// tm_x: x [R, E], tm_h: h [R, H], boxes of 128 rows x 64; tm_w: the
+// gate-tiled weight [4 Hp, Kp], boxes of 256 x 64; tm_cols: cols as [S C1,
+// H], boxes of C1 rows x 64.  nx, nh: K chunks of x and of h; sps:
+// sentences a cols stage holds, slot: their byte stride.  Grid: (unit
+// group, sentence block).  scratch: [sentence blocks][unit groups][pstride]
+// partial sums, pstride >= G B C1 a multiple of 4; done: a zeroed counter a
+// sentence block, left zeroed.
 template <typename CIn>
-__global__ void __launch_bounds__(THREADS, 2)
-cell_cand_kernel(const bf16* __restrict__ x, const bf16* __restrict__ h,
-                 const CIn* __restrict__ c, const bf16* __restrict__ W,
-                 const float* __restrict__ b, const bf16* __restrict__ cols,
-                 const float* __restrict__ cbias, float* __restrict__ c_out,
-                 bf16* __restrict__ h_out, float* __restrict__ cand_out, int S,
-                 int B, int G, int E, int H, int C1, float forget_bias) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sA = reinterpret_cast<bf16*>(smem);  // [TR][LDA]     x|h chunk
-  bf16* sB = sA + TR * LDA;                  // [KC][LDB]     W chunk, 4 gates
-  bf16* sHc = sB + KC * LDB;                 // [TR][H + 8]   h' in bf16
-  const int ldh = H + 8;
+__global__ void __launch_bounds__(3 * WG_THREADS, 1)
+cell_cand_kernel(const __grid_constant__ CUtensorMap tm_x,
+                 const __grid_constant__ CUtensorMap tm_h,
+                 const __grid_constant__ CUtensorMap tm_w,
+                 const __grid_constant__ CUtensorMap tm_cols, const CIn* __restrict__ c,
+                 const float* __restrict__ b, const float* __restrict__ cbias,
+                 float* __restrict__ c_out, bf16* __restrict__ h_out,
+                 float* __restrict__ cand_out, float* __restrict__ scratch,
+                 unsigned int* __restrict__ done, int pstride, int S, int B, int G, int C1,
+                 int H, int nx, int nh, int sps, int slot, float forget_bias) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sH = smem + STAGES * STAGE_BYTES;      // [128][64] bf16, swizzled
+  float* sb = reinterpret_cast<float*>(sH + H_BYTES);   // [gate][unit] biases
+  uint64_t* full = reinterpret_cast<uint64_t*>(sb + BN);
+  uint64_t* empty = full + STAGES;
+  int* last = reinterpret_cast<int*>(empty + STAGES);
+  const int wg = threadIdx.x / WG_THREADS;
+  const int ub = blockIdx.x, n_ub = gridDim.x;
+  const int s0 = blockIdx.y * G, ns = min(G, S - s0);
+  const int row0 = s0 * B, rows = ns * B, n_el = rows * C1;
+  const int nk = nx + nh, n_cs = (ns + sps - 1) / sps;
+  float* part = scratch + ((size_t)blockIdx.y * n_ub + ub) * pstride;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / WN, wn = warp % WN;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int mat = lane >> 3, mr = lane & 7;
-  const int s0 = blockIdx.x * G;
-  const int ns = min(G, S - s0);
-  const int row0 = s0 * B, rows = ns * B;
-  const int K = E + H, N4 = 4 * H;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      jlm::mbar_init(&full[s], 1);
+      jlm::mbar_init(&empty[s], 2 * WG_THREADS / 32);  // every consumer warp
+    }
+    jlm::mbar_fence_init();
+  }
+  __syncthreads();
 
-  for (int j0 = 0; j0 < H; j0 += TJ) {
-    float acc[2][8][4];  // [m tile][gate*2 + unit block][fragment]
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
-
-    for (int k0 = 0; k0 < K; k0 += KC) {
-      __syncthreads();  // previous chunk consumed
-      const bf16* src = k0 < E ? x : h;
-      const int lds = k0 < E ? E : H;
-      const int kc = k0 < E ? k0 : k0 - E;
-      for (int i = tid; i < TR * (KC / 8); i += THREADS) {
-        const int r = i / (KC / 8), cc = i % (KC / 8);
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (r < rows)
-          v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * lds + kc + cc * 8);
-        *reinterpret_cast<uint4*>(sA + r * LDA + cc * 8) = v;
-      }
-      for (int i = tid; i < KC * 4 * (TJ / 8); i += THREADS) {
-        const int kr = i / (4 * (TJ / 8)), rest = i % (4 * (TJ / 8));
-        const int g = rest / (TJ / 8), cc = rest % (TJ / 8);
-        *reinterpret_cast<uint4*>(sB + kr * LDB + g * TJ + cc * 8) =
-            *reinterpret_cast<const uint4*>(W + (size_t)(k0 + kr) * N4 + g * H + j0 + cc * 8);
-      }
-      __syncthreads();
-
-#pragma unroll
-      for (int ks = 0; ks < KC; ks += 16) {
-        uint32_t a[2][4], bq[8][2];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const int r = wm * 32 + mi * 16 + (mat & 1) * 8 + mr;
-          jlm::ldsm_x4(a[mi][0], a[mi][1], a[mi][2], a[mi][3],
-                       sA + r * LDA + ks + (mat >> 1) * 8);
+  // Registers: the consumers' accumulators and epilogue take more than the
+  // even share; the producer warpgroup gives up what they take, and both
+  // return to the even share for the sum over unit groups.
+  if (wg == 2) {
+    // ---- producer: one thread keeps the ring full: the K chunks of x|h
+    // and W, then the sentences' cols columns ----
+    jlm::setmaxnreg_dec<40>();
+    if (threadIdx.x == 2 * WG_THREADS) {
+      jlm::prefetch_map(&tm_x);
+      jlm::prefetch_map(&tm_h);
+      jlm::prefetch_map(&tm_w);
+      jlm::prefetch_map(&tm_cols);
+      for (int i = 0; i < nk + n_cs; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) jlm::mbar_wait(&empty[s], ((i / STAGES) - 1) & 1);
+        unsigned char* a = smem + s * STAGE_BYTES;
+        if (i < nk) {
+          jlm::mbar_expect_tx(&full[s], STAGE_BYTES);
+          if (i < nx)
+            jlm::tma_load(a, &tm_x, &full[s], i * WKC, row0);
+          else
+            jlm::tma_load(a, &tm_h, &full[s], (i - nx) * WKC, row0);
+          jlm::tma_load(a + A_BYTES, &tm_w, &full[s], i * WKC, ub * BN);
+        } else {
+          const int first = (i - nk) * sps, n = min(sps, ns - first);
+          jlm::mbar_expect_tx(&full[s], n * C1 * 128);
+          for (int q = 0; q < n; ++q)
+            jlm::tma_load(a + q * slot, &tm_cols, &full[s], ub * UNITS, (s0 + first + q) * C1);
         }
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {  // n tiles 2g (units 0-7), 2g+1 (8-15)
-          const int kr = ks + (mat & 1) * 8 + mr;
-          const int col = g * TJ + wn * 16 + (mat >> 1) * 8;
-          jlm::ldsm_x4_trans(bq[2 * g][0], bq[2 * g][1], bq[2 * g + 1][0],
-                             bq[2 * g + 1][1], sB + kr * LDB + col);
-        }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 8; ++ni)
-            jlm::mma_bf16(acc[mi][ni], a[mi], bq[ni][0], bq[ni][1]);
       }
     }
+    __syncwarp();
+    jlm::setmaxnreg_inc<168>();
+  } else {
+    // ---- consumers: rows 64 wg .. + 63 of the block ----
+    jlm::setmaxnreg_inc<232>();
+    const int ct = threadIdx.x, lane = ct & 31, warp = (ct / 32) & 3, cw = ct / 32;
+    const int gid = lane >> 2, tig = lane & 3, mat = lane >> 3, mr = lane & 7;
+    const int pairs = (C1 + 15) / 16;
+    auto release = [&](int i) {
+      __syncwarp();
+      if (lane == 0) jlm::mbar_arrive(&empty[i % STAGES]);
+    };
+    {
+      const int g = ct / UNITS, j = ub * UNITS + ct % UNITS;
+      sb[ct] = j < H ? b[g * H + j] : 0.0f;
+    }
+    typename PairOf<CIn>::type cpre[2][UNITS / 8];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rl = wg * 64 + warp * 16 + gid + 8 * r;
+#pragma unroll
+      for (int jj = 0; jj < UNITS / 8; ++jj) {
+        const int j = ub * UNITS + jj * 8 + 2 * tig;
+        typename PairOf<CIn>::type v{};
+        if (rl < rows && j < H)
+          v = *reinterpret_cast<const typename PairOf<CIn>::type*>(
+              c + (size_t)(row0 + rl) * H + j);
+        cpre[r][jj] = v;
+      }
+    }
+    // ---- the unit group's product (lstm_cell.cu's main loop) ----
+    float acc[BN / 2];
+    for (int kc = 0; kc < nk; ++kc) {
+      const int s = kc % STAGES;
+      jlm::mbar_wait(&full[s], (kc / STAGES) & 1);
+      const unsigned char* a = smem + s * STAGE_BYTES + wg * 64 * 128;
+      const unsigned char* w = smem + s * STAGE_BYTES + A_BYTES;
+      jlm::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < WKC / 16; ++k)
+        jlm::wgmma_bf16_n256(acc, jlm::smem_desc(a + k * 32), jlm::smem_desc(w + k * 32),
+                             (kc | k) > 0);
+      jlm::wgmma_commit();
+      if (kc > 0) {  // the previous chunk's group is done: release its stage
+        jlm::wgmma_wait<1>();
+        release(kc - 1);
+      }
+    }
+    jlm::wgmma_wait<0>();
+    jlm::fence_regs(acc);
+    release(nk - 1);
+    jlm::named_sync(1, 2 * WG_THREADS);  // sb written
 
-    // ---- gate epilogue in registers; h' also into shared memory ----
+    // ---- gate epilogue in registers: c', h' out, h' into sH ----
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+    for (int r = 0; r < 2; ++r) {
+      const int rl = wg * 64 + warp * 16 + gid + 8 * r;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int rl = wm * 32 + mi * 16 + half * 8 + gid;
-        if (rl >= rows) continue;
+      for (int jj = 0; jj < UNITS / 8; ++jj) {
+        const int u = jj * 8 + 2 * tig, j = ub * UNITS + u;  // units j, j + 1
+        const float2 cc = to_float2(cpre[r][jj]);
+        float cn[2], hn[2];
 #pragma unroll
-        for (int u = 0; u < 2; ++u)
+        for (int e = 0; e < 2; ++e) {
+          const int f = 2 * r + e;
+          const float zi = acc[4 * (0 * 8 + jj) + f] + sb[0 * UNITS + u + e];
+          const float zj = acc[4 * (1 * 8 + jj) + f] + sb[1 * UNITS + u + e];
+          const float zf = acc[4 * (2 * 8 + jj) + f] + sb[2 * UNITS + u + e];
+          const float zo = acc[4 * (3 * 8 + jj) + f] + sb[3 * UNITS + u + e];
+          cn[e] = fast_sigmoid(zf + forget_bias) * (e ? cc.y : cc.x) +
+                  fast_sigmoid(zi) * fast_tanh(zj);
+          hn[e] = fast_sigmoid(zo) * fast_tanh(cn[e]);
+        }
+        const __nv_bfloat162 h2 = __floats2bfloat162_rn(hn[0], hn[1]);
+        *reinterpret_cast<__nv_bfloat162*>(sH + swz(rl, jj) + 4 * tig) = h2;
+        if (rl < rows && j < H) {
+          const size_t idx = (size_t)(row0 + rl) * H + j;
+          store2(c_out + idx, cn[0], cn[1]);
+          *reinterpret_cast<__nv_bfloat162*>(h_out + idx) = h2;
+        }
+      }
+    }
+    jlm::named_sync(1, 2 * WG_THREADS);  // the group's h' is in sH
+
+    // ---- the group's share of the candidate dots into scratch: consumer
+    // warp cw takes units cw, cw + 8, ... of (sentence, pair of n8 tiles) ----
+    for (int j = 0; j < n_cs; ++j) {
+      const int i = nk + j, s = i % STAGES, fs = j * sps, n = min(sps, ns - fs);
+      jlm::mbar_wait(&full[s], (i / STAGES) & 1);
+      const unsigned char* st = smem + s * STAGE_BYTES;
+      for (int unit = cw; unit < n * pairs; unit += 2 * WG_THREADS / 32) {
+        const int q = unit / pairs, pr = unit % pairs, si = fs + q;
+        const unsigned char* cs = st + q * slot;
+        const int arow = min(si * B + (mat & 1) * 8 + mr, BM - 1);
+        const int brow = min(pr * 16 + (mat >> 1) * 8 + mr, C1 - 1);
+        float d[2][4] = {};
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int j = j0 + wn * 16 + u * 8 + tig * 2 + e;
-            const int f = half * 2 + e;
-            const float zi = acc[mi][0 * 2 + u][f] + b[j];
-            const float zj = acc[mi][1 * 2 + u][f] + b[H + j];
-            const float zf = acc[mi][2 * 2 + u][f] + b[2 * H + j];
-            const float zo = acc[mi][3 * 2 + u][f] + b[3 * H + j];
-            const size_t idx = (size_t)(row0 + rl) * H + j;
-            const float cn = jlm::sigmoidf(zf + forget_bias) * to_f(c[idx]) +
-                             jlm::sigmoidf(zi) * tanhf(zj);
-            const bf16 hn = __float2bfloat16(jlm::sigmoidf(zo) * tanhf(cn));
-            c_out[idx] = cn;
-            h_out[idx] = hn;
-            sHc[rl * ldh + j] = hn;
+        for (int ks = 0; ks < UNITS / 16; ++ks) {
+          uint32_t a[4], bb[4];
+          jlm::ldsm_x4(a[0], a[1], a[2], a[3], sH + swz(arow, 2 * ks + (mat >> 1)));
+          jlm::ldsm_x4(bb[0], bb[1], bb[2], bb[3], cs + swz(brow, 2 * ks + (mat & 1)));
+          jlm::mma_bf16(d[0], a, bb[0], bb[1]);
+          jlm::mma_bf16(d[1], a, bb[2], bb[3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = gid + 8 * (e >> 1), col = pr * 16 + nt * 8 + 2 * tig + (e & 1);
+            if (row < B && col < C1) part[(si * B + row) * C1 + col] = d[nt][e];
           }
       }
+      release(i);
+    }
+    jlm::setmaxnreg_dec<168>();
   }
-  __syncthreads();  // every unit of h' in shared memory
-  cand_dots(sHc, ldh, cols, cbias, cand_out, s0, ns, B, H, C1);
+
+  // ---- the last block of the sentence block to finish sums every unit
+  // group's partials, in group order, adds cbias, stores the logits.  One
+  // thread orders the block's partial sums before its count (the barrier
+  // orders the other threads' before it), and the last block's reads after
+  // its own ----
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    *last = atomicAdd(done + blockIdx.y, 1u) == (unsigned)(n_ub - 1);
+    if (*last) {
+      done[blockIdx.y] = 0;  // zeroed again for the next launch
+      __threadfence();
+    }
+  }
+  __syncthreads();
+  if (!*last) return;
+  // float4s of the partials, two a thread and 8 groups a pass in flight
+  // (the loads of a pass are independent; the adds stay in group order);
+  // the lanes of a float4 past n_el are never stored
+  const float4* parts = reinterpret_cast<const float4*>(scratch) +
+                        (size_t)blockIdx.y * n_ub * (pstride / 4);
+  float* out = cand_out + (size_t)row0 * C1;
+  constexpr int T = 3 * WG_THREADS, QP = 8;
+  const int n4 = (n_el + 3) / 4;
+  for (int v0 = threadIdx.x; v0 < n4; v0 += 2 * T) {
+    float4 v[2] = {};
+    for (int q0 = 0; q0 < n_ub; q0 += QP) {
+      float4 p[2][QP];
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+#pragma unroll
+        for (int q = 0; q < QP; ++q)
+          p[k][q] = q0 + q < n_ub && v0 + k * T < n4
+                        ? __ldcg(parts + (size_t)(q0 + q) * (pstride / 4) + v0 + k * T)
+                        : float4{};
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+#pragma unroll
+        for (int q = 0; q < QP; ++q) {
+          v[k].x += p[k][q].x;
+          v[k].y += p[k][q].y;
+          v[k].z += p[k][q].z;
+          v[k].w += p[k][q].w;
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const float vs[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+#pragma unroll
+      for (int l = 0; l < 4; ++l) {
+        const int e = 4 * (v0 + k * T) + l;
+        if (e < n_el)
+          out[e] = vs[l] + __ldg(cbias + (size_t)s0 * C1 + (e / (B * C1)) * C1 + e % C1);
+      }
+    }
+  }
 }
 
 size_t smem_f32_bytes(int H) {
@@ -323,33 +494,47 @@ cell_cand_f32_kernel(const float* __restrict__ x, const float* __restrict__ h,
 }
 
 template <typename CIn>
-cudaError_t launch(const void* x, const void* h, const void* c, const void* W,
-                   const float* b, const void* cols, const float* cbias,
-                   float* c_out, void* h_out, float* cand_out, int S, int B, int E,
-                   int H, int C1, int f32, float forget_bias, cudaStream_t stream) {
+cudaError_t launch_bf16(const void* x, const void* h, const void* c, const void* w_tiles,
+                        const float* b, const void* cols, const float* cbias, float* c_out,
+                        void* h_out, float* cand_out, float* scratch, unsigned int* done,
+                        int S, int B, int E, int H, int C1, float forget_bias,
+                        cudaStream_t stream) {
+  const int R = S * B, G = BM / B, pstride = (G * B * C1 + 3) / 4 * 4;
+  const int nx = (E + WKC - 1) / WKC, nh = (H + WKC - 1) / WKC;
+  const int n_ub = (H + UNITS - 1) / UNITS;
+  const int slot = (C1 * 128 + 1023) / 1024 * 1024, sps = STAGE_BYTES / slot;
+  CUtensorMap tx, th, tw, tc;
+  if (!jlm::tensor_map(&tx, x, 2, R, E, E, BM, WKC) ||
+      !jlm::tensor_map(&th, h, 2, R, H, H, BM, WKC) ||
+      !jlm::tensor_map(&tw, w_tiles, 2, n_ub * BN, (nx + nh) * WKC, (nx + nh) * WKC, BN,
+                       WKC) ||
+      !jlm::tensor_map(&tc, cols, 2, S * C1, H, H, C1, WKC))
+    return cudaErrorInvalidValue;
+  auto kernel = cell_cand_kernel<CIn>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_ub, (S + G - 1) / G);
+  kernel<<<grid, 3 * WG_THREADS, SMEM_BYTES, stream>>>(
+      tx, th, tw, tc, static_cast<const CIn*>(c), b, cbias, c_out, static_cast<bf16*>(h_out),
+      cand_out, scratch, done, pstride, S, B, G, C1, H, nx, nh, sps, slot, forget_bias);
+  return cudaGetLastError();
+}
+
+template <typename CIn>
+cudaError_t launch_f32(const void* x, const void* h, const void* c, const void* W,
+                       const float* b, const void* cols, const float* cbias, float* c_out,
+                       void* h_out, float* cand_out, int S, int B, int E, int H, int C1,
+                       float forget_bias, cudaStream_t stream) {
   const int G = TR / B, blocks = (S + G - 1) / G;
-  cudaError_t err;
-  if (f32) {
-    const size_t smem = smem_f32_bytes(H);
-    err = cudaFuncSetAttribute(cell_cand_f32_kernel<CIn>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    cell_cand_f32_kernel<CIn><<<blocks, THREADS, smem, stream>>>(
-        static_cast<const float*>(x), static_cast<const float*>(h),
-        static_cast<const CIn*>(c), static_cast<const float*>(W), b,
-        static_cast<const float*>(cols), cbias, c_out, static_cast<float*>(h_out),
-        cand_out, S, B, G, E, H, C1, forget_bias);
-  } else {
-    const size_t smem = smem_bytes(H);
-    err = cudaFuncSetAttribute(cell_cand_kernel<CIn>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    cell_cand_kernel<CIn><<<blocks, THREADS, smem, stream>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(h),
-        static_cast<const CIn*>(c), static_cast<const bf16*>(W), b,
-        static_cast<const bf16*>(cols), cbias, c_out, static_cast<bf16*>(h_out),
-        cand_out, S, B, G, E, H, C1, forget_bias);
-  }
+  const size_t smem = smem_f32_bytes(H);
+  cudaError_t err = cudaFuncSetAttribute(cell_cand_f32_kernel<CIn>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cell_cand_f32_kernel<CIn><<<blocks, THREADS, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(h), static_cast<const CIn*>(c),
+      static_cast<const float*>(W), b, static_cast<const float*>(cols), cbias, c_out,
+      static_cast<float*>(h_out), cand_out, S, B, G, E, H, C1, forget_bias);
   return cudaGetLastError();
 }
 
@@ -357,22 +542,35 @@ cudaError_t launch(const void* x, const void* h, const void* c, const void* W,
 
 extern "C" {
 
-// x [S*B, E], h [S*B, H], W [E+H, 4H], cols [S, C1, H] and h_out [S*B, H]
-// bf16, or fp32 when f32 (fp32 compute); c [S*B, H] fp32 (c_f32) or bf16;
-// b [4H] and cbias [S, C1] fp32; c_out [S*B, H] and cand_out [S, B, C1]
-// fp32.  B <= 16, E a multiple of 32, H a multiple of 64.
+// x [S*B, E], h [S*B, H], cols [S, C1, H] and h_out [S*B, H]: bf16 (E, H
+// multiples of 8, 16-byte aligned; W the gate-tiled copy [4 Hp, Kp] of
+// ops/lstm_cell.py's cell_weight_tiles; C1 <= 256), or fp32 when f32 (fp32
+// compute; W [E+H, 4H]; E a multiple of 32, H of 64); c [S*B, H] fp32
+// (c_f32) or bf16; b [4H] and cbias [S, C1] fp32; c_out [S*B, H] and
+// cand_out [S, B, C1] fp32.  B <= 16.  bf16 only: scratch, fp32
+// [ceil(S / G), ceil(H / 64), G B C1 rounded up to a multiple of 4] with
+// G = 128 / B; done, ceil(S / G) zeroed counters, which the launch leaves
+// zeroed.
 int jlm_cell_cand(const void* x, const void* h, const void* c, int c_f32,
                   const void* W, const float* b, const void* cols,
                   const float* cbias, float* c_out, void* h_out, float* cand_out,
-                  int S, int B, int E, int H, int C1, int f32, float forget_bias,
-                  void* stream) {
+                  float* scratch, unsigned int* done, int S, int B, int E, int H, int C1,
+                  int f32, float forget_bias, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B < 1 || B > MAXB || E % KC || H % TJ) return (int)cudaErrorInvalidValue;
-  if (c_f32)
-    return (int)launch<float>(x, h, c, W, b, cols, cbias, c_out, h_out, cand_out, S, B,
-                              E, H, C1, f32, forget_bias, st);
-  return (int)launch<bf16>(x, h, c, W, b, cols, cbias, c_out, h_out, cand_out, S, B, E,
-                           H, C1, f32, forget_bias, st);
+  if (B < 1 || B > MAXB || C1 < 1) return (int)cudaErrorInvalidValue;
+  if (f32 ? (E % KC || H % 64) : (E % 8 || H % 8 || C1 > MAX_C1))
+    return (int)cudaErrorInvalidValue;
+  if (f32)
+    return (int)(c_f32 ? launch_f32<float>(x, h, c, W, b, cols, cbias, c_out, h_out,
+                                           cand_out, S, B, E, H, C1, forget_bias, st)
+                       : launch_f32<bf16>(x, h, c, W, b, cols, cbias, c_out, h_out,
+                                          cand_out, S, B, E, H, C1, forget_bias, st));
+  return (int)(c_f32 ? launch_bf16<float>(x, h, c, W, b, cols, cbias, c_out, h_out,
+                                          cand_out, scratch, done, S, B, E, H, C1,
+                                          forget_bias, st)
+                     : launch_bf16<bf16>(x, h, c, W, b, cols, cbias, c_out, h_out,
+                                         cand_out, scratch, done, S, B, E, H, C1,
+                                         forget_bias, st));
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the wgmma + TMA kernels (lstm_cell.cu,
-// project_lse.cu): tensor maps for TMA, mbarriers, and wgmma's shared-memory
+// project_lse.cu, cell_cand.cu) and the bulk-copy ring of cand_dot.cu:
+// tensor maps for TMA, bulk copies, mbarriers, and wgmma's shared-memory
 // descriptors and ordering fences.
 //
 // Every shared-memory operand here is K-major with the 128-byte swizzle:
@@ -137,6 +138,17 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Bulk copy of `bytes` (a multiple of 16; both addresses 16-byte aligned)
+// from global to shared memory, completing on bar (no tensor map).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

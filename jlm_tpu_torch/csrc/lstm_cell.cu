@@ -82,28 +82,11 @@ constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 constexpr int WG_THREADS = 128;
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + BN * 4 + 1024;
 
-// Two neighbouring units of c as stored, and as floats.
-template <typename T> struct PairOf;
-template <> struct PairOf<float> { using type = float2; };
-template <> struct PairOf<__nv_bfloat16> { using type = __nv_bfloat162; };
-__device__ __forceinline__ float2 to_float2(float2 v) { return v; }
-__device__ __forceinline__ float2 to_float2(__nv_bfloat162 v) { return __bfloat1622float2(v); }
-
-// sigmoid and tanh from the special-function unit's 2^x and 1/x (a few
-// ulp of fp32, far inside the bf16 rounding of h' and of a bf16 c'; the
-// fp32 kernel keeps the accurate expf and division).
-__device__ __forceinline__ float fast_sigmoid(float x) {
-  return __fdividef(1.0f, 1.0f + __expf(-x));
-}
-__device__ __forceinline__ float fast_tanh(float x) {
-  return fmaf(2.0f, fast_sigmoid(2.0f * x), -1.0f);
-}
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
+using jlm::fast_sigmoid;
+using jlm::fast_tanh;
+using jlm::PairOf;
+using jlm::store2;
+using jlm::to_float2;
 
 // tm_x: x [R, E], tm_h: h [R, H], both boxes of 128 rows x 64; tm_w: the
 // gate-tiled weight [4 Hp, Kp], boxes of 256 rows x 64 (a block's four

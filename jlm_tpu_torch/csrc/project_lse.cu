@@ -29,8 +29,8 @@
 //   project.py:83-89 over the BLOCK'S OWN SLICE of h: s = max(max|h|,
 //   1e-30) / 127 (an IEEE division: no --use_fast_math), q =
 //   __float2int_rn(h / s) (round half to even), zero columns up to the
-//   slice's padded width dp (128, 256, 512 or 1,024; zeros change neither
-//   the scale nor the product).  The [R, sum dp] int8 buffer and the
+//   slice's padded width dp (128, 256, 512 or 1,024, or past 1,024 a
+//   multiple of 128; zeros change neither the scale nor the product).  The [R, sum dp] int8 buffer and the
 //   [blocks, R] row scales are read by every vocab split, so a row is
 //   quantized once a call, not once a split.
 // - proj_int8_kernel, per block: a block owns BM = 256 rows (128 where dp
@@ -75,6 +75,11 @@
 //   block's exponentials and epilogue dominate.
 // - Splits: grid.y splits the vocab so that the row blocks x splits fill
 //   whole waves of the card (the wrapper's plan).
+// - Past dp = 1,024 the resident rows no longer fit beside the W^T ring
+//   (128 rows x 1,024 B already take 128 KB): the slice's quantized rows
+//   stream with W^T in K chunks of 128 through proj_bf16_kernel's ring
+//   (Q8: 128 rows and 256 columns a tile, wgmma m64n256k32 s8 into exact
+//   int32 sums, this epilogue's logits converted in place).
 //
 // bf16 weights and int8 weights dequantized to bf16 (``int8_mxu=False``,
 // project.py:114-119): wgmma + TMA as well (proj_bf16_kernel).
@@ -689,10 +694,13 @@ constexpr int B_CHUNK = BBN * BKB * 2;     // 32 KB of bf16 W^T
 constexpr int Q_CHUNK = BBN * BKB;         // 16 KB of int8 W^T (dequant)
 constexpr int PSLOTS = 2;                  // column-parameter ring, in tiles
 
-// Column parameters of a tile: bias log2e [BBN] (-inf past V), and with
-// CAND each column's candidate run lo [BBN], hi [BBN] (ints) and its bias.
-template <bool CAND>
-__host__ __device__ constexpr int bparam_floats() { return (CAND ? 4 : 1) * BBN; }
+// Column parameters of a tile: bias log2e [BBN] (-inf past V), with CAND
+// each column's candidate run lo [BBN], hi [BBN] (ints) and its bias, and
+// with Q8 (int8-MXU) the column scales [BBN] last (0 past V).
+template <bool CAND, bool Q8 = false>
+__host__ __device__ constexpr int bparam_floats() {
+  return (CAND ? 4 : 1) * BBN + (Q8 ? BBN : 0);
+}
 
 template <bool DEQ>
 __host__ __device__ constexpr int bf16_stages() { return DEQ ? 3 : 4; }
@@ -700,6 +708,41 @@ __host__ __device__ constexpr int bf16_stages() { return DEQ ? 3 : 4; }
 template <bool DEQ>
 __host__ __device__ constexpr int bf16_stage_bytes() {
   return A_CHUNK + B_CHUNK + (DEQ ? Q_CHUNK : 0);
+}
+
+// The online logsumexp of a tile's logits u in log2 units (fragment
+// layout d[4 j + 2 i + e]: row 16 warp + lane / 4 + 8 i, column 8 j +
+// 2 (lane % 4) + e): m in log2 units, exp(v - m) as 2^(u - m); max and
+// sum run as trees of 4 partials a row.  The logits may sit in int
+// registers (the int8 tile's, converted in place: as_f reads them back).
+__device__ __forceinline__ float as_f(float v) { return v; }
+__device__ __forceinline__ float as_f(int v) { return __int_as_float(v); }
+
+template <typename T>
+__device__ __forceinline__ void tile_lse(const T (&acc)[BBN / 2], float (&m_run)[2],
+                                         float (&s_run)[2]) {
+  constexpr int NJ = BBN / 8;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx[4], sm[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) mx[p] = as_f(acc[2 * i + (p & 1) + 4 * (p >> 1)]);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        mx[(j & 1) * 2 + e] = fmaxf(mx[(j & 1) * 2 + e], as_f(acc[4 * j + 2 * i + e]));
+    const float m_new = fmaxf(m_run[i], fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3])));
+#pragma unroll
+    for (int p = 0; p < 4; ++p) sm[p] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        sm[(j & 1) * 2 + e] += ex2(as_f(acc[4 * j + 2 * i + e]) - m_new);
+    s_run[i] = s_run[i] * ex2(m_run[i] - m_new) + ((sm[0] + sm[1]) + (sm[2] + sm[3]));
+    m_run[i] = m_new;
+  }
 }
 
 // The online logsumexp of one tile from acc, the warpgroup's m64 x 256
@@ -734,26 +777,44 @@ __device__ __forceinline__ void bf16_epilogue(float (&acc)[BBN / 2], float (&m_r
         v = fmaf(v, LOG2E, e ? b2.y : b2.x);
       }
   }
+  tile_lse(acc, m_run, s_run);
+}
+
+// The int8-MXU tile (Q8): its logits in log2 units from the exact int32
+// sums as tile_epilogue forms them, u = (float(acc) * rs) * scale_col +
+// bias log2e (rs = s_row log2e), each written over its sum (no second set
+// of 128 registers), a candidate's logit in the reference's order and
+// rounding, then the online logsumexp.
+template <bool CAND>
+__device__ __forceinline__ void q8_epilogue(int (&acc)[BBN / 2], float (&m_run)[2],
+                                            float (&s_run)[2], const float (&hsr)[2],
+                                            const float (&rs)[2], const float* prm,
+                                            int row_first, int R, const Cand& cd, int lane) {
+  constexpr int NJ = BBN / 8;
+  const int* lo = reinterpret_cast<const int*>(prm + BBN);
+  const int* hi = lo + BBN;
+  const float* braw = prm + 3 * BBN;
+  const float* scl = prm + (CAND ? 4 : 1) * BBN;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float mx[4], sm[4];
+  for (int j = 0; j < NJ; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    const float2 b2 = *reinterpret_cast<const float2*>(prm + col);
+    const float2 s2 = *reinterpret_cast<const float2*>(scl + col);
 #pragma unroll
-    for (int p = 0; p < 4; ++p) mx[p] = acc[2 * i + (p & 1) + 4 * (p >> 1)];
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        mx[(j & 1) * 2 + e] = fmaxf(mx[(j & 1) * 2 + e], acc[4 * j + 2 * i + e]);
-    const float m_new = fmaxf(m_run[i], fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3])));
-#pragma unroll
-    for (int p = 0; p < 4; ++p) sm[p] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) sm[(j & 1) * 2 + e] += ex2(acc[4 * j + 2 * i + e] - m_new);
-    s_run[i] = s_run[i] * ex2(m_run[i] - m_new) + ((sm[0] + sm[1]) + (sm[2] + sm[3]));
-    m_run[i] = m_new;
+      for (int e = 0; e < 2; ++e) {
+        const float a = static_cast<float>(acc[4 * j + 2 * i + e]);
+        const float sc = e ? s2.y : s2.x;
+        if constexpr (CAND) {
+          if (lo[col + e] < hi[col + e])
+            cand_store(cd, lo[col + e], hi[col + e], row_first + 8 * i, R,
+                       __fadd_rn(__fmul_rn(__fmul_rn(a, hsr[i]), sc), braw[col + e]));
+        }
+        acc[4 * j + 2 * i + e] = __float_as_int(fmaf(a * rs[i], sc, e ? b2.y : b2.x));
+      }
   }
+  tile_lse(acc, m_run, s_run);
 }
 
 // bf16 weights (DEQ false) or int8 weights dequantized to bf16 (DEQ).
@@ -762,15 +823,24 @@ __device__ __forceinline__ void bf16_epilogue(float (&acc)[BBN / 2], float (&m_r
 // or int8 boxes of 256 rows x 64 (unswizzled).  nkb: K chunks of 64.
 // Warpgroups 0 and 1 consume (rows 64 wg .. + 63 of the block, over every
 // tile), warpgroup 2 produces.
-template <bool DEQ, bool CAND>
+// Q8 (int8-MXU past dp = 1,024, where proj_int8_kernel's resident rows no
+// longer fit): tm_a the block's quantized rows, int8 [R, dp], boxes of
+// 128 rows x 128; tm_b W^T int8 [V, dp], boxes of 256 rows x 128, both
+// 128-byte swizzled: a stage's chunks have the bf16 stage's bytes (128
+// rows and 256 columns x 128 bytes of K), and a chunk is 4 wgmma
+// m64n256k32 s8 steps into int32 sums (exact: |acc| <= dp 127^2 < 2^31
+// for dp < 133,000); hs: the rows' scales.  The epilogue is the resident
+// kernel's (q8_epilogue).
+template <bool DEQ, bool CAND, bool Q8 = false>
 __global__ void __launch_bounds__(3 * WG_THREADS, 1)
 proj_bf16_kernel(const __grid_constant__ CUtensorMap tm_a,
                  const __grid_constant__ CUtensorMap tm_b, const float* __restrict__ scale,
-                 const float* __restrict__ bias, float* __restrict__ m_part,
-                 float* __restrict__ s_part, int R, int V, int nkb, int tiles_per_split,
-                 Cand cd) {
+                 const float* __restrict__ bias, const float* __restrict__ hs,
+                 float* __restrict__ m_part, float* __restrict__ s_part, int R, int V,
+                 int nkb, int tiles_per_split, Cand cd) {
   constexpr int STAGES = bf16_stages<DEQ>(), STAGE = bf16_stage_bytes<DEQ>();
-  constexpr int PF = bparam_floats<CAND>();
+  constexpr int PF = bparam_floats<CAND, Q8>();
+  constexpr int KE = Q8 ? 128 : BKB;  // K elements of a chunk (128 bytes a row)
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -813,7 +883,7 @@ proj_bf16_kernel(const __grid_constant__ CUtensorMap tm_a,
       jlm::prefetch_map(&tm_a);
       jlm::prefetch_map(&tm_b);
       for (int i = 0; i < n_chunks; ++i) {
-        const int s = i % STAGES, col = (i % nkb) * BKB, vrow = (vt_begin + i / nkb) * BBN;
+        const int s = i % STAGES, col = (i % nkb) * KE, vrow = (vt_begin + i / nkb) * BBN;
         unsigned char* st = smem + s * STAGE;
         if (i >= STAGES) jlm::mbar_wait(&empty[s], ((i / STAGES) - 1) & 1);
         jlm::mbar_expect_tx(&full[s], DEQ ? A_CHUNK : A_CHUNK + B_CHUNK);
@@ -839,6 +909,7 @@ proj_bf16_kernel(const __grid_constant__ CUtensorMap tm_a,
             lo[BBN + c] = n < V ? first_at_least(cd.ids, cd.C, cd.id_base + n + 1) : 0;
             prm[3 * BBN + c] = n < V ? bias[n] : 0.0f;
           }
+          if constexpr (Q8) prm[(CAND ? 4 : 1) * BBN + c] = n < V ? scale[n] : 0.0f;
         }
         jlm::mbar_arrive(&pfull[p]);  // release: the consumers' wait sees the stores
       }
@@ -887,7 +958,14 @@ proj_bf16_kernel(const __grid_constant__ CUtensorMap tm_a,
       if (lane == 0) jlm::mbar_arrive(&empty[i % STAGES]);
     };
     float m_run[2] = {NEG, NEG}, s_run[2] = {0.0f, 0.0f};
-    float acc[BBN / 2];
+    float hsr[2], rs[2];  // Q8: the rows' scales, and times log2e
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row_first + 8 * i;
+      hsr[i] = Q8 && row < R ? hs[row] : 1.0f;
+      rs[i] = hsr[i] * LOG2E;
+    }
+    std::conditional_t<Q8, int, float> acc[BBN / 2];
     for (int t = 0; t < nt; ++t) {
       for (int kc = 0; kc < nkb; ++kc) {
         const int i = t * nkb + kc, s = i % STAGES;
@@ -896,9 +974,14 @@ proj_bf16_kernel(const __grid_constant__ CUtensorMap tm_a,
         const unsigned char* b = smem + s * STAGE + A_CHUNK;
         jlm::wgmma_fence();
 #pragma unroll
-        for (int k = 0; k < BKB / 16; ++k)
-          jlm::wgmma_bf16_n256(acc, jlm::smem_desc(a + k * 32), jlm::smem_desc(b + k * 32),
+        for (int k = 0; k < 4; ++k) {  // 32 bytes of K a step (16 bf16, 32 int8)
+          if constexpr (Q8)
+            jlm::wgmma_s8_n256(acc, jlm::smem_desc(a + k * 32), jlm::smem_desc(b + k * 32),
                                (kc | k) > 0);
+          else
+            jlm::wgmma_bf16_n256(acc, jlm::smem_desc(a + k * 32),
+                                 jlm::smem_desc(b + k * 32), (kc | k) > 0);
+        }
         jlm::wgmma_commit();
         if (kc > 0) {  // the previous chunk's group is done: release its stage
           jlm::wgmma_wait<1>();
@@ -910,7 +993,10 @@ proj_bf16_kernel(const __grid_constant__ CUtensorMap tm_a,
       release(t * nkb + nkb - 1);
       const int p = t % PSLOTS;
       jlm::mbar_wait(&pfull[p], (t / PSLOTS) & 1);
-      bf16_epilogue<CAND>(acc, m_run, s_run, sp + p * PF, row_first, R, cd, lane);
+      if constexpr (Q8)
+        q8_epilogue<CAND>(acc, m_run, s_run, hsr, rs, sp + p * PF, row_first, R, cd, lane);
+      else
+        bf16_epilogue<CAND>(acc, m_run, s_run, sp + p * PF, row_first, R, cd, lane);
       __syncwarp();
       if (lane == 0) jlm::mbar_arrive(&pempty[p]);
     }
@@ -939,25 +1025,28 @@ proj_bf16_kernel(const __grid_constant__ CUtensorMap tm_a,
   }
 }
 
-template <bool DEQ, bool CAND>
+// h: bf16 [R, dp] (row stride ldh), or (Q8) the quantized rows int8 [R,
+// dp] (row stride ldh bytes, dp a multiple of 128) with their scales hs.
+template <bool DEQ, bool CAND, bool Q8 = false>
 cudaError_t launch_bf16(const void* h, int ldh, int R, int dp, const void* wt,
                         const float* scale, const float* bias, float* m_part,
                         float* s_part, int V, int splits, int tiles_per_split,
-                        const Cand& cd, cudaStream_t stream) {
+                        const Cand& cd, cudaStream_t stream, const float* hs = nullptr) {
   const int smem = bf16_stages<DEQ>() * (bf16_stage_bytes<DEQ>() + 3 * 8) +
-                   PSLOTS * (bparam_floats<CAND>() * 4 + 2 * 8) + 1024;
+                   PSLOTS * (bparam_floats<CAND, Q8>() * 4 + 2 * 8) + 1024;
+  constexpr int KE = Q8 ? 128 : BKB;
   CUtensorMap ta, tb;
-  if (!jlm::tensor_map(&ta, h, 2, R, dp, ldh, BBM, BKB) ||
+  if (!jlm::tensor_map(&ta, h, Q8 ? 1 : 2, R, dp, ldh, BBM, KE) ||
       !(DEQ ? jlm::tensor_map(&tb, wt, 1, V, dp, dp, BBN, BKB, false)
-            : jlm::tensor_map(&tb, wt, 2, V, dp, dp, BBN, BKB)))
+            : jlm::tensor_map(&tb, wt, Q8 ? 1 : 2, V, dp, dp, BBN, KE)))
     return cudaErrorInvalidValue;
-  auto kernel = proj_bf16_kernel<DEQ, CAND>;
+  auto kernel = proj_bf16_kernel<DEQ, CAND, Q8>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((R + BBM - 1) / BBM, splits);
-  kernel<<<grid, 3 * WG_THREADS, smem, stream>>>(ta, tb, scale, bias, m_part, s_part, R, V,
-                                                 (dp + BKB - 1) / BKB, tiles_per_split, cd);
+  kernel<<<grid, 3 * WG_THREADS, smem, stream>>>(ta, tb, scale, bias, hs, m_part, s_part, R,
+                                                 V, (dp + KE - 1) / KE, tiles_per_split, cd);
   return cudaGetLastError();
 }
 
@@ -1024,11 +1113,14 @@ int jlm_project_quantize(const void* h, int ldh, int h_bf16, int R, int n, const
 }
 
 // One int8-MXU block: q [R, dp] int8 (row stride ldq bytes; dp 128, 256,
-// 512 or 1,024: the slice's width padded), wt [V, dp] int8 W^T, scale [V],
-// bias [V], hs [R] its row scales; m_part/s_part and the candidate
-// arguments as in jlm_project_block.  dp <= 512 takes 256-row blocks and
-// 64-column tiles, dp = 1,024 128-row blocks and 32-column tiles (the
-// wrapper plans the splits with the same numbers).
+// 512 or 1,024, or past 1,024 a multiple of 128: the slice's width
+// padded), wt [V, dp] int8 W^T, scale [V], bias [V], hs [R] its row
+// scales; m_part/s_part and the candidate arguments as in
+// jlm_project_block.  The rows stay resident up to dp = 1,024: dp <= 512
+// takes 256-row blocks and 64-column tiles, dp = 1,024 128-row blocks and
+// 32-column tiles; wider slices stream the rows in K chunks with W^T
+// (128-row blocks, 256-column tiles).  The wrapper plans the splits with
+// the same numbers.
 int jlm_project_int8(const void* q, int ldq, int R, int dp, const void* wt,
                      const float* scale, const float* bias, const float* hs, float* m_part,
                      float* s_part, int V, int splits, int tiles_per_split,
@@ -1049,9 +1141,17 @@ int jlm_project_int8(const void* q, int ldq, int R, int dp, const void* wt,
     case 256: return JLM_INT8(4, 64, 2, true);
     case 512: return JLM_INT8(4, 64, 4, false);
     case 1024: return JLM_INT8(2, 32, 8, false);
-    default: return (int)cudaErrorInvalidValue;
+    default: break;
   }
 #undef JLM_INT8
+  // wider: the rows streamed with W^T in K chunks of 128 (proj_bf16_kernel, Q8)
+  if (dp <= 1024 || dp % 128) return (int)cudaErrorInvalidValue;
+  return (int)(cand_ids ? launch_bf16<false, true, true>(q, ldq, R, dp, wt, scale, bias,
+                                                          m_part, s_part, V, splits,
+                                                          tiles_per_split, cd, st, hs)
+                        : launch_bf16<false, false, true>(q, ldq, R, dp, wt, scale, bias,
+                                                           m_part, s_part, V, splits,
+                                                           tiles_per_split, cd, st, hs));
 }
 
 // One block of the head in the other modes.  h: the block's first

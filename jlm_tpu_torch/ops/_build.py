@@ -47,7 +47,7 @@ _SIGNATURES = {
     "jlm_lstm_cell_bf16": [_P, _P, _P, _I, _P, _P, _P, _I, _P,
                            _I, _I, _I, ctypes.c_float, _P],
     "jlm_cand_dot": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
-    "jlm_cell_cand": [_P, _P, _P, _I] + [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P],
+    "jlm_cell_cand": [_P, _P, _P, _I] + [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P],
     "jlm_ce_fwd": [_P] * 9 + [_I] * 7 + [_P],
     "jlm_ce_bwd_dh": [_P] * 9 + [_I] * 7 + [_P],
     "jlm_ce_bwd_dw": [_P] * 9 + [_I] * 5 + [_P],

@@ -10,11 +10,15 @@ dots read h' rounded to the compute dtype, the value the split frame's
 cand fp32 [S, B, C1])``.
 
 On a CUDA tensor the wrapper launches ``csrc/cell_cand.cu`` (bf16 compute
-on the tensor cores, or exact fp32 compute on the CUDA cores) or raises; on
-a CPU tensor it runs the plain version ``cell_cand_ref``.  The kernel holds
-at most 16 beam rows of a sentence: wider beams go in groups of at most 16
-rows (``beam_groups``), one launch each, the rows of each group gathered
-into their own ``[S * b, ...]`` operands.
+on ``wgmma`` + TMA, reading the cell's gate-tiled weight copy
+``cell_weight_tiles``, or exact fp32 compute on the CUDA cores) or raises;
+on a CPU tensor it runs the plain version ``cell_cand_ref``.  The kernel
+holds at most 16 beam rows of a sentence: wider beams go in groups of at
+most 16 rows (``beam_groups``), one launch each, the rows of each group
+gathered into their own ``[S * b, ...]`` operands.  Any E and H: the bf16
+kernel takes multiples of 8, the fp32 kernel E a multiple of 32 and H of
+64; other widths are zero-padded as the cell pads them
+(``lstm_cell.pad_cell``), ``cols`` with zero columns, and sliced back.
 """
 
 from __future__ import annotations
@@ -26,9 +30,27 @@ import torch
 
 from jlm_tpu_torch.ops import _build
 from jlm_tpu_torch.ops.cand_dot import beam_groups
-from jlm_tpu_torch.ops.lstm_cell import lstm_cell_ref
+from jlm_tpu_torch.ops.lstm_cell import (
+    _aligned, _round_up, cell_weight_tiles, lstm_cell_ref, pad_cell)
+from jlm_tpu_torch.ops.project import pad_cols
 
-_MAX_B = 16  # beam rows per sentence the kernel's dot holds in registers
+_MAX_B = 16  # beam rows per sentence: one m16 tile of the candidate dot
+_MAX_C1 = 256  # candidate columns per sentence: one TMA box of the bf16 kernel
+_ROWS = 128  # row slots of a bf16 block (G = 128 // B whole sentences)
+_UNITS = 64  # hidden units of a bf16 block
+_done = {}  # device index -> the bf16 kernel's zeroed counters (it leaves them zeroed)
+
+
+def _counters(device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters on ``device``, kept between
+    calls: each launch of the bf16 kernel counts its blocks in them and
+    zeroes them again (so two launches must not run at once on two
+    streams)."""
+    kept = _done.get(device.index)
+    if kept is None or kept.numel() < n:
+        kept = _done[device.index] = torch.zeros(max(n, 4096), dtype=torch.int32,
+                                                 device=device)
+    return kept
 
 
 def cell_cand_ref(x, h, c, W, b, cols, cbias, B: int, forget_bias: float = 1.0, *,
@@ -44,16 +66,41 @@ def cell_cand_ref(x, h, c, W, b, cols, cbias, B: int, forget_bias: float = 1.0, 
 
 
 def _launch(x, h, c, W, b, cols, cbias, B, forget_bias):
+    """Pad E and H to the kernel's multiples where needed, launch, slice
+    back."""
+    R, E = x.shape
+    H = h.shape[1]
+    f32 = x.dtype == torch.float32
+    if tuple(W.shape) != (E + H, 4 * H):
+        raise ValueError(f"W must be [{E + H}, {4 * H}], got {tuple(W.shape)}")
+    w = W if f32 else cell_weight_tiles(W, E, H)
+    Ep, Hp = (_round_up(E, 32), _round_up(H, 64)) if f32 else (_round_up(E, 8),
+                                                               _round_up(H, 8))
+    if (Ep, Hp) == (E, H):
+        return _launch_aligned(x, h, c, w, b, cols, cbias, B, forget_bias)
+    x, h, c, Wp, b = pad_cell(x, h, c, W if f32 else None, b, Ep, Hp)
+    c_new, h_new, cand = _launch_aligned(x, h, c, Wp if f32 else w, b, pad_cols(cols, Hp),
+                                         cbias, B, forget_bias)
+    return c_new[:, :H].contiguous(), h_new[:, :H].contiguous(), cand
+
+
+def _launch_aligned(x, h, c, w, b, cols, cbias, B, forget_bias):
+    """Check and launch; w is W (fp32) or its bf16 gate copy."""
     R, E = x.shape
     H = h.shape[1]
     S, C1 = cols.shape[:2]
+    f32 = x.dtype == torch.float32
     if c.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"c dtype {c.dtype}")
     if R != S * B or not 1 <= B <= _MAX_B:
         raise ValueError(f"need R = S * B with B <= {_MAX_B}, got R={R} S={S} B={B}")
-    if E % 32 or H % 64:
-        raise ValueError(f"E={E} must be a multiple of 32 and H={H} of 64")
-    shapes = {"h": (h, (R, H)), "c": (c, (R, H)), "W": (W, (E + H, 4 * H)),
+    if not f32 and not 1 <= C1 <= _MAX_C1:
+        raise ValueError(f"the bf16 kernel takes 1 to {_MAX_C1} candidate columns, not {C1}")
+    w_shape = ((E + H, 4 * H) if f32 else
+               (4 * _round_up(H, 64), _round_up(E, 64) + _round_up(H, 64)))
+    if not f32:
+        x, h, w, cols = (_aligned(t) for t in (x, h, w, cols))
+    shapes = {"h": (h, (R, H)), "c": (c, (R, H)), "W": (w, w_shape),
               "b": (b, (4 * H,)), "cols": (cols, (S, C1, H)), "cbias": (cbias, (S, C1))}
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape or t.device != x.device or not t.is_contiguous():
@@ -65,12 +112,19 @@ def _launch(x, h, c, W, b, cols, cbias, B, forget_bias):
     cand = torch.empty((S, B, C1), dtype=torch.float32, device=x.device)
     if S:
         P = ctypes.c_void_p
+        scratch = done = None
+        if not f32:  # each unit group's partial candidate sums, and their counters
+            G = _ROWS // B
+            n_sb = -(-S // G)
+            scratch = cand.new_empty((n_sb * -(-H // _UNITS) * (-(-G * B * C1 // 4) * 4),))
+            done = _counters(x.device, n_sb)
         err = _build.lib().jlm_cell_cand(
             P(x.data_ptr()), P(h.data_ptr()), P(c.data_ptr()), int(c.dtype == torch.float32),
-            P(W.data_ptr()), P(b.data_ptr()), P(cols.data_ptr()), P(cbias.data_ptr()),
+            P(w.data_ptr()), P(b.data_ptr()), P(cols.data_ptr()), P(cbias.data_ptr()),
             P(c_new.data_ptr()), P(h_new.data_ptr()), P(cand.data_ptr()),
-            S, B, E, H, C1, int(x.dtype == torch.float32), float(forget_bias),
-            P(_build.stream_ptr(x)),
+            P(None if scratch is None else scratch.data_ptr()),
+            P(None if done is None else done.data_ptr()),
+            S, B, E, H, C1, int(f32), float(forget_bias), P(_build.stream_ptr(x)),
         )
         _build.check(err, "cell_cand kernel")
         cell_cand_step.launches += 1

@@ -13,6 +13,14 @@ the weight as its gate-tiled copy (:func:`cell_weight_tiles`), which is
 kept on the weight tensor and remade only after the weight changes in
 place; ``build_decode_head`` makes it once per layer.  A caller that hands
 a weight in another dtype gets a new cast, and so a new copy, every call.
+
+Any E and H: the fp32 kernel takes multiples of 32, the bf16 kernel
+multiples of 8 (TMA's 16-byte rows), and the wrapper zero-pads other
+widths (``pad_cell``): zero columns of x and rows of W for E; for H zero
+units — zero columns of h and c, zero gate columns and rows of W (the gate
+copy is already zero past H) and zero bias — whose c' and h' stay 0, so the
+units kept are unchanged; the outputs are sliced back.  An aligned width
+launches with no copy.
 """
 
 from __future__ import annotations
@@ -48,6 +56,19 @@ def pad_gates(W: torch.Tensor, E: int, H: int, Ep: int, Hp: int) -> torch.Tensor
                       pad(Wg[E:], (0, 0, 0, 0, 0, Hp - H))])
 
 
+def pad_cell(x, h, c, W, b, Ep: int, Hp: int):
+    """The cell's operands zero-padded to ``Ep`` inputs and ``Hp`` units
+    (``W`` to ``[Ep + Hp, 4 Hp]``, ``b`` per gate); ``W`` may be None (the
+    bf16 kernel reads its gate copy, already zero past H)."""
+    E, H = x.shape[1], h.shape[1]
+    pad = torch.nn.functional.pad
+    x, h, c = pad(x, (0, Ep - E)), pad(h, (0, Hp - H)), pad(c, (0, Hp - H))
+    b = pad(b.reshape(4, H), (0, Hp - H)).reshape(4 * Hp)
+    if W is not None:
+        W = pad_gates(W, E, H, Ep, Hp).reshape(Ep + Hp, 4 * Hp)
+    return x, h, c, W, b
+
+
 def _tiles(W: torch.Tensor, E: int, H: int) -> torch.Tensor:
     Ex, Hp = _round_up(E, KC), _round_up(H, UNITS)
     return (pad_gates(W, E, H, Ex, Hp).reshape(Ex + Hp, 4, Hp // UNITS, UNITS)
@@ -77,10 +98,9 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(x, h, c, W, b, forget_bias, c_out_dtype):
-    """Check and launch; x, h and W are contiguous in the compute dtype.
-    Straight-line checks: this Python runs before every launch, and a
-    one-call time counts it."""
+def _launch_any(x, h, c, W, b, forget_bias, c_out_dtype):
+    """Pad to the kernel's widths where needed, launch, slice back; x, h
+    and W are contiguous in the compute dtype."""
     R, E = x.shape
     H = h.shape[1]
     f32 = x.dtype == torch.float32
@@ -88,14 +108,34 @@ def _launch(x, h, c, W, b, forget_bias, c_out_dtype):
         raise ValueError(f"c_out_dtype {c_out_dtype}")
     if c.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"c dtype {c.dtype}")
-    if f32 and (E % 32 or H % 32):
-        raise ValueError(f"the fp32 kernel needs E={E} and H={H} multiples of 32")
-    if not f32 and (E % 8 or H % 8):
-        raise ValueError(f"the bf16 kernel needs E={E} and H={H} multiples of 8")
+    if W.shape != (E + H, 4 * H):
+        raise ValueError(f"W must be [{E + H}, {4 * H}], got {tuple(W.shape)}")
+    m = 32 if f32 else 8  # the kernel's width multiple
+    if E % m or H % m:
+        Ep, Hp = _round_up(E, m), _round_up(H, m)
+        if f32:
+            x, h, c, W, b = pad_cell(x, h, c, W, b, Ep, Hp)
+        else:
+            w = cell_weight_tiles(W, E, H)
+            x, h, c, _, b = pad_cell(x, h, c, None, b, Ep, Hp)
+        c_new, h_new = _launch(x, h, c, W if f32 else w, b, forget_bias, c_out_dtype,
+                               tiles=not f32)
+        return c_new[:, :H].contiguous(), h_new[:, :H].contiguous()
+    return _launch(x, h, c, W, b, forget_bias, c_out_dtype)
+
+
+def _launch(x, h, c, W, b, forget_bias, c_out_dtype, tiles: bool = False):
+    """Check and launch at aligned widths; x, h and W are contiguous in the
+    compute dtype (with ``tiles``, W is already the bf16 gate copy).
+    Straight-line checks: this Python runs before every launch, and a
+    one-call time counts it."""
+    R, E = x.shape
+    H = h.shape[1]
+    f32 = x.dtype == torch.float32
     if f32:
         w, w_shape = W, (E + H, 4 * H)
     else:
-        w = _aligned(cell_weight_tiles(W, E, H))
+        w = _aligned(W if tiles else cell_weight_tiles(W, E, H))
         w_shape = (4 * _round_up(H, UNITS), _round_up(E, KC) + _round_up(H, UNITS))
         x, h = _aligned(x), _aligned(h)
     dev = x.device
@@ -152,8 +192,8 @@ def lstm_cell_step(
     if x.is_cuda:
         if compute_dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"lstm_cell kernel computes in bf16 or fp32, not {compute_dtype}")
-        return _launch(x.contiguous(), h.contiguous(), c, W.contiguous(), b,
-                       forget_bias, c_out_dtype)
+        return _launch_any(x.contiguous(), h.contiguous(), c, W.contiguous(), b,
+                           forget_bias, c_out_dtype)
     c_new, h_new = lstm_cell_ref(x, h, c, W, b, forget_bias)
     return c_new.to(c_out_dtype), h_new.to(compute_dtype)
 

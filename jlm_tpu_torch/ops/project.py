@@ -35,8 +35,9 @@ On a CUDA tensor the wrapper launches ``csrc/project_lse.cu`` — one launch
 per block and one merge, and for int8-MXU heads first one launch that
 quantizes every block's activation slice — or raises; on a CPU tensor it
 runs the plain version.  The int8-MXU, bf16 and bf16-dequant blocks run
-``wgmma`` + TMA kernels (int8-MXU: hidden slices up to 1,024 wide; the
-bf16 modes any width), the fp32 modes the fp32 kernel.  A block may carry
+``wgmma`` + TMA kernels at any width (int8-MXU keeps a block's quantized
+rows resident up to a 1,024-wide slice and streams them with W^T past
+it), the fp32 modes the fp32 kernel.  A block may carry
 ``"WT"``, the ``[V_k, d_k]`` transposed weight the kernel reads
 (``build_decode_head`` makes it once); without it the wrapper transposes
 per call.  A head whose every block carries ``"WT"`` is checked once and
@@ -45,7 +46,8 @@ head's tensors only through ``build_decode_head``.
 
 Widths and offsets that are not multiples of 32 (``padded_width``): the
 plan pads each block's W^T with zero columns to the next multiple of 32
-once (an int8-MXU block to 128, 256, 512 or 1,024: ``int8_width``), and
+once (an int8-MXU block to 128, 256, 512 or 1,024, past that to a
+multiple of 128: ``int8_width``), and
 each call copies the block's h slice into a zero-padded buffer (the int8
 quantization pass writes its zero columns itself); zeros change neither a
 product nor an int8 row scale.
@@ -68,11 +70,15 @@ BF16, INT8_MXU, DEQUANT_BF16, FP32, DEQUANT_FP32 = range(5)
 _BF16_TILE = (128, 256)
 _FP32_TILE = (64, 64)
 _ALIGN = 32  # hidden columns per kernel K step
-_INT8_MAX_D = 1024  # widest hidden slice the int8 kernel keeps resident
+_INT8_RESIDENT = 1024  # widest slice whose quantized rows the int8 kernel keeps resident
+_INT8_CHUNK = 128  # K of a streamed int8 chunk (one 128-byte swizzle row)
 
 
 def _int8_tile(dp: int) -> Tuple[int, int]:
-    """(rows per block, vocab columns per tile) of the int8 kernel."""
+    """(rows per block, vocab columns per tile) of the int8 kernel: rows
+    resident up to 1,024 wide, streamed with W^T past it."""
+    if dp > _INT8_RESIDENT:
+        return _BF16_TILE
     return (256, 64) if dp <= 512 else (128, 32)
 
 
@@ -83,7 +89,10 @@ def padded_width(d: int, multiple: int = _ALIGN) -> int:
 
 def int8_width(d: int) -> int:
     """The int8 kernel's padded width of a ``d``-wide slice: 128, 256, 512
-    or 1,024 (its K loop is unrolled for each)."""
+    or 1,024 (the resident kernel's K loop is unrolled for each), and past
+    1,024 a multiple of 128 (the streamed kernel's K chunk)."""
+    if d > _INT8_RESIDENT:
+        return padded_width(d, _INT8_CHUNK)
     w = 128
     while w < d:
         w *= 2
@@ -149,9 +158,11 @@ def _logits_ref(h, W, scale, bias, compute_dtype, int8_mxu) -> torch.Tensor:
     h = h.to(compute_dtype)
     if scale is not None and int8_mxu:
         q, s = quantize_rows(h)
-        # int8 @ int8 in torch returns int8 (wraps), so multiply as fp32:
-        # every partial sum is an integer below 2**24 for H <= 1040, exact.
-        acc = q.float() @ W.float()
+        # int8 @ int8 in torch returns int8 (wraps), so multiply as floats:
+        # every partial sum is an integer below 2**24 for H <= 1040, exact
+        # in fp32; wider slices multiply in fp64 (exact below 2**53).
+        wide = W.shape[0] > 1040
+        acc = (q.double() @ W.double()).float() if wide else q.float() @ W.float()
         return acc * s * scale.float()[None, :] + bias.float()[None, :]
     if scale is not None:  # dequant before the product, rounded once
         W = W.float() * scale.float()[None, :]
@@ -259,9 +270,6 @@ def _block_plan(head, config, H, device, compute_dtype, int8_mxu):
             raise ValueError(f"block columns [{off}, {off + d}) exceed the hidden size {H}")
         mode = _mode(quantized, compute_dtype, int8_mxu)
         dp = int8_width(d) if mode == INT8_MXU else padded_width(d)
-        if mode == INT8_MXU and dp > _INT8_MAX_D:
-            raise ValueError(f"the int8-MXU kernel takes hidden slices up to {_INT8_MAX_D} "
-                             f"wide, not {d}")
         plan.append((off, d, pad_cols(wt, dp), mode, scale, bias, V, dp))
     if all("WT" in blk for _, _, blk in blocks):
         head["_plan"] = (key, plan)
@@ -269,8 +277,9 @@ def _block_plan(head, config, H, device, compute_dtype, int8_mxu):
 
 
 # Each block's fixed cost in tile times, for vocab_splits: the int8 kernel
-# loads its resident rows (about 4 tiles); the bf16 kernel streams h with
-# every tile, and pays its ring's fill and its epilogue (about 1).
+# loads its resident rows (about 4 tiles); the bf16 kernel and the int8
+# kernel past 1,024 stream h with every tile, and pay their ring's fill and
+# their epilogue (about 1).
 INT8_BLOCK_TILES = 4
 BF16_BLOCK_TILES = 1
 
@@ -304,8 +313,9 @@ def _launch(h, head, config, compute_dtype, int8_mxu, want: str, cand_ids=None):
                                                             compute_dtype, int8_mxu):
         if mode == INT8_MXU:
             rows, cols = _int8_tile(dp)
-            splits, per_split = vocab_splits(-(-V // cols), -(-R // rows), sms,
-                                             INT8_BLOCK_TILES)
+            splits, per_split = vocab_splits(
+                -(-V // cols), -(-R // rows), sms,
+                INT8_BLOCK_TILES if dp <= _INT8_RESIDENT else BF16_BLOCK_TILES)
         elif mode in (BF16, DEQUANT_BF16):
             rows, cols = _BF16_TILE
             splits, per_split = vocab_splits(-(-V // cols), -(-R // rows), sms,

@@ -33,7 +33,7 @@ def test_port_runs_without_the_jax_package():
         "import jlm_tpu_torch\n"
         "for m in pkgutil.walk_packages(jlm_tpu_torch.__path__, 'jlm_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke, profile_serve, profile_train\n"
+        "import chip_smoke, profile_serve, profile_train, time_kernels\n"
         "from jlm_tpu_torch.config import Config\n"
         "from jlm_tpu_torch.data import (Lexicon, build_vocab, encode_corpus,\n"
         "                                generate_corpus, split_corpus)\n"

@@ -159,6 +159,7 @@ def test_project_kernel_modes_vs_plain(cuda, mode, weights):
     (300, 64, 96),      # ragged rows; three 32-unit blocks
     (512, 256, 512),    # the fp32 parity run's frame
     (77, 1024, 1024),   # the widest training width, fewer rows than a block
+    (77, 30, 20),       # E, H off the kernel's multiple of 32: padded, sliced back
 ])
 def test_lstm_cell_fp32_kernel_vs_plain(cuda, R, E, H):
     """fp32 compute (exact fp32 FMAs): c' and h' fp32 within 1e-5 of the
@@ -224,6 +225,35 @@ def test_cand_dot_kernel_vs_plain(cuda, dtype):
     bias = torch.from_numpy(rng.normal(size=(S, C1)).astype(np.float32)).to(cuda)
     np.testing.assert_allclose(cand_dot(h3, cols, bias).cpu().numpy(),
                                cand_dot_ref(h3, cols, bias).cpu().numpy(), atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,B,C1,H", [
+    (7, 10, 65, 136),     # H padded to the K step (144 bf16, 136 fp32)
+    (7, 20, 65, 136),     # two beam groups
+    (5, 10, 300, 64),     # two candidate groups (256 + 44)
+    (9, 10, 65, 1024),    # K chunks of 1 KB a row: 2 a sentence in bf16, 4 in fp32
+    (3000, 10, 65, 512),  # more sentences than the persistent grid
+    (4, 1, 1, 16),        # one beam row, one candidate
+])
+def test_cand_dot_kernel_shapes(cuda, S, B, C1, H, dtype):
+    """cand_dot's ring (bulk copies a row, mma.sync in bf16, whole dots in
+    fp32) at ragged shapes vs the plain version: 1e-4 abs (fp32 sums of the
+    same products in another order); one launch a group of beams and
+    candidates."""
+    rng = np.random.default_rng(36)
+
+    def t(*shape, dt=dtype):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32) * 0.3).to(cuda).to(dt)
+
+    h3, cols, bias = t(S, B, H), t(S, C1, H), t(S, C1, dt=torch.float32)
+    n0 = cand_dot.launches
+    got = cand_dot(h3, cols, bias)
+    assert cand_dot.launches == n0 + (-(-B // 16)) * (-(-C1 // 256))
+    assert got.shape == (S, B, C1) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), cand_dot_ref(h3, cols, bias).cpu().numpy(),
+                               atol=1e-4)
 
 
 def _ce_case(cuda, seed, N, D, V, neg_every=0, scale=0.05):
@@ -684,6 +714,9 @@ def test_project_candidates_kernel_vs_plain(cuda, mode, weights):
     (4, 8, 32, 64, 9),
     (37, 16, 256, 512, 65),   # the widest sentence the kernel takes
     (345, 10, 256, 512, 65),  # the serving widths, a ragged last block
+    (7, 10, 40, 24, 65),      # E, H multiples of 8, under one unit group
+    (5, 10, 30, 20, 9),       # E, H off the multiple of 8: padded, sliced back
+    (6, 1, 64, 128, 200),     # one row a sentence (128 a block), 200 candidates
 ])
 def test_cell_cand_kernel_vs_plain(cuda, S, B, E, H, C1, c_dtype):
     """The fused cell + candidate kernel (bf16) vs its plain version on the
@@ -726,6 +759,8 @@ def test_cell_cand_kernel_vs_plain(cuda, S, B, E, H, C1, c_dtype):
     (12, 10, 64, 128, 17),    # test_cell_cand_fused's shapes
     (4, 8, 32, 64, 9),
     (64, 8, 256, 512, 65),    # the fp32 parity run's frame (greedy, beam pad 8)
+    (7, 10, 40, 24, 65),      # E, H padded to 64 and 64
+    (5, 8, 30, 20, 9),
 ])
 def test_cell_cand_fp32_kernel_vs_plain(cuda, S, B, E, H, C1, c_dtype):
     """fp32 compute (exact fp32 FMAs, TF32 off): c', h' and the candidate
@@ -754,22 +789,28 @@ def test_cell_cand_fp32_kernel_vs_plain(cuda, S, B, E, H, C1, c_dtype):
 
 @pytest.mark.cuda
 def test_cell_cand_refuses_what_it_cannot_take(cuda):
-    """fp16 compute, E not a multiple of 32, H not a multiple of 64, and a
-    cols slice of the wrong shape raise."""
+    """fp16 compute, more candidate columns than one TMA box holds (bf16)
+    and a cols slice of the wrong shape raise; widths off the kernels'
+    multiples (E = 48, H = 96 in bf16; E = 48 in fp32) are padded and
+    launch."""
     from jlm_tpu_torch.ops.frame_step import cell_cand_step
 
     bf = torch.bfloat16
 
-    def args(S, B, E, H, C1):
-        z = lambda *s, dtype=bf: torch.zeros(s, dtype=dtype, device=cuda)  # noqa: E731
+    def args(S, B, E, H, C1, dtype=bf):
+        z = lambda *s, dtype=dtype: torch.zeros(s, dtype=dtype, device=cuda)  # noqa: E731
         return (z(S * B, E), z(S * B, H), z(S * B, H, dtype=torch.float32), z(E + H, 4 * H),
                 z(4 * H, dtype=torch.float32), z(S, C1, H), z(S, C1, dtype=torch.float32), B)
 
     with pytest.raises(ValueError, match="bf16 or fp32"):
         cell_cand_step(*args(2, 8, 32, 64, 9), compute_dtype=torch.float16)
-    for shape, match in (((2, 8, 48, 64, 9), "E=48"), ((2, 8, 32, 96, 9), "H=96")):
-        with pytest.raises(ValueError, match=match):
-            cell_cand_step(*args(*shape), compute_dtype=bf)
+    with pytest.raises(ValueError, match="candidate columns"):
+        cell_cand_step(*args(2, 8, 32, 64, 257), compute_dtype=bf)
+    for shape, cd in (((2, 8, 48, 64, 9), bf), ((2, 8, 32, 96, 9), bf),
+                      ((2, 8, 48, 64, 9), torch.float32)):
+        c_new, h_new, cand = cell_cand_step(*args(*shape, dtype=cd), compute_dtype=cd)
+        assert c_new.shape == h_new.shape == (16, shape[3]) and cand.shape == (2, 8, 9)
+        assert float(cand.abs().max()) == 0.0 and float(h_new.float().abs().max()) == 0.0
     a = list(args(2, 8, 32, 64, 9))
     a[5] = a[5][:, :, :32]
     with pytest.raises(ValueError, match="cols"):
@@ -816,6 +857,7 @@ def test_fused_frame_forward_on_the_card(cuda):
     (1000, 256, 512, True),   # the serving widths, tiles made first (the engine's way)
     (300, 64, 96, False),     # H not a multiple of the 64-unit block, tiles made by the call
     (77, 40, 24, True),       # E, H multiples of 8 only; fewer rows than a block
+    (77, 30, 20, True),       # E, H off the multiple of 8: padded, sliced back
 ])
 def test_lstm_cell_wgmma_kernel_shapes(cuda, R, E, H, tiles):
     """The bf16 cell kernel (wgmma + TMA) on ragged rows, units and K vs the
@@ -850,6 +892,9 @@ def test_lstm_cell_wgmma_kernel_shapes(cuda, R, E, H, tiles):
     (300, 640, 3001),    # a slice over 512: 128-row blocks, 32-column tiles
     (130, 1024, 2000),   # the widest slice the kernel keeps resident
     (600, 80, 4999),     # a slice padded from 80 to 128
+    (300, 1050, 3001),   # past 1,024: padded to 1,152, rows streamed with W^T
+    (70, 1536, 1999),
+    (129, 2048, 2000),
 ])
 def test_project_int8_wgmma_kernel_edges(cuda, R, H, V):
     """The int8-MXU head (quantization pass + wgmma kernel) at ragged R, V

@@ -337,3 +337,84 @@ def test_cell_at_unaligned_widths_matches_jax():
     np.testing.assert_allclose(h_t.numpy(), np.asarray(h_j), atol=1e-5)
     c_r, h_r = lstm_cell_ref(*map(torch.from_numpy, (x, h, c, W, b)), 1.0)
     _close(c_t, c_r)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("B", [10, 20])
+def test_cand_dot_h136_matches_jax(B, dtype):
+    """cand_dot at S = 7, B = 10 and 20, C1 = 65, H = 136 vs the JAX Pallas
+    cand_dot in interpret mode: the wrapper, and the plain version on h3
+    and cols zero-padded to the kernel's K step (144 in bf16, 136 in fp32;
+    ``pad_cols``), each within 1e-4 (fp32: sum order; bf16: both sides
+    round h3 and cols to bf16 and sum exact products in fp32)."""
+    from jlm_tpu.ops.cand_dot import cand_dot as jax_cand
+
+    jd, td = (jnp.float32, torch.float32) if dtype == "fp32" else (jnp.bfloat16, torch.bfloat16)
+    rng = np.random.default_rng(57)
+    S, C1, H = 7, 65, 136
+    h3 = rng.normal(size=(S, B, H)).astype(np.float32) * 0.3
+    cols = rng.normal(size=(S, C1, H)).astype(np.float32) * 0.3
+    bias = rng.normal(size=(S, C1)).astype(np.float32) * 0.1
+    out_j = _np(jax_cand(jnp.asarray(h3, jd), jnp.asarray(cols, jd), jnp.asarray(bias),
+                         gs=8, interpret=True))
+    h3_t, cols_t = torch.from_numpy(h3).to(td), torch.from_numpy(cols).to(td)
+    bias_t = torch.from_numpy(bias)
+    out_t = cand_dot(h3_t, cols_t, bias_t)
+    assert out_t.shape == (S, B, C1) and out_t.dtype == torch.float32
+    np.testing.assert_allclose(out_t.numpy(), out_j, atol=1e-4)
+    Hp = 136 if dtype == "fp32" else 144
+    padded = cand_dot_ref(project.pad_cols(h3_t, Hp), project.pad_cols(cols_t, Hp), bias_t)
+    np.testing.assert_allclose(padded.numpy(), out_j, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("what", ["cell", "frame"])
+@pytest.mark.parametrize("E,H", [(30, 20), (40, 24)])
+def test_cell_padding_matches_jax(E, H, what, dtype):
+    """The cells' width repair on the CPU: the operands zero-padded as the
+    wrappers pad them for the card (``lstm_cell.pad_cell``; the fp32 cell
+    to multiples of 32, the bf16 cell and frame to 8, the fp32 frame E to
+    32 and H to 64; ``cols`` with zero columns), the plain version on the
+    padded operands, sliced back, vs the JAX Pallas cell / fused frame in
+    interpret mode (E = 40, H = 24 in bf16 is aligned: no padding).  The
+    padded units stay exactly 0.  fp32: c', h' 1e-5 and
+    the candidate logits 1e-4 (test_cell_cand_step_matches_jax's bounds);
+    bf16: both sides round x, h, W and cols to bf16; c' 1e-5, h' one bf16
+    rounding (4e-3), candidates 1e-3."""
+    from jlm_tpu.ops.frame_step import cell_cand_step as jax_frame
+    from jlm_tpu.ops.lstm_cell import lstm_cell_step as jax_cell
+    from jlm_tpu_torch.ops.lstm_cell import pad_cell
+
+    jd, td = (jnp.float32, torch.float32) if dtype == "fp32" else (jnp.bfloat16, torch.bfloat16)
+    rng = np.random.default_rng(58)
+    S, B, C1 = 3, 10, 9
+    R = S * B
+    x, h, c = (rng.normal(size=s).astype(np.float32) * 0.5 for s in ((R, E), (R, H), (R, H)))
+    W = rng.normal(size=(E + H, 4 * H)).astype(np.float32) * 0.1
+    b = rng.normal(size=4 * H).astype(np.float32) * 0.1
+    cols = rng.normal(size=(S, C1, H)).astype(np.float32) * 0.3
+    cbias = rng.normal(size=(S, C1)).astype(np.float32) * 0.1
+    if what == "cell" or dtype == "bf16":
+        m_e = m_h = 32 if (dtype == "fp32") else 8
+    else:
+        m_e, m_h = 32, 64
+    Ep, Hp = -(-E // m_e) * m_e, -(-H // m_h) * m_h
+    t = [torch.from_numpy(a) for a in (x, h, c, W, b)]
+    t[0], t[1], t[3] = (a.to(td) for a in (t[0], t[1], t[3]))
+    xp, hp, cp, Wp, bp = pad_cell(*t, Ep, Hp)
+    assert Wp.shape == (Ep + Hp, 4 * Hp) and bp.shape == (4 * Hp,)
+    h_tol, cand_tol = (1e-5, 1e-4) if dtype == "fp32" else (4e-3, 1e-3)
+    if what == "cell":
+        c_j, h_j = jax_cell(*map(jnp.asarray, (x, h, c, W, b)), 1.0, compute_dtype=jd,
+                            interpret=True)
+        c_p, h_p = lstm_cell_ref(xp, hp, cp, Wp, bp, 1.0)
+    else:
+        c_j, h_j, cand_j = jax_frame(*map(jnp.asarray, (x, h, c, W, b, cols, cbias)), B, 1.0,
+                                     compute_dtype=jd, interpret=True)
+        colsp = project.pad_cols(torch.from_numpy(cols).to(td), Hp)
+        c_p, h_p, cand_p = cell_cand_ref(xp, hp, cp, Wp, bp, colsp, torch.from_numpy(cbias), B,
+                                         1.0, compute_dtype=td)
+        np.testing.assert_allclose(cand_p.numpy(), _np(cand_j), atol=cand_tol)
+    assert float(c_p[:, H:].abs().sum()) == 0.0 and float(h_p[:, H:].float().abs().sum()) == 0.0
+    np.testing.assert_allclose(c_p[:, :H].numpy(), _np(c_j), atol=1e-5)
+    np.testing.assert_allclose(h_p[:, :H].to(td).float().numpy(), _np(h_j), atol=h_tol)

@@ -244,7 +244,9 @@ def test_project_candidates_1024_matches_jax(weights):
 def test_head_plan_widths():
     """The bf16 and dequant-bf16 plans take any slice width (the kernel
     streams h in K chunks; 1,056 here, padded to a multiple of 32); the
-    int8-MXU plan refuses a slice wider than 1,024 before any launch."""
+    int8-MXU plan takes a slice wider than 1,024 too (1,050, padded to
+    1,152, a multiple of the streamed kernel's 128-wide K chunk), planned
+    with the streamed kernel's tile (128 rows, 256 columns)."""
     for weights in _HEADS:
         _, _, _, (wt, st), _ = _head_case(weights, H=1050, V=64)
         head = port._full_head(wt, st, torch.zeros(64))
@@ -254,5 +256,47 @@ def test_head_plan_widths():
     _, _, _, (wt, st), _ = _head_case("dequant_bf16", H=1050, V=64)
     head = port._full_head(wt, st, torch.zeros(64))
     head["WT"] = wt.t().contiguous()
-    with pytest.raises(ValueError, match="up to 1024"):
-        port._block_plan(head, None, 1050, torch.device("cpu"), torch.bfloat16, True)
+    plan = port._block_plan(head, None, 1050, torch.device("cpu"), torch.bfloat16, True)
+    assert plan[0][3] == port.INT8_MXU and plan[0][7] == 1152
+    assert tuple(plan[0][2].shape) == (64, 1152)
+    assert float(plan[0][2][:, 1050:].abs().max()) == 0.0
+    assert port._int8_tile(1152) == (128, 256) and port._int8_tile(1024) == (128, 32)
+    assert [port.int8_width(d) for d in (80, 1024, 1025, 1536, 2048)] == [128, 1024, 1152,
+                                                                           1536, 2048]
+
+
+@pytest.mark.parametrize("what", ["lse", "candidates"])
+@pytest.mark.parametrize("H", [1050, 2048])
+def test_project_int8_wide_matches_jax(H, what):
+    """The int8-MXU head on a slice wider than the 1,024 its resident kernel
+    holds (1,050, padded to 1,152; 2,048), V = 1000: the lse, and the
+    candidate log-probs of 40 ids with repeats, the vocab edges and a -1,
+    vs JAX's project_lse / project_candidates with ``int8_mxu=True`` in
+    interpret mode; 1e-4 (the int32 products are exact on both sides, the
+    per-row scale the same IEEE division; fp32 sums in another order)."""
+    rng = np.random.default_rng(56)
+    R, V = 8, 1000
+    h = rng.normal(size=(R, H)).astype(np.float32)
+    q = quantize_weight(rng.normal(size=(H, V)).astype(np.float32) * 0.05, axis=0)
+    b = rng.normal(size=(V,)).astype(np.float32) * 0.01
+    wj, sj = jnp.asarray(q["q"]), jnp.asarray(q["scale"])
+    wt, st = torch.from_numpy(q["q"]), torch.from_numpy(q["scale"])
+    kw_j = dict(tile_v=512, compute_dtype=jnp.bfloat16, interpret=True, int8_mxu=True)
+    kw_t = dict(compute_dtype=torch.bfloat16, int8_mxu=True)
+    if what == "lse":
+        cfg = Config(vocab_size=V, embed_size=64, hidden_size=H)
+        got = port.project_lse(torch.from_numpy(h), port._full_head(wt, st, torch.from_numpy(b)),
+                               cfg, **kw_t)
+        want = jax_project.project_lse(jnp.asarray(h), {"W": {"q": wj, "scale": sj},
+                                                        "b": jnp.asarray(b)}, cfg, **kw_j)
+        assert got.shape == (R, 1)
+    else:
+        cand = rng.integers(0, V, 40).astype(np.int32)
+        cand[:5] = [0, V - 1, 321, 321, -1]
+        got = port.project_candidates(torch.from_numpy(h), wt, st, torch.from_numpy(b),
+                                      torch.from_numpy(cand), **kw_t)
+        want = jax_project.project_candidates(jnp.asarray(h), wj, sj, jnp.asarray(b),
+                                              jnp.asarray(cand), **kw_j)
+        assert got.shape == (R, 40)
+        np.testing.assert_array_equal(got[:, 2].numpy(), got[:, 3].numpy())
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-4)
