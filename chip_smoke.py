@@ -15,8 +15,10 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
    and bf16 at the serving rows, the int8 dequant head at 50k in bf16 at
    the serving rows and in fp32 at the fp32 parity run's rows, fp32
    weights at the config-5 head) and the fp32 cell at the fp32 parity
-   run's rows, the three fused-CE kernels and the two LSTM scan kernels at
-   the training shapes, and the D-softmax fused CE at the 100k D-softmax
+   run's rows, the three fused-CE kernels, the LSTM scan's forward and
+   backward and the backward's three kernels (``scan_gates``,
+   ``scan_recur``, ``scan_dx``, each on its plain version's inputs) at the
+   training shapes, and the D-softmax fused CE at the 100k D-softmax
    head; each backward bound is also shown to catch a deliberately wrong
    plain backward (a p-term off by ``P_SHIFT``, a forget gate off by
    ``F_SHIFT``), the int8 D-softmax bound one whose activation scale is
@@ -34,7 +36,8 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
    above the bounds); and the widths past 512 (``wide_cases``, H = E =
    1,024: the bf16 and dequant-bf16 heads on a 1,024-wide slice, the
    fused CE at D = 1,024 in bf16 and fp32, the scan in fp32 and bf16
-   forward and backward, each with a wrong version); ``cand_dot`` in fp32
+   forward and backward and the backward's three kernels, each with a
+   wrong version); ``cand_dot`` in fp32
    and at a beam of 20 (wrong: beam rows 8 on read from rows 0 on) and
    the width repairs (``odd_width_cases``: the int8-MXU head on 1,536- and
    2,048-wide slices, wrong: K past 1,024 dropped; both cells at E = 30,
@@ -81,8 +84,8 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
 5b. the same 20 steps with ``use_pallas_scan=True`` (the ``--pallas-scan``
    path), once through the scan kernels and once with each swapped for its
    plain version: the loss falls, the two runs agree, step 1 agrees with
-   phase 5's loop run, and each scan kernel was launched once per layer
-   per step;
+   phase 5's loop run, and the forward, the backward and each of the
+   backward's three kernels were launched once per layer per step;
 5c. ``full_softmax_loss(..., precision="highest")`` with ``fused_ce``
    forward and backward through autograd on the 50k head and on config
    5's D-softmax head (the fp32 CE kernels, one launch of each per block)
@@ -197,6 +200,15 @@ BOUNDS = {  # kernel vs plain version, on the same inputs on the card
     # |plain|), the reference tests' gradient bound as one number; the plain
     # version with its forget gate off by F_SHIFT must read above it
     "lstm_scan_bwd fp32": 1.0,
+    # the backward's three kernels, each on its plain version's inputs: the
+    # gate recompute Z and dx as abs error / max |plain| (the same rounded
+    # operands on both sides, products exact in fp32, sums in another
+    # order; wrong: h_t in place of h_{t-1}, Wh's rows in place of Wx's);
+    # the recurrence by the scan criterion above (wrong: the forget gate off
+    # by F_SHIFT)
+    "scan_gates fp32": 1e-5,
+    "scan_recur fp32": 1.0,
+    "scan_dx fp32": 1e-5,
     # fp32 compute, weights of scale PEAKED; a plain version on operands
     # rounded to TF32 must read above each bound
     "ce_fwd fp32": 1e-4,        # abs, per-row loss and lse; exact fp32 products
@@ -241,6 +253,12 @@ BOUNDS = {  # kernel vs plain version, on the same inputs on the card
     "lstm_scan_fwd bf16 H1024": 1e-2,
     "lstm_scan_bwd fp32 H1024": 1.0,
     "lstm_scan_bwd bf16 H1024": 1e-2,
+    "scan_gates fp32 H1024": 1e-5,
+    "scan_recur fp32 H1024": 1.0,
+    "scan_dx fp32 H1024": 1e-5,
+    "scan_gates bf16 H1024": 1e-5,
+    "scan_recur bf16 H1024": 1e-2,  # as lstm_scan_bwd bf16 H1024
+    "scan_dx bf16 H1024": 1e-5,
     # cand_dot's other modes: abs error / max(1, max |plain|); fp32: exact
     # fp32 FMAs, sums in another order; each wrong call (beam rows 8 on read
     # from rows 0 on) must read above
@@ -469,6 +487,41 @@ def torch_gates(W, b):
     return W[:-H_, perm].t().contiguous(), W[-H_:, perm].t().contiguous(), b[perm]
 
 
+def scan_stage_cases(suffix, scan_in, hs, cs, grads, cd):
+    """The backward's three kernels as phase-2 cases (``kernel_cases``'
+    form) on the saved values of one window: ``scan_gates`` (wrong: h_t in
+    place of h_{t-1}; library: ``torch.addmm`` in fp32), ``scan_recur`` on
+    the plain gates, writing into its own buffer (wrong: the forget gate off
+    by F_SHIFT) and ``scan_dx`` on the plain dz (wrong: Wh's rows in place
+    of Wx's; library: ``torch.mm`` in fp32)."""
+    from jlm_tpu_torch.ops.lstm_scan import (
+        scan_dx, scan_dx_ref, scan_gates, scan_gates_ref, scan_recur, scan_recur_ref)
+
+    xs, W, b, c0, h0 = scan_in
+    E = xs.shape[-1]
+    fp32 = cd == torch.float32
+    xh = torch.cat([xs, torch.cat([h0[:, None], hs[:, :-1]], dim=1)], dim=2)
+    xh_t = torch.cat([xs, hs], dim=2)
+    Z = scan_gates_ref(xh, W, b, cd)
+    out = torch.empty_like(Z)
+    rec = (Z, W[E:], c0, cs) + grads
+    dz = scan_recur_ref(*rec, 1.0, cd)[0]
+    Wx = W[:E]
+    return [
+        (f"scan_gates {suffix}", lambda: scan_gates(xh, W, b, cd),
+         lambda: scan_gates_ref(xh, W, b, cd), bwd_err,
+         {"h_t in place of h_{t-1}": lambda: scan_gates_ref(xh_t, W, b, cd)},
+         (lambda: torch.addmm(b, xh.reshape(-1, xh.shape[-1]), W)) if fp32 else None),
+        (f"scan_recur {suffix}", lambda: scan_recur(*rec, 1.0, cd, out=out),
+         lambda: scan_recur_ref(*rec, 1.0, cd), scan_bwd_err if fp32 else bwd_err,
+         {f"a forget gate sigmoid(f + {F_SHIFT:g})":
+          lambda: scan_recur_ref(*rec, 1.0 + F_SHIFT, cd)}, None),
+        (f"scan_dx {suffix}", lambda: scan_dx(dz, Wx, cd), lambda: scan_dx_ref(dz, Wx, cd),
+         bwd_err, {"Wh's rows in place of Wx's": lambda: scan_dx_ref(dz, W[E:2 * E], cd)},
+         (lambda: torch.mm(dz.reshape(-1, dz.shape[-1]), Wx.t())) if fp32 else None),
+    ]
+
+
 def kernel_cases(dev, rng):
     """Returns the cases and the yardstick runs.  A case is (name, kernel
     call, plain call, error fn, wrong call or None, library call or None);
@@ -622,6 +675,7 @@ def kernel_cases(dev, rng):
           lambda: lstm_scan_bwd(*saved, 1.0),
           lambda: lstm_scan_bwd_ref(*saved, 1.0), scan_bwd_err,
           lambda: lstm_scan_bwd_ref(*saved, 1.0 + F_SHIFT), cudnn_bwd)]
+    scan_cases += scan_stage_cases("fp32", scan_in, hs, cs, grads, torch.float32)
 
     bwd_cases = []
     for suffix, (g_a, g_b) in cotangents.items():
@@ -1106,7 +1160,7 @@ def wide_cases(dev, rng):
              scan_bwd_err if cd == f32 else bwd_err,
              {f"a forget gate sigmoid(f + {F_SHIFT:g}) in the backward":
               lambda a=saved, cd=cd: lstm_scan_bwd_ref(*a, 1.0 + F_SHIFT, cd)}, cudnn_bwd),
-        ]
+        ] + scan_stage_cases(f"{name} H1024", scan_in, hs, cs, grads, cd)
     return cases
 
 
@@ -1157,8 +1211,7 @@ def wide_run(dev, rng, config, vocab, dev_ids):
     def t(a):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
 
-    counters = (ce.ce_fwd_raw, ce.ce_bwd_dh, ce.ce_bwd_dw, ls.lstm_scan_fwd, ls.lstm_scan_bwd,
-                project_lse)
+    counters = (ce.ce_fwd_raw, ce.ce_bwd_dh, ce.ce_bwd_dw) + scan_counters() + (project_lse,)
     for fn in counters:
         fn.launches = 0
     head = {"W": t(rng.normal(0, 0.05, (HW, V))), "b": t(rng.normal(0, 0.1, V))}
@@ -1188,7 +1241,8 @@ def wide_run(dev, rng, config, vocab, dev_ids):
     outs = ls.lstm_scan(*scan_leaves, 1.0, torch.bfloat16)
     scan_grads = torch.autograd.grad(sum(o.sum() for o in outs), scan_leaves)
     check(all(bool(torch.isfinite(g).all()) for g in scan_grads), "bf16 scan grads finite")
-    launches.update({f"{k} bf16 H1024": fn.launches for k, fn in zip(SCAN_COUNTERS, counters[3:5])})
+    launches.update({f"{k} bf16 H1024": fn.launches
+                     for k, fn in zip(SCAN_COUNTERS, counters[3:3 + len(SCAN_COUNTERS)])})
     del scan_leaves, outs, scan_grads
     bf = torch.bfloat16
     h = t(rng.uniform(-1, 1, (R, HW))).to(bf)
@@ -1452,6 +1506,22 @@ SFU_PER_CLOCK = 16  # exponentials a clock per SM (the special-function units)
 SFU_RATE = {"exp": None}
 
 
+def scan_stage_work(E_, H_):
+    """(bytes, operations) of the backward's three kernels at B = TB, T = TT:
+    the gate recompute reads [x; h_prev], W, b and writes Z; the recurrence
+    reads Z, Wh, cs, c0, d_hs, d_cf, d_hf and writes dz, dc0, dh0; dx reads
+    dz and Wx and writes dx.  Their operations, 2 M (E+H) 4H + 2 M 4H H +
+    2 M 4H E (M = TB TT rows), sum to lstm_scan_bwd's 4 M (E+H) 4H."""
+    M, H4 = TB * TT, 4 * H_
+    return {
+        "scan_gates": (4 * (M * (E_ + H_) + (E_ + H_) * H4 + H4 + M * H4),
+                       2 * M * (E_ + H_) * H4),
+        "scan_recur": (4 * (M * H4 + H_ * H4 + 2 * M * H_ + TB * H_ + 2 * TB * H_
+                            + M * H4 + 2 * TB * H_), 2 * M * H4 * H_),
+        "scan_dx": (4 * (M * H4 + E_ * H4 + M * E_), 2 * M * H4 * E_),
+    }
+
+
 def work():
     """(bytes, operations, type) of each kernel's function on its phase-2
     inputs: every input read once and every output written once, and the
@@ -1470,7 +1540,8 @@ def work():
                           2 * TB * TT * 2 * HW * 4 * HW),
         "lstm_scan_bwd": (scan_in_w + 4 * (3 * TB * TT * HW + 2 * TB * HW + TB * TT * 4 * HW
                                            + TB * TT * HW + 2 * TB * HW),
-                          4 * TB * TT * 2 * HW * 4 * HW)}
+                          4 * TB * TT * 2 * HW * 4 * HW),
+        **scan_stage_work(HW, HW)}
     cand_io = C_CAND * 4 + R_CAND * C_CAND * 4  # ids in, log-probs out
     (eo, ho), (fe, fh) = ODD_CELL, ODD_FRAME
     return {
@@ -1519,6 +1590,8 @@ def work():
         "lstm_scan_bwd": (scan_in + 4 * (3 * TB * TT * H + 2 * TB * H + TB * TT * 4 * H
                                          + TB * TT * E + 2 * TB * H),
                           4 * TB * TT * (E + H) * 4 * H, "fp32"),
+        # the backward's three kernels: their operations sum to the whole's
+        **{k: (*v, "fp32") for k, v in scan_stage_work(E, H).items()},
         # fp32 compute: the same bytes, the products at the fp32 peak
         "ce_fwd fp32": (ce_in + 3 * N_CE * 4, 2 * N_CE * H * V, "fp32"),
         "ce_bwd_dh fp32": (ce_in + 3 * N_CE * 4 + N_CE * H * 4, 4 * N_CE * H * V, "fp32"),
@@ -1792,6 +1865,17 @@ def training_corpus(vocab):
 
 def kernel_fn(name: str) -> str:
     """The CUDA function behind a ``kernels`` entry, with its design."""
+    if name.startswith("scan_gates") or name.startswith("scan_dx"):
+        layout = "KN" if name.startswith("scan_gates") else "NK"
+        if "bf16" in name:
+            return f"scan_gemm_bf16_kernel<{layout}> (operands rounded on load, mma.sync)"
+        return f"scan_gemm_kernel<{layout}> (register-tiled exact fp32 FMAs, a cp.async ring)"
+    if name.startswith("scan_recur"):
+        return ("scan_recur_kernel (cooperative, a grid barrier a step, Wh's rows resident "
+                "in shared memory)")
+    if name.startswith("lstm_scan_bwd"):
+        gemm = "scan_gemm_bf16_kernel" if "bf16" in name else "scan_gemm_kernel"
+        return f"{gemm}<KN> + scan_recur_kernel + {gemm}<NK>"
     if name.endswith(" H1024"):
         return kernel_fn(name[:-6].replace(" bf16", "")) + " (W streamed from the L2)"
     if name.endswith(" D1024") and name.startswith("ce_"):
@@ -1829,7 +1913,14 @@ def kernel_fn(name: str) -> str:
 
 
 CE_COUNTERS = ("ce_fwd", "ce_bwd_dh", "ce_bwd_dw")
-SCAN_COUNTERS = ("lstm_scan_fwd", "lstm_scan_bwd")
+SCAN_COUNTERS = ("lstm_scan_fwd", "lstm_scan_bwd", "scan_gates", "scan_recur", "scan_dx")
+
+
+def scan_counters():
+    """The scan's wrappers in SCAN_COUNTERS' order, each with its count."""
+    from jlm_tpu_torch.ops import lstm_scan as ls
+
+    return (ls.lstm_scan_fwd, ls.lstm_scan_bwd, ls.scan_gates, ls.scan_recur, ls.scan_dx)
 
 
 def training_run(dev, config, params, train_ids, dev_ids, label, swap=None):
@@ -1843,8 +1934,7 @@ def training_run(dev, config, params, train_ids, dev_ids, label, swap=None):
     from jlm_tpu_torch.train import Trainer
 
     counters = dict(zip(CE_COUNTERS + SCAN_COUNTERS,
-                        (ce.ce_fwd_raw, ce.ce_bwd_dh, ce.ce_bwd_dw,
-                         ls.lstm_scan_fwd, ls.lstm_scan_bwd)))
+                        (ce.ce_fwd_raw, ce.ce_bwd_dh, ce.ce_bwd_dw) + scan_counters()))
     trainer = Trainer(config, params, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2332,6 +2422,8 @@ def main() -> int:
                           "lstm_scan_fwd fp32"),
         "lstm_scan_bwd": ("jlm_tpu_torch/csrc/lstm_scan.cu", "jlm_tpu/ops/lstm_scan.py:256",
                           "lstm_scan_bwd fp32"),
+        **{k: ("jlm_tpu_torch/csrc/lstm_scan.cu", "jlm_tpu/ops/lstm_scan.py:256", f"{k} fp32")
+           for k in SCAN_COUNTERS[2:]},
         # the head's other modes and the fp32 cell: launches from their own runs
         "project_lse dsoftmax int8": ("jlm_tpu_torch/csrc/project_lse.cu",
                                       "jlm_tpu/ops/project.py:42", "project_lse dsoftmax int8"),
@@ -2369,11 +2461,12 @@ def main() -> int:
         **{f"{k} fp32 D1024": ("jlm_tpu_torch/csrc/softmax_ce.cu",
                                f"jlm_tpu/ops/softmax_ce.py:{ln}", f"{k} fp32 D1024")
            for k, ln in zip(CE_COUNTERS, (111, 157, 207))},
-        **{f"{k} H1024": ("jlm_tpu_torch/csrc/lstm_scan.cu", f"jlm_tpu/ops/lstm_scan.py:{ln}",
-                          f"{k} fp32 H1024") for k, ln in zip(SCAN_COUNTERS, (92, 256))},
+        **{f"{k} H1024": ("jlm_tpu_torch/csrc/lstm_scan.cu",
+                          f"jlm_tpu/ops/lstm_scan.py:{92 if k == 'lstm_scan_fwd' else 256}",
+                          f"{k} fp32 H1024") for k in SCAN_COUNTERS},
         **{f"{k} bf16 H1024": ("jlm_tpu_torch/csrc/lstm_scan.cu",
-                               f"jlm_tpu/ops/lstm_scan.py:{ln}", f"{k} bf16 H1024")
-           for k, ln in zip(SCAN_COUNTERS, (92, 256))},
+                               f"jlm_tpu/ops/lstm_scan.py:{92 if k == 'lstm_scan_fwd' else 256}",
+                               f"{k} bf16 H1024") for k in SCAN_COUNTERS},
         # the redesigned cand_dot's other modes (launches: phase 4b's fp32
         # run, phase 5e's beam-20 run) and the width repairs (phase 5e)
         "cand_dot fp32": ("jlm_tpu_torch/csrc/cand_dot.cu", "jlm_tpu/ops/cand_dot.py:31",

@@ -1,4 +1,5 @@
-// Fused LSTM over a BPTT window, forward and backward, one launch each.
+// Fused LSTM over a BPTT window: the forward in one launch, the backward
+// in three.
 //
 // Replaces jlm_tpu/ops/lstm_scan.py::_lstm_fwd_kernel and
 // ::_lstm_bwd_kernel.  Gate order i, j, f, o over W [E+H, 4H]:
@@ -16,7 +17,7 @@
 // the recurrence makes it latency-bound: step t needs all of h_{t-1}, so
 // the window is T dependent steps of a [B, E+H] x [E+H, 4H] product.
 //
-// Design (simple first):
+// Forward design (simple first):
 // - The TPU keeps all of W (6.3 MB fp32) in VMEM; one SM has 227 KB.  So
 //   the hidden units are split into groups of 4 (H/4 "unit groups", 128 at
 //   H = 512), and the blocks, launched cooperatively so that all are
@@ -41,16 +42,38 @@
 //   memory transposed ([k][row], padded), one batch row per lane; the 8
 //   warps split k and their partial sums are added in a fixed order, so the
 //   result does not depend on scheduling.
-// - The backward has one barrier a step: after it, every block reads the
-//   whole dz_t and forms dh_{t-1} for its own units from their 4 rows of Wh
-//   (the carry never leaves the block) and dx_t for its groups' columns
-//   e = group + m * (H/4) from those rows of Wx, in passes of 8 outputs
-//   (resident mode: the rows in shared memory; streamed: from the L2).
 // - bf16 mode rounds x, h, W (and dz, W in the backward's products) to bf16
 //   before each product; products of bf16 values are exact in fp32, so it
 //   is the reference's bf16-operand, fp32-accumulate product.
 // - Data written by other blocks during the launch (hs, dz) is read with
 //   __ldcg (L2, not the SM's L1).
+//
+// Backward design.  Of its 4 B T (E+H) 4H operations (34.4 GFLOP at
+// B = T = 32, H = E = 1,024) only dh_{t-1} = dz_t Wh^T is recurrent: the
+// gate recompute reads saved sequences and dx_t = dz_t Wx^T is read by no
+// later step.  So three launches:
+// 1. scan_gemm_kernel<KN> (fp32) or scan_gemm_bf16_kernel<KN>: Z = [x;
+//    h_prev] W + b over all B T rows, written into the dz buffer (half the
+//    operations, one large product);
+// 2. scan_recur_kernel: the recurrence, cooperative, one grid barrier a
+//    step.  A block owns NU hidden units and keeps their NU rows of Wh
+//    (NU x 4H) in shared memory for the window where the whole grid fits
+//    (128 KB fp32 at H = 1,024, NU = 8; else read from the L2 each step).
+//    Step t: the block turns its units' 4 gate columns of Z_t into dz_t with
+//    its carried (dc, dh) and writes them over Z_t; barrier; every block
+//    reads all of dz_t (through the L2) and forms its units' dh_{t-1}.  The
+//    carries live in the dc0 / dh0 outputs, each entry touched by its
+//    block alone, so no batch is too large for shared memory.  Each step
+//    writes its own t slice of dz, so one barrier a step is enough.  The
+//    product is latency-bound (the dz reads from the L2 and the barrier,
+//    not the ~4 us of FMAs a step at H = 1,024): each lane keeps PF reads
+//    in flight, and the next step's saved operands load during the product.
+// 3. scan_gemm_kernel<NK> or scan_gemm_bf16_kernel<NK>: dx = dz Wx^T over
+//    all B T rows (a quarter).
+// The fp32 GEMM is exact FMAs on the CUDA cores (no TF32): a block tile of
+// 16 RM rows x 128 columns, 8 x RM a thread, K in chunks of 32 through a
+// 4-stage cp.async ring.  The bf16 GEMM rounds both operands to bf16 on
+// their way into shared memory and multiplies with mma.sync (fp32 sums).
 #include "common.cuh"
 
 #include <cooperative_groups.h>
@@ -71,7 +94,6 @@ constexpr int LDS = RB + 2;  // padded row of the transposed stage [k][row]: a
                              // warp's float4 stores (8 rows x 4 float4) and
                              // its row-per-lane reads are both conflict-free
 constexpr int PER = RB * KC / 4 / THREADS;  // float4 of a stage per thread
-constexpr int MAXO = 8;      // backward outputs per pass: dh units, then dx columns
 constexpr size_t SMEM_MAX = 232448;
 
 template <bool BF16>
@@ -80,30 +102,20 @@ __device__ __forceinline__ float rnd(float v) {
   return v;
 }
 
-// dx columns of unit group g: g, g + G, ... below E (G = H / 4 groups).
-__host__ __device__ inline int dx_of(int g, int E, int G) { return g < E ? (E - g + G - 1) / G : 0; }
-
 size_t fwd_smem(int stream, int nvb, int B, int E, int H) {
   return sizeof(float) * ((stream ? 0 : (size_t)(E + H) * NC) + (size_t)WARPS * NC * RB +
                           (size_t)KC * LDS + (size_t)nvb * B * U);
 }
 
-size_t bwd_smem(int stream, int nvb, int B, int E, int H) {
-  const size_t rows = stream ? 0 : (size_t)(E + H) * NC + (size_t)(U + dx_of(0, E, H / U)) * 4 * H;
-  return sizeof(float) * (rows + (size_t)WARPS * NC * RB + (size_t)KC * LDS +
-                          2 * (size_t)nvb * B * U);
-}
-
-// W as the kernel reads it: resident mode, W [E+H, 4H] fp32 in device
+// W as the forward reads it: resident mode, W [E+H, 4H] fp32 in device
 // memory, copied once into shared memory as the group's 16 columns
-// [k][u*4 + g] and its backward rows [o][4H]; streamed mode, W [E+H, 4H]
-// in device memory (fp32, or bf16 in bf16 mode), read per step.
+// [k][u*4 + g]; streamed mode, W [E+H, 4H] in device memory (fp32, or bf16
+// in bf16 mode), read per step.
 template <bool BF16, bool STREAM>
 struct Weights {
   using Src = typename std::conditional<STREAM && BF16, bf16, float>::type;
   const Src* w;     // device memory
   const float* sW;  // resident: the group's columns [K][NC]
-  const float* sWr; // resident: the group's backward rows [n_out][4H]
   int H;
 
   // The 16 gate columns of group j0 at row k: out[u*4 + g].
@@ -135,13 +147,6 @@ struct Weights {
     } else {
       return __ldg(reinterpret_cast<const float4*>(w + i));
     }
-  }
-
-  // Backward output o of group j0 (o < U: Wh row of unit j0 + o; else the
-  // Wx row of dx column e), four columns c .. c + 3.
-  __device__ __forceinline__ float4 out_row(int o, int j0, int e, int E, int c) const {
-    if constexpr (!STREAM) return *reinterpret_cast<const float4*>(sWr + (size_t)o * 4 * H + c);
-    return row4(o < U ? E + j0 + o : e, c);
   }
 };
 
@@ -180,21 +185,6 @@ __device__ __forceinline__ void load_xh(float4 (&v)[PER], const float* __restric
       v[p] = k < E ? *reinterpret_cast<const float4*>(xs + ((size_t)row * T + t) * E + k)
                    : __ldcg(reinterpret_cast<const float4*>(
                          hp + (size_t)row * hp_stride + (k - E)));
-  }
-}
-
-// Loads stage [c0, c0+cn) of dz_t (written by every block: through L2).
-__device__ __forceinline__ void load_dz(float4 (&v)[PER], const float* dz, int r0,
-                                        int t, int c0, int cn, int B, int T, int H4) {
-#pragma unroll
-  for (int p = 0; p < PER; ++p) {
-    int r, q;
-    stage_slot(p, r, q);
-    const int row = r0 + r;
-    v[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (row < B && 4 * q < cn)
-      v[p] = __ldcg(reinterpret_cast<const float4*>(
-          dz + ((size_t)row * T + t) * H4 + c0 + 4 * q));
   }
 }
 
@@ -273,7 +263,7 @@ lstm_scan_fwd_kernel(const float* __restrict__ xs, const void* __restrict__ Wsrc
   float* sC = sStage + KC * LDS;                     // [nvb][B][U] cell carries
   cg::grid_group grid = cg::this_grid();
   const Weights<BF16, STREAM> wts{
-      static_cast<const typename Weights<BF16, STREAM>::Src*>(Wsrc), sW, nullptr, H};
+      static_cast<const typename Weights<BF16, STREAM>::Src*>(Wsrc), sW, H};
 
   for (int i = 0; i < nvb; ++i) {
     const int j0 = (blockIdx.x + i * gridDim.x) * U;
@@ -318,154 +308,483 @@ lstm_scan_fwd_kernel(const float* __restrict__ xs, const void* __restrict__ Wsrc
   }
 }
 
-template <bool BF16, bool STREAM>
-__global__ void __launch_bounds__(THREADS, STREAM ? 2 : 1)
-lstm_scan_bwd_kernel(const float* __restrict__ xs, const void* __restrict__ Wsrc,
-                     const float* __restrict__ bias, const float* __restrict__ c0,
-                     const float* __restrict__ h0, const float* __restrict__ hs,
-                     const float* __restrict__ cs, const float* __restrict__ d_hs,
-                     const float* __restrict__ d_cf, const float* __restrict__ d_hf,
-                     float* dz, float* dx, float* dc0, float* dh0, int B, int T,
-                     int E, int H, float forget_bias, int nvb) {
-  extern __shared__ __align__(16) float smem[];
-  const int K = E + H, H4 = 4 * H, G = H / U;
+// ---------------------------------------------------------------- backward
+
+// 16 bytes global -> shared, asynchronously; zeros where !ok.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(jlm::smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <bool BF16>
+__device__ __forceinline__ float4 rnd4(float4 v) {
+  return make_float4(rnd<BF16>(v.x), rnd<BF16>(v.y), rnd<BF16>(v.z), rnd<BF16>(v.w));
+}
+
+__device__ __forceinline__ float part(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// The GEMM C [M, N] = A [M, K] B (+ bias), A row-major; B [K][N] (KN: W as
+// the gate recompute reads it) or [N][K] (Wx's rows as dx reads them).
+// 256 threads as 16 x 16 (ty, tx); a block tile of BM = 16 RM rows x 128
+// columns; thread (ty, tx) keeps rows ty + 16 i (i < RM) and 8 columns:
+// 4 tx + {0..3} + {0, 64} (KN: two float4 reads a k) or tx + 16 j (NK: a
+// float4 over k from each of 8 rows of B, conflict-free at the padded
+// stride).  K in chunks of GK through a ring of GST stages.
+namespace gemm {
+constexpr int TX = 16, TY = 16, BN = 128, GK = 32, GST = 4;
+constexpr int LDK = GK + 4;  // a [row][k] stage row, padded
+template <bool KN, int RM>
+struct Tile {
+  static constexpr int BM = TY * RM;
+  static constexpr int A = BM * LDK;                 // floats of a stage's A tile
+  static constexpr int B = KN ? GK * BN : BN * LDK;  // floats of a stage's B tile
+  static constexpr int SMEM = GST * (A + B) * 4;
+};
+}  // namespace gemm
+
+// Issues chunk k0's copies of A (rows m0..) and B (columns n0..).
+template <bool KN, int RM>
+__device__ __forceinline__ void gemm_chunk(float* sA, float* sB, const float* A, int lda,
+                                           const float* Bm, int ldb, int m0, int n0, int k0,
+                                           int M, int N, int K) {
+  using namespace gemm;
+  using T = Tile<KN, RM>;
+  for (int i = threadIdx.x; i < T::BM * (GK / 4); i += THREADS) {
+    const int r = i / (GK / 4), q = i % (GK / 4), row = m0 + r, k = k0 + 4 * q;
+    const bool ok = row < M && k < K;
+    cp_async16(sA + r * LDK + 4 * q, ok ? A + (size_t)row * lda + k : A, ok);
+  }
+  for (int i = threadIdx.x; i < BN * (GK / 4); i += THREADS) {
+    int n, k;
+    float* d;
+    if constexpr (KN) {
+      const int kr = i / (BN / 4), q = i % (BN / 4);
+      k = k0 + kr, n = n0 + 4 * q, d = sB + kr * BN + 4 * q;
+    } else {
+      const int c = i / (GK / 4), q = i % (GK / 4);
+      n = n0 + c, k = k0 + 4 * q, d = sB + c * LDK + 4 * q;
+    }
+    const bool ok = n < N && k < K;
+    cp_async16(d, ok ? Bm + (KN ? (size_t)k * ldb + n : (size_t)n * ldb + k) : Bm, ok);
+  }
+}
+
+// fp32: exact FMAs.  K % 4 == 0, N % 4 == 0, lda and ldb multiples of 4
+// (16-byte rows).
+template <bool KN, int RM>
+__global__ void __launch_bounds__(THREADS)
+scan_gemm_kernel(const float* __restrict__ A, int lda, const float* __restrict__ Bm, int ldb,
+                 const float* __restrict__ bias, float* __restrict__ C, int ldc, int M, int N,
+                 int K) {
+  using namespace gemm;
+  using T = Tile<KN, RM>;
+  extern __shared__ __align__(16) float gsm[];
+  const int tid = threadIdx.x, ty = tid / TX, tx = tid % TX;
+  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * BN;
+  const int nk = (K + GK - 1) / GK;
+  auto stage = [&](int s) { return gsm + (s % GST) * (T::A + T::B); };
+  auto load = [&](int s) {  // chunk s, one commit group
+    if (s < nk)
+      gemm_chunk<KN, RM>(stage(s), stage(s) + T::A, A, lda, Bm, ldb, m0, n0, s * GK, M, N,
+                         K);
+    cp_async_commit();
+  };
+  float acc[RM][8];
+#pragma unroll
+  for (int r = 0; r < RM; ++r)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[r][j] = 0.0f;
+  for (int s = 0; s < GST - 1; ++s) load(s);
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<GST - 2>();  // this thread's pieces of chunk kt have landed
+    __syncthreads();  // chunk kt is complete, and chunk kt - 1's stage is free
+    load(kt + GST - 1);
+    const float* a_t = stage(kt) + ty * LDK;
+    const float* b_t = stage(kt) + T::A;
+#pragma unroll
+    for (int k4 = 0; k4 < GK; k4 += 4) {
+      float4 a[RM];
+#pragma unroll
+      for (int r = 0; r < RM; ++r)
+        a[r] = *reinterpret_cast<const float4*>(a_t + r * TY * LDK + k4);
+      if constexpr (KN) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float4 w0 = *reinterpret_cast<const float4*>(b_t + (k4 + kk) * BN + 4 * tx);
+          const float4 w1 =
+              *reinterpret_cast<const float4*>(b_t + (k4 + kk) * BN + 64 + 4 * tx);
+#pragma unroll
+          for (int r = 0; r < RM; ++r) {
+            const float av = part(a[r], kk);
+            acc[r][0] = fmaf(av, w0.x, acc[r][0]);
+            acc[r][1] = fmaf(av, w0.y, acc[r][1]);
+            acc[r][2] = fmaf(av, w0.z, acc[r][2]);
+            acc[r][3] = fmaf(av, w0.w, acc[r][3]);
+            acc[r][4] = fmaf(av, w1.x, acc[r][4]);
+            acc[r][5] = fmaf(av, w1.y, acc[r][5]);
+            acc[r][6] = fmaf(av, w1.z, acc[r][6]);
+            acc[r][7] = fmaf(av, w1.w, acc[r][7]);
+          }
+        }
+      } else {
+        float4 b[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          b[j] = *reinterpret_cast<const float4*>(b_t + (tx + TX * j) * LDK + k4);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int r = 0; r < RM; ++r) {
+            const float av = part(a[r], kk);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(av, part(b[j], kk), acc[r][j]);
+          }
+      }
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    const int row = m0 + ty + TY * r;
+    if (row >= M) break;
+    float* c = C + (size_t)row * ldc;
+    if constexpr (KN) {
+#pragma unroll
+      for (int g = 0; g < 2; ++g) {
+        const int n = n0 + 64 * g + 4 * tx;
+        if (n < N) {
+          float4 v = make_float4(acc[r][4 * g], acc[r][4 * g + 1], acc[r][4 * g + 2],
+                                 acc[r][4 * g + 3]);
+          if (bias) {
+            const float4 bb = *reinterpret_cast<const float4*>(bias + n);
+            v.x += bb.x, v.y += bb.y, v.z += bb.z, v.w += bb.w;
+          }
+          *reinterpret_cast<float4*>(c + n) = v;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + tx + TX * j;
+        if (n < N) c[n] = acc[r][j] + (bias ? bias[n] : 0.0f);
+      }
+    }
+  }
+}
+
+// bf16: A and B rounded to bf16 on their way into shared memory (global ->
+// registers -> bf16 stores, the next chunk's loads in flight during the
+// current chunk's products), then mma.sync m16n8k16 with fp32 sums.  A
+// block tile of 128 x 128, K in chunks of 32, two buffers; 8 warps as 2 x 4,
+// a warp 64 rows x 32 columns (4 x 4 m16n8 tiles).  A lies [m][k], B [n][k]
+// (NK; ldmatrix) or [k][n] (KN; ldmatrix.trans); rows padded by 8 values
+// (16 bytes), so the 8 row addresses of an ldmatrix hit 8 bank groups.
+namespace mma {
+constexpr int BM = 128, BN = 128, BK = 32, LDA = BK + 8, LDB_KN = BN + 8;
+}
+
+template <bool KN>
+__device__ __forceinline__ void mma_fetch(float4 (&a)[4], float4 (&b)[4], const float* A,
+                                          int lda, const float* Bm, int ldb, int m0, int n0,
+                                          int k0, int M, int N, int K) {
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int i = threadIdx.x + THREADS * p, r = i / 8, k = k0 + 4 * (i % 8);
+    a[p] = m0 + r < M && k < K ? __ldg(reinterpret_cast<const float4*>(
+                                      A + (size_t)(m0 + r) * lda + k)) : zero;
+    if constexpr (KN) {
+      const int kr = k0 + i / 32, n = n0 + 4 * (i % 32);
+      b[p] = kr < K && n < N ? __ldg(reinterpret_cast<const float4*>(Bm + (size_t)kr * ldb + n))
+                             : zero;
+    } else {
+      b[p] = n0 + r < N && k < K ? __ldg(reinterpret_cast<const float4*>(
+                                        Bm + (size_t)(n0 + r) * ldb + k)) : zero;
+    }
+  }
+}
+
+__device__ __forceinline__ void store_bf16x4(bf16* d, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&lo);
+  u.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(d) = u;
+}
+
+template <bool KN>
+__global__ void __launch_bounds__(THREADS)
+scan_gemm_bf16_kernel(const float* __restrict__ A, int lda, const float* __restrict__ Bm,
+                      int ldb, const float* __restrict__ bias, float* __restrict__ C, int ldc,
+                      int M, int N, int K) {
+  using namespace mma;
+  constexpr int SB = KN ? BK * LDB_KN : BN * LDA;  // values of a B buffer
+  __shared__ __align__(16) bf16 sA[2][BM * LDA];
+  __shared__ __align__(16) bf16 sB[2][SB];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n_rows = U + dx_of(0, E, G);  // resident backward rows of a group
-  float* sW = smem;                                         // [K][NC]      (resident)
-  float* sWr = sW + (STREAM ? 0 : (size_t)K * NC);          // [n_rows][4H] (resident):
-                                                            // Wh rows, then Wx rows
-  float* sRed = sWr + (STREAM ? 0 : (size_t)n_rows * H4);   // [WARPS][NC][RB]: phase 1;
-                                                            // [WARPS][MAXO][RB]: phase 2
-  float* sStage = sRed + WARPS * NC * RB;                   // [KC][LDS]
-  float* sDc = sStage + KC * LDS;                           // [nvb][B][U] carries
-  float* sDh = sDc + (size_t)nvb * B * U;
+  const int wm = warp / 4, wn = warp % 4;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int nk = (K + BK - 1) / BK;
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+  float4 ra[4], rb[4];
+  auto put = [&](int buf) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int i = tid + THREADS * p;
+      store_bf16x4(&sA[buf][(i / 8) * LDA + 4 * (i % 8)], ra[p]);
+      if constexpr (KN) store_bf16x4(&sB[buf][(i / 32) * LDB_KN + 4 * (i % 32)], rb[p]);
+      else store_bf16x4(&sB[buf][(i / 8) * LDA + 4 * (i % 8)], rb[p]);
+    }
+  };
+  mma_fetch<KN>(ra, rb, A, lda, Bm, ldb, m0, n0, 0, M, N, K);
+  put(0);
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < nk) mma_fetch<KN>(ra, rb, A, lda, Bm, ldb, m0, n0, (kt + 1) * BK, M, N, K);
+#pragma unroll
+    for (int k16 = 0; k16 < BK; k16 += 16) {
+      uint32_t af[4][4], bfr[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+        jlm::ldsm_x4(af[mi][0], af[mi][1], af[mi][2], af[mi][3],
+                     &sA[buf][(wm * 64 + mi * 16 + (lane & 15)) * LDA + k16 + (lane >> 4) * 8]);
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int nb = wn * 32 + p * 16;
+        if constexpr (KN)
+          jlm::ldsm_x4_trans(bfr[2 * p][0], bfr[2 * p][1], bfr[2 * p + 1][0], bfr[2 * p + 1][1],
+                             &sB[buf][(k16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDB_KN + nb +
+                                      (lane >> 4) * 8]);
+        else
+          jlm::ldsm_x4(bfr[2 * p][0], bfr[2 * p][1], bfr[2 * p + 1][0], bfr[2 * p + 1][1],
+                       &sB[buf][(nb + (lane & 7) + (lane >> 4) * 8) * LDA + k16 +
+                                ((lane >> 3) & 1) * 8]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) jlm::mma_bf16(acc[mi][ni], af[mi], bfr[ni][0], bfr[ni][1]);
+    }
+    if (kt + 1 < nk) {
+      put(buf ^ 1);  // the other buffer was last read in chunk kt - 1, before the barrier
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + wm * 64 + mi * 16 + (lane >> 2) + 8 * h;
+      if (row >= M) continue;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int n = n0 + wn * 32 + ni * 8 + 2 * (lane & 3);
+        if (n >= N) continue;  // N % 4 == 0: n < N means n + 1 < N
+        float2 v = make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+        if (bias) v.x += bias[n], v.y += bias[n + 1];
+        *reinterpret_cast<float2*>(C + (size_t)row * ldc + n) = v;
+      }
+    }
+}
+
+// In lane l, the warp's sum of v[l % V] (V a power of 2 up to 32): where
+// the warp has more lanes than values, plain sums across the spare lanes,
+// then a butterfly in which each step keeps half the values and sends the
+// other half (31 shuffles at V = 32).  The order of the sums is fixed.
+template <int V>
+__device__ __forceinline__ float warp_sums(float (&v)[V]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 16; o >= V; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
+#pragma unroll
+  for (int n = V; n > 1; n >>= 1) {
+    const int o = n / 2;
+    const bool up = lane & o;
+#pragma unroll
+    for (int i = 0; i < n / 2; ++i) {
+      const float send = up ? v[i] : v[i + o];
+      const float keep = up ? v[i + o] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+  }
+  return v[0];
+}
+
+constexpr int RR = 4;  // batch rows of a warp's dh tile (RR rows x NU units)
+constexpr int PF = 8;  // float4 columns of dz a lane has in flight
+
+// Wh[j][c .. c + 3] as floats, from the block's resident rows (row u; bf16
+// in bf16 mode) or from device memory (row j, rounded in bf16 mode).
+template <bool BF16, bool RESIDENT>
+__device__ __forceinline__ float4 wh4(const void* sWh, const float* Wh, int u, int j, int c,
+                                     int H4) {
+  if constexpr (RESIDENT && BF16) {
+    const uint2 q = reinterpret_cast<const uint2*>(sWh)[((size_t)u * H4 + c) / 4];
+    return make_float4(__uint_as_float(q.x << 16), __uint_as_float(q.x & 0xffff0000u),
+                       __uint_as_float(q.y << 16), __uint_as_float(q.y & 0xffff0000u));
+  } else if constexpr (RESIDENT) {
+    return reinterpret_cast<const float4*>(sWh)[((size_t)u * H4 + c) / 4];
+  } else {
+    return rnd4<BF16>(__ldg(reinterpret_cast<const float4*>(Wh + (size_t)j * H4 + c)));
+  }
+}
+
+// Z [B,T,4H] the recomputed gates (bias included); dz [B,T,4H] (may be Z
+// itself); Wh [H, 4H] fp32 (W's h rows).  In bf16 mode dz is also written
+// rounded to bf16 into dzb [B,T,4H], which the product reads: half the
+// bytes a step, and each step its own t slice, so no block overwrites what
+// a slower one still reads.  The block owns the unit groups
+// blockIdx.x + i * gridDim.x (i < nvb; resident mode: nvb = 1) of NU units;
+// the carries dc, dh [B, H] start as d_cf, d_hf and end as dc0, dh0.
+template <int NU, bool BF16, bool RESIDENT>
+__global__ void __launch_bounds__(THREADS)
+scan_recur_kernel(const float* Z, float* dz, bf16* dzb, const float* __restrict__ Wh,
+                  const float* __restrict__ cs, const float* __restrict__ c0,
+                  const float* __restrict__ d_hs, const float* __restrict__ d_cf,
+                  const float* __restrict__ d_hf, float* dc, float* dh, int B, int T, int H,
+                  float forget_bias, int nvb) {
+  using Wt = typename std::conditional<BF16, bf16, float>::type;
+  extern __shared__ __align__(16) unsigned char rsm[];
+  Wt* sWh = reinterpret_cast<Wt*>(rsm);  // [NU][4H] (resident mode)
+  const int H4 = 4 * H, G = H / NU, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   cg::grid_group grid = cg::this_grid();
-  const Weights<BF16, STREAM> wts{
-      static_cast<const typename Weights<BF16, STREAM>::Src*>(Wsrc), sW, sWr, H};
 
   for (int i = 0; i < nvb; ++i) {
     const int g = blockIdx.x + i * gridDim.x;
     if (g >= G) break;
-    const int j0 = g * U;
-    if constexpr (!STREAM) {
-      const float* W = static_cast<const float*>(Wsrc);
-      load_gate_columns<BF16>(sW, W, K, H, j0);
-      for (int e = tid; e < n_rows * H4; e += THREADS) {
-        const int o = e / H4, c = e % H4;
-        const int row = o < U ? E + j0 + o : g + (o - U) * G;  // W row
-        sWr[e] = (o < U || row < E) ? rnd<BF16>(W[(size_t)row * H4 + c]) : 0.0f;
+    const int j0 = g * NU;
+    if constexpr (RESIDENT)
+      for (int e = tid; e < NU * H4; e += THREADS) {
+        const float w = Wh[(size_t)j0 * H4 + e];
+        if constexpr (BF16) sWh[e] = __float2bfloat16(w);
+        else sWh[e] = w;
       }
-    }
-    for (int e = tid; e < B * U; e += THREADS) {
-      const size_t gi = (size_t)(e / U) * H + j0 + e % U;
-      sDc[(size_t)i * B * U + e] = d_cf[gi];
-      sDh[(size_t)i * B * U + e] = d_hf[gi];
+    for (int e = tid; e < B * NU; e += THREADS) {
+      const size_t gi = (size_t)(e / NU) * H + j0 + e % NU;
+      dc[gi] = d_cf[gi];
+      dh[gi] = d_hf[gi];
     }
   }
-  const int u = tid / RB;  // phase 1's epilogue unit
+  __syncthreads();
+
+  // A step's saved operands of the gate grads (all but the carries), for
+  // (row, unit j); in the one-group, one-pass case (B NU <= THREADS) they
+  // are loaded for step t - 1 before step t's product, so their latency
+  // hides behind it.
+  struct GateIn {
+    float zi, zj, zf, zo, c, cp, dhs;
+  };
+  auto gate_in = [&](int row, int j, int t) {
+    const size_t zr = ((size_t)row * T + t) * H4, idx = ((size_t)row * T + t) * H + j;
+    return GateIn{Z[zr + j], Z[zr + H + j], Z[zr + 2 * H + j], Z[zr + 3 * H + j], cs[idx],
+                  t > 0 ? cs[idx - H] : c0[(size_t)row * H + j], d_hs[idx]};
+  };
+  const bool early = nvb == 1 && B * NU <= THREADS;
+  GateIn next{};
+  if (early && tid < B * NU) next = gate_in(tid / NU, blockIdx.x * NU + tid % NU, T - 1);
 
   for (int t = T - 1; t >= 0; --t) {
-    const float* hp = t == 0 ? h0 : hs + (size_t)(t - 1) * H;
-    const size_t hp_stride = t == 0 ? (size_t)H : (size_t)T * H;
-    // ---- phase 1: recompute the own gates, write the own columns of dz_t
+    // ---- dz_t of the own units' gate columns, over Z_t
     for (int i = 0; i < nvb; ++i) {
       const int g = blockIdx.x + i * gridDim.x;
       if (g >= G) break;
-      const int j0 = g * U, j = j0 + min(u, U - 1);
-      const float bi = bias[j], bj = bias[H + j], bf = bias[2 * H + j], bo = bias[3 * H + j];
-      float* dcv = sDc + (size_t)i * B * U;
-      const float* dhv = sDh + (size_t)i * B * U;
-      for (int r0 = 0; r0 < B; r0 += RB) {
-        const int r = tid % RB, row = r0 + r;
-        const bool mine = tid < RB * U && row < B;
-        const size_t idx = ((size_t)row * T + t) * H + j;
-        float c_t = 0.0f, cp = 0.0f, dh_up = 0.0f;
-        if (mine) {  // saved values, loaded before the product hides their latency
-          c_t = cs[idx];
-          cp = t > 0 ? cs[idx - H] : c0[(size_t)row * H + j];
-          dh_up = d_hs[idx];
+      for (int e = tid; e < B * NU; e += THREADS) {
+        const int row = e / NU, j = g * NU + e % NU;
+        const GateIn in = early ? next : gate_in(row, j, t);
+        const size_t zr = ((size_t)row * T + t) * H4, gi = (size_t)row * H + j;
+        const float si = jlm::sigmoidf(in.zi), tj = tanhf(in.zj);
+        const float sf = jlm::sigmoidf(in.zf + forget_bias), so = jlm::sigmoidf(in.zo);
+        const float tc = tanhf(in.c);
+        const float dh_tot = in.dhs + __ldcg(dh + gi);
+        const float dc_tot = dh_tot * so * (1.0f - tc * tc) + __ldcg(dc + gi);
+        const float dzv[4] = {dc_tot * tj * si * (1.0f - si), dc_tot * si * (1.0f - tj * tj),
+                              dc_tot * in.cp * sf * (1.0f - sf), dh_tot * tc * so * (1.0f - so)};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          dz[zr + q * H + j] = dzv[q];
+          if constexpr (BF16) dzb[zr + q * H + j] = __float2bfloat16(dzv[q]);
         }
-        gate_product<BF16, STREAM>(wts, j0, sStage, sRed, xs, hp, hp_stride, r0, t, B, T, E,
-                                   K);
-        if (mine) {
-          const float si = jlm::sigmoidf(gate_sum(sRed, r, u, 0) + bi);
-          const float tj = tanhf(gate_sum(sRed, r, u, 1) + bj);
-          const float sf = jlm::sigmoidf(gate_sum(sRed, r, u, 2) + bf + forget_bias);
-          const float so = jlm::sigmoidf(gate_sum(sRed, r, u, 3) + bo);
-          const float tc = tanhf(c_t);
-          const float dh_tot = dh_up + dhv[row * U + u];
-          const float dc_tot = dh_tot * so * (1.0f - tc * tc) + dcv[row * U + u];
-          float* dzp = dz + ((size_t)row * T + t) * H4;
-          dzp[j] = dc_tot * tj * si * (1.0f - si);
-          dzp[H + j] = dc_tot * si * (1.0f - tj * tj);
-          dzp[2 * H + j] = dc_tot * cp * sf * (1.0f - sf);
-          dzp[3 * H + j] = dh_tot * tc * so * (1.0f - so);
-          dcv[row * U + u] = dc_tot * sf;
-        }
+        __stcg(dc + gi, dc_tot * sf);
       }
     }
     grid.sync();  // dz_t is complete in every block
-    // ---- phase 2: dh carry of the own units and dx_t of the own columns,
-    // in passes of MAXO outputs
+    if (early && t > 0 && tid < B * NU)
+      next = gate_in(tid / NU, blockIdx.x * NU + tid % NU, t - 1);
+    // ---- dh_{t-1} of the own units: dz_t Wh^T.  A warp takes RR rows at a
+    // time, its lanes the float4 columns lane, lane + 32, ...: PF of them in
+    // flight at once (all loads of a round issued before its products); the
+    // lanes' partial sums meet in warp_sums.
     for (int i = 0; i < nvb; ++i) {
       const int g = blockIdx.x + i * gridDim.x;
       if (g >= G) break;
-      const int j0 = g * U, n_out = U + dx_of(g, E, G);
-      float* dhv = sDh + (size_t)i * B * U;
-      for (int o0 = 0; o0 < n_out; o0 += MAXO) {
-        const int on = min(MAXO, n_out - o0);
-        for (int r0 = 0; r0 < B; r0 += RB) {
-          float acc[MAXO];
+      const int j0 = g * NU;
+      for (int r0 = warp * RR; r0 < B; r0 += WARPS * RR) {
+        float acc[RR * NU];
 #pragma unroll
-          for (int o = 0; o < MAXO; ++o) acc[o] = 0.0f;
-          float4 next[PER];
-          load_dz(next, dz, r0, t, 0, min(KC, H4), B, T, H4);
-          for (int c0_ = 0; c0_ < H4; c0_ += KC) {
-            const int cn = min(KC, H4 - c0_);
-            __syncthreads();
-            store_stage<BF16>(sStage, next);
-            __syncthreads();
-            if (c0_ + KC < H4) load_dz(next, dz, r0, t, c0_ + KC, min(KC, H4 - c0_ - KC), B, T, H4);
-            for (int cc = warp * 4; cc < cn; cc += WARPS * 4) {  // 4H and KC: multiples of 4
-              const float v0 = sStage[(cc + 0) * LDS + lane], v1 = sStage[(cc + 1) * LDS + lane];
-              const float v2 = sStage[(cc + 2) * LDS + lane], v3 = sStage[(cc + 3) * LDS + lane];
+        for (int v = 0; v < RR * NU; ++v) acc[v] = 0.0f;
+        size_t zr[RR];
 #pragma unroll
-              for (int o = 0; o < MAXO; ++o) {
-                if (o < on) {
-                  const int oo = o0 + o;
-                  const float4 w = wts.out_row(oo, j0, g + (oo - U) * G, E, c0_ + cc);
-                  acc[o] = fmaf(v0, w.x, fmaf(v1, w.y, fmaf(v2, w.z, fmaf(v3, w.w, acc[o]))));
-                }
+        for (int r = 0; r < RR; ++r)  // a row past B reads row B - 1 and is not stored
+          zr[r] = ((size_t)min(r0 + r, B - 1) * T + t) * H4;
+        for (int c0 = 4 * lane; c0 < H4; c0 += 128 * PF) {
+          float4 d[PF][RR];
+#pragma unroll
+          for (int p = 0; p < PF; ++p) {
+            const int c = c0 + 128 * p;
+#pragma unroll
+            for (int r = 0; r < RR; ++r) {
+              if (c >= H4) {
+                d[p][r] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+              } else if constexpr (BF16) {
+                const uint2 q = __ldcg(reinterpret_cast<const uint2*>(dzb + zr[r] + c));
+                d[p][r] = make_float4(__uint_as_float(q.x << 16),
+                                      __uint_as_float(q.x & 0xffff0000u),
+                                      __uint_as_float(q.y << 16),
+                                      __uint_as_float(q.y & 0xffff0000u));
+              } else {
+                d[p][r] = __ldcg(reinterpret_cast<const float4*>(dz + zr[r] + c));
               }
             }
           }
 #pragma unroll
-          for (int o = 0; o < MAXO; ++o) sRed[(warp * MAXO + o) * RB + lane] = acc[o];
-          __syncthreads();
-          const int r = tid % RB, o = tid / RB, row = r0 + r;
-          if (o < on && row < B) {
-            float s = 0.0f;
+          for (int p = 0; p < PF; ++p) {
+            const int c = c0 + 128 * p;
+            if (c >= H4) break;
 #pragma unroll
-            for (int w = 0; w < WARPS; ++w) s += sRed[(w * MAXO + o) * RB + r];
-            const int oo = o0 + o;
-            if (oo < U)
-              dhv[row * U + oo] = s;
-            else
-              dx[((size_t)row * T + t) * E + g + (oo - U) * G] = s;
+            for (int u = 0; u < NU; ++u) {
+              const float4 w = wh4<BF16, RESIDENT>(sWh, Wh, u, j0 + u, c, H4);
+#pragma unroll
+              for (int r = 0; r < RR; ++r)
+                acc[r * NU + u] = fmaf(d[p][r].w, w.w, fmaf(d[p][r].z, w.z, fmaf(d[p][r].y, w.y,
+                                       fmaf(d[p][r].x, w.x, acc[r * NU + u]))));
+            }
           }
         }
+        const float s = warp_sums<RR * NU>(acc);
+        const int v = lane % (RR * NU), row = r0 + v / NU;
+        if (lane < RR * NU && row < B) __stcg(dh + (size_t)row * H + j0 + v % NU, s);
       }
     }
-  }
-  __syncthreads();
-  for (int i = 0; i < nvb; ++i) {
-    const int g = blockIdx.x + i * gridDim.x;
-    if (g >= G) break;
-    for (int e = tid; e < B * U; e += THREADS) {
-      const size_t gi = (size_t)(e / U) * H + g * U + e % U;
-      dc0[gi] = sDc[(size_t)i * B * U + e];
-      dh0[gi] = sDh[(size_t)i * B * U + e];
-    }
+    __syncthreads();  // the block's new dh carries are in place for the next step
   }
 }
 
@@ -502,9 +821,8 @@ int by_mode(int bf16, int stream, Args... args) {
 
 template <bool BF16, bool STREAM>
 struct Occupancy {
-  static int run(int bwd, size_t smem, int device) {
-    return bwd ? max_blocks(lstm_scan_bwd_kernel<BF16, STREAM>, smem, device)
-               : max_blocks(lstm_scan_fwd_kernel<BF16, STREAM>, smem, device);
+  static int run(size_t smem, int device) {
+    return max_blocks(lstm_scan_fwd_kernel<BF16, STREAM>, smem, device);
   }
 };
 
@@ -515,26 +833,58 @@ struct Fwd {
   }
 };
 
-template <bool BF16, bool STREAM>
-struct Bwd {
-  static int run(int grid, size_t smem, void** args, cudaStream_t st) {
-    return (int)launch_coop(lstm_scan_bwd_kernel<BF16, STREAM>, grid, smem, args, st);
+template <bool KN, int RM>
+int launch_gemm(const float* A, int lda, const float* Bm, int ldb, const float* bias,
+                float* C, int ldc, int M, int N, int K, cudaStream_t st) {
+  using T = gemm::Tile<KN, RM>;
+  auto kernel = scan_gemm_kernel<KN, RM>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((N + gemm::BN - 1) / gemm::BN, (M + T::BM - 1) / T::BM);
+  kernel<<<grid, THREADS, T::SMEM, st>>>(A, lda, Bm, ldb, bias, C, ldc, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+template <bool KN>
+int launch_gemm_bf16(const float* A, int lda, const float* Bm, int ldb, const float* bias,
+                     float* C, int ldc, int M, int N, int K, cudaStream_t st) {
+  const dim3 grid((N + mma::BN - 1) / mma::BN, (M + mma::BM - 1) / mma::BM);
+  scan_gemm_bf16_kernel<KN><<<grid, THREADS, 0, st>>>(A, lda, Bm, ldb, bias, C, ldc, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+// scan_recur_kernel of one mode, and its dynamic shared memory.
+template <int NU, bool BF16, bool RESIDENT>
+struct Recur {
+  static auto kernel() { return scan_recur_kernel<NU, BF16, RESIDENT>; }
+  static size_t smem(int H) {
+    return RESIDENT ? (size_t)NU * 4 * H * (BF16 ? sizeof(bf16) : sizeof(float)) : 0;
   }
 };
+
+// fn(Recur<nu, bf16, resident>{}) for nu 4 or 8.
+template <typename F>
+int by_recur(int nu, int bf16, int resident, F fn) {
+  if (nu == 8) {
+    if (bf16) return resident ? fn(Recur<8, true, true>{}) : fn(Recur<8, true, false>{});
+    return resident ? fn(Recur<8, false, true>{}) : fn(Recur<8, false, false>{});
+  }
+  if (bf16) return resident ? fn(Recur<4, true, true>{}) : fn(Recur<4, true, false>{});
+  return resident ? fn(Recur<4, false, true>{}) : fn(Recur<4, false, false>{});
+}
 
 }  // namespace
 
 extern "C" {
 
-// Co-resident blocks of the forward (bwd = 0) or backward kernel in the
-// resident (stream = 0) or streamed mode at these dims, each block owning
-// nvb unit groups (0 if a block needs more shared memory than an SM has),
-// or minus a CUDA error.
-int jlm_lstm_scan_max_blocks(int bwd, int stream, int bf16, int nvb, int B, int E, int H,
-                             int device) {
-  const size_t smem = bwd ? bwd_smem(stream, nvb, B, E, H) : fwd_smem(stream, nvb, B, E, H);
+// Co-resident blocks of the forward kernel in the resident (stream = 0) or
+// streamed mode at these dims, each block owning nvb unit groups (0 if a
+// block needs more shared memory than an SM has), or minus a CUDA error.
+int jlm_lstm_scan_max_blocks(int stream, int bf16, int nvb, int B, int E, int H, int device) {
+  const size_t smem = fwd_smem(stream, nvb, B, E, H);
   if (smem > SMEM_MAX) return 0;
-  return by_mode<Occupancy>(bf16, stream, bwd, smem, device);
+  return by_mode<Occupancy>(bf16, stream, smem, device);
 }
 
 // xs [B,T,E], b [4H], c0/h0 [B,H], fp32; W [E+H,4H] fp32, or its bf16 copy
@@ -553,18 +903,49 @@ int jlm_lstm_scan_fwd(const float* xs, const void* W, const float* b,
                       static_cast<cudaStream_t>(st));
 }
 
-// The forward's inputs and saved hs, cs, plus the upstream grads d_hs
-// [B,T,H], d_cf, d_hf [B,H]; writes dz [B,T,4H], dx [B,T,E], dc0, dh0 [B,H].
-int jlm_lstm_scan_bwd(const float* xs, const void* W, const float* b,
-                      const float* c0, const float* h0, const float* hs,
-                      const float* cs, const float* d_hs, const float* d_cf,
-                      const float* d_hf, float* dz, float* dx, float* dc0,
-                      float* dh0, int B, int T, int E, int H, float forget_bias,
-                      int bf16, int stream, int grid, int nvb, void* st) {
-  void* args[] = {&xs, &W, &b, &c0, &h0, &hs, &cs, &d_hs, &d_cf, &d_hf,
-                  &dz, &dx, &dc0, &dh0, &B, &T, &E, &H, &forget_bias, &nvb};
-  return by_mode<Bwd>(bf16, stream, grid, bwd_smem(stream, nvb, B, E, H), args,
-                      static_cast<cudaStream_t>(st));
+// C [M, N] (row stride ldc) = A [M, K] (row stride lda) B (+ bias [N] if
+// not null), fp32.  kn = 1: B [K, N] (row stride ldb); kn = 0: B given as
+// its transpose [N, K].  fp32 (exact FMAs): rm 8 (128-row block tiles)
+// or 4 (64); bf16 = 1: A and B rounded to bf16, mma.sync (rm not read).
+// K, N, lda, ldb multiples of 4.
+int jlm_scan_gemm(const float* A, int lda, const float* Bm, int ldb, const float* bias,
+                  float* C, int ldc, int M, int N, int K, int kn, int rm, int bf16, void* st) {
+  auto s = static_cast<cudaStream_t>(st);
+  if (bf16)
+    return kn ? launch_gemm_bf16<true>(A, lda, Bm, ldb, bias, C, ldc, M, N, K, s)
+              : launch_gemm_bf16<false>(A, lda, Bm, ldb, bias, C, ldc, M, N, K, s);
+  if (kn)
+    return rm == 8 ? launch_gemm<true, 8>(A, lda, Bm, ldb, bias, C, ldc, M, N, K, s)
+                   : launch_gemm<true, 4>(A, lda, Bm, ldb, bias, C, ldc, M, N, K, s);
+  return rm == 8 ? launch_gemm<false, 8>(A, lda, Bm, ldb, bias, C, ldc, M, N, K, s)
+                 : launch_gemm<false, 4>(A, lda, Bm, ldb, bias, C, ldc, M, N, K, s);
+}
+
+// Co-resident blocks of scan_recur_kernel with nu (4 or 8) units a block,
+// their Wh rows resident in shared memory or not (0 if a block needs more
+// shared memory than an SM has), or minus a CUDA error.
+int jlm_scan_recur_max_blocks(int resident, int bf16, int nu, int H, int device) {
+  return by_recur(nu, bf16, resident, [&](auto r) {
+    using R = decltype(r);
+    return R::smem(H) > SMEM_MAX ? 0 : max_blocks(R::kernel(), R::smem(H), device);
+  });
+}
+
+// Z [B,T,4H] the recomputed gates; writes dz [B,T,4H] (may be Z), in bf16
+// mode also its bf16 copy dzb (scratch, [B,T,4H]), and the carries dc0,
+// dh0 [B,H] from d_cf, d_hf; Wh [H,4H] fp32; cs, d_hs
+// [B,T,H]; c0 [B,H].  grid blocks of nvb groups of nu units (resident:
+// grid = H / nu, nvb = 1); the wrapper checks co-residency.
+int jlm_scan_recur(const float* Z, float* dz, void* dzb, const float* Wh, const float* cs,
+                   const float* c0, const float* d_hs, const float* d_cf, const float* d_hf,
+                   float* dc0, float* dh0, int B, int T, int H, float forget_bias, int bf16,
+                   int resident, int nu, int grid, int nvb, void* st) {
+  void* args[] = {&Z, &dz, &dzb, &Wh, &cs, &c0, &d_hs, &d_cf, &d_hf, &dc0, &dh0,
+                  &B, &T, &H, &forget_bias, &nvb};
+  return by_recur(nu, bf16, resident, [&](auto r) {
+    using R = decltype(r);
+    return (int)launch_coop(R::kernel(), grid, R::smem(H), args, static_cast<cudaStream_t>(st));
+  });
 }
 
 }  // extern "C"

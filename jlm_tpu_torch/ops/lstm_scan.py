@@ -9,7 +9,10 @@ Counterpart of :mod:`jlm_tpu.ops.lstm_scan` (its ``_lstm_fwd_kernel`` and
 - ``lstm_scan_fwd`` -> ``(hs [B,T,H], cs [B,T,H], c_T, h_T)``, all fp32;
 - ``lstm_scan_bwd`` walks time in reverse: it recomputes each step's gates
   from the saved ``(x_t, h_{t-1})`` and ``cs``, carries ``(dc, dh)`` and
-  returns ``(dz [B,T,4H], dx [B,T,E], dc0, dh0)``;
+  returns ``(dz [B,T,4H], dx [B,T,E], dc0, dh0)``, in three stages: the
+  gates of every step as one product (``scan_gates``), the recurrence
+  (``scan_recur``: dz and the carried dh = dz_t Wh^T), and dx as one
+  product (``scan_dx``);
 - ``lstm_scan``: the scan as an autograd Function whose backward is
   ``lstm_scan_bwd``; ``dW = [x; h_prev]^T dz`` and ``db = sum dz`` stay one
   ``torch.matmul`` and one sum, as the reference computes them outside its
@@ -20,19 +23,27 @@ backward's products) are rounded to before each product; sums, gates and
 carries are fp32 either way.  On a CUDA tensor the wrappers launch
 ``csrc/lstm_scan.cu`` or raise (the kernels multiply on the CUDA cores,
 so fp32 compute is exact fp32, never TF32); on a CPU tensor they run the
-plain versions ``lstm_scan_ref`` and ``lstm_scan_bwd_ref``.  One launch covers
-the whole window, so the reference's ``time_block`` and its VMEM fallback
-have no counterpart.  E and H that are not multiples of 4 are zero-padded
-(``pad_scan``): a padded unit has zero weights and bias and starts at c = h
-= 0, so it stays at c = h = 0 and feeds nothing back; the padding is
-dropped from the outputs and the gradients.
+plain versions ``lstm_scan_ref``, ``scan_gates_ref``, ``scan_recur_ref``
+and ``scan_dx_ref`` (``lstm_scan_bwd_ref`` is the whole backward in the
+reference's per-step order, the stages' referee).  The forward's one
+launch and the backward's three cover the whole window, so the
+reference's ``time_block`` and its VMEM fallback have no counterpart.  E
+and H that are not multiples of 4 are zero-padded (``pad_scan``): a padded
+unit has zero weights and bias and starts at c = h = 0, so it stays at
+c = h = 0 and feeds nothing back; the padding is dropped from the outputs
+and the gradients.
 
-The kernels' grid (``_plan``): one block per group of 4 units with the
+The forward's grid (``_plan``): one block per group of 4 units with the
 group's columns of W resident in shared memory where all H / 4 such blocks
 fit on the card at once (H = 512); else W streamed from device memory each
 step (fp32, or a bf16 copy in bf16 mode) by as many blocks as fit, each
 owning several groups (H = E = 1,024).  Only a shape at which not even one
-streamed block fits on an SM raises.
+streamed block fits on an SM raises.  The recurrence's grid
+(``_bwd_plan``): a block per group of ``nu`` units (8 where H / 8 fills the
+card, else 4) with their rows of Wh resident in shared memory where all
+such blocks fit (H = 512, H = 1,024); else Wh read from the L2 each step by
+as many blocks as fit.  Its carries live in device memory, so it takes any
+batch.
 """
 
 from __future__ import annotations
@@ -47,7 +58,7 @@ from jlm_tpu_torch.ops.lstm_cell import pad_gates
 
 Tensor = torch.Tensor
 
-UNITS = 4           # hidden units per group: 16 gate columns of W
+UNITS = 4           # hidden units per group of the forward: 16 gate columns of W
 
 
 # ---------------------------------------------------------------- plain
@@ -73,39 +84,81 @@ def lstm_scan_ref(xs, W, b, c0, h0, forget_bias: float = 1.0,
     return torch.stack(hs, dim=1), torch.stack(cs, dim=1), c, h
 
 
+def _gate_grads(z, c_t, c_prev, d_h, dh, dc, forget_bias: float):
+    """One step's gate grads from its pre-activations ``z [B, 4H]`` and the
+    carried ``(dc, dh)``: ``(dz_t [B, 4H], dc_{t-1})``."""
+    zi, zj, zf, zo = z.chunk(4, dim=1)
+    si, tj = torch.sigmoid(zi), torch.tanh(zj)
+    sf, so = torch.sigmoid(zf + forget_bias), torch.sigmoid(zo)
+    tc = torch.tanh(c_t)
+    dh_tot = d_h.float() + dh
+    dc_tot = dh_tot * so * (1.0 - tc * tc) + dc
+    dz_t = torch.cat([dc_tot * tj * si * (1.0 - si),
+                      dc_tot * si * (1.0 - tj * tj),
+                      dc_tot * c_prev * sf * (1.0 - sf),
+                      dh_tot * tc * so * (1.0 - so)], dim=1)
+    return dz_t, dc_tot * sf
+
+
+def _h_prev(h0, hs):
+    return torch.cat([h0[:, None].float(), hs[:, :-1].float()], dim=1)
+
+
 def lstm_scan_bwd_ref(xs, W, b, c0, h0, hs, cs, d_hs, d_cf, d_hf,
-                      forget_bias: float = 1.0, compute_dtype=torch.float32):
-    """Plain backward, the kernel's algorithm: ``(dz, dx, dc0, dh0)``.
+                      forget_bias: float = 1.0, compute_dtype=torch.float32, xh=None):
+    """Plain backward in the reference kernel's order: ``(dz, dx, dc0, dh0)``.
 
     Per step, from the last: recompute ``z`` from the saved ``(x_t,
-    h_{t-1})``, take ``tanh(c_t)`` from the saved ``cs``, form the gate
-    grads ``dz_t`` from the carried ``(dc, dh)``, then ``dx_t = dz_t Wx^T``,
-    ``dh <- dz_t Wh^T`` and ``dc <- dc_tot * sigmoid(f + forget_bias)``."""
+    h_{t-1})`` (``xh [B, T, E+H]`` where given), take ``tanh(c_t)`` from the
+    saved ``cs``, form the gate grads ``dz_t`` from the carried ``(dc, dh)``,
+    then ``dx_t = dz_t Wx^T``, ``dh <- dz_t Wh^T`` and ``dc <- dc_tot *
+    sigmoid(f + forget_bias)``."""
     B, T, E = xs.shape
     H = h0.shape[-1]
     Wx, Wh = W[:E], W[E:]
-    h_prev = torch.cat([h0[:, None].float(), hs[:, :-1]], dim=1)
+    if xh is None:
+        xh = torch.cat([xs.float(), _h_prev(h0, hs)], dim=2)
+    xh = xh.reshape(B, T, E + H)
     c_prev = torch.cat([c0[:, None].float(), cs[:, :-1]], dim=1)
     dc, dh = d_cf.float(), d_hf.float()
     dz = torch.empty((B, T, 4 * H), dtype=torch.float32, device=xs.device)
     dx = torch.empty((B, T, E), dtype=torch.float32, device=xs.device)
     for t in range(T - 1, -1, -1):
-        z = _mm(torch.cat([xs[:, t], h_prev[:, t]], dim=1), W, compute_dtype) + b.float()
-        zi, zj, zf, zo = z.chunk(4, dim=1)
-        si, tj = torch.sigmoid(zi), torch.tanh(zj)
-        sf, so = torch.sigmoid(zf + forget_bias), torch.sigmoid(zo)
-        tc = torch.tanh(cs[:, t])
-        dh_tot = d_hs[:, t].float() + dh
-        dc_tot = dh_tot * so * (1.0 - tc * tc) + dc
-        dz_t = torch.cat([dc_tot * tj * si * (1.0 - si),
-                          dc_tot * si * (1.0 - tj * tj),
-                          dc_tot * c_prev[:, t] * sf * (1.0 - sf),
-                          dh_tot * tc * so * (1.0 - so)], dim=1)
+        z = _mm(xh[:, t], W, compute_dtype) + b.float()
+        dz_t, dc = _gate_grads(z, cs[:, t], c_prev[:, t], d_hs[:, t], dh, dc, forget_bias)
         dz[:, t] = dz_t
         dx[:, t] = _mm(dz_t, Wx.t(), compute_dtype)
         dh = _mm(dz_t, Wh.t(), compute_dtype)
-        dc = dc_tot * sf
     return dz, dx, dc, dh
+
+
+def scan_gates_ref(xh, W, b, compute_dtype=torch.float32):
+    """Plain gate recompute of every step: ``Z = [x; h_prev] W + b``,
+    ``xh [..., E+H]`` -> ``[..., 4H]`` fp32."""
+    return _mm(xh, W, compute_dtype) + b.float()
+
+
+def scan_recur_ref(Z, Wh, c0, cs, d_hs, d_cf, d_hf, forget_bias: float = 1.0,
+                   compute_dtype=torch.float32):
+    """Plain recurrence over the recomputed gates ``Z [B,T,4H]``: per step,
+    from the last, ``dz_t`` from the carried ``(dc, dh)``, then ``dh <-
+    dz_t Wh^T`` (``Wh [H, 4H]``, W's h rows) -> ``(dz, dc0, dh0)``."""
+    T = Z.shape[1]
+    c_prev = torch.cat([c0[:, None].float(), cs[:, :-1]], dim=1)
+    dc, dh = d_cf.float(), d_hf.float()
+    dz = torch.empty(Z.shape, dtype=torch.float32, device=Z.device)
+    for t in range(T - 1, -1, -1):
+        dz_t, dc = _gate_grads(Z[:, t], cs[:, t], c_prev[:, t], d_hs[:, t], dh, dc,
+                               forget_bias)
+        dz[:, t] = dz_t
+        dh = _mm(dz_t, Wh.t(), compute_dtype)
+    return dz, dc, dh
+
+
+def scan_dx_ref(dz, Wx, compute_dtype=torch.float32):
+    """Plain ``dx = dz Wx^T``: ``dz [..., 4H]``, ``Wx [E, 4H]`` (W's x rows)
+    -> ``[..., E]`` fp32."""
+    return _mm(dz, Wx.t(), compute_dtype)
 
 
 # ---------------------------------------------------------------- kernels
@@ -150,8 +203,8 @@ def unpad_gates(z: Tensor, H: int) -> Tensor:
     return z.reshape(*z.shape[:-1], 4, -1)[..., :H].reshape(*z.shape[:-1], 4 * H)
 
 
-def _plan(bwd: int, B: int, E: int, H: int, compute_dtype, device) -> Tuple[int, int, int]:
-    """``(streamed, grid, groups per block)`` of a launch: the resident
+def _plan(B: int, E: int, H: int, compute_dtype, device) -> Tuple[int, int, int]:
+    """``(streamed, grid, groups per block)`` of a forward launch: the resident
     mode's ``H / 4`` blocks where they can all be co-resident (the
     grid-wide barrier needs every block), else the streamed mode with as
     many blocks as fit, each owning ``ceil(H / 4 / grid)`` unit groups."""
@@ -162,7 +215,7 @@ def _plan(bwd: int, B: int, E: int, H: int, compute_dtype, device) -> Tuple[int,
     lib, index = _build.lib(), device.index or 0
 
     def fits(streamed, nvb):
-        n = lib.jlm_lstm_scan_max_blocks(bwd, streamed, bf16, nvb, B, E, H, index)
+        n = lib.jlm_lstm_scan_max_blocks(streamed, bf16, nvb, B, E, H, index)
         if n < 0:
             _build.check(-n, "lstm_scan occupancy query")
         return n
@@ -177,15 +230,41 @@ def _plan(bwd: int, B: int, E: int, H: int, compute_dtype, device) -> Tuple[int,
             return 1, grid, nvb
         if n == 0:
             raise ValueError(
-                f"lstm_scan {'backward' if bwd else 'forward'} at B={B}, E={E}, H={H}: "
-                f"not one block of {nvb} unit groups fits on an SM (its carries take "
-                f"{2 if bwd else 1} x B x {UNITS * nvb} floats of shared memory)")
+                f"lstm_scan forward at B={B}, E={E}, H={H}: not one block of {nvb} unit "
+                f"groups fits on an SM (its carries take B x {UNITS * nvb} floats of "
+                f"shared memory)")
         nvb = -(-groups // n)
 
 
-def _launch_args(W, compute_dtype, streamed):
-    """W as the kernel reads it: fp32, or its bf16 copy in streamed bf16 mode."""
-    return W.to(torch.bfloat16) if streamed and compute_dtype == torch.bfloat16 else W
+def _bwd_plan(H: int, compute_dtype, device, nu: Optional[int] = None
+              ) -> Tuple[int, int, int, int]:
+    """``(resident, nu, grid, groups per block)`` of a ``scan_recur``
+    launch: ``nu`` units a block (8 where ``H / 8`` blocks fill the card,
+    else 4; or as given), their rows of Wh resident in shared memory where
+    all ``H / nu`` blocks can be co-resident (the grid-wide barrier needs
+    every block), else read from the L2 each step by as many blocks as fit,
+    each owning ``ceil(H / nu / grid)`` groups.  The batch does not enter:
+    the carries live in device memory."""
+    if nu is None:
+        nu = 8 if H % 8 == 0 and H // 8 >= 128 else 4
+    if nu not in (4, 8) or H % nu:
+        raise ValueError(f"scan_recur takes 4 or 8 units a block dividing H (nu={nu}, H={H})")
+    groups, bf16 = H // nu, _mode(compute_dtype)
+    lib, index = _build.lib(), device.index or 0
+
+    def fits(resident):
+        n = lib.jlm_scan_recur_max_blocks(resident, bf16, nu, H, index)
+        if n < 0:
+            _build.check(-n, "scan_recur occupancy query")
+        return n
+
+    if fits(1) >= groups:
+        return 1, nu, groups, 1
+    n = fits(0)
+    if n == 0:
+        raise ValueError(f"scan_recur at H={H}: not one block of {nu} units fits on an SM")
+    grid = min(groups, n)
+    return 0, nu, grid, -(-groups // grid)
 
 
 def lstm_scan_fwd(xs: Tensor, W: Tensor, b: Tensor, c0: Tensor, h0: Tensor,
@@ -214,8 +293,8 @@ def lstm_scan_fwd(xs: Tensor, W: Tensor, b: Tensor, c0: Tensor, h0: Tensor,
     h_T = torch.empty((B, H), dtype=torch.float32, device=dev)
     if B * T == 0:
         return hs, cs, c0.clone(), h0.clone()
-    streamed, grid, nvb = _plan(0, B, E, H, compute_dtype, dev)
-    Wk = _launch_args(W, compute_dtype, streamed)
+    streamed, grid, nvb = _plan(B, E, H, compute_dtype, dev)
+    Wk = W.to(torch.bfloat16) if streamed and compute_dtype == torch.bfloat16 else W
     err = _build.lib().jlm_lstm_scan_fwd(
         _ptr(xs), _ptr(Wk), _ptr(b), _ptr(c0), _ptr(h0), _ptr(hs), _ptr(cs),
         _ptr(c_T), _ptr(h_T), B, T, E, H, ctypes.c_float(forget_bias), mode,
@@ -225,18 +304,151 @@ def lstm_scan_fwd(xs: Tensor, W: Tensor, b: Tensor, c0: Tensor, h0: Tensor,
     return hs, cs, c_T, h_T
 
 
+_SMS = {}
+_BWD_PLANS = {}
+
+
+def _gemm(A: Tensor, Bm: Tensor, bias: Optional[Tensor], C: Tensor, kn: bool,
+          compute_dtype) -> None:
+    """``C = A @ Bm (+ bias)`` by ``scan_gemm_kernel`` (``kn``: ``Bm`` is
+    ``[K, N]``; else it is given as its transpose ``[N, K]``).  fp32: 128-row
+    block tiles where they fill the card, else 64-row ones."""
+    M, K = A.shape
+    N = C.shape[1]
+    if K % 4 or N % 4:
+        raise ValueError(f"scan GEMM needs K % 4 == 0 and N % 4 == 0 (K={K}, N={N})")
+    dev = A.device.index or 0
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    rm = 8 if -(-M // 128) * -(-N // 128) >= _SMS[dev] else 4
+    err = _build.lib().jlm_scan_gemm(
+        _ptr(A), A.stride(0), _ptr(Bm), Bm.stride(0), _ptr(bias), _ptr(C), C.stride(0),
+        M, N, K, int(kn), rm, _mode(compute_dtype), ctypes.c_void_p(_build.stream_ptr(A)))
+    _build.check(err, "scan_gemm kernel")
+
+
+def _gates_launch(xh: Tensor, W: Tensor, b: Tensor, compute_dtype) -> Tensor:
+    """Z [M, 4H] from contiguous fp32 ``xh [M, E+H]``, W, b on the card."""
+    Z = torch.empty((xh.shape[0], W.shape[1]), dtype=torch.float32, device=xh.device)
+    if xh.shape[0]:
+        _gemm(xh, W, b, Z, True, compute_dtype)
+        scan_gates.launches += 1
+    return Z
+
+
+def _dx_launch(dz: Tensor, Wx: Tensor, compute_dtype) -> Tensor:
+    """dx [M, E] from contiguous fp32 ``dz [M, 4H]`` and ``Wx [E, 4H]``."""
+    dx = torch.empty((dz.shape[0], Wx.shape[0]), dtype=torch.float32, device=dz.device)
+    if dz.shape[0]:
+        _gemm(dz, Wx, None, dx, False, compute_dtype)
+        scan_dx.launches += 1
+    return dx
+
+
+def _recur_launch(Z, out, Wh, c0, cs, d_hs, d_cf, d_hf, forget_bias, compute_dtype, nu):
+    """``scan_recur``'s launch on checked contiguous fp32 operands; the plan
+    is kept per (H, mode, device, nu): the card's occupancy does not change."""
+    B, T, H4 = Z.shape
+    H, dev = H4 // 4, Z.device
+    mode = _mode(compute_dtype)
+    dc0 = torch.empty((B, H), dtype=torch.float32, device=dev)
+    dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
+    if B * T == 0:
+        return out, d_cf.clone(), d_hf.clone()
+    key = (H, mode, dev.index, nu)
+    if key not in _BWD_PLANS:
+        _BWD_PLANS[key] = _bwd_plan(H, compute_dtype, dev, nu)
+    resident, nu, grid, nvb = _BWD_PLANS[key]
+    dzb = torch.empty(Z.shape, dtype=torch.bfloat16, device=dev) if mode else None
+    err = _build.lib().jlm_scan_recur(
+        _ptr(Z), _ptr(out), _ptr(dzb), _ptr(Wh), _ptr(cs), _ptr(c0), _ptr(d_hs), _ptr(d_cf),
+        _ptr(d_hf), _ptr(dc0), _ptr(dh0), B, T, H, ctypes.c_float(forget_bias), mode, resident,
+        nu, grid, nvb, ctypes.c_void_p(_build.stream_ptr(Z)))
+    _build.check(err, "scan_recur kernel")
+    scan_recur.launches += 1
+    return out, dc0, dh0
+
+
+def scan_gates(xh: Tensor, W: Tensor, b: Tensor, compute_dtype=torch.float32) -> Tensor:
+    """``Z = [x; h_prev] W + b`` over ``xh [..., E+H]`` -> ``[..., 4H]``
+    fp32: the backward's gate recompute of every step as one product.
+
+    ``scan_gates.launches`` counts launches of its kernel."""
+    if not xh.is_cuda:
+        return scan_gates_ref(xh, W, b, compute_dtype)
+    _mode(compute_dtype)
+    K, N = W.shape
+    lead = xh.shape[:-1]
+    A = _f32(xh, (*lead, K), xh.device, "xh").reshape(-1, K)
+    Z = _gates_launch(A, _f32(W, (K, N), xh.device, "W"), _f32(b, (N,), xh.device, "b"),
+                      compute_dtype)
+    return Z.reshape(*lead, N)
+
+
+def scan_dx(dz: Tensor, Wx: Tensor, compute_dtype=torch.float32) -> Tensor:
+    """``dx = dz Wx^T``: ``dz [..., 4H]``, ``Wx [E, 4H]`` (W's x rows, read
+    as they lie) -> ``[..., E]`` fp32.
+
+    ``scan_dx.launches`` counts launches of its kernel."""
+    if not dz.is_cuda:
+        return scan_dx_ref(dz, Wx, compute_dtype)
+    _mode(compute_dtype)
+    E, H4 = Wx.shape
+    lead = dz.shape[:-1]
+    A = _f32(dz, (*lead, H4), dz.device, "dz").reshape(-1, H4)
+    return _dx_launch(A, _f32(Wx, (E, H4), dz.device, "Wx"), compute_dtype).reshape(*lead, E)
+
+
+def scan_recur(Z: Tensor, Wh: Tensor, c0: Tensor, cs: Tensor, d_hs: Tensor, d_cf: Tensor,
+               d_hf: Tensor, forget_bias: float = 1.0, compute_dtype=torch.float32,
+               out: Optional[Tensor] = None, nu: Optional[int] = None):
+    """The backward's recurrence over the recomputed gates ``Z [B,T,4H]``
+    (``Wh [H, 4H]``, W's h rows): ``(dz [B,T,4H], dc0 [B,H], dh0 [B,H])``,
+    fp32.  On the card dz is written into ``out`` (``Z`` itself may be
+    given: each step reads its gates before it writes them); ``nu`` sets the
+    units a block (``_bwd_plan``).  On the CPU both are unused and dz is a
+    new tensor.
+
+    ``scan_recur.launches`` counts launches of its kernel."""
+    if not Z.is_cuda:
+        return scan_recur_ref(Z, Wh, c0, cs, d_hs, d_cf, d_hf, forget_bias, compute_dtype)
+    _mode(compute_dtype)
+    B, T, H4 = Z.shape
+    H, dev = H4 // 4, Z.device
+    if H4 % 4 or Z.dtype != torch.float32 or not Z.is_contiguous():
+        raise ValueError(f"scan_recur needs a contiguous fp32 Z [B, T, 4H], got "
+                         f"{tuple(Z.shape)} {Z.dtype}")
+    if out is None:
+        out = torch.empty_like(Z)
+    elif out.shape != Z.shape or out.dtype != torch.float32 or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous fp32 {tuple(Z.shape)}")
+    return _recur_launch(Z, out, _f32(Wh, (H, H4), dev, "Wh"), _f32(c0, (B, H), dev, "c0"),
+                         _f32(cs, (B, T, H), dev, "cs"), _f32(d_hs, (B, T, H), dev, "d_hs"),
+                         _f32(d_cf, (B, H), dev, "d_cf"), _f32(d_hf, (B, H), dev, "d_hf"),
+                         forget_bias, compute_dtype, nu)
+
+
 def lstm_scan_bwd(xs: Tensor, W: Tensor, b: Tensor, c0: Tensor, h0: Tensor,
                   hs: Tensor, cs: Tensor, d_hs: Tensor, d_cf: Tensor, d_hf: Tensor,
-                  forget_bias: float = 1.0, compute_dtype=torch.float32):
-    """``(dz [B,T,4H], dx [B,T,E], dc0 [B,H], dh0 [B,H])``, fp32.
+                  forget_bias: float = 1.0, compute_dtype=torch.float32,
+                  xh: Optional[Tensor] = None):
+    """``(dz [B,T,4H], dx [B,T,E], dc0 [B,H], dh0 [B,H])``, fp32, as three
+    stages: ``scan_gates`` (into the dz buffer), ``scan_recur`` (dz over the
+    gates, in place) and ``scan_dx``.  ``xh`` is ``[x; h_prev]`` ``[B, T,
+    E+H]`` where the caller has it (the autograd Function builds it for dW
+    too); it is built here otherwise.
 
-    ``lstm_scan_bwd.launches`` counts launches of the backward kernel."""
-    if not xs.is_cuda:
-        return lstm_scan_bwd_ref(xs, W, b, c0, h0, hs, cs, d_hs, d_cf, d_hf,
-                                 forget_bias, compute_dtype)
-    mode = _mode(compute_dtype)
+    ``lstm_scan_bwd.launches`` counts calls that launched the three kernels."""
     B, T, E = xs.shape
     H = h0.shape[-1]
+    if not xs.is_cuda:
+        if xh is None:
+            xh = torch.cat([xs.float(), _h_prev(h0, hs)], dim=2)
+        Z = scan_gates(xh, W, b, compute_dtype)
+        dz, dc0, dh0 = scan_recur(Z, W[E:], c0, cs, d_hs, d_cf, d_hf, forget_bias,
+                                  compute_dtype)
+        return dz, scan_dx(dz, W[:E], compute_dtype), dc0, dh0
+    _mode(compute_dtype)
     dev = xs.device
     xs = xs.float().contiguous()
     W = _f32(W, (E + H, 4 * H), dev, "W")
@@ -254,26 +466,20 @@ def lstm_scan_bwd(xs: Tensor, W: Tensor, b: Tensor, c0: Tensor, h0: Tensor,
             forget_bias, compute_dtype)
         return (unpad_gates(dz, H).contiguous(), dx[..., :E].contiguous(),
                 dc0[:, :H].contiguous(), dh0[:, :H].contiguous())
-    dz = torch.empty((B, T, 4 * H), dtype=torch.float32, device=dev)
-    dx = torch.empty((B, T, E), dtype=torch.float32, device=dev)
-    dc0 = torch.empty((B, H), dtype=torch.float32, device=dev)
-    dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
-    if B * T == 0:
-        return dz, dx, d_cf.clone(), d_hf.clone()
-    streamed, grid, nvb = _plan(1, B, E, H, compute_dtype, dev)
-    Wk = _launch_args(W, compute_dtype, streamed)
-    err = _build.lib().jlm_lstm_scan_bwd(
-        _ptr(xs), _ptr(Wk), _ptr(b), _ptr(c0), _ptr(h0), _ptr(hs), _ptr(cs),
-        _ptr(d_hs), _ptr(d_cf), _ptr(d_hf), _ptr(dz), _ptr(dx), _ptr(dc0), _ptr(dh0),
-        B, T, E, H, ctypes.c_float(forget_bias), mode, streamed, grid, nvb,
-        ctypes.c_void_p(_build.stream_ptr(xs)))
-    _build.check(err, "lstm_scan_bwd kernel")
-    lstm_scan_bwd.launches += 1
+    xh = (torch.cat([xs, _h_prev(h0, hs)], dim=2) if xh is None
+          else _f32(xh, (B, T, E + H), dev, "xh"))
+    Z = _gates_launch(xh.view(B * T, E + H), W, b, compute_dtype).view(B, T, 4 * H)
+    dz, dc0, dh0 = _recur_launch(Z, Z, W[E:], c0, cs, d_hs, d_cf, d_hf, forget_bias,
+                                 compute_dtype, None)
+    dx = _dx_launch(dz.view(B * T, 4 * H), W[:E], compute_dtype).view(B, T, E)
+    if B * T:
+        lstm_scan_bwd.launches += 1
     return dz, dx, dc0, dh0
 
 
 lstm_scan_fwd.launches = 0
 lstm_scan_bwd.launches = 0
+scan_gates.launches = scan_recur.launches = scan_dx.launches = 0
 
 
 # ------------------------------------------------------------ autograd
@@ -290,11 +496,10 @@ class _LSTMScan(torch.autograd.Function):
     def backward(ctx, d_hs, d_cf, d_hf):
         xs, W, b, c0, h0, hs, cs = ctx.saved_tensors
         B, T, E = xs.shape
+        xh = torch.cat([xs.float(), _h_prev(h0, hs)], dim=2)
         dz, dx, dc0, dh0 = lstm_scan_bwd(xs, W, b, c0, h0, hs, cs, d_hs, d_cf, d_hf,
-                                         ctx.forget_bias, ctx.compute_dtype)
-        h_prev = torch.cat([h0[:, None].float(), hs[:, :-1]], dim=1)
-        xh = torch.cat([xs.float(), h_prev], dim=2).reshape(B * T, -1)
-        dW = xh.t() @ dz.reshape(B * T, -1)
+                                         ctx.forget_bias, ctx.compute_dtype, xh=xh)
+        dW = xh.reshape(B * T, -1).t() @ dz.reshape(B * T, -1)
         db = dz.sum(dim=(0, 1))
         return (dx.to(xs.dtype), dW.to(W.dtype), db.to(b.dtype), dc0.to(c0.dtype),
                 dh0.to(h0.dtype), None, None)

@@ -7,8 +7,8 @@ trains ``chip_smoke.py``'s training configuration (V=50,000, E=256,
 H=512, one layer, batch 32 x window 32, Adam, fused CE) from the same
 weights and data in three ways, in turns: the LSTM as a loop of plain
 steps with the CE kernels, the same with each CE kernel swapped for its
-plain version, and ``--pallas-scan`` (the LSTM through the two scan
-kernels, CE kernels on).  Per run: 3 warm-up steps, then the host-clock
+plain version, and ``--pallas-scan`` (the LSTM through the scan's
+kernels, CE kernels on: the forward's one, the backward's three).  Per run: 3 warm-up steps, then the host-clock
 ms/step of 10 steps (ending in a synchronize), then 5 steps under
 ``torch.profiler``.  From the profile: device busy ms per step (the sum of
 device activity; one stream), the idle share of the profiled wall time and
@@ -38,7 +38,8 @@ from chip_smoke import N_CE, TB, TT, bench_data, plain_ce, training_corpus
 # the device functions of csrc/softmax_ce.cu and csrc/lstm_scan.cu
 CE_KERNELS = ("ce_fwd_kernel", "ms_merge_kernel", "ce_bwd_dh_kernel",
               "sum_splits_kernel", "ce_bwd_dw_kernel")
-SCAN_KERNELS = ("lstm_scan_fwd_kernel", "lstm_scan_bwd_kernel")
+SCAN_KERNELS = ("lstm_scan_fwd_kernel", "scan_gemm_kernel", "scan_gemm_bf16_kernel",
+                "scan_recur_kernel")
 WARMUP, TIMED, PROFILED = 3, 10, 5
 
 

@@ -364,18 +364,21 @@ def _scan_case(cuda, seed, B, T, E, H):
     (32, 32, 256, 512),   # the training shape
     (40, 5, 64, 96),      # a second pass of batch rows, ragged
     (3, 7, 512, 512),     # a second layer's input width (E = H)
-    (32, 4, 1024, 1024),  # H = E = 1,024: W streamed from the L2
-    (5, 3, 2048, 512),    # E > H: more than 4 dx columns a unit group
+    (32, 4, 1024, 1024),  # H = E = 1,024: the forward streams W from the L2
+    (5, 3, 2048, 512),    # E > H
 ])
 def test_lstm_scan_kernels_vs_plain(cuda, B, T, E, H):
     """lstm_scan_fwd and lstm_scan_bwd vs their plain versions on the card,
     fp32 compute (exact fp32 products on both sides).  Bounds: hs, cs, c_T,
     h_T within 1e-5 abs (fp32 sums in another order); dz, dx, dc0, dh0
-    within 2e-4 abs + 1e-4 rel (the reference tests' gradient bound)."""
+    within 2e-4 abs + 1e-4 rel (the reference tests' gradient bound).  The
+    backward launches each of its three kernels once."""
     from jlm_tpu_torch.ops import lstm_scan as ls
 
     xs, W, b, c0, h0 = _scan_case(cuda, 21, B, T, E, H)
     n0 = (ls.lstm_scan_fwd.launches, ls.lstm_scan_bwd.launches)
+    stages = (ls.scan_gates, ls.scan_recur, ls.scan_dx)
+    s0 = [fn.launches for fn in stages]
     got = ls.lstm_scan_fwd(xs, W, b, c0, h0, 1.0)
     want = ls.lstm_scan_ref(xs, W, b, c0, h0, 1.0)
     for a, w in zip(got, want):
@@ -387,9 +390,52 @@ def test_lstm_scan_kernels_vs_plain(cuda, B, T, E, H):
     got = ls.lstm_scan_bwd(xs, W, b, c0, h0, hs, cs, d_hs, d_cf, d_hf, 1.0)
     want = ls.lstm_scan_bwd_ref(xs, W, b, c0, h0, hs, cs, d_hs, d_cf, d_hf, 1.0)
     assert (ls.lstm_scan_fwd.launches, ls.lstm_scan_bwd.launches) == (n0[0] + 1, n0[1] + 1)
+    assert [fn.launches for fn in stages] == [n + 1 for n in s0]
     torch.cuda.synchronize()
     for a, w in zip(got, want):
         torch.testing.assert_close(a, w, atol=2e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("B,T,E,H", [
+    (1, 3, 64, 96),      # one batch row: ragged GEMM tiles, a warp's rows past B
+    (33, 3, 64, 96),     # a second pass of dh rows, ragged
+    (200, 3, 128, 256),  # several passes; 200 rows of GEMM tiles
+    (3, 4, 64, 2048),    # H = 2,048: Wh's rows read from the L2 each step
+])
+def test_lstm_scan_bwd_stages_vs_plain(cuda, B, T, E, H, dtype):
+    """scan_gates, scan_recur and scan_dx vs their plain versions on the
+    same inputs, one launch each.  Bounds: Z and dx within 1e-5 of their
+    largest magnitude (the same rounded operands on both sides, products
+    exact in fp32; sums in another order); dz, dc0, dh0 within 2e-4 abs +
+    1e-4 rel (fp32) or 1e-2 of the largest magnitude (bf16: a flipped bf16
+    rounding of dz is carried back through the window)."""
+    from jlm_tpu_torch.ops import lstm_scan as ls
+
+    cd = torch.float32 if dtype == "fp32" else torch.bfloat16
+    xs, W, b, c0, h0 = _scan_case(cuda, 26, B, T, E, H)
+    hs, cs = ls.lstm_scan_ref(xs, W, b, c0, h0, 1.0, cd)[:2]
+    rng = np.random.default_rng(27)
+    d_hs, d_cf, d_hf = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda)
+                        for s in ((B, T, H), (B, H), (B, H)))
+    xh = torch.cat([xs, torch.cat([h0[:, None], hs[:, :-1]], dim=1)], dim=2)
+    stages = (ls.scan_gates, ls.scan_recur, ls.scan_dx)
+    n0 = [fn.launches for fn in stages]
+    Z = ls.scan_gates(xh, W, b, cd)
+    Zp = ls.scan_gates_ref(xh, W, b, cd)
+    got = ls.scan_recur(Zp, W[E:], c0, cs, d_hs, d_cf, d_hf, 1.0, cd, out=torch.empty_like(Zp))
+    want = ls.scan_recur_ref(Zp, W[E:], c0, cs, d_hs, d_cf, d_hf, 1.0, cd)
+    dx = ls.scan_dx(want[0], W[:E], cd)
+    assert [fn.launches for fn in stages] == [n + 1 for n in n0]
+    torch.cuda.synchronize()
+    assert _rel(Z, Zp) <= 1e-5
+    assert _rel(dx, ls.scan_dx_ref(want[0], W[:E], cd)) <= 1e-5
+    for a, w in zip(got, want):
+        if dtype == "fp32":
+            torch.testing.assert_close(a, w, atol=2e-4, rtol=1e-4)
+        else:
+            assert _rel(a, w) <= 1e-2
 
 
 @pytest.mark.cuda
@@ -429,8 +475,10 @@ def test_lstm_scan_refuses_what_it_cannot_take(cuda):
     bounds of test_lstm_scan_kernels_vs_plain): 32 dx columns for 4 unit
     groups (E = 128, H = 16), and H = E = 1,024 in bf16 (W streamed as its
     bf16 copy; forward within 2e-3 abs, backward within 1e-2 of max |plain|).
-    What still raises: a batch whose carries leave no streamed block room
-    on an SM."""
+    The forward still refuses a batch whose carries leave no streamed block
+    room on an SM (B = 16,384 at H = 1,024); the backward takes it (its
+    carries live in device memory) and matches its plain version within
+    2e-4 abs + 1e-4 rel."""
     from jlm_tpu_torch.ops import lstm_scan as ls
 
     xs, W, b, c0, h0 = _scan_case(cuda, 25, 2, 3, 128, 16)
@@ -452,6 +500,10 @@ def test_lstm_scan_refuses_what_it_cannot_take(cuda):
     xs, W, b, c0, h0 = _scan_case(cuda, 25, 16384, 1, 16, 1024)
     with pytest.raises(ValueError, match="not one block"):
         ls.lstm_scan_fwd(xs, W, b, c0, h0)
+    hs, cs, _, _ = ls.lstm_scan_ref(xs, W, b, c0, h0)
+    got = ls.lstm_scan_bwd(xs, W, b, c0, h0, hs, cs, hs, c0, h0)
+    for a, w in zip(got, ls.lstm_scan_bwd_ref(xs, W, b, c0, h0, hs, cs, hs, c0, h0)):
+        torch.testing.assert_close(a, w, atol=2e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda

@@ -140,3 +140,57 @@ def test_forward_hidden_scan_matches_jax_pallas():
         (torch.from_numpy(c0), torch.from_numpy(h0)))
     for got, want in ((hs_t, hs_j), (c_t, c_j), (h_t, h_j)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def _bwd_case(seed, B, T, E, H, cd):
+    """Saved forward values (the port's plain forward in ``cd``) and
+    upstream grads, as torch tensors."""
+    args, wh, wc = _inputs(seed, B, T, E, H)
+    xs, W, b, c0, h0 = (torch.from_numpy(a) for a in args)
+    hs, cs = ls.lstm_scan_ref(xs, W, b, c0, h0, 1.0, cd)[:2]
+    rng = np.random.default_rng(seed + 1)
+    d_cf, d_hf = (torch.from_numpy(rng.normal(size=(B, H)).astype(np.float32))
+                  for _ in range(2))
+    return (xs, W, b, c0, h0, hs, cs, torch.from_numpy(wh), d_cf, d_hf)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("B,T,E,H", [(4, 8, 32, 64), (3, 5, 30, 30), (2, 3, 1024, 1024)])
+def test_lstm_scan_bwd_stages_compose(B, T, E, H, dtype):
+    """The backward's three stages composed (``scan_gates`` -> ``scan_recur``
+    -> ``scan_dx``, their plain versions on the CPU) equal the per-step
+    plain backward ``lstm_scan_bwd_ref`` (fp32: 1e-5 abs; bf16: 1e-2 of the
+    largest magnitude, as chip_smoke's ``bwd_err``: an fp32 sum-order
+    difference can flip a bf16 rounding of dz that the dh carry takes back)
+    and the JAX package's backward (interpret mode; at 1,024 its jnp
+    fallback, fp32 whatever the dtype): dx, dc0, dh0, and dW, db formed from
+    dz, within 2e-4 abs + 1e-4 rel (fp32) or 1e-2 of the largest magnitude
+    (bf16)."""
+    from jlm_tpu.ops.lstm_scan import _lstm_scan_bwd_impl
+
+    cd, jd = (torch.float32, jnp.float32) if dtype == "fp32" else (torch.bfloat16,
+                                                                     jnp.bfloat16)
+    a = _bwd_case(31, B, T, E, H, cd)
+    xs, W, b, c0, h0, hs, cs, d_hs, d_cf, d_hf = a
+    xh = torch.cat([xs, torch.cat([h0[:, None], hs[:, :-1]], dim=1)], dim=2)
+    Z = ls.scan_gates(xh, W, b, cd)
+    dz, dc0, dh0 = ls.scan_recur(Z, W[E:], c0, cs, d_hs, d_cf, d_hf, 1.0, cd)
+    dx = ls.scan_dx(dz, W[:E], cd)
+    got = (dz, dx, dc0, dh0)
+    want = ls.lstm_scan_bwd_ref(*a, 1.0, cd)
+    for g, w, name in zip(got, want, ["dz", "dx", "dc0", "dh0"]):
+        if dtype == "fp32":
+            np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5, err_msg=name)
+        else:
+            assert float((g - w).abs().max()) <= 1e-2 * float(w.abs().max()), name
+    assert torch.equal(ls.lstm_scan_bwd(*a, 1.0, cd)[0], dz)  # the wrapper composes them
+    jax_out = _lstm_scan_bwd_impl(*(jnp.asarray(t.numpy()) for t in a), forget_bias=1.0,
+                                  time_block=T, compute_dtype=jd, interpret=True)
+    dW = xh.reshape(B * T, -1).t() @ dz.reshape(B * T, -1)
+    for g, w, name in zip((dx, dW, dz.sum(dim=(0, 1)), dc0, dh0), jax_out,
+                          ["dx", "dW", "db", "dc0", "dh0"]):
+        w = np.asarray(w, np.float32)
+        if dtype == "fp32":
+            np.testing.assert_allclose(g.numpy(), w, atol=2e-4, rtol=1e-4, err_msg=name)
+        else:
+            assert np.abs(g.numpy() - w).max() <= 1e-2 * np.abs(w).max(), name

@@ -125,55 +125,79 @@ def test_lstm_scan_1024_matches_jax(dtype):
 
 
 class _Occupancy:
-    """Stands in for the kernel library's occupancy query with the numbers
-    of a 132-SM card: a resident block (its W columns in shared memory)
-    fits once an SM up to E + H = 2,560 (its ~128 KB at E = H = 1,024 is
-    more than half an SM's 227 KB), a streamed block twice, while its
-    carries fit."""
+    """Stands in for the kernel library's occupancy queries with the numbers
+    of a 132-SM card.  Forward: a resident block (its W columns in shared
+    memory) fits once an SM up to E + H = 2,560 (its ~128 KB at E = H =
+    1,024 is more than half an SM's 227 KB), a streamed block twice, while
+    its carries fit.  ``scan_recur``: a block with its nu rows of Wh
+    resident fits once an SM from 114 KB (nu = 8 at H = 1,024 in fp32),
+    twice below, not at all past 227 KB; without them twice (none with
+    ``no_room``)."""
 
-    def __init__(self):
-        self.calls = []
+    def __init__(self, no_room=False):
+        self.calls, self.no_room = [], no_room
 
-    def jlm_lstm_scan_max_blocks(self, bwd, streamed, bf16, nvb, B, E, H, device):
-        self.calls.append((bwd, streamed, nvb))
+    def jlm_lstm_scan_max_blocks(self, streamed, bf16, nvb, B, E, H, device):
+        self.calls.append((streamed, nvb))
         if not streamed:
-            return 132 if (E + H) * 64 + (bwd * 8 * 4 * H * 4) < 232448 else 0
-        carries = (2 if bwd else 1) * nvb * B * 4 * 4
+            return 132 if (E + H) * 64 < 232448 else 0
+        carries = nvb * B * 4 * 4
         return 264 if carries < 100_000 else (132 if carries < 300_000 else 0)
+
+    def jlm_scan_recur_max_blocks(self, resident, bf16, nu, H, device):
+        smem = nu * 4 * H * (2 if bf16 else 4) if resident else 0
+        if self.no_room or smem > 232448:
+            return 0
+        return 132 if smem > 232448 // 2 else 264
 
 
 @pytest.mark.parametrize("B,E,H,bwd,want", [
     (32, 256, 512, 0, (0, 128, 1)),    # the 50k training shape: resident W, H / 4 blocks
-    (32, 256, 512, 1, (0, 128, 1)),
+    (32, 256, 512, 1, (1, 4, 128, 1)),  # Wh rows resident, 4 units a block
     (32, 1024, 1024, 0, (1, 256, 1)),  # H = E = 1,024: W streamed, two blocks an SM
-    (32, 1024, 1024, 1, (1, 256, 1)),
-    (32, 2048, 2048, 1, (1, 256, 2)),  # more groups than blocks: two groups a block
-    (4096, 1024, 1024, 1, (1, 128, 2)),  # large carries: one block an SM
+    (32, 1024, 1024, 1, (1, 8, 128, 1)),  # 8 units a block, 128 KB of Wh: one an SM
+    (32, 2048, 2048, 1, (0, 8, 256, 1)),  # 256 KB of Wh a block: read from the L2
+    (4096, 1024, 1024, 1, (1, 8, 128, 1)),  # large batches: the carries are in device memory
+    (16384, 16, 1024, 1, (1, 8, 128, 1)),   # the batch the forward refuses
 ])
 def test_lstm_scan_plan(monkeypatch, B, E, H, bwd, want):
-    """``_plan`` keeps the resident design where all H / 4 blocks fit and
-    otherwise streams W with a grid that the card holds at once, each block
-    owning ceil(H / 4 / grid) unit groups."""
+    """``_plan`` (forward) keeps the resident design where all H / 4 blocks
+    fit and otherwise streams W with a grid that the card holds at once,
+    each block owning ceil(H / 4 / grid) unit groups; ``_bwd_plan``
+    (``scan_recur``) keeps Wh's rows resident where all H / nu blocks fit,
+    whatever the batch."""
     from jlm_tpu_torch.ops import _build
 
     fake = _Occupancy()
     monkeypatch.setattr(_build, "lib", lambda: fake)
-    assert ls._plan(bwd, B, E, H, torch.float32, torch.device("cpu")) == want
-    streamed, grid, nvb = want
-    assert grid * nvb >= H // 4 and (not streamed or grid <= 264)
+    cpu = torch.device("cpu")
+    if bwd:
+        assert ls._bwd_plan(H, torch.float32, cpu) == want
+        resident, nu, grid, nvb = want
+        assert grid * nvb * nu >= H and grid <= (132 if resident else 264)
+    else:
+        assert ls._plan(B, E, H, torch.float32, cpu) == want
+        streamed, grid, nvb = want
+        assert grid * nvb >= H // 4 and (not streamed or grid <= 264)
 
 
 def test_lstm_scan_plan_refuses_only_what_no_grid_holds(monkeypatch):
-    """A shape at which not one streamed block fits on an SM raises, with
-    the reason; E and H must be multiples of 4 (the wrappers pad them)."""
+    """A shape at which not one block fits on an SM raises, with the reason:
+    the forward at a batch whose carries fill a streamed block's shared
+    memory, the recurrence only where the card reports no room for even a
+    block without Wh; E and H must be multiples of 4 (the wrappers pad
+    them)."""
     from jlm_tpu_torch.ops import _build
 
-    fake = _Occupancy()
-    monkeypatch.setattr(_build, "lib", lambda: fake)
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(_build, "lib", lambda: _Occupancy())
     with pytest.raises(ValueError, match="not one block"):
-        ls._plan(1, 16384, 1024, 1024, torch.float32, torch.device("cpu"))
+        ls._plan(16384, 1024, 1024, torch.float32, cpu)
     with pytest.raises(ValueError, match="multiple|% 4"):
-        ls._plan(0, 2, 30, 30, torch.float32, torch.device("cpu"))
+        ls._plan(2, 30, 30, torch.float32, cpu)
+    monkeypatch.setattr(_build, "lib", lambda: _Occupancy(no_room=True))
+    with pytest.raises(ValueError, match="not one block"):
+        ls._bwd_plan(1024, torch.float32, cpu)
 
 
 # weights: (quantized, JAX / port compute dtype, tolerance) -- bf16 operands

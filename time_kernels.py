@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Device times of the decode frame's kernels at the serving frame, both ways.
+"""Device times of the decode frame's kernels and the scan backward, both ways.
 
 Run from the repository root on a machine with one CUDA card:
 ``python3 time_kernels.py [--root DIR] [--out FILE]``.  ``--root`` imports
@@ -12,9 +12,15 @@ candidate columns, E = 256, H = 512, bf16; ``chip_smoke.py``'s shapes) it
 times ``cand_dot`` against ``torch.baddbmm``, ``lstm_cell_step`` against
 ``torch.lstm_cell``, ``cell_cand_step`` against the split pair
 ``lstm_cell_step`` + ``cand_dot`` and the library pair ``torch.lstm_cell`` +
-``torch.baddbmm``, and the int8-MXU head (``project_lse``, R = 20,480) at
+``torch.baddbmm``, the fp32 cell (the parity mode, R = 512 rows) against
+``torch.lstm_cell`` in fp32, and the int8-MXU head (``project_lse``, R = 20,480) at
 V = 50,000 on slices 512, 1,024, 1,536 and 2,048 wide and at BASELINE
-config 5's D-softmax blocks.  Each is timed two ways (``chip_smoke``'s
+config 5's D-softmax blocks.  At the training window (B = T = 32) it times
+``lstm_scan_bwd`` in fp32 and bf16 at H = E = 1,024 and in fp32 at H = 512,
+E = 256, each beside cuDNN's LSTM backward (``torch.nn.LSTM`` on the same
+weights, its backward alone on a retained graph, TF32 off), and, where
+the tree has them, the backward's three kernels alone (``scan_gates``,
+``scan_recur`` with 4 and 8 units a block, ``scan_dx``).  Each is timed two ways (``chip_smoke``'s
 helpers): ``one_ms``, the median of 10 calls each between two CUDA events
 (the wrapper's Python before the launch counts), and ``row_ms``, the events
 around 50 calls in a row divided by 50 (the device's time where the device
@@ -33,7 +39,8 @@ import sys
 
 import torch
 
-from chip_smoke import BLOCKS5, B, C1, E, H, R, S, V, cuda_ms, in_a_row, torch_gates
+from chip_smoke import (BLOCKS5, R32, TB, TT, B, C1, E, H, R, S, V, cuda_ms, in_a_row,
+                        torch_gates)
 
 
 def cases(dev):
@@ -80,6 +87,14 @@ def cases(dev):
         ("lstm_cell_step + cand_dot", split_pair),
         ("torch.lstm_cell + torch.baddbmm", library_pair),
     ]
+    f32 = torch.float32
+    x32, h32 = t(R32, E, scale=0.3, dtype=f32), t(R32, H, scale=0.5, dtype=f32)
+    c32 = t(R32, H, dtype=f32)
+    W32 = t(E + H, 4 * H, scale=0.05, dtype=f32)
+    w_ih32, w_hh32, b_ih32 = torch_gates(W32, b)
+    out += [("lstm_cell_step fp32", lambda: lstm_cell_step(x32, h32, c32, W32, b, 1.0)),
+            ("torch.lstm_cell fp32", lambda: torch.lstm_cell(
+                x32, (h32, c32), w_ih32, w_hh32, b_ih32, torch.zeros_like(b_ih32)))]
 
     def int8_head(d, n):
         q = torch.randint(-127, 128, (d, n), generator=g, device=dev, dtype=torch.int8)
@@ -98,6 +113,48 @@ def cases(dev):
     h5 = t(R, H, scale=0.5)
     out.append(("project_lse dsoftmax int8",
                 lambda: project_lse(h5, head5, cfg5, compute_dtype=bf, int8_mxu=True)))
+    for hw, ew, cd in ((1024, 1024, torch.float32), (1024, 1024, bf), (512, 256, torch.float32)):
+        out += scan_cases(dev, g, hw, ew, cd)
+    return out
+
+
+def scan_cases(dev, g, Hs, Es, cd):
+    """The scan backward at B = TB, T = TT (fp32 master values, ``cd``
+    compute), cuDNN's LSTM backward in ``cd`` beside it, and the backward's
+    three kernels alone where the tree has them."""
+    from jlm_tpu_torch.ops import lstm_scan as ls
+
+    def t(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    xs, W, b = t(TB, TT, Es, scale=0.3), t(Es + Hs, 4 * Hs, scale=0.05), t(4 * Hs, scale=0.1)
+    c0, h0 = t(TB, Hs, scale=0.3), t(TB, Hs, scale=0.3)
+    hs, cs = ls.lstm_scan_ref(xs, W, b, c0, h0, 1.0, cd)[:2]
+    d_hs, d_cf, d_hf = t(TB, TT, Hs), t(TB, Hs), t(TB, Hs)
+    saved = (xs, W, b, c0, h0, hs, cs, d_hs, d_cf, d_hf)
+    name = f"{'bf16' if cd == torch.bfloat16 else 'fp32'} H{Hs}"
+    lstm = torch.nn.LSTM(Es, Hs, batch_first=True).to(dev)
+    with torch.no_grad():
+        for p, v in zip((lstm.weight_ih_l0, lstm.weight_hh_l0, lstm.bias_ih_l0),
+                        torch_gates(W, b)):
+            p.copy_(v)
+        lstm.bias_hh_l0.zero_()
+    lstm = lstm.to(cd)
+    leaves = [a.to(cd).clone().requires_grad_(True) for a in (xs, h0, c0)] + list(lstm.parameters())
+    hs_l, (h_T, c_T) = lstm(leaves[0], (leaves[1][None], leaves[2][None]))
+    d_out = (d_hs.to(cd), d_hf[None].to(cd), d_cf[None].to(cd))
+    out = [(f"lstm_scan_bwd {name}", lambda: ls.lstm_scan_bwd(*saved, 1.0, cd)),
+           (f"cuDNN LSTM bwd {name}",
+            lambda: torch.autograd.grad((hs_l, h_T, c_T), leaves, d_out, retain_graph=True))]
+    if hasattr(ls, "scan_recur"):
+        xh = torch.cat([xs, torch.cat([h0[:, None], hs[:, :-1]], dim=1)], dim=2)
+        Z = ls.scan_gates_ref(xh, W, b, cd)
+        dz, buf = torch.empty_like(Z), torch.empty_like(Z)
+        out += [(f"scan_gates {name}", lambda: ls.scan_gates(xh, W, b, cd))]
+        out += [(f"scan_recur {name} nu{nu}",
+                 lambda nu=nu: ls.scan_recur(Z, W[Es:], c0, cs, d_hs, d_cf, d_hf, 1.0, cd,
+                                             out=buf, nu=nu)) for nu in (4, 8)]
+        out += [(f"scan_dx {name}", lambda: ls.scan_dx(dz, W[:Es], cd))]
     return out
 
 
@@ -114,6 +171,7 @@ def main(argv=None) -> int:
     import jlm_tpu_torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
