@@ -16,9 +16,9 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
    the serving rows and in fp32 at the fp32 parity run's rows, fp32
    weights at the config-5 head) and the fp32 cell at the fp32 parity
    run's rows, the three fused-CE kernels, the LSTM scan's forward and
-   backward and the backward's three kernels (``scan_gates``,
-   ``scan_recur``, ``scan_dx``, each on its plain version's inputs) at the
-   training shapes, and the D-softmax fused CE at the 100k D-softmax
+   backward, the forward's two kernels (``scan_xw``, ``scan_fwd_recur``)
+   and the backward's three (``scan_gates``, ``scan_recur``, ``scan_dx``),
+   each on its plain version's inputs, at the training shapes, and the D-softmax fused CE at the 100k D-softmax
    head; each backward bound is also shown to catch a deliberately wrong
    plain backward (a p-term off by ``P_SHIFT``, a forget gate off by
    ``F_SHIFT``), the int8 D-softmax bound one whose activation scale is
@@ -36,8 +36,8 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
    above the bounds); and the widths past 512 (``wide_cases``, H = E =
    1,024: the bf16 and dequant-bf16 heads on a 1,024-wide slice, the
    fused CE at D = 1,024 in bf16 and fp32, the scan in fp32 and bf16
-   forward and backward and the backward's three kernels, each with a
-   wrong version); ``cand_dot`` in fp32
+   forward and backward and each direction's kernels, each with a wrong
+   version, and the forward at a batch of 16,384); ``cand_dot`` in fp32
    and at a beam of 20 (wrong: beam rows 8 on read from rows 0 on) and
    the width repairs (``odd_width_cases``: the int8-MXU head on 1,536- and
    2,048-wide slices, wrong: K past 1,024 dropped; both cells at E = 30,
@@ -84,8 +84,8 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
 5b. the same 20 steps with ``use_pallas_scan=True`` (the ``--pallas-scan``
    path), once through the scan kernels and once with each swapped for its
    plain version: the loss falls, the two runs agree, step 1 agrees with
-   phase 5's loop run, and the forward, the backward and each of the
-   backward's three kernels were launched once per layer per step;
+   phase 5's loop run, and the forward, the backward and each of their
+   five kernels were launched once per layer per step;
 5c. ``full_softmax_loss(..., precision="highest")`` with ``fused_ce``
    forward and backward through autograd on the 50k head and on config
    5's D-softmax head (the fp32 CE kernels, one launch of each per block)
@@ -209,6 +209,12 @@ BOUNDS = {  # kernel vs plain version, on the same inputs on the card
     "scan_gates fp32": 1e-5,
     "scan_recur fp32": 1.0,
     "scan_dx fp32": 1e-5,
+    # the forward's two kernels, each on its plain version's inputs: the
+    # input product Zx as abs error / max |plain| (wrong: x_{t+1} in place
+    # of x_t); the recurrence's hs, cs, c_T, h_T as lstm_scan_fwd's (wrong:
+    # a forget bias off by F_SHIFT)
+    "scan_xw fp32": 1e-5,
+    "scan_fwd_recur fp32": 1e-5,
     # fp32 compute, weights of scale PEAKED; a plain version on operands
     # rounded to TF32 must read above each bound
     "ce_fwd fp32": 1e-4,        # abs, per-row loss and lse; exact fp32 products
@@ -259,6 +265,13 @@ BOUNDS = {  # kernel vs plain version, on the same inputs on the card
     "scan_gates bf16 H1024": 1e-5,
     "scan_recur bf16 H1024": 1e-2,  # as lstm_scan_bwd bf16 H1024
     "scan_dx bf16 H1024": 1e-5,
+    "scan_xw fp32 H1024": 1e-5,
+    "scan_fwd_recur fp32 H1024": 1e-5,
+    "scan_xw bf16 H1024": 1e-5,
+    "scan_fwd_recur bf16 H1024": 1e-2,  # as lstm_scan_fwd bf16 H1024
+    # the forward at B = 16,384, T = 1, E = 16, H = 1,024 (a batch whose
+    # carries once filled a block's shared memory): as lstm_scan_fwd fp32
+    "lstm_scan_fwd fp32 B16384": 1e-5,
     # cand_dot's other modes: abs error / max(1, max |plain|); fp32: exact
     # fp32 FMAs, sums in another order; each wrong call (beam rows 8 on read
     # from rows 0 on) must read above
@@ -522,6 +535,31 @@ def scan_stage_cases(suffix, scan_in, hs, cs, grads, cd):
     ]
 
 
+def scan_fwd_stage_cases(suffix, scan_in, cd):
+    """The forward's two kernels as phase-2 cases on one window's inputs:
+    ``scan_xw`` (wrong: x_{t+1} in place of x_t; library: ``torch.mm`` in
+    fp32) and ``scan_fwd_recur`` on the plain Zx (wrong: a forget bias off
+    by F_SHIFT)."""
+    from jlm_tpu_torch.ops.lstm_scan import (
+        scan_fwd_recur, scan_fwd_recur_ref, scan_xw, scan_xw_ref)
+
+    xs, W, b, c0, h0 = scan_in
+    E = xs.shape[-1]
+    Wx, Wh = W[:E], W[E:]
+    xs_next = torch.roll(xs, -1, dims=1)
+    Zx = scan_xw_ref(xs, Wx, cd)
+    rec = (Zx, Wh, b, c0, h0)
+    return [
+        (f"scan_xw {suffix}", lambda: scan_xw(xs, Wx, cd), lambda: scan_xw_ref(xs, Wx, cd),
+         bwd_err, {"x_{t+1} in place of x_t": lambda: scan_xw_ref(xs_next, Wx, cd)},
+         (lambda: torch.mm(xs.reshape(-1, E), Wx)) if cd == torch.float32 else None),
+        (f"scan_fwd_recur {suffix}", lambda: scan_fwd_recur(*rec, 1.0, cd),
+         lambda: scan_fwd_recur_ref(*rec, 1.0, cd), abs_errs,
+         {f"a forget bias off by {F_SHIFT:g}":
+          lambda: scan_fwd_recur_ref(*rec, 1.0 + F_SHIFT, cd)}, None),
+    ]
+
+
 def kernel_cases(dev, rng):
     """Returns the cases and the yardstick runs.  A case is (name, kernel
     call, plain call, error fn, wrong call or None, library call or None);
@@ -675,6 +713,7 @@ def kernel_cases(dev, rng):
           lambda: lstm_scan_bwd(*saved, 1.0),
           lambda: lstm_scan_bwd_ref(*saved, 1.0), scan_bwd_err,
           lambda: lstm_scan_bwd_ref(*saved, 1.0 + F_SHIFT), cudnn_bwd)]
+    scan_cases += scan_fwd_stage_cases("fp32", scan_in, torch.float32)
     scan_cases += scan_stage_cases("fp32", scan_in, hs, cs, grads, torch.float32)
 
     bwd_cases = []
@@ -1160,7 +1199,16 @@ def wide_cases(dev, rng):
              scan_bwd_err if cd == f32 else bwd_err,
              {f"a forget gate sigmoid(f + {F_SHIFT:g}) in the backward":
               lambda a=saved, cd=cd: lstm_scan_bwd_ref(*a, 1.0 + F_SHIFT, cd)}, cudnn_bwd),
-        ] + scan_stage_cases(f"{name} H1024", scan_in, hs, cs, grads, cd)
+        ] + scan_fwd_stage_cases(f"{name} H1024", scan_in, cd)
+        cases += scan_stage_cases(f"{name} H1024", scan_in, hs, cs, grads, cd)
+    # the forward at a batch whose carries once filled a block's shared memory
+    xb = t(rng.normal(0, 0.3, (16384, 1, 16)))
+    big = (xb, t(rng.normal(0, 0.05, (16 + HW, 4 * HW))), t(rng.normal(0, 0.1, 4 * HW)),
+           t(rng.normal(0, 0.3, (16384, HW))), t(rng.normal(0, 0.3, (16384, HW))))
+    cases.append(("lstm_scan_fwd fp32 B16384", lambda: lstm_scan_fwd(*big, 1.0),
+                  lambda: lstm_scan_ref(*big, 1.0), abs_errs,
+                  {f"a forget bias off by {F_SHIFT:g}":
+                   lambda: lstm_scan_ref(*big, 1.0 + F_SHIFT)}, None))
     return cases
 
 
@@ -1507,13 +1555,20 @@ SFU_RATE = {"exp": None}
 
 
 def scan_stage_work(E_, H_):
-    """(bytes, operations) of the backward's three kernels at B = TB, T = TT:
-    the gate recompute reads [x; h_prev], W, b and writes Z; the recurrence
-    reads Z, Wh, cs, c0, d_hs, d_cf, d_hf and writes dz, dc0, dh0; dx reads
-    dz and Wx and writes dx.  Their operations, 2 M (E+H) 4H + 2 M 4H H +
-    2 M 4H E (M = TB TT rows), sum to lstm_scan_bwd's 4 M (E+H) 4H."""
+    """(bytes, operations) of the scan's five kernels at B = TB, T = TT.
+    Forward: the input product reads xs and Wx and writes Zx; the
+    recurrence reads Zx, Wh, b, c0, h0 and writes hs, cs, c_T, h_T; their
+    operations, 2 M E 4H + 2 M H 4H (M = TB TT rows), sum to
+    lstm_scan_fwd's.  Backward: the gate recompute reads [x; h_prev], W, b
+    and writes Z; the recurrence reads Z, Wh, cs, c0, d_hs, d_cf, d_hf and
+    writes dz, dc0, dh0; dx reads dz and Wx and writes dx.  Their
+    operations, 2 M (E+H) 4H + 2 M 4H H + 2 M 4H E, sum to lstm_scan_bwd's
+    4 M (E+H) 4H."""
     M, H4 = TB * TT, 4 * H_
     return {
+        "scan_xw": (4 * (M * E_ + E_ * H4 + M * H4), 2 * M * E_ * H4),
+        "scan_fwd_recur": (4 * (M * H4 + H_ * H4 + H4 + 2 * TB * H_ + 2 * M * H_ + 2 * TB * H_),
+                           2 * M * H_ * H4),
         "scan_gates": (4 * (M * (E_ + H_) + (E_ + H_) * H4 + H4 + M * H4),
                        2 * M * (E_ + H_) * H4),
         "scan_recur": (4 * (M * H4 + H_ * H4 + 2 * M * H_ + TB * H_ + 2 * TB * H_
@@ -1590,7 +1645,7 @@ def work():
         "lstm_scan_bwd": (scan_in + 4 * (3 * TB * TT * H + 2 * TB * H + TB * TT * 4 * H
                                          + TB * TT * E + 2 * TB * H),
                           4 * TB * TT * (E + H) * 4 * H, "fp32"),
-        # the backward's three kernels: their operations sum to the whole's
+        # the scan's five kernels: each direction's operations sum to its whole's
         **{k: (*v, "fp32") for k, v in scan_stage_work(E, H).items()},
         # fp32 compute: the same bytes, the products at the fp32 peak
         "ce_fwd fp32": (ce_in + 3 * N_CE * 4, 2 * N_CE * H * V, "fp32"),
@@ -1865,19 +1920,24 @@ def training_corpus(vocab):
 
 def kernel_fn(name: str) -> str:
     """The CUDA function behind a ``kernels`` entry, with its design."""
-    if name.startswith("scan_gates") or name.startswith("scan_dx"):
-        layout = "KN" if name.startswith("scan_gates") else "NK"
+    if name.startswith(("scan_gates", "scan_dx", "scan_xw")):
+        layout = "NK" if name.startswith("scan_dx") else "KN"
         if "bf16" in name:
             return f"scan_gemm_bf16_kernel<{layout}> (operands rounded on load, mma.sync)"
-        return f"scan_gemm_kernel<{layout}> (register-tiled exact fp32 FMAs, a cp.async ring)"
+        return (f"scan_gemm_kernel<{layout}> (exact fp32 FMAs, 8 x 8 a thread, two blocks an "
+                "SM, K split where the tiles leave most SMs idle)")
+    if name.startswith("scan_fwd_recur"):
+        return ("scan_fwd_recur_kernel (cooperative, a grid barrier a step, Wh's gate columns "
+                "resident in shared memory" + ("; mma.sync)" if "bf16" in name else ")"))
+    if name.startswith("lstm_scan_fwd"):
+        gemm = "scan_gemm_bf16_kernel" if "bf16" in name else "scan_gemm_kernel"
+        return f"{gemm}<KN> + scan_fwd_recur_kernel"
     if name.startswith("scan_recur"):
         return ("scan_recur_kernel (cooperative, a grid barrier a step, Wh's rows resident "
                 "in shared memory)")
     if name.startswith("lstm_scan_bwd"):
         gemm = "scan_gemm_bf16_kernel" if "bf16" in name else "scan_gemm_kernel"
         return f"{gemm}<KN> + scan_recur_kernel + {gemm}<NK>"
-    if name.endswith(" H1024"):
-        return kernel_fn(name[:-6].replace(" bf16", "")) + " (W streamed from the L2)"
     if name.endswith(" D1024") and name.startswith("ce_"):
         return kernel_fn(name[:-6]) + " (K in chunks of 512)"
     if name in ("project_lse", "project_lse dsoftmax int8", "project_candidates int8",
@@ -1913,14 +1973,17 @@ def kernel_fn(name: str) -> str:
 
 
 CE_COUNTERS = ("ce_fwd", "ce_bwd_dh", "ce_bwd_dw")
-SCAN_COUNTERS = ("lstm_scan_fwd", "lstm_scan_bwd", "scan_gates", "scan_recur", "scan_dx")
+SCAN_COUNTERS = ("lstm_scan_fwd", "lstm_scan_bwd", "scan_xw", "scan_fwd_recur", "scan_gates",
+                 "scan_recur", "scan_dx")
+# the TPU kernel each scan wrapper's kernels replace (jlm_tpu/ops/lstm_scan.py)
+SCAN_REPLACES = {"lstm_scan_fwd": 92, "scan_xw": 92, "scan_fwd_recur": 92}
 
 
 def scan_counters():
     """The scan's wrappers in SCAN_COUNTERS' order, each with its count."""
     from jlm_tpu_torch.ops import lstm_scan as ls
 
-    return (ls.lstm_scan_fwd, ls.lstm_scan_bwd, ls.scan_gates, ls.scan_recur, ls.scan_dx)
+    return tuple(getattr(ls, name) for name in SCAN_COUNTERS)
 
 
 def training_run(dev, config, params, train_ids, dev_ids, label, swap=None):
@@ -2418,12 +2481,9 @@ def main() -> int:
                       "ce_bwd_dh bf16"),
         "ce_bwd_dw": ("jlm_tpu_torch/csrc/softmax_ce.cu", "jlm_tpu/ops/softmax_ce.py:207",
                       "ce_bwd_dw bf16"),
-        "lstm_scan_fwd": ("jlm_tpu_torch/csrc/lstm_scan.cu", "jlm_tpu/ops/lstm_scan.py:92",
-                          "lstm_scan_fwd fp32"),
-        "lstm_scan_bwd": ("jlm_tpu_torch/csrc/lstm_scan.cu", "jlm_tpu/ops/lstm_scan.py:256",
-                          "lstm_scan_bwd fp32"),
-        **{k: ("jlm_tpu_torch/csrc/lstm_scan.cu", "jlm_tpu/ops/lstm_scan.py:256", f"{k} fp32")
-           for k in SCAN_COUNTERS[2:]},
+        **{k: ("jlm_tpu_torch/csrc/lstm_scan.cu",
+               f"jlm_tpu/ops/lstm_scan.py:{SCAN_REPLACES.get(k, 256)}", f"{k} fp32")
+           for k in SCAN_COUNTERS},
         # the head's other modes and the fp32 cell: launches from their own runs
         "project_lse dsoftmax int8": ("jlm_tpu_torch/csrc/project_lse.cu",
                                       "jlm_tpu/ops/project.py:42", "project_lse dsoftmax int8"),
@@ -2462,10 +2522,10 @@ def main() -> int:
                                f"jlm_tpu/ops/softmax_ce.py:{ln}", f"{k} fp32 D1024")
            for k, ln in zip(CE_COUNTERS, (111, 157, 207))},
         **{f"{k} H1024": ("jlm_tpu_torch/csrc/lstm_scan.cu",
-                          f"jlm_tpu/ops/lstm_scan.py:{92 if k == 'lstm_scan_fwd' else 256}",
+                          f"jlm_tpu/ops/lstm_scan.py:{SCAN_REPLACES.get(k, 256)}",
                           f"{k} fp32 H1024") for k in SCAN_COUNTERS},
         **{f"{k} bf16 H1024": ("jlm_tpu_torch/csrc/lstm_scan.cu",
-                               f"jlm_tpu/ops/lstm_scan.py:{92 if k == 'lstm_scan_fwd' else 256}",
+                               f"jlm_tpu/ops/lstm_scan.py:{SCAN_REPLACES.get(k, 256)}",
                                f"{k} bf16 H1024") for k in SCAN_COUNTERS},
         # the redesigned cand_dot's other modes (launches: phase 4b's fp32
         # run, phase 5e's beam-20 run) and the width repairs (phase 5e)

@@ -1,5 +1,5 @@
-// Fused LSTM over a BPTT window: the forward in one launch, the backward
-// in three.
+// Fused LSTM over a BPTT window: the forward and the backward, each as an
+// input-side GEMM plus a cooperative recurrence.
 //
 // Replaces jlm_tpu/ops/lstm_scan.py::_lstm_fwd_kernel and
 // ::_lstm_bwd_kernel.  Gate order i, j, f, o over W [E+H, 4H]:
@@ -11,47 +11,36 @@
 // writes dz [B,T,4H], dx [B,T,E], dc0 and dh0; dW and db are one GEMM and
 // one sum outside (as in the reference).
 //
-// Bound: at the training shapes (B = T = 32, E = 256, H = 512) the forward
-// is 2*B*T*(E+H)*4H = 3.2 GFLOP and the backward 6.4 GFLOP (recompute, dx,
-// dh), in exact fp32 on the CUDA cores; the bytes are ~12 MB each way.  But
-// the recurrence makes it latency-bound: step t needs all of h_{t-1}, so
-// the window is T dependent steps of a [B, E+H] x [E+H, 4H] product.
+// Bound: at B = T = 32, H = E = 1,024 the forward is 2 B T (E+H) 4H = 17.2
+// GFLOP and the backward 34.4, in exact fp32 on the CUDA cores (no TF32);
+// the bytes are tens of MB.  But step t needs all of h_{t-1} (forward) or
+// dz_t (backward), so only the product with h (dz) is serial: the window is
+// T dependent steps of a [B, H] x [H, 4H] product.  So each direction is
+// split where the reference's arithmetic splits (z = x_t Wx + h_{t-1} Wh +
+// b): what no later step reads is one large GEMM over all B T rows, off the
+// serial path.
 //
-// Forward design (simple first):
-// - The TPU keeps all of W (6.3 MB fp32) in VMEM; one SM has 227 KB.  So
-//   the hidden units are split into groups of 4 (H/4 "unit groups", 128 at
-//   H = 512), and the blocks, launched cooperatively so that all are
-//   co-resident, own the groups: block b the groups b, b + grid, ...  A
-//   group's 16 gate columns of W are read as [k][unit*4 + gate], so each
-//   thread sees all four gates of a unit.
-// - Resident mode (where it fits, as at H = 512): one group a block, its
-//   16 columns of W kept in shared memory for the whole window.
-// - Streamed mode (where the resident blocks cannot all be co-resident, as
-//   at H = E = 1,024: (E + H) x 16 x 4 B = 128 KB a block, 256 blocks
-//   against 132 SMs; all of W, 33.5 MB fp32, is more than the card's
-//   shared memory): W stays in device memory and the L2 (50 MB) and each
-//   step reads its group's columns from there, in fp32 or, in bf16 mode,
-//   from a bf16 copy the wrapper makes (16.8 MB, the same rounding the
-//   resident mode applies on load).  Two blocks an SM; a block owns as many
-//   groups as the co-resident grid leaves it.  At B = 32 a step then reads
-//   W once (33.5 MB, ~6 us from the L2) for 0.54 GFLOP (~8 us at the fp32
-//   peak): the product, not the stream, is the larger cost.
-// - A grid-wide barrier after each step publishes h_t: every block reads
-//   the whole h_{t-1} (from hs, through L2) for its product.
-// - Per step and pass of 32 batch rows, [x_t; h_{t-1}] is staged in shared
-//   memory transposed ([k][row], padded), one batch row per lane; the 8
-//   warps split k and their partial sums are added in a fixed order, so the
-//   result does not depend on scheduling.
-// - bf16 mode rounds x, h, W (and dz, W in the backward's products) to bf16
-//   before each product; products of bf16 values are exact in fp32, so it
-//   is the reference's bf16-operand, fp32-accumulate product.
-// - Data written by other blocks during the launch (hs, dz) is read with
-//   __ldcg (L2, not the SM's L1).
+// Forward, two launches:
+// 1. scan_gemm_kernel<KN> (fp32) or scan_gemm_bf16_kernel<KN>: Zx = xs Wx
+//    over all B T rows (half the operations), Wx read in place (W's first
+//    E rows);
+// 2. scan_fwd_recur_kernel: cooperative, one grid barrier a step.  A block
+//    owns NU hidden units and keeps their 4 NU gate columns of Wh (H x 4 NU)
+//    in shared memory for the window where the whole grid fits (128 KB fp32
+//    at H = 1,024, NU = 8; else read from the L2 each step).  Step t: every
+//    block reads all of h_{t-1} (hs at t - 1, or h0; through the L2) in
+//    stages of 32 rows x 256 k, transposed in shared memory; the 8 warps
+//    take 32 k each, a lane 4 rows x one gate's NU columns, and the warps'
+//    partial sums meet in shared memory in warp order (deterministic); then
+//    z = (Zx_t + h_{t-1} Wh) + b, the reference's order, and the gate
+//    epilogue writes hs and cs.  In bf16 mode (Wh resident) the product
+//    runs on mma.sync: half the step time at H = 1,024, where the fp32
+//    FMAs take about 8 of a step's 18 us.  The cell carry c_{t-1} is cs at t - 1 (or
+//    c0), read by the thread that wrote it, so no carry lives in shared
+//    memory and no batch is too large: batch rows go in tiles of 32.  The
+//    epilogue's Zx_t and c_{t-1} loads are issued before the product.
 //
-// Backward design.  Of its 4 B T (E+H) 4H operations (34.4 GFLOP at
-// B = T = 32, H = E = 1,024) only dh_{t-1} = dz_t Wh^T is recurrent: the
-// gate recompute reads saved sequences and dx_t = dz_t Wx^T is read by no
-// later step.  So three launches:
+// Backward, three launches:
 // 1. scan_gemm_kernel<KN> (fp32) or scan_gemm_bf16_kernel<KN>: Z = [x;
 //    h_prev] W + b over all B T rows, written into the dz buffer (half the
 //    operations, one large product);
@@ -70,10 +59,19 @@
 //    in flight, and the next step's saved operands load during the product.
 // 3. scan_gemm_kernel<NK> or scan_gemm_bf16_kernel<NK>: dx = dz Wx^T over
 //    all B T rows (a quarter).
-// The fp32 GEMM is exact FMAs on the CUDA cores (no TF32): a block tile of
-// 16 RM rows x 128 columns, 8 x RM a thread, K in chunks of 32 through a
-// 4-stage cp.async ring.  The bf16 GEMM rounds both operands to bf16 on
-// their way into shared memory and multiplies with mma.sync (fp32 sums).
+//
+// The fp32 GEMM is exact FMAs on the CUDA cores: block tiles of 128 x 128,
+// 8 x 8 a thread, K in chunks of 16 staged through registers into two
+// shared-memory buffers (K-major operands transposed on the way in), two
+// blocks an SM, K split where the output's tiles would leave most SMs idle
+// (a cooperative launch: the partial tiles summed in split order after a
+// grid barrier, deterministic).  The bf16 GEMM rounds both operands to
+// bf16 on their way into shared memory and multiplies with mma.sync (fp32
+// sums).  bf16 mode rounds x, h, W (and dz, W in the backward's products)
+// to bf16 before each product; products of bf16 values are exact in fp32,
+// so it is the reference's bf16-operand, fp32-accumulate product.  Data
+// written by other blocks during a launch (hs, dz) is read with __ldcg (L2,
+// not the SM's L1).
 #include "common.cuh"
 
 #include <cooperative_groups.h>
@@ -86,14 +84,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int U = 4;         // hidden units per group
-constexpr int NC = 4 * U;    // gate columns per group
-constexpr int RB = 32;       // batch rows per pass, one per lane
-constexpr int KC = 256;      // k (forward) or dz columns (backward) per stage
-constexpr int LDS = RB + 2;  // padded row of the transposed stage [k][row]: a
-                             // warp's float4 stores (8 rows x 4 float4) and
-                             // its row-per-lane reads are both conflict-free
-constexpr int PER = RB * KC / 4 / THREADS;  // float4 of a stage per thread
 constexpr size_t SMEM_MAX = 232448;
 
 template <bool BF16>
@@ -102,383 +92,188 @@ __device__ __forceinline__ float rnd(float v) {
   return v;
 }
 
-size_t fwd_smem(int stream, int nvb, int B, int E, int H) {
-  return sizeof(float) * ((stream ? 0 : (size_t)(E + H) * NC) + (size_t)WARPS * NC * RB +
-                          (size_t)KC * LDS + (size_t)nvb * B * U);
-}
-
-// W as the forward reads it: resident mode, W [E+H, 4H] fp32 in device
-// memory, copied once into shared memory as the group's 16 columns
-// [k][u*4 + g]; streamed mode, W [E+H, 4H] in device memory (fp32, or bf16
-// in bf16 mode), read per step.
-template <bool BF16, bool STREAM>
-struct Weights {
-  using Src = typename std::conditional<STREAM && BF16, bf16, float>::type;
-  const Src* w;     // device memory
-  const float* sW;  // resident: the group's columns [K][NC]
-  int H;
-
-  // The 16 gate columns of group j0 at row k: out[u*4 + g].
-  __device__ __forceinline__ void cols(int k, int j0, float (&out)[NC]) const {
-    if constexpr (!STREAM) {
-      const float4* p = reinterpret_cast<const float4*>(sW + (size_t)k * NC);
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const float4 v = p[u];
-        out[u * 4 + 0] = v.x; out[u * 4 + 1] = v.y; out[u * 4 + 2] = v.z; out[u * 4 + 3] = v.w;
-      }
-    } else {
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const float4 v = row4(k, g * H + j0);
-#pragma unroll
-        for (int u = 0; u < U; ++u) out[u * 4 + g] = u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
-      }
-    }
-  }
-
-  // Four neighbouring values W[row][c .. c + 3] (c % 4 == 0), as floats.
-  __device__ __forceinline__ float4 row4(int row, int c) const {
-    const size_t i = (size_t)row * 4 * H + c;
-    if constexpr (std::is_same<Src, bf16>::value) {
-      const uint2 q = __ldg(reinterpret_cast<const uint2*>(w + i));
-      return make_float4(__uint_as_float(q.x << 16), __uint_as_float(q.x & 0xffff0000u),
-                         __uint_as_float(q.y << 16), __uint_as_float(q.y & 0xffff0000u));
-    } else {
-      return __ldg(reinterpret_cast<const float4*>(w + i));
-    }
-  }
-};
-
-// Loads the group's 16 gate columns of W, [k][u*4 + g] = W[k][g*H + j0 + u].
-template <bool BF16>
-__device__ void load_gate_columns(float* sW, const float* __restrict__ W, int K,
-                                  int H, int j0) {
-  for (int i = threadIdx.x; i < K * NC; i += THREADS) {
-    const int k = i / NC, u = (i % NC) / 4, g = i % 4;
-    sW[i] = rnd<BF16>(W[(size_t)k * 4 * H + g * H + j0 + u]);
-  }
-}
-
-// A stage is 32 rows x KC columns of a row-major source, moved as float4:
-// a warp takes 8 rows x 4 float4 (64 contiguous bytes a row) per step of
-// p, so float4 p of a thread is row r, columns 4q..4q+3 of the stage.
-__device__ __forceinline__ void stage_slot(int p, int& r, int& q) {
-  const int lane = threadIdx.x & 31, tile = (threadIdx.x >> 5) + WARPS * p;
-  r = (tile % (RB / 8)) * 8 + (lane & 7);
-  q = (tile / (RB / 8)) * 4 + (lane >> 3);
-}
-
-// Loads stage [k0, k0+kn) of [x_t; h_{t-1}] for rows r0.. into registers
-// (issued together, so their latencies overlap).  E % 4 == 0, so a float4
-// never straddles x and h.
-__device__ __forceinline__ void load_xh(float4 (&v)[PER], const float* __restrict__ xs,
-                                        const float* hp, size_t hp_stride, int r0,
-                                        int t, int k0, int kn, int B, int T, int E) {
-#pragma unroll
-  for (int p = 0; p < PER; ++p) {
-    int r, q;
-    stage_slot(p, r, q);
-    const int row = r0 + r, k = k0 + 4 * q;
-    v[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (row < B && 4 * q < kn)
-      v[p] = k < E ? *reinterpret_cast<const float4*>(xs + ((size_t)row * T + t) * E + k)
-                   : __ldcg(reinterpret_cast<const float4*>(
-                         hp + (size_t)row * hp_stride + (k - E)));
-  }
-}
-
-// Writes the registers to the stage transposed, [column][row], rounded.
-template <bool BF16>
-__device__ __forceinline__ void store_stage(float* sStage, const float4 (&v)[PER]) {
-#pragma unroll
-  for (int p = 0; p < PER; ++p) {
-    int r, q;
-    stage_slot(p, r, q);
-    float* d = sStage + 4 * q * LDS + r;
-    d[0] = rnd<BF16>(v[p].x);
-    d[LDS] = rnd<BF16>(v[p].y);
-    d[2 * LDS] = rnd<BF16>(v[p].z);
-    d[3 * LDS] = rnd<BF16>(v[p].w);
-  }
-}
-
-// z[row][16 columns of group j0] for rows r0..r0+31 of step t, summed over
-// warps into sRed[(w * NC + q) * RB + row - r0]; the caller reads sRed
-// after the trailing __syncthreads.  The next stage's loads are in flight
-// while the current one is multiplied.
-template <bool BF16, bool STREAM>
-__device__ void gate_product(const Weights<BF16, STREAM>& wts, int j0, float* sStage,
-                             float* sRed, const float* __restrict__ xs, const float* hp,
-                             size_t hp_stride, int r0, int t, int B, int T, int E, int K) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float acc[NC];
-#pragma unroll
-  for (int q = 0; q < NC; ++q) acc[q] = 0.0f;
-  float4 next[PER];
-  load_xh(next, xs, hp, hp_stride, r0, t, 0, min(KC, K), B, T, E);
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    const int kn = min(KC, K - k0);
-    __syncthreads();  // the previous stage (and sRed) consumed
-    store_stage<BF16>(sStage, next);
-    __syncthreads();
-    if (k0 + KC < K)
-      load_xh(next, xs, hp, hp_stride, r0, t, k0 + KC, min(KC, K - k0 - KC), B, T, E);
-#pragma unroll 4
-    for (int kk = warp; kk < kn; kk += WARPS) {
-      const float v = sStage[kk * LDS + lane];
-      float w[NC];
-      wts.cols(k0 + kk, j0, w);
-#pragma unroll
-      for (int q = 0; q < NC; ++q) acc[q] = fmaf(v, w[q], acc[q]);
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < NC; ++q) sRed[(warp * NC + q) * RB + lane] = acc[q];
-  __syncthreads();
-}
-
-// Gate pre-activation g of unit u, pass row r, without the bias.
-__device__ __forceinline__ float gate_sum(const float* sRed, int r, int u, int g) {
-  float s = 0.0f;
-#pragma unroll
-  for (int w = 0; w < WARPS; ++w) s += sRed[(w * NC + u * 4 + g) * RB + r];
-  return s;
-}
-
-// Wsrc: W [E+H, 4H] fp32, or in streamed bf16 mode its bf16 copy.  The
-// block owns the unit groups blockIdx.x + i * gridDim.x (i < nvb).
-template <bool BF16, bool STREAM>
-__global__ void __launch_bounds__(THREADS, STREAM ? 2 : 1)
-lstm_scan_fwd_kernel(const float* __restrict__ xs, const void* __restrict__ Wsrc,
-                     const float* __restrict__ bias, const float* __restrict__ c0,
-                     const float* __restrict__ h0, float* hs, float* cs,
-                     float* c_T, float* h_T, int B, int T, int E, int H,
-                     float forget_bias, int nvb) {
-  extern __shared__ __align__(16) float smem[];
-  const int K = E + H, G = H / U, tid = threadIdx.x;
-  float* sW = smem;                                  // [K][NC] (resident mode)
-  float* sRed = sW + (STREAM ? 0 : (size_t)K * NC);  // [WARPS][NC][RB]
-  float* sStage = sRed + WARPS * NC * RB;            // [KC][LDS]
-  float* sC = sStage + KC * LDS;                     // [nvb][B][U] cell carries
-  cg::grid_group grid = cg::this_grid();
-  const Weights<BF16, STREAM> wts{
-      static_cast<const typename Weights<BF16, STREAM>::Src*>(Wsrc), sW, H};
-
-  for (int i = 0; i < nvb; ++i) {
-    const int j0 = (blockIdx.x + i * gridDim.x) * U;
-    if (j0 >= H) break;
-    if constexpr (!STREAM) load_gate_columns<BF16>(sW, static_cast<const float*>(Wsrc), K, H, j0);
-    for (int e = tid; e < B * U; e += THREADS)
-      sC[(size_t)i * B * U + e] = c0[(size_t)(e / U) * H + j0 + e % U];
-  }
-  const int u = tid / RB;  // the epilogue's unit
-
-  for (int t = 0; t < T; ++t) {
-    const float* hp = t == 0 ? h0 : hs + (size_t)(t - 1) * H;
-    const size_t hp_stride = t == 0 ? (size_t)H : (size_t)T * H;
-    for (int i = 0; i < nvb; ++i) {
-      const int g = blockIdx.x + i * gridDim.x;
-      if (g >= G) break;
-      const int j0 = g * U, j = j0 + min(u, U - 1);
-      const float bi = bias[j], bj = bias[H + j], bf = bias[2 * H + j], bo = bias[3 * H + j];
-      for (int r0 = 0; r0 < B; r0 += RB) {
-        gate_product<BF16, STREAM>(wts, j0, sStage, sRed, xs, hp, hp_stride, r0, t, B, T, E, K);
-        const int r = tid % RB, row = r0 + r;
-        if (tid < RB * U && row < B) {
-          const float zi = gate_sum(sRed, r, u, 0) + bi;
-          const float zj = gate_sum(sRed, r, u, 1) + bj;
-          const float zf = gate_sum(sRed, r, u, 2) + bf;
-          const float zo = gate_sum(sRed, r, u, 3) + bo;
-          float& c = sC[((size_t)i * B + row) * U + u];
-          const float cn = jlm::sigmoidf(zf + forget_bias) * c + jlm::sigmoidf(zi) * tanhf(zj);
-          const float hn = jlm::sigmoidf(zo) * tanhf(cn);
-          c = cn;
-          const size_t o = ((size_t)row * T + t) * H + j;
-          hs[o] = hn;
-          cs[o] = cn;
-          if (t == T - 1) {
-            c_T[(size_t)row * H + j] = cn;
-            h_T[(size_t)row * H + j] = hn;
-          }
-        }
-      }
-    }
-    grid.sync();  // h_t is complete in every block
-  }
-}
-
-// ---------------------------------------------------------------- backward
-
-// 16 bytes global -> shared, asynchronously; zeros where !ok.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(jlm::smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 template <bool BF16>
 __device__ __forceinline__ float4 rnd4(float4 v) {
   return make_float4(rnd<BF16>(v.x), rnd<BF16>(v.y), rnd<BF16>(v.z), rnd<BF16>(v.w));
 }
 
-__device__ __forceinline__ float part(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-// The GEMM C [M, N] = A [M, K] B (+ bias), A row-major; B [K][N] (KN: W as
-// the gate recompute reads it) or [N][K] (Wx's rows as dx reads them).
-// 256 threads as 16 x 16 (ty, tx); a block tile of BM = 16 RM rows x 128
-// columns; thread (ty, tx) keeps rows ty + 16 i (i < RM) and 8 columns:
-// 4 tx + {0..3} + {0, 64} (KN: two float4 reads a k) or tx + 16 j (NK: a
-// float4 over k from each of 8 rows of B, conflict-free at the padded
-// stride).  K in chunks of GK through a ring of GST stages.
+// 16 bytes from global memory, or zeros where !ok (p must be a valid
+// address either way), as a volatile asm: the compiler keeps the load where
+// it is written instead of sinking it to the value's first use, so a chunk's
+// loads stay in flight during the previous chunk's products.
+__device__ __forceinline__ float4 ldg4_at(const float* p, bool ok) {
+  float4 v;
+  asm volatile(
+      "{\n\t.reg .pred q;\n\t"
+      "setp.ne.b32 q, %5, 0;\n\t"
+      "mov.b32 %0, 0;\n\tmov.b32 %1, 0;\n\tmov.b32 %2, 0;\n\tmov.b32 %3, 0;\n\t"
+      "@q ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n\t}"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p), "r"((int)ok));
+  return v;
+}
+
+// The same through the L2 only (ld.global.cg), for data that other blocks
+// of the launch write.
+__device__ __forceinline__ float4 ldcg4_at(const float* p, bool ok) {
+  float4 v;
+  asm volatile(
+      "{\n\t.reg .pred q;\n\t"
+      "setp.ne.b32 q, %5, 0;\n\t"
+      "mov.b32 %0, 0;\n\tmov.b32 %1, 0;\n\tmov.b32 %2, 0;\n\tmov.b32 %3, 0;\n\t"
+      "@q ld.global.cg.v4.f32 {%0, %1, %2, %3}, [%4];\n\t}"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p), "r"((int)ok)
+      : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// ------------------------------------------------------------ fp32 GEMM
+
+// C [M, N] = A [M, K] B (+ bias), A row-major (K-major); B [K][N] (KN: Wx
+// as the input product reads it, W as the gate recompute does) or [N][K]
+// (NK: Wx's rows as dx reads them).  256 threads; a block tile of 128 x 128
+// and K chunks of 16, both operands staged as [k][m] / [k][n] (a thread's
+// 8 rows and 8 columns are two float4 reads each a k).  A K-major operand
+// is loaded as float4 along k (four lanes a row: full 32-byte sectors) and
+// stored transposed with an XOR swizzle of m by 8 (k / 4 % 4), which keeps
+// both its scalar stores and the float4 reads conflict-free (B [K][N] is
+// stored as it lies; cp.async for it read 4-5% slower).  The next chunk's
+// loads are in flight during the current chunk's 1,024 FMAs a thread
+// (written as volatile asm: under the 128-register cap the compiler
+// otherwise sank them to their stores, after the products); one barrier a
+// chunk.  Warps as 4 (rows) x 2 (columns), a warp 4 x
+// 8 threads: a k's A reads hit 4 addresses, its B reads 8 (one wavefront
+// each).  Thread (ty, tx) keeps rows 4 ty + {0..3} + {0, 64} and columns
+// 4 tx + {0..3} + {0, 64}: float4 stores.  With K split (gridDim.z > 1,
+// a cooperative launch whose blocks the card holds at once), block z takes
+// K range [z kc, (z + 1) kc), writes its partial tile to ws [z][M][N], and
+// after a grid barrier sums rows z R .. (z + 1) R - 1 of its tile (R = 128 /
+// splits, rounded up) over the splits in split order (+ bias) into C: the
+// same sum whichever block finished first.
 namespace gemm {
-constexpr int TX = 16, TY = 16, BN = 128, GK = 32, GST = 4;
-constexpr int LDK = GK + 4;  // a [row][k] stage row, padded
-template <bool KN, int RM>
-struct Tile {
-  static constexpr int BM = TY * RM;
-  static constexpr int A = BM * LDK;                 // floats of a stage's A tile
-  static constexpr int B = KN ? GK * BN : BN * LDK;  // floats of a stage's B tile
-  static constexpr int SMEM = GST * (A + B) * 4;
-};
+constexpr int BM = 128, BN = 128, BK = 16;
+constexpr int TILE = BK * BM;  // floats of one operand's stage
 }  // namespace gemm
 
-// Issues chunk k0's copies of A (rows m0..) and B (columns n0..).
-template <bool KN, int RM>
-__device__ __forceinline__ void gemm_chunk(float* sA, float* sB, const float* A, int lda,
-                                           const float* Bm, int ldb, int m0, int n0, int k0,
-                                           int M, int N, int K) {
-  using namespace gemm;
-  using T = Tile<KN, RM>;
-  for (int i = threadIdx.x; i < T::BM * (GK / 4); i += THREADS) {
-    const int r = i / (GK / 4), q = i % (GK / 4), row = m0 + r, k = k0 + 4 * q;
-    const bool ok = row < M && k < K;
-    cp_async16(sA + r * LDK + 4 * q, ok ? A + (size_t)row * lda + k : A, ok);
-  }
-  for (int i = threadIdx.x; i < BN * (GK / 4); i += THREADS) {
-    int n, k;
-    float* d;
-    if constexpr (KN) {
-      const int kr = i / (BN / 4), q = i % (BN / 4);
-      k = k0 + kr, n = n0 + 4 * q, d = sB + kr * BN + 4 * q;
-    } else {
-      const int c = i / (GK / 4), q = i % (GK / 4);
-      n = n0 + c, k = k0 + 4 * q, d = sB + c * LDK + 4 * q;
-    }
-    const bool ok = n < N && k < K;
-    cp_async16(d, ok ? Bm + (KN ? (size_t)k * ldb + n : (size_t)n * ldb + k) : Bm, ok);
-  }
+// Offset of (k, m) in a swizzled [BK][128] stage.
+__device__ __forceinline__ int swz(int k, int m) {
+  return k * gemm::BM + (m ^ (8 * ((k >> 2) & 3)));
 }
 
-// fp32: exact FMAs.  K % 4 == 0, N % 4 == 0, lda and ldb multiples of 4
-// (16-byte rows).
-template <bool KN, int RM>
-__global__ void __launch_bounds__(THREADS)
+template <bool KN, bool SPLIT>
+__global__ void __launch_bounds__(THREADS, 2)
 scan_gemm_kernel(const float* __restrict__ A, int lda, const float* __restrict__ Bm, int ldb,
                  const float* __restrict__ bias, float* __restrict__ C, int ldc, int M, int N,
-                 int K) {
+                 int K, int kc, float* ws) {
   using namespace gemm;
-  using T = Tile<KN, RM>;
-  extern __shared__ __align__(16) float gsm[];
-  const int tid = threadIdx.x, ty = tid / TX, tx = tid % TX;
-  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * BN;
-  const int nk = (K + GK - 1) / GK;
-  auto stage = [&](int s) { return gsm + (s % GST) * (T::A + T::B); };
-  auto load = [&](int s) {  // chunk s, one commit group
-    if (s < nk)
-      gemm_chunk<KN, RM>(stage(s), stage(s) + T::A, A, lda, Bm, ldb, m0, n0, s * GK, M, N,
-                         K);
-    cp_async_commit();
-  };
-  float acc[RM][8];
+  __shared__ __align__(16) float sA[2][TILE];
+  __shared__ __align__(16) float sB[2][TILE];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ty = (warp & 3) * 4 + (lane >> 3), tx = (warp >> 2) * 8 + (lane & 7);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int kb = blockIdx.z * kc, ke = min(K, kb + kc);
+  float4 ra[2], rb[2];
+  auto fetch = [&](int k0) {  // chunk k0's operands into registers
 #pragma unroll
-  for (int r = 0; r < RM; ++r)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[r][j] = 0.0f;
-  for (int s = 0; s < GST - 1; ++s) load(s);
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<GST - 2>();  // this thread's pieces of chunk kt have landed
-    __syncthreads();  // chunk kt is complete, and chunk kt - 1's stage is free
-    load(kt + GST - 1);
-    const float* a_t = stage(kt) + ty * LDK;
-    const float* b_t = stage(kt) + T::A;
-#pragma unroll
-    for (int k4 = 0; k4 < GK; k4 += 4) {
-      float4 a[RM];
-#pragma unroll
-      for (int r = 0; r < RM; ++r)
-        a[r] = *reinterpret_cast<const float4*>(a_t + r * TY * LDK + k4);
+    for (int p = 0; p < 2; ++p) {
+      const int i = tid + THREADS * p, r = i >> 2, k = k0 + 4 * (i & 3);
+      ra[p] = ldg4_at(A + (size_t)min(m0 + r, M - 1) * lda + min(k, K - 4), m0 + r < M && k < ke);
       if constexpr (KN) {
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const float4 w0 = *reinterpret_cast<const float4*>(b_t + (k4 + kk) * BN + 4 * tx);
-          const float4 w1 =
-              *reinterpret_cast<const float4*>(b_t + (k4 + kk) * BN + 64 + 4 * tx);
-#pragma unroll
-          for (int r = 0; r < RM; ++r) {
-            const float av = part(a[r], kk);
-            acc[r][0] = fmaf(av, w0.x, acc[r][0]);
-            acc[r][1] = fmaf(av, w0.y, acc[r][1]);
-            acc[r][2] = fmaf(av, w0.z, acc[r][2]);
-            acc[r][3] = fmaf(av, w0.w, acc[r][3]);
-            acc[r][4] = fmaf(av, w1.x, acc[r][4]);
-            acc[r][5] = fmaf(av, w1.y, acc[r][5]);
-            acc[r][6] = fmaf(av, w1.z, acc[r][6]);
-            acc[r][7] = fmaf(av, w1.w, acc[r][7]);
-          }
-        }
+        const int kr = k0 + (i >> 5), n = n0 + 4 * (i & 31);
+        rb[p] = ldg4_at(Bm + (size_t)min(kr, K - 1) * ldb + min(n, N - 4), kr < ke && n < N);
       } else {
-        float4 b[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          b[j] = *reinterpret_cast<const float4*>(b_t + (tx + TX * j) * LDK + k4);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-          for (int r = 0; r < RM; ++r) {
-            const float av = part(a[r], kk);
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(av, part(b[j], kk), acc[r][j]);
-          }
+        rb[p] = ldg4_at(Bm + (size_t)min(n0 + r, N - 1) * ldb + min(k, K - 4),
+                        n0 + r < N && k < ke);
       }
+    }
+  };
+  auto put = [&](int buf) {  // the registers into stage buf
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int i = tid + THREADS * p, r = i >> 2, k = 4 * (i & 3);
+      float* a = sA[buf];
+      a[swz(k, r)] = ra[p].x, a[swz(k + 1, r)] = ra[p].y;
+      a[swz(k + 2, r)] = ra[p].z, a[swz(k + 3, r)] = ra[p].w;
+      float* b = sB[buf];
+      if constexpr (KN) {
+        *reinterpret_cast<float4*>(b + (i >> 5) * BN + 4 * (i & 31)) = rb[p];
+      } else {
+        b[swz(k, r)] = rb[p].x, b[swz(k + 1, r)] = rb[p].y;
+        b[swz(k + 2, r)] = rb[p].z, b[swz(k + 3, r)] = rb[p].w;
+      }
+    }
+  };
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  const int nk = (ke - kb + BK - 1) / BK;
+  fetch(kb);
+  put(0);
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt & 1;
+    fetch(kb + (kt + 1) * BK);  // unconditional: past ke it loads zeros
+    const float* a = sA[buf];
+    const float* b = sB[buf];
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      const int x = 8 * ((k >> 2) & 3);
+      const int ma = (4 * ty) ^ x, nb = KN ? 4 * tx : (4 * tx) ^ x;
+      const float4 a0 = *reinterpret_cast<const float4*>(a + k * BM + ma);
+      const float4 a1 = *reinterpret_cast<const float4*>(a + k * BM + ma + 64);
+      const float4 b0 = *reinterpret_cast<const float4*>(b + k * BN + nb);
+      const float4 b1 = *reinterpret_cast<const float4*>(b + k * BN + nb + 64);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    put(buf ^ 1);  // buf ^ 1 was last read in chunk kt - 1, before the barrier
+    __syncthreads();
+  }
+  float* out = SPLIT ? ws + (size_t)blockIdx.z * M * N : C;
+  const int ldo = SPLIT ? N : ldc;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
+    if (row >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + 64 * h + 4 * tx;
+      if (n >= N) continue;  // N % 4 == 0: n < N means n + 3 < N
+      float4 v = make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                             acc[i][4 * h + 3]);
+      if (bias && !SPLIT) v = add4(v, ldg4(bias + n));
+      *reinterpret_cast<float4*>(out + (size_t)row * ldo + n) = v;
     }
   }
-  cp_async_wait<0>();
-#pragma unroll
-  for (int r = 0; r < RM; ++r) {
-    const int row = m0 + ty + TY * r;
-    if (row >= M) break;
-    float* c = C + (size_t)row * ldc;
-    if constexpr (KN) {
-#pragma unroll
-      for (int g = 0; g < 2; ++g) {
-        const int n = n0 + 64 * g + 4 * tx;
-        if (n < N) {
-          float4 v = make_float4(acc[r][4 * g], acc[r][4 * g + 1], acc[r][4 * g + 2],
-                                 acc[r][4 * g + 3]);
-          if (bias) {
-            const float4 bb = *reinterpret_cast<const float4*>(bias + n);
-            v.x += bb.x, v.y += bb.y, v.z += bb.z, v.w += bb.w;
-          }
-          *reinterpret_cast<float4*>(c + n) = v;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = n0 + tx + TX * j;
-        if (n < N) c[n] = acc[r][j] + (bias ? bias[n] : 0.0f);
-      }
-    }
+  if constexpr (!SPLIT) return;
+  cg::this_grid().sync();  // every split's partial tile is in ws
+  const int splits = gridDim.z;
+  const int R = (BM + splits - 1) / splits, r_end = min(BM, (int)(blockIdx.z + 1) * R);
+  const size_t plane = (size_t)M * N;
+  for (int e = (int)blockIdx.z * R * (BN / 4) + tid; e < r_end * (BN / 4); e += THREADS) {
+    const int row = m0 + e / (BN / 4), n = n0 + 4 * (e % (BN / 4));
+    if (row >= M || n >= N) continue;
+    const float* p = ws + (size_t)row * N + n;
+    float4 v = __ldcg(reinterpret_cast<const float4*>(p));
+    for (int z = 1; z < splits; ++z)
+      v = add4(v, __ldcg(reinterpret_cast<const float4*>(p + z * plane)));
+    if (bias) v = add4(v, ldg4(bias + n));
+    *reinterpret_cast<float4*>(C + (size_t)row * ldc + n) = v;
   }
 }
 
@@ -788,6 +583,240 @@ scan_recur_kernel(const float* Z, float* dz, bf16* dzb, const float* __restrict_
   }
 }
 
+
+// ---------------------------------------------------- forward recurrence
+
+namespace fwd {
+constexpr int RB = 32;         // batch rows of a tile
+constexpr int KC = 256;        // k of a stage; each warp takes 32
+constexpr int LDS = RB + 4;    // padded row of the [k][row] stage and of the
+                               // [q][row] partials: float4 aligned
+constexpr int LDH = KC + 8;    // bf16 mode: padded row of the [row][k] stage
+// bf16 mode: padded row of the resident [q][k] columns of Wh (rows 16-byte
+// aligned and 4 words apart mod 32: ldmatrix reads them conflict-free)
+__host__ __device__ constexpr int ldw(int H) { return (H + 15) / 16 * 16 + 8; }
+constexpr int PER = RB * KC / 4 / THREADS;  // float4 of a stage per thread
+// floats of the stage buffer, which the warps' partials [WARPS][4 NU][LDS]
+// reuse after the product
+__host__ __device__ constexpr int stage_floats(int nu) {
+  return KC * LDS > WARPS * 4 * nu * LDS ? KC * LDS : WARPS * 4 * nu * LDS;
+}
+}  // namespace fwd
+
+// A stage is RB rows x KC columns of h, moved as float4: a warp takes 8
+// rows x 4 float4 (64 contiguous bytes a row) per step of p, so float4 p of
+// a thread is row r, columns 4q..4q+3 of the stage.
+__device__ __forceinline__ void stage_slot(int p, int& r, int& q) {
+  const int lane = threadIdx.x & 31, tile = (threadIdx.x >> 5) + WARPS * p;
+  r = (tile % (fwd::RB / 8)) * 8 + (lane & 7);
+  q = (tile / (fwd::RB / 8)) * 4 + (lane >> 3);
+}
+
+// The NU gate-g columns of the block's units at row k of Wh, as floats:
+// from the resident [H][4 NU] copy (bf16 in bf16 mode) or from Wh [H, 4H]
+// in device memory (rounded in bf16 mode).
+template <int NU, bool BF16, bool RESIDENT>
+__device__ __forceinline__ void wh_cols(const void* sW, const float* Wh, int k, int g, int j0,
+                                        int H, float (&w)[NU]) {
+  if constexpr (RESIDENT && BF16) {
+    const uint2* p = reinterpret_cast<const uint2*>(
+        static_cast<const bf16*>(sW) + ((size_t)k * 4 + g) * NU);
+#pragma unroll
+    for (int v = 0; v < NU / 4; ++v) {
+      const uint2 q = p[v];
+      w[4 * v] = __uint_as_float(q.x << 16), w[4 * v + 1] = __uint_as_float(q.x & 0xffff0000u);
+      w[4 * v + 2] = __uint_as_float(q.y << 16), w[4 * v + 3] = __uint_as_float(q.y & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < NU / 4; ++v) {
+      const float4 q = RESIDENT ? reinterpret_cast<const float4*>(
+                                      static_cast<const float*>(sW) + ((size_t)k * 4 + g) * NU)[v]
+                                : rnd4<BF16>(ldg4(Wh + (size_t)k * 4 * H + g * H + j0 + 4 * v));
+      w[4 * v] = q.x, w[4 * v + 1] = q.y, w[4 * v + 2] = q.z, w[4 * v + 3] = q.w;
+    }
+  }
+}
+
+// Zx [B,T,4H] = xs Wx (no bias); Wh [H, 4H] (W's h rows, row stride 4H);
+// writes hs, cs [B,T,H], c_T, h_T [B,H].  The block owns the unit groups
+// blockIdx.x + i * gridDim.x (i < nvb; resident mode: nvb = 1) of NU units,
+// gate columns q = g NU + u.  In bf16 mode with Wh resident the product
+// runs on the tensor cores (mma.sync m16n8k16, bf16 operands, fp32 sums):
+// the stage is kept [row][k] in bf16 and Wh's columns [q][k], a warp's 32
+// k as two k16 steps over the tile's 2 x NQ / 8 m16n8 tiles; else exact
+// fp32 FMAs, a lane 4 rows x one gate's NU columns.
+template <int NU, bool BF16, bool RESIDENT>
+__global__ void __launch_bounds__(THREADS)
+scan_fwd_recur_kernel(const float* __restrict__ Zx, const float* __restrict__ Wh,
+                      const float* __restrict__ bias, const float* __restrict__ c0,
+                      const float* __restrict__ h0, float* hs, float* cs, float* c_T,
+                      float* h_T, int B, int T, int H, float forget_bias, int nvb) {
+  using namespace fwd;
+  using Wt = typename std::conditional<BF16, bf16, float>::type;
+  constexpr int NQ = 4 * NU;
+  constexpr bool MMA = BF16 && RESIDENT;
+  extern __shared__ __align__(16) unsigned char fsm[];
+  float* sX = reinterpret_cast<float*>(fsm);  // [KC][LDS] stage, then [WARPS][NQ][LDS]
+  bf16* sXb = reinterpret_cast<bf16*>(fsm);   // MMA: [RB][LDH] stage
+  // resident: [H][NQ], or MMA: [NQ][ldw(H)] with zeros past H
+  Wt* sW = reinterpret_cast<Wt*>(sX + stage_floats(NU));
+  const int H4 = 4 * H, G = H / NU, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = lane & 7, lg = lane >> 3;     // product: rows 4 rg .. 4 rg + 3, gate lg
+  const int eu = tid % NU, er = tid / NU;      // epilogue: unit eu of tile row er
+  const int LDW = ldw(H);
+  cg::grid_group grid = cg::this_grid();
+
+  if constexpr (RESIDENT) {
+    const int j0 = blockIdx.x * NU;
+    for (int e = tid; e < H * NQ; e += THREADS) {
+      const int k = e / NQ, q = e % NQ;
+      const float w = Wh[(size_t)k * H4 + (q / NU) * H + j0 + q % NU];
+      if constexpr (MMA) sW[q * LDW + k] = __float2bfloat16(w);
+      else if constexpr (BF16) sW[e] = __float2bfloat16(w);
+      else sW[e] = w;
+    }
+    if constexpr (MMA)
+      for (int e = tid; e < NQ * (LDW - H); e += THREADS)
+        sW[(e / (LDW - H)) * LDW + H + e % (LDW - H)] = __float2bfloat16(0.0f);
+  }
+
+  for (int t = 0; t < T; ++t) {
+    const float* hp = t == 0 ? h0 : hs + (size_t)(t - 1) * H;
+    const size_t hp_stride = t == 0 ? (size_t)H : (size_t)T * H;
+    for (int i = 0; i < nvb; ++i) {
+      const int g = blockIdx.x + i * gridDim.x;
+      if (g >= G) break;
+      const int j0 = g * NU, j = j0 + eu;
+      for (int r0 = 0; r0 < B; r0 += RB) {
+        // the epilogue's operands, in flight during the product
+        const int row = r0 + er;
+        const bool live = er < RB && row < B;
+        float zx[4] = {0.0f, 0.0f, 0.0f, 0.0f}, cp = 0.0f;
+        if (live) {
+          const size_t zr = ((size_t)row * T + t) * H4 + j;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) zx[q] = __ldg(Zx + zr + q * H);
+          cp = t == 0 ? c0[(size_t)row * H + j] : cs[((size_t)row * T + t - 1) * H + j];
+        }
+        // ---- h_{t-1} Wh for the tile's rows and the block's 4 NU columns
+        float acc[4 * NU];  // FMA: [row][unit]; MMA: [m16 tile][m16n8 tile][fragment]
+#pragma unroll
+        for (int v = 0; v < 4 * NU; ++v) acc[v] = 0.0f;
+        float4 nx[PER];
+        auto load = [&](int k0) {
+#pragma unroll
+          for (int p = 0; p < PER; ++p) {
+            int r, q;
+            stage_slot(p, r, q);
+            const int k = k0 + 4 * q;
+            nx[p] = ldcg4_at(hp + min(r0 + r, B - 1) * hp_stride + min(k, H - 4),
+                             r0 + r < B && k < H);
+          }
+        };
+        load(0);
+        for (int k0 = 0; k0 < H; k0 += KC) {
+          __syncthreads();  // the previous stage (or tile's partials) consumed
+#pragma unroll
+          for (int p = 0; p < PER; ++p) {
+            int r, q;
+            stage_slot(p, r, q);
+            if constexpr (MMA) {
+              __nv_bfloat162 lo = __floats2bfloat162_rn(nx[p].x, nx[p].y);
+              __nv_bfloat162 hi = __floats2bfloat162_rn(nx[p].z, nx[p].w);
+              *reinterpret_cast<uint2*>(sXb + r * LDH + 4 * q) =
+                  make_uint2(*reinterpret_cast<uint32_t*>(&lo), *reinterpret_cast<uint32_t*>(&hi));
+            } else {
+              float* d = sX + 4 * q * LDS + r;
+              d[0] = rnd<BF16>(nx[p].x), d[LDS] = rnd<BF16>(nx[p].y);
+              d[2 * LDS] = rnd<BF16>(nx[p].z), d[3 * LDS] = rnd<BF16>(nx[p].w);
+            }
+          }
+          __syncthreads();
+          load(k0 + KC);  // past H it loads zeros
+          const int kw = warp * 32;
+          if constexpr (MMA) {
+            // k past H multiplies zeros of the stage by zeros of sW
+            const int kend = min(KC, (H + 15) / 16 * 16 - k0);
+            for (int k16 = kw; k16 < min(kw + 32, kend); k16 += 16) {
+              uint32_t af[2][4], bfr[NQ / 8][2];
+#pragma unroll
+              for (int mi = 0; mi < 2; ++mi)
+                jlm::ldsm_x4(af[mi][0], af[mi][1], af[mi][2], af[mi][3],
+                             sXb + (mi * 16 + (lane & 15)) * LDH + k16 + (lane >> 4) * 8);
+#pragma unroll
+              for (int p = 0; p < NQ / 16; ++p)
+                jlm::ldsm_x4(bfr[2 * p][0], bfr[2 * p][1], bfr[2 * p + 1][0], bfr[2 * p + 1][1],
+                             reinterpret_cast<const bf16*>(sW) +
+                                 (p * 16 + (lane & 7) + (lane >> 4) * 8) * LDW + k0 + k16 +
+                                 ((lane >> 3) & 1) * 8);
+#pragma unroll
+              for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+                for (int ni = 0; ni < NQ / 8; ++ni)
+                  jlm::mma_bf16(*reinterpret_cast<float(*)[4]>(acc + (mi * NQ / 8 + ni) * 4),
+                                af[mi], bfr[ni][0], bfr[ni][1]);
+            }
+          } else {
+            const int kn = min(32, H - k0 - kw);
+#pragma unroll 8
+            for (int kk = 0; kk < kn; ++kk) {
+              const float4 hv = *reinterpret_cast<const float4*>(sX + (kw + kk) * LDS + 4 * rg);
+              float w[NU];
+              wh_cols<NU, BF16, RESIDENT>(sW, Wh, k0 + kw + kk, lg, j0, H, w);
+              const float h4[4] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+              for (int r = 0; r < 4; ++r)
+#pragma unroll
+                for (int u = 0; u < NU; ++u) acc[r * NU + u] = fmaf(h4[r], w[u], acc[r * NU + u]);
+            }
+          }
+        }
+        __syncthreads();  // every warp is done with the last stage
+        if constexpr (MMA) {
+          // tile (mi, ni), fragment e: row mi 16 + lane / 4 + 8 (e / 2),
+          // column ni 8 + 2 (lane % 4) + e % 2
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int ni = 0; ni < NQ / 8; ++ni)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                sX[(warp * NQ + ni * 8 + 2 * (lane & 3) + (e & 1)) * LDS + mi * 16 + (lane >> 2) +
+                   8 * (e >> 1)] = acc[(mi * NQ / 8 + ni) * 4 + e];
+        } else {
+#pragma unroll
+          for (int u = 0; u < NU; ++u)
+            *reinterpret_cast<float4*>(sX + (warp * NQ + lg * NU + u) * LDS + 4 * rg) =
+                make_float4(acc[u], acc[NU + u], acc[2 * NU + u], acc[3 * NU + u]);
+        }
+        __syncthreads();
+        // ---- z = (Zx_t + h_{t-1} Wh) + b, the warps' sums in warp order
+        if (live) {
+          float z[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            float s = 0.0f;
+#pragma unroll
+            for (int w = 0; w < WARPS; ++w) s += sX[(w * NQ + q * NU + eu) * LDS + er];
+            z[q] = (zx[q] + s) + bias[q * H + j];
+          }
+          const float cn = jlm::sigmoidf(z[2] + forget_bias) * cp + jlm::sigmoidf(z[0]) * tanhf(z[1]);
+          const float hn = jlm::sigmoidf(z[3]) * tanhf(cn);
+          const size_t o = ((size_t)row * T + t) * H + j;
+          hs[o] = hn;
+          cs[o] = cn;
+          if (t == T - 1) {
+            c_T[(size_t)row * H + j] = cn;
+            h_T[(size_t)row * H + j] = hn;
+          }
+        }
+      }
+    }
+    grid.sync();  // h_t is complete in every block
+  }
+}
+
 template <typename Kernel>
 cudaError_t launch_coop(Kernel kernel, int grid, size_t smem, void** args,
                         cudaStream_t stream) {
@@ -813,36 +842,22 @@ int max_blocks(Kernel kernel, size_t smem, int device) {
   return per_sm * sms;
 }
 
-template <template <bool, bool> class K, typename... Args>
-int by_mode(int bf16, int stream, Args... args) {
-  if (bf16) return stream ? K<true, true>::run(args...) : K<true, false>::run(args...);
-  return stream ? K<false, true>::run(args...) : K<false, false>::run(args...);
-}
-
-template <bool BF16, bool STREAM>
-struct Occupancy {
-  static int run(size_t smem, int device) {
-    return max_blocks(lstm_scan_fwd_kernel<BF16, STREAM>, smem, device);
-  }
-};
-
-template <bool BF16, bool STREAM>
-struct Fwd {
-  static int run(int grid, size_t smem, void** args, cudaStream_t st) {
-    return (int)launch_coop(lstm_scan_fwd_kernel<BF16, STREAM>, grid, smem, args, st);
-  }
-};
-
-template <bool KN, int RM>
+template <bool KN>
 int launch_gemm(const float* A, int lda, const float* Bm, int ldb, const float* bias,
-                float* C, int ldc, int M, int N, int K, cudaStream_t st) {
-  using T = gemm::Tile<KN, RM>;
-  auto kernel = scan_gemm_kernel<KN, RM>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+                float* C, int ldc, int M, int N, int K, int splits, int kc, float* ws,
+                cudaStream_t st) {
+  using namespace gemm;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  if (splits == 1) {
+    scan_gemm_kernel<KN, false><<<grid, THREADS, 0, st>>>(A, lda, Bm, ldb, bias, C, ldc, M, N,
+                                                         K, kc, ws);
+    return (int)cudaGetLastError();
+  }
+  void* args[] = {&A, &lda, &Bm, &ldb, &bias, &C, &ldc, &M, &N, &K, &kc, &ws};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(scan_gemm_kernel<KN, true>), grid, dim3(THREADS), args, 0,
+      st);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + gemm::BN - 1) / gemm::BN, (M + T::BM - 1) / T::BM);
-  kernel<<<grid, THREADS, T::SMEM, st>>>(A, lda, Bm, ldb, bias, C, ldc, M, N, K);
   return (int)cudaGetLastError();
 }
 
@@ -854,80 +869,86 @@ int launch_gemm_bf16(const float* A, int lda, const float* Bm, int ldb, const fl
   return (int)cudaGetLastError();
 }
 
-// scan_recur_kernel of one mode, and its dynamic shared memory.
-template <int NU, bool BF16, bool RESIDENT>
+// One of the two recurrences in one mode (FWD: scan_fwd_recur_kernel, its
+// Wh columns resident; else scan_recur_kernel, its Wh rows resident), and
+// its dynamic shared memory.
+template <bool FWD, int NU, bool BF16, bool RESIDENT>
 struct Recur {
-  static auto kernel() { return scan_recur_kernel<NU, BF16, RESIDENT>; }
+  static auto kernel() {
+    if constexpr (FWD) return scan_fwd_recur_kernel<NU, BF16, RESIDENT>;
+    else return scan_recur_kernel<NU, BF16, RESIDENT>;
+  }
   static size_t smem(int H) {
-    return RESIDENT ? (size_t)NU * 4 * H * (BF16 ? sizeof(bf16) : sizeof(float)) : 0;
+    const size_t w = !RESIDENT          ? 0
+                     : FWD && BF16      ? (size_t)NU * 4 * fwd::ldw(H) * sizeof(bf16)
+                                        : (size_t)NU * 4 * H * (BF16 ? sizeof(bf16) : sizeof(float));
+    return w + (FWD ? sizeof(float) * fwd::stage_floats(NU) : 0);
   }
 };
 
-// fn(Recur<nu, bf16, resident>{}) for nu 4 or 8.
-template <typename F>
-int by_recur(int nu, int bf16, int resident, F fn) {
+// fn(Recur<fwd, nu, bf16, resident>{}) for nu 4 or 8.
+template <bool FWD, typename F>
+int by_nu(int nu, int bf16, int resident, F fn) {
   if (nu == 8) {
-    if (bf16) return resident ? fn(Recur<8, true, true>{}) : fn(Recur<8, true, false>{});
-    return resident ? fn(Recur<8, false, true>{}) : fn(Recur<8, false, false>{});
+    if (bf16) return resident ? fn(Recur<FWD, 8, true, true>{}) : fn(Recur<FWD, 8, true, false>{});
+    return resident ? fn(Recur<FWD, 8, false, true>{}) : fn(Recur<FWD, 8, false, false>{});
   }
-  if (bf16) return resident ? fn(Recur<4, true, true>{}) : fn(Recur<4, true, false>{});
-  return resident ? fn(Recur<4, false, true>{}) : fn(Recur<4, false, false>{});
+  if (bf16) return resident ? fn(Recur<FWD, 4, true, true>{}) : fn(Recur<FWD, 4, true, false>{});
+  return resident ? fn(Recur<FWD, 4, false, true>{}) : fn(Recur<FWD, 4, false, false>{});
+}
+
+template <typename F>
+int by_recur(int fwd, int nu, int bf16, int resident, F fn) {
+  return fwd ? by_nu<true>(nu, bf16, resident, fn) : by_nu<false>(nu, bf16, resident, fn);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Co-resident blocks of the forward kernel in the resident (stream = 0) or
-// streamed mode at these dims, each block owning nvb unit groups (0 if a
-// block needs more shared memory than an SM has), or minus a CUDA error.
-int jlm_lstm_scan_max_blocks(int stream, int bf16, int nvb, int B, int E, int H, int device) {
-  const size_t smem = fwd_smem(stream, nvb, B, E, H);
-  if (smem > SMEM_MAX) return 0;
-  return by_mode<Occupancy>(bf16, stream, smem, device);
-}
-
-// xs [B,T,E], b [4H], c0/h0 [B,H], fp32; W [E+H,4H] fp32, or its bf16 copy
-// in streamed bf16 mode; writes hs [B,T,H], cs [B,T,H], c_T, h_T [B,H].
-// bf16 = 1 rounds the product operands to bf16.  H % 4 == 0; grid blocks
-// of nvb unit groups each (resident mode: grid = H / 4, nvb = 1); the
-// wrapper checks co-residency.
-int jlm_lstm_scan_fwd(const float* xs, const void* W, const float* b,
-                      const float* c0, const float* h0, float* hs, float* cs,
-                      float* c_T, float* h_T, int B, int T, int E, int H,
-                      float forget_bias, int bf16, int stream, int grid, int nvb,
-                      void* st) {
-  void* args[] = {&xs, &W, &b, &c0, &h0, &hs, &cs, &c_T, &h_T,
-                  &B, &T, &E, &H, &forget_bias, &nvb};
-  return by_mode<Fwd>(bf16, stream, grid, fwd_smem(stream, nvb, B, E, H), args,
-                      static_cast<cudaStream_t>(st));
-}
-
 // C [M, N] (row stride ldc) = A [M, K] (row stride lda) B (+ bias [N] if
 // not null), fp32.  kn = 1: B [K, N] (row stride ldb); kn = 0: B given as
-// its transpose [N, K].  fp32 (exact FMAs): rm 8 (128-row block tiles)
-// or 4 (64); bf16 = 1: A and B rounded to bf16, mma.sync (rm not read).
+// its transpose [N, K].  fp32 (exact FMAs): K in `splits` ranges of kc
+// (a multiple of 16), each range's partial tile into ws [splits, M, N]
+// (scratch; unread at splits = 1), then summed in range order into C
+// (splits x the output's 128 x 128 tiles at most two an SM);
+// bf16 = 1: A and B rounded to bf16, mma.sync (splits, kc, ws not read).
 // K, N, lda, ldb multiples of 4.
 int jlm_scan_gemm(const float* A, int lda, const float* Bm, int ldb, const float* bias,
-                  float* C, int ldc, int M, int N, int K, int kn, int rm, int bf16, void* st) {
+                  float* C, int ldc, int M, int N, int K, int kn, int splits, int kc, float* ws,
+                  int bf16, void* st) {
   auto s = static_cast<cudaStream_t>(st);
   if (bf16)
     return kn ? launch_gemm_bf16<true>(A, lda, Bm, ldb, bias, C, ldc, M, N, K, s)
               : launch_gemm_bf16<false>(A, lda, Bm, ldb, bias, C, ldc, M, N, K, s);
-  if (kn)
-    return rm == 8 ? launch_gemm<true, 8>(A, lda, Bm, ldb, bias, C, ldc, M, N, K, s)
-                   : launch_gemm<true, 4>(A, lda, Bm, ldb, bias, C, ldc, M, N, K, s);
-  return rm == 8 ? launch_gemm<false, 8>(A, lda, Bm, ldb, bias, C, ldc, M, N, K, s)
-                 : launch_gemm<false, 4>(A, lda, Bm, ldb, bias, C, ldc, M, N, K, s);
+  return kn ? launch_gemm<true>(A, lda, Bm, ldb, bias, C, ldc, M, N, K, splits, kc, ws, s)
+            : launch_gemm<false>(A, lda, Bm, ldb, bias, C, ldc, M, N, K, splits, kc, ws, s);
 }
 
-// Co-resident blocks of scan_recur_kernel with nu (4 or 8) units a block,
-// their Wh rows resident in shared memory or not (0 if a block needs more
-// shared memory than an SM has), or minus a CUDA error.
-int jlm_scan_recur_max_blocks(int resident, int bf16, int nu, int H, int device) {
-  return by_recur(nu, bf16, resident, [&](auto r) {
+// Co-resident blocks of the forward (fwd = 1) or backward recurrence with
+// nu (4 or 8) units a block, their Wh columns (rows) resident in shared
+// memory or not (0 if a block needs more shared memory than an SM has), or
+// minus a CUDA error.
+int jlm_scan_recur_max_blocks(int fwd, int resident, int bf16, int nu, int H, int device) {
+  return by_recur(fwd, nu, bf16, resident, [&](auto r) {
     using R = decltype(r);
     return R::smem(H) > SMEM_MAX ? 0 : max_blocks(R::kernel(), R::smem(H), device);
+  });
+}
+
+// Zx [B,T,4H] = xs Wx; Wh [H,4H] fp32 (row stride 4H); b [4H]; c0, h0
+// [B,H]; writes hs, cs [B,T,H], c_T, h_T [B,H].  grid blocks of nvb groups
+// of nu units (resident: grid = H / nu, nvb = 1); the wrapper checks
+// co-residency.
+int jlm_scan_fwd_recur(const float* Zx, const float* Wh, const float* b, const float* c0,
+                       const float* h0, float* hs, float* cs, float* c_T, float* h_T, int B,
+                       int T, int H, float forget_bias, int bf16, int resident, int nu,
+                       int grid, int nvb, void* st) {
+  void* args[] = {&Zx, &Wh, &b, &c0, &h0, &hs, &cs, &c_T, &h_T,
+                  &B, &T, &H, &forget_bias, &nvb};
+  return by_nu<true>(nu, bf16, resident, [&](auto r) {
+    using R = decltype(r);
+    return (int)launch_coop(R::kernel(), grid, R::smem(H), args, static_cast<cudaStream_t>(st));
   });
 }
 
@@ -942,7 +963,7 @@ int jlm_scan_recur(const float* Z, float* dz, void* dzb, const float* Wh, const 
                    int resident, int nu, int grid, int nvb, void* st) {
   void* args[] = {&Z, &dz, &dzb, &Wh, &cs, &c0, &d_hs, &d_cf, &d_hf, &dc0, &dh0,
                   &B, &T, &H, &forget_bias, &nvb};
-  return by_recur(nu, bf16, resident, [&](auto r) {
+  return by_nu<false>(nu, bf16, resident, [&](auto r) {
     using R = decltype(r);
     return (int)launch_coop(R::kernel(), grid, R::smem(H), args, static_cast<cudaStream_t>(st));
   });

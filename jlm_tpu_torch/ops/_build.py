@@ -51,10 +51,9 @@ _SIGNATURES = {
     "jlm_ce_fwd": [_P] * 9 + [_I] * 7 + [_P],
     "jlm_ce_bwd_dh": [_P] * 9 + [_I] * 7 + [_P],
     "jlm_ce_bwd_dw": [_P] * 9 + [_I] * 5 + [_P],
-    "jlm_lstm_scan_max_blocks": [_I] * 7,
-    "jlm_lstm_scan_fwd": [_P] * 9 + [_I] * 4 + [ctypes.c_float] + [_I] * 4 + [_P],
-    "jlm_scan_gemm": [_P, _I, _P, _I, _P, _P] + [_I] * 7 + [_P],
-    "jlm_scan_recur_max_blocks": [_I] * 5,
+    "jlm_scan_gemm": [_P, _I, _P, _I, _P, _P] + [_I] * 7 + [_P, _I, _P],
+    "jlm_scan_recur_max_blocks": [_I] * 6,
+    "jlm_scan_fwd_recur": [_P] * 9 + [_I] * 3 + [ctypes.c_float] + [_I] * 5 + [_P],
     "jlm_scan_recur": [_P] * 11 + [_I] * 3 + [ctypes.c_float] + [_I] * 5 + [_P],
 }
 

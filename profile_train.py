@@ -2,13 +2,18 @@
 """Profile of the port's training step on one GPU.
 
 Run from the repository root on a machine with one CUDA card:
-``python3 profile_train.py [--out chiprun_out/train_profile.json]``.  It
+``python3 profile_train.py [--out FILE] [--root DIR] [--only LABEL] [--wide]``.  It
 trains ``chip_smoke.py``'s training configuration (V=50,000, E=256,
 H=512, one layer, batch 32 x window 32, Adam, fused CE) from the same
 weights and data in three ways, in turns: the LSTM as a loop of plain
 steps with the CE kernels, the same with each CE kernel swapped for its
 plain version, and ``--pallas-scan`` (the LSTM through the scan's
-kernels, CE kernels on: the forward's one, the backward's three).  Per run: 3 warm-up steps, then the host-clock
+kernels, CE kernels on: the forward's two, the backward's three).
+``--root`` imports ``jlm_tpu_torch`` from another checkout (a parent commit
+unpacked into a git-ignored directory, so that two trees are profiled in
+turns, each in its own process); ``--only`` keeps the turns of one run
+label; ``--wide`` trains at H = E = 1,024 (``chip_smoke.py``'s phase 5d
+width, weights from ``init_params``) instead.  Per run: 3 warm-up steps, then the host-clock
 ms/step of 10 steps (ending in a synchronize), then 5 steps under
 ``torch.profiler``.  From the profile: device busy ms per step (the sum of
 device activity; one stream), the idle share of the profiled wall time and
@@ -33,13 +38,15 @@ import time
 
 import torch
 
-from chip_smoke import N_CE, TB, TT, bench_data, plain_ce, training_corpus
+from chip_smoke import HW, N_CE, TB, TT, bench_data, plain_ce, training_corpus
 
 # the device functions of csrc/softmax_ce.cu and csrc/lstm_scan.cu
 CE_KERNELS = ("ce_fwd_kernel", "ms_merge_kernel", "ce_bwd_dh_kernel",
               "sum_splits_kernel", "ce_bwd_dw_kernel")
-SCAN_KERNELS = ("lstm_scan_fwd_kernel", "scan_gemm_kernel", "scan_gemm_bf16_kernel",
-                "scan_recur_kernel")
+# (lstm_scan_fwd_kernel: the forward of a tree from before its split into
+# scan_gemm_kernel + scan_fwd_recur_kernel, profiled with --root)
+SCAN_KERNELS = ("scan_fwd_recur_kernel", "scan_gemm_kernel", "scan_gemm_bf16_kernel",
+                "scan_recur_kernel", "lstm_scan_fwd_kernel")
 WARMUP, TIMED, PROFILED = 3, 10, 5
 
 
@@ -113,10 +120,15 @@ def profile_run(dev, config, params, train_ids, label: str, swap, trace_path: st
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="chiprun_out/train_profile.json")
+    ap.add_argument("--root", default=None, help="import jlm_tpu_torch from this checkout")
+    ap.add_argument("--only", default=None, help="run only the turns of this run label")
+    ap.add_argument("--wide", action="store_true", help="train at H = E = 1,024")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: needs one CUDA card", file=sys.stderr)
         return 1
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -127,12 +139,18 @@ def main(argv=None) -> int:
     os.makedirs(out_dir, exist_ok=True)
     config, vocab, _, params, _, _ = bench_data()
     config = config.replace(batch_size=TB, num_steps=TT, fused_ce=True)
+    if args.wide:
+        from jlm_tpu_torch.models.params import init_params
+
+        config = config.replace(hidden_size=HW, embed_size=HW)
+        params = init_params(config)
     runs_of = {"CE kernels": (config, None), "CE plain versions": (config, plain_ce),
                "scan kernels": (config.replace(use_pallas_scan=True), None)}
     train_ids, _ = training_corpus(vocab)
     runs = []
     turns = ("CE kernels", "scan kernels", "CE plain versions",
              "CE plain versions", "scan kernels", "CE kernels")
+    turns = tuple(t for t in turns if args.only in (None, t))
     for i, label in enumerate(turns):
         trace = os.path.join(out_dir, f"train_trace_{i}_{label.replace(' ', '_')}.json")
         cfg, swap = runs_of[label]
@@ -140,7 +158,8 @@ def main(argv=None) -> int:
         print(json.dumps(summary, indent=1), flush=True)
         runs.append(summary)
     with open(args.out, "w") as f:
-        json.dump({"card": card, "runs": runs}, f, indent=1)
+        json.dump({"card": card, "tree": args.root or ".", "wide": args.wide, "runs": runs}, f,
+                  indent=1)
     print(card)
     return 0
 

@@ -364,7 +364,7 @@ def _scan_case(cuda, seed, B, T, E, H):
     (32, 32, 256, 512),   # the training shape
     (40, 5, 64, 96),      # a second pass of batch rows, ragged
     (3, 7, 512, 512),     # a second layer's input width (E = H)
-    (32, 4, 1024, 1024),  # H = E = 1,024: the forward streams W from the L2
+    (32, 4, 1024, 1024),  # H = E = 1,024: 8 units a block, Wh resident
     (5, 3, 2048, 512),    # E > H
 ])
 def test_lstm_scan_kernels_vs_plain(cuda, B, T, E, H):
@@ -372,12 +372,13 @@ def test_lstm_scan_kernels_vs_plain(cuda, B, T, E, H):
     fp32 compute (exact fp32 products on both sides).  Bounds: hs, cs, c_T,
     h_T within 1e-5 abs (fp32 sums in another order); dz, dx, dc0, dh0
     within 2e-4 abs + 1e-4 rel (the reference tests' gradient bound).  The
-    backward launches each of its three kernels once."""
+    forward launches each of its two kernels once, the backward each of its
+    three."""
     from jlm_tpu_torch.ops import lstm_scan as ls
 
     xs, W, b, c0, h0 = _scan_case(cuda, 21, B, T, E, H)
     n0 = (ls.lstm_scan_fwd.launches, ls.lstm_scan_bwd.launches)
-    stages = (ls.scan_gates, ls.scan_recur, ls.scan_dx)
+    stages = (ls.scan_xw, ls.scan_fwd_recur, ls.scan_gates, ls.scan_recur, ls.scan_dx)
     s0 = [fn.launches for fn in stages]
     got = ls.lstm_scan_fwd(xs, W, b, c0, h0, 1.0)
     want = ls.lstm_scan_ref(xs, W, b, c0, h0, 1.0)
@@ -471,14 +472,13 @@ def test_lstm_scan_bf16_and_autograd_vs_plain(cuda):
 
 @pytest.mark.cuda
 def test_lstm_scan_refuses_what_it_cannot_take(cuda):
-    """The two shapes once refused launch and match the plain versions (the
+    """The shapes once refused launch and match the plain versions (the
     bounds of test_lstm_scan_kernels_vs_plain): 32 dx columns for 4 unit
-    groups (E = 128, H = 16), and H = E = 1,024 in bf16 (W streamed as its
-    bf16 copy; forward within 2e-3 abs, backward within 1e-2 of max |plain|).
-    The forward still refuses a batch whose carries leave no streamed block
-    room on an SM (B = 16,384 at H = 1,024); the backward takes it (its
-    carries live in device memory) and matches its plain version within
-    2e-4 abs + 1e-4 rel."""
+    groups (E = 128, H = 16); H = E = 1,024 in bf16 (forward within 2e-3
+    abs, backward within 1e-2 of max |plain|); and B = 16,384 at H = 1,024,
+    which both directions take (their carries live in device memory): the
+    forward within 1e-5 abs of ``lstm_scan_ref``, the backward within 2e-4
+    abs + 1e-4 rel."""
     from jlm_tpu_torch.ops import lstm_scan as ls
 
     xs, W, b, c0, h0 = _scan_case(cuda, 25, 2, 3, 128, 16)
@@ -498,12 +498,75 @@ def test_lstm_scan_refuses_what_it_cannot_take(cuda):
     for a, w in zip(got, want):
         assert _rel(a, w) <= 1e-2
     xs, W, b, c0, h0 = _scan_case(cuda, 25, 16384, 1, 16, 1024)
-    with pytest.raises(ValueError, match="not one block"):
-        ls.lstm_scan_fwd(xs, W, b, c0, h0)
-    hs, cs, _, _ = ls.lstm_scan_ref(xs, W, b, c0, h0)
+    got = ls.lstm_scan_fwd(xs, W, b, c0, h0)
+    want = ls.lstm_scan_ref(xs, W, b, c0, h0)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=1e-5, rtol=0)
+    hs, cs, _, _ = want
     got = ls.lstm_scan_bwd(xs, W, b, c0, h0, hs, cs, hs, c0, h0)
     for a, w in zip(got, ls.lstm_scan_bwd_ref(xs, W, b, c0, h0, hs, cs, hs, c0, h0)):
         torch.testing.assert_close(a, w, atol=2e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("B,T,E,H", [
+    (32, 8, 256, 512),    # the training width: 4 units a block
+    (32, 4, 1024, 1024),  # H = E = 1,024: 8 units a block
+    (40, 3, 64, 96),      # two tiles of batch rows, ragged; H not a multiple of 256
+    (3, 4, 64, 2048),     # H = 2,048: Wh's columns read from the L2 each step
+])
+def test_lstm_scan_fwd_stages_vs_plain(cuda, B, T, E, H, dtype):
+    """scan_xw and scan_fwd_recur vs their plain versions on the same
+    inputs, one launch each.  Bounds: Zx within 1e-5 of its largest
+    magnitude (the same rounded operands on both sides, products exact in
+    fp32; sums in another order); hs, cs, c_T, h_T within 1e-5 abs (fp32)
+    or 2e-3 abs (bf16: a flipped bf16 rounding of h_{t-1} is carried)."""
+    from jlm_tpu_torch.ops import lstm_scan as ls
+
+    cd = torch.float32 if dtype == "fp32" else torch.bfloat16
+    xs, W, b, c0, h0 = _scan_case(cuda, 28, B, T, E, H)
+    n0 = [fn.launches for fn in (ls.scan_xw, ls.scan_fwd_recur)]
+    Zx = ls.scan_xw(xs, W[:E], cd)
+    Zp = ls.scan_xw_ref(xs, W[:E], cd)
+    got = ls.scan_fwd_recur(Zp, W[E:], b, c0, h0, 1.0, cd)
+    want = ls.scan_fwd_recur_ref(Zp, W[E:], b, c0, h0, 1.0, cd)
+    assert [fn.launches for fn in (ls.scan_xw, ls.scan_fwd_recur)] == [n + 1 for n in n0]
+    torch.cuda.synchronize()
+    assert _rel(Zx, Zp) <= 1e-5
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=1e-5 if dtype == "fp32" else 2e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kn", [True, False])
+@pytest.mark.parametrize("M,N,K", [
+    (1024, 2048, 768),   # scan_gates at H = 512: K split in 2
+    (1024, 4096, 2048),  # scan_gates at H = 1,024: no split
+    (1024, 256, 2048),   # scan_dx at H = 512: K split in 16
+    (1024, 1024, 4096),  # scan_dx at H = 1,024: K split in 4
+    (200, 100, 36),      # ragged tiles, K off the 16-deep chunk
+    (33, 8, 3000),       # one tile, K split with a ragged last range
+])
+def test_scan_gemm_split_k_vs_plain(cuda, M, N, K, kn):
+    """The fp32 GEMM (``scan_gates`` for B [K, N] with its bias, ``scan_dx``
+    for B given as [N, K]) at shapes that take and that skip the split of
+    K, within 1e-5 of max |plain| (exact fp32 FMAs, sums in another
+    order), with TF32 off on the plain side."""
+    from jlm_tpu_torch.ops import lstm_scan as ls
+
+    rng = np.random.default_rng(M + N + K)
+    A = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(cuda)
+    if kn:
+        Wm = torch.from_numpy(rng.normal(size=(K, N)).astype(np.float32) * 0.05).to(cuda)
+        b = torch.from_numpy(rng.normal(size=(N,)).astype(np.float32)).to(cuda)
+        got, want = ls.scan_gates(A, Wm, b), ls.scan_gates_ref(A, Wm, b)
+    else:
+        Wm = torch.from_numpy(rng.normal(size=(N, K)).astype(np.float32) * 0.05).to(cuda)
+        got, want = ls.scan_dx(A, Wm), ls.scan_dx_ref(A, Wm)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (M, N)
+    assert _rel(got, want) <= 1e-5
 
 
 @pytest.mark.cuda

@@ -194,3 +194,37 @@ def test_lstm_scan_bwd_stages_compose(B, T, E, H, dtype):
             np.testing.assert_allclose(g.numpy(), w, atol=2e-4, rtol=1e-4, err_msg=name)
         else:
             assert np.abs(g.numpy() - w).max() <= 1e-2 * np.abs(w).max(), name
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("B,T,E,H", [(4, 8, 32, 64), (3, 5, 30, 30), (2, 3, 1024, 1024)])
+def test_lstm_scan_fwd_stages_compose(B, T, E, H, dtype):
+    """The forward's two stages composed (``scan_xw`` -> ``scan_fwd_recur``,
+    their plain versions on the CPU) equal the per-step plain forward
+    ``lstm_scan_ref`` and the JAX package's forward (interpret mode; at
+    1,024 its jnp fallback, fp32 whatever the dtype): hs, cs, c_T, h_T
+    within 1e-5 abs (fp32: sums in another order) or 2e-3 abs (bf16, the
+    bound chip_smoke's phase 2 holds the bf16 scan to: a sum-order
+    difference can flip a bf16 rounding of h_{t-1}, which later steps
+    carry; at 1,024 the fallback does not round at all)."""
+    from jlm_tpu.ops.lstm_scan import _lstm_scan_fwd_impl
+
+    cd, jd = (torch.float32, jnp.float32) if dtype == "fp32" else (torch.bfloat16,
+                                                                     jnp.bfloat16)
+    tol = 1e-5 if dtype == "fp32" else 2e-3
+    args, _, _ = _inputs(41, B, T, E, H)
+    xs, W, b, c0, h0 = (torch.from_numpy(a) for a in args)
+    Zx = ls.scan_xw(xs, W[:E], cd)
+    got = ls.scan_fwd_recur(Zx, W[E:], b, c0, h0, 1.0, cd)
+    assert Zx.shape == (B, T, 4 * H) and [tuple(g.shape) for g in got] == [
+        (B, T, H), (B, T, H), (B, H), (B, H)]
+    want = ls.lstm_scan_ref(xs, W, b, c0, h0, 1.0, cd)
+    for g, w, name in zip(got, want, ["hs", "cs", "c_T", "h_T"]):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=tol, err_msg=name)
+    for g, w in zip(ls.lstm_scan_fwd(xs, W, b, c0, h0, 1.0, cd), got):  # the wrapper
+        assert torch.equal(g, w)                                         # composes them
+    jax_out = _lstm_scan_fwd_impl(*map(jnp.asarray, args), forget_bias=1.0, time_block=T,
+                                  compute_dtype=jd, interpret=True, save_cs=True)
+    for g, w, name in zip(got, jax_out, ["hs", "cs", "c_T", "h_T"]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w, np.float32), atol=tol,
+                                   err_msg=name)

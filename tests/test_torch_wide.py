@@ -6,9 +6,10 @@ numpy-seeded inputs go through the JAX functions (Pallas in interpret mode,
 as tests/test_kernels.py runs them; the JAX scan takes its jnp fallback at
 these widths) and through the port's wrappers, which run their plain
 versions on CPU tensors.  tests/test_torch_kernels_cuda.py holds the CUDA
-kernels to those plain versions on the card at the same widths.  The scan's
-launch plan (resident or streamed W, blocks and unit groups) is checked
-here against an occupancy table of the card's shape.  Tolerances as in
+kernels to those plain versions on the card at the same widths.  The scan
+recurrences' launch plan (Wh resident or not, units a block, blocks) is
+checked here against an occupancy table of the card's shape, and the fp32
+GEMM's split of K as a function of the card's SM count.  Tolerances as in
 test_torch_softmax_ce.py, test_torch_lstm_scan.py and test_torch_ops.py.
 """
 
@@ -125,79 +126,88 @@ def test_lstm_scan_1024_matches_jax(dtype):
 
 
 class _Occupancy:
-    """Stands in for the kernel library's occupancy queries with the numbers
-    of a 132-SM card.  Forward: a resident block (its W columns in shared
-    memory) fits once an SM up to E + H = 2,560 (its ~128 KB at E = H =
-    1,024 is more than half an SM's 227 KB), a streamed block twice, while
-    its carries fit.  ``scan_recur``: a block with its nu rows of Wh
-    resident fits once an SM from 114 KB (nu = 8 at H = 1,024 in fp32),
-    twice below, not at all past 227 KB; without them twice (none with
-    ``no_room``)."""
+    """Stands in for the kernel library's occupancy query with the numbers
+    of a 132-SM card.  A recurrence block with its Wh share resident (nu
+    columns or rows x 4H, fp32 or bf16, plus the forward's 36 KB stage)
+    fits once an SM from 114 KB (the forward at nu = 8, H = 1,024 in fp32),
+    twice below, not at all past 227 KB; without its Wh share twice (none
+    with ``no_room``)."""
 
     def __init__(self, no_room=False):
         self.calls, self.no_room = [], no_room
 
-    def jlm_lstm_scan_max_blocks(self, streamed, bf16, nvb, B, E, H, device):
-        self.calls.append((streamed, nvb))
-        if not streamed:
-            return 132 if (E + H) * 64 < 232448 else 0
-        carries = nvb * B * 4 * 4
-        return 264 if carries < 100_000 else (132 if carries < 300_000 else 0)
-
-    def jlm_scan_recur_max_blocks(self, resident, bf16, nu, H, device):
-        smem = nu * 4 * H * (2 if bf16 else 4) if resident else 0
+    def jlm_scan_recur_max_blocks(self, fwd, resident, bf16, nu, H, device):
+        self.calls.append((fwd, resident, nu))
+        smem = (nu * 4 * H * (2 if bf16 else 4) if resident else 0) + (36864 if fwd else 0)
         if self.no_room or smem > 232448:
             return 0
         return 132 if smem > 232448 // 2 else 264
 
 
 @pytest.mark.parametrize("B,E,H,bwd,want", [
-    (32, 256, 512, 0, (0, 128, 1)),    # the 50k training shape: resident W, H / 4 blocks
-    (32, 256, 512, 1, (1, 4, 128, 1)),  # Wh rows resident, 4 units a block
-    (32, 1024, 1024, 0, (1, 256, 1)),  # H = E = 1,024: W streamed, two blocks an SM
-    (32, 1024, 1024, 1, (1, 8, 128, 1)),  # 8 units a block, 128 KB of Wh: one an SM
-    (32, 2048, 2048, 1, (0, 8, 256, 1)),  # 256 KB of Wh a block: read from the L2
+    (32, 256, 512, 0, (1, 4, 128, 1)),     # the 50k training shape: Wh columns resident
+    (32, 256, 512, 1, (1, 4, 128, 1)),     # Wh rows resident, 4 units a block
+    (32, 1024, 1024, 0, (1, 8, 128, 1)),   # H = E = 1,024: 8 units, 164 KB: one an SM
+    (32, 1024, 1024, 1, (1, 8, 128, 1)),   # 8 units a block, 128 KB of Wh: one an SM
+    (32, 2048, 2048, 0, (0, 8, 256, 1)),   # 256 KB of Wh a block: read from the L2
+    (32, 2048, 2048, 1, (0, 8, 256, 1)),
     (4096, 1024, 1024, 1, (1, 8, 128, 1)),  # large batches: the carries are in device memory
-    (16384, 16, 1024, 1, (1, 8, 128, 1)),   # the batch the forward refuses
+    (16384, 16, 1024, 0, (1, 8, 128, 1)),   # the batch the forward once refused
+    (16384, 16, 1024, 1, (1, 8, 128, 1)),
 ])
 def test_lstm_scan_plan(monkeypatch, B, E, H, bwd, want):
-    """``_plan`` (forward) keeps the resident design where all H / 4 blocks
-    fit and otherwise streams W with a grid that the card holds at once,
-    each block owning ceil(H / 4 / grid) unit groups; ``_bwd_plan``
-    (``scan_recur``) keeps Wh's rows resident where all H / nu blocks fit,
-    whatever the batch."""
+    """``_plan`` keeps Wh's share resident where all H / nu blocks fit,
+    whatever the batch, for the forward's recurrence (its 4 nu columns) and
+    the backward's (its nu rows); else it reads Wh from the L2 with a grid
+    that the card holds at once, each block owning ceil(H / nu / grid)
+    groups."""
     from jlm_tpu_torch.ops import _build
 
     fake = _Occupancy()
     monkeypatch.setattr(_build, "lib", lambda: fake)
     cpu = torch.device("cpu")
-    if bwd:
-        assert ls._bwd_plan(H, torch.float32, cpu) == want
-        resident, nu, grid, nvb = want
-        assert grid * nvb * nu >= H and grid <= (132 if resident else 264)
-    else:
-        assert ls._plan(B, E, H, torch.float32, cpu) == want
-        streamed, grid, nvb = want
-        assert grid * nvb >= H // 4 and (not streamed or grid <= 264)
+    assert ls._plan(H, torch.float32, cpu, fwd=not bwd) == want
+    resident, nu, grid, nvb = want
+    assert grid * nvb * nu >= H and grid <= (132 if resident else 264)
+    assert all(fwd == (not bwd) for fwd, _, _ in fake.calls)
 
 
 def test_lstm_scan_plan_refuses_only_what_no_grid_holds(monkeypatch):
-    """A shape at which not one block fits on an SM raises, with the reason:
-    the forward at a batch whose carries fill a streamed block's shared
-    memory, the recurrence only where the card reports no room for even a
-    block without Wh; E and H must be multiples of 4 (the wrappers pad
-    them)."""
+    """Neither recurrence refuses a batch (the forward at B = 16,384 plans:
+    its carries are in device memory); a plan raises, with the reason, only
+    where the card reports no room for even a block without Wh; the units a
+    block must be 4 or 8 dividing H (the wrappers pad E and H to multiples
+    of 4)."""
     from jlm_tpu_torch.ops import _build
 
     cpu = torch.device("cpu")
     monkeypatch.setattr(_build, "lib", lambda: _Occupancy())
-    with pytest.raises(ValueError, match="not one block"):
-        ls._plan(16384, 1024, 1024, torch.float32, cpu)
-    with pytest.raises(ValueError, match="multiple|% 4"):
-        ls._plan(2, 30, 30, torch.float32, cpu)
+    assert ls._plan(1024, torch.float32, cpu, fwd=True) == (1, 8, 128, 1)
+    with pytest.raises(ValueError, match="4 or 8 units"):
+        ls._plan(30, torch.float32, cpu, fwd=True)
     monkeypatch.setattr(_build, "lib", lambda: _Occupancy(no_room=True))
-    with pytest.raises(ValueError, match="not one block"):
-        ls._bwd_plan(1024, torch.float32, cpu)
+    for fwd in (True, False):
+        with pytest.raises(ValueError, match="not one block"):
+            ls._plan(1024, torch.float32, cpu, fwd=fwd)
+
+
+@pytest.mark.parametrize("sms,want", [(132, [(1, 768), (1, 2048), (16, 128), (4, 1024)]),
+                                      (114, [(1, 768), (1, 2048), (13, 160), (1, 4096)])])
+@pytest.mark.parametrize("case", range(4))
+def test_scan_gemm_plan(sms, want, case):
+    """The fp32 GEMM's split of K at the training window's four shapes (M =
+    B T = 1,024: ``scan_gates`` at H = 512 and 1,024, ``scan_dx`` at H =
+    512 and 1,024) on a 132-SM and a 114-SM card: K is split only where
+    the 128 x 128 tiles would leave more than half the SMs without a block,
+    into ranges of whole 16-deep chunks (at least 8) that cover K exactly,
+    as many as the card's two blocks an SM take."""
+    M, N, K = [(1024, 2048, 768), (1024, 4096, 2048), (1024, 256, 2048),
+               (1024, 1024, 4096)][case]
+    splits, kc = ls._gemm_plan(M, N, K, sms)
+    assert (splits, kc) == want[case]
+    assert kc % 16 == 0 and kc >= min(K, 128) and (splits - 1) * kc < K <= splits * kc
+    tiles = -(-M // 128) * -(-N // 128)
+    assert (splits > 1) == (2 * tiles <= sms) and tiles * splits <= max(tiles, 2 * sms)
 
 
 # weights: (quantized, JAX / port compute dtype, tolerance) -- bf16 operands

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Device times of the decode frame's kernels and the scan backward, both ways.
+"""Device times of the decode frame's kernels and the LSTM scan, both ways.
 
 Run from the repository root on a machine with one CUDA card:
-``python3 time_kernels.py [--root DIR] [--out FILE]``.  ``--root`` imports
+``python3 time_kernels.py [--root DIR] [--only PARTS] [--out FILE]``.  ``--root`` imports
 ``jlm_tpu_torch`` from DIR instead (another checkout of the repository, for
 example a parent commit unpacked into a git-ignored directory), so that two
 trees are timed in turns, each in its own process, on one card.
@@ -16,16 +16,20 @@ times ``cand_dot`` against ``torch.baddbmm``, ``lstm_cell_step`` against
 ``torch.lstm_cell`` in fp32, and the int8-MXU head (``project_lse``, R = 20,480) at
 V = 50,000 on slices 512, 1,024, 1,536 and 2,048 wide and at BASELINE
 config 5's D-softmax blocks.  At the training window (B = T = 32) it times
-``lstm_scan_bwd`` in fp32 and bf16 at H = E = 1,024 and in fp32 at H = 512,
-E = 256, each beside cuDNN's LSTM backward (``torch.nn.LSTM`` on the same
-weights, its backward alone on a retained graph, TF32 off), and, where
-the tree has them, the backward's three kernels alone (``scan_gates``,
-``scan_recur`` with 4 and 8 units a block, ``scan_dx``).  Each is timed two ways (``chip_smoke``'s
+``lstm_scan_fwd`` and ``lstm_scan_bwd`` in fp32 and bf16 at H = E = 1,024
+and in fp32 at H = 512, E = 256, each beside cuDNN's LSTM forward or
+backward (``torch.nn.LSTM`` on the same weights, its backward alone on a
+retained graph, TF32 off), and, where the tree has them, each direction's
+kernels alone (``scan_xw``, ``scan_fwd_recur``, ``scan_gates``,
+``scan_recur``, the recurrences with 4 and 8 units a block, ``scan_dx``)
+with the fp32 GEMMs' ``torch.mm`` / ``torch.addmm`` beside them.  Each is timed two ways (``chip_smoke``'s
 helpers): ``one_ms``, the median of 10 calls each between two CUDA events
 (the wrapper's Python before the launch counts), and ``row_ms``, the events
 around 50 calls in a row divided by 50 (the device's time where the device
 is the slower side) with ``host_ms``, the host's time a call.  A function
-that the tree refuses is recorded as its error.  Prints one JSON line (the
+that the tree refuses is recorded as its error; ``--only`` times just the
+cases whose names hold one of its comma-separated parts (``--only
+H1024,H512``: the scan).  Prints one JSON line (the
 card's name and power limit in it) and appends it to ``--out``.
 """
 
@@ -119,9 +123,10 @@ def cases(dev):
 
 
 def scan_cases(dev, g, Hs, Es, cd):
-    """The scan backward at B = TB, T = TT (fp32 master values, ``cd``
-    compute), cuDNN's LSTM backward in ``cd`` beside it, and the backward's
-    three kernels alone where the tree has them."""
+    """The scan forward and backward at B = TB, T = TT (fp32 master values,
+    ``cd`` compute), cuDNN's LSTM forward and backward in ``cd`` beside
+    them, and each direction's kernels alone where the tree has them (with
+    the fp32 GEMMs' library calls)."""
     from jlm_tpu_torch.ops import lstm_scan as ls
 
     def t(*shape, scale=1.0):
@@ -143,9 +148,26 @@ def scan_cases(dev, g, Hs, Es, cd):
     leaves = [a.to(cd).clone().requires_grad_(True) for a in (xs, h0, c0)] + list(lstm.parameters())
     hs_l, (h_T, c_T) = lstm(leaves[0], (leaves[1][None], leaves[2][None]))
     d_out = (d_hs.to(cd), d_hf[None].to(cd), d_cf[None].to(cd))
-    out = [(f"lstm_scan_bwd {name}", lambda: ls.lstm_scan_bwd(*saved, 1.0, cd)),
+    fwd_in = (xs, W, b, c0, h0)
+
+    def cudnn_fwd():
+        with torch.no_grad():
+            return lstm(leaves[0], (leaves[1][None], leaves[2][None]))
+
+    out = [(f"lstm_scan_fwd {name}", lambda: ls.lstm_scan_fwd(*fwd_in, 1.0, cd)),
+           (f"cuDNN LSTM fwd {name}", cudnn_fwd),
+           (f"lstm_scan_bwd {name}", lambda: ls.lstm_scan_bwd(*saved, 1.0, cd)),
            (f"cuDNN LSTM bwd {name}",
             lambda: torch.autograd.grad((hs_l, h_T, c_T), leaves, d_out, retain_graph=True))]
+    fp32 = cd == torch.float32
+    if hasattr(ls, "scan_xw"):
+        Zx = ls.scan_xw_ref(xs, W[:Es], cd)
+        out += [(f"scan_xw {name}", lambda: ls.scan_xw(xs, W[:Es], cd))]
+        out += [(f"scan_fwd_recur {name} nu{nu}",
+                 lambda nu=nu: ls.scan_fwd_recur(Zx, W[Es:], b, c0, h0, 1.0, cd, nu=nu))
+                for nu in (4, 8)]
+    if fp32:
+        out += [(f"torch.mm xw {name}", lambda: torch.mm(xs.reshape(-1, Es), W[:Es]))]
     if hasattr(ls, "scan_recur"):
         xh = torch.cat([xs, torch.cat([h0[:, None], hs[:, :-1]], dim=1)], dim=2)
         Z = ls.scan_gates_ref(xh, W, b, cd)
@@ -155,12 +177,20 @@ def scan_cases(dev, g, Hs, Es, cd):
                  lambda nu=nu: ls.scan_recur(Z, W[Es:], c0, cs, d_hs, d_cf, d_hf, 1.0, cd,
                                              out=buf, nu=nu)) for nu in (4, 8)]
         out += [(f"scan_dx {name}", lambda: ls.scan_dx(dz, W[:Es], cd))]
+    if fp32:
+        xh2 = torch.cat([xs, torch.cat([h0[:, None], hs[:, :-1]], dim=1)], dim=2)
+        dz2 = torch.randn(TB * TT, 4 * Hs, generator=g, device=dev)
+        out += [(f"torch.addmm gates {name}",
+                 lambda: torch.addmm(b, xh2.reshape(-1, Es + Hs), W)),
+                (f"torch.mm dx {name}", lambda: torch.mm(dz2, W[:Es].t()))]
     return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=None, help="import jlm_tpu_torch from this checkout")
+    ap.add_argument("--only", default="",
+                    help="time only the cases whose names hold one of these comma-separated parts")
     ap.add_argument("--out", default="build/kernel_times.jsonl")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -178,6 +208,8 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     times = {}
     for name, fn in cases(dev):
+        if not any(part in name for part in args.only.split(",")):
+            continue
         try:
             one = cuda_ms(fn)
             row, host = in_a_row(fn)
