@@ -1,9 +1,11 @@
 // Hopper building blocks shared by the wgmma + TMA kernels (lstm_cell.cu,
-// project_lse.cu, cell_cand.cu) and the bulk-copy ring of cand_dot.cu:
+// project_lse.cu, cell_cand.cu, softmax_ce.cu) and the bulk-copy ring of
+// cand_dot.cu:
 // tensor maps for TMA, bulk copies, mbarriers, and wgmma's shared-memory
 // descriptors and ordering fences.
 //
-// Every shared-memory operand here is K-major with the 128-byte swizzle:
+// Every shared-memory operand here is K-major with the 128-byte swizzle
+// (but smem_desc_mn's, the same bytes read with MN and K swapped):
 // a tile row holds 128 bytes of K (64 bf16 or 128 int8 values), rows follow
 // each other at 128 bytes, and the swizzle repeats every 8 rows (1,024
 // bytes), which is what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes
@@ -181,6 +183,21 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p) {
          | (uint64_t)1 << 16              // leading byte offset (unused here)
          | (uint64_t)(1024 >> 4) << 32    // stride byte offset: 8 rows
          | (uint64_t)1 << 62;             // 128-byte swizzle
+}
+
+// Descriptor of an MN-major, 128-byte-swizzled bf16 operand starting at p
+// (for the _tb products of wgmma.cuh): a 128-byte row holds 64 MN elements
+// and rows are consecutive K, 8 of them to a 1,024-byte swizzle atom (the
+// stride byte offset), which is what a TMA box [K rows][64 elements] with
+// CU_TENSOR_MAP_SWIZZLE_128B writes; the next 64 MN elements lie `mn_stride`
+// bytes on (the leading byte offset).  A K step of 16 advances p by 2,048
+// bytes.
+__device__ __forceinline__ uint64_t smem_desc_mn(const void* p, uint32_t mn_stride) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4)                       // start address
+         | (uint64_t)((mn_stride & 0x3FFFF) >> 4) << 16  // leading: next 64 of MN
+         | (uint64_t)(1024 >> 4) << 32                  // stride: next 8 rows of K
+         | (uint64_t)1 << 62;                           // 128-byte swizzle
 }
 
 __device__ __forceinline__ void wgmma_fence() {

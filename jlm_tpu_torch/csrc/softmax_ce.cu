@@ -20,40 +20,96 @@
 // the L2 serves while the row blocks re-stream it.  In fp32 the bound is
 // the 67 TFLOP/s of the CUDA cores: ~0.78 ms a product.
 //
-// Layouts: h [N, D] and W [D, V] bf16 row-major, W in its own layout: the
-// wrapper casts the [D, V] fp32 master to bf16 once per forward and once
-// per backward (~150 MB of traffic, ~0.05 ms at V = 50,000) and never
-// transposes it.  ldmatrix.trans turns a [k][n] tile of W into mma's
-// col-major B fragment, and a plain ldmatrix of the same shared tile read
-// as [n][k] gives W^T's fragment for dh.
+// Layouts: h [N, D] and W [D, V] bf16 row-major for the forward: the
+// wrapper casts the [D, V] fp32 master to bf16 once per forward (~150 MB of
+// traffic, ~0.05 ms at V = 50,000); ldmatrix.trans turns a [k][n] tile of W
+// into mma's col-major B fragment.  The bf16 backward reads W^T [V, D]
+// instead, which the wrapper's cast writes in the same one pass
+// (cast_wt_kernel), for the reason given with its kernels below.
 // Columns >= V are masked (p = 0, no target), as the reference's -1e30
-// bias padding does; V must be a multiple of 8 (16-byte row chunks) and
-// D a multiple of 128.
+// bias padding does; D must be a multiple of 128, and the forward's and
+// the fp32 kernels' V a multiple of 8 (16-byte row chunks).  The bf16
+// backward takes any V: W^T's rows past V read as zero through TMA, so a
+// column past V meets a zero row in the output product, and db stores
+// only the first V.
 //
-// Hidden slices wider than KW = 512: what a kernel keeps D-wide on chip
-// (h rows and W tiles in shared memory, dh or dW in registers) is cut into
-// K chunks of at most 512.  The logits accumulate over the chunks, each
-// staged in turn into the buffers a 512-wide slice uses (at D <= 512 one
-// chunk, staged as before); a D-wide output is split over the grid (dh
-// over grid.z, dW over grid.y), each slice of at most 512 recomputing the
-// logits and taking its chunk last, so that the chunk left in shared
-// memory is the one its product needs.  Only ce_fwd_f32 needs no change:
-// it streams K in chunks of 32 at every D.
+// Hidden slices wider than KW = 512 (the forward, the fp32 backward): what
+// a kernel keeps D-wide on chip (h rows and W tiles in shared memory, dh or
+// dW in registers) is cut into K chunks of at most 512.  The logits
+// accumulate over the chunks, each staged in turn into the buffers a
+// 512-wide slice uses (at D <= 512 one chunk, staged as before); a D-wide
+// output is split over the grid (dh over grid.z, dW over grid.y), each
+// slice of at most 512 recomputing the logits and taking its chunk last,
+// so that the chunk left in shared memory is the one its product needs.
+// Only ce_fwd_f32 needs no change: it streams K in chunks of 32 at every D.
 //
-// Design (simple first: mma.sync m16n8k16, no cp.async/TMA pipeline):
+// Forward design (mma.sync m16n8k16, no cp.async/TMA pipeline):
 // - ce_fwd: a block owns 128 rows and loops over its share of 64-column
 //   vocab tiles (the TPU kernel's sequential vocab axis); the vocab is
 //   split over grid.y so 8 row blocks still fill the card, and a small
 //   second kernel merges the split partials (m, s).  The one column that
 //   matches a row's target writes t directly: a write, not a one-hot sum.
-// - ce_bwd_dh: a block owns 32 rows; per 64-column tile it recomputes the
-//   logits, forms gp in registers, stages it as bf16 in shared memory and
-//   accumulates dh [32, D] (64 fp32 registers a thread at D = 512).  The
-//   vocab is split over grid.y into fp32 partial dh buffers, summed by a
-//   second kernel (deterministic, no atomics).
-// - ce_bwd_dw: a block owns 32 vocab columns and loops over the rows in
-//   chunks of 64; it accumulates dW [D, 32] (64 registers a thread) and
-//   db, and writes each once.
+//
+// bf16 backward design (ce_bwd_dh_kernel, ce_bwd_dw_kernel: wgmma + TMA,
+// sm_90a).  Both are one kernel body, shaped like an attention forward
+// with the softmax replaced by gp: a block owns 64 "q" rows, resident in
+// shared memory, and walks 64-row "kv" tiles; per tile it forms the logits
+// q . kv^T over D, turns them into gp in registers, and multiplies gp by
+// the same kv tile into an output [64 q, slice of D] held in registers.
+// - dh: q = rows of h, kv = rows of W^T (vocab columns), out = dh; the
+//   vocab is split over grid.y into fp32 partials, summed in split order by
+//   sum_splits_kernel (deterministic, no atomics).  N = 1,024 gives 16 row
+//   blocks, so 8 splits fill the card.
+// - dW: q = rows of W^T, kv = rows of h, out = dW^T, over every row tile;
+//   db sums the fp32 gp beside it; each element of dW and db is written
+//   once (782 vocab blocks at V = 50,000).
+// - Why W^T: with both operands [rows, D] row-major, one TMA box of 64 rows
+//   x 64 of K (128 bytes, 128-byte swizzle) serves both products: K-major
+//   as the logits' B (n = kv, k = d) and MN-major as the output product's B
+//   (k = kv, n = d), read with wgmma's transpose bit (legal for bf16;
+//   hopper.cuh::smem_desc_mn).  With W as it is stored, dW's logits would
+//   need an MN-major A and the two kernels two layouts; the transposing
+//   cast costs what the plain cast did (one read of W, one bf16 write).
+// - Warp roles: consumer warpgroups 0 and 1 each compute the logits [64 q,
+//   64 kv] over half of K (2 of each chunk's 4 K steps: wgmma m64n64k16,
+//   K-major; m64n32 halves of the kv rows read 1.5x the shared memory a
+//   clock the SM serves), hand each other the partial sums of the other's
+//   32 kv through shared memory, form gp of their 32 kv from the
+//   accumulator fragment and write it as bf16 straight into the
+//   128-byte-swizzled A operand of the output product, which both read;
+//   each then accumulates half the slice's columns (m64nNWk16 with the
+//   transposed B, NW = 256 at D = 512: a 64 x 512 fp32 tile is 256
+//   registers a thread for one warpgroup, 128 for each of two).  Two named
+//   barriers a tile: the exchange (which also shows both warpgroups'
+//   previous output product complete, so gp is free) and gp's writes.
+//   Warpgroup 2 produces: one thread the q rows and the pass chunks, one
+//   the slice chunks, one warp each tile's kv terms (bias, or the rows' ga,
+//   gb, lse, target) into shared memory beside them, so that no global
+//   load waits in the epilogue.  exp is 2^x of the special-function unit
+//   on arguments in log2 units.
+// - Pipeline: the q rows load once.  A tile's kv rows arrive as 8 KB K
+//   chunks: the slice's chunks into a slot of n_own (released when the
+//   output product that reads them completes, which the next tile's first
+//   logits group shows), any others into a ring of n_pass pass slots (each
+//   released as the logits product past it completes).  The plan
+//   (ops/softmax_ce.py::bwd_plan) picks the slots that fit: at D = 512 two
+//   slots of a tile (64 KB each) beside the 64 KB of q rows and 24 KB of
+//   gp and exchange, so a tile's loads overlap the previous tile's
+//   products.
+// - D > 512: the output is cut into slices of 512 (256, 128 where 512 does
+//   not divide D) over grid.z (dh) or grid.y (dW), each slice recomputing
+//   the logits over all of D: at D = 1,024 the logits are computed twice
+//   per (q, kv) pair, 3 products' work for 2, as before.  Only the slice's
+//   q chunks stay resident; each pass slot brings a q chunk beside its kv
+//   chunk (the q rows kept whole would leave room for too few pass slots
+//   to keep the L2 busy).
+// - Traffic: the L2 streams W^T once per 64-row block for dh (16 x 51 MB
+//   at N = 1,024, D = 512) and h once per 64-column block for dW (782 x 1
+//   MB): at ~5.8 TB/s about 0.14 ms each, above the 0.106 ms the products
+//   take at the bf16 peak; a 2-CTA cluster multicasting each kv chunk
+//   halved that traffic and read no faster, so the tiles are bound by
+//   their own latency (the epilogue's exponentials and the two barriers
+//   leave the tensor cores idle), not by the L2.
 // fp32 compute (the *_f32 kernels; the bf16 tiling does not carry over:
 // 128 rows x D of fp32 h would be 256 KB at D = 512):
 // - ce_fwd_f32: a block owns 64 rows, K streams through shared memory in
@@ -65,6 +121,8 @@
 // - ce_bwd_dw_f32: a block owns 32 vocab columns (their W staged once,
 //   transposed) and loops over the rows in chunks of 32.
 #include "common.cuh"
+#include "hopper.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -74,8 +132,12 @@ constexpr int THREADS = 256;
 constexpr float NEG = -1e30f;
 
 constexpr int F_TR = 128, F_TV = 64;  // ce_fwd: rows per block, tile columns
-constexpr int H_TR = 32, H_TV = 64;   // ce_bwd_dh
-constexpr int W_TR = 64, W_TV = 32;   // ce_bwd_dw: row chunk, columns per block
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
 
 __device__ __forceinline__ uint4 ld16(const bf16* p, bool ok) {
   return ok ? *reinterpret_cast<const uint4*>(p) : make_uint4(0, 0, 0, 0);
@@ -306,144 +368,7 @@ __global__ void ms_merge_kernel(const float* __restrict__ m_part,
   s_out[row] = s;
 }
 
-// ------------------------------------------------------------ backward dh
-
-size_t dh_smem(int D) {
-  D = D < KW ? D : KW;
-  return (size_t)H_TR * (D + 8) * 2 + (size_t)D * (H_TV + 8) * 2 +
-         (size_t)H_TR * (H_TV + 8) * 2 + (H_TV + 4 * H_TR) * sizeof(float);
-}
-
-// grid.z: the 512-wide slice of dh's columns a block writes.  Two blocks
-// an SM (the wrapper's plan, _DH_TILE): at most 128 registers a thread.
-__global__ void __launch_bounds__(THREADS, 2)
-ce_bwd_dh_kernel(const bf16* __restrict__ h, const bf16* __restrict__ W,
-                 const float* __restrict__ bias, const int* __restrict__ y,
-                 const float* __restrict__ ga, const float* __restrict__ gb,
-                 const float* __restrict__ lse, float* __restrict__ dh_part,
-                 int N, int D, int V, int ldw_g, int tiles_per_split) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int nkc = n_chunks(D), DC = min(D, KW), z = blockIdx.z;
-  const int lda = DC + 8, ldw = H_TV + 8, ldg = H_TV + 8;
-  bf16* sA = reinterpret_cast<bf16*>(smem);               // [H_TR][lda]  h rows
-  bf16* sW = sA + H_TR * lda;                              // [DC][ldw]    W tile
-  bf16* sG = sW + DC * ldw;                                // [H_TR][ldg]  gp
-  float* sBias = reinterpret_cast<float*>(sG + H_TR * ldg);  // [H_TV]
-  float* sGa = sBias + H_TV;                               // [H_TR] each
-  float* sGb = sGa + H_TR;
-  float* sLse = sGb + H_TR;
-  int* sY = reinterpret_cast<int*>(sLse + H_TR);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int mat = lane >> 3, mr = lane & 7;
-  // logits: 2 x 4 warps of 16 rows x 16 columns; dh: warp owns 1/8 of the
-  // slice's columns
-  const int wm = warp >> 2, wn = warp & 3;
-  const int nt = chunk_width(D, z) / 64;  // n8 tiles of dh per warp (2, 4, 6 or 8)
-  const int dcol0 = warp * nt * 8;
-  const int row0 = blockIdx.x * H_TR;
-  const int n_tiles = (V + H_TV - 1) / H_TV;
-  const int vt_begin = blockIdx.y * tiles_per_split;
-  const int vt_end = min(vt_begin + tiles_per_split, n_tiles);
-
-  if (nkc == 1) stage_rows(sA, lda, h, D, row0, H_TR, N, D);  // resident
-  stage_row_terms(sY, sGa, sGb, sLse, y, ga, gb, lse, row0, H_TR, N);
-
-  float acc[2][8][4];  // dh [m16 tile][n8 tile][fragment]
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
-
-  for (int vt = vt_begin; vt < vt_end; ++vt) {
-    __syncthreads();  // previous tile's W and gp consumed
-    const int n0 = vt * H_TV;
-    for (int i = tid; i < H_TV; i += THREADS) sBias[i] = n0 + i < V ? bias[n0 + i] : 0.0f;
-
-    // ---- recompute the tile's logits, chunk by chunk (z's chunk last) ----
-    float lg[2][4];
-#pragma unroll
-    for (int ni = 0; ni < 2; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) lg[ni][e] = 0.0f;
-    for (int i = 0; i < nkc; ++i) {
-      const int c = chunk_at(i, z, nkc), kw = chunk_width(D, c);
-      if (i > 0) __syncthreads();  // the previous chunk consumed
-      if (nkc > 1) stage_rows(sA, lda, h + c * KW, D, row0, H_TR, N, kw);
-      stage_cols(sW, ldw, W + (size_t)c * KW * ldw_g, n0, H_TV, kw, ldw_g);
-      __syncthreads();
-      for (int k0 = 0; k0 < kw; k0 += 16) {
-        uint32_t a[4], b0, b1, b2, b3;
-        jlm::ldsm_x4(a[0], a[1], a[2], a[3],
-                     sA + (wm * 16 + (mat & 1) * 8 + mr) * lda + k0 + (mat >> 1) * 8);
-        jlm::ldsm_x4_trans(b0, b1, b2, b3,
-                           sW + (k0 + (mat & 1) * 8 + mr) * ldw + wn * 16 + (mat >> 1) * 8);
-        jlm::mma_bf16(lg[0], a, b0, b1);
-        jlm::mma_bf16(lg[1], a, b2, b3);
-      }
-    }
-
-    // ---- gp = ga * exp(l - lse) + gb * onehot(y), staged as bf16 ----
-#pragma unroll
-    for (int ni = 0; ni < 2; ++ni)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int rl = wm * 16 + half * 8 + gid;
-        const int cl = wn * 16 + ni * 8 + tig * 2;
-        float g[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int n = n0 + cl + e;
-          g[e] = 0.0f;
-          if (n < V && row0 + rl < N) {
-            const float p = expf(lg[ni][half * 2 + e] + sBias[cl + e] - sLse[rl]);
-            g[e] = sGa[rl] * p + (n == sY[rl] ? sGb[rl] : 0.0f);
-          }
-        }
-        *reinterpret_cast<uint32_t*>(sG + rl * ldg + cl) = pack_bf16(g[0], g[1]);
-      }
-    __syncthreads();
-
-    // ---- dh[:, warp's columns of slice z] += gp @ W_tile^T (sW: chunk z) ----
-#pragma unroll
-    for (int ks = 0; ks < H_TV; ks += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        jlm::ldsm_x4(a[mi][0], a[mi][1], a[mi][2], a[mi][3],
-                     sG + (mi * 16 + (mat & 1) * 8 + mr) * ldg + ks + (mat >> 1) * 8);
-#pragma unroll
-      for (int nj = 0; nj < 8; nj += 2) {
-        if (nj < nt) {
-          uint32_t b0, b1, b2, b3;
-          const int n = dcol0 + nj * 8 + (mat >> 1) * 8 + mr;
-          jlm::ldsm_x4(b0, b1, b2, b3, sW + n * ldw + ks + (mat & 1) * 8);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            jlm::mma_bf16(acc[mi][nj], a[mi], b0, b1);
-            jlm::mma_bf16(acc[mi][nj + 1], a[mi], b2, b3);
-          }
-        }
-      }
-    }
-  }
-
-  float* out = dh_part + (size_t)blockIdx.y * N * D + z * KW;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = row0 + mi * 16 + half * 8 + gid;
-        if (ni < nt && row < N)
-          *reinterpret_cast<float2*>(out + (size_t)row * D + dcol0 + ni * 8 + tig * 2) =
-              make_float2(acc[mi][ni][half * 2], acc[mi][ni][half * 2 + 1]);
-      }
-}
+// ------------------------------------------------- backward (bf16): wgmma
 
 // out[i] = sum_k part[k][i]
 __global__ void sum_splits_kernel(const float* __restrict__ part,
@@ -457,160 +382,451 @@ __global__ void sum_splits_kernel(const float* __restrict__ part,
   }
 }
 
-// ------------------------------------------------------- backward dW, db
+constexpr int WG = 128;                // threads of a warpgroup
+constexpr int CH = 64 * 128;           // a chunk: 64 rows x 64 bf16 of K, 8 KB
+constexpr int MAX_OWN = 4, MAX_PASS = 8;
+constexpr int SMEM_SMALL = (1 + 2 * MAX_OWN + 2 * MAX_PASS) * 8;  // the barriers
+constexpr int SMEM_LIMIT = 232448;     // dynamic shared memory a block may use
+constexpr float LOG2E = 1.4426950408889634f;
 
-size_t dw_smem(int D) {
-  D = D < KW ? D : KW;
-  return (size_t)D * (W_TV + 8) * 2 + (size_t)W_TR * (D + 8) * 2 +
-         (size_t)W_TR * (W_TV + 8) * 2 +
-         (W_TV + 4 * W_TR + 4 * W_TV) * sizeof(float);
+// The launch plan, made by ops/softmax_ce.py::bwd_plan: n_own slots of a
+// tile's slice chunks, n_pass slots of its other chunks (each a kv chunk
+// and the q chunk of the same K); the vocab tiles of a dh split.
+struct BwdPlan {
+  int n_own, n_pass, tiles_per_split;
+};
+
+// The slice's q chunks, the slots, gp, the logits' exchange (two chunks),
+// each slice slot's kv terms, the barriers, and the 1,024 bytes that align
+// the swizzled chunks.
+size_t bwd_smem(int NW, const BwdPlan& p) {
+  const int own = NW / 32;
+  return 1024 + (size_t)(own + p.n_own * own + 2 * p.n_pass + 3) * CH + p.n_own * 4 * 64 * 4 +
+         SMEM_SMALL;
 }
 
-// grid.y: the 512-row slice of dW a block writes (slice 0 also writes db).
-__global__ void __launch_bounds__(THREADS, 1)
-ce_bwd_dw_kernel(const bf16* __restrict__ h, const bf16* __restrict__ W,
-                 const float* __restrict__ bias, const int* __restrict__ y,
-                 const float* __restrict__ ga, const float* __restrict__ gb,
-                 const float* __restrict__ lse, float* __restrict__ dW,
-                 float* __restrict__ db, int N, int D, int V, int ldw_g) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int nkc = n_chunks(D), DC = min(D, KW), z = blockIdx.y;
-  const int ldw = W_TV + 8, lda = DC + 8, ldg = W_TV + 8;
-  bf16* sW = reinterpret_cast<bf16*>(smem);               // [DC][ldw]    W columns
-  bf16* sA = sW + DC * ldw;                                // [W_TR][lda]  h rows
-  bf16* sG = sA + W_TR * lda;                              // [W_TR][ldg]  gp
-  float* sBias = reinterpret_cast<float*>(sG + W_TR * ldg);  // [W_TV]
-  float* sGa = sBias + W_TV;                               // [W_TR] each
-  float* sGb = sGa + W_TR;
-  float* sLse = sGb + W_TR;
-  float* sDb = sLse + W_TR;                                // [4][W_TV]
-  int* sY = reinterpret_cast<int*>(sDb + 4 * W_TV);        // [W_TR]
+__device__ __forceinline__ float ex2(float x) {  // 2^x, the special-function unit's
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int mat = lane >> 3, mr = lane & 7;
-  // logits: 4 x 2 warps of 16 rows x 16 columns; dW: warp owns the m16
-  // tiles warp, warp + 8, ... of the slice's rows
-  const int wm = warp >> 1, wn = warp & 1;
-  const int mt = chunk_width(D, z) / 16;
-  const int n0 = blockIdx.x * W_TV;
+// One backward kernel, written once for both: a block owns 64 "q" rows and
+// a slice of 2 NW output columns, and walks 64-row "kv" tiles, each a K
+// operand of the logits and then the B operand of the output product:
+//   dh (DW false): q = rows of h, kv = vocabulary columns (rows of W^T),
+//       out[q][d] = dh, summed over the split's vocab tiles;
+//   dW (DW true):  q = vocabulary columns (rows of W^T), kv = rows of h,
+//       out[q][d] = dW^T, summed over every row tile; db on the side.
+// tm_q, tm_kv: tensor maps of the two bf16 operands, [rows, D] row-major,
+// boxes of 64 rows x 64 (128 bytes, swizzled).  Warpgroups 0 and 1 consume
+// (warpgroup g: the logits [64 q, 64 kv] over K steps 2 g and 2 g + 1 of
+// every chunk, then gp of kv 32 g .. + 31, then the output's columns NW g
+// .. + NW - 1 of the slice); warpgroup 2 produces (one thread the q chunks
+// and the pass chunks, one the slice chunks, one warp the kv terms).
+template <bool DW, int NW>
+__device__ __forceinline__ void bwd_body(const CUtensorMap* tm_q, const CUtensorMap* tm_kv,
+                                         const float* __restrict__ bias,
+                                         const int* __restrict__ y,
+                                         const float* __restrict__ ga,
+                                         const float* __restrict__ gb,
+                                         const float* __restrict__ lse,
+                                         float* __restrict__ out, float* __restrict__ db,
+                                         int N, int D, int V, int ldo, BwdPlan p) {
+  constexpr int OWN = NW / 32;  // K chunks of a slice
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int nd = D / 64, z = DW ? blockIdx.y : blockIdx.z, zc0 = z * OWN;
+  unsigned char* qbuf = smem;                               // [OWN] the slice's q
+  unsigned char* ownbuf = qbuf + OWN * CH;                  // [n_own][OWN] chunks
+  unsigned char* passbuf = ownbuf + p.n_own * OWN * CH;     // [n_pass][kv, q] chunks
+  unsigned char* gpbuf = passbuf + p.n_pass * 2 * CH;       // gp, 64 x 64 bf16
+  float* xbuf = reinterpret_cast<float*>(gpbuf + CH);       // [2][16][WG] logits halves
+  float* terms = xbuf + 2 * 16 * WG;                        // [n_own][4][64]
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(terms + p.n_own * 4 * 64);
+  uint64_t* own_full = qfull + 1;
+  uint64_t* own_empty = own_full + MAX_OWN;
+  uint64_t* pass_full = own_empty + MAX_OWN;
+  uint64_t* pass_empty = pass_full + MAX_PASS;
 
-  if (nkc == 1) stage_cols(sW, ldw, W, n0, W_TV, D, ldw_g);  // resident
-  for (int i = tid; i < W_TV; i += THREADS) sBias[i] = n0 + i < V ? bias[n0 + i] : 0.0f;
+  const int q0 = blockIdx.x * 64;
+  const int kv_tiles = ((DW ? N : V) + 63) / 64;
+  const int t_begin = DW ? 0 : blockIdx.y * p.tiles_per_split;
+  const int nt = DW ? kv_tiles : min(p.tiles_per_split, kv_tiles - t_begin);
+  const int wg = threadIdx.x / WG;
 
-  float acc[4][4][4];  // dW [m16 tile j][n8 tile][fragment]
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][ni][e] = 0.0f;
-  float dbacc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};  // [n8 tile][column]
-
-  for (int r0 = 0; r0 < N; r0 += W_TR) {
-    __syncthreads();  // previous chunk's rows and gp consumed
-    stage_row_terms(sY, sGa, sGb, sLse, y, ga, gb, lse, r0, W_TR, N);
-
-    // ---- recompute the chunk's logits [64, 32], K chunk by K chunk (z's last) ----
-    float lg[2][4];
-#pragma unroll
-    for (int ni = 0; ni < 2; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) lg[ni][e] = 0.0f;
-    for (int i = 0; i < nkc; ++i) {
-      const int c = chunk_at(i, z, nkc), kw = chunk_width(D, c);
-      if (i > 0) __syncthreads();  // the previous K chunk consumed
-      stage_rows(sA, lda, h + c * KW, D, r0, W_TR, N, kw);
-      if (nkc > 1) stage_cols(sW, ldw, W + (size_t)c * KW * ldw_g, n0, W_TV, kw, ldw_g);
-      __syncthreads();
-      for (int k0 = 0; k0 < kw; k0 += 16) {
-        uint32_t a[4], b0, b1, b2, b3;
-        jlm::ldsm_x4(a[0], a[1], a[2], a[3],
-                     sA + (wm * 16 + (mat & 1) * 8 + mr) * lda + k0 + (mat >> 1) * 8);
-        jlm::ldsm_x4_trans(b0, b1, b2, b3,
-                           sW + (k0 + (mat & 1) * 8 + mr) * ldw + wn * 16 + (mat >> 1) * 8);
-        jlm::mma_bf16(lg[0], a, b0, b1);
-        jlm::mma_bf16(lg[1], a, b2, b3);
-      }
+  if (threadIdx.x == 0) {
+    jlm::mbar_init(qfull, 1);
+    for (int s = 0; s < MAX_OWN; ++s) {
+      jlm::mbar_init(&own_full[s], 1 + 32);        // the TMA thread, the terms warp
+      jlm::mbar_init(&own_empty[s], 2 * WG / 32);  // every consumer warp
     }
-
-    // ---- gp, its fp32 column sums, and its bf16 copy ----
-#pragma unroll
-    for (int ni = 0; ni < 2; ++ni)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int rl = wm * 16 + half * 8 + gid;
-        const int cl = wn * 16 + ni * 8 + tig * 2;
-        float g[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int n = n0 + cl + e;
-          g[e] = 0.0f;
-          if (n < V && r0 + rl < N) {
-            const float p = expf(lg[ni][half * 2 + e] + sBias[cl + e] - sLse[rl]);
-            g[e] = sGa[rl] * p + (n == sY[rl] ? sGb[rl] : 0.0f);
-          }
-          dbacc[ni][e] += g[e];
-        }
-        *reinterpret_cast<uint32_t*>(sG + rl * ldg + cl) = pack_bf16(g[0], g[1]);
-      }
-    __syncthreads();
-
-    // ---- dW[slice z] += h_chunk^T @ gp (sA: h's columns of chunk z) ----
-#pragma unroll
-    for (int ks = 0; ks < W_TR; ks += 16) {
-      uint32_t b[4][2];
-#pragma unroll
-      for (int nj = 0; nj < 4; nj += 2)
-        jlm::ldsm_x4_trans(b[nj][0], b[nj][1], b[nj + 1][0], b[nj + 1][1],
-                           sG + (ks + (mat & 1) * 8 + mr) * ldg + nj * 8 + (mat >> 1) * 8);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int t = warp + 8 * j;
-        if (t < mt) {
-          uint32_t a[4];  // h^T tile [16 d][16 rows], read transposed from [row][d]
-          jlm::ldsm_x4_trans(a[0], a[1], a[2], a[3],
-                             sA + (ks + (mat >> 1) * 8 + mr) * lda + t * 16 + (mat & 1) * 8);
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) jlm::mma_bf16(acc[j][ni], a, b[ni][0], b[ni][1]);
-        }
-      }
+    for (int s = 0; s < MAX_PASS; ++s) {
+      jlm::mbar_init(&pass_full[s], 1);
+      jlm::mbar_init(&pass_empty[s], 2 * WG / 32);
     }
-  }
-
-  // ---- db (slice 0): sum over the 8 row groups of a warp, then the 4 row warps ----
-#pragma unroll
-  for (int ni = 0; ni < 2; ++ni)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-#pragma unroll
-      for (int off = 4; off <= 16; off <<= 1)
-        dbacc[ni][e] += __shfl_xor_sync(0xffffffffu, dbacc[ni][e], off);
-  if (gid == 0) {
-#pragma unroll
-    for (int ni = 0; ni < 2; ++ni)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) sDb[wm * W_TV + wn * 16 + ni * 8 + tig * 2 + e] = dbacc[ni][e];
+    jlm::mbar_fence_init();
   }
   __syncthreads();
-  for (int c = tid; c < W_TV; c += THREADS) {
-    if (z == 0 && n0 + c < V)
-      db[n0 + c] = sDb[c] + sDb[W_TV + c] + sDb[2 * W_TV + c] + sDb[3 * W_TV + c];
+
+  if (wg == 2) {
+    // ---- producers: one thread loads the q chunks once and then each
+    // tile's pass chunks (the K chunks outside the slice), another each
+    // tile's slice chunks, so that a slice slot refills as soon as it frees
+    // (the consumers take a tile's pass chunks first), and one warp the kv
+    // terms of each tile into its slice slot's share ----
+    jlm::setmaxnreg_dec<40>();
+    if (nt > 0 && threadIdx.x == 2 * WG) {
+      jlm::prefetch_map(tm_q);
+      jlm::prefetch_map(tm_kv);
+      jlm::mbar_expect_tx(qfull, OWN * CH);
+      for (int c = 0; c < OWN; ++c) jlm::tma_load(qbuf + c * CH, tm_q, qfull, (zc0 + c) * 64, q0);
+      int pc = 0;
+      for (int t = 0; t < nt; ++t) {
+        const int kv0 = (t_begin + t) * 64;
+        for (int dc = 0; dc < nd; ++dc) {
+          if (dc >= zc0 && dc < zc0 + OWN) continue;
+          const int s = pc % p.n_pass;
+          if (pc >= p.n_pass) jlm::mbar_wait(&pass_empty[s], ((pc / p.n_pass) - 1) & 1);
+          unsigned char* slot = passbuf + s * 2 * CH;
+          jlm::mbar_expect_tx(&pass_full[s], 2 * CH);
+          jlm::tma_load(slot, tm_kv, &pass_full[s], dc * 64, kv0);
+          jlm::tma_load(slot + CH, tm_q, &pass_full[s], dc * 64, q0);
+          ++pc;
+        }
+      }
+    } else if (nt > 0 && threadIdx.x == 2 * WG + 32) {
+      for (int t = 0; t < nt; ++t) {
+        const int kv0 = (t_begin + t) * 64, s = t % p.n_own;
+        if (t >= p.n_own) jlm::mbar_wait(&own_empty[s], ((t / p.n_own) - 1) & 1);
+        jlm::mbar_expect_tx(&own_full[s], OWN * CH);
+        for (int oc = 0; oc < OWN; ++oc)
+          jlm::tma_load(ownbuf + (s * OWN + oc) * CH, tm_kv, &own_full[s], (zc0 + oc) * 64, kv0);
+      }
+    } else if (nt > 0 && threadIdx.x / 32 == 2 * WG / 32 + 2) {
+      // (dh) the vocab columns' bias log2 e; (dW) the rows' ga, gb, lse
+      // log2 e and target; zero (a target of -1) past V or N
+      const int lane = threadIdx.x & 31;
+      for (int t = 0; t < nt; ++t) {
+        const int kv0 = (t_begin + t) * 64, s = t % p.n_own;
+        if (t >= p.n_own) jlm::mbar_wait(&own_empty[s], ((t / p.n_own) - 1) & 1);
+        float* tb = terms + s * 4 * 64;
+        for (int c = lane; c < 64; c += 32) {
+          const int kv = kv0 + c;
+          if constexpr (DW) {
+            const bool ok = kv < N;
+            tb[c] = ok ? ga[kv] : 0.0f;
+            tb[64 + c] = ok ? gb[kv] : 0.0f;
+            tb[128 + c] = ok ? lse[kv] * LOG2E : 0.0f;
+            tb[192 + c] = __int_as_float(ok ? y[kv] : -1);
+          } else {
+            tb[c] = kv < V ? bias[kv] * LOG2E : 0.0f;
+          }
+        }
+        jlm::mbar_arrive(&own_full[s]);  // release: the consumers' wait sees the stores
+      }
+    }
+    return;
   }
 
+  // ---- consumers ----
+  jlm::setmaxnreg_inc<232>();
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x / 32) & 3, tid = threadIdx.x % WG;
+  const int qr = 16 * warp + lane / 4;  // + 8 i: the fragment's q rows
+  const int cq = 2 * (lane & 3);        // + 8 j + e: its columns
+  float oacc[NW / 2];
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int i = 0; i < NW / 2; ++i) oacc[i] = 0.0f;
+  float lacc[32] = {};
+  float dbacc[2] = {0.0f, 0.0f};
+  // the q rows' terms: (dh) target, ga, gb, lse log2 e of the rows; (dW) the
+  // vocab columns' bias log2 e.  Rows past N (columns past V) read zero
+  // from TMA and get zero terms, so their gp is 0 or, past V, meets the
+  // zero rows of W^T; nothing of theirs is stored.
+  int qy[2];
+  float qga[2], qgb[2], q2[2];
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+  for (int i = 0; i < 2; ++i) {
+    const int q = q0 + qr + 8 * i;
+    const bool ok = q < (DW ? V : N);
+    qy[i] = !DW && ok ? y[q] : -1;
+    qga[i] = !DW && ok ? ga[q] : 0.0f;
+    qgb[i] = !DW && ok ? gb[q] : 0.0f;
+    q2[i] = ok ? (DW ? bias[q] : lse[q]) * LOG2E : 0.0f;
+  }
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) jlm::mbar_arrive(bar);
+  };
+  // descriptors of the operands' first bytes: an operand `b` bytes on is
+  // d + b / 16 (the start address field; no carry below 256 KB)
+  const uint64_t d_q = jlm::smem_desc(qbuf + 64 * wg);   // this warpgroup's K steps
+  const uint64_t d_own = jlm::smem_desc(ownbuf + 64 * wg);
+  const uint64_t d_pass = jlm::smem_desc(passbuf + 64 * wg);
+  const uint64_t d_gp = jlm::smem_desc(gpbuf);
+  const uint64_t d_out = jlm::smem_desc_mn(ownbuf + wg * (NW / 64) * CH, CH);
+  if (nt > 0) jlm::mbar_wait(qfull, 0);
+
+  int pc = 0;
+  for (int t = 0; t < nt; ++t) {
+    const int kv0 = (t_begin + t) * 64;
+    // ---- logits [64 q, 64 kv], this warpgroup's half of K (2 of each
+    // chunk's 4 K steps): the pass chunks, each released as the product
+    // past it completes (the first completes out(t - 1) and frees tile
+    // t - 1's slice chunks) ----
+    int prev = -1;  // pass slot of the previous chunk
+    for (int dc = 0; dc < nd; ++dc) {
+      if (dc >= zc0 && dc < zc0 + OWN) continue;
+      const int s = pc % p.n_pass;
+      jlm::mbar_wait(&pass_full[s], (pc / p.n_pass) & 1);
+      const uint32_t slot = s * 2 * CH;
+      jlm::wgmma_fence();
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int t = warp + 8 * j;
-        const int d = z * KW + t * 16 + half * 8 + gid;
-        const int n = n0 + ni * 8 + tig * 2;  // even; n + 1 < ldw_g
-        if (t < mt && n < V)
-          *reinterpret_cast<float2*>(dW + (size_t)d * ldw_g + n) =
-              make_float2(acc[j][ni][half * 2], acc[j][ni][half * 2 + 1]);
+      for (int k = 0; k < 2; ++k)
+        jlm::wgmma_bf16_n64(lacc, d_pass + ((slot + CH + 32 * k) >> 4),
+                            d_pass + ((slot + 32 * k) >> 4), prev >= 0 || k > 0);
+      jlm::wgmma_commit();
+      jlm::fence_regs(lacc);
+      jlm::wgmma_wait<1>();
+      if (prev < 0) {
+        if (t > 0) release(&own_empty[(t - 1) % p.n_own]);
+      } else {
+        release(&pass_empty[prev]);
       }
+      prev = s;
+      ++pc;
+    }
+    // ---- ... and the slice's chunks, kept for the output product ----
+    const int so = t % p.n_own;
+    jlm::mbar_wait(&own_full[so], (t / p.n_own) & 1);
+    jlm::wgmma_fence();
+#pragma unroll
+    for (int oc = 0; oc < OWN; ++oc)
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        jlm::wgmma_bf16_n64(lacc, d_q + ((oc * CH + 32 * k) >> 4),
+                            d_own + (((so * OWN + oc) * CH + 32 * k) >> 4),
+                            prev >= 0 || oc > 0 || k > 0);
+    jlm::wgmma_commit();
+    jlm::fence_regs(lacc);
+    jlm::wgmma_wait<1>();
+    if (prev < 0) {
+      if (t > 0) release(&own_empty[(t - 1) % p.n_own]);
+    } else {
+      release(&pass_empty[prev]);
+    }
+    jlm::wgmma_wait<0>();
+    jlm::fence_regs(lacc);
+
+    // ---- the halves of K meet: each warpgroup hands the other its partial
+    // logits of the other's 32 kv (the same fragment positions, thread by
+    // thread); the barrier also shows both warpgroups' out(t - 1) complete,
+    // so gp is free ----
+    auto exchange = [&](auto half) {
+      constexpr int G = decltype(half)::value;
+      float* mine = xbuf + G * 16 * WG + tid;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) mine[k * WG] = lacc[16 * (1 - G) + k];
+      jlm::named_sync(1, 2 * WG);
+      const float* theirs = xbuf + (1 - G) * 16 * WG + tid;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) lacc[16 * G + k] += theirs[k * WG];
+    };
+    if (wg == 0)
+      exchange(std::integral_constant<int, 0>());
+    else
+      exchange(std::integral_constant<int, 1>());
+
+    // ---- gp = ga exp(l - lse) + gb onehot(y) of this warpgroup's 32 kv,
+    // rounded to bf16 into the output product's A operand [64 q][64 kv]
+    // (K-major, 128-byte swizzle; db sums the unrounded values).  exp is
+    // 2^x from the special-function unit on arguments in log2 units (a few
+    // ulp of fp32, far inside gp's bf16 rounding) ----
+    const float* tb = terms + so * 4 * 64;  // the tile's kv terms
+    auto epilogue = [&](auto half) {
+      constexpr int G = decltype(half)::value;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int ql = qr + 8 * i;
+          float g[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 32 * G + 8 * j + cq + e;
+            const float l = lacc[16 * G + 4 * j + 2 * i + e];
+            if constexpr (DW) {
+              g[e] = tb[c] * ex2(fmaf(l, LOG2E, q2[i] - tb[128 + c])) +
+                     (q0 + ql == __float_as_int(tb[192 + c]) ? tb[64 + c] : 0.0f);
+              dbacc[i] += g[e];
+            } else {
+              g[e] = qga[i] * ex2(fmaf(l, LOG2E, tb[c] - q2[i])) +
+                     (kv0 + c == qy[i] ? qgb[i] : 0.0f);
+            }
+          }
+          *reinterpret_cast<uint32_t*>(gpbuf + ql * 128 + (((4 * G + j) ^ (ql & 7)) << 4) +
+                                       4 * (lane & 3)) = pack_bf16(g[0], g[1]);
+        }
+    };
+    if (wg == 0)
+      epilogue(std::integral_constant<int, 0>());
+    else
+      epilogue(std::integral_constant<int, 1>());
+    jlm::fence_proxy_async();  // the stores, before wgmma reads them
+    jlm::named_sync(1, 2 * WG);
+
+    // ---- out[64 q][this warpgroup's NW columns] += gp @ kv tile: B is the
+    // slice chunks read MN-major (K = kv rows, N = columns of D) ----
+    jlm::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      jlm::wgmma_bf16_tb<NW>(oacc, d_gp + ((32 * ks) >> 4),
+                             d_out + ((so * OWN * CH + 2048 * ks) >> 4), 1);
+    jlm::wgmma_commit();
+    jlm::fence_regs(oacc);
+  }
+  jlm::wgmma_wait<0>();
+  jlm::fence_regs(oacc);
+
+  // ---- store: dh rows into the split's partial; dW^T's rows as dW's
+  // columns (each 8 neighbouring vocab columns one 32-byte sector) ----
+  const int col0 = z * 2 * NW + wg * NW;
+  if constexpr (!DW) {
+    float* o = out + (size_t)blockIdx.y * N * D;
+#pragma unroll
+    for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = q0 + qr + 8 * i;
+        if (row < N)
+          *reinterpret_cast<float2*>(o + (size_t)row * D + col0 + 8 * j + cq) =
+              make_float2(oacc[4 * j + 2 * i], oacc[4 * j + 2 * i + 1]);
+      }
+  } else {
+#pragma unroll
+    for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int v = q0 + qr + 8 * i;
+        if (v < V) {
+          out[(size_t)(col0 + 8 * j + cq) * ldo + v] = oacc[4 * j + 2 * i];
+          out[(size_t)(col0 + 8 * j + cq + 1) * ldo + v] = oacc[4 * j + 2 * i + 1];
+        }
+      }
+    if (z == 0) {  // db: the quad's lanes, then the two warpgroups' kv halves
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int off = 1; off <= 2; off <<= 1)
+          dbacc[i] += __shfl_xor_sync(0xffffffffu, dbacc[i], off);
+      if ((lane & 3) == 0) {  // (xbuf is free: every exchange is read)
+        xbuf[wg * 64 + qr] = dbacc[0];
+        xbuf[wg * 64 + qr + 8] = dbacc[1];
+      }
+      jlm::named_sync(1, 2 * WG);
+      if (threadIdx.x < 64 && q0 + threadIdx.x < V)
+        db[q0 + threadIdx.x] = xbuf[threadIdx.x] + xbuf[64 + threadIdx.x];
+    }
+  }
+}
+
+// dh partials: tm_h over h [N, D], tm_wt over W^T [V, D]; grid row blocks x
+// vocab splits x slices of D.
+template <int NW>
+__global__ void __launch_bounds__(3 * WG, 1)
+ce_bwd_dh_kernel(const __grid_constant__ CUtensorMap tm_h,
+                 const __grid_constant__ CUtensorMap tm_wt, const float* __restrict__ bias,
+                 const int* __restrict__ y, const float* __restrict__ ga,
+                 const float* __restrict__ gb, const float* __restrict__ lse,
+                 float* __restrict__ dh_part, int N, int D, int V, BwdPlan p) {
+  bwd_body<false, NW>(&tm_h, &tm_wt, bias, y, ga, gb, lse, dh_part, nullptr, N, D, V, D, p);
+}
+
+// dW [D, ldw] and db: grid vocab blocks x slices of D (slice 0 writes db).
+template <int NW>
+__global__ void __launch_bounds__(3 * WG, 1)
+ce_bwd_dw_kernel(const __grid_constant__ CUtensorMap tm_wt,
+                 const __grid_constant__ CUtensorMap tm_h, const float* __restrict__ bias,
+                 const int* __restrict__ y, const float* __restrict__ ga,
+                 const float* __restrict__ gb, const float* __restrict__ lse,
+                 float* __restrict__ dW, float* __restrict__ db, int N, int D, int V, int ldw,
+                 BwdPlan p) {
+  bwd_body<true, NW>(&tm_wt, &tm_h, bias, y, ga, gb, lse, dW, db, N, D, V, ldw, p);
+}
+
+// Checks a plan against the kernel's rules (ops/softmax_ce.py::bwd_plan
+// makes them so): a slice of 2 NW columns that divides D, 1-4 slice slots
+// (2 or more where every chunk is the slice's: a slot frees only once the
+// next tile's products are issued), 2-8 pass slots where there are pass
+// chunks, and the shared memory within a block's.
+bool bwd_plan_ok(int D, int NW, const BwdPlan& p) {
+  const bool pass = D > 2 * NW;
+  return D % (2 * NW) == 0 && p.n_own >= (pass ? 1 : 2) && p.n_own <= MAX_OWN &&
+         (pass ? p.n_pass >= 2 : p.n_pass == 0) && p.n_pass <= MAX_PASS &&
+         bwd_smem(NW, p) <= SMEM_LIMIT;
+}
+
+template <int NW>
+cudaError_t launch_dh(const void* h, const void* wt, const float* bias, const int* y,
+                      const float* ga, const float* gb, const float* lse, float* dh_part,
+                      int N, int D, int V, int splits, const BwdPlan& p, cudaStream_t st) {
+  CUtensorMap th, tw;
+  if (!bwd_plan_ok(D, NW, p) || !jlm::tensor_map(&th, h, 2, N, D, D, 64, 64) ||
+      !jlm::tensor_map(&tw, wt, 2, V, D, D, 64, 64))
+    return cudaErrorInvalidValue;
+  const size_t smem = bwd_smem(NW, p);
+  cudaError_t err = set_smem(ce_bwd_dh_kernel<NW>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + 63) / 64, splits, D / (2 * NW));
+  ce_bwd_dh_kernel<NW><<<grid, 3 * WG, smem, st>>>(th, tw, bias, y, ga, gb, lse, dh_part, N,
+                                                   D, V, p);
+  return cudaGetLastError();
+}
+
+template <int NW>
+cudaError_t launch_dw(const void* h, const void* wt, const float* bias, const int* y,
+                      const float* ga, const float* gb, const float* lse, float* dW,
+                      float* db, int N, int D, int V, const BwdPlan& p, cudaStream_t st) {
+  CUtensorMap th, tw;
+  if (!bwd_plan_ok(D, NW, p) || !jlm::tensor_map(&th, h, 2, N, D, D, 64, 64) ||
+      !jlm::tensor_map(&tw, wt, 2, V, D, D, 64, 64))
+    return cudaErrorInvalidValue;
+  const size_t smem = bwd_smem(NW, p);
+  cudaError_t err = set_smem(ce_bwd_dw_kernel<NW>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((V + 63) / 64, D / (2 * NW));
+  ce_bwd_dw_kernel<NW><<<grid, 3 * WG, smem, st>>>(tw, th, bias, y, ga, gb, lse, dW, db, N,
+                                                   D, V, V, p);
+  return cudaGetLastError();
+}
+
+// W [D, V] (fp32 or bf16) -> W^T bf16 [V, Dp], zero columns D .. Dp - 1: the
+// bf16 cast the backward makes anyway, transposed, in tiles of 64 x 64
+// through shared memory (rows read and written whole, 256 and 128 bytes).
+template <typename T>
+__global__ void __launch_bounds__(256)
+cast_wt_kernel(const T* __restrict__ W, bf16* __restrict__ wt, int D, int V, int Dp) {
+  __shared__ float tile[64][65];
+  const int v0 = blockIdx.x * 64, d0 = blockIdx.y * 64;
+  for (int i = threadIdx.x; i < 64 * 64; i += 256) {
+    const int r = i / 64, c = i % 64, d = d0 + r, v = v0 + c;
+    float x = 0.0f;
+    if (d < D && v < V) {
+      if constexpr (std::is_same<T, float>::value)
+        x = W[(size_t)d * V + v];
+      else
+        x = __bfloat162float(W[(size_t)d * V + v]);
+    }
+    tile[r][c] = x;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 64 * 32; i += 256) {
+    const int r = i / 32, c = 2 * (i % 32), v = v0 + r;
+    if (v < V)
+      *reinterpret_cast<__nv_bfloat162*>(wt + (size_t)v * Dp + d0 + c) =
+          __floats2bfloat162_rn(tile[c][r], tile[c + 1][r]);
+  }
 }
 
 // ---------------------------------------------------------- fp32 compute
@@ -998,10 +1214,11 @@ ce_bwd_dw_f32_kernel(const float* __restrict__ h, const float* __restrict__ W,
     }
 }
 
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+cudaError_t sum_splits(const float* part, float* out, size_t count, int splits,
+                       cudaStream_t st) {
+  const int blocks = (int)((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
+  sum_splits_kernel<<<blocks, 256, 0, st>>>(part, out, count, splits);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1041,67 +1258,86 @@ int jlm_ce_fwd(const void* h, const void* W, const float* bias, const int* y,
   return (int)cudaGetLastError();
 }
 
-// As jlm_ce_fwd, plus ga, gb, lse [N] fp32; dh_part [splits, N, D] fp32
-// scratch (may equal dh when splits == 1); dh [N, D] fp32.  The grid is
-// row blocks x splits x the 512-wide slices of D.
-int jlm_ce_bwd_dh(const void* h, const void* W, const float* bias,
-                  const int* y, const float* ga, const float* gb,
-                  const float* lse, float* dh_part, float* dh, int N, int D,
-                  int V, int ldw, int f32, int splits, int tiles_per_split,
-                  void* stream) {
+// fp32 compute: h [N, D] and W [D, V] fp32, plus ga, gb, lse [N] fp32;
+// dh_part [splits, N, D] fp32 scratch (may equal dh when splits == 1); dh
+// [N, D] fp32.  The grid is row blocks x splits x the 512-wide slices of D.
+int jlm_ce_bwd_dh_f32(const float* h, const float* W, const float* bias, const int* y,
+                      const float* ga, const float* gb, const float* lse, float* dh_part,
+                      float* dh, int N, int D, int V, int splits, int tiles_per_split,
+                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (f32) {
-    const size_t smem = dh_f32_smem(D);
-    err = set_smem(ce_bwd_dh_f32_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((N + GH_R - 1) / GH_R, splits, (D + KW - 1) / KW);
-    ce_bwd_dh_f32_kernel<<<grid, THREADS, smem, st>>>(
-        static_cast<const float*>(h), static_cast<const float*>(W), bias, y, ga, gb,
-        lse, dh_part, N, D, V, tiles_per_split);
-  } else {
-    const size_t smem = dh_smem(D);
-    err = set_smem(ce_bwd_dh_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((N + H_TR - 1) / H_TR, splits, (D + KW - 1) / KW);
-    ce_bwd_dh_kernel<<<grid, THREADS, smem, st>>>(
-        static_cast<const bf16*>(h), static_cast<const bf16*>(W), bias, y, ga,
-        gb, lse, dh_part, N, D, V, ldw, tiles_per_split);
-  }
+  const size_t smem = dh_f32_smem(D);
+  cudaError_t err = set_smem(ce_bwd_dh_f32_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + GH_R - 1) / GH_R, splits, (D + KW - 1) / KW);
+  ce_bwd_dh_f32_kernel<<<grid, THREADS, smem, st>>>(h, W, bias, y, ga, gb, lse, dh_part, N,
+                                                    D, V, tiles_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
-  const size_t count = (size_t)N * D;
-  const int blocks = (int)((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
-  sum_splits_kernel<<<blocks, 256, 0, st>>>(dh_part, dh, count, splits);
+  return (int)sum_splits(dh_part, dh, (size_t)N * D, splits, st);
+}
+
+// fp32 compute; dW [D, V] and db [V] fp32, each element written once.  The
+// grid is column blocks x the 512-row slices of D.
+int jlm_ce_bwd_dw_f32(const float* h, const float* W, const float* bias, const int* y,
+                      const float* ga, const float* gb, const float* lse, float* dW,
+                      float* db, int N, int D, int V, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = dw_f32_smem(D);
+  cudaError_t err = set_smem(ce_bwd_dw_f32_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((V + GW_V - 1) / GW_V, (D + KW - 1) / KW);
+  ce_bwd_dw_f32_kernel<<<grid, THREADS, smem, st>>>(h, W, bias, y, ga, gb, lse, dW, db, N, D,
+                                                    V);
   return (int)cudaGetLastError();
 }
 
-// As jlm_ce_bwd_dh; dW [D, ldw] and db [V] fp32, each element of the first V
-// columns written once.  The grid is column blocks x the 512-row slices of D.
-int jlm_ce_bwd_dw(const void* h, const void* W, const float* bias,
-                  const int* y, const float* ga, const float* gb,
-                  const float* lse, float* dW, float* db, int N, int D, int V,
-                  int ldw, int f32, void* stream) {
+// W [D, V] row-major, fp32 (w_bf16 = 0) or bf16 -> wt [V, Dp] bf16 (Dp a
+// multiple of 64, >= D), zero past D.
+int jlm_ce_cast_wt(const void* W, void* wt, int D, int V, int Dp, int w_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (f32) {
-    const size_t smem = dw_f32_smem(D);
-    err = set_smem(ce_bwd_dw_f32_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((V + GW_V - 1) / GW_V, (D + KW - 1) / KW);
-    ce_bwd_dw_f32_kernel<<<grid, THREADS, smem, st>>>(
-        static_cast<const float*>(h), static_cast<const float*>(W), bias, y, ga, gb,
-        lse, dW, db, N, D, V);
-  } else {
-    const size_t smem = dw_smem(D);
-    err = set_smem(ce_bwd_dw_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((V + W_TV - 1) / W_TV, (D + KW - 1) / KW);
-    ce_bwd_dw_kernel<<<grid, THREADS, smem, st>>>(
-        static_cast<const bf16*>(h), static_cast<const bf16*>(W), bias, y, ga,
-        gb, lse, dW, db, N, D, V, ldw);
-  }
+  dim3 grid((V + 63) / 64, Dp / 64);
+  if (w_bf16)
+    cast_wt_kernel<bf16><<<grid, 256, 0, st>>>(static_cast<const bf16*>(W),
+                                               static_cast<bf16*>(wt), D, V, Dp);
+  else
+    cast_wt_kernel<float><<<grid, 256, 0, st>>>(static_cast<const float*>(W),
+                                                static_cast<bf16*>(wt), D, V, Dp);
   return (int)cudaGetLastError();
+}
+
+// bf16 compute on wgmma: h [N, D] and wt = W^T [V, D] bf16 (D a multiple of
+// 2 sw, rows 16-byte aligned), bias [V], y [N] int32 (a target outside [0,
+// V) matches no column), ga, gb, lse [N] fp32; the plan (sw: the slice
+// width, 128, 256, 384 or 512; n_own, n_pass, tiles_per_split) as
+// ops/softmax_ce.py::bwd_plan makes it.  dh_part [splits, N, D] fp32 (may
+// equal dh when splits == 1), dh [N, D].
+int jlm_ce_bwd_dh_bf16(const void* h, const void* wt, const float* bias, const int* y,
+                       const float* ga, const float* gb, const float* lse, float* dh_part,
+                       float* dh, int N, int D, int V, int sw, int n_own,
+                       int n_pass, int splits, int tiles_per_split, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const BwdPlan p{n_own, n_pass, tiles_per_split};
+  const auto launch = sw == 128 ? launch_dh<64> : sw == 256 ? launch_dh<128>
+                      : sw == 384 ? launch_dh<192> : sw == 512 ? launch_dh<256> : nullptr;
+  if (launch == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaError_t err =
+      launch(h, wt, bias, y, ga, gb, lse, dh_part, N, D, V, splits, p, st);
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  return (int)sum_splits(dh_part, dh, (size_t)N * D, splits, st);
+}
+
+// As jlm_ce_bwd_dh_bf16; dW [D, V] and db [V] fp32, each element written once.
+int jlm_ce_bwd_dw_bf16(const void* h, const void* wt, const float* bias, const int* y,
+                       const float* ga, const float* gb, const float* lse, float* dW,
+                       float* db, int N, int D, int V, int sw, int n_own,
+                       int n_pass, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const BwdPlan p{n_own, n_pass, 0};
+  const auto launch = sw == 128 ? launch_dw<64> : sw == 256 ? launch_dw<128>
+                      : sw == 384 ? launch_dw<192> : sw == 512 ? launch_dw<256> : nullptr;
+  if (launch == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)launch(h, wt, bias, y, ga, gb, lse, dW, db, N, D, V, p, st);
 }
 
 }  // extern "C"

@@ -24,13 +24,19 @@ versions ``ce_fwd_raw_ref``, ``ce_bwd_dh_ref`` and ``ce_bwd_dw_ref``.
 The kernels take any hidden slice that is a multiple of 128: another
 width is zero-padded (``pad_hidden``: zero columns of h, zero rows of W),
 which changes no logit, and the padding's rows of dh and dW are dropped.
-A slice wider than 512 goes through the kernels in K chunks of 512, and
-dh and dW are written in slices of 512 over the grid (``KW``).
+A slice wider than 512 goes through the forward and the fp32 backward in
+K chunks of 512, and dh and dW are written in slices of 512 over the grid
+(``KW``).  The bf16 backward (``wgmma`` + TMA) reads ``W^T`` bf16, which
+:func:`cast_wt` writes in the pass that casts W, and launches as
+:func:`bwd_plan` lays it out (slices of D, resident rows, ring slots,
+vocab splits; a pure function of the shapes and the SM count).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import types
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -41,7 +47,7 @@ from jlm_tpu_torch.ops import _build
 # Block shapes of csrc/softmax_ce.cu per compute dtype: (rows, vocab
 # columns) per block and the blocks an SM runs at once.
 _FWD_TILE = {torch.bfloat16: (128, 64, 1), torch.float32: (64, 64, 2)}
-_DH_TILE = {torch.bfloat16: (32, 64, 2), torch.float32: (32, 64, 1)}
+_DH_TILE_F32 = (32, 64, 1)  # ce_bwd_dh_f32 (the bf16 kernels plan with bwd_plan)
 KW = 512  # widest K chunk of a kernel; dh and dW are written in slices of it
 
 Tensor = torch.Tensor
@@ -106,12 +112,12 @@ def pad_hidden(h: Tensor, W: Tensor, multiple: int = 128) -> Tuple[Tensor, Tenso
 
 
 def _kernel_args(h, W, b, y, compute_dtype):
-    """Cast, pad and check the operands of a kernel launch; returns
-    ``(h [N, Dp], W [Dp, Vp], b fp32, y int32, N, Dp, V)``, h and W in the
-    compute dtype, D zero-padded to ``Dp``, a multiple of 128.  The bf16
-    kernels read W in 16-byte row chunks, so a vocab that is not a multiple
-    of 8 is padded with zero columns (masked by ``col >= V``); the fp32
-    kernels read W as it is (``Vp == V``)."""
+    """Cast, pad and check the operands of a forward or fp32 backward
+    launch; returns ``(h [N, Dp], W [Dp, Vp], b fp32, y int32, N, Dp, V)``,
+    h and W in the compute dtype, D zero-padded to ``Dp``, a multiple of
+    128.  The bf16 forward reads W in 16-byte row chunks, so a vocab that
+    is not a multiple of 8 is padded with zero columns (masked by ``col >=
+    V``); the fp32 kernels read W as it is (``Vp == V``)."""
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"the CE kernels compute in bf16 or fp32, not {compute_dtype}")
     N, D = h.shape
@@ -178,54 +184,196 @@ def _bwd_args(h, W, b, y, lse, ga, gb, compute_dtype):
     return hb, Wb, bf, yi, f32, N, D, V
 
 
-def ce_bwd_dh(h, W, b, y, lse, ga, gb, compute_dtype=torch.float32) -> Tensor:
+# The bf16 backward kernels' shared-memory pieces (csrc/softmax_ce.cu):
+# one K chunk of 64 rows x 64 bf16, the slots a plan may take, the
+# barriers' bytes and a block's limit.
+_CHUNK = 64 * 64 * 2
+_MAX_OWN, _MAX_PASS = 4, 8
+_SMEM_SMALL = (1 + 2 * _MAX_OWN + 2 * _MAX_PASS) * 8
+SMEM_LIMIT = 232_448
+
+
+def bwd_smem(sw: int, n_own: int, n_pass: int) -> int:
+    """Shared memory of a bf16 backward block (``bwd_smem`` of the .cu):
+    the slice's q chunks, ``n_own`` slots of a slice (and of its kv terms,
+    1 KB), ``n_pass`` pass slots (a kv chunk and a q chunk each), gp and
+    the logits' exchange (three chunks), the barriers and 1,024 bytes of
+    alignment."""
+    own = sw // 64
+    return (1024 + (own + n_own * own + 2 * n_pass + 3) * _CHUNK + n_own * 4 * 64 * 4
+            + _SMEM_SMALL)
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(kind: str, N: int, D: int, V: int, sms: int):
+    """Launch plan of the bf16 backward kernel ``kind`` ("dh" or "dw") at
+    ``N`` rows, hidden width ``D`` (a multiple of 128), vocabulary ``V`` on
+    ``sms`` SMs; a pure function.
+
+    The output is cut into slices of ``sw`` columns (all of D up to 512,
+    else 512, 256 or 128, whichever divides D first), each a block's two
+    consumer warpgroups' halves.  A block keeps its slice's q chunks and
+    ``n_own`` slots of a tile's slice chunks: where every chunk is the
+    slice's, as many as fit (2 to 4); else one, and the other K chunks (each
+    with its q chunk) stream through ``n_pass`` slots, as many as fit (2 to
+    8): more loads in flight beat keeping all of the rows resident, which
+    at D = 1,024 left room for two pass slots (PERF.md, PR 12).
+
+    dh: 64-row blocks x ``splits`` of the 64-column vocab tiles
+    (``tiles_per_split`` each, every split at least one) x slices, one
+    block an SM; dW: 64-column vocab blocks x slices, every row tile in
+    each block."""
+    if D % 128 or D <= 0 or kind not in ("dh", "dw"):
+        raise ValueError(f"bwd_plan: kind dh or dw and D a multiple of 128, got {kind}, {D}")
+    sw = D if D <= 512 else next(w for w in (512, 256, 128) if D % w == 0)
+    slices = D // sw
+
+    if D == sw:  # every chunk the slice's: as many slice slots as fit
+        n_own = max(n for n in range(2, _MAX_OWN + 1) if bwd_smem(sw, n, 0) <= SMEM_LIMIT)
+        n_pass = 0
+    else:  # one slice slot, as many pass slots as fit
+        n_own = 1
+        n_pass = max(n for n in range(2, _MAX_PASS + 1) if bwd_smem(sw, 1, n) <= SMEM_LIMIT)
+    plan = dict(sw=sw, slices=slices, n_own=n_own, n_pass=n_pass,
+                smem=bwd_smem(sw, n_own, n_pass))
+    q_blocks = -(-(N if kind == "dh" else V) // 64)
+    if kind == "dh":
+        n_tiles = -(-V // 64)
+        splits = max(1, min(n_tiles, sms // (q_blocks * slices)))
+        per_split = -(-n_tiles // splits)
+        splits = -(-n_tiles // per_split)
+        plan.update(grid=(q_blocks, splits, slices), splits=splits, tiles_per_split=per_split)
+    else:
+        plan.update(grid=(q_blocks, slices), splits=1, tiles_per_split=-(-N // 64))
+    return types.MappingProxyType(plan)  # cached: read-only
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def cast_wt(W: Tensor, Dp: int) -> Tensor:
+    """``W [D, V]`` (fp32 or bf16) as ``W^T`` bf16 ``[V, Dp]``, zero past D:
+    the bf16 backward's cast of the weights, transposed in the same pass
+    (``cast_wt_kernel``).  On a CPU tensor, the same through torch."""
+    D, V = W.shape
+    if not W.is_cuda:
+        return torch.nn.functional.pad(W.t().to(torch.bfloat16), (0, Dp - D)).contiguous()
+    if W.dtype not in (torch.float32, torch.bfloat16):
+        W = W.float()
+    W = W.contiguous()
+    wt = torch.empty((V, Dp), dtype=torch.bfloat16, device=W.device)
+    err = _build.lib().jlm_ce_cast_wt(_ptr(W), _ptr(wt), D, V, Dp,
+                                      int(W.dtype == torch.bfloat16),
+                                      ctypes.c_void_p(_build.stream_ptr(W)))
+    _build.check(err, "cast_wt kernel")
+    return wt
+
+
+def _bwd_bf16_args(h, W, b, y, lse, ga, gb, wt):
+    """The bf16 backward's operands: h bf16 [N, Dp] (D zero-padded to a
+    multiple of 128), W^T bf16 [V, Dp] (``wt`` if the caller made it),
+    bias, targets and the per-row terms."""
+    N, D = h.shape
+    V = b.shape[0]
+    if tuple(W.shape) != (D, V):
+        raise ValueError(f"W must be [{D}, {V}], got {tuple(W.shape)}")
+    Dp = -(-D // 128) * 128
+    hb = h.to(torch.bfloat16)
+    hb = torch.nn.functional.pad(hb, (0, Dp - D)) if Dp != D else hb.contiguous()
+    wt = cast_wt(W, Dp) if wt is None else wt
+    if tuple(wt.shape) != (V, Dp) or wt.dtype != torch.bfloat16:
+        raise ValueError(f"wt must be bf16 [{V}, {Dp}], got {wt.dtype} {tuple(wt.shape)}")
+    f32 = [t.float().contiguous() for t in (lse, ga, gb)]
+    for name, t in (("W", W), ("wt", wt), ("b", b), ("y", y), *zip(("lse", "ga", "gb"), f32)):
+        if t.device != h.device:
+            raise ValueError(f"{name} must be on {h.device}")
+    for t in f32:
+        if tuple(t.shape) != (N,):
+            raise ValueError(f"lse, ga and gb must be [{N}]")
+    for t in (hb, wt):
+        if t.data_ptr() % 16:
+            raise ValueError("h and W^T must be 16-byte aligned")
+    return (hb, wt, b.float().contiguous(), y.to(torch.int32).contiguous(), f32, N, Dp, V)
+
+
+def _plan_args(plan):
+    return plan["sw"], plan["n_own"], plan["n_pass"]
+
+
+def ce_bwd_dh(h, W, b, y, lse, ga, gb, compute_dtype=torch.float32, wt=None) -> Tensor:
     """``dh = gp @ W^T`` in fp32 ``[N, D]``; ``ce_bwd_dh.launches`` counts
-    launches of the ``ce_bwd_dh`` kernel."""
+    launches of the ``ce_bwd_dh`` kernel.  bf16 compute may take ``wt``,
+    the :func:`cast_wt` of W (``ce_bwd`` makes it once for both kernels)."""
     if not h.is_cuda:
         return ce_bwd_dh_ref(h, W, b, y, lse, ga, gb, compute_dtype)
-    hb, Wb, bf, yi, (lse, ga, gb), N, D, V = _bwd_args(h, W, b, y, lse, ga, gb,
-                                                      compute_dtype)
-    dh = torch.empty((N, h.shape[1]), dtype=torch.float32, device=h.device)
+    D0 = h.shape[1]
+    if compute_dtype == torch.bfloat16:
+        hb, wt, bf, yi, (lse, ga, gb), N, D, V = _bwd_bf16_args(h, W, b, y, lse, ga, gb, wt)
+    else:
+        hb, Wb, bf, yi, (lse, ga, gb), N, D, V = _bwd_args(h, W, b, y, lse, ga, gb,
+                                                          compute_dtype)
+    dh = torch.empty((N, D), dtype=torch.float32, device=h.device)
     if N == 0:
-        return dh
-    if D != h.shape[1]:
-        dh = torch.empty((N, D), dtype=torch.float32, device=h.device)
-    rows, cols, per_sm = _DH_TILE[compute_dtype]
-    slices = -(-D // KW)  # grid.z: the kernel's 512-wide slices of dh
-    splits, per_split = _splits(-(-V // cols), -(-N // rows) * slices, per_sm, h.device)
-    part = dh if splits == 1 else torch.empty((splits, N, D), dtype=torch.float32,
-                                              device=h.device)
-    err = _build.lib().jlm_ce_bwd_dh(
-        _ptr(hb), _ptr(Wb), _ptr(bf), _ptr(yi), _ptr(ga), _ptr(gb), _ptr(lse),
-        _ptr(part), _ptr(dh), N, D, V, Wb.shape[1], int(compute_dtype == torch.float32),
-        splits, per_split, ctypes.c_void_p(_build.stream_ptr(h)))
+        return dh[:, :D0]
+    stream = ctypes.c_void_p(_build.stream_ptr(h))
+    if compute_dtype == torch.bfloat16:
+        plan = bwd_plan("dh", N, D, V, _sms(h.get_device()))
+        splits = plan["splits"]
+        part = dh if splits == 1 else torch.empty((splits, N, D), dtype=torch.float32,
+                                                  device=h.device)
+        err = _build.lib().jlm_ce_bwd_dh_bf16(
+            _ptr(hb), _ptr(wt), _ptr(bf), _ptr(yi), _ptr(ga), _ptr(gb), _ptr(lse),
+            _ptr(part), _ptr(dh), N, D, V, *_plan_args(plan), splits,
+            plan["tiles_per_split"], stream)
+    else:
+        rows, cols, per_sm = _DH_TILE_F32
+        slices = -(-D // KW)  # grid.z: the kernel's 512-wide slices of dh
+        splits, per_split = _splits(-(-V // cols), -(-N // rows) * slices, per_sm, h.device)
+        part = dh if splits == 1 else torch.empty((splits, N, D), dtype=torch.float32,
+                                                  device=h.device)
+        err = _build.lib().jlm_ce_bwd_dh_f32(
+            _ptr(hb), _ptr(Wb), _ptr(bf), _ptr(yi), _ptr(ga), _ptr(gb), _ptr(lse),
+            _ptr(part), _ptr(dh), N, D, V, splits, per_split, stream)
     _build.check(err, "ce_bwd_dh kernel")
     ce_bwd_dh.launches += 1
-    return dh[:, :h.shape[1]].contiguous() if D != h.shape[1] else dh
+    return dh[:, :D0].contiguous() if D != D0 else dh
 
 
-def ce_bwd_dw(h, W, b, y, lse, ga, gb,
-              compute_dtype=torch.float32) -> Tuple[Tensor, Tensor]:
+def ce_bwd_dw(h, W, b, y, lse, ga, gb, compute_dtype=torch.float32,
+              wt=None) -> Tuple[Tensor, Tensor]:
     """``dW = h^T @ gp`` fp32 ``[D, V]`` and ``db = sum_rows gp`` fp32
     ``[V]``; ``ce_bwd_dw.launches`` counts launches of the ``ce_bwd_dw``
-    kernel."""
+    kernel.  bf16 compute may take ``wt`` as :func:`ce_bwd_dh` does."""
     if not h.is_cuda:
         return ce_bwd_dw_ref(h, W, b, y, lse, ga, gb, compute_dtype)
-    hb, Wb, bf, yi, (lse, ga, gb), N, D, V = _bwd_args(h, W, b, y, lse, ga, gb,
-                                                      compute_dtype)
-    Vp = Wb.shape[1]
-    dW = torch.zeros((D, Vp), dtype=torch.float32, device=h.device)
-    db = torch.zeros((Vp,), dtype=torch.float32, device=h.device)
-    if N:
-        err = _build.lib().jlm_ce_bwd_dw(
-            _ptr(hb), _ptr(Wb), _ptr(bf), _ptr(yi), _ptr(ga), _ptr(gb), _ptr(lse),
-            _ptr(dW), _ptr(db), N, D, V, Vp, int(compute_dtype == torch.float32),
-            ctypes.c_void_p(_build.stream_ptr(h)))
+    D0 = h.shape[1]
+    bf16 = compute_dtype == torch.bfloat16
+    if bf16:
+        hb, wt, bf, yi, (lse, ga, gb), N, D, V = _bwd_bf16_args(h, W, b, y, lse, ga, gb, wt)
+    else:
+        hb, Wb, bf, yi, (lse, ga, gb), N, D, V = _bwd_args(h, W, b, y, lse, ga, gb,
+                                                          compute_dtype)
+    dW = torch.empty((D, V), dtype=torch.float32, device=h.device)
+    db = torch.empty((V,), dtype=torch.float32, device=h.device)
+    if N == 0:
+        dW.zero_()
+        db.zero_()
+    else:
+        stream = ctypes.c_void_p(_build.stream_ptr(h))
+        if bf16:
+            plan = bwd_plan("dw", N, D, V, _sms(h.get_device()))
+            err = _build.lib().jlm_ce_bwd_dw_bf16(
+                _ptr(hb), _ptr(wt), _ptr(bf), _ptr(yi), _ptr(ga), _ptr(gb), _ptr(lse),
+                _ptr(dW), _ptr(db), N, D, V, *_plan_args(plan), stream)
+        else:
+            err = _build.lib().jlm_ce_bwd_dw_f32(
+                _ptr(hb), _ptr(Wb), _ptr(bf), _ptr(yi), _ptr(ga), _ptr(gb), _ptr(lse),
+                _ptr(dW), _ptr(db), N, D, V, stream)
         _build.check(err, "ce_bwd_dw kernel")
         ce_bwd_dw.launches += 1
-    if (D, Vp) != tuple(W.shape):
-        return dW[:W.shape[0], :V].contiguous(), db[:V]
-    return dW, db
+    return (dW[:D0].contiguous(), db) if D != D0 else (dW, db)
 
 
 ce_fwd_raw.launches = 0
@@ -238,7 +386,13 @@ def ce_bwd(h, W, b, y, lse, ga, gb=None,
     """Backward of the fused CE with cotangent ``gp = ga*p + gb*onehot(y)``
     (``gb=None``: plain CE, ``gb = -ga``): fp32 ``(dh, dW, db)``."""
     gb = -ga if gb is None else gb
-    h, W = h.to(compute_dtype), W.to(compute_dtype)  # cast once for both kernels
+    h = h.to(compute_dtype)  # cast once for both kernels
+    if h.is_cuda and compute_dtype == torch.bfloat16:  # W^T, cast once too
+        wt = cast_wt(W, -(-h.shape[1] // 128) * 128)
+        dh = ce_bwd_dh(h, W, b, y, lse, ga, gb, compute_dtype, wt=wt)
+        dW, db = ce_bwd_dw(h, W, b, y, lse, ga, gb, compute_dtype, wt=wt)
+        return dh, dW, db
+    W = W.to(compute_dtype)
     dh = ce_bwd_dh(h, W, b, y, lse, ga, gb, compute_dtype)
     dW, db = ce_bwd_dw(h, W, b, y, lse, ga, gb, compute_dtype)
     return dh, dW, db

@@ -279,6 +279,11 @@ def _rel(got, want):
     (77, 128, 1001, 3),       # vocab not a multiple of 8 (padded W)
     (200, 640, 3001, 5),      # a slice over 512: K chunks of 512 and 128, two dh/dW slices
     (70, 1024, 2003, 4),      # H = 1,024: two full chunks; ragged rows and vocab
+    (129, 512, 5000, 6),      # one row past two 64-row tiles
+    (300, 384, 3000, 0),      # a 384-wide slice (192 columns a warpgroup)
+    (1024, 128, 8003, 9),     # config 5's 128 and 256 blocks, a ragged vocab tile
+    (1024, 256, 8003, 0),
+    (8, 2048, 300, 3),        # rows, vocab under one tile; four slices, rows streamed
 ])
 def test_ce_kernels_vs_plain(cuda, N, D, V, neg_every):
     """ce_fwd, ce_bwd_dh and ce_bwd_dw vs their plain versions on the same
@@ -314,6 +319,36 @@ def test_ce_kernels_vs_plain(cuda, N, D, V, neg_every):
     for got, want in zip(ce.ce_bwd_dw(h, W, b, y, lse, g, zero, bf),
                          ce.ce_bwd_dw_ref(h, W, b, y, lse, g, zero, bf)):
         assert _rel(got, want) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_cast_wt_kernel_vs_plain(cuda, wdtype):
+    """cast_wt_kernel (the bf16 backward's transposing cast of W) is
+    bit-equal to its plain version, zero columns past D included."""
+    from jlm_tpu_torch.ops import softmax_ce as ce
+
+    _, W, _, _, _ = _ce_case(cuda, 17, 8, 96, 1001)
+    W = W.to(wdtype)
+    assert torch.equal(ce.cast_wt(W, 128), ce.cast_wt(W.cpu(), 128).to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D,V", [(1024, 512, 50_000), (129, 1024, 3001)])
+def test_ce_backward_is_deterministic(cuda, N, D, V):
+    """Two calls of ce_bwd_dh and ce_bwd_dw in bf16 on the same inputs give
+    bit-identical dh, dW and db (no atomics; split partials summed in
+    split order)."""
+    from jlm_tpu_torch.ops import softmax_ce as ce
+
+    bf = torch.bfloat16
+    h, W, b, y, g = _ce_case(cuda, 15, N, D, V, 5)
+    m, s = ce.ce_fwd_raw_ref(h, W, b, y, bf)[:2]
+    lse = m + torch.log(s)
+    first = (ce.ce_bwd_dh(h, W, b, y, lse, g, -g, bf),) + ce.ce_bwd_dw(h, W, b, y, lse, g, -g, bf)
+    again = (ce.ce_bwd_dh(h, W, b, y, lse, g, -g, bf),) + ce.ce_bwd_dw(h, W, b, y, lse, g, -g, bf)
+    for a, b2, name in zip(first, again, ("dh", "dW", "db")):
+        assert torch.equal(a, b2), name
 
 
 @pytest.mark.cuda

@@ -196,3 +196,76 @@ def test_cpu_ce_wrappers_do_not_count_launches(dtype):
     ce.ce_loss_fused(ht, Wt, bt, torch.from_numpy(y), dtype).sum().backward()
     assert (ce.ce_fwd_raw.launches, ce.ce_bwd_dh.launches, ce.ce_bwd_dw.launches) == before
     assert _build._lib is None
+
+
+@pytest.mark.parametrize("kind", ["dh", "dw"])
+@pytest.mark.parametrize("N,D,V", [
+    (1024, 512, 50_000),    # the training step's head (chip_smoke.py)
+    (1024, 1024, 50_000),   # H = 1,024 (chip_smoke.py phase 5d)
+    (1024, 512, 16_000),    # config 5's D-softmax blocks
+    (1024, 256, 34_000),
+    (1024, 128, 50_000),
+    (129, 384, 8_003),      # ragged rows and vocab, a 384-wide slice
+    (70, 640, 2_003),       # slices that 512 does not divide
+    (8, 2048, 300),         # past what stays resident
+])
+def test_bwd_plan_covers_every_row_and_column(kind, N, D, V):
+    """The bf16 backward's launch plan (a pure function of N, D, V and the
+    SM count, here an H100's 132): every vocab column falls in exactly one
+    split (dh) or vocab block (dW), every row in one row tile (dh) or in the
+    row tiles every dW block walks, every column of D in one slice, the
+    slots obey the kernel's rules, and shared memory stays within a
+    block's 227 KB."""
+    plan = ce.bwd_plan(kind, N, D, V, 132)
+    assert plan["smem"] == ce.bwd_smem(plan["sw"], plan["n_own"], plan["n_pass"])
+    assert plan["smem"] <= ce.SMEM_LIMIT == 227 * 1024
+    sw, slices = plan["sw"], plan["slices"]
+    assert sw % 128 == 0 and sw <= 512 and slices * sw == D
+    passes = D > sw
+    assert (2 if not passes else 1) <= plan["n_own"] <= 4
+    assert (2 <= plan["n_pass"] <= 8) if passes else plan["n_pass"] == 0
+
+    def owners(n, tile, blocks, per_block):
+        """How many (block, tile) pairs cover each of n indices."""
+        count = np.zeros(n, np.int64)
+        for blk in range(blocks):
+            for t in range(blk * per_block, (blk + 1) * per_block):
+                count[t * tile:min((t + 1) * tile, n)] += 1
+        return count
+
+    grid = plan["grid"]
+    if kind == "dh":
+        q_blocks, splits, zs = grid
+        assert q_blocks * 64 >= N > (q_blocks - 1) * 64 and zs == slices
+        assert splits == plan["splits"]
+        assert q_blocks * splits * slices <= 132 or splits == 1
+        np.testing.assert_array_equal(owners(V, 64, splits, plan["tiles_per_split"]), 1)
+        np.testing.assert_array_equal(owners(N, 64, q_blocks, 1), 1)
+    else:
+        v_blocks, zs = grid
+        assert zs == slices and plan["splits"] == 1
+        np.testing.assert_array_equal(owners(V, 64, v_blocks, 1), 1)
+        assert plan["tiles_per_split"] * 64 >= N > (plan["tiles_per_split"] - 1) * 64
+    np.testing.assert_array_equal(owners(D, sw, slices, 1), 1)
+
+
+def test_bwd_plan_slots():
+    """At D = 512 a block keeps two slots of a tile beside its rows (a
+    tile's loads overlap the previous tile's products), four at D = 256;
+    at D = 1,024 one slice slot and four pass slots."""
+    p512, p256, p1024 = (ce.bwd_plan("dh", 1024, d, 50_000, 132) for d in (512, 256, 1024))
+    assert (p512["n_own"], p512["n_pass"], p512["splits"]) == (2, 0, 8)
+    assert (p256["n_own"], p256["n_pass"]) == (4, 0)
+    assert (p1024["sw"], p1024["n_own"], p1024["n_pass"], p1024["splits"]) == (512, 1, 4, 4)
+
+
+@pytest.mark.parametrize("D,Dp", [(128, 128), (96, 128)])
+def test_cast_wt_is_the_transposed_bf16_cast(D, Dp):
+    """``cast_wt`` (the bf16 backward's cast of W, transposed) on a CPU
+    tensor: ``W^T`` rounded to bf16 as ``Tensor.to`` rounds, zero columns
+    past D; bit-equal."""
+    _, _, W, _, _ = _case(26, 4, D, 300)
+    wt = ce.cast_wt(torch.from_numpy(W), Dp)
+    assert wt.dtype == torch.bfloat16 and tuple(wt.shape) == (300, Dp)
+    want = torch.from_numpy(W).t().to(torch.bfloat16)
+    assert torch.equal(wt[:, :D], want) and not wt[:, D:].any()

@@ -22,7 +22,11 @@ backward (``torch.nn.LSTM`` on the same weights, its backward alone on a
 retained graph, TF32 off), and, where the tree has them, each direction's
 kernels alone (``scan_xw``, ``scan_fwd_recur``, ``scan_gates``,
 ``scan_recur``, the recurrences with 4 and 8 units a block, ``scan_dx``)
-with the fp32 GEMMs' ``torch.mm`` / ``torch.addmm`` beside them.  Each is timed two ways (``chip_smoke``'s
+with the fp32 GEMMs' ``torch.mm`` / ``torch.addmm`` beside them.  At the
+training rows (N = 1,024, V = 50,000) it times the fused CE's three bf16
+kernels through their wrappers, ``ce_fwd``, ``ce_bwd_dh`` and ``ce_bwd_dw``
+(the bf16 cast of h and W included, as in training), at D = 512 and
+1,024 (``--only ce_``).  Each is timed two ways (``chip_smoke``'s
 helpers): ``one_ms``, the median of 10 calls each between two CUDA events
 (the wrapper's Python before the launch counts), and ``row_ms``, the events
 around 50 calls in a row divided by 50 (the device's time where the device
@@ -43,7 +47,7 @@ import sys
 
 import torch
 
-from chip_smoke import (BLOCKS5, R32, TB, TT, B, C1, E, H, R, S, V, cuda_ms, in_a_row,
+from chip_smoke import (BLOCKS5, N_CE, R32, TB, TT, B, C1, E, H, R, S, V, cuda_ms, in_a_row,
                         torch_gates)
 
 
@@ -119,7 +123,30 @@ def cases(dev):
                 lambda: project_lse(h5, head5, cfg5, compute_dtype=bf, int8_mxu=True)))
     for hw, ew, cd in ((1024, 1024, torch.float32), (1024, 1024, bf), (512, 256, torch.float32)):
         out += scan_cases(dev, g, hw, ew, cd)
+    for d in (512, 1024):
+        out += ce_cases(dev, g, d)
     return out
+
+
+def ce_cases(dev, g, D):
+    """The fused CE's three bf16 kernels through their wrappers at the
+    training rows (N = 1,024, V = 50,000, fp32 master values cast per call,
+    as the trainer's backward calls them): ``ce_fwd``, and ``ce_bwd_dh`` and
+    ``ce_bwd_dw`` with the mean loss's cotangent."""
+    from jlm_tpu_torch.ops import softmax_ce as ce
+
+    bf = torch.bfloat16
+    h = torch.rand(N_CE, D, generator=g, device=dev) * 2 - 1
+    W = torch.randn(D, V, generator=g, device=dev) * 0.05
+    b = torch.randn(V, generator=g, device=dev) * 0.1
+    y = torch.randint(0, V, (N_CE,), generator=g, device=dev)
+    m, s = ce.ce_fwd_raw_ref(h, W, b, y, bf)[:2]
+    lse = m + torch.log(s)
+    ga = torch.full((N_CE,), 1.0 / N_CE, device=dev)
+    args = (h, W, b, y, lse, ga, -ga, bf)
+    return [(f"ce_fwd bf16 D{D}", lambda: ce.ce_fwd_raw(h, W, b, y, bf)),
+            (f"ce_bwd_dh bf16 D{D}", lambda: ce.ce_bwd_dh(*args)),
+            (f"ce_bwd_dw bf16 D{D}", lambda: ce.ce_bwd_dw(*args))]
 
 
 def scan_cases(dev, g, Hs, Es, cd):
