@@ -23,7 +23,11 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
    plain backward (a p-term off by ``P_SHIFT``, a forget gate off by
    ``F_SHIFT``; the bf16 CE backward's also by a trap of its design: dh
    without its second warpgroup's columns, dW without its last row tile,
-   ``ce_bwd_traps``), the int8 D-softmax bound one whose activation scale is
+   ``ce_bwd_traps``; the bf16 CE forward's, which reads the step's W^T,
+   by its second warpgroup reading the first's rows and by the target
+   logit without its bias, at the 50k head and at a D-softmax block's
+   width, D = 128, with a third of the targets owned by no column), the
+   int8 D-softmax bound one whose activation scale is
    taken over all H instead of each block's slice, the fp32 and fp32
    dequant bounds a plain version whose operands are rounded to TF32, and
    the bf16 dequant bound one that rescales the exact int8 product after
@@ -157,6 +161,8 @@ PEAKED = 0.5
 # training shapes: batch 32 x BPTT window 32 = 1,024 CE rows per step
 TB, TT, TRAIN_STEPS = 32, 32, 20
 N_CE = TB * TT
+# a D-softmax block's hidden width (config 5's third block), for the forward
+DS_D = 128
 # the widest width the port trains and serves (python -m jlm_tpu_torch.train
 # --hidden-size 1024; E = H), driven for WIDE_STEPS training steps
 HW, WIDE_STEPS = 1024, 3
@@ -181,7 +187,10 @@ BOUNDS = {  # kernel vs plain version, on the same inputs on the card
     "project_lse dsoftmax int8 slice scale": 1e-4,
     "lstm_cell_step fp32": 1e-5,  # abs, c' and h'; exact fp32 products
     "cand_dot bf16": 1e-3,      # abs error / max(1, max |plain|)
-    "ce_fwd bf16": 1e-3,        # abs, per-row loss and lse; fp32 sums in another order
+    "ce_fwd bf16": 1e-3,        # abs, per-row loss and lse; fp32 sums in another order;
+                                # wrong: rows 64 on of each 128 from the 64 before,
+                                # the target logit without its bias
+    "ce_fwd bf16 D128": 1e-3,   # the same at a D-softmax block's width
     # backward: abs error / max |plain| (of dh; of dW and db).  Both sides
     # round gp to bf16, and a gp element on a rounding boundary may round
     # the other way.  Two cotangents: the mean loss's (ga = 1/N, gb = -ga),
@@ -374,22 +383,27 @@ def bf16_ulps(a: torch.Tensor, ref: torch.Tensor) -> float:
 @contextlib.contextmanager
 def plain_ce(lse_shift: float = 0.0):
     """Swap the three CE kernel wrappers of ``jlm_tpu_torch.ops.softmax_ce``
-    for their plain versions, where the fused CE's autograd Functions look
-    them up.  With ``lse_shift`` the backward ones compute a wrong p-term,
-    ``exp(l - lse - lse_shift)``, which a bound must catch."""
+    and the cast of W^T for their plain versions, where the fused CE's
+    autograd Functions look them up.  With ``lse_shift`` the backward ones
+    compute a wrong p-term, ``exp(l - lse - lse_shift)``, which a bound
+    must catch."""
     from jlm_tpu_torch.ops import softmax_ce as ce
 
-    kernels = ce.ce_fwd_raw, ce.ce_bwd_dh, ce.ce_bwd_dw
+    kernels = ce.ce_fwd_raw, ce.ce_bwd_dh, ce.ce_bwd_dw, ce.cast_wt
 
     def shifted(ref):  # (the kernels' W^T, wt=, has no use in the plain versions)
         return lambda h, W, b, y, lse, *rest, wt=None: ref(h, W, b, y, lse + lse_shift, *rest)
 
-    ce.ce_fwd_raw = ce.ce_fwd_raw_ref
+    def fwd_ref(h, W, b, y, compute_dtype=torch.float32, wt=None):
+        return ce.ce_fwd_raw_ref(h, W, b, y, compute_dtype)
+
+    ce.ce_fwd_raw = fwd_ref
     ce.ce_bwd_dh, ce.ce_bwd_dw = shifted(ce.ce_bwd_dh_ref), shifted(ce.ce_bwd_dw_ref)
+    ce.cast_wt = ce.cast_wt_ref
     try:
         yield
     finally:
-        ce.ce_fwd_raw, ce.ce_bwd_dh, ce.ce_bwd_dw = kernels
+        ce.ce_fwd_raw, ce.ce_bwd_dh, ce.ce_bwd_dw, ce.cast_wt = kernels
 
 
 @contextlib.contextmanager
@@ -606,7 +620,7 @@ def kernel_cases(dev, rng):
         lstm_scan, lstm_scan_bwd, lstm_scan_bwd_ref, lstm_scan_fwd, lstm_scan_ref)
     from jlm_tpu_torch.ops.project import project_lse, project_lse_ref, quantize_rows
     from jlm_tpu_torch.ops.softmax_ce import (
-        ce_bwd_dh, ce_bwd_dh_ref, ce_bwd_dw, ce_bwd_dw_ref, ce_fwd_raw, ce_fwd_raw_ref)
+        cast_wt, ce_bwd_dh, ce_bwd_dh_ref, ce_bwd_dw, ce_bwd_dw_ref, ce_fwd_raw, ce_fwd_raw_ref)
 
     def t(a, dtype=torch.float32):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev).to(dtype)
@@ -642,6 +656,31 @@ def kernel_cases(dev, rng):
     ga = torch.full((N_CE,), 1.0 / N_CE, device=dev)  # the mean loss's cotangent
     ga_p = t(rng.uniform(0.5, 1.5, N_CE) / N_CE)     # with gb = 0: the p-term alone
     cotangents = {"": (ga, -ga), " p-term": (ga_p, torch.zeros_like(ga_p))}
+    # the forward's cases read the step's W^T as the trainer's forward does
+    # (made once a step, outside the timed call); at a D-softmax block's
+    # width (D = 128, a third of the targets owned by another block) too
+    wt_ce = cast_wt(W_ce, H)
+    rng_ds = np.random.default_rng(DS_D)  # its own: the later cases' draws do not move
+    h_ds = t(rng_ds.uniform(-1, 1, (N_CE, DS_D)))
+    W_ds = t(rng_ds.normal(0, 0.05, (DS_D, V)))
+    y_ds = y_ce.clone()
+    y_ds[::3] = -1
+    wt_ds = cast_wt(W_ds, DS_D)
+
+    def fwd_case(name, hh, W, yy, wt):
+        """The bf16 forward and its two wrong versions: the second consumer
+        warpgroup reading the first's rows, the target logit stored without
+        its bias."""
+        def no_bias_t():
+            m, s, t_ = ce_fwd_raw_ref(hh, W, b_ce, yy, bf)
+            own = (yy >= 0) & (yy < V)
+            return m, s, t_ - torch.where(own, b_ce[yy.clamp(0, V - 1)], 0.0)
+
+        return (name, lambda: ce_fwd_raw(hh, W, b_ce, yy, bf, wt=wt),
+                lambda: ce_fwd_raw_ref(hh, W, b_ce, yy, bf), ce_fwd_err,
+                {"the second warpgroup's rows from the first's":
+                 lambda: ce_fwd_raw_ref(second_half_fault(hh, 64), W, b_ce, yy, bf),
+                 "the target logit without its bias": no_bias_t}, None)
 
     cell_weight_tiles(Wc, E, H)  # made once and kept on Wc, as build_decode_head makes it
 
@@ -777,10 +816,8 @@ def kernel_cases(dev, rng):
         cand_case("cand_dot fp32", h3.float(), cols.float()),
         cand_case("cand_dot bf16 B20", h3_20, cols),
         cand_case("cand_dot fp32 B20", h3_20.float(), cols.float()),
-        ("ce_fwd bf16",
-         lambda: ce_fwd_raw(h_ce, W_ce, b_ce, y_ce, bf),
-         lambda: ce_fwd_raw_ref(h_ce, W_ce, b_ce, y_ce, bf),
-         ce_fwd_err, None, None),
+        fwd_case("ce_fwd bf16", h_ce, W_ce, y_ce, wt_ce),
+        fwd_case(f"ce_fwd bf16 D{DS_D}", h_ds, W_ds, y_ds, wt_ds),
     ] + bwd_cases + scan_cases, yardsticks
 
 
@@ -1124,7 +1161,7 @@ def wide_cases(dev, rng):
     from jlm_tpu_torch.ops.project import project_lse, project_lse_ref
     from jlm_tpu_torch.ops.quant import quantize_weight
     from jlm_tpu_torch.ops.softmax_ce import (
-        ce_bwd_dh, ce_bwd_dh_ref, ce_bwd_dw, ce_bwd_dw_ref, ce_fwd_raw, ce_fwd_raw_ref)
+        cast_wt, ce_bwd_dh, ce_bwd_dh_ref, ce_bwd_dw, ce_bwd_dw_ref, ce_fwd_raw, ce_fwd_raw_ref)
 
     f32, bf = torch.float32, torch.bfloat16
 
@@ -1170,7 +1207,9 @@ def wide_cases(dev, rng):
         else:
             wrong_fwd = {"operands rounded to TF32":
                          lambda Wc=Wc: ce_fwd_raw_ref(tf32(hc), tf32(Wc), bc, yc, f32)}
-        cases.append((f"ce_fwd {name} D1024", lambda Wc=Wc, cd=cd: ce_fwd_raw(hc, Wc, bc, yc, cd),
+        wt = cast_wt(Wc, HW) if cd == bf else None  # the step's W^T, made outside the call
+        cases.append((f"ce_fwd {name} D1024",
+                      lambda Wc=Wc, cd=cd, wt=wt: ce_fwd_raw(hc, Wc, bc, yc, cd, wt=wt),
                       lambda Wc=Wc, cd=cd: ce_fwd_raw_ref(hc, Wc, bc, yc, cd), ce_fwd_err,
                       wrong_fwd, None))
         for kname, kernel, ref in (("ce_bwd_dh", ce_bwd_dh, ce_bwd_dh_ref),
@@ -1280,7 +1319,7 @@ def wide_run(dev, rng, config, vocab, dev_ids):
     check(np.isfinite(loss_s).all() and np.isfinite(loss_l).all(), "H = 1024 loss finite")
     check(step1 <= TRAIN_BOUNDS["step 1 loss"], "H = 1024 step 1 loss: scan vs loop")
     check(last <= TRAIN_BOUNDS["last loss"], "H = 1024 last loss: scan vs loop")
-    want = {**dict.fromkeys(CE_COUNTERS, WIDE_STEPS),
+    want = {**dict.fromkeys(STEP_COUNTERS, WIDE_STEPS),
             **dict.fromkeys(SCAN_COUNTERS, WIDE_STEPS * wcfg.num_layers)}
     check(launches_s == want, f"H = 1024 scan run launches {launches_s}, expected {want}")
     check(launches_l == {**want, **dict.fromkeys(SCAN_COUNTERS, 0)},
@@ -1581,6 +1620,8 @@ EXPS = {
     "project_candidates dsoftmax int8": R_CAND * V5,
     "project_candidates dsoftmax fp32": R_CAND * V5,
     **{f"project_lse D{d}": R * V for d in INT8_WIDE},
+    # the bf16 CE forward: one per logit of the training rows
+    "ce_fwd": N_CE * V, "ce_fwd D1024": N_CE * V, f"ce_fwd bf16 D{DS_D}": N_CE * V,
 }
 SFU_PER_CLOCK = 16  # exponentials a clock per SM (the special-function units)
 # exponentials per second of the card: set in main from the SM count and
@@ -1619,8 +1660,11 @@ def work():
     scan_in = 4 * (TB * TT * E + (E + H) * 4 * H + 4 * H + 2 * TB * H)  # xs W b c0 h0
     ce_in_w = N_CE * HW * 4 + HW * V * 4 + V * 4 + N_CE * 8  # the same at D = HW
     scan_in_w = 4 * (TB * TT * HW + 2 * HW * 4 * HW + 4 * HW + 2 * TB * HW)
+    # the bf16 forward reads the step's W^T (bf16) in place of W
+    fwd_in = {d: N_CE * d * 4 + d * V * 2 + V * 4 + N_CE * 8 + 3 * N_CE * 4
+              for d in (H, HW, DS_D)}
     ce_w = {  # the three CE kernels at D = HW: bytes, operations
-        "ce_fwd": (ce_in_w + 3 * N_CE * 4, 2 * N_CE * HW * V),
+        "ce_fwd": (fwd_in[HW], 2 * N_CE * HW * V),
         "ce_bwd_dh": (ce_in_w + 3 * N_CE * 4 + N_CE * HW * 4, 4 * N_CE * HW * V),
         "ce_bwd_dw": (ce_in_w + 3 * N_CE * 4 + HW * V * 4 + V * 4, 4 * N_CE * HW * V)}
     scan_w = {  # the scan kernels at H = E = HW: fp32 products, or (bf16) products
@@ -1643,7 +1687,8 @@ def work():
         "project_lse dequant bf16 D1024": (R * HW * 2 + HW * V + V * 8 + R * 4,
                                            2 * R * HW * V, "bf16"),
         **{f"{k} D1024": (*ce_w[k], "bf16") for k in ce_w},
-        **{f"{k} fp32 D1024": (*ce_w[k], "fp32") for k in ce_w},
+        "ce_fwd fp32 D1024": (ce_in_w + 3 * N_CE * 4, 2 * N_CE * HW * V, "fp32"),
+        **{f"{k} fp32 D1024": (*ce_w[k], "fp32") for k in ce_w if k != "ce_fwd"},
         **{f"{k} H1024": (*scan_w[k], "fp32") for k in scan_w},
         **{f"{k} bf16 H1024": (*scan_w[k], "bf16") for k in scan_w},
         # x, h, c bf16, W bf16, b -> c', h' bf16
@@ -1668,7 +1713,8 @@ def work():
         # x, h, c fp32, W fp32, b -> c', h' fp32
         "lstm_cell_step fp32": (R32 * (E + 4 * H) * 4 + (E + H) * 4 * H * 4 + 4 * H * 4,
                                 2 * R32 * (E + H) * 4 * H, "fp32"),
-        "ce_fwd": (ce_in + 3 * N_CE * 4, 2 * N_CE * H * V, "bf16"),
+        "ce_fwd": (fwd_in[H], 2 * N_CE * H * V, "bf16"),
+        f"ce_fwd bf16 D{DS_D}": (fwd_in[DS_D], 2 * N_CE * DS_D * V, "bf16"),
         # + lse, ga, gb; two products each (the logits again, then dh or dW)
         "ce_bwd_dh": (ce_in + 3 * N_CE * 4 + N_CE * H * 4, 4 * N_CE * H * V, "bf16"),
         "ce_bwd_dw": (ce_in + 3 * N_CE * 4 + H * V * 4 + V * 4, 4 * N_CE * H * V, "bf16"),
@@ -1983,6 +2029,11 @@ def kernel_fn(name: str) -> str:
                 "slots, gp from the accumulators into the MN-major product; cast_wt_kernel "
                 "writes W^T" + ("; output slices of 512" if name.endswith(" D1024") else "")
                 + (", sum_splits_kernel the splits)" if kernel.startswith("ce_bwd_dh") else ")"))
+    if name == "ce_fwd" or name.startswith("ce_fwd D") or name.startswith("ce_fwd bf16"):
+        return ("ce_fwd_bf16_kernel (wgmma m64n128 + TMA over W^T: 128 rows a block, "
+                "resident where they fit" + (", 10 of 16 K chunks streamed beside W^T's"
+                                             if name.endswith(" D1024") else "")
+                + "; kv tiles through a ring, two accumulators; ms_merge_kernel the splits)")
     if name.endswith(" D1024") and name.startswith("ce_"):
         return kernel_fn(name[:-6]) + " (K in chunks of 512)"
     if name in ("project_lse", "project_lse dsoftmax int8", "project_candidates int8",
@@ -2018,9 +2069,12 @@ def kernel_fn(name: str) -> str:
 
 
 CE_COUNTERS = ("ce_fwd", "ce_bwd_dh", "ce_bwd_dw")
+# the training runs also count the step's one cast of W^T (``cast_wt``),
+# which the bf16 forward and backward share
+STEP_COUNTERS = CE_COUNTERS + ("cast_wt",)
 # phase-2 cases that no path of the run launches, so the kernels line has no
 # entry of theirs; phase 2 logs their bound
-PHASE2_ONLY = ("lstm_scan_fwd fp32 B16384",)
+PHASE2_ONLY = ("lstm_scan_fwd fp32 B16384", f"ce_fwd bf16 D{DS_D}")
 SCAN_COUNTERS = ("lstm_scan_fwd", "lstm_scan_bwd", "scan_xw", "scan_fwd_recur", "scan_gates",
                  "scan_recur", "scan_dx")
 # the TPU kernel each scan wrapper's kernels replace (jlm_tpu/ops/lstm_scan.py)
@@ -2038,14 +2092,15 @@ def training_run(dev, config, params, train_ids, dev_ids, label, swap=None):
     """TRAIN_STEPS ``Trainer`` steps from ``params``, inside ``swap`` (a
     context that swaps kernels for plain versions) if given.  Returns the
     trainer, the per-step losses, ms per step (steps 2 on, host clock
-    ending in a synchronize), the CE and scan launch counts of the steps,
-    and dev perplexity."""
+    ending in a synchronize), the CE (with ``cast_wt``) and scan launch
+    counts of the steps, and dev perplexity."""
     from jlm_tpu_torch.ops import lstm_scan as ls
     from jlm_tpu_torch.ops import softmax_ce as ce
     from jlm_tpu_torch.train import Trainer
 
-    counters = dict(zip(CE_COUNTERS + SCAN_COUNTERS,
-                        (ce.ce_fwd_raw, ce.ce_bwd_dh, ce.ce_bwd_dw) + scan_counters()))
+    counters = dict(zip(STEP_COUNTERS + SCAN_COUNTERS,
+                        (ce.ce_fwd_raw, ce.ce_bwd_dh, ce.ce_bwd_dw, ce.cast_wt)
+                        + scan_counters()))
     trainer = Trainer(config, params, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2456,9 +2511,9 @@ def main() -> int:
     check(step1 <= TRAIN_BOUNDS["step 1 loss"], "step 1 loss: kernels vs plain")
     check(last <= TRAIN_BOUNDS["last loss"], "last loss: kernels vs plain")
     check(ppl_rel <= TRAIN_BOUNDS["dev ppl"], "dev perplexity: kernels vs plain")
-    check(launches_k == {**dict.fromkeys(CE_COUNTERS, TRAIN_STEPS),
+    check(launches_k == {**dict.fromkeys(STEP_COUNTERS, TRAIN_STEPS),
                          **dict.fromkeys(SCAN_COUNTERS, 0)},
-          f"CE launches {launches_k}: one forward and one backward per step")
+          f"CE launches {launches_k}: one forward, one backward and one cast of W^T per step")
     check(not any(launches_p.values()), f"plain run launched {launches_p}")
     launches.update((k, launches_k[k]) for k in CE_COUNTERS)
 
@@ -2483,10 +2538,10 @@ def main() -> int:
     check(ppl_rel <= TRAIN_BOUNDS["dev ppl"], "dev perplexity: scan kernels vs plain")
     check(loop1 <= TRAIN_BOUNDS["step 1 loss"], "step 1 loss: scan run vs loop run")
     per_step = TRAIN_STEPS * scfg.num_layers
-    check(launches_s == {**dict.fromkeys(CE_COUNTERS, TRAIN_STEPS),
+    check(launches_s == {**dict.fromkeys(STEP_COUNTERS, TRAIN_STEPS),
                          **dict.fromkeys(SCAN_COUNTERS, per_step)},
           f"scan run launches {launches_s}: each scan kernel once per layer per step")
-    check(launches_sp == {**dict.fromkeys(CE_COUNTERS, TRAIN_STEPS),
+    check(launches_sp == {**dict.fromkeys(STEP_COUNTERS, TRAIN_STEPS),
                           **dict.fromkeys(SCAN_COUNTERS, 0)},
           f"plain scan run launched {launches_sp}")
     launches.update((k, launches_s[k]) for k in SCAN_COUNTERS)

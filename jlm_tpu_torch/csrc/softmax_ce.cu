@@ -20,35 +20,60 @@
 // the L2 serves while the row blocks re-stream it.  In fp32 the bound is
 // the 67 TFLOP/s of the CUDA cores: ~0.78 ms a product.
 //
-// Layouts: h [N, D] and W [D, V] bf16 row-major for the forward: the
-// wrapper casts the [D, V] fp32 master to bf16 once per forward (~150 MB of
-// traffic, ~0.05 ms at V = 50,000); ldmatrix.trans turns a [k][n] tile of W
-// into mma's col-major B fragment.  The bf16 backward reads W^T [V, D]
-// instead, which the wrapper's cast writes in the same one pass
-// (cast_wt_kernel), for the reason given with its kernels below.
-// Columns >= V are masked (p = 0, no target), as the reference's -1e30
-// bias padding does; D must be a multiple of 128, and the forward's and
-// the fp32 kernels' V a multiple of 8 (16-byte row chunks).  The bf16
-// backward takes any V: W^T's rows past V read as zero through TMA, so a
-// column past V meets a zero row in the output product, and db stores
-// only the first V.
+// Layouts: h [N, D] row-major.  The bf16 kernels read W^T [V, Dp] bf16
+// (D zero-padded to Dp), which the wrapper's one transposing cast a step
+// (cast_wt_kernel) writes for the forward and the backward together; the
+// fp32 kernels read W [D, V] as it is.  Columns >= V are masked (no p, no
+// target), as the reference's -1e30 bias padding does; D must be a
+// multiple of 128; V may be anything (W^T's rows past V read as zero
+// through TMA: the bf16 forward's bias is -inf there, and in the bf16
+// backward a column past V meets a zero row in the output product, and db
+// stores only the first V).
 //
-// Hidden slices wider than KW = 512 (the forward, the fp32 backward): what
-// a kernel keeps D-wide on chip (h rows and W tiles in shared memory, dh or
-// dW in registers) is cut into K chunks of at most 512.  The logits
-// accumulate over the chunks, each staged in turn into the buffers a
-// 512-wide slice uses (at D <= 512 one chunk, staged as before); a D-wide
-// output is split over the grid (dh over grid.z, dW over grid.y), each
-// slice of at most 512 recomputing the logits and taking its chunk last,
-// so that the chunk left in shared memory is the one its product needs.
-// Only ce_fwd_f32 needs no change: it streams K in chunks of 32 at every D.
+// Hidden slices wider than KW = 512 in the fp32 backward: what a kernel
+// keeps D-wide on chip (h rows and W tiles in shared memory, dh or dW in
+// registers) is cut into K chunks of at most 512.  The logits accumulate
+// over the chunks, each staged in turn; a D-wide output is split over the
+// grid (dh over grid.z, dW over grid.y), each slice of at most 512
+// recomputing the logits and taking its chunk last, so that the chunk left
+// in shared memory is the one its product needs.  ce_fwd_f32 streams K in
+// chunks of 32 at every D.
 //
-// Forward design (mma.sync m16n8k16, no cp.async/TMA pipeline):
-// - ce_fwd: a block owns 128 rows and loops over its share of 64-column
-//   vocab tiles (the TPU kernel's sequential vocab axis); the vocab is
-//   split over grid.y so 8 row blocks still fill the card, and a small
-//   second kernel merges the split partials (m, s).  The one column that
-//   matches a row's target writes t directly: a write, not a one-hot sum.
+// bf16 forward design (ce_fwd_bf16_kernel: wgmma + TMA, sm_90a), replacing
+// jlm_tpu/ops/softmax_ce.py::_ce_fwd_kernel (an online logsumexp and the
+// target logit over vocab tiles).
+// - Bound: the products, 2 N D V operations (0.053 ms at N = 1,024, D =
+//   512, V = 50,000 at 989 TFLOP/s); the L2's stream of W^T, once per row
+//   block (51 MB there; 8 blocks of 128 rows: 410 MB, ~0.07 ms at ~5.8
+//   TB/s); N V exponentials at 16 a clock an SM (~0.014 ms).
+// - A block owns FT = 128 q rows (rows of h), 64 for each of two consumer
+//   warpgroups, and walks the FT-row kv tiles (rows of W^T) of its vocab
+//   split (grid.y); per tile each warpgroup forms its logits [64, 128]
+//   with wgmma m64n128k16, both operands K-major from 128-byte-swizzled
+//   TMA boxes of 128 rows x 64, each kv chunk read by both warpgroups:
+//   twice the rows of the backward's blocks, half its stream of W^T.
+// - Pipeline: the q chunks that fit stay resident (all of them at D <= 512,
+//   128 KB); one producer thread keeps the kv chunks, and past the resident
+//   ones the q chunks beside them, in flight through a ring of 16 KB slots,
+//   each released by both warpgroups once the product past it completes;
+//   a producer warp stages each tile's bias (-inf past V) in a small ring.
+//   fwd_plan (ops/softmax_ce.py) picks the resident chunks and the slots:
+//   eight and five at D = 512, two and eleven at D = 128, six and seven at
+//   D = 1,024 (ten of K's sixteen q chunks stream: a deeper ring beat more
+//   resident rows there).  The logits are formed once over all of D: the
+//   forward has no D-wide output.
+// - Two accumulators a warpgroup: tile t's first chunk is issued before
+//   tile t - 1's epilogue runs, so the tensor cores work while the
+//   special-function unit takes the exponentials.  Each tile ends with
+//   its products retired and the epilogue has no divergent branch: else
+//   ptxas serializes every wgmma (its warnings C7514, C7518) and the
+//   overlap is lost.
+// - Epilogue: each thread keeps an online (m, s) of its fragment's two
+//   rows over its own columns (m in natural units; exp is 2^x of the
+//   special-function unit on log2-unit arguments); the one thread holding
+//   a row's target column stores t (a store, not a one-hot sum) at the
+//   tile's end; the quads merge once at the end, and ms_merge_kernel
+//   merges the vocab splits in split order (deterministic).
 //
 // bf16 backward design (ce_bwd_dh_kernel, ce_bwd_dw_kernel: wgmma + TMA,
 // sm_90a).  Both are one kernel body, shaped like an attention forward
@@ -131,40 +156,10 @@ using bf16 = __nv_bfloat16;
 constexpr int THREADS = 256;
 constexpr float NEG = -1e30f;
 
-constexpr int F_TR = 128, F_TV = 64;  // ce_fwd: rows per block, tile columns
-
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
-}
-
-__device__ __forceinline__ uint4 ld16(const bf16* p, bool ok) {
-  return ok ? *reinterpret_cast<const uint4*>(p) : make_uint4(0, 0, 0, 0);
-}
-
-// Columns [0, width) of rows [row0, row0 + rows) of h [N, hld] -> s
-// [rows][ld], zero past N.
-__device__ __forceinline__ void stage_rows(bf16* s, int ld, const bf16* h, int hld,
-                                           int row0, int rows, int N, int width) {
-  const int chunks = width / 8;
-  for (int i = threadIdx.x; i < rows * chunks; i += THREADS) {
-    const int r = i / chunks, cc = i % chunks, row = row0 + r;
-    *reinterpret_cast<uint4*>(s + r * ld + cc * 8) =
-        ld16(h + (size_t)row * hld + cc * 8, row < N);
-  }
-}
-
-// Columns [n0, n0 + cols) of rows [0, depth) of W [., ldw] -> s [depth][ld],
-// zero past ldw.
-__device__ __forceinline__ void stage_cols(bf16* s, int ld, const bf16* W,
-                                           int n0, int cols, int depth, int ldw) {
-  const int chunks = cols / 8;
-  for (int i = threadIdx.x; i < depth * chunks; i += THREADS) {
-    const int k = i / chunks, cc = i % chunks, n = n0 + cc * 8;
-    *reinterpret_cast<uint4*>(s + k * ld + cc * 8) =
-        ld16(W + (size_t)k * ldw + n, n < ldw);
-  }
 }
 
 // K chunks of a D-wide product: chunk c covers [c * KW, c * KW + kw).
@@ -202,155 +197,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// ---------------------------------------------------------------- forward
-
-size_t fwd_smem(int D) {
-  D = D < KW ? D : KW;  // a wider slice goes in chunks of KW
-  return (size_t)F_TR * (D + 8) * 2 + (size_t)D * (F_TV + 8) * 2 +
-         (F_TV + 3 * F_TR) * sizeof(float);
-}
-
-__global__ void __launch_bounds__(THREADS, 1)
-ce_fwd_kernel(const bf16* __restrict__ h, const bf16* __restrict__ W,
-              const float* __restrict__ bias, const int* __restrict__ y,
-              float* __restrict__ m_part, float* __restrict__ s_part,
-              float* __restrict__ t_out, int N, int D, int V,
-              int ldw, int tiles_per_split) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int nkc = n_chunks(D), DC = min(D, KW);
-  const int lda = DC + 8, ldb = F_TV + 8;
-  bf16* sA = reinterpret_cast<bf16*>(smem);                 // [F_TR][lda]
-  bf16* sB = sA + F_TR * lda;                                // [DC][ldb]
-  float* sBias = reinterpret_cast<float*>(sB + DC * ldb);    // [F_TV]
-  int* sY = reinterpret_cast<int*>(sBias + F_TV);            // [F_TR]
-  float* sRed = reinterpret_cast<float*>(sY + F_TR);         // [2][F_TR]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;  // 4 x 2 warps of 32 x 32
-  const int gid = lane >> 2, tig = lane & 3;
-  const int mat = lane >> 3, mr = lane & 7;
-  const int row0 = blockIdx.x * F_TR;
-  const int n_tiles = (V + F_TV - 1) / F_TV;
-  const int vt_begin = blockIdx.y * tiles_per_split;
-  const int vt_end = min(vt_begin + tiles_per_split, n_tiles);
-
-  if (nkc == 1) stage_rows(sA, lda, h, D, row0, F_TR, N, D);  // resident
-  for (int i = tid; i < F_TR; i += THREADS) sY[i] = row0 + i < N ? y[row0 + i] : -1;
-
-  float m_run[4], s_run[4];  // rows wm*32 + mi*16 + half*8 + gid, idx mi*2+half
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = NEG;
-    s_run[i] = 0.0f;
-  }
-
-  for (int vt = vt_begin; vt < vt_end; ++vt) {
-    __syncthreads();  // previous tile consumed (and rows staged)
-    const int n0 = vt * F_TV;
-    for (int i = tid; i < F_TV; i += THREADS) sBias[i] = n0 + i < V ? bias[n0 + i] : 0.0f;
-
-    float acc[2][4][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
-
-    for (int c = 0; c < nkc; ++c) {
-      const int kw = chunk_width(D, c);
-      if (c > 0) __syncthreads();  // the previous chunk consumed
-      if (nkc > 1) stage_rows(sA, lda, h + c * KW, D, row0, F_TR, N, kw);
-      stage_cols(sB, ldb, W + (size_t)c * KW * ldw, n0, F_TV, kw, ldw);
-      __syncthreads();
-      for (int k0 = 0; k0 < kw; k0 += 16) {
-        uint32_t a[2][4], b[4][2];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const int r = wm * 32 + mi * 16 + (mat & 1) * 8 + mr;
-          jlm::ldsm_x4(a[mi][0], a[mi][1], a[mi][2], a[mi][3],
-                       sA + r * lda + k0 + (mat >> 1) * 8);
-        }
-#pragma unroll
-        for (int nj = 0; nj < 4; nj += 2) {
-          const int kr = k0 + (mat & 1) * 8 + mr;
-          const int col = wn * 32 + nj * 8 + (mat >> 1) * 8;
-          jlm::ldsm_x4_trans(b[nj][0], b[nj][1], b[nj + 1][0], b[nj + 1][1],
-                             sB + kr * ldb + col);
-        }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni)
-            jlm::mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
-      }
-    }
-
-    // ---- epilogue: logits in registers -> online (m, s), target logit ----
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int rl = wm * 32 + mi * 16 + half * 8 + gid;
-        const int yr = sY[rl];
-        float x[8];
-        float tmax = NEG;
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int cl = wn * 32 + ni * 8 + tig * 2 + e;
-            float v = acc[mi][ni][half * 2 + e] + sBias[cl];
-            if (n0 + cl >= V)
-              v = -INFINITY;
-            else if (n0 + cl == yr)
-              t_out[row0 + rl] = v;  // the one column that matches
-            x[ni * 2 + e] = v;
-            tmax = fmaxf(tmax, v);
-          }
-        const int i = mi * 2 + half;
-        const float m_new = fmaxf(m_run[i], tmax);
-        float s = s_run[i] * expf(m_run[i] - m_new);
-#pragma unroll
-        for (int q = 0; q < 8; ++q) s += expf(x[q] - m_new);
-        m_run[i] = m_new;
-        s_run[i] = s;
-      }
-  }
-
-  // ---- merge partials: the 4 lanes of a quad, then the 2 column warps ----
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, m_run[i], off);
-      const float s2 = __shfl_xor_sync(0xffffffffu, s_run[i], off);
-      merge_ms(m_run[i], s_run[i], m2, s2);
-    }
-  __syncthreads();
-  if (wn == 1 && tig == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int rl = wm * 32 + (i >> 1) * 16 + (i & 1) * 8 + gid;
-      sRed[rl] = m_run[i];
-      sRed[F_TR + rl] = s_run[i];
-    }
-  }
-  __syncthreads();
-  if (wn == 0 && tig == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int rl = wm * 32 + (i >> 1) * 16 + (i & 1) * 8 + gid;
-      const int row = row0 + rl;
-      float m = m_run[i], s = s_run[i];
-      merge_ms(m, s, sRed[rl], sRed[F_TR + rl]);
-      if (row < N) {
-        m_part[(size_t)blockIdx.y * N + row] = m;
-        s_part[(size_t)blockIdx.y * N + row] = s;
-      }
-    }
-  }
-}
+// ------------------------------------------------------ split merges
 
 // Merge the vocab splits of each row: m = max_k m_k, s = sum_k s_k e^(m_k - m).
 __global__ void ms_merge_kernel(const float* __restrict__ m_part,
@@ -801,9 +648,278 @@ cudaError_t launch_dw(const void* h, const void* wt, const float* bias, const in
   return cudaGetLastError();
 }
 
+// ------------------------------------------------- forward (bf16): wgmma
+
+constexpr int FT = 128;              // q rows of a block; kv rows of a tile
+constexpr int SUB = FT * 128;        // a slot: a K chunk of 128 rows x 64 bf16, 16 KB
+constexpr int MAX_SUB = 12, NB = 4;  // ring slots at most; bias slots
+
+// The launch plan, made by ops/softmax_ce.py::fwd_plan: the q chunks kept
+// resident (the first n_res of K), the ring's slots, the vocab tiles of a
+// split.
+struct FwdPlan {
+  int n_res, n_sub, tiles_per_split;
+};
+
+// The resident q chunks, the ring, the bias slots, the barriers, and the
+// 1,024 bytes that align the swizzled chunks.
+size_t fwd_smem(const FwdPlan& p) {
+  return 1024 + (size_t)(p.n_res + p.n_sub) * SUB + NB * FT * 4 +
+         (1 + 2 * MAX_SUB + 2 * NB) * 8;
+}
+
+// Checks a plan against the kernel's rules (fwd_plan makes them so): a
+// slot for the chunk in flight and one for the next (two of each where q
+// chunks stream beside kv chunks), the shared memory within a block's.
+bool fwd_plan_ok(int D, const FwdPlan& p) {
+  const int nd = D / 64;
+  return D > 0 && D % 128 == 0 && p.n_res >= 0 && p.n_res <= nd &&
+         p.n_sub >= (p.n_res < nd ? 4 : 2) && p.n_sub <= MAX_SUB && p.tiles_per_split > 0 &&
+         fwd_smem(p) <= SMEM_LIMIT;
+}
+
+// Per-row partial (m, s) of the split's vocab tiles and the target logit:
+// tm_q over h [N, D], tm_kv over W^T [V, D] (boxes of 128 rows x 64,
+// swizzled); grid row blocks x vocab splits.  Warpgroups 0 and 1 consume
+// (rows 64 g .. 64 g + 63 of the block), warpgroup 2 produces (one thread
+// the chunks, one warp the bias).
+__global__ void __launch_bounds__(3 * WG, 1)
+ce_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_kv, const float* __restrict__ bias,
+                   const int* __restrict__ y, float* __restrict__ m_part,
+                   float* __restrict__ s_part, float* __restrict__ t_out, int N, int D, int V,
+                   FwdPlan p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* qbuf = smem;                                  // [n_res] resident q chunks
+  unsigned char* ring = qbuf + p.n_res * SUB;                  // [n_sub] kv or q chunks
+  float* tb = reinterpret_cast<float*>(ring + p.n_sub * SUB);  // [NB][FT] bias, -inf past V
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(tb + NB * FT);
+  uint64_t* full = qfull + 1;
+  uint64_t* empty = full + MAX_SUB;
+  uint64_t* bfull = empty + MAX_SUB;
+  uint64_t* bempty = bfull + NB;
+
+  const int nd = D / 64, q0 = blockIdx.x * FT;
+  const int t_begin = blockIdx.y * p.tiles_per_split;
+  const int nt = min(p.tiles_per_split, (V + FT - 1) / FT - t_begin);
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    jlm::mbar_init(qfull, 1);
+    for (int s = 0; s < MAX_SUB; ++s) {
+      jlm::mbar_init(&full[s], 1);
+      jlm::mbar_init(&empty[s], 2 * WG / 32);  // every consumer warp
+    }
+    for (int s = 0; s < NB; ++s) {
+      jlm::mbar_init(&bfull[s], 32);  // the bias warp
+      jlm::mbar_init(&bempty[s], 2 * WG / 32);
+    }
+    jlm::mbar_fence_init();
+  }
+  __syncthreads();
+  if (nt <= 0) return;
+
+  if (wg == 2) {
+    // ---- producers: one thread the resident q chunks once, then each
+    // tile's kv chunks (and, past the resident ones, the q chunk of the
+    // same K) in order through the ring; one warp each tile's bias ----
+    jlm::setmaxnreg_dec<40>();
+    if (threadIdx.x == 2 * WG) {
+      jlm::prefetch_map(&tm_q);
+      jlm::prefetch_map(&tm_kv);
+      if (p.n_res > 0) {
+        jlm::mbar_expect_tx(qfull, p.n_res * SUB);
+        for (int c = 0; c < p.n_res; ++c)
+          jlm::tma_load(qbuf + c * SUB, &tm_q, qfull, c * 64, q0);
+      }
+      int pos = 0;
+      auto load = [&](const CUtensorMap* map, int col, int row) {
+        const int s = pos % p.n_sub;
+        if (pos >= p.n_sub) jlm::mbar_wait(&empty[s], ((pos / p.n_sub) - 1) & 1);
+        jlm::mbar_expect_tx(&full[s], SUB);
+        jlm::tma_load(ring + s * SUB, map, &full[s], col, row);
+        ++pos;
+      };
+      for (int t = 0; t < nt; ++t)
+        for (int dc = 0; dc < nd; ++dc) {
+          load(&tm_kv, dc * 64, (t_begin + t) * FT);
+          if (dc >= p.n_res) load(&tm_q, dc * 64, q0);
+        }
+    } else if (threadIdx.x / 32 == 2 * WG / 32 + 1) {
+      const int lane = threadIdx.x & 31;
+      for (int t = 0; t < nt; ++t) {
+        const int kv0 = (t_begin + t) * FT, s = t % NB;
+        if (t >= NB) jlm::mbar_wait(&bempty[s], ((t / NB) - 1) & 1);
+        for (int c = lane; c < FT; c += 32)
+          tb[s * FT + c] = kv0 + c < V ? bias[kv0 + c] : -INFINITY;
+        jlm::mbar_arrive(&bfull[s]);  // release: the consumers' wait sees the stores
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  jlm::setmaxnreg_inc<232>();
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x / 32) & 3;
+  const int row0 = q0 + 64 * wg + 16 * warp + lane / 4;  // + 8 i: the fragment's rows
+  const int cq = 2 * (lane & 3);                         // + 8 j + e: its columns
+  int qy[2];  // the rows' targets; -1 (no column) outside [0, V) and past N
+  float m[2] = {NEG, NEG}, s[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    const int yr = row < N ? y[row] : -1;
+    qy[i] = (unsigned)yr < (unsigned)V ? yr : -1;
+  }
+  float acc[2][FT / 2];  // tile t's logits in acc[t % 2]
+  // descriptors of the operands' first bytes (+ bytes / 16 further on):
+  // this warpgroup's rows of a resident q chunk or of a q chunk in the
+  // ring, and the kv rows of a ring slot
+  const uint64_t d_q = jlm::smem_desc(qbuf + wg * 64 * 128);
+  const uint64_t d_rq = jlm::smem_desc(ring + wg * 64 * 128);
+  const uint64_t d_kv = jlm::smem_desc(ring);
+
+  // ---- a tile's target logits, from its raw logits (nothing in flight):
+  // the one thread that holds a row's target column stores it ----
+  auto target = [&](float (&a)[FT / 2], int t) {
+    const int kv0 = (t_begin + t) * FT, sb = t % NB;
+    jlm::mbar_wait(&bfull[sb], (t / NB) & 1);
+    const float* b = tb + sb * FT;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = qy[i] - kv0;  // the target's column in the tile
+      if ((unsigned)c < (unsigned)FT && (c & 6) == cq) {
+        float l = 0.0f;
+#pragma unroll
+        for (int j = 0; j < FT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (8 * j + cq + e == c) l = a[4 * j + 2 * i + e];
+        t_out[row0 + 8 * i] = l + b[c];
+      }
+    }
+  };
+
+  // ---- a tile's epilogue, with no branch that could diverge (ptxas then
+  // serializes the wgmma in flight beside it): bias, online (m, s) of the
+  // two rows over this thread's 32 columns ----
+  auto epilogue = [&](float (&a)[FT / 2], int t) {
+    const int sb = t % NB;  // (target(t) has waited for the tile's bias)
+    const float* b = tb + sb * FT;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < FT / 8; ++j) {
+      const float2 bj = *reinterpret_cast<const float2*>(b + 8 * j + cq);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        a[4 * j + 2 * i] += bj.x;
+        a[4 * j + 2 * i + 1] += bj.y;
+        mx[i] = fmaxf(mx[i], fmaxf(a[4 * j + 2 * i], a[4 * j + 2 * i + 1]));
+      }
+    }
+    __syncwarp();
+    if (lane == 0) jlm::mbar_arrive(&bempty[sb]);  // the tile's bias is read
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float ml = mx[i] * LOG2E;
+      float sum = s[i] * ex2(fmaf(m[i], LOG2E, -ml));
+#pragma unroll
+      for (int j = 0; j < FT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) sum += ex2(fmaf(a[4 * j + 2 * i + e], LOG2E, -ml));
+      s[i] = sum;
+      m[i] = mx[i];
+    }
+  };
+
+  // ---- chunk dc of a tile's logits into a: wait for its slots (a kv
+  // chunk, and a q chunk past the resident ones), issue, commit ----
+  int pos = 0;
+  auto issue = [&](float (&a)[FT / 2], int dc, int& skv, int& sq) {
+    skv = pos % p.n_sub;
+    jlm::mbar_wait(&full[skv], (pos / p.n_sub) & 1);
+    ++pos;
+    sq = -1;
+    uint64_t da = d_q + ((dc * SUB) >> 4);
+    if (dc >= p.n_res) {
+      sq = pos % p.n_sub;
+      jlm::mbar_wait(&full[sq], (pos / p.n_sub) & 1);
+      ++pos;
+      da = d_rq + ((sq * SUB) >> 4);
+    }
+    const uint64_t db = d_kv + ((skv * SUB) >> 4);
+    jlm::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k)  // K steps of 16: 32 bytes on in the swizzled rows
+      jlm::wgmma_bf16_n128(a, da + 2 * k, db + 2 * k, dc > 0 || k > 0);
+    jlm::wgmma_commit();
+    jlm::fence_regs(a);
+  };
+  auto release = [&](int skv, int sq) {
+    __syncwarp();
+    if (lane == 0) {
+      jlm::mbar_arrive(&empty[skv]);
+      if (sq >= 0) jlm::mbar_arrive(&empty[sq]);
+    }
+  };
+
+  // ---- tile t into acc[P]: its first chunk issued, then (EPI) tile t - 1's
+  // epilogue while that chunk runs, then the other chunks, each chunk's
+  // slots released once the product past them completes; the tile ends
+  // retired (no group in flight across tiles) with its targets stored ----
+  auto tile = [&](auto par, auto epi, int t) {
+    constexpr int P = decltype(par)::value;
+    int pk, pq;  // the slots of the chunk before
+    issue(acc[P], 0, pk, pq);
+    if constexpr (decltype(epi)::value) epilogue(acc[1 - P], t - 1);
+    for (int dc = 1; dc < nd; ++dc) {
+      int skv, sq;
+      issue(acc[P], dc, skv, sq);
+      jlm::wgmma_wait<1>();
+      release(pk, pq);
+      pk = skv;
+      pq = sq;
+    }
+    jlm::wgmma_wait<0>();
+    jlm::fence_regs(acc[P]);
+    release(pk, pq);
+    target(acc[P], t);
+  };
+
+  if (p.n_res > 0) jlm::mbar_wait(qfull, 0);
+  tile(std::integral_constant<int, 0>(), std::false_type(), 0);
+  for (int t = 1; t < nt; t += 2) {
+    tile(std::integral_constant<int, 1>(), std::true_type(), t);
+    if (t + 1 < nt) tile(std::integral_constant<int, 0>(), std::true_type(), t + 1);
+  }
+  if ((nt - 1) & 1)
+    epilogue(acc[1], nt - 1);
+  else
+    epilogue(acc[0], nt - 1);
+
+  // ---- the quad's lanes merge; one lane a row stores the split's (m, s) ----
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, m[i], off);
+      const float s2 = __shfl_xor_sync(0xffffffffu, s[i], off);
+      merge_ms(m[i], s[i], m2, s2);
+    }
+    const int row = row0 + 8 * i;
+    if ((lane & 3) == 0 && row < N) {
+      m_part[(size_t)blockIdx.y * N + row] = m[i];
+      s_part[(size_t)blockIdx.y * N + row] = s[i];
+    }
+  }
+}
+
 // W [D, V] (fp32 or bf16) -> W^T bf16 [V, Dp], zero columns D .. Dp - 1: the
-// bf16 cast the backward makes anyway, transposed, in tiles of 64 x 64
-// through shared memory (rows read and written whole, 256 and 128 bytes).
+// step's one bf16 cast of W, for the forward and the backward, transposed
+// in the same pass, in tiles of 64 x 64 through shared memory (rows read
+// and written whole, 256 and 128 bytes).
 template <typename T>
 __global__ void __launch_bounds__(256)
 cast_wt_kernel(const T* __restrict__ W, bf16* __restrict__ wt, int D, int V, int Dp) {
@@ -1225,36 +1341,45 @@ cudaError_t sum_splits(const float* part, float* out, size_t count, int splits,
 
 extern "C" {
 
-// h [N, D] bf16; W [D, ldw] bf16 (ldw >= V, a multiple of 8; columns >= V
-// are masked); or, when f32, h [N, D] and W [D, V] fp32 (ldw == V); bias
-// [V] fp32; y [N] int32 (a target outside [0, V) matches no column);
-// m_part/s_part [splits, N] scratch; m_out/s_out [N]; t_out [N] must be
-// zeroed by the caller (rows whose target is in range get their logit
-// written).
-int jlm_ce_fwd(const void* h, const void* W, const float* bias, const int* y,
-               float* m_part, float* s_part, float* m_out, float* s_out,
-               float* t_out, int N, int D, int V, int ldw, int f32, int splits,
-               int tiles_per_split, void* stream) {
+// fp32 compute: h [N, D] and W [D, V] fp32, bias [V] fp32, y [N] int32 (a
+// target outside [0, V) matches no column); m_part/s_part [splits, N]
+// scratch; m_out/s_out [N]; t_out [N] must be zeroed by the caller (rows
+// whose target is in range get their logit written).
+int jlm_ce_fwd_f32(const float* h, const float* W, const float* bias, const int* y,
+                   float* m_part, float* s_part, float* m_out, float* s_out, float* t_out,
+                   int N, int D, int V, int splits, int tiles_per_split, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (f32) {
-    dim3 grid((N + G_R - 1) / G_R, splits);
-    ce_fwd_f32_kernel<<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(h), static_cast<const float*>(W), bias, y, m_part,
-        s_part, t_out, N, D, V, tiles_per_split);
-  } else {
-    const size_t smem = fwd_smem(D);
-    err = set_smem(ce_fwd_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((N + F_TR - 1) / F_TR, splits);
-    ce_fwd_kernel<<<grid, THREADS, smem, st>>>(
-        static_cast<const bf16*>(h), static_cast<const bf16*>(W), bias, y,
-        m_part, s_part, t_out, N, D, V, ldw, tiles_per_split);
-  }
+  dim3 grid((N + G_R - 1) / G_R, splits);
+  ce_fwd_f32_kernel<<<grid, THREADS, 0, st>>>(h, W, bias, y, m_part, s_part, t_out, N, D, V,
+                                              tiles_per_split);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ms_merge_kernel<<<(N + 255) / 256, 256, 0, st>>>(m_part, s_part, m_out, s_out, N, splits);
+  return (int)cudaGetLastError();
+}
+
+// bf16 compute on wgmma: h [N, D] and wt = W^T [V, D] bf16 (D a multiple of
+// 128, rows 16-byte aligned), the rest as jlm_ce_fwd_f32; the plan (n_res,
+// n_sub, splits, tiles_per_split) as ops/softmax_ce.py::fwd_plan makes it.
+int jlm_ce_fwd_bf16(const void* h, const void* wt, const float* bias, const int* y,
+                    float* m_part, float* s_part, float* m_out, float* s_out, float* t_out,
+                    int N, int D, int V, int n_res, int n_sub, int splits,
+                    int tiles_per_split, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const FwdPlan p{n_res, n_sub, tiles_per_split};
+  CUtensorMap tq, tk;
+  if (!fwd_plan_ok(D, p) || !jlm::tensor_map(&tq, h, 2, N, D, D, FT, 64) ||
+      !jlm::tensor_map(&tk, wt, 2, V, D, D, FT, 64))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = fwd_smem(p);
+  cudaError_t err = set_smem(ce_fwd_bf16_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + FT - 1) / FT, splits);
+  ce_fwd_bf16_kernel<<<grid, 3 * WG, smem, st>>>(tq, tk, bias, y, m_part, s_part, t_out, N, D,
+                                                 V, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  ms_merge_kernel<<<(N + 255) / 256, 256, 0, st>>>(m_part, s_part, m_out,
-                                                   s_out, N, splits);
+  ms_merge_kernel<<<(N + 255) / 256, 256, 0, st>>>(m_part, s_part, m_out, s_out, N, splits);
   return (int)cudaGetLastError();
 }
 

@@ -42,9 +42,11 @@ from chip_smoke import HW, N_CE, TB, TT, bench_data, plain_ce, training_corpus
 
 # the device functions of csrc/softmax_ce.cu and csrc/lstm_scan.cu
 # (ce_bwd_dh_kernel and ce_bwd_dw_kernel are templates since their wgmma
-# redesign, named the same; cast_wt_kernel, the backward's transposing cast
-# of W, came with it: a parent tree's plain cast is a PyTorch kernel)
-CE_KERNELS = ("ce_fwd_kernel", "ms_merge_kernel", "ce_bwd_dh_kernel",
+# redesign, named the same; cast_wt_kernel, the step's transposing cast of
+# W, came with it: an older tree's plain cast is a PyTorch kernel; the bf16
+# forward is ce_fwd_bf16_kernel since its wgmma redesign, ce_fwd_kernel in
+# a tree from before it)
+CE_KERNELS = ("ce_fwd_bf16_kernel", "ce_fwd_kernel", "ms_merge_kernel", "ce_bwd_dh_kernel",
               "sum_splits_kernel", "ce_bwd_dw_kernel", "cast_wt_kernel")
 # (lstm_scan_fwd_kernel: the forward of a tree from before its split into
 # scan_gemm_kernel + scan_fwd_recur_kernel, profiled with --root)

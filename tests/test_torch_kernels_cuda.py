@@ -322,6 +322,80 @@ def test_ce_kernels_vs_plain(cuda, N, D, V, neg_every):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("V", [1001, 50_000])
+@pytest.mark.parametrize("N", [7, 1000, 1024])
+@pytest.mark.parametrize("D", [96, 128, 512, 1024])
+def test_ce_fwd_kernel_vs_plain(cuda, D, N, V):
+    """The bf16 forward (wgmma over W^T) vs its plain version, every third
+    target -1 (owned by no column) and one past V: m + log s and t within
+    1e-4 abs (fp32 sums in another order), t = 0 where no column owns the
+    target; the same bits with the W^T the caller made (``wt=``), one
+    launch each, one cast of W where the wrapper made it."""
+    from jlm_tpu_torch.ops import softmax_ce as ce
+
+    bf = torch.bfloat16
+    h, W, b, y, _ = _ce_case(cuda, 33, N, D, V, neg_every=3)
+    y[1 % N] = V
+    n0, c0 = ce.ce_fwd_raw.launches, ce.cast_wt.launches
+    m, s, t = ce.ce_fwd_raw(h, W, b, y, bf)
+    assert (ce.ce_fwd_raw.launches, ce.cast_wt.launches) == (n0 + 1, c0 + 1)
+    mp, sp, tp = ce.ce_fwd_raw_ref(h, W, b, y, bf)
+    assert float((m + torch.log(s) - mp - torch.log(sp)).abs().max()) <= 1e-4
+    assert float((t - tp).abs().max()) <= 1e-4
+    assert float(t[::3].abs().max()) == 0.0 and float(t[1 % N]) == 0.0
+    wt = ce.cast_wt(W, -(-D // 128) * 128)
+    again = ce.ce_fwd_raw(h, W, b, y, bf, wt=wt)
+    assert ce.ce_fwd_raw.launches == n0 + 2
+    for a, w, name in zip(again, (m, s, t), "mst"):
+        assert torch.equal(a, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D,V", [(1024, 512, 50_000), (1000, 1024, 50_000), (7, 128, 1001)])
+def test_ce_forward_is_deterministic(cuda, N, D, V):
+    """Two calls of the bf16 forward on the same inputs give bit-identical
+    (m, s, t): each split's partials are written once and merged in split
+    order, no atomics."""
+    from jlm_tpu_torch.ops import softmax_ce as ce
+
+    h, W, b, y, _ = _ce_case(cuda, 34, N, D, V, neg_every=4)
+    first, again = (ce.ce_fwd_raw(h, W, b, y, torch.bfloat16) for _ in range(2))
+    for a, w, name in zip(first, again, "mst"):
+        assert torch.equal(a, w), name
+
+
+@pytest.mark.cuda
+def test_ce_loss_fused_casts_w_once_a_step(cuda):
+    """``ce_loss_fused`` in bf16: one ``cast_wt`` a step, its W^T read by
+    the forward and kept for the backward, whose grads are bit-equal to
+    ``ce_bwd`` casting W itself; the D-softmax fused CE casts once a block."""
+    from jlm_tpu_torch.ops import softmax_ce as ce
+
+    bf = torch.bfloat16
+    h, W, b, y, g = _ce_case(cuda, 35, 300, 256, 5000, neg_every=5)
+    leaves = [a.clone().requires_grad_(True) for a in (h, W, b)]
+    counts = (ce.cast_wt.launches, ce.ce_fwd_raw.launches, ce.ce_bwd_dh.launches,
+              ce.ce_bwd_dw.launches)
+    loss = ce.ce_loss_fused(*leaves[:2], leaves[2], y, bf)
+    grads = torch.autograd.grad(loss, leaves, g)
+    assert (ce.cast_wt.launches, ce.ce_fwd_raw.launches, ce.ce_bwd_dh.launches,
+            ce.ce_bwd_dw.launches) == tuple(n + 1 for n in counts)
+    m, s, _ = ce.ce_fwd_raw(h, W, b, y, bf)
+    want = ce.ce_bwd(h, W, b, y, m + torch.log(s), g, None, bf)
+    for got, w, name in zip(grads, want, "hWb"):
+        assert torch.equal(got, w), name
+    blocks = [(torch.randn(d, n, device=cuda) * 0.05, torch.randn(n, device=cuda) * 0.1)
+              for n, d in ((1000, 256), (3000, 128))]
+    yd = torch.randint(0, 4000, (300,), device=cuda)
+    c0 = ce.cast_wt.launches
+    rows = ce.ce_loss_fused_dsoftmax(h.requires_grad_(True), [w for w, _ in blocks],
+                                     [bb for _, bb in blocks], yd, (1000, 3000), (256, 128),
+                                     "prefix", bf)
+    torch.autograd.grad(rows.sum(), h)
+    assert ce.cast_wt.launches == c0 + len(blocks)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
 def test_cast_wt_kernel_vs_plain(cuda, wdtype):
     """cast_wt_kernel (the bf16 backward's transposing cast of W) is

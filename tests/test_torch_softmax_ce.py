@@ -73,20 +73,28 @@ def test_ce_grads_match_jax(dtype):
             assert err <= 1e-3, (name, err)
 
 
-def test_ce_raw_partials_with_unowned_targets():
-    """(m, s, t) of the per-block form: t = 0 where the target is -1;
-    tolerance 1e-5.  A target past V also gives 0 in the port (the
-    reference would read a padded column there)."""
-    _, h, W, b, y = _case(23, 20, 128, 1000)
+@pytest.mark.parametrize("D,V,dtype", [
+    (128, 1000, "fp32"),
+    (96, 1001, "fp32"),   # ragged: a hidden slice and a vocab no tile divides
+    (96, 1001, "bf16"),   # bf16 compute, as the wgmma forward computes
+])
+def test_ce_raw_partials_with_unowned_targets(D, V, dtype):
+    """(m, s, t) of the per-block form: t = 0 where the target is -1 (every
+    third row); tolerance 1e-5 abs and rel in either compute dtype (fp32
+    sums in another order; in bf16 both sides round h and W to bf16 and
+    sum the products in fp32).  A target past V also gives 0 in the port
+    (the reference would read a padded column there)."""
+    _, h, W, b, y = _case(23, 20, D, V)
     y[::3] = -1
+    jd, td = (jnp.float32, torch.float32) if dtype == "fp32" else (jnp.bfloat16, torch.bfloat16)
     past = y.copy()
-    past[1] = 1000
-    assert float(ce.ce_fwd_raw(*_t(h, W, b, past))[2][1]) == 0.0
+    past[1] = V
+    assert float(ce.ce_fwd_raw(*_t(h, W, b, past), td)[2][1]) == 0.0
     m_j, s_j, t_j = jax_ce._ce_fwd_raw(*map(jnp.asarray, (h, W)), None, jnp.asarray(b),
-                                      jnp.asarray(y), tile_v=512, compute_dtype=jnp.float32,
+                                      jnp.asarray(y), tile_v=512, compute_dtype=jd,
                                       interpret=True)
-    m_t, s_t, t_t = ce.ce_fwd_raw(*_t(h, W, b, y))
-    assert float(t_t[0]) == 0.0
+    m_t, s_t, t_t = ce.ce_fwd_raw(*_t(h, W, b, y), td)
+    assert float(t_t[::3].abs().max()) == 0.0
     for got, want in ((m_t, m_j), (s_t, s_j), (t_t, t_j)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
@@ -187,14 +195,19 @@ def test_full_softmax_loss_highest_fused_matches_jax():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cpu_ce_wrappers_do_not_count_launches(dtype):
     """On CPU tensors the CE wrappers run their plain versions in either
-    compute dtype: no kernel, no launch counted, no build."""
+    compute dtype: no kernel (nor the cast of W^T), no launch counted, no
+    build."""
     from jlm_tpu_torch.ops import _build
 
     _, h, W, b, y = _case(25, 8, 128, 64)
-    before = (ce.ce_fwd_raw.launches, ce.ce_bwd_dh.launches, ce.ce_bwd_dw.launches)
+    def counts():
+        return (ce.ce_fwd_raw.launches, ce.ce_bwd_dh.launches, ce.ce_bwd_dw.launches,
+                ce.cast_wt.launches)
+
+    before = counts()
     ht, Wt, bt = _t(h, W, b, grad=True)
     ce.ce_loss_fused(ht, Wt, bt, torch.from_numpy(y), dtype).sum().backward()
-    assert (ce.ce_fwd_raw.launches, ce.ce_bwd_dh.launches, ce.ce_bwd_dw.launches) == before
+    assert counts() == before
     assert _build._lib is None
 
 
@@ -257,6 +270,50 @@ def test_bwd_plan_slots():
     assert (p512["n_own"], p512["n_pass"], p512["splits"]) == (2, 0, 8)
     assert (p256["n_own"], p256["n_pass"]) == (4, 0)
     assert (p1024["sw"], p1024["n_own"], p1024["n_pass"], p1024["splits"]) == (512, 1, 4, 4)
+
+
+@pytest.mark.parametrize("N,D,V", [
+    (1024, 512, 50_000),    # the training step's head
+    (1024, 1024, 50_000),   # H = 1,024: half of K's q chunks streamed
+    (1000, 128, 16_000),    # a D-softmax block's width, ragged rows
+    (7, 128, 1001),         # rows and vocab under one block and tile
+])
+def test_fwd_plan_covers_every_row_and_column(N, D, V):
+    """The bf16 forward's launch plan (a pure function of N, D, V and the
+    SM count, here an H100's 132): every row in one 128-row block, every
+    vocab column in exactly one split's 128-column tiles, at most one block
+    an SM, the slots within the kernel's rules and shared memory within a
+    block's 227 KB."""
+    plan = ce.fwd_plan(N, D, V, 132)
+    assert plan["smem"] == ce.fwd_smem(plan["n_res"], plan["n_sub"]) <= ce.SMEM_LIMIT
+    nd = D // 64
+    assert 0 <= plan["n_res"] <= nd
+    assert (4 if plan["n_res"] < nd else 2) <= plan["n_sub"] <= 12
+    q_blocks, splits = plan["grid"]
+    rows, cols, per = plan["rows"], plan["cols"], plan["tiles_per_split"]
+    assert splits == plan["splits"] and (q_blocks * splits <= 132 or splits == 1)
+    count = np.zeros(V, np.int64)
+    for k in range(splits):
+        assert k * per * cols < V  # no split is empty
+        count[k * per * cols:min((k + 1) * per * cols, V)] += 1
+    np.testing.assert_array_equal(count, 1)
+    row_count = np.zeros(N, np.int64)
+    for q in range(q_blocks):
+        row_count[q * rows:min((q + 1) * rows, N)] += 1
+    np.testing.assert_array_equal(row_count, 1)
+
+
+def test_fwd_plan_slots():
+    """At D = 128 and 512 every q chunk of a block's rows stays resident
+    beside at least two kv ring slots (five at 512, eleven at 128); at
+    D = 1,024 six of sixteen stay and the ring keeps seven slots, so three
+    streamed chunks (a kv and a q chunk each) fit in it."""
+    p128, p512, p1024 = (ce.fwd_plan(1024, d, 50_000, 132) for d in (128, 512, 1024))
+    assert (p128["n_res"], p128["n_sub"]) == (2, 11)
+    assert (p512["n_res"], p512["n_sub"], p512["splits"]) == (8, 5, 16)
+    assert (p1024["n_res"], p1024["n_sub"]) == (6, 7)
+    for p in (p128, p512, p1024):
+        assert p["n_sub"] >= 2 and p["smem"] <= 232_448
 
 
 @pytest.mark.parametrize("D,Dp", [(128, 128), (96, 128)])

@@ -24,10 +24,11 @@ kernels alone (``scan_xw``, ``scan_fwd_recur``, ``scan_gates``,
 ``scan_recur``, the recurrences with 4 and 8 units a block, ``scan_dx``)
 with the fp32 GEMMs' ``torch.mm`` / ``torch.addmm`` beside them.  At the
 training rows (N = 1,024, V = 50,000) it times the fused CE's three bf16
-kernels through their wrappers, ``ce_fwd``, ``ce_bwd_dh`` and ``ce_bwd_dw``
-(the bf16 cast of h and W included, as in training), at D = 512 and
-1,024 (``--only ce_``).  Each is timed two ways (``chip_smoke``'s
-helpers): ``one_ms``, the median of 10 calls each between two CUDA events
+kernels through their wrappers, ``ce_fwd`` (with the step's W^T given, as
+in training, and casting W itself), ``ce_bwd_dh`` and ``ce_bwd_dw`` (the
+bf16 cast of h and W included), the cast alone and the ``torch.addmm`` +
+``torch.logsumexp`` pair, at D = 512 and 1,024 (``--only ce_``).  Each is
+timed two ways (``chip_smoke``'s helpers): ``one_ms``, the median of 10 calls each between two CUDA events
 (the wrapper's Python before the launch counts), and ``row_ms``, the events
 around 50 calls in a row divided by 50 (the device's time where the device
 is the slower side) with ``host_ms``, the host's time a call.  A function
@@ -130,9 +131,13 @@ def cases(dev):
 
 def ce_cases(dev, g, D):
     """The fused CE's three bf16 kernels through their wrappers at the
-    training rows (N = 1,024, V = 50,000, fp32 master values cast per call,
-    as the trainer's backward calls them): ``ce_fwd``, and ``ce_bwd_dh`` and
-    ``ce_bwd_dw`` with the mean loss's cotangent."""
+    training rows (N = 1,024, V = 50,000, fp32 master values): ``ce_fwd``
+    casting W itself (``cast_wt``) and, as the trainer's step calls it,
+    with the step's W^T given (``wt``: the kernel alone; a tree whose
+    forward takes no ``wt`` records the refusal); the cast alone; the
+    yardstick pair ``torch.addmm`` bf16 + ``torch.logsumexp`` (2 calls, not
+    ranked); and ``ce_bwd_dh`` and ``ce_bwd_dw`` with the mean loss's
+    cotangent, casting W as before."""
     from jlm_tpu_torch.ops import softmax_ce as ce
 
     bf = torch.bfloat16
@@ -144,7 +149,13 @@ def ce_cases(dev, g, D):
     lse = m + torch.log(s)
     ga = torch.full((N_CE,), 1.0 / N_CE, device=dev)
     args = (h, W, b, y, lse, ga, -ga, bf)
+    wt = ce.cast_wt(W, D)
+    hb, Wb, bb = h.to(bf), W.to(bf), b.to(bf)
     return [(f"ce_fwd bf16 D{D}", lambda: ce.ce_fwd_raw(h, W, b, y, bf)),
+            (f"ce_fwd bf16 D{D} wt", lambda: ce.ce_fwd_raw(h, W, b, y, bf, wt=wt)),
+            (f"ce_fwd's cast_wt D{D}", lambda: ce.cast_wt(W, D)),
+            (f"ce_fwd yardstick torch.addmm + torch.logsumexp bf16 D{D} (2 calls)",
+             lambda: torch.logsumexp(torch.addmm(bb, hb, Wb), dim=1)),
             (f"ce_bwd_dh bf16 D{D}", lambda: ce.ce_bwd_dh(*args)),
             (f"ce_bwd_dw bf16 D{D}", lambda: ce.ce_bwd_dw(*args))]
 
@@ -241,7 +252,7 @@ def main(argv=None) -> int:
             one = cuda_ms(fn)
             row, host = in_a_row(fn)
             times[name] = {"one_ms": one, "row_ms": row, "host_ms": host}
-        except (RuntimeError, ValueError) as e:
+        except (RuntimeError, ValueError, TypeError) as e:
             times[name] = {"error": str(e).splitlines()[0][:200]}
         print(f"{name}: {times[name]}", flush=True)
     line = json.dumps({"tree": os.path.dirname(jlm_tpu_torch.__file__), "card": card,
