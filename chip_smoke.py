@@ -21,9 +21,11 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
    each on its plain version's inputs, at the training shapes, and the D-softmax fused CE at the 100k D-softmax
    head; each backward bound is also shown to catch a deliberately wrong
    plain backward (a p-term off by ``P_SHIFT``, a forget gate off by
-   ``F_SHIFT``; the bf16 CE backward's also by a trap of its design: dh
-   without its second warpgroup's columns, dW without its last row tile,
-   ``ce_bwd_traps``; the bf16 CE forward's, which reads the step's W^T,
+   ``F_SHIFT``; the CE backward's also by a trap of its design,
+   ``ce_bwd_traps``: in bf16 dh without its second warpgroup's columns,
+   dW without its last row tile; in fp32 (at D = 512 and 1,024) dh from
+   logits without their last K chunk, dW without its last chunk of rows;
+   the bf16 CE forward's, which reads the step's W^T,
    by its second warpgroup reading the first's rows and by the target
    logit without its bias, at the 50k head and at a D-softmax block's
    width, D = 128, with a third of the targets owned by no column), the
@@ -577,14 +579,33 @@ def scan_fwd_stage_cases(suffix, scan_in, cd):
 
 
 def ce_bwd_traps(name, args):
-    """Wrong versions of the bf16 backward kernels, each a trap of their
-    design (csrc/softmax_ce.cu), as ``{what: call}`` of the plain version
-    on ``args``: for ce_bwd_dh the second consumer warpgroup's columns of
-    every slice left out (zero); for ce_bwd_dw the last 64-row tile of the
-    rows that every vocab block walks dropped, from dW and db."""
-    from jlm_tpu_torch.ops.softmax_ce import bwd_plan, ce_bwd_dh_ref, ce_bwd_dw_ref
+    """Wrong versions of the backward kernels, each a trap of their design
+    (csrc/softmax_ce.cu), as ``{what: call}`` of the plain version on
+    ``args``.  bf16: for ce_bwd_dh the second consumer warpgroup's columns
+    of every slice left out (zero); for ce_bwd_dw the last 64-row tile of
+    the rows that every vocab block walks dropped, from dW and db.  fp32:
+    for ce_bwd_dh the logits without their last K chunk (h's last
+    ``F32_BK`` columns); for ce_bwd_dw the last output chunk (the last
+    ``F32_BV`` rows of h) left out of dW, db whole."""
+    from jlm_tpu_torch.ops.softmax_ce import (
+        F32_BK, F32_BV, bwd_plan, ce_bwd_dh_ref, ce_bwd_dw_ref)
 
     h, W, b, y, lse, g_a, g_b, cd = args
+    if cd == torch.float32:
+        if name == "ce_bwd_dh":
+            def last_k_chunk_dropped():
+                hk = h.clone()
+                hk[:, -F32_BK:] = 0.0
+                return ce_bwd_dh_ref(hk, W, b, y, lse, g_a, g_b, cd)
+
+            return {f"the logits without their last {F32_BK} of K": last_k_chunk_dropped}
+
+        def last_row_chunk_dropped():
+            dW, db = ce_bwd_dw_ref(*args)
+            r = slice(h.shape[0] - F32_BV, None)
+            return dW - ce_bwd_dw_ref(h[r], W, b, y[r], lse[r], g_a[r], g_b[r], cd)[0], db
+
+        return {f"dW without its last {F32_BV} rows": last_row_chunk_dropped}
     if name == "ce_bwd_dh":
         def second_half_out():
             dh = ce_bwd_dh_ref(*args)
@@ -1022,7 +1043,8 @@ def port_cases(dev, rng):
         cases.append((f"{name} fp32", lambda k=kernel, a=args: k(*a),
                       lambda r=ref, a=args: r(*a), bwd_err,
                       {"operands rounded to TF32":
-                       lambda r=ref: r(h_r, W_r, b_ce, y_ce, lse_ce, ga, -ga, f32)}, None))
+                       lambda r=ref: r(h_r, W_r, b_ce, y_ce, lse_ce, ga, -ga, f32),
+                       **ce_bwd_traps(name, args)}, None))
         args = (h_ce, W_ce, b_ce, y_ce, lse_ce, ga_p, torch.zeros_like(ga_p), f32)
         wrong = (h_ce, W_ce, b_ce, y_ce, lse_ce + P_SHIFT, ga_p, torch.zeros_like(ga_p), f32)
         cases.append((f"{name} fp32 p-term", lambda k=kernel, a=args: k(*a),
@@ -1222,7 +1244,11 @@ def wide_cases(dev, rng):
                          **ce_bwd_traps(kname, args)}
             else:
                 wrong = {"operands rounded to TF32": lambda r=ref, Wc=Wc, lse=lse:
-                         r(tf32(hc), tf32(Wc), bc, yc, lse, ga, -ga, f32)}
+                         r(tf32(hc), tf32(Wc), bc, yc, lse, ga, -ga, f32),
+                         f"a p-term {1 - math.exp(-P_SHIFT):.0%} low":
+                         lambda r=ref, Wc=Wc, lse=lse:
+                         r(hc, Wc, bc, yc, lse + P_SHIFT, ga, -ga, f32),
+                         **ce_bwd_traps(kname, args)}
             cases.append((f"{kname} {name} D1024", lambda k=kernel, a=args: k(*a),
                           lambda r=ref, a=args: r(*a), bwd_err, wrong, None))
 
@@ -2023,6 +2049,12 @@ def kernel_fn(name: str) -> str:
     if name.startswith("lstm_scan_bwd"):
         gemm = "scan_gemm_bf16_kernel" if "bf16" in name else "scan_gemm_kernel"
         return f"{gemm}<KN> + scan_recur_kernel + {gemm}<NK>"
+    if name.startswith(("ce_bwd_dh fp32", "ce_bwd_dw fp32")):
+        kernel = name.split(" ")[0] + "_f32_kernel<Q>"
+        return (f"{kernel} (exact fp32 FMAs, one body for dh and dW: a tile's logits 8 x 4 a "
+                "thread over all of D, gp in shared memory, the output's rows in registers; "
+                "a cp.async ring on mbarriers"
+                + ("; sum_splits_kernel the splits)" if kernel.startswith("ce_bwd_dh") else ")"))
     if name.startswith(("ce_bwd_dh", "ce_bwd_dw")) and "fp32" not in name:
         kernel = name.split(" ")[0] + "_kernel"
         return (f"{kernel}<NW> (wgmma + TMA: 64 resident rows, kv tiles through a ring of "

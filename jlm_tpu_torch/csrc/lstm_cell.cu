@@ -220,19 +220,9 @@ lstm_cell_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
 
 constexpr int FJ = 32;  // units per block of the fp32 kernel (x 4 gates: 128 columns)
 
-// 16 bytes global -> shared, asynchronously; zeros where !ok.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(jlm::smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using jlm::cp_async16;
+using jlm::cp_async_commit;
+using jlm::cp_async_wait;
 
 // The fp32 kernel's shape: FR rows x FJ units (4 FJ gate columns) a
 // block, K in chunks of FK, KS parts of FR / 8 x TX threads, part p taking

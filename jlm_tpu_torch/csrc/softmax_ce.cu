@@ -30,15 +30,6 @@
 // backward a column past V meets a zero row in the output product, and db
 // stores only the first V).
 //
-// Hidden slices wider than KW = 512 in the fp32 backward: what a kernel
-// keeps D-wide on chip (h rows and W tiles in shared memory, dh or dW in
-// registers) is cut into K chunks of at most 512.  The logits accumulate
-// over the chunks, each staged in turn; a D-wide output is split over the
-// grid (dh over grid.z, dW over grid.y), each slice of at most 512
-// recomputing the logits and taking its chunk last, so that the chunk left
-// in shared memory is the one its product needs.  ce_fwd_f32 streams K in
-// chunks of 32 at every D.
-//
 // bf16 forward design (ce_fwd_bf16_kernel: wgmma + TMA, sm_90a), replacing
 // jlm_tpu/ops/softmax_ce.py::_ce_fwd_kernel (an online logsumexp and the
 // target logit over vocab tiles).
@@ -140,11 +131,51 @@
 // - ce_fwd_f32: a block owns 64 rows, K streams through shared memory in
 //   chunks of 32 (h transposed, W in its own [D, V] layout); each thread
 //   keeps a 4 x 4 tile of logits and an online (m, s) for its 4 rows.
-// - ce_bwd_dh_f32: a block owns 32 rows, all of h's D columns resident; per
-//   64-column tile the whole W tile is staged once, transposed, and read
-//   twice (logits, then gp @ W^T); dh [32, D] lives in registers.
-// - ce_bwd_dw_f32: a block owns 32 vocab columns (their W staged once,
-//   transposed) and loops over the rows in chunks of 32.
+//
+// fp32 backward design (ce_bwd_dh_f32_kernel<Q>, ce_bwd_dw_f32_kernel<Q>:
+// one body, bwd_f32_body<DW, Q>; exact fp32 FMAs on the CUDA cores, no
+// TF32 and no tensor-core instruction).
+// - Bound: operations, 2 products of 2 N D V (1.56 ms at N = 1,024, D =
+//   512, V = 50,000 at 67 TFLOP/s).
+// - A block of 256 threads owns Q "q" rows (dh: rows of h; dW: vocabulary
+//   columns) and walks tiles of KV = 8,192 / Q "kv" (dh: the vocabulary
+//   columns of its split; dW: every row of h).  Per tile: (1) the logits
+//   [Q x KV, as rows of h x columns] over all of D, 8 x 4 a thread, from K
+//   chunks of 32 rows of h^T and of W, both [k][*] and copied as they lie
+//   (float4 cp.async); (2) gp in fp32, unrounded, into shared memory; (3)
+//   the output product into the q rows' [Q, slice of D] held in registers,
+//   128 floats a thread (8 q x 16 columns, 0.19 floats read a FMA): dh[q][d]
+//   += sum_kv gp[q][kv] W[d][kv] from chunks of 8 columns of W ([d][8],
+//   read float4 along kv, the halves swapped on odd d / 4 so that a warp's
+//   32 rows fall on 8 distinct bank quads), dW[d][q] += sum_kv h[kv][d]
+//   gp[kv][q] from chunks of 8 rows of h (read float4 along d).  W (dh) or
+//   h (dW) is read twice a tile, from the L2; the logits are formed once:
+//   Q = 64 at D <= 512, 32 up to D = 1,024 (the output in registers caps Q
+//   D at 32,768).  Past D = 1,024 the output is cut into slices of at most
+//   1,024 over grid.z, each recomputing the logits.
+// - Registers bound the design: the output's 128 and the logits' 32 a
+//   thread leave room under 255 for the next k's operands (the loads are
+//   written one step ahead), so one block of 8 warps an SM.  An 8 x 8
+//   logits tile (0.25 floats a FMA against 0.375) left no room for that
+//   prefetch and read slower on the H100; 512 threads at 128 registers
+//   spilled (PERF.md).
+// - One cp.async ring of 4 slots carries both kinds of chunk in one
+//   sequence (1,024 FMAs a thread each); a slot's copies arrive on its
+//   full barrier (cp.async.mbarrier.arrive), each warp releases it on its
+//   empty barrier, and a thread refills the slot of the chunk before once
+//   every warp has read it: warps run up to three chunks apart, meeting at
+//   a block barrier only around gp, twice a tile.  h^T (the wrapper's
+//   transposed copy, 2 MB at N = 1,024, D = 512) keeps the logits' A
+//   operand a plain [k][row] copy; W is read in its own layout (padded to a
+//   multiple of 4 columns only where V is not).
+// - A tile's terms (bias; ga, gb, lse, target) ride with its first chunk
+//   (4-byte cp.async); gp = ga exp(l + b - lse) + gb onehot(y) with expf.
+//   dW's db: each thread sums its gp's 8 rows per column, the sums meet in
+//   ty order at the next chunk, then over tiles in order (deterministic).
+// - Grid: dh row blocks x vocab splits (one wave of one block an SM; the
+//   splits' partials summed in split order by sum_splits_kernel); dW vocab
+//   blocks, each walking every row tile.  The row blocks of one split
+//   walk the same W tiles together, so W comes from HBM about once.
 #include "common.cuh"
 #include "hopper.cuh"
 #include "wgmma.cuh"
@@ -160,30 +191,6 @@ template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
-}
-
-// K chunks of a D-wide product: chunk c covers [c * KW, c * KW + kw).
-constexpr int KW = 512;
-__device__ __forceinline__ int n_chunks(int D) { return (D + KW - 1) / KW; }
-__device__ __forceinline__ int chunk_width(int D, int c) { return min(KW, D - c * KW); }
-// The i-th chunk a slice z walks: z's own chunk last.
-__device__ __forceinline__ int chunk_at(int i, int z, int nkc) { return (z + 1 + i) % nkc; }
-
-// Per-row inputs of the backward kernels; rows past N get ga = gb = 0 and
-// are masked again where gp is formed.
-__device__ __forceinline__ void stage_row_terms(int* sY, float* sGa, float* sGb,
-                                                float* sLse, const int* y,
-                                                const float* ga, const float* gb,
-                                                const float* lse, int row0,
-                                                int rows, int N) {
-  for (int i = threadIdx.x; i < rows; i += THREADS) {
-    const int row = row0 + i;
-    const bool ok = row < N;
-    sY[i] = ok ? y[row] : -1;
-    sGa[i] = ok ? ga[row] : 0.0f;
-    sGb[i] = ok ? gb[row] : 0.0f;
-    sLse[i] = ok ? lse[row] : 0.0f;
-  }
 }
 
 __device__ __forceinline__ void merge_ms(float& m, float& s, float m2, float s2) {
@@ -948,48 +955,9 @@ cast_wt_kernel(const T* __restrict__ W, bf16* __restrict__ wt, int D, int V, int
 // ---------------------------------------------------------- fp32 compute
 
 constexpr int G_R = 64, G_V = 64, G_K = 32;  // ce_fwd_f32: rows, columns, K stage
-constexpr int GH_R = 32, GH_V = 64;          // ce_bwd_dh_f32: rows, tile columns
-constexpr int GW_R = 32, GW_V = 32;          // ce_bwd_dw_f32: row chunk, columns
-constexpr int MAX_DJ = 8;                    // D / 64 at D = 512
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float dot4(float acc, float4 a, float4 b) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// Columns [0, width) of rows [row0, row0 + rows) of h [N, hld] fp32 -> s
-// [rows][ld], zero past N.
-__device__ __forceinline__ void stage_rows_f32(float* s, int ld, const float* h, int hld,
-                                               int row0, int rows, int N, int width) {
-  const int q = width / 4;
-  for (int i = threadIdx.x; i < rows * q; i += THREADS) {
-    const int r = i / q, kq = i % q, row = row0 + r;
-    *reinterpret_cast<float4*>(s + r * ld + 4 * kq) =
-        row < N ? ld4(h + (size_t)row * hld + 4 * kq) : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// Columns [n0, n0 + cols) of rows [0, depth) of W [., V] fp32 -> s [cols][ld]
-// (transposed), zero past V.
-__device__ __forceinline__ void stage_cols_t_f32(float* s, int ld, const float* W, int n0,
-                                                 int cols, int depth, int V) {
-  for (int i = threadIdx.x; i < depth * cols; i += THREADS) {
-    const int k = i / cols, c = i % cols, n = n0 + c;
-    s[c * ld + k] = n < V ? W[(size_t)k * V + n] : 0.0f;
-  }
-}
-
-// gp of one logit: ga * exp(l - lse) + gb * onehot(y); 0 past N or V.
-__device__ __forceinline__ float gp_of(float logit, int n, int V, bool row_ok,
-                                       float ga, float gb, float lse, int y) {
-  if (n >= V || !row_ok) return 0.0f;
-  return ga * expf(logit - lse) + (n == y ? gb : 0.0f);
 }
 
 // Thread (ty, tx) of a 16 x 16 grid owns rows ty*4..ty*4+3 and columns
@@ -1092,242 +1060,402 @@ ce_fwd_f32_kernel(const float* __restrict__ h, const float* __restrict__ W,
   }
 }
 
-size_t dh_f32_smem(int D) {
-  D = D < KW ? D : KW;
-  return ((size_t)(GH_R + GH_V) * (D + 4) + GH_R * (GH_V + 1) + GH_V + 4 * GH_R) *
-         sizeof(float);
+// ------------------------------------------------- backward (fp32): FMAs
+
+namespace bf32 {
+constexpr int THR = 256;       // threads of a block
+constexpr int TILE = 8192;     // logits of a tile
+constexpr int LR = 8, LC = 4;  // a thread's logits: rows x columns
+constexpr int BK = 32;         // K chunk of the logits product
+constexpr int BV = 8;          // kv chunk of the output product
+constexpr int NS = 4;          // ring slots
+constexpr int OUT = 32768;     // q rows x slice columns of the output
+constexpr int NJ = OUT / 8 / THR;  // a thread's output columns for its 8 q rows
+constexpr int SW = 1024;       // widest output slice
+}  // namespace bf32
+
+// A block of Q "q" rows (dh: rows of h; dW: vocabulary columns) walks tiles
+// of KV "kv" (dh: vocabulary columns; dW: rows of h).  The logits tile is R
+// rows of h x C vocabulary columns (Q x KV or KV x Q), its threads TY x TX
+// of LR x LC, a warp WY x WX of them; the output product's threads are QG
+// groups of 8 q rows x KG groups of the slice's columns.
+template <bool DW, int Q>
+struct Bf32 {
+  static constexpr int KV = bf32::TILE / Q;
+  static constexpr int R = DW ? KV : Q, C = DW ? Q : KV;
+  static constexpr int TY = R / bf32::LR, TX = C / bf32::LC;
+  static constexpr int WX = TX < 8 ? TX : 8, WY = 32 / WX;
+  static constexpr int QG = Q / 8, KG = bf32::THR / QG;
+  static_assert((TY / WY) * (TX / WX) == bf32::THR / 32, "the warps tile the logits");
+  static_assert(KG * bf32::NJ * Q == bf32::OUT, "the threads tile the output");
+  static_assert(KG % 8 == 0, "dh's W swizzle is the same for a thread's columns");
+};
+
+// Floats of a ring slot: a logits chunk (BK rows of h^T and of W) or an
+// output chunk (dh: BV columns of W's slice rows; dW: BV rows of h's slice
+// columns, each padded by 4 floats).
+__host__ __device__ __forceinline__ int bf32_slot(int q, int sw) {
+  const int a = bf32::BK * (q + bf32::TILE / q), b = bf32::BV * (sw + 4);
+  return a > b ? a : b;
 }
 
-// Thread (ty, tx): logits of rows ty*2, ty*2+1 at columns tx + 16j (j < 4);
-// dh of the same rows at columns tx*4 + 64jj + e (jj < 8, e < 4) of the
-// 512-wide slice grid.z.
-__global__ void __launch_bounds__(THREADS, 1)
-ce_bwd_dh_f32_kernel(const float* __restrict__ h, const float* __restrict__ W,
-                     const float* __restrict__ bias, const int* __restrict__ y,
-                     const float* __restrict__ ga, const float* __restrict__ gb,
-                     const float* __restrict__ lse, float* __restrict__ dh_part,
-                     int N, int D, int V, int tiles_per_split) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int nkc = n_chunks(D), z = blockIdx.z;
-  const int ld = min(D, KW) + 4, ldg = GH_V + 1;
-  float* sH = reinterpret_cast<float*>(smem);  // [GH_R][ld]   h rows
-  float* sWT = sH + GH_R * ld;                 // [GH_V][ld]   W tile, transposed
-  float* sG = sWT + GH_V * ld;                 // [GH_R][ldg]  gp
-  float* sBias = sG + GH_R * ldg;              // [GH_V]
-  float* sGa = sBias + GH_V;                   // [GH_R] each
-  float* sGb = sGa + GH_R;
-  float* sLse = sGb + GH_R;
-  int* sY = reinterpret_cast<int*>(sLse + GH_R);
+// Shared memory of a block: the ring's barriers and slots, gp [R][C], db's
+// partial sums [TY][C] (dW), the tile's terms (bias of C columns; ga, gb,
+// lse, target of R rows).
+size_t bwd_f32_smem(bool dw, int q, int sw) {
+  const int kv = bf32::TILE / q, r = dw ? kv : q, c = dw ? q : kv;
+  return sizeof(float) * ((size_t)4 * bf32::NS + bf32::NS * bf32_slot(q, sw) + bf32::TILE +
+                          (dw ? bf32::TILE / bf32::LR : 0) + 4 * r + c);
+}
 
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int nj = chunk_width(D, z) / 64;
-  const int row0 = blockIdx.x * GH_R;
-  const int n_tiles = (V + GH_V - 1) / GH_V;
-  const int vt_begin = blockIdx.y * tiles_per_split;
-  const int vt_end = min(vt_begin + tiles_per_split, n_tiles);
+// One body for both fp32 backward kernels (see the file's header).  The
+// block's chunks run as one sequence through an NS-slot cp.async ring: per
+// tile, D / BK logits chunks (h^T rows and W rows, both [k][*]), then KV /
+// BV output chunks (dh: W[slice][kv .. kv + BV), [k][BV], the float4 halves
+// swapped on odd k / 4; dW: h[kv .. kv + BV)[slice]).
+// hT is h transposed [D, ldh], W is [D, ldw] (both zero past N and V up to
+// ldh and ldw, multiples of 4); out is dh_part [splits][N][D] or dW [D][V].
+template <bool DW, int Q>
+__device__ __forceinline__ void bwd_f32_body(
+    const float* __restrict__ h, const float* __restrict__ hT, const float* __restrict__ W,
+    const float* __restrict__ bias, const int* __restrict__ y, const float* __restrict__ ga,
+    const float* __restrict__ gb, const float* __restrict__ lse, float* __restrict__ out,
+    float* __restrict__ db, int N, int ldh, int D, int V, int ldw, int sw, int tiles_per_split) {
+  using S = Bf32<DW, Q>;
+  using namespace bf32;
+  constexpr int R = S::R, C = S::C, KV = S::KV;
+  extern __shared__ __align__(16) float smem_bf32[];
+  const int slot = bf32_slot(Q, sw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_bf32);  // [NS] every thread's copies
+  uint64_t* empty = full + NS;                              // [NS] every warp's reads
+  float* ring = smem_bf32 + 4 * NS;
+  float* gp = ring + NS * slot;               // [R][C]
+  float* red = gp + TILE;                     // [TY][C] (dW)
+  float* tbias = red + (DW ? TILE / LR : 0);  // [C]
+  float* tga = tbias + C;                     // [R] each
+  float* tgb = tga + R;
+  float* tlse = tgb + R;
+  int* tyy = reinterpret_cast<int*>(tlse + R);
 
-  if (nkc == 1) stage_rows_f32(sH, ld, h, D, row0, GH_R, N, D);  // resident
-  stage_row_terms(sY, sGa, sGb, sLse, y, ga, gb, lse, row0, GH_R, N);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ty = (warp % (S::TY / S::WY)) * S::WY + lane / S::WX;
+  const int tx = (warp / (S::TY / S::WY)) * S::WX + lane % S::WX;
+  const int qg = tid / S::KG, kg = tid % S::KG;
+  const int k0 = blockIdx.z * sw, wz = min(sw, D - k0);  // the slice's columns of D
+  const int ldc = wz + 4;                                // dW: a row of an output chunk
+  const int q0 = blockIdx.x * Q;
+  const int t0 = DW ? 0 : blockIdx.y * tiles_per_split;
+  const int nt = DW ? (N + KV - 1) / KV : min(tiles_per_split, (V + KV - 1) / KV - t0);
+  const int nl = D / BK, per = nl + KV / BV, total = max(nt, 0) * per;
+  // tile t: its first row of h and first vocabulary column
+  auto row0 = [&](int t) { return DW ? t * KV : q0; };
+  auto col0 = [&](int t) { return DW ? q0 : (t0 + t) * KV; };
 
-  float acc[2][MAX_DJ][4];  // dh [row][64-column group][column]
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int jj = 0; jj < MAX_DJ; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][jj][e] = 0.0f;
-
-  for (int vt = vt_begin; vt < vt_end; ++vt) {
-    __syncthreads();  // previous tile's W and gp consumed (and rows staged)
-    const int n0 = vt * GH_V;
-    for (int i = tid; i < GH_V; i += THREADS) sBias[i] = n0 + i < V ? bias[n0 + i] : 0.0f;
-
-    // ---- recompute the tile's logits, chunk by chunk (z's chunk last) ----
-    float lg[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) lg[i][j] = 0.0f;
-    for (int i = 0; i < nkc; ++i) {
-      const int c = chunk_at(i, z, nkc), kw = chunk_width(D, c);
-      if (i > 0) __syncthreads();  // the previous chunk consumed
-      if (nkc > 1) stage_rows_f32(sH, ld, h + c * KW, D, row0, GH_R, N, kw);
-      stage_cols_t_f32(sWT, ld, W + (size_t)c * KW * V, n0, GH_V, kw, V);
-      __syncthreads();
-      for (int k = 0; k < kw; k += 4) {
-        const float4 a0 = ld4(sH + (ty * 2) * ld + k), a1 = ld4(sH + (ty * 2 + 1) * ld + k);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float4 b = ld4(sWT + (tx + 16 * j) * ld + k);
-          lg[0][j] = dot4(lg[0][j], a0, b);
-          lg[1][j] = dot4(lg[1][j], a1, b);
-        }
-      }
+  if (tid == 0) {
+    for (int i = 0; i < NS; ++i) {
+      jlm::mbar_init(&full[i], THR);
+      jlm::mbar_init(&empty[i], THR / 32);
     }
-
-    // ---- gp = ga * exp(l - lse) + gb * onehot(y), kept in fp32 ----
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int rl = ty * 2 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cl = tx + 16 * j;
-        sG[rl * ldg + cl] = gp_of(lg[i][j] + sBias[cl], n0 + cl, V, row0 + rl < N,
-                                  sGa[rl], sGb[rl], sLse[rl], sY[rl]);
-      }
-    }
-    __syncthreads();
-
-    // ---- dh[rows, slice z] += gp @ W_tile^T (sWT: chunk z) ----
-    for (int n = 0; n < GH_V; ++n) {
-      const float g0 = sG[(ty * 2) * ldg + n], g1 = sG[(ty * 2 + 1) * ldg + n];
-#pragma unroll
-      for (int jj = 0; jj < MAX_DJ; ++jj) {
-        if (jj < nj) {
-          const float4 w = ld4(sWT + n * ld + tx * 4 + 64 * jj);
-          acc[0][jj][0] = fmaf(g0, w.x, acc[0][jj][0]);
-          acc[0][jj][1] = fmaf(g0, w.y, acc[0][jj][1]);
-          acc[0][jj][2] = fmaf(g0, w.z, acc[0][jj][2]);
-          acc[0][jj][3] = fmaf(g0, w.w, acc[0][jj][3]);
-          acc[1][jj][0] = fmaf(g1, w.x, acc[1][jj][0]);
-          acc[1][jj][1] = fmaf(g1, w.y, acc[1][jj][1]);
-          acc[1][jj][2] = fmaf(g1, w.z, acc[1][jj][2]);
-          acc[1][jj][3] = fmaf(g1, w.w, acc[1][jj][3]);
-        }
-      }
-    }
+    jlm::mbar_fence_init();
   }
+  __syncthreads();
 
-  float* out = dh_part + (size_t)blockIdx.y * N * D + z * KW;
+  // dh's output chunk [k][BV]: float4 g of row k at g ^ swz(k), so that a
+  // warp's 32 neighbouring rows of one g fall on 8 distinct bank quads
+  auto swz = [](int k) { return (k / (32 / BV)) % (BV / 4); };
+
+  // ---- chunk c's loads into its slot (and, with a tile's first chunk,
+  // the tile's terms), arriving on the slot's full barrier as they land;
+  // zeros past ldh, ldw, N and V ----
+  int it = 0, ip = 0;  // the tile and chunk of the next chunk to issue
+  auto issue = [&](int c) {
+    if (c >= total) return;
+    float* s = ring + (c % NS) * slot;
+    const int t = it, p = ip, r0 = row0(t), c0 = col0(t);
+    if (++ip == per) ip = 0, ++it;
+    if (p < nl) {
+      const int kb = p * BK;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + ty * 2 + i;
+      for (int it = 0; it < (BK * R / 4 + THR - 1) / THR; ++it) {
+        const int i = tid + it * THR, kk = i / (R / 4), r = 4 * (i % (R / 4));
+        const bool ok = r0 + r < ldh;
+        if (i < BK * R / 4)
+          jlm::cp_async16(s + kk * R + r, hT + (size_t)(kb + kk) * ldh + (ok ? r0 + r : 0), ok);
+      }
+      float* sb = s + BK * R;
 #pragma unroll
-    for (int jj = 0; jj < MAX_DJ; ++jj)
-      if (jj < nj && row < N)
-        *reinterpret_cast<float4*>(out + (size_t)row * D + tx * 4 + 64 * jj) =
-            make_float4(acc[i][jj][0], acc[i][jj][1], acc[i][jj][2], acc[i][jj][3]);
-  }
-}
-
-size_t dw_f32_smem(int D) {
-  D = D < KW ? D : KW;
-  return ((size_t)(GW_V + GW_R) * (D + 4) + GW_R * (GW_V + 2) + GW_V + 4 * GW_R +
-          16 * GW_V) * sizeof(float);
-}
-
-// Thread (ty, tx): logits of chunk rows ty*2, ty*2+1 at columns tx + 16j
-// (j < 2), whose gp it sums into db; dW at columns tx*2, tx*2+1 and rows
-// ty*4 + 64jj + e (jj < 8, e < 4) of the 512-row slice grid.y.
-__global__ void __launch_bounds__(THREADS, 1)
-ce_bwd_dw_f32_kernel(const float* __restrict__ h, const float* __restrict__ W,
-                     const float* __restrict__ bias, const int* __restrict__ y,
-                     const float* __restrict__ ga, const float* __restrict__ gb,
-                     const float* __restrict__ lse, float* __restrict__ dW,
-                     float* __restrict__ db, int N, int D, int V) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int nkc = n_chunks(D), z = blockIdx.y;
-  const int ld = min(D, KW) + 4, ldg = GW_V + 2;
-  float* sWT = reinterpret_cast<float*>(smem);  // [GW_V][ld]   W columns, transposed
-  float* sH = sWT + GW_V * ld;                  // [GW_R][ld]   h rows
-  float* sG = sH + GW_R * ld;                   // [GW_R][ldg]  gp
-  float* sBias = sG + GW_R * ldg;               // [GW_V]
-  float* sGa = sBias + GW_V;                    // [GW_R] each
-  float* sGb = sGa + GW_R;
-  float* sLse = sGb + GW_R;
-  float* sDb = sLse + GW_R;                     // [16][GW_V]
-  int* sY = reinterpret_cast<int*>(sDb + 16 * GW_V);
-
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int nj = chunk_width(D, z) / 64;
-  const int n0 = blockIdx.x * GW_V;
-
-  if (nkc == 1) stage_cols_t_f32(sWT, ld, W, n0, GW_V, D, V);  // resident
-  for (int i = tid; i < GW_V; i += THREADS) sBias[i] = n0 + i < V ? bias[n0 + i] : 0.0f;
-
-  float acc[MAX_DJ][4][2];  // dW [64-row group][row][column]
-#pragma unroll
-  for (int jj = 0; jj < MAX_DJ; ++jj)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[jj][e][0] = acc[jj][e][1] = 0.0f;
-  float dbacc[2] = {0.0f, 0.0f};  // columns tx, tx + 16
-
-  for (int r0 = 0; r0 < N; r0 += GW_R) {
-    __syncthreads();  // previous chunk's rows and gp consumed
-    stage_row_terms(sY, sGa, sGb, sLse, y, ga, gb, lse, r0, GW_R, N);
-
-    // ---- recompute the chunk's logits [32, 32], K chunk by K chunk (z's last) ----
-    float lg[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
-    for (int i = 0; i < nkc; ++i) {
-      const int c = chunk_at(i, z, nkc), kw = chunk_width(D, c);
-      if (i > 0) __syncthreads();  // the previous K chunk consumed
-      stage_rows_f32(sH, ld, h + c * KW, D, r0, GW_R, N, kw);
-      if (nkc > 1) stage_cols_t_f32(sWT, ld, W + (size_t)c * KW * V, n0, GW_V, kw, V);
-      __syncthreads();
-      for (int k = 0; k < kw; k += 4) {
-        const float4 a0 = ld4(sH + (ty * 2) * ld + k), a1 = ld4(sH + (ty * 2 + 1) * ld + k);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float4 b = ld4(sWT + (tx + 16 * j) * ld + k);
-          lg[0][j] = dot4(lg[0][j], a0, b);
-          lg[1][j] = dot4(lg[1][j], a1, b);
+      for (int it = 0; it < (BK * C / 4 + THR - 1) / THR; ++it) {
+        const int i = tid + it * THR, kk = i / (C / 4), cc = 4 * (i % (C / 4));
+        const bool ok = c0 + cc < ldw;
+        if (i < BK * C / 4)
+          jlm::cp_async16(sb + kk * C + cc, W + (size_t)(kb + kk) * ldw + (ok ? c0 + cc : 0),
+                          ok);
+      }
+      if (p == 0) {
+        for (int i = tid; i < C; i += THR)
+          jlm::cp_async4(tbias + i, bias + (c0 + i < V ? c0 + i : 0), c0 + i < V);
+        for (int i = tid; i < R; i += THR) {
+          const bool ok = r0 + i < N;
+          const int m = ok ? r0 + i : 0;
+          jlm::cp_async4(tga + i, ga + m, ok);
+          jlm::cp_async4(tgb + i, gb + m, ok);
+          jlm::cp_async4(tlse + i, lse + m, ok);
+          jlm::cp_async4(tyy + i, y + m, ok);
         }
       }
-    }
-
-    // ---- gp in fp32, its column sums ----
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int rl = ty * 2 + i;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int cl = tx + 16 * j;
-        const float g = gp_of(lg[i][j] + sBias[cl], n0 + cl, V, r0 + rl < N, sGa[rl],
-                              sGb[rl], sLse[rl], sY[rl]);
-        sG[rl * ldg + cl] = g;
-        dbacc[j] += g;
+    } else if constexpr (!DW) {
+      const int n0 = c0 + (p - nl) * BV;
+      for (int i = tid; i < BV / 4 * wz; i += THR) {
+        const int kk = i / (BV / 4), g = i % (BV / 4), n = n0 + 4 * g;
+        const bool ok = n < ldw;
+        jlm::cp_async16(s + kk * BV + 4 * (g ^ swz(kk)),
+                        W + (size_t)(k0 + kk) * ldw + (ok ? n : 0), ok);
+      }
+    } else {
+      const int m0 = r0 + (p - nl) * BV;
+      for (int i = tid; i < BV / 4 * wz; i += THR) {
+        const int mm = i % BV, k4 = 4 * (i / BV);
+        const bool ok = m0 + mm < N;
+        jlm::cp_async16(s + mm * ldc + k4, h + (size_t)(ok ? m0 + mm : 0) * D + k0 + k4, ok);
       }
     }
-    __syncthreads();
+    jlm::cp_async_arrive(&full[c % NS]);
+  };
 
-    // ---- dW[slice z] += h_chunk^T @ gp (sH: h's columns of chunk z) ----
-    for (int r = 0; r < GW_R; ++r) {
-      const float2 g = *reinterpret_cast<const float2*>(sG + r * ldg + tx * 2);
+  // the logits' rows and columns of the thread: 4 ty + (i % 4) + (i / 4) R / 2,
+  // 4 tx + (j % 4) + (j / 4) C / 2
+  auto lrow = [&](int i) { return (i / 4) * (R / 2) + 4 * ty + (i & 3); };
+  auto lcol = [&](int j) { return (j / 4) * (C / 2) + 4 * tx + (j & 3); };
+  float o[8][NJ];  // dh [8 q rows][NJ columns]; dW^T [8 q columns][NJ rows of D]
 #pragma unroll
-      for (int jj = 0; jj < MAX_DJ; ++jj) {
-        if (jj < nj) {
-          const float4 a = ld4(sH + r * ld + ty * 4 + 64 * jj);
-          const float av[4] = {a.x, a.y, a.z, a.w};
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            acc[jj][e][0] = fmaf(av[e], g.x, acc[jj][e][0]);
-            acc[jj][e][1] = fmaf(av[e], g.y, acc[jj][e][1]);
+    for (int j = 0; j < NJ; ++j) o[i][j] = 0.0f;
+  float acc[LR][LC];
+  float dbacc = 0.0f;  // dW: db of column tid (tid < C)
+
+  // Warps run up to NS - 1 chunks apart: a chunk waits for its slot's copies
+  // (full), a slot is refilled once every warp has read it (empty), and only
+  // gp meets a block barrier, twice a tile.
+  for (int c = 0; c < NS - 1; ++c) issue(c);
+  for (int c = 0, t = 0, p = 0; c < total; ++c, p = p + 1 == per ? 0 : p + 1, t += p == 0) {
+    const float* s = ring + (c % NS) * slot;
+    jlm::mbar_wait(&full[c % NS], (c / NS) & 1);
+    if (p < nl) {
+      // ---- logits += h^T chunk x W chunk, LR x LC a thread; the next k's
+      // operands load under this k's FMAs ----
+      if (p == 0) {
+#pragma unroll
+        for (int i = 0; i < LR; ++i)
+#pragma unroll
+          for (int j = 0; j < LC; ++j) acc[i][j] = 0.0f;
+      }
+      const float* sb = s + BK * R;
+      float4 a[2][LR / 4], b[2][LC / 4];
+      auto fetch = [&](int k, int buf) {
+#pragma unroll
+        for (int u = 0; u < LR / 4; ++u) a[buf][u] = ld4(s + k * R + u * (R / 2) + 4 * ty);
+#pragma unroll
+        for (int u = 0; u < LC / 4; ++u) b[buf][u] = ld4(sb + k * C + u * (C / 2) + 4 * tx);
+      };
+      fetch(0, 0);
+#pragma unroll
+      for (int k = 0; k < BK; ++k) {
+        if (k + 1 < BK) fetch(k + 1, (k + 1) & 1);
+        const float* av = reinterpret_cast<const float*>(a[k & 1]);
+        const float* bv = reinterpret_cast<const float*>(b[k & 1]);
+#pragma unroll
+        for (int i = 0; i < LR; ++i)
+#pragma unroll
+          for (int j = 0; j < LC; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+      if (p == nl - 1) {
+        // ---- gp = ga exp(l + b - lse) + gb onehot(y), fp32, 0 past N and V,
+        // into shared memory once every thread has read the last tile's;
+        // dW: the column sums of the thread's rows ----
+        __syncthreads();
+        const int r0 = row0(t), c0 = col0(t);
+        float dsum[LC] = {};
+#pragma unroll
+        for (int i = 0; i < LR; ++i) {
+          const int r = lrow(i), m = r0 + r;
+          const float ga_ = tga[r], gb_ = tgb[r], l = tlse[r];
+          const int yr = tyy[r];
+          float v[LC];
+#pragma unroll
+          for (int j = 0; j < LC; ++j) {
+            const int cc = lcol(j), n = c0 + cc;
+            v[j] = m < N && n < V ? ga_ * expf(acc[i][j] + tbias[cc] - l) + (n == yr ? gb_ : 0.0f)
+                                  : 0.0f;
+            if constexpr (DW) dsum[j] += v[j];
+          }
+#pragma unroll
+          for (int u = 0; u < LC / 4; ++u)
+            *reinterpret_cast<float4*>(gp + r * C + lcol(4 * u)) =
+                make_float4(v[4 * u], v[4 * u + 1], v[4 * u + 2], v[4 * u + 3]);
+        }
+        if constexpr (DW) {
+#pragma unroll
+          for (int u = 0; u < LC / 4; ++u)
+            *reinterpret_cast<float4*>(red + ty * C + lcol(4 * u)) =
+                make_float4(dsum[4 * u], dsum[4 * u + 1], dsum[4 * u + 2], dsum[4 * u + 3]);
+        }
+      }
+    } else if constexpr (!DW) {
+      // ---- dh[8 q][NJ columns] += gp[q][kv .. kv + 8) W[column][kv .. kv + 8):
+      // gp read as a broadcast, W float4 along kv (a warp's 32 rows of a
+      // step on 8 distinct bank quads).  Columns past the slice are
+      // computed from the slot's other floats and never stored ----
+      const int vb = (p - nl) * BV;
+      if (p == nl) __syncthreads();  // gp is written
+#pragma unroll
+      for (int part = 0; part < BV / 4; ++part) {
+        float4 g[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) g[i] = ld4(gp + (8 * qg + i) * C + vb + 4 * part);
+        // swz(kg + KG j) is swz(kg): KG is a multiple of 8
+        const float* wb = s + kg * BV + 4 * (part ^ swz(kg));
+        float4 w[2];
+        auto wat = [&](int j) { return ld4(wb + S::KG * BV * j); };
+        w[0] = wat(0);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          if (j + 1 < NJ) w[(j + 1) & 1] = wat(j + 1);
+          const float4 x = w[j & 1];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            o[i][j] = fmaf(g[i].x, x.x, o[i][j]);
+            o[i][j] = fmaf(g[i].y, x.y, o[i][j]);
+            o[i][j] = fmaf(g[i].z, x.z, o[i][j]);
+            o[i][j] = fmaf(g[i].w, x.w, o[i][j]);
+          }
+        }
+      }
+    } else {
+      // ---- dW^T[8 q][NJ rows of D] += gp[kv][q] h[kv][rows of D], kv by kv;
+      // the tile's first output chunk also sums db's partials in ty order.
+      // Rows of D past the slice as in dh ----
+      const int vb = (p - nl) * BV;
+      if (p == nl) {
+        __syncthreads();  // gp and db's partials are written
+        if (tid < C) {
+#pragma unroll 8
+          for (int r = 0; r < S::TY; ++r) dbacc += red[r * C + tid];
+        }
+      }
+#pragma unroll
+      for (int mm = 0; mm < BV; ++mm) {
+        const float4 g0 = ld4(gp + (vb + mm) * C + 8 * qg), g1 = ld4(gp + (vb + mm) * C + 8 * qg + 4);
+        const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+        for (int j = 0; j < NJ / 4; ++j) {
+          const float4 hv = ld4(s + mm * ldc + 4 * (kg + S::KG * j));
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            o[e][4 * j] = fmaf(gv[e], hv.x, o[e][4 * j]);
+            o[e][4 * j + 1] = fmaf(gv[e], hv.y, o[e][4 * j + 1]);
+            o[e][4 * j + 2] = fmaf(gv[e], hv.z, o[e][4 * j + 2]);
+            o[e][4 * j + 3] = fmaf(gv[e], hv.w, o[e][4 * j + 3]);
           }
         }
       }
     }
+    __syncwarp();
+    if (lane == 0) jlm::mbar_arrive(&empty[c % NS]);
+    // chunk c - 1's slot takes chunk c + NS - 1 once every warp has read it
+    if (c >= 1 && c + NS - 1 < total) jlm::mbar_wait(&empty[(c - 1) % NS], ((c - 1) / NS) & 1);
+    issue(c + NS - 1);
   }
 
-  // ---- db (slice 0): the 16 row threads of each column ----
+  // ---- store: dh rows into the split's partial (a warp's 32 neighbouring
+  // columns a store); dW^T's 8 vocabulary columns of each row of D as two
+  // float4 where V allows; db by slice 0 ----
+  if constexpr (!DW) {
+    float* base = out + (size_t)blockIdx.y * N * D + k0;
 #pragma unroll
-  for (int j = 0; j < 2; ++j) sDb[ty * GW_V + tx + 16 * j] = dbacc[j];
-  __syncthreads();
-  for (int c = tid; c < GW_V; c += THREADS) {
-    float s = 0.0f;
-    for (int t = 0; t < 16; ++t) s += sDb[t * GW_V + c];
-    if (z == 0 && n0 + c < V) db[n0 + c] = s;
-  }
+    for (int i = 0; i < 8; ++i) {
+      const int row = q0 + 8 * qg + i;
 #pragma unroll
-  for (int jj = 0; jj < MAX_DJ; ++jj)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int d = z * KW + ty * 4 + 64 * jj + e;
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int n = n0 + tx * 2 + q;
-        if (jj < nj && n < V) dW[(size_t)d * V + n] = acc[jj][e][q];
+      for (int j = 0; j < NJ; ++j) {
+        const int kk = kg + S::KG * j;
+        if (row < N && kk < wz) base[(size_t)row * D + kk] = o[i][j];
       }
     }
+  } else {
+    const int n = q0 + 8 * qg;
+    const bool vec = (V & 3) == 0 && n + 8 <= V;
+#pragma unroll
+    for (int j = 0; j < NJ / 4; ++j) {
+      const int kk = 4 * (kg + S::KG * j);
+      if (kk >= wz) continue;
+#pragma unroll
+      for (int e4 = 0; e4 < 4; ++e4) {
+        float* row = out + (size_t)(k0 + kk + e4) * V + n;
+        if (vec) {
+          *reinterpret_cast<float4*>(row) =
+              make_float4(o[0][4 * j + e4], o[1][4 * j + e4], o[2][4 * j + e4], o[3][4 * j + e4]);
+          *reinterpret_cast<float4*>(row + 4) =
+              make_float4(o[4][4 * j + e4], o[5][4 * j + e4], o[6][4 * j + e4], o[7][4 * j + e4]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            if (n + e < V) row[e] = o[e][4 * j + e4];
+        }
+      }
+    }
+    if (blockIdx.z == 0 && tid < C && q0 + tid < V) db[q0 + tid] = dbacc;
+  }
+}
+
+#define BF32_PARAMS                                                                          \
+  const float *__restrict__ h, const float *__restrict__ hT, const float *__restrict__ W,   \
+      const float *__restrict__ bias, const int *__restrict__ y,                             \
+      const float *__restrict__ ga, const float *__restrict__ gb,                            \
+      const float *__restrict__ lse, float *__restrict__ out, float *__restrict__ db, int N, \
+      int ldh, int D, int V, int ldw, int sw, int tiles_per_split
+#define BF32_ARGS h, hT, W, bias, y, ga, gb, lse, out, db, N, ldh, D, V, ldw, sw, tiles_per_split
+
+// dh partials [splits][N][D]: grid row blocks x vocab splits x slices of D.
+template <int Q>
+__global__ void __launch_bounds__(bf32::THR, 1) ce_bwd_dh_f32_kernel(BF32_PARAMS) {
+  bwd_f32_body<false, Q>(BF32_ARGS);
+}
+
+// dW [D, V] and db [V]: grid vocab blocks x 1 x slices of D (slice 0 writes db).
+template <int Q>
+__global__ void __launch_bounds__(bf32::THR, 1) ce_bwd_dw_f32_kernel(BF32_PARAMS) {
+  bwd_f32_body<true, Q>(BF32_ARGS);
+}
+
+using Bf32Kernel = void (*)(BF32_PARAMS);
+
+template <bool DW>
+Bf32Kernel bf32_kernel(int q) {
+  switch (q) {
+    case 32: return DW ? ce_bwd_dw_f32_kernel<32> : ce_bwd_dh_f32_kernel<32>;
+    case 64: return DW ? ce_bwd_dw_f32_kernel<64> : ce_bwd_dh_f32_kernel<64>;
+    case 128: return DW ? ce_bwd_dw_f32_kernel<128> : ce_bwd_dh_f32_kernel<128>;
+    case 256: return DW ? ce_bwd_dw_f32_kernel<256> : ce_bwd_dh_f32_kernel<256>;
+    default: return nullptr;
+  }
+}
+
+// Checks the plan (ops/softmax_ce.py::bwd_plan_f32 makes it so) and launches:
+// q rows a block, output slices of sw columns (a multiple of 128, q sw
+// within the 128 accumulators a thread), ldh and ldw multiples of 4.
+template <bool DW>
+cudaError_t launch_bwd_f32(BF32_PARAMS, int q, int splits, cudaStream_t st) {
+  const Bf32Kernel kernel = bf32_kernel<DW>(q);
+  if (kernel == nullptr || D <= 0 || D % 128 || sw <= 0 || sw % 128 || sw > bf32::SW ||
+      q * sw > bf32::OUT || ldh % 4 || ldh < N || ldw % 4 || ldw < V || splits < 1)
+    return cudaErrorInvalidValue;
+  const size_t smem = bwd_f32_smem(DW, q, sw);
+  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+  const cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(((DW ? V : N) + q - 1) / q, splits, (D + sw - 1) / sw);
+  kernel<<<grid, bf32::THR, smem, st>>>(BF32_ARGS);
+  return cudaGetLastError();
 }
 
 cudaError_t sum_splits(const float* part, float* out, size_t count, int splits,
@@ -1383,38 +1511,32 @@ int jlm_ce_fwd_bf16(const void* h, const void* wt, const float* bias, const int*
   return (int)cudaGetLastError();
 }
 
-// fp32 compute: h [N, D] and W [D, V] fp32, plus ga, gb, lse [N] fp32;
-// dh_part [splits, N, D] fp32 scratch (may equal dh when splits == 1); dh
-// [N, D] fp32.  The grid is row blocks x splits x the 512-wide slices of D.
-int jlm_ce_bwd_dh_f32(const float* h, const float* W, const float* bias, const int* y,
+// fp32 compute: hT = h^T [D, ldh] and W [D, ldw] fp32 (zero past N and V up
+// to ldh and ldw, multiples of 4), bias [V], y [N] int32 (a target outside
+// [0, V) matches no column), ga, gb, lse [N] fp32; the plan (q, sw, splits,
+// tiles_per_split) as ops/softmax_ce.py::bwd_plan_f32 makes it.  dh_part
+// [splits, N, D] fp32 (may equal dh when splits == 1), dh [N, D].
+int jlm_ce_bwd_dh_f32(const float* hT, const float* W, const float* bias, const int* y,
                       const float* ga, const float* gb, const float* lse, float* dh_part,
-                      float* dh, int N, int D, int V, int splits, int tiles_per_split,
-                      void* stream) {
+                      float* dh, int N, int ldh, int D, int V, int ldw, int q, int sw,
+                      int splits, int tiles_per_split, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = dh_f32_smem(D);
-  cudaError_t err = set_smem(ce_bwd_dh_f32_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + GH_R - 1) / GH_R, splits, (D + KW - 1) / KW);
-  ce_bwd_dh_f32_kernel<<<grid, THREADS, smem, st>>>(h, W, bias, y, ga, gb, lse, dh_part, N,
-                                                    D, V, tiles_per_split);
-  err = cudaGetLastError();
+  const cudaError_t err =
+      launch_bwd_f32<false>(nullptr, hT, W, bias, y, ga, gb, lse, dh_part, nullptr, N, ldh, D,
+                            V, ldw, sw, tiles_per_split, q, splits, st);
   if (err != cudaSuccess || splits == 1) return (int)err;
   return (int)sum_splits(dh_part, dh, (size_t)N * D, splits, st);
 }
 
-// fp32 compute; dW [D, V] and db [V] fp32, each element written once.  The
-// grid is column blocks x the 512-row slices of D.
-int jlm_ce_bwd_dw_f32(const float* h, const float* W, const float* bias, const int* y,
-                      const float* ga, const float* gb, const float* lse, float* dW,
-                      float* db, int N, int D, int V, void* stream) {
+// As jlm_ce_bwd_dh_f32, with h [N, D] itself too; dW [D, V] and db [V]
+// fp32, each element written once.
+int jlm_ce_bwd_dw_f32(const float* h, const float* hT, const float* W, const float* bias,
+                      const int* y, const float* ga, const float* gb, const float* lse,
+                      float* dW, float* db, int N, int ldh, int D, int V, int ldw, int q, int sw,
+                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = dw_f32_smem(D);
-  cudaError_t err = set_smem(ce_bwd_dw_f32_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((V + GW_V - 1) / GW_V, (D + KW - 1) / KW);
-  ce_bwd_dw_f32_kernel<<<grid, THREADS, smem, st>>>(h, W, bias, y, ga, gb, lse, dW, db, N, D,
-                                                    V);
-  return (int)cudaGetLastError();
+  return (int)launch_bwd_f32<true>(h, hT, W, bias, y, ga, gb, lse, dW, db, N, ldh, D, V, ldw, sw,
+                                   0, q, 1, st);
 }
 
 // W [D, V] row-major, fp32 (w_bf16 = 0) or bf16 -> wt [V, Dp] bf16 (Dp a

@@ -50,8 +50,8 @@ _SIGNATURES = {
     "jlm_cell_cand": [_P, _P, _P, _I] + [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P],
     "jlm_ce_fwd_f32": [_P] * 9 + [_I] * 5 + [_P],
     "jlm_ce_fwd_bf16": [_P] * 9 + [_I] * 7 + [_P],
-    "jlm_ce_bwd_dh_f32": [_P] * 9 + [_I] * 5 + [_P],
-    "jlm_ce_bwd_dw_f32": [_P] * 9 + [_I] * 3 + [_P],
+    "jlm_ce_bwd_dh_f32": [_P] * 9 + [_I] * 9 + [_P],
+    "jlm_ce_bwd_dw_f32": [_P] * 10 + [_I] * 7 + [_P],
     "jlm_ce_cast_wt": [_P, _P] + [_I] * 4 + [_P],
     "jlm_ce_bwd_dh_bf16": [_P] * 9 + [_I] * 8 + [_P],
     "jlm_ce_bwd_dw_bf16": [_P] * 9 + [_I] * 6 + [_P],

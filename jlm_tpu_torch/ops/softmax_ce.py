@@ -24,13 +24,14 @@ versions ``ce_fwd_raw_ref``, ``ce_bwd_dh_ref`` and ``ce_bwd_dw_ref``.
 The kernels take any hidden slice that is a multiple of 128: another
 width is zero-padded (``pad_hidden``: zero columns of h, zero rows of W),
 which changes no logit, and the padding's rows of dh and dW are dropped.
-A slice wider than 512 goes through the fp32 backward in K chunks of 512,
-and dh and dW are written in slices of 512 over the grid (``KW``).  The
-bf16 forward and backward (``wgmma`` + TMA) read ``W^T`` bf16, which
+The bf16 forward and backward (``wgmma`` + TMA) read ``W^T`` bf16, which
 :func:`cast_wt` writes in the pass that casts W, once a step for both
 (``ce_loss_fused``), and launch as :func:`fwd_plan` and :func:`bwd_plan`
-lay them out (resident rows, ring slots, vocab splits, slices of D; pure
-functions of the shapes and the SM count).
+lay them out (resident rows, ring slots, vocab splits, slices of D); the
+fp32 backward reads W as it is and ``h^T`` (transposed here) and launches
+as :func:`bwd_plan_f32` lays it out (rows and columns a block, the logits
+over all of D up to 1,024, output slices past it).  The plans are pure
+functions of the shapes and the SM count.
 """
 
 from __future__ import annotations
@@ -45,12 +46,10 @@ import torch
 
 from jlm_tpu_torch.ops import _build
 
-# Block shapes of csrc/softmax_ce.cu's fp32 kernels: (rows, vocab columns)
-# per block and the blocks an SM runs at once (the bf16 kernels plan with
-# fwd_plan and bwd_plan).
-_FWD_TILE_F32 = (64, 64, 2)  # ce_fwd_f32
-_DH_TILE_F32 = (32, 64, 1)  # ce_bwd_dh_f32
-KW = 512  # widest K chunk of a kernel; dh and dW are written in slices of it
+# Block shape of csrc/softmax_ce.cu's ce_fwd_f32: (rows, vocab columns) per
+# block and the blocks an SM runs at once (the other kernels plan with
+# fwd_plan, bwd_plan and bwd_plan_f32).
+_FWD_TILE_F32 = (64, 64, 2)
 
 Tensor = torch.Tensor
 
@@ -270,6 +269,83 @@ def bwd_plan(kind: str, N: int, D: int, V: int, sms: int):
     return types.MappingProxyType(plan)  # cached: read-only
 
 
+# The fp32 backward's pieces (csrc/softmax_ce.cu, namespace bf32): a block's
+# threads, a tile's logits (8 x 4 a thread), the output a block keeps in
+# registers (q rows x slice columns, 128 a thread), the widest output
+# slice, a thread's logits rows, the logits' K chunk, the output product's
+# kv chunk, the ring's slots; the q rows a block may take.
+F32_THREADS, F32_TILE, F32_OUT, F32_SW = 256, 8_192, 32_768, 1_024
+F32_LR, F32_BK, F32_BV, F32_NS = 8, 32, 8, 4
+F32_QS = (256, 128, 64, 32)
+
+
+def bwd_smem_f32(kind: str, q: int, sw: int) -> int:
+    """Shared memory of an fp32 backward block (``bwd_f32_smem`` of the
+    .cu): ``F32_NS`` ring slots (a logits chunk of ``F32_BK`` rows of h^T and W, or
+    an output chunk of 8 kv by the slice, padded rows in dW), gp, db's
+    partial sums (dW) and a tile's terms."""
+    kv = F32_TILE // q
+    r, c = (kv, q) if kind == "dw" else (q, kv)
+    slot = max(F32_BK * (q + kv), F32_BV * (sw + 4))
+    return 4 * (4 * F32_NS + F32_NS * slot + F32_TILE + (F32_TILE // F32_LR if kind == "dw" else 0)
+                + 4 * r + c)
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan_f32(kind: str, N: int, D: int, V: int, sms: int):
+    """Launch plan of the fp32 backward kernel ``kind`` ("dh" or "dw") at
+    ``N`` rows, hidden width ``D`` (a multiple of 128), vocabulary ``V`` on
+    ``sms`` SMs; a pure function.
+
+    The output (dh rows, dW columns) is cut into ``slices`` of ``sw``
+    columns of D over grid.z: one slice up to D = 1,024, so that a tile's
+    logits are formed once; past it slices of at most 1,024 (multiples of
+    128, the last one narrower where they do not divide D), each
+    recomputing the logits.  A block owns ``q`` rows of its output, the
+    most of 256, 128, 64 and 32 whose ``[q, sw]`` fits the 128 accumulators
+    a thread (64 at D = 512, 32 at 1,024), and walks tiles of ``kv = 8,192
+    / q``: the logits of a tile are ``q x kv``, 8 x 4 a thread, over
+    ``k_chunks`` chunks of 32 of K, then the output product takes
+    ``kv_chunks`` chunks of 8 kv.
+
+    dh: ``q``-row blocks x ``splits`` of the ``kv``-column vocab tiles
+    (``tiles_per_split`` each, every split at least one) x slices, one wave
+    of one block an SM; dW: ``q``-column vocab blocks x slices, each walking
+    every ``kv``-row tile."""
+    if D % 128 or D <= 0 or N <= 0 or V <= 0 or kind not in ("dh", "dw"):
+        raise ValueError(f"bwd_plan_f32: kind dh or dw, D a multiple of 128 and N, V > 0, "
+                         f"got {kind}, {N}, {D}, {V}")
+    slices = -(-D // F32_SW)
+    sw = -(-D // (slices * 128)) * 128
+    slices = -(-D // sw)
+    q = max(q for q in F32_QS if q * sw <= F32_OUT)
+    kv = F32_TILE // q
+    plan = dict(q=q, kv=kv, sw=sw, slices=slices, k_chunks=D // F32_BK,
+                kv_chunks=kv // F32_BV, smem=bwd_smem_f32(kind, q, sw))
+    if kind == "dh":
+        q_blocks, n_tiles = -(-N // q), -(-V // kv)
+        splits = max(1, min(n_tiles, sms // (q_blocks * slices)))
+        per_split = -(-n_tiles // splits)
+        splits = -(-n_tiles // per_split)
+        plan.update(grid=(q_blocks, splits, slices), splits=splits, tiles_per_split=per_split)
+    else:
+        plan.update(grid=(-(-V // q), 1, slices), splits=1, tiles_per_split=-(-N // kv))
+    return types.MappingProxyType(plan)  # cached: read-only
+
+
+def _f32_bwd_operands(h: Tensor, W: Tensor):
+    """``(h^T [D, ldh], W [D, ldw], ldh, ldw)`` for the fp32 backward: h
+    transposed and W as it is, each zero-padded to a multiple of 4 columns
+    (a copy of W only where V is not one), so every row is 16-byte
+    aligned."""
+    N, V = h.shape[0], W.shape[1]
+    ldh, ldw = -(-N // 4) * 4, -(-V // 4) * 4
+    pad = torch.nn.functional.pad
+    hT = (pad(h.t(), (0, ldh - N)) if ldh != N else h.t()).contiguous()
+    Wp = pad(W, (0, ldw - V)).contiguous() if ldw != V else W
+    return hT, Wp, ldh, ldw
+
+
 @functools.lru_cache(maxsize=None)
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -401,14 +477,15 @@ def ce_bwd_dh(h, W, b, y, lse, ga, gb, compute_dtype=torch.float32, wt=None) -> 
             _ptr(part), _ptr(dh), N, D, V, *_plan_args(plan), splits,
             plan["tiles_per_split"], stream)
     else:
-        rows, cols, per_sm = _DH_TILE_F32
-        slices = -(-D // KW)  # grid.z: the kernel's 512-wide slices of dh
-        splits, per_split = _splits(-(-V // cols), -(-N // rows) * slices, per_sm, h.device)
+        plan = bwd_plan_f32("dh", N, D, V, _sms(h.get_device()))
+        splits = plan["splits"]
+        hT, Wp, ldh, ldw = _f32_bwd_operands(hb, Wb)
         part = dh if splits == 1 else torch.empty((splits, N, D), dtype=torch.float32,
                                                   device=h.device)
         err = _build.lib().jlm_ce_bwd_dh_f32(
-            _ptr(hb), _ptr(Wb), _ptr(bf), _ptr(yi), _ptr(ga), _ptr(gb), _ptr(lse),
-            _ptr(part), _ptr(dh), N, D, V, splits, per_split, stream)
+            _ptr(hT), _ptr(Wp), _ptr(bf), _ptr(yi), _ptr(ga), _ptr(gb), _ptr(lse),
+            _ptr(part), _ptr(dh), N, ldh, D, V, ldw, plan["q"], plan["sw"], splits,
+            plan["tiles_per_split"], stream)
     _build.check(err, "ce_bwd_dh kernel")
     ce_bwd_dh.launches += 1
     return dh[:, :D0].contiguous() if D != D0 else dh
@@ -437,9 +514,11 @@ def ce_bwd_dw(h, W, b, y, lse, ga, gb, compute_dtype=torch.float32,
                 _ptr(hb), _ptr(Wb), _ptr(bf), _ptr(yi), _ptr(ga), _ptr(gb), _ptr(lse),
                 _ptr(dW), _ptr(db), N, D, V, *_plan_args(plan), stream)
         else:
+            plan = bwd_plan_f32("dw", N, D, V, _sms(h.get_device()))
+            hT, Wp, ldh, ldw = _f32_bwd_operands(hb, Wb)
             err = _build.lib().jlm_ce_bwd_dw_f32(
-                _ptr(hb), _ptr(Wb), _ptr(bf), _ptr(yi), _ptr(ga), _ptr(gb), _ptr(lse),
-                _ptr(dW), _ptr(db), N, D, V, stream)
+                _ptr(hb), _ptr(hT), _ptr(Wp), _ptr(bf), _ptr(yi), _ptr(ga), _ptr(gb),
+                _ptr(lse), _ptr(dW), _ptr(db), N, ldh, D, V, ldw, plan["q"], plan["sw"], stream)
         _build.check(err, "ce_bwd_dw kernel")
         ce_bwd_dw.launches += 1
     return (dW[:D0].contiguous(), db) if D != D0 else (dW, db)

@@ -743,6 +743,60 @@ def test_ce_fp32_kernels_vs_plain(cuda, N, D, V, neg_every):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("N,D,V", [
+    (77, 128, 1001),     # a D-softmax block's width: 256 rows a block
+    (300, 256, 3001),    # 128 rows a block
+    (129, 512, 5003),    # 64 rows: one row past two blocks; V not a multiple of 4
+    (200, 640, 2003),    # 32 rows a block, 640 of the 1,024 columns a block can hold
+    (70, 1024, 2003),    # H = 1,024: 32 rows a block, the logits over all of D
+    (37, 2048, 300),     # past 1,024: two output slices, each forming the logits
+])
+def test_ce_fp32_backward_general_cotangent_vs_plain(cuda, N, D, V):
+    """The fp32 backward (``ce_bwd_dh``, ``ce_bwd_dw``) with a general
+    cotangent ``gp = ga p + gb onehot(y)`` (ga and gb independent), a third
+    of the targets -1, on weights of scale 0.5, at ragged shapes (N not a
+    multiple of a block's rows, V not of a tile's columns): dh, dW and db
+    within 1e-4 of the largest magnitude of the plain fp32 versions (exact
+    fp32 products, sums in another order)."""
+    from jlm_tpu_torch.ops import softmax_ce as ce
+
+    f32 = torch.float32
+    h, W, b, y, ga = _ce_case(cuda, 21, N, D, V, neg_every=3, scale=0.5)
+    gb = torch.from_numpy(np.random.default_rng(22).normal(size=N).astype(np.float32)).to(cuda)
+    mp, sp, _ = ce.ce_fwd_raw_ref(h, W, b, y, f32)
+    lse = mp + torch.log(sp)
+    n0 = (ce.ce_bwd_dh.launches, ce.ce_bwd_dw.launches)
+    dh = ce.ce_bwd_dh(h, W, b, y, lse, ga, gb, f32)
+    dW, db = ce.ce_bwd_dw(h, W, b, y, lse, ga, gb, f32)
+    torch.cuda.synchronize()
+    assert (ce.ce_bwd_dh.launches, ce.ce_bwd_dw.launches) == (n0[0] + 1, n0[1] + 1)
+    dWp, dbp = ce.ce_bwd_dw_ref(h, W, b, y, lse, ga, gb, f32)
+    assert dh.shape == (N, D) and dW.shape == (D, V) and db.shape == (V,)
+    assert _rel(dh, ce.ce_bwd_dh_ref(h, W, b, y, lse, ga, gb, f32)) <= 1e-4
+    assert _rel(dW, dWp) <= 1e-4 and _rel(db, dbp) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D,V", [(1024, 512, 50_000), (129, 1024, 3001)])
+def test_ce_fp32_backward_is_deterministic(cuda, N, D, V):
+    """Two calls of the fp32 ce_bwd_dh and ce_bwd_dw on the same inputs give
+    bit-identical dh, dW and db (no atomics; dh's split partials and db's
+    partial sums are added in a fixed order)."""
+    from jlm_tpu_torch.ops import softmax_ce as ce
+
+    f32 = torch.float32
+    h, W, b, y, g = _ce_case(cuda, 23, N, D, V, 5)
+    m, s = ce.ce_fwd_raw_ref(h, W, b, y, f32)[:2]
+    lse = m + torch.log(s)
+    first = (ce.ce_bwd_dh(h, W, b, y, lse, g, -g, f32),) + ce.ce_bwd_dw(h, W, b, y, lse, g, -g,
+                                                                          f32)
+    again = (ce.ce_bwd_dh(h, W, b, y, lse, g, -g, f32),) + ce.ce_bwd_dw(h, W, b, y, lse, g, -g,
+                                                                          f32)
+    for a, b2, name in zip(first, again, ("dh", "dW", "db")):
+        assert torch.equal(a, b2), name
+
+
+@pytest.mark.cuda
 def test_ce_fp32_bounds_catch_tf32(cuda):
     """On weights of scale 0.5 (a peaked softmax, where an operand rounding
     moves the lse instead of averaging away), the plain fp32 version with h

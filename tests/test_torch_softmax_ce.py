@@ -211,6 +211,15 @@ def test_cpu_ce_wrappers_do_not_count_launches(dtype):
     assert _build._lib is None
 
 
+def _owners(n, tile, blocks, per_block):
+    """How many (block, tile) pairs cover each of n indices."""
+    count = np.zeros(n, np.int64)
+    for blk in range(blocks):
+        for t in range(blk * per_block, (blk + 1) * per_block):
+            count[t * tile:min((t + 1) * tile, n)] += 1
+    return count
+
+
 @pytest.mark.parametrize("kind", ["dh", "dw"])
 @pytest.mark.parametrize("N,D,V", [
     (1024, 512, 50_000),    # the training step's head (chip_smoke.py)
@@ -238,14 +247,7 @@ def test_bwd_plan_covers_every_row_and_column(kind, N, D, V):
     assert (2 if not passes else 1) <= plan["n_own"] <= 4
     assert (2 <= plan["n_pass"] <= 8) if passes else plan["n_pass"] == 0
 
-    def owners(n, tile, blocks, per_block):
-        """How many (block, tile) pairs cover each of n indices."""
-        count = np.zeros(n, np.int64)
-        for blk in range(blocks):
-            for t in range(blk * per_block, (blk + 1) * per_block):
-                count[t * tile:min((t + 1) * tile, n)] += 1
-        return count
-
+    owners = _owners
     grid = plan["grid"]
     if kind == "dh":
         q_blocks, splits, zs = grid
@@ -260,6 +262,63 @@ def test_bwd_plan_covers_every_row_and_column(kind, N, D, V):
         np.testing.assert_array_equal(owners(V, 64, v_blocks, 1), 1)
         assert plan["tiles_per_split"] * 64 >= N > (plan["tiles_per_split"] - 1) * 64
     np.testing.assert_array_equal(owners(D, sw, slices, 1), 1)
+
+
+@pytest.mark.parametrize("kind", ["dh", "dw"])
+@pytest.mark.parametrize("V", [1, 100, 50_000])
+@pytest.mark.parametrize("N", [1, 37, 1024])
+@pytest.mark.parametrize("D", [128, 256, 512, 640, 1024])
+def test_bwd_plan_f32_covers_every_row_column_and_chunk(kind, N, D, V):
+    """The fp32 backward's launch plan (a pure function of N, D, V and the
+    SM count, here an H100's 132): every row of h and every vocabulary
+    column falls in exactly one (block, tile) pair, every column of D in
+    one output slice (one slice up to D = 1,024: a tile's logits are formed
+    once), K in whole chunks of 32 and a tile's kv in whole chunks of 8; a
+    block's output (q rows x slice columns) fits the registers the kernel
+    gives it, 128 floats a thread, beside its 32 logits a thread; shared
+    memory stays within a block's 227 KB."""
+    plan = ce.bwd_plan_f32(kind, N, D, V, 132)
+    q, kv, sw, slices = plan["q"], plan["kv"], plan["sw"], plan["slices"]
+    assert q in ce.F32_QS and q * kv == ce.F32_TILE
+    assert q * sw <= ce.F32_OUT and (2 * q * sw > ce.F32_OUT or q == max(ce.F32_QS))
+    assert q * sw // ce.F32_THREADS <= 128 and ce.F32_TILE // ce.F32_THREADS == 32
+    assert sw % 128 == 0 and slices == 1 and sw == D
+    assert plan["k_chunks"] * ce.F32_BK == D and plan["kv_chunks"] * ce.F32_BV == kv
+    assert plan["kv_chunks"] >= 4  # a tile's terms load under its last chunks
+    assert plan["smem"] == ce.bwd_smem_f32(kind, q, sw) <= ce.SMEM_LIMIT
+    grid = plan["grid"]
+    assert grid[2] == slices
+    if kind == "dh":
+        q_blocks, splits = grid[:2]
+        assert splits == plan["splits"] and (q_blocks * splits <= 132 or splits == 1)
+        np.testing.assert_array_equal(_owners(N, q, q_blocks, 1), 1)
+        np.testing.assert_array_equal(_owners(V, kv, splits, plan["tiles_per_split"]), 1)
+        assert (splits - 1) * plan["tiles_per_split"] * kv < V  # no split is empty
+    else:
+        v_blocks, one = grid[:2]
+        assert one == 1 == plan["splits"]
+        np.testing.assert_array_equal(_owners(V, q, v_blocks, 1), 1)
+        np.testing.assert_array_equal(_owners(N, kv, 1, plan["tiles_per_split"]), 1)
+
+
+@pytest.mark.parametrize("kind", ["dh", "dw"])
+def test_bwd_plan_f32_shapes(kind):
+    """64 rows (columns) a block at D = 512 and 32 at D = 1,024, one slice
+    each; dh splits the vocabulary 8 and 4 ways at N = 1,024 (one wave of
+    128 blocks); past D = 1,024 the output is cut into slices of at most
+    1,024, multiples of 128, whose last may be narrower."""
+    p512, p1024 = (ce.bwd_plan_f32(kind, 1024, d, 50_000, 132) for d in (512, 1024))
+    assert (p512["q"], p512["sw"], p512["slices"]) == (64, 512, 1)
+    assert (p1024["q"], p1024["sw"], p1024["slices"]) == (32, 1024, 1)
+    if kind == "dh":
+        assert (p512["splits"], p1024["splits"]) == (8, 4)
+    for D, sw, slices in ((2048, 1024, 2), (1152, 640, 2), (3072, 1024, 3)):
+        p = ce.bwd_plan_f32(kind, 70, D, 2003, 132)
+        assert (p["sw"], p["slices"], p["grid"][2]) == (sw, slices, slices)
+        cols = _owners(D, sw, slices, 1)
+        np.testing.assert_array_equal(cols, 1)
+    with pytest.raises(ValueError):
+        ce.bwd_plan_f32(kind, 8, 192, 100, 132)
 
 
 def test_bwd_plan_slots():

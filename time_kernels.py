@@ -27,7 +27,11 @@ training rows (N = 1,024, V = 50,000) it times the fused CE's three bf16
 kernels through their wrappers, ``ce_fwd`` (with the step's W^T given, as
 in training, and casting W itself), ``ce_bwd_dh`` and ``ce_bwd_dw`` (the
 bf16 cast of h and W included), the cast alone and the ``torch.addmm`` +
-``torch.logsumexp`` pair, at D = 512 and 1,024 (``--only ce_``).  Each is
+``torch.logsumexp`` pair, and the fp32 backward (``precision="highest"``:
+``ce_bwd_dh`` and ``ce_bwd_dw`` in fp32, the wrappers' transposed copy of h
+included) beside its plain versions on the card (cuBLAS fp32 products and
+elementwise work), at D = 512 and 1,024 (``--only ce_``), and the fp32
+backward alone at D = 2,048, where its output is cut into two slices.  Each is
 timed two ways (``chip_smoke``'s helpers): ``one_ms``, the median of 10 calls each between two CUDA events
 (the wrapper's Python before the launch counts), and ``row_ms``, the events
 around 50 calls in a row divided by 50 (the device's time where the device
@@ -126,10 +130,11 @@ def cases(dev):
         out += scan_cases(dev, g, hw, ew, cd)
     for d in (512, 1024):
         out += ce_cases(dev, g, d)
+    out += ce_cases(dev, g, 2048, bf16=False)
     return out
 
 
-def ce_cases(dev, g, D):
+def ce_cases(dev, g, D, bf16=True):
     """The fused CE's three bf16 kernels through their wrappers at the
     training rows (N = 1,024, V = 50,000, fp32 master values): ``ce_fwd``
     casting W itself (``cast_wt``) and, as the trainer's step calls it,
@@ -137,7 +142,9 @@ def ce_cases(dev, g, D):
     forward takes no ``wt`` records the refusal); the cast alone; the
     yardstick pair ``torch.addmm`` bf16 + ``torch.logsumexp`` (2 calls, not
     ranked); and ``ce_bwd_dh`` and ``ce_bwd_dw`` with the mean loss's
-    cotangent, casting W as before."""
+    cotangent, casting W as before; then ``ce_bwd_dh`` and ``ce_bwd_dw`` in
+    fp32 with the same cotangent, each beside its plain version (only these
+    where ``bf16`` is false)."""
     from jlm_tpu_torch.ops import softmax_ce as ce
 
     bf = torch.bfloat16
@@ -149,15 +156,23 @@ def ce_cases(dev, g, D):
     lse = m + torch.log(s)
     ga = torch.full((N_CE,), 1.0 / N_CE, device=dev)
     args = (h, W, b, y, lse, ga, -ga, bf)
+    m32, s32 = ce.ce_fwd_raw_ref(h, W, b, y, torch.float32)[:2]
+    args32 = (h, W, b, y, m32 + torch.log(s32), ga, -ga, torch.float32)
     wt = ce.cast_wt(W, D)
     hb, Wb, bb = h.to(bf), W.to(bf), b.to(bf)
+    fp32 = [(f"ce_bwd_dh fp32 D{D}", lambda: ce.ce_bwd_dh(*args32)),
+            (f"ce_bwd_dh fp32 plain D{D}", lambda: ce.ce_bwd_dh_ref(*args32)),
+            (f"ce_bwd_dw fp32 D{D}", lambda: ce.ce_bwd_dw(*args32)),
+            (f"ce_bwd_dw fp32 plain D{D}", lambda: ce.ce_bwd_dw_ref(*args32))]
+    if not bf16:
+        return fp32
     return [(f"ce_fwd bf16 D{D}", lambda: ce.ce_fwd_raw(h, W, b, y, bf)),
             (f"ce_fwd bf16 D{D} wt", lambda: ce.ce_fwd_raw(h, W, b, y, bf, wt=wt)),
             (f"ce_fwd's cast_wt D{D}", lambda: ce.cast_wt(W, D)),
             (f"ce_fwd yardstick torch.addmm + torch.logsumexp bf16 D{D} (2 calls)",
              lambda: torch.logsumexp(torch.addmm(bb, hb, Wb), dim=1)),
             (f"ce_bwd_dh bf16 D{D}", lambda: ce.ce_bwd_dh(*args)),
-            (f"ce_bwd_dw bf16 D{D}", lambda: ce.ce_bwd_dw(*args))]
+            (f"ce_bwd_dw bf16 D{D}", lambda: ce.ce_bwd_dw(*args))] + fp32
 
 
 def scan_cases(dev, g, Hs, Es, cd):
