@@ -41,7 +41,9 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
    weight modes and on config 5's head, and the fused cell + candidate
    frame kernel in bf16 and fp32 (``port_cases``: TF32 operands, a
    p-term off, or a candidate read from its neighbouring column must read
-   above the bounds); and the widths past 512 (``wide_cases``, H = E =
+   above the bounds; the fp32 frame's dots without the last 32-unit
+   group's share, a trap of its design, too; so must the fp32 and dequant
+   fp32 heads' lse without the last K chunk of 16); and the widths past 512 (``wide_cases``, H = E =
    1,024: the bf16 and dequant-bf16 heads on a 1,024-wide slice, the
    fused CE at D = 1,024 in bf16 and fp32, the scan in fp32 and bf16
    forward and backward and each direction's kernels, each with a wrong
@@ -928,6 +930,26 @@ def head_mode_cases(dev, rng):
                   if "blocks" in head else rounded(head))
         return project_lse_ref(tf32(hh), head_r, cfg, compute_dtype=torch.float32)
 
+    def last_chunk_dropped(hh, head):
+        """The lse without the last K chunk of 16 (the fp32 kernel's
+        chunk): rows [d - 16, d) of each block's weights zeroed."""
+        def cut(blk):
+            W = blk["W"]
+            if isinstance(W, dict):
+                q = W["q"].clone()
+                q[-16:] = 0
+                return {"W": {"q": q, "scale": W["scale"]}, "b": blk["b"]}
+            W = W.clone()
+            W[-16:] = 0
+            return {"W": W, "b": blk["b"]}
+
+        head_c = {"blocks": [cut(blk) for blk in head["blocks"]]} if "blocks" in head else cut(head)
+        return project_lse_ref(hh, head_c, cfg, compute_dtype=torch.float32)
+
+    def f32_traps(hh, head):
+        return {"operands rounded to TF32": lambda: tf32_plain(hh, head),
+                "the lse without the last K chunk of 16": lambda: last_chunk_dropped(hh, head)}
+
     def rescaled_after():
         """The dequant done wrong: the exact product with int8 weights,
         rescaled by the column scale after it."""
@@ -965,9 +987,9 @@ def head_mode_cases(dev, rng):
         lse_case("project_lse dsoftmax bf16", h, head_b, bf, False),
         lse_case("project_lse dequant bf16", h, head_d, bf, False, rescaled_after),
         lse_case("project_lse fp32", h32, head_f, torch.float32, False,
-                 lambda: tf32_plain(h32, head_f)),
+                 f32_traps(h32, head_f)),
         lse_case("project_lse dequant fp32", h32, head_d, torch.float32, False,
-                 lambda: tf32_plain(h32, head_d)),
+                 f32_traps(h32, head_d)),
         lse_case("project_lse dsoftmax int8 slice scale", h_out, head_s, bf, True,
                  global_scale),
         ("lstm_cell_step fp32",
@@ -1156,13 +1178,28 @@ def port_cases(dev, rng):
         return c_l, torch.baddbmm(cbias32[:, None, :], h_l.reshape(S32, B32, H),
                                   cols32.transpose(1, 2))
 
+    def last_group_dropped():
+        """The dots without the last unit group's share: h' units [H - 32,
+        H) zeroed in the dots only."""
+        c_n, h_n = lstm_cell_ref(x32, h32, c32, W32, b32, 1.0)
+        h_d = h_n.clone()
+        h_d[:, H - 32:] = 0
+        return c_n, h_n, (torch.einsum("sbh,sch->sbc", h_d.reshape(S32, B32, H), cols32)
+                          + cbias32[:, None, :])
+
+    def split_pair32():
+        c_n, h_n = lstm_cell_step(x32, h32, c32, W32, b32, 1.0)
+        return c_n, cand_dot(h_n.reshape(S32, B32, H), cols32, cbias32)
+
+    SPLIT_PAIRS["cell_cand_step fp32"] = split_pair32
     cases.append((
         "cell_cand_step fp32",
         lambda: cell_cand_step(x32, h32, c32, W32, b32, cols32, cbias32, B32, 1.0),
         lambda: cell_cand_ref(x32, h32, c32, W32, b32, cols32, cbias32, B32, 1.0),
         abs_errs,
         {"operands rounded to TF32": lambda: cell_cand_ref(
-            tf32(x32), tf32(h32), c32, tf32(W32), b32, tf32(cols32), cbias32, B32, 1.0)},
+            tf32(x32), tf32(h32), c32, tf32(W32), b32, tf32(cols32), cbias32, B32, 1.0),
+         "the dots without the last unit group's share": last_group_dropped},
         library32))
     return cases
 
@@ -1561,13 +1598,15 @@ def odd_width_run(dev, vocab, lexicon, kanas):
 
     def greedy_parity(params_, cfg_, label, **kw):
         eng = BeamDecoder(params_, lexicon, vocab, cfg_, device=dev, **kw)
+        t0 = time.perf_counter()
         res, counts = counted(lambda: eng.decode_batch(kanas))
+        wall = time.perf_counter() - t0
         oracle = OracleDecoder(OracleLM(params_, cfg_), lexicon, vocab, cfg_)
         want = [oracle.decode(k)[0] for k in kanas]
         n = identical(res, want)
         worst = max(abs(r[0].score - o.score) for r, o in zip(res, want))
         log(f"{label}: parity {n}/{len(kanas)} (vs fp32 oracle), max |score - oracle| "
-            f"{worst:.3e}; launches {counts}")
+            f"{worst:.3e}; launches {counts}; wall {wall:.4f} s")
         check(n == len(kanas) and worst <= 1e-3, f"{label}: greedy fp32 parity")
         return counts
 
@@ -2081,20 +2120,22 @@ def kernel_fn(name: str) -> str:
     if name.startswith("cell_cand_step E"):
         return kernel_fn("cell_cand_step") + " (E, H padded to multiples of 8)"
     if name.startswith("cell_cand_step fp32 E"):
-        return "cell_cand_f32_kernel (E padded to a multiple of 32, H of 64)"
+        return kernel_fn("cell_cand_step fp32") + " (E, H padded to multiples of 32)"
     if name.startswith("cand_dot"):
         return ("cand_dot_kernel (a persistent ring of bulk copies; "
                 + ("exact fp32 dots)" if "fp32" in name else "mma.sync m16n8k16 bf16)"))
     if name == "lstm_cell_step":
         return "lstm_cell_wgmma_kernel (wgmma + TMA)"
     if name.startswith("project_") and ("fp32" in name):
-        return "proj_ms_f32_kernel"
+        return ("proj_ms_f32_kernel (the scan's fp32 GEMM loop, 128 x 128 tiles; "
+                "the online lse in its epilogue)")
     if name.startswith("project_"):
         return "proj_bf16_kernel (wgmma m64n256 + TMA; h and W^T streamed)"
     fns = {"lstm_cell_step fp32": "lstm_cell_f32_kernel (register-tiled; a cp.async ring a K part)",
            "cell_cand_step": ("cell_cand_kernel (wgmma + TMA over unit groups; each group's "
                               "candidate share by mma.sync)"),
-           "cell_cand_step fp32": "cell_cand_f32_kernel"}
+           "cell_cand_step fp32": ("cell_cand_f32_kernel (the fp32 cell's body over 32-unit "
+                                   "groups; the groups' candidate shares summed in order)")}
     if name in fns:
         return fns[name]
     return name.replace(" fp32", "_f32") + "_kernel"
@@ -2227,8 +2268,6 @@ def main() -> int:
         "project_lse int8": "the ragged last vocab tile's zero-filled columns unmasked",
         "lstm_cell_step bf16": "gates j and f swapped (a gate-tile mapping fault)",
         "project_lse dequant bf16": "the exact int8 product rescaled after it",
-        "project_lse fp32": "operands rounded to TF32",
-        "project_lse dequant fp32": "operands rounded to TF32",
         "project_lse bf16": "the second warpgroup's rows from the first's",
         "project_lse bf16 D1024": "the second warpgroup's rows from the first's",
         "project_lse dequant bf16 D1024": "the exact int8 product rescaled after it",
@@ -2329,8 +2368,10 @@ def main() -> int:
     greedy = BeamDecoder(params, lexicon, vocab, greedy_cfg, precision="highest",
                          device=dev)
     oracle_g_results = [oracle.decode(k)[0] for k in kanas]
+    t0 = time.perf_counter()
     n = identical(greedy.decode_batch(kanas), oracle_g_results)
-    log(f"greedy fp32 parity {n}/{len(kanas)} (top-1 path identity vs oracle)")
+    log(f"greedy fp32 parity {n}/{len(kanas)} (top-1 path identity vs oracle); wall "
+        f"{time.perf_counter() - t0:.4f} s")
     check(n == len(kanas), "greedy parity")
     oracle_q = OracleDecoder(OracleLM(qp, config), lexicon, vocab, config)
     oracle_q_results = [oracle_q.decode(k)[0] for k in kanas]
@@ -2389,13 +2430,15 @@ def main() -> int:
                           forward_fn=make_fused_frame_forward(greedy_cfg, torch.float32))
     for fn in frame_counters:
         fn.launches = 0
+    t0 = time.perf_counter()
     res32 = fused32.decode_batch(kanas)
+    wall32 = time.perf_counter() - t0
     launches_f32 = {fn.__name__: fn.launches for fn in frame_counters}
     n = identical(res32, oracle_g_results)
     worst = max(abs(r[0].score - o.score) for r, o in zip(res32, oracle_g_results))
     fwd32 = min(fused32._t_bucket(max(len(k) for k in kanas)), config.max_kana_len) + 1
     log(f"fused frame greedy fp32 parity {n}/{len(kanas)} (vs fp32 oracle); max |score - "
-        f"oracle| {worst:.3e}; launches {launches_f32}")
+        f"oracle| {worst:.3e}; launches {launches_f32}; wall {wall32:.4f} s")
     check(n == len(kanas) and worst <= 1e-3, "fused frame greedy fp32 parity")
     check(launches_f32 == {"project_lse": fwd32, "cell_cand_step": fwd32,
                            "lstm_cell_step": 0, "cand_dot": 0},
@@ -2464,11 +2507,13 @@ def main() -> int:
     def parity_run(label, params_, lexicon_, vocab_, cfg_, oracle_results, blocks,
                    score_tol=None, want=None, **kw):
         eng = BeamDecoder(params_, lexicon_, vocab_, cfg_, device=dev, **kw)
+        t0 = time.perf_counter()
         res, counts = counted(lambda: eng.decode_batch(kanas))
+        wall = time.perf_counter() - t0
         n = identical(res, oracle_results)
         worst = max(abs(r[0].score - o.score) for r, o in zip(res, oracle_results))
         log(f"{label} parity {n}/{len(kanas)}; max |score - oracle| {worst:.3e}; "
-            f"launches {counts}")
+            f"launches {counts}; wall {wall:.4f} s")
         check(n == len(kanas), f"{label} parity")
         check(score_tol is None or worst <= score_tol,
               f"{label}: score off the oracle by {worst} > {score_tol}")

@@ -59,13 +59,28 @@
 // - x and h need 16-byte rows (E, H multiples of 8); units past H have zero
 //   weights and bias, so their c' and h' are 0 and cols' columns past H
 //   (zero-filled by TMA) add nothing.  C1 <= 256 (one TMA box).
-// - fp32 compute (the parity mode, cell_cand_f32_kernel, not redesigned):
-//   exact fp32 FMAs on the CUDA cores, no TF32: a block owns G = 64 / B
-//   sentences and all H units; per chunk of FJ = 16 units a thread keeps 4
-//   rows of one unit in all four gates; h' stays fp32 in a [64, H]
-//   shared-memory buffer (132 KB at H = 512), and cand_dots reads it: a
-//   warp per (sentence, candidate), lanes over K, shuffles at the end.  One
-//   shared-memory stage per K chunk, no cp.async pipeline.
+// - fp32 compute (the parity mode, cell_cand_f32_kernel): exact fp32 FMAs
+//   on the CUDA cores, no TF32.  Bound at the fp32 parity run's frame (S =
+//   64 sentences of B = 8 rows, E = 256, H = 512, C1 = 65): the cell's 1.6
+//   GFLOP and the dots' 4.3 MFLOP at 67 TFLOP/s, 0.0245 ms; its 10 MB of
+//   operands (8.5 MB of them cols) take 0.003 ms at 3.35 TB/s.  The design
+//   is the fp32 cell's grid and body (cell_f32.cuh; lstm_cell.cu's note)
+//   with the bf16 kernel's sum over unit groups: block (g, sb) owns unit
+//   group g (32 units, 128 gate columns) of G = 64 / B whole sentences, 16
+//   x 8 = 128 blocks at the parity frame (one an SM; the first design's
+//   block owned every unit of its sentences: 8 blocks, 1.93 ms).  Its h'
+//   (fp32, 64 x 32) goes to shared memory only; its 32 columns of its
+//   sentences' cols arrive by cp.async into the ring the product has
+//   freed, in pieces of up to PIECE (sentence, candidate) rows (903), the
+//   first during the gate epilogue, so C1 is unbounded; its 32-unit share
+//   of each dot goes to the scratch of partial sums, which the last group
+//   block of the sentence block sums in group order, as above (no atomics
+//   on values: the same logits every run).  What holds it: one call at the
+//   parity frame is short enough that the wrapper's Python before the
+//   launch (~0.06 ms: checks, four allocations, the ctypes call) is as
+//   long as the device's time; 50 calls in a row read the host's time
+//   (PERF.md §6).
+#include "cell_f32.cuh"
 #include "common.cuh"
 #include "hopper.cuh"
 #include "wgmma.cuh"
@@ -79,11 +94,7 @@ using jlm::PairOf;
 using jlm::store2;
 using jlm::to_float2;
 
-constexpr int THREADS = 256;   // fp32 kernel
-constexpr int TR = 64;         // fp32 kernel: row slots of a block
-constexpr int KC = 32;         // fp32 kernel: K per shared-memory chunk
 constexpr int MAXB = 16;       // rows of a sentence: one m16 tile of the dot
-constexpr int FJ = 16;         // fp32 kernel: units per chunk
 
 // bf16 kernel
 constexpr int BM = 128;                 // row slots of a block (2 consumer warpgroups)
@@ -98,59 +109,6 @@ constexpr int WG_THREADS = 128;
 constexpr int MAX_C1 = 256;              // candidate rows of a sentence: one TMA box
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + H_BYTES + BN * 4 + 2 * STAGES * 8 + 16 +
                            1024;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-// Four fp32 at p (16-byte aligned).
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x;
-  v[1] = t.y;
-  v[2] = t.z;
-  v[3] = t.w;
-}
-
-// The candidate dots of the fp32 kernel's ns sentences from h' in shared
-// memory (sH [ns * B][ldh]): a warp per (sentence, candidate) pair; its
-// lanes read the candidate's cols row once with vector loads, keep B
-// partial dots against h', and reduce them with shuffles.
-__device__ __forceinline__ void cand_dots(const float* sH, int ldh,
-                                          const float* __restrict__ cols,
-                                          const float* __restrict__ cbias,
-                                          float* __restrict__ cand_out, int s0, int ns,
-                                          int B, int H, int C1) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int pair = warp; pair < ns * C1; pair += THREADS / 32) {
-    const int s = pair / C1, cj = pair % C1;
-    const float* col = cols + ((size_t)(s0 + s) * C1 + cj) * H;
-    const float* hs = sH + s * B * ldh;
-    float acc[MAXB];
-#pragma unroll
-    for (int bb = 0; bb < MAXB; ++bb) acc[bb] = 0.0f;
-    for (int k = lane * 4; k < H; k += 128) {
-      float v[4];
-      load4(col + k, v);
-#pragma unroll
-      for (int bb = 0; bb < MAXB; ++bb) {
-        if (bb < B) {
-          float hv[4];
-          load4(hs + bb * ldh + k, hv);
-          acc[bb] += v[0] * hv[0] + v[1] * hv[1] + v[2] * hv[2] + v[3] * hv[3];
-        }
-      }
-    }
-    const float bc = cbias[(size_t)(s0 + s) * C1 + cj];
-#pragma unroll
-    for (int bb = 0; bb < MAXB; ++bb) {
-      if (bb < B) {
-        float a = acc[bb];
-        for (int off = 16; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
-        if (lane == 0) cand_out[((size_t)(s0 + s) * B + bb) * C1 + cj] = a + bc;
-      }
-    }
-  }
-}
 
 // Byte offset of 16-byte piece `chunk` of row `row` in a 128-byte-swizzled
 // tile of 128-byte rows (1,024-byte aligned): what a TMA load with
@@ -407,90 +365,140 @@ cell_cand_kernel(const __grid_constant__ CUtensorMap tm_x,
   }
 }
 
-size_t smem_f32_bytes(int H) {
-  return ((size_t)KC * TR + (size_t)KC * 4 * FJ + (size_t)TR * (H + 4)) * sizeof(float);
-}
+// ---- fp32 compute: cell_cand_f32_kernel ----
 
-// fp32 compute: x, h, W, cols fp32, h_out fp32.  Thread (ty, tx) of a 16 x
-// 16 grid keeps rows ty*4..ty*4+3 of unit j0 + tx in all four gates.
+constexpr int LDP = jlm::F32Tile::FJ + 4;  // floats a row of h' or of cols in shared memory
+// cols rows a piece holds: the ring past the parts' sums and the block's h'
+constexpr int PIECE = (jlm::F32Tile::MAIN - jlm::F32Tile::RED) / 4 / LDP - jlm::F32Tile::FR;
+
+// x [R, E], h [R, H], W [E+H, 4H], cols [S, C1, H], h_out fp32.  Grid:
+// (unit group of FJ = 32 units, sentence block of G = 64 / B sentences).
+// The block's cell is the fp32 cell's body (cell_f32.cuh) on its rows and
+// units; its h' (fp32) goes to shared memory only.  Its share of its
+// sentences' dots reads cols[s, :, j0 : j0 + 32], which arrives by
+// cp.async into the ring the product has freed, PIECE rows (sentence,
+// candidate) at a time, the first piece during the gate epilogue; a
+// thread takes (beam row, cols row) pairs, neighbouring threads
+// neighbouring cols rows (padded rows: no bank conflict), and writes its
+// 32-unit dot into the block's slice of scratch [sentence blocks][unit
+// groups][pstride].  The last group block of a sentence block to finish
+// (done: a zeroed counter a sentence block, left zeroed) sums the groups'
+// partials in group order, adds cbias and stores the logits.
 template <typename CIn>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(jlm::F32Tile::THREADS, 1)
 cell_cand_f32_kernel(const float* __restrict__ x, const float* __restrict__ h,
                      const CIn* __restrict__ c, const float* __restrict__ W,
                      const float* __restrict__ b, const float* __restrict__ cols,
                      const float* __restrict__ cbias, float* __restrict__ c_out,
-                     float* __restrict__ h_out, float* __restrict__ cand_out, int S,
-                     int B, int G, int E, int H, int C1, float forget_bias) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sA = reinterpret_cast<float*>(smem);  // [KC][TR]      x|h chunk, transposed
-  float* sB = sA + KC * TR;                     // [KC][4 * FJ]  W chunk, 4 gates
-  float* sH = sB + KC * 4 * FJ;                 // [TR][H + 4]   h'
-  const int ldh = H + 4;
-
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int s0 = blockIdx.x * G;
-  const int ns = min(G, S - s0);
-  const int row0 = s0 * B, rows = ns * B;
-  const int K = E + H, N4 = 4 * H;
-
-  for (int j0 = 0; j0 < H; j0 += FJ) {
-    float acc[4][4];  // [row][gate]
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int g = 0; g < 4; ++g) acc[i][g] = 0.0f;
-
-    for (int k0 = 0; k0 < K; k0 += KC) {
-      __syncthreads();  // previous chunk consumed
-      const float* src = k0 < E ? x : h;
-      const int lds = k0 < E ? E : H;
-      const int kc = k0 < E ? k0 : k0 - E;
-      for (int i = tid; i < TR * KC / 4; i += THREADS) {
-        const int r = i % TR, kq = i / TR;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (r < rows)
-          v = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * lds + kc + 4 * kq);
-        sA[(4 * kq + 0) * TR + r] = v.x;
-        sA[(4 * kq + 1) * TR + r] = v.y;
-        sA[(4 * kq + 2) * TR + r] = v.z;
-        sA[(4 * kq + 3) * TR + r] = v.w;
-      }
-      for (int i = tid; i < KC * 4 * (FJ / 4); i += THREADS) {
-        const int kr = i / (4 * (FJ / 4)), rest = i % (4 * (FJ / 4));
-        const int g = rest / (FJ / 4), cq = rest % (FJ / 4);
-        *reinterpret_cast<float4*>(sB + kr * 4 * FJ + g * FJ + 4 * cq) =
-            *reinterpret_cast<const float4*>(W + (size_t)(k0 + kr) * N4 + g * H + j0 + 4 * cq);
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int k = 0; k < KC; ++k) {
-        const float4 a = *reinterpret_cast<const float4*>(sA + k * TR + ty * 4);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          const float bv = sB[k * 4 * FJ + g * FJ + tx];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][g] = fmaf(av[i], bv, acc[i][g]);
-        }
-      }
+                     float* __restrict__ h_out, float* __restrict__ cand_out,
+                     float* __restrict__ scratch, unsigned int* __restrict__ done, int pstride,
+                     int S, int B, int G, int E, int H, int C1, float forget_bias) {
+  using T = jlm::F32Tile;
+  constexpr int FJ = T::FJ, NT = T::THREADS;
+  extern __shared__ __align__(16) float fsmem[];
+  __shared__ int last;
+  const int ug = blockIdx.x, n_ug = gridDim.x, j0 = ug * FJ;
+  const int s0 = blockIdx.y * G, ns = min(G, S - s0);
+  const int row0 = s0 * B, rows = ns * B, n_t = ns * C1, n_el = rows * C1;
+  float* sHn = fsmem + T::RED / 4;  // [FR][LDP] the block's h'
+  float* sCol = sHn + T::FR * LDP;  // [PIECE][LDP] cols rows t0 ..
+  float* part = scratch + ((size_t)blockIdx.y * n_ug + ug) * pstride;
+  const float* col0 = cols + (size_t)s0 * C1 * H + j0;  // the block's cols row t: s0 C1 + t
+  auto fetch = [&](int t0) {  // one commit group
+    const int n = min(PIECE, n_t - t0);
+    for (int i = threadIdx.x; i < n * (FJ / 4); i += NT) {
+      const int r = i / (FJ / 4), q = i % (FJ / 4);
+      jlm::cp_async16(sCol + r * LDP + 4 * q, col0 + (size_t)(t0 + r) * H + 4 * q, true);
     }
+    jlm::cp_async_commit();
+  };
+  jlm::cell_f32_block(fsmem, x, h, c, W, b, row0, row0 + rows, j0, E, H, forget_bias,
+                      [&] { fetch(0); },
+                      [&](int r, int u, size_t idx, float cn, float hn) {
+                        c_out[idx] = cn;
+                        h_out[idx] = hn;
+                        sHn[r * LDP + u] = hn;
+                      });
 
-    const int j = j0 + tx;
+  // ---- the group's share of the dots: pair i of a piece is beam row
+  // i / n of cols row t0 + i % n ----
+  for (int t0 = 0; t0 < n_t; t0 += PIECE) {
+    if (t0 > 0) {
+      __syncthreads();  // the previous piece is read
+      fetch(t0);
+    }
+    jlm::cp_async_wait<0>();
+    __syncthreads();  // the piece and h' are in shared memory
+    const int n = min(PIECE, n_t - t0);
+    for (int i = threadIdx.x; i < n * B; i += NT) {
+      const int bb = i / n, tt = i - bb * n, t = t0 + tt, s = t / C1, cj = t - s * C1;
+      const float* hp = sHn + (s * B + bb) * LDP;
+      const float* cp = sCol + tt * LDP;
+      float d = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int rl = ty * 4 + i;
-      if (rl >= rows) continue;
-      const size_t idx = (size_t)(row0 + rl) * H + j;
-      const float cn = jlm::sigmoidf(acc[i][2] + b[2 * H + j] + forget_bias) * to_f(c[idx]) +
-                       jlm::sigmoidf(acc[i][0] + b[j]) * tanhf(acc[i][1] + b[H + j]);
-      const float hn = jlm::sigmoidf(acc[i][3] + b[3 * H + j]) * tanhf(cn);
-      c_out[idx] = cn;
-      h_out[idx] = hn;
-      sH[rl * ldh + j] = hn;
+      for (int q = 0; q < FJ / 4; ++q) {
+        const float4 hv = *reinterpret_cast<const float4*>(hp + 4 * q);
+        const float4 cv = *reinterpret_cast<const float4*>(cp + 4 * q);
+        d = fmaf(hv.x, cv.x, d);
+        d = fmaf(hv.y, cv.y, d);
+        d = fmaf(hv.z, cv.z, d);
+        d = fmaf(hv.w, cv.w, d);
+      }
+      part[(s * B + bb) * C1 + cj] = d;
     }
   }
-  __syncthreads();  // every unit of h' in shared memory
-  cand_dots(sH, ldh, cols, cbias, cand_out, s0, ns, B, H, C1);
+
+  // ---- the last group block of the sentence block to finish sums every
+  // group's partials, in group order, adds cbias, stores the logits (as
+  // cell_cand_kernel does) ----
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(done + blockIdx.y, 1u) == (unsigned)(n_ug - 1);
+    if (last) {
+      done[blockIdx.y] = 0;  // zeroed again for the next launch
+      __threadfence();
+    }
+  }
+  __syncthreads();
+  if (!last) return;
+  const float4* parts = reinterpret_cast<const float4*>(scratch) +
+                        (size_t)blockIdx.y * n_ug * (pstride / 4);
+  float* out = cand_out + (size_t)row0 * C1;
+  constexpr int QP = 8;  // groups a pass, their loads in flight together
+  const int n4 = (n_el + 3) / 4;
+  for (int v0 = threadIdx.x; v0 < n4; v0 += 2 * NT) {
+    float4 v[2] = {};
+    for (int q0 = 0; q0 < n_ug; q0 += QP) {
+      float4 p[2][QP];
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+#pragma unroll
+        for (int q = 0; q < QP; ++q)
+          p[k][q] = q0 + q < n_ug && v0 + k * NT < n4
+                        ? __ldcg(parts + (size_t)(q0 + q) * (pstride / 4) + v0 + k * NT)
+                        : float4{};
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+#pragma unroll
+        for (int q = 0; q < QP; ++q) {
+          v[k].x += p[k][q].x;
+          v[k].y += p[k][q].y;
+          v[k].z += p[k][q].z;
+          v[k].w += p[k][q].w;
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const float vs[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+#pragma unroll
+      for (int l = 0; l < 4; ++l) {
+        const int e = 4 * (v0 + k * NT) + l;
+        if (e < n_el)
+          out[e] = vs[l] + __ldg(cbias + (size_t)s0 * C1 + (e / (B * C1)) * C1 + e % C1);
+      }
+    }
+  }
 }
 
 template <typename CIn>
@@ -524,17 +532,26 @@ cudaError_t launch_bf16(const void* x, const void* h, const void* c, const void*
 template <typename CIn>
 cudaError_t launch_f32(const void* x, const void* h, const void* c, const void* W,
                        const float* b, const void* cols, const float* cbias, float* c_out,
-                       void* h_out, float* cand_out, int S, int B, int E, int H, int C1,
-                       float forget_bias, cudaStream_t stream) {
-  const int G = TR / B, blocks = (S + G - 1) / G;
-  const size_t smem = smem_f32_bytes(H);
-  cudaError_t err = cudaFuncSetAttribute(cell_cand_f32_kernel<CIn>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                       void* h_out, float* cand_out, float* scratch, unsigned int* done, int S,
+                       int B, int E, int H, int C1, float forget_bias, cudaStream_t stream) {
+  using T = jlm::F32Tile;
+  const int G = T::FR / B, pstride = (G * B * C1 + 3) / 4 * 4;
+  auto kernel = cell_cand_f32_kernel<CIn>;
+  static bool ready[64];  // the attribute is set once a device and instantiation
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  cell_cand_f32_kernel<CIn><<<blocks, THREADS, smem, stream>>>(
+  if (dev >= 64 || !ready[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) ready[dev] = true;
+  }
+  const dim3 grid(H / T::FJ, (S + G - 1) / G);
+  kernel<<<grid, T::THREADS, T::SMEM, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(h), static_cast<const CIn*>(c),
       static_cast<const float*>(W), b, static_cast<const float*>(cols), cbias, c_out,
-      static_cast<float*>(h_out), cand_out, S, B, G, E, H, C1, forget_bias);
+      static_cast<float*>(h_out), cand_out, scratch, done, pstride, S, B, G, E, H, C1,
+      forget_bias);
   return cudaGetLastError();
 }
 
@@ -545,12 +562,12 @@ extern "C" {
 // x [S*B, E], h [S*B, H], cols [S, C1, H] and h_out [S*B, H]: bf16 (E, H
 // multiples of 8, 16-byte aligned; W the gate-tiled copy [4 Hp, Kp] of
 // ops/lstm_cell.py's cell_weight_tiles; C1 <= 256), or fp32 when f32 (fp32
-// compute; W [E+H, 4H]; E a multiple of 32, H of 64); c [S*B, H] fp32
-// (c_f32) or bf16; b [4H] and cbias [S, C1] fp32; c_out [S*B, H] and
-// cand_out [S, B, C1] fp32.  B <= 16.  bf16 only: scratch, fp32
-// [ceil(S / G), ceil(H / 64), G B C1 rounded up to a multiple of 4] with
-// G = 128 / B; done, ceil(S / G) zeroed counters, which the launch leaves
-// zeroed.
+// compute; W [E+H, 4H]; E and H multiples of 32); c [S*B, H] fp32 (c_f32)
+// or bf16; b [4H] and cbias [S, C1] fp32; c_out [S*B, H] and cand_out [S,
+// B, C1] fp32.  B <= 16.  scratch: fp32 [ceil(S / G), ceil(H / U), G B C1
+// rounded up to a multiple of 4] with G = 128 / B, U = 64 (bf16) or G =
+// 64 / B, U = 32 (fp32); done: ceil(S / G) zeroed counters, which the
+// launch leaves zeroed.
 int jlm_cell_cand(const void* x, const void* h, const void* c, int c_f32,
                   const void* W, const float* b, const void* cols,
                   const float* cbias, float* c_out, void* h_out, float* cand_out,
@@ -558,13 +575,16 @@ int jlm_cell_cand(const void* x, const void* h, const void* c, int c_f32,
                   int f32, float forget_bias, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || B > MAXB || C1 < 1) return (int)cudaErrorInvalidValue;
-  if (f32 ? (E % KC || H % 64) : (E % 8 || H % 8 || C1 > MAX_C1))
+  if (f32 ? (E % jlm::F32Tile::FK || H % jlm::F32Tile::FJ)
+          : (E % 8 || H % 8 || C1 > MAX_C1))
     return (int)cudaErrorInvalidValue;
   if (f32)
     return (int)(c_f32 ? launch_f32<float>(x, h, c, W, b, cols, cbias, c_out, h_out,
-                                           cand_out, S, B, E, H, C1, forget_bias, st)
+                                           cand_out, scratch, done, S, B, E, H, C1,
+                                           forget_bias, st)
                        : launch_f32<bf16>(x, h, c, W, b, cols, cbias, c_out, h_out,
-                                          cand_out, S, B, E, H, C1, forget_bias, st));
+                                          cand_out, scratch, done, S, B, E, H, C1,
+                                          forget_bias, st));
   return (int)(c_f32 ? launch_bf16<float>(x, h, c, W, b, cols, cbias, c_out, h_out,
                                           cand_out, scratch, done, S, B, E, H, C1,
                                           forget_bias, st)

@@ -49,10 +49,11 @@
 //   overlap the next tile's product (one block an SM, not persistent).
 // - c is read in its own dtype (bf16 or fp32); c' is written in c_out's
 //   dtype and h' in bf16, two units a thread at a time.
-// - fp32 compute (the parity forward): exact fp32 FMAs on the CUDA cores,
-//   no TF32, accurate expf and tanhf in the epilogue; h' is fp32.  Bound at
-//   the fp32 parity run's shapes (R = 512 rows): 1.6 GFLOP against 67
-//   TFLOP/s, 0.024 ms.  A block owns 64 rows x 32 units (their 128 gate
+// - fp32 compute (the parity forward; the block body in cell_f32.cuh, which
+//   the fused frame's fp32 kernel shares): exact fp32 FMAs on the CUDA
+//   cores, no TF32, accurate expf and tanhf in the epilogue; h' is fp32.
+//   Bound at the fp32 parity run's shapes (R = 512 rows): 1.6 GFLOP
+//   against 67 TFLOP/s, 0.024 ms.  A block owns 64 rows x 32 units (their 128 gate
 //   columns; 128 blocks at R = 512, H = 512, one an SM) with 256 threads in
 //   two K parts: part p takes K chunks p, p + 2, ... (32 of K each) through
 //   a cp.async ring of its own (4 stages), its 128 threads meeting only at
@@ -65,6 +66,7 @@
 //   parts shared before held the kernel back on the H100: other tile
 //   shapes (rows, parts, columns a thread, K chunk, unrolling) behind it
 //   did not move the time, a barrier for each part did (PERF.md §6).
+#include "cell_f32.cuh"
 #include "common.cuh"
 #include "hopper.cuh"
 #include "wgmma.cuh"
@@ -218,176 +220,30 @@ lstm_cell_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   }
 }
 
-constexpr int FJ = 32;  // units per block of the fp32 kernel (x 4 gates: 128 columns)
-
-using jlm::cp_async16;
-using jlm::cp_async_commit;
-using jlm::cp_async_wait;
-
-// The fp32 kernel's shape: FR rows x FJ units (4 FJ gate columns) a
-// block, K in chunks of FK, KS parts of FR / 8 x TX threads, part p taking
-// chunks p, p + KS, ... through a ring of its own of PST stages; a thread
-// keeps 8 rows x NG groups of 4 neighbouring columns, the groups 4 FJ / NG
-// columns apart.
-struct F32Tile {
-  static constexpr int FR = 64, KS = 2, FK = 32, NG = 2, PST = 4;
-  static constexpr int TX = FJ / NG;                  // threads across the columns
-  static constexpr int GS = 4 * FJ / NG;              // columns between a thread's groups
-  static constexpr int PART = FR / 8 * TX;            // threads of a part
-  static constexpr int THREADS = KS * PART;
-  static constexpr int LDA = FK + 4;                  // [row][k] stage row, padded
-  static constexpr int A = FR * LDA;                  // floats of a stage's x|h tile
-  static constexpr int B = FK * 4 * FJ;               // floats of a stage's W tile
-  static constexpr int RING = KS * PST * (A + B) * 4;
-  static constexpr int RED = KS * FR * 4 * FJ * 4;    // every part's sums, over the ring
-  static constexpr int MAIN = RING > RED ? RING : RED;
-  static constexpr int SMEM = MAIN + 4 * FJ * 4 + FR * FJ * 4;  // + biases, c (fp32 at most)
-};
-
-// Part threads t < T::PART issue chunk kc's loads into (sA, sB): x|h rows
-// [row0, row0 + FR) x K [kc FK, +FK) as [row][k], and W's rows of that K
-// for the block's FJ units in 4 gates as [k][gate][unit].
-__device__ __forceinline__ void load_f32_chunk(float* sA, float* sB, const float* x,
-                                               const float* h, const float* W, int kc, int t,
-                                               int row0, int j0, int R, int E, int H) {
-  using T = F32Tile;
-  const int k0 = kc * T::FK;
-  const float* src = k0 < E ? x : h;
-  const int lds = k0 < E ? E : H, kx = k0 < E ? k0 : k0 - E;
-  for (int i = t; i < T::FR * T::FK / 4; i += T::PART) {
-    const int r = i / (T::FK / 4), q = i % (T::FK / 4), row = row0 + r;
-    cp_async16(sA + r * T::LDA + 4 * q, src + (size_t)(row < R ? row : 0) * lds + kx + 4 * q,
-               row < R);
-  }
-  for (int i = t; i < T::FK * FJ; i += T::PART) {
-    const int kr = i / FJ, g = (i / (FJ / 4)) % 4, q = i % (FJ / 4);
-    cp_async16(sB + (kr * 4 + g) * FJ + 4 * q,
-               W + (size_t)(k0 + kr) * 4 * H + g * H + j0 + 4 * q, true);
-  }
-}
-
-// fp32 compute: x [R, E], h [R, H], W [E+H, 4H] fp32; h_out fp32.  Thread
-// (ty, tx) of part p keeps rows ty + FR/8 i (i < 8) over its part's
-// chunks; a warp's ty read neighbouring rows (no bank conflict).  A part
-// loads its own chunks and meets only its own threads at a named barrier,
-// so the parts drift apart and their shared loads spread out.  The parts'
-// sums meet in shared memory, where every thread then takes cells of the
-// epilogue.
+// fp32 compute: x [R, E], h [R, H], W [E+H, 4H] fp32; h_out fp32.  The
+// block body (cell_f32.cuh) is the fused frame's too.
 template <typename CIn, typename COut>
-__global__ void __launch_bounds__(F32Tile::THREADS, 1)
+__global__ void __launch_bounds__(jlm::F32Tile::THREADS, 1)
 lstm_cell_f32_kernel(const float* __restrict__ x, const float* __restrict__ h,
                      const CIn* __restrict__ c, const float* __restrict__ W,
                      const float* __restrict__ b, COut* __restrict__ c_out,
                      float* __restrict__ h_out, int R, int E, int H,
                      float forget_bias) {
-  using T = F32Tile;
   extern __shared__ __align__(16) float fsmem[];
-  constexpr int FR = T::FR, KS = T::KS, FK = T::FK, LDA = T::LDA, TY = FR / 8;
-  constexpr int NG = T::NG, GS = T::GS, PST = T::PST;
-  const int part = threadIdx.x / T::PART, t = threadIdx.x % T::PART;
-  const int ty = t / T::TX, tx = t % T::TX;
-  const int row0 = blockIdx.x * FR, j0 = blockIdx.y * FJ;
-  const int nk = (E + H) / FK, nkp = part < nk ? (nk - part + KS - 1) / KS : 0;
-  auto sA = [&](int i) { return fsmem + (part * PST + i % PST) * (T::A + T::B); };
-  auto load = [&](int i) {  // the part's i-th chunk, one commit group
-    if (i < nkp)
-      load_f32_chunk(sA(i), sA(i) + T::A, x, h, W, part + i * KS, t, row0, j0, R, E, H);
-    cp_async_commit();
-  };
-  float acc[8][NG][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.0f;
-  // The epilogue's operands arrive with the first chunk: the block's 4 x FJ
-  // biases and its FR x FJ tile of c (zeros past R).
-  float* sbias = fsmem + T::MAIN / 4;
-  CIn* sc = reinterpret_cast<CIn*>(sbias + 4 * FJ);
-  {
-    constexpr int CPR = FJ * sizeof(CIn) / 16;  // 16-byte pieces of a row of c
-    for (int i = threadIdx.x; i < FR * CPR + FJ; i += T::THREADS) {
-      if (i < FR * CPR) {
-        const int r = i / CPR, q = i % CPR, row = row0 + r;
-        cp_async16(reinterpret_cast<unsigned char*>(sc) + 16 * i,
-                   reinterpret_cast<const unsigned char*>(
-                       c + (size_t)(row < R ? row : 0) * H + j0) + 16 * q,
-                   row < R);
-      } else {
-        const int g = (i - FR * CPR) / (FJ / 4), q = (i - FR * CPR) % (FJ / 4);
-        cp_async16(sbias + g * FJ + 4 * q, b + g * H + j0 + 4 * q, true);
-      }
-    }
-  }
-  for (int i = 0; i < PST - 1; ++i) load(i);
-  for (int i = 0; i < nkp; ++i) {
-    cp_async_wait<PST - 2>();  // this thread's pieces of chunk i have landed
-    // every piece of chunk i has landed, and chunk i - 1's stage is free
-    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + part), "n"(T::PART) : "memory");
-    load(i + PST - 1);
-    const float* a_t = sA(i) + ty * LDA;
-    const float* b_t = sA(i) + T::A + 4 * tx;
-#pragma unroll
-    for (int k4 = 0; k4 < FK; k4 += 4) {
-      float4 a[8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-        a[r] = *reinterpret_cast<const float4*>(a_t + r * TY * LDA + k4);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        float4 w[NG];
-#pragma unroll
-        for (int g = 0; g < NG; ++g)
-          w[g] = *reinterpret_cast<const float4*>(b_t + (k4 + kk) * 4 * FJ + g * GS);
-#pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          const float av = kk == 0 ? a[r].x : kk == 1 ? a[r].y : kk == 2 ? a[r].z : a[r].w;
-#pragma unroll
-          for (int g = 0; g < NG; ++g) {
-            acc[r][g][0] = fmaf(av, w[g].x, acc[r][g][0]);
-            acc[r][g][1] = fmaf(av, w[g].y, acc[r][g][1]);
-            acc[r][g][2] = fmaf(av, w[g].z, acc[r][g][2]);
-            acc[r][g][3] = fmaf(av, w[g].w, acc[r][g][3]);
-          }
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // every part is done with the ring, and c and the biases have landed
-  // every part's sums, [part][row][gate][unit], over the ring
-  float* red = fsmem + part * FR * 4 * FJ;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int g = 0; g < NG; ++g)
-      *reinterpret_cast<float4*>(red + (ty + TY * i) * 4 * FJ + g * GS + 4 * tx) =
-          make_float4(acc[i][g][0], acc[i][g][1], acc[i][g][2], acc[i][g][3]);
-  __syncthreads();
-  for (int cell = threadIdx.x; cell < FR * FJ; cell += T::THREADS) {
-    const int r = cell / FJ, u = cell % FJ, row = row0 + r, j = j0 + u;
-    if (row >= R) break;
-    float z[4];
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      z[g] = sbias[g * FJ + u];
-#pragma unroll
-      for (int p = 0; p < KS; ++p) z[g] += fsmem[((p * FR + r) * 4 + g) * FJ + u];
-    }
-    const size_t idx = (size_t)row * H + j;
-    const float cn = jlm::sigmoidf(z[2] + forget_bias) * static_cast<float>(sc[cell]) +
-                     jlm::sigmoidf(z[0]) * tanhf(z[1]);
-    c_out[idx] = static_cast<COut>(cn);
-    h_out[idx] = jlm::sigmoidf(z[3]) * tanhf(cn);
-  }
+  jlm::cell_f32_block(
+      fsmem, x, h, c, W, b, blockIdx.x * jlm::F32Tile::FR, R, blockIdx.y * jlm::F32Tile::FJ,
+      E, H, forget_bias, [] {},
+      [&](int, int, size_t idx, float cn, float hn) {
+        c_out[idx] = static_cast<COut>(cn);
+        h_out[idx] = hn;
+      });
 }
 
 template <typename CIn, typename COut>
 cudaError_t launch_f32(const void* x, const void* h, const void* c, const void* W,
                        const float* b, void* c_out, void* h_out, int R, int E, int H,
                        float forget_bias, cudaStream_t stream) {
-  using T = F32Tile;
+  using T = jlm::F32Tile;
   auto kernel = lstm_cell_f32_kernel<CIn, COut>;
   static bool ready[64];  // the attribute is set once a device and instantiation
   int dev = 0;
@@ -398,7 +254,7 @@ cudaError_t launch_f32(const void* x, const void* h, const void* c, const void* 
     if (err != cudaSuccess) return err;
     if (dev < 64) ready[dev] = true;
   }
-  dim3 grid((R + T::FR - 1) / T::FR, H / FJ);
+  dim3 grid((R + T::FR - 1) / T::FR, H / T::FJ);
   kernel<<<grid, T::THREADS, T::SMEM, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(h),
       static_cast<const CIn*>(c), static_cast<const float*>(W), b,

@@ -60,7 +60,8 @@
 // 3. scan_gemm_kernel<NK> or scan_gemm_bf16_kernel<NK>: dx = dz Wx^T over
 //    all B T rows (a quarter).
 //
-// The fp32 GEMM is exact FMAs on the CUDA cores: block tiles of 128 x 128,
+// The fp32 GEMM (its main loop in gemm_f32.cuh, which the head's fp32
+// kernel shares) is exact FMAs on the CUDA cores: block tiles of 128 x 128,
 // 8 x 8 a thread, K in chunks of 16 staged through registers into two
 // shared-memory buffers (K-major operands transposed on the way in), two
 // blocks an SM, K split where the output's tiles would leave most SMs idle
@@ -73,6 +74,7 @@
 // written by other blocks during a launch (hs, dz) is read with __ldcg (L2,
 // not the SM's L1).
 #include "common.cuh"
+#include "gemm_f32.cuh"
 
 #include <cooperative_groups.h>
 
@@ -101,24 +103,10 @@ __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-// 16 bytes from global memory, or zeros where !ok (p must be a valid
-// address either way), as a volatile asm: the compiler keeps the load where
-// it is written instead of sinking it to the value's first use, so a chunk's
-// loads stay in flight during the previous chunk's products.
-__device__ __forceinline__ float4 ldg4_at(const float* p, bool ok) {
-  float4 v;
-  asm volatile(
-      "{\n\t.reg .pred q;\n\t"
-      "setp.ne.b32 q, %5, 0;\n\t"
-      "mov.b32 %0, 0;\n\tmov.b32 %1, 0;\n\tmov.b32 %2, 0;\n\tmov.b32 %3, 0;\n\t"
-      "@q ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n\t}"
-      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-      : "l"(p), "r"((int)ok));
-  return v;
-}
+using jlm::gemm::ldg4_at;
 
-// The same through the L2 only (ld.global.cg), for data that other blocks
-// of the launch write.
+// ldg4_at (gemm_f32.cuh) through the L2 only (ld.global.cg), for data that
+// other blocks of the launch write.
 __device__ __forceinline__ float4 ldcg4_at(const float* p, bool ok) {
   float4 v;
   asm volatile(
@@ -140,76 +128,48 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
 
 // C [M, N] = A [M, K] B (+ bias), A row-major (K-major); B [K][N] (KN: Wx
 // as the input product reads it, W as the gate recompute does) or [N][K]
-// (NK: Wx's rows as dx reads them).  256 threads; a block tile of 128 x 128
-// and K chunks of 16, both operands staged as [k][m] / [k][n] (a thread's
-// 8 rows and 8 columns are two float4 reads each a k).  A K-major operand
-// is loaded as float4 along k (four lanes a row: full 32-byte sectors) and
-// stored transposed with an XOR swizzle of m by 8 (k / 4 % 4), which keeps
-// both its scalar stores and the float4 reads conflict-free (B [K][N] is
-// stored as it lies; cp.async for it read 4-5% slower).  The next chunk's
-// loads are in flight during the current chunk's 1,024 FMAs a thread
-// (written as volatile asm: under the 128-register cap the compiler
-// otherwise sank them to their stores, after the products); one barrier a
-// chunk.  Warps as 4 (rows) x 2 (columns), a warp 4 x
-// 8 threads: a k's A reads hit 4 addresses, its B reads 8 (one wavefront
-// each).  Thread (ty, tx) keeps rows 4 ty + {0..3} + {0, 64} and columns
-// 4 tx + {0..3} + {0, 64}: float4 stores.  With K split (gridDim.z > 1,
-// a cooperative launch whose blocks the card holds at once), block z takes
-// K range [z kc, (z + 1) kc), writes its partial tile to ws [z][M][N], and
-// after a grid barrier sums rows z R .. (z + 1) R - 1 of its tile (R = 128 /
-// splits, rounded up) over the splits in split order (+ bias) into C: the
-// same sum whichever block finished first.
-namespace gemm {
-constexpr int BM = 128, BN = 128, BK = 16;
-constexpr int TILE = BK * BM;  // floats of one operand's stage
-}  // namespace gemm
-
-// Offset of (k, m) in a swizzled [BK][128] stage.
-__device__ __forceinline__ int swz(int k, int m) {
-  return k * gemm::BM + (m ^ (8 * ((k >> 2) & 3)));
-}
-
+// (NK: Wx's rows as dx reads them), on gemm_f32.cuh's main loop (shared
+// with the head's fp32 kernel; B [K][N] is stored as it lies: cp.async for
+// it read 4-5% slower).  With K split (gridDim.z > 1, a cooperative launch
+// whose blocks the card holds at once), block z takes K range [z kc, (z +
+// 1) kc), writes its partial tile to ws [z][M][N], and after a grid
+// barrier sums rows z R .. (z + 1) R - 1 of its tile (R = 128 / splits,
+// rounded up) over the splits in split order (+ bias) into C: the same sum
+// whichever block finished first.
 template <bool KN, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, 2)
 scan_gemm_kernel(const float* __restrict__ A, int lda, const float* __restrict__ Bm, int ldb,
                  const float* __restrict__ bias, float* __restrict__ C, int ldc, int M, int N,
                  int K, int kc, float* ws) {
-  using namespace gemm;
+  using namespace jlm::gemm;
   __shared__ __align__(16) float sA[2][TILE];
   __shared__ __align__(16) float sB[2][TILE];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ty = (warp & 3) * 4 + (lane >> 3), tx = (warp >> 2) * 8 + (lane & 7);
+  const int tid = threadIdx.x, ty = ty_of(tid), tx = tx_of(tid);
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int kb = blockIdx.z * kc, ke = min(K, kb + kc);
   float4 ra[2], rb[2];
   auto fetch = [&](int k0) {  // chunk k0's operands into registers
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
-      const int i = tid + THREADS * p, r = i >> 2, k = k0 + 4 * (i & 3);
-      ra[p] = ldg4_at(A + (size_t)min(m0 + r, M - 1) * lda + min(k, K - 4), m0 + r < M && k < ke);
+      const int i = tid + THREADS * p;
+      ra[p] = kmajor_at(A, lda, m0, M, k0, ke, K, i);
       if constexpr (KN) {
         const int kr = k0 + (i >> 5), n = n0 + 4 * (i & 31);
         rb[p] = ldg4_at(Bm + (size_t)min(kr, K - 1) * ldb + min(n, N - 4), kr < ke && n < N);
       } else {
-        rb[p] = ldg4_at(Bm + (size_t)min(n0 + r, N - 1) * ldb + min(k, K - 4),
-                        n0 + r < N && k < ke);
+        rb[p] = kmajor_at(Bm, ldb, n0, N, k0, ke, K, i);
       }
     }
   };
   auto put = [&](int buf) {  // the registers into stage buf
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
-      const int i = tid + THREADS * p, r = i >> 2, k = 4 * (i & 3);
-      float* a = sA[buf];
-      a[swz(k, r)] = ra[p].x, a[swz(k + 1, r)] = ra[p].y;
-      a[swz(k + 2, r)] = ra[p].z, a[swz(k + 3, r)] = ra[p].w;
-      float* b = sB[buf];
-      if constexpr (KN) {
-        *reinterpret_cast<float4*>(b + (i >> 5) * BN + 4 * (i & 31)) = rb[p];
-      } else {
-        b[swz(k, r)] = rb[p].x, b[swz(k + 1, r)] = rb[p].y;
-        b[swz(k + 2, r)] = rb[p].z, b[swz(k + 3, r)] = rb[p].w;
-      }
+      const int i = tid + THREADS * p;
+      put_kmajor(sA[buf], i, ra[p]);
+      if constexpr (KN)
+        *reinterpret_cast<float4*>(sB[buf] + (i >> 5) * BN + 4 * (i & 31)) = rb[p];
+      else
+        put_kmajor(sB[buf], i, rb[p]);
     }
   };
   float acc[8][8];
@@ -224,23 +184,7 @@ scan_gemm_kernel(const float* __restrict__ A, int lda, const float* __restrict__
   for (int kt = 0; kt < nk; ++kt) {
     const int buf = kt & 1;
     fetch(kb + (kt + 1) * BK);  // unconditional: past ke it loads zeros
-    const float* a = sA[buf];
-    const float* b = sB[buf];
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const int x = 8 * ((k >> 2) & 3);
-      const int ma = (4 * ty) ^ x, nb = KN ? 4 * tx : (4 * tx) ^ x;
-      const float4 a0 = *reinterpret_cast<const float4*>(a + k * BM + ma);
-      const float4 a1 = *reinterpret_cast<const float4*>(a + k * BM + ma + 64);
-      const float4 b0 = *reinterpret_cast<const float4*>(b + k * BN + nb);
-      const float4 b1 = *reinterpret_cast<const float4*>(b + k * BN + nb + 64);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
+    chunk_fma<!KN>(acc, sA[buf], sB[buf], ty, tx);
     put(buf ^ 1);  // buf ^ 1 was last read in chunk kt - 1, before the barrier
     __syncthreads();
   }
@@ -248,7 +192,7 @@ scan_gemm_kernel(const float* __restrict__ A, int lda, const float* __restrict__
   const int ldo = SPLIT ? N : ldc;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int row = m0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
+    const int row = m0 + row_of(ty, i);
     if (row >= M) continue;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -846,7 +790,7 @@ template <bool KN>
 int launch_gemm(const float* A, int lda, const float* Bm, int ldb, const float* bias,
                 float* C, int ldc, int M, int N, int K, int splits, int kc, float* ws,
                 cudaStream_t st) {
-  using namespace gemm;
+  using namespace jlm::gemm;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
   if (splits == 1) {
     scan_gemm_kernel<KN, false><<<grid, THREADS, 0, st>>>(A, lda, Bm, ldb, bias, C, ldc, M, N,

@@ -110,12 +110,26 @@
 //   ran slower than the mma.sync kernel: its 8 KB chunks left a fixed cost
 //   each (a wait for the chunk before last, a cross-CTA release) that the
 //   one chunk in flight could not hide.
-// - fp32 compute (fp32 weights, or int8 dequantized to fp32 in shared
-//   memory): exact fp32 FMAs on the CUDA cores -- TF32 would round the
-//   operands and break the parity mode.  A block owns FR = 64 rows; K
-//   streams through shared memory in chunks of 32, transposed so that each
-//   of the 256 threads reads float4s of 4 rows and 4 columns and keeps a
-//   4 x 4 tile of logits; the online (m, s) is as above.
+// - fp32 compute (fp32 weights, or int8 dequantized to fp32 on the way
+//   into shared memory; proj_ms_f32_kernel): exact fp32 FMAs on the CUDA
+//   cores -- TF32 would round the operands and break the parity mode.
+//   Bound at the fp32 parity run's rows (R = 512): 2 R sum_k d_k s_k = 23.8
+//   GFLOP at config 5's head, 26.2 at 50k, 0.356 and 0.391 ms at 67
+//   TFLOP/s.  The main loop is the LSTM scan's fp32 GEMM (gemm_f32.cuh; h
+//   is its K-major A, W^T its K-major B): 128 rows x 128 vocab columns a
+//   block tile, 8 x 8 a thread, K chunks of 16 through two swizzled
+//   shared-memory stages, the next chunk's loads in flight under the FMAs,
+//   one barrier a chunk, two blocks an SM; the chunk stream runs across the
+//   split's tiles, so a tile's epilogue (the bias, the mask past V, the
+//   online (m, s) with accurate expf) runs under the next tile's first
+//   loads.  The int8 W^T chunk arrives as 16 bytes along k a row and is
+//   converted to q * scale (rounded once) on its way into shared memory.
+//   The splits fill one wave of 2 x 132 blocks (ops/project.py's
+//   block_splits).  What holds it (PERF.md §6): the loop's K-major B runs
+//   at the scan's NK rate (~37 TFLOP/s, not the KN case's ~42), a 50,000
+//   x 128 block's tiles are 8 chunks each beside a 72-exponential
+//   epilogue, and the splits' whole tiles leave part of the wave idle
+//   (config 5's 34,000 x 256 block: 216 of 264 blocks).
 // The ragged vocab edge is masked (columns >= V contribute exp(-inf) = 0),
 // equivalent to the reference's -1e30 bias padding; m starts at -1e30.
 //
@@ -134,6 +148,7 @@
 // no column matches keeps 0 (the caller zeroes the buffer) and gets -lse,
 // as the reference's one-hot product gives it.
 #include "common.cuh"
+#include "gemm_f32.cuh"
 #include "hopper.cuh"
 #include "wgmma.cuh"
 
@@ -143,9 +158,6 @@ namespace {
 enum Mode : int { kBf16 = 0, kInt8Mxu = 1, kDequantBf16 = 2, kFp32 = 3, kDequantFp32 = 4 };
 
 constexpr int THREADS = 256;
-constexpr int FR = 64;  // fp32 kernel: rows per block
-constexpr int FV = 64;  //              vocab columns per tile
-constexpr int FK = 32;  //              K per shared-memory stage
 constexpr float NEG = -1e30f;
 
 __device__ __forceinline__ void merge_ms(float& m, float& s, float m2, float s2) {
@@ -207,135 +219,182 @@ __device__ __forceinline__ void cand_store(const Cand& cd, int lo, int hi, int r
   for (int p = lo; p < hi; ++p) cd.out[(size_t)row * cd.C + cd.slots[p]] = v;
 }
 
-// fp32 compute: h fp32 [R, ldh] (its slice), W^T fp32 [V, D] or int8 [V, D]
-// with per-row (vocab) scales dequantized in shared memory (Q8).  Thread
-// (ty, tx) of a 16 x 16 grid owns rows ty*4..ty*4+3 and columns
-// tx*4..tx*4+3 of each 64 x 64 tile.
+// fp32 compute: h fp32 [R, ldh] (its slice, read in place), W^T fp32 [V, D]
+// or int8 [V, D] with per-row (vocab) scales, dequantized on the way into
+// shared memory (Q8); D a multiple of 16.  Grid: (row blocks of 128, vocab
+// splits).  The main loop is the scan GEMM's (gemm_f32.cuh; h is A, W^T the
+// K-major B), and the chunk stream runs across the split's tiles: chunk c
+// + 1's loads, the next tile's first where c is a tile's last, are in
+// flight during chunk c's FMAs and the tile's epilogue.  The epilogue adds
+// the bias, masks columns >= V to -inf and folds the tile into the running
+// (m, s) of the thread's 8 rows; those live in shared memory between tiles
+// (the loop's 64 sums and 16 in-flight load registers fill the 128-register
+// cap of two blocks an SM).  CAND: a tile's candidate runs (cand_table) are
+// written during the tile before it, into the other of two buffers.
 template <bool Q8, bool CAND>
-__global__ void __launch_bounds__(THREADS)
-proj_ms_f32_kernel(const float* __restrict__ h, int ldh,
-                   const void* __restrict__ wt, const float* __restrict__ scale,
-                   const float* __restrict__ bias, float* __restrict__ m_part,
-                   float* __restrict__ s_part, int R, int D, int V,
-                   int tiles_per_split, Cand cd) {
-  __shared__ __align__(16) float sA[FK][FR];  // [k][row]
-  __shared__ __align__(16) float sB[FK][FV];  // [k][col]
-  __shared__ int sLo[CAND ? FV : 1], sHi[CAND ? FV : 1];
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int row0 = blockIdx.x * FR;
-  const int n_tiles = (V + FV - 1) / FV;
-  const int vt_begin = blockIdx.y * tiles_per_split;
-  const int vt_end = min(vt_begin + tiles_per_split, n_tiles);
+__global__ void __launch_bounds__(THREADS, 2)
+proj_ms_f32_kernel(const float* __restrict__ h, int ldh, const void* __restrict__ wt,
+                   const float* __restrict__ scale, const float* __restrict__ bias,
+                   float* __restrict__ m_part, float* __restrict__ s_part, int R, int D,
+                   int V, int tiles_per_split, Cand cd) {
+  using namespace jlm::gemm;
+  extern __shared__ __align__(16) float fsm[];
+  float* sA = fsm;                      // [2][TILE] h chunks, [k][row] swizzled
+  float* sB = sA + 2 * TILE;            // [2][TILE] W^T chunks, [k][col] swizzled
+  float* sM = sB + 2 * TILE;            // [8][THREADS] running m of each thread's rows
+  float* sS = sM + 8 * THREADS;         // [8][THREADS] running s
+  float* xM = sS + 8 * THREADS;         // [16][8] the second column warp's (m, s)
+  float* xS = xM + 16 * 8;
+  int* sLo = reinterpret_cast<int*>(xS + 16 * 8);  // [2][BN] candidate runs (CAND)
+  int* sHi = sLo + 2 * BN;
+  const int tid = threadIdx.x, ty = ty_of(tid), tx = tx_of(tid);
+  const int m0 = blockIdx.x * BM;
+  const int n_tiles = (V + BN - 1) / BN, vt0 = blockIdx.y * tiles_per_split;
+  const int nt = max(0, min(vt0 + tiles_per_split, n_tiles) - vt0);
+  const int nkc = (D + BK - 1) / BK, total = nt * nkc;
+  const float* wf = static_cast<const float*>(wt);
+  const signed char* w8 = static_cast<const signed char*>(wt);
 
-  float m_run[4], s_run[4];
+  float4 ra[2], rb[2];
+  uint4 rq;
+  float rsc = 0.0f;
+  auto fetch = [&](int t, int kc) {  // tile t's chunk kc into registers
+    const int k0 = kc * BK, n0 = (vt0 + t) * BN;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = NEG;
-    s_run[i] = 0.0f;
-  }
-  for (int vt = vt_begin; vt < vt_end; ++vt) {
-    const int n0 = vt * FV;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-    for (int k0 = 0; k0 < D; k0 += FK) {
-      __syncthreads();  // previous stage consumed
-      for (int i = tid; i < FR * FK / 4; i += THREADS) {
-        const int r = i % FR, kq = i / FR, row = row0 + r;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (row < R)
-          v = *reinterpret_cast<const float4*>(h + (size_t)row * ldh + k0 + 4 * kq);
-        sA[4 * kq + 0][r] = v.x;
-        sA[4 * kq + 1][r] = v.y;
-        sA[4 * kq + 2][r] = v.z;
-        sA[4 * kq + 3][r] = v.w;
+    for (int p = 0; p < 2; ++p) {
+      const int i = tid + THREADS * p;
+      ra[p] = kmajor_at(h, ldh, m0, R, k0, D, D, i);
+      if constexpr (!Q8) rb[p] = kmajor_at(wf, D, n0, V, k0, D, D, i);
+    }
+    if constexpr (Q8) {
+      if (tid < BN) {  // row n of W^T: 16 int8 along k
+        const int n = n0 + tid;
+        rq = ldg16_at(w8 + (size_t)min(n, V - 1) * D + k0, n < V);
+        rsc = n < V ? __ldg(scale + n) : 0.0f;
       }
-      for (int i = tid; i < FV * FK / 4; i += THREADS) {
-        const int c = i % FV, kq = i / FV, n = n0 + c;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (n < V) {
-          const size_t off = (size_t)n * D + k0 + 4 * kq;
-          if constexpr (Q8) {
-            const char4 q = *reinterpret_cast<const char4*>(
-                static_cast<const signed char*>(wt) + off);
-            const float sc = scale[n];
-            v = make_float4(static_cast<float>(q.x) * sc, static_cast<float>(q.y) * sc,
-                            static_cast<float>(q.z) * sc, static_cast<float>(q.w) * sc);
-          } else {
-            v = *reinterpret_cast<const float4*>(static_cast<const float*>(wt) + off);
+    }
+  };
+  auto put = [&](int buf) {  // the registers into stage buf
+    float* a = sA + buf * TILE;
+    float* b = sB + buf * TILE;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int i = tid + THREADS * p;
+      put_kmajor(a, i, ra[p]);
+      if constexpr (!Q8) put_kmajor(b, i, rb[p]);
+    }
+    if constexpr (Q8) {
+      if (tid < BN) {  // q * scale[n], rounded once to fp32, before the product
+        const uint32_t words[4] = {rq.x, rq.y, rq.z, rq.w};
+#pragma unroll
+        for (int e = 0; e < BK; ++e) b[swz(e, tid)] = s8_at(words[e >> 2], e & 3) * rsc;
+      }
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    sM[i * THREADS + tid] = NEG;
+    sS[i * THREADS + tid] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  }
+  if (total > 0) {
+    fetch(0, 0);
+    put(0);
+    if constexpr (CAND) cand_table(sLo, sHi, cd, vt0 * BN, BN, V);
+  }
+  __syncthreads();
+  for (int c = 0, t = 0, kc = 0; c < total; ++c) {
+    const int buf = c & 1, t1 = kc + 1 == nkc ? t + 1 : t, kc1 = kc + 1 == nkc ? 0 : kc + 1;
+    if (c + 1 < total) fetch(t1, kc1);
+    if constexpr (CAND) {
+      if (kc == 0 && t + 1 < nt)
+        cand_table(sLo + ((t + 1) & 1) * BN, sHi + ((t + 1) & 1) * BN, cd, (vt0 + t + 1) * BN,
+                   BN, V);
+    }
+    chunk_fma<true>(acc, sA + buf * TILE, sB + buf * TILE, ty, tx);
+    if (kc + 1 == nkc) {
+      // ---- tile t's epilogue: column j of the thread is 64 (j / 4) + 4 tx
+      // + j % 4 ----
+      const int n0 = (vt0 + t) * BN;
+      const int* lo = sLo + (t & 1) * BN;
+      const int* hi = sHi + (t & 1) * BN;
+      float bj[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + 64 * (j >> 2) + 4 * tx + (j & 3);
+        bj[j] = n < V ? __ldg(bias + n) : -INFINITY;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float x[8], tmax = NEG;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          x[j] = acc[i][j] + bj[j];  // -inf past V
+          if constexpr (CAND) {
+            const int col = 64 * (j >> 2) + 4 * tx + (j & 3);
+            cand_store(cd, lo[col], hi[col], m0 + row_of(ty, i), R, x[j]);
           }
+          tmax = fmaxf(tmax, x[j]);
+          acc[i][j] = 0.0f;
         }
-        sB[4 * kq + 0][c] = v.x;
-        sB[4 * kq + 1][c] = v.y;
-        sB[4 * kq + 2][c] = v.z;
-        sB[4 * kq + 3][c] = v.w;
-      }
-      // between this chunk's two barriers: every thread has left the
-      // previous tile's epilogue, which read the table
-      if constexpr (CAND) {
-        if (k0 == 0) cand_table(sLo, sHi, cd, n0, FV, V);
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int k = 0; k < FK; ++k) {
-        const float4 a = *reinterpret_cast<const float4*>(&sA[k][ty * 4]);
-        const float4 b = *reinterpret_cast<const float4*>(&sB[k][tx * 4]);
-        const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+        const float m_old = sM[i * THREADS + tid], m_new = fmaxf(m_old, tmax);
+        float s = sS[i * THREADS + tid] * expf(m_old - m_new);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) s += expf(x[j] - m_new);
+        sM[i * THREADS + tid] = m_new;
+        sS[i * THREADS + tid] = s;
       }
     }
-
-    float bj[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      bj[j] = n < V ? bias[n] : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float x[4], tmax = NEG;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        x[j] = n0 + tx * 4 + j < V ? acc[i][j] + bj[j] : -INFINITY;
-        if constexpr (CAND)
-          cand_store(cd, sLo[tx * 4 + j], sHi[tx * 4 + j], row0 + ty * 4 + i, R, x[j]);
-        tmax = fmaxf(tmax, x[j]);
-      }
-      const float m_new = fmaxf(m_run[i], tmax);
-      float s = s_run[i] * expf(m_run[i] - m_new);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s += expf(x[j] - m_new);
-      m_run[i] = m_new;
-      s_run[i] = s;
-    }
+    if (c + 1 < total) put(buf ^ 1);  // buf ^ 1 was last read in chunk c - 1
+    __syncthreads();
+    t = t1;
+    kc = kc1;
   }
 
-  // ---- merge the 16 column threads of each row group (one half-warp) ----
+  // ---- merge the 8 column lanes of each row group (lane bits 0-2) by
+  // shuffles, then the row's two column warps through shared memory ----
+  float m[8], s[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i) {
+    m[i] = sM[i * THREADS + tid];
+    s[i] = sS[i * THREADS + tid];
 #pragma unroll
-    for (int off = 1; off <= 8; off <<= 1) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, m_run[i], off);
-      const float s2 = __shfl_xor_sync(0xffffffffu, s_run[i], off);
-      merge_ms(m_run[i], s_run[i], m2, s2);
+    for (int off = 1; off <= 4; off <<= 1) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, m[i], off);
+      const float s2 = __shfl_xor_sync(0xffffffffu, s[i], off);
+      merge_ms(m[i], s[i], m2, s2);
     }
-  if (tx == 0) {
+  }
+  const bool lead = (tid & 7) == 0;
+  if (lead && tx >= 8) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + ty * 4 + i;
+    for (int i = 0; i < 8; ++i) {
+      xM[ty * 8 + i] = m[i];
+      xS[ty * 8 + i] = s[i];
+    }
+  }
+  __syncthreads();
+  if (lead && tx < 8) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      merge_ms(m[i], s[i], xM[ty * 8 + i], xS[ty * 8 + i]);
+      const int row = m0 + row_of(ty, i);
       if (row < R) {
-        m_part[(size_t)blockIdx.y * R + row] = m_run[i];
-        s_part[(size_t)blockIdx.y * R + row] = s_run[i];
+        m_part[(size_t)blockIdx.y * R + row] = m[i];
+        s_part[(size_t)blockIdx.y * R + row] = s[i];
       }
     }
   }
 }
+
+// Dynamic shared memory of proj_ms_f32_kernel: the two stages of both
+// operands, the running (m, s), the column warps' exchange, the
+// candidate-run buffers.
+constexpr int F32_SMEM =
+    (4 * jlm::gemm::TILE + 16 * THREADS + 2 * 16 * 8 + 4 * jlm::gemm::BN) * 4;
 
 // Second pass: merge the vocab splits (of every block) of each row.  Any
 // output may be null; cand [R, C] raw candidate logits become
@@ -1057,10 +1116,21 @@ cudaError_t launch_f32(const void* h, int ldh, const void* wt, const float* scal
                        const float* bias, float* m_part, float* s_part, int R,
                        int D, int V, int splits, int tiles_per_split,
                        const Cand& cd, cudaStream_t stream) {
-  dim3 grid((R + FR - 1) / FR, splits);
-  proj_ms_f32_kernel<Q8, CAND><<<grid, THREADS, 0, stream>>>(
-      static_cast<const float*>(h), ldh, wt, scale, bias, m_part, s_part, R, D,
-      V, tiles_per_split, cd);
+  if (D % jlm::gemm::BK) return cudaErrorInvalidValue;
+  auto kernel = proj_ms_f32_kernel<Q8, CAND>;
+  static bool ready[64];  // the attribute is set once a device and instantiation
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64 || !ready[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F32_SMEM);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) ready[dev] = true;
+  }
+  dim3 grid((R + jlm::gemm::BM - 1) / jlm::gemm::BM, splits);
+  kernel<<<grid, THREADS, F32_SMEM, stream>>>(static_cast<const float*>(h), ldh, wt, scale,
+                                              bias, m_part, s_part, R, D, V, tiles_per_split,
+                                              cd);
   return cudaGetLastError();
 }
 

@@ -16,9 +16,12 @@ on a CPU tensor it runs the plain version ``cell_cand_ref``.  The kernel
 holds at most 16 beam rows of a sentence: wider beams go in groups of at
 most 16 rows (``beam_groups``), one launch each, the rows of each group
 gathered into their own ``[S * b, ...]`` operands.  Any E and H: the bf16
-kernel takes multiples of 8, the fp32 kernel E a multiple of 32 and H of
-64; other widths are zero-padded as the cell pads them
-(``lstm_cell.pad_cell``), ``cols`` with zero columns, and sliced back.
+kernel takes multiples of 8, the fp32 kernel multiples of 32; other widths
+are zero-padded as the cell pads them (``lstm_cell.pad_cell``), ``cols``
+with zero columns, and sliced back.  Both kernels give each block a unit
+group of a few whole sentences and sum the groups' candidate dots in
+group order through a scratch buffer (``partial_sums_shape``), so the
+logits come out the same on every run.
 """
 
 from __future__ import annotations
@@ -36,16 +39,25 @@ from jlm_tpu_torch.ops.project import pad_cols
 
 _MAX_B = 16  # beam rows per sentence: one m16 tile of the candidate dot
 _MAX_C1 = 256  # candidate columns per sentence: one TMA box of the bf16 kernel
-_ROWS = 128  # row slots of a bf16 block (G = 128 // B whole sentences)
-_UNITS = 64  # hidden units of a bf16 block
-_done = {}  # device index -> the bf16 kernel's zeroed counters (it leaves them zeroed)
+# (row slots, hidden units) of a block: G = rows // B whole sentences
+_BLOCK = {torch.bfloat16: (128, 64), torch.float32: (64, 32)}
+_done = {}  # device index -> the kernels' zeroed counters (each launch leaves them zeroed)
+
+
+def partial_sums_shape(S: int, B: int, H: int, C1: int, dtype) -> Tuple[int, int, int]:
+    """``(sentence blocks, unit groups, floats a block)`` of the kernel's
+    scratch of partial candidate sums in compute ``dtype``: the grid is
+    unit groups x sentence blocks, and a block's slice holds its ``G B C1``
+    dots, rounded up to whole float4s."""
+    rows, units = _BLOCK[dtype]
+    G = rows // B
+    return -(-S // G), -(-H // units), -(-G * B * C1 // 4) * 4
 
 
 def _counters(device, n: int) -> torch.Tensor:
     """At least ``n`` zeroed int32 counters on ``device``, kept between
-    calls: each launch of the bf16 kernel counts its blocks in them and
-    zeroes them again (so two launches must not run at once on two
-    streams)."""
+    calls: each launch counts its blocks in them and zeroes them again (so
+    two launches must not run at once on two streams)."""
     kept = _done.get(device.index)
     if kept is None or kept.numel() < n:
         kept = _done[device.index] = torch.zeros(max(n, 4096), dtype=torch.int32,
@@ -74,7 +86,7 @@ def _launch(x, h, c, W, b, cols, cbias, B, forget_bias):
     if tuple(W.shape) != (E + H, 4 * H):
         raise ValueError(f"W must be [{E + H}, {4 * H}], got {tuple(W.shape)}")
     w = W if f32 else cell_weight_tiles(W, E, H)
-    Ep, Hp = (_round_up(E, 32), _round_up(H, 64)) if f32 else (_round_up(E, 8),
+    Ep, Hp = (_round_up(E, 32), _round_up(H, 32)) if f32 else (_round_up(E, 8),
                                                                _round_up(H, 8))
     if (Ep, Hp) == (E, H):
         return _launch_aligned(x, h, c, w, b, cols, cbias, B, forget_bias)
@@ -112,18 +124,15 @@ def _launch_aligned(x, h, c, w, b, cols, cbias, B, forget_bias):
     cand = torch.empty((S, B, C1), dtype=torch.float32, device=x.device)
     if S:
         P = ctypes.c_void_p
-        scratch = done = None
-        if not f32:  # each unit group's partial candidate sums, and their counters
-            G = _ROWS // B
-            n_sb = -(-S // G)
-            scratch = cand.new_empty((n_sb * -(-H // _UNITS) * (-(-G * B * C1 // 4) * 4),))
-            done = _counters(x.device, n_sb)
+        # each unit group's partial candidate sums, and their counters
+        n_sb, n_ug, pstride = partial_sums_shape(S, B, H, C1, x.dtype)
+        scratch = cand.new_empty((n_sb * n_ug * pstride,))
+        done = _counters(x.device, n_sb)
         err = _build.lib().jlm_cell_cand(
             P(x.data_ptr()), P(h.data_ptr()), P(c.data_ptr()), int(c.dtype == torch.float32),
             P(w.data_ptr()), P(b.data_ptr()), P(cols.data_ptr()), P(cbias.data_ptr()),
             P(c_new.data_ptr()), P(h_new.data_ptr()), P(cand.data_ptr()),
-            P(None if scratch is None else scratch.data_ptr()),
-            P(None if done is None else done.data_ptr()),
+            P(scratch.data_ptr()), P(done.data_ptr()),
             S, B, E, H, C1, int(f32), float(forget_bias), P(_build.stream_ptr(x)),
         )
         _build.check(err, "cell_cand kernel")

@@ -68,7 +68,8 @@ from jlm_tpu_torch.ops import _build
 # vocab columns per tile) of the bf16 and fp32 kernels.
 BF16, INT8_MXU, DEQUANT_BF16, FP32, DEQUANT_FP32 = range(5)
 _BF16_TILE = (128, 256)
-_FP32_TILE = (64, 64)
+_FP32_TILE = (128, 128)
+_FP32_PER_SM = 2  # blocks of the fp32 kernel an SM holds
 _ALIGN = 32  # hidden columns per kernel K step
 _INT8_RESIDENT = 1024  # widest slice whose quantized rows the int8 kernel keeps resident
 _INT8_CHUNK = 128  # K of a streamed int8 chunk (one 128-byte swizzle row)
@@ -279,23 +280,44 @@ def _block_plan(head, config, H, device, compute_dtype, int8_mxu):
 # Each block's fixed cost in tile times, for vocab_splits: the int8 kernel
 # loads its resident rows (about 4 tiles); the bf16 kernel and the int8
 # kernel past 1,024 stream h with every tile, and pay their ring's fill and
-# their epilogue (about 1).
+# their epilogue (about 1); the fp32 kernel streams h too, and pays its
+# first chunk and the merge of its column threads (about 1).
 INT8_BLOCK_TILES = 4
 BF16_BLOCK_TILES = 1
+FP32_BLOCK_TILES = 1
 
 
-def vocab_splits(n_tiles: int, row_blocks: int, sms: int, fixed: int) -> Tuple[int, int]:
-    """``(splits, tiles per split)`` of a kernel's vocab: the split count
-    whose waves of one block an SM take the fewest tile times, each block
-    paying ``fixed`` tile times besides its own tiles."""
+def vocab_splits(n_tiles: int, row_blocks: int, sms: int, fixed: int,
+                 max_splits: int = 64) -> Tuple[int, int]:
+    """``(splits, tiles per split)`` of a kernel's vocab: the split count,
+    up to ``max_splits``, whose waves of ``sms`` blocks (the blocks the card
+    runs at once) take the fewest tile times, each block paying ``fixed``
+    tile times besides its own tiles."""
     best = None
-    for sp in range(1, min(n_tiles, 64) + 1):
+    for sp in range(1, min(n_tiles, max_splits) + 1):
         per = -(-n_tiles // sp)
         sp = -(-n_tiles // per)
         cost = -(-row_blocks * sp // sms) * (per + fixed)
         if best is None or cost < best[0]:
             best = (cost, sp, per)
     return best[1], best[2]
+
+
+def block_splits(mode: int, dp: int, V: int, R: int, sms: int) -> Tuple[int, int]:
+    """``(splits, tiles per split)`` of one block's launch over ``R`` rows
+    and ``V`` vocab columns (padded width ``dp``) on ``sms`` SMs: its
+    kernel's tile, blocks an SM and fixed cost, through ``vocab_splits``."""
+    if mode == INT8_MXU:
+        rows, cols = _int8_tile(dp)
+        return vocab_splits(-(-V // cols), -(-R // rows), sms,
+                            INT8_BLOCK_TILES if dp <= _INT8_RESIDENT else BF16_BLOCK_TILES)
+    if mode in (BF16, DEQUANT_BF16):
+        rows, cols = _BF16_TILE
+        return vocab_splits(-(-V // cols), -(-R // rows), sms, BF16_BLOCK_TILES)
+    rows, cols = _FP32_TILE
+    n_tiles = -(-V // cols)
+    return vocab_splits(n_tiles, -(-R // rows), _FP32_PER_SM * sms, FP32_BLOCK_TILES,
+                        max_splits=n_tiles)
 
 
 def _launch(h, head, config, compute_dtype, int8_mxu, want: str, cand_ids=None):
@@ -311,21 +333,7 @@ def _launch(h, head, config, compute_dtype, int8_mxu, want: str, cand_ids=None):
     plans, total = [], 0
     for off, d, wt, mode, scale, bias, V, dp in _block_plan(head, config, H, h.device,
                                                             compute_dtype, int8_mxu):
-        if mode == INT8_MXU:
-            rows, cols = _int8_tile(dp)
-            splits, per_split = vocab_splits(
-                -(-V // cols), -(-R // rows), sms,
-                INT8_BLOCK_TILES if dp <= _INT8_RESIDENT else BF16_BLOCK_TILES)
-        elif mode in (BF16, DEQUANT_BF16):
-            rows, cols = _BF16_TILE
-            splits, per_split = vocab_splits(-(-V // cols), -(-R // rows), sms,
-                                             BF16_BLOCK_TILES)
-        else:
-            rows, cols = _FP32_TILE
-            n_tiles, row_blocks = -(-V // cols), -(-R // rows)
-            splits = min(n_tiles, max(1, -(-8 * sms // max(row_blocks, 1))))
-            per_split = -(-n_tiles // splits)
-            splits = -(-n_tiles // per_split)
+        splits, per_split = block_splits(mode, dp, V, R, sms)
         plans.append((off, d, wt, mode, scale, bias, V, dp, splits, per_split))
         total += splits
 

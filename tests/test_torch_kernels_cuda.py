@@ -986,6 +986,59 @@ def test_project_candidates_kernel_vs_plain(cuda, mode, weights):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("want", ["lse", "cand"])
+@pytest.mark.parametrize("D", [128, 256, 512, 1024])
+@pytest.mark.parametrize("weights", ["fp32", "int8_dequant_fp32"])
+def test_project_f32_widths_vs_plain(cuda, weights, D, want):
+    """The fp32 head kernel (128-row blocks, 128-column tiles, K chunks of
+    16) at each width a D-softmax block of the repo's configurations takes:
+    a disjoint head whose D-wide block sits at column 40 of h (an unaligned
+    slice, copied) beside a 40-wide one (padded to 64), 300 rows (not a
+    multiple of 128), ragged last tiles (1,000 and 5,001 columns), and for
+    the candidates 150 ids with every block edge, repeats and -1.  Bound
+    1e-4 abs (fp32 sums in another order); on weights of scale 0.5 the
+    plain version on operands rounded to TF32 must read above it."""
+    from jlm_tpu_torch.config import Config, DSoftmaxConfig
+    from jlm_tpu_torch.ops.project import (
+        project_candidates_dsoftmax, project_candidates_dsoftmax_ref)
+
+    cd, quantized, _, bound = _BLOCK_MODES[weights]
+    rng = np.random.default_rng(30 + D)
+    sizes, dims = (1000, 5001), (40, D)
+    cfg = Config(vocab_size=sum(sizes), hidden_size=D + 40, head="dsoftmax",
+                 dsoftmax=DSoftmaxConfig(block_sizes=sizes, block_dims=dims, mode="disjoint"))
+    blocks, dense = [], []
+    for n, d in zip(sizes, dims):
+        w = rng.normal(size=(d, n)).astype(np.float32) * 0.5
+        b = torch.from_numpy(rng.normal(size=n).astype(np.float32) * 0.01).to(cuda)
+        if quantized:
+            q = quantize_weight(w, axis=0)
+            W = {"q": torch.from_numpy(q["q"]).to(cuda),
+                 "scale": torch.from_numpy(q["scale"]).to(cuda)}
+            dense.append({"W": W["q"].float() * W["scale"][None, :], "b": b})
+        else:
+            W = torch.from_numpy(w).to(cuda)
+            dense.append({"W": W, "b": b})
+        blocks.append({"W": W, "b": b})
+    h = torch.from_numpy(rng.normal(size=(300, D + 40)).astype(np.float32)).to(cuda)
+    rounded = [{"W": _tf32(blk["W"]), "b": blk["b"]} for blk in dense]
+    if want == "lse":
+        head = {"blocks": blocks}
+        n0 = project_lse.launches
+        got = project_lse(h, head, cfg, compute_dtype=cd)
+        assert project_lse.launches == n0 + 2
+        ref = project_lse_ref(h, head, cfg, compute_dtype=cd)
+        wrong = project_lse_ref(_tf32(h), {"blocks": rounded}, cfg, compute_dtype=cd)
+    else:
+        ids = _cand_ids(rng, sizes).to(cuda)
+        got = project_candidates_dsoftmax(h, blocks, cfg, ids, compute_dtype=cd)
+        ref = project_candidates_dsoftmax_ref(h, blocks, cfg, ids, compute_dtype=cd)
+        wrong = project_candidates_dsoftmax_ref(_tf32(h), rounded, cfg, ids, compute_dtype=cd)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=bound)
+    assert float((wrong - ref).abs().max()) > bound
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("c_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,B,E,H,C1", [
     (12, 10, 64, 128, 17),    # test_cell_cand_fused's shapes
@@ -1037,8 +1090,12 @@ def test_cell_cand_kernel_vs_plain(cuda, S, B, E, H, C1, c_dtype):
     (12, 10, 64, 128, 17),    # test_cell_cand_fused's shapes
     (4, 8, 32, 64, 9),
     (64, 8, 256, 512, 65),    # the fp32 parity run's frame (greedy, beam pad 8)
-    (7, 10, 40, 24, 65),      # E, H padded to 64 and 64
+    (7, 10, 40, 24, 65),      # E, H padded to 64 and 32
     (5, 8, 30, 20, 9),
+    (13, 10, 64, 128, 17),    # 6 sentences a block (60 of 64 row slots), a ragged last block
+    (9, 16, 64, 96, 20),      # 4 sentences a block, S not a multiple of them; 3 unit groups
+    (10, 8, 32, 48, 9),       # H off the unit group's 32: padded to 64
+    (13, 8, 64, 128, 200),    # 1,600 cols rows a block: two pieces
 ])
 def test_cell_cand_fp32_kernel_vs_plain(cuda, S, B, E, H, C1, c_dtype):
     """fp32 compute (exact fp32 FMAs, TF32 off): c', h' and the candidate
@@ -1063,6 +1120,32 @@ def test_cell_cand_fp32_kernel_vs_plain(cuda, S, B, E, H, C1, c_dtype):
     want = cell_cand_ref(x, h, c, W, b, cols, cbias, B, 1.0, compute_dtype=f32)
     for a, w in zip(got, want):
         np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cell_cand_kernel_is_deterministic(cuda, dtype):
+    """The unit groups' partial candidate sums are added in group order by
+    the last group block of each sentence block: two launches give the same
+    logits bit for bit, and each leaves its counters zeroed."""
+    from jlm_tpu_torch.ops import frame_step
+    from jlm_tpu_torch.ops.frame_step import cell_cand_step
+
+    rng = np.random.default_rng(29)
+    S, B, E, H, C1 = 64, 8, 256, 512, 65
+
+    def t(*shape, scale, dt=dtype):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32) * scale).to(cuda).to(dt)
+
+    x, h, c = t(S * B, E, scale=1.0), t(S * B, H, scale=0.1), t(S * B, H, scale=0.5)
+    W, b = t(E + H, 4 * H, scale=0.05), t(4 * H, scale=0.01, dt=torch.float32)
+    cols, cbias = t(S, C1, H, scale=0.1), t(S, C1, scale=0.01, dt=torch.float32)
+    runs = []
+    for _ in range(2):
+        runs.append(cell_cand_step(x, h, c, W, b, cols, cbias, B, 1.0, compute_dtype=dtype)[2])
+        torch.cuda.synchronize()
+        assert int(frame_step._done[cuda.index or 0].abs().sum()) == 0
+    assert torch.equal(runs[0], runs[1])
 
 
 @pytest.mark.cuda

@@ -205,6 +205,46 @@ def test_int8_split_plan_fills_whole_waves():
     assert 4 * sp >= 66
 
 
+@pytest.mark.parametrize("R,V,want", [
+    (512, 50_000, (66, 6)),   # the fp32 parity run's rows at 50k: 4 x 66 = 264 blocks
+    (512, 16_000, None),      # config 5's blocks
+    (512, 34_000, None),
+    (800, 50_000, (36, 11)),  # candidate extraction's rows (7 row blocks)
+    (800, 16_000, None),
+    (800, 34_000, None),
+])
+def test_fp32_split_plan_fills_whole_waves(R, V, want):
+    """The fp32 head kernel's vocab splits (128 x 128 tiles, two blocks an
+    SM): at the fp32 parity run's rows and at candidate extraction's, the
+    row blocks x splits fill one wave of 2 x 132 blocks to at least 80%
+    and lie in it, and every tile lies in exactly one split."""
+    sp, per = project.block_splits(project.FP32, 512, V, R, 132)
+    n_tiles, row_blocks = -(-V // 128), -(-R // 128)
+    assert (sp - 1) * per < n_tiles <= sp * per
+    assert 0.8 * 264 <= row_blocks * sp <= 264
+    if want is not None:
+        assert (sp, per) == want
+    assert project.block_splits(project.DEQUANT_FP32, 128, V, R, 132) == (sp, per)
+
+
+@pytest.mark.parametrize("S,B,H,C1,dtype,want", [
+    (64, 8, 512, 65, torch.float32, (8, 16, 4160)),     # the fp32 parity frame: 128 blocks
+    (64, 10, 512, 65, torch.float32, (11, 16, 3900)),   # 6 sentences (60 row slots) a block
+    (9, 16, 96, 20, torch.float32, (3, 3, 1280)),
+    (2048, 10, 512, 65, torch.bfloat16, (171, 8, 7800)),  # the serving frame
+    (6, 1, 128, 200, torch.bfloat16, (1, 2, 25600)),
+    (5, 3, 64, 7, torch.float32, (1, 2, 444)),           # 21 x 3 x 7 = 441 dots, whole float4s
+])
+def test_cell_cand_partial_sums_shape(S, B, H, C1, dtype, want):
+    """The fused frame kernels' scratch of partial candidate sums: a slice
+    of G B C1 dots (rounded up to float4s) for each unit group (32 units
+    fp32, 64 bf16) of each block of G whole sentences (G = 64 // B fp32,
+    128 // B bf16)."""
+    from jlm_tpu_torch.ops.frame_step import partial_sums_shape
+
+    assert partial_sums_shape(S, B, H, C1, dtype) == want
+
+
 def _np(x):
     return np.asarray(x.float() if isinstance(x, torch.Tensor) else jnp.asarray(x, jnp.float32))
 

@@ -38,7 +38,8 @@ around 50 calls in a row divided by 50 (the device's time where the device
 is the slower side) with ``host_ms``, the host's time a call.  A function
 that the tree refuses is recorded as its error; ``--only`` times just the
 cases whose names hold one of its comma-separated parts (``--only
-H1024,H512``: the scan).  Prints one JSON line (the
+H1024,H512``: the scan; ``--only f32``: the fp32 parity mode's fused frame,
+head and candidate extraction, ``f32_cases``).  Prints one JSON line (the
 card's name and power limit in it) and appends it to ``--out``.
 """
 
@@ -52,8 +53,8 @@ import sys
 
 import torch
 
-from chip_smoke import (BLOCKS5, N_CE, R32, TB, TT, B, C1, E, H, R, S, V, cuda_ms, in_a_row,
-                        torch_gates)
+from chip_smoke import (BLOCKS5, N_CE, R32, R_CAND, S32, TB, TT, B, C1, C_CAND, E, H, R, S, V,
+                        cuda_ms, in_a_row, torch_gates)
 
 
 def cases(dev):
@@ -126,11 +127,91 @@ def cases(dev):
     h5 = t(R, H, scale=0.5)
     out.append(("project_lse dsoftmax int8",
                 lambda: project_lse(h5, head5, cfg5, compute_dtype=bf, int8_mxu=True)))
+    out += f32_cases(dev, g, cfg5)
     for hw, ew, cd in ((1024, 1024, torch.float32), (1024, 1024, bf), (512, 256, torch.float32)):
         out += scan_cases(dev, g, hw, ew, cd)
     for d in (512, 1024):
         out += ce_cases(dev, g, d)
     out += ce_cases(dev, g, 2048, bf16=False)
+    return out
+
+
+def f32_cases(dev, g, cfg5):
+    """The exact-fp32 parity mode's frame kernels (``--only f32``): the
+    fused frame ``cell_cand_step`` at the fp32 parity run's frame (S = 64
+    sentences of B = 8 rows, C1 = 65) and at E = 40, H = 24, beside the
+    split pair it replaces (``lstm_cell_step`` + ``cand_dot`` in fp32) and
+    the library pair ``torch.lstm_cell`` + ``torch.baddbmm`` (2 calls, not
+    ranked); the fp32 head (``project_lse``) on config 5's D-softmax head
+    and the 50k int8 head dequantized to fp32, at R = 512 rows; candidate
+    extraction in fp32 and dequant fp32 at 50k and on config 5's head (R =
+    800 rows, C = 65 ids; the wrappers transpose W per call, as
+    ``chip_smoke.py`` times them), beside the fp32 50k head's lse alone at
+    those rows (W^T made once)."""
+    from jlm_tpu_torch.ops.cand_dot import cand_dot
+    from jlm_tpu_torch.ops.frame_step import cell_cand_step
+    from jlm_tpu_torch.ops.lstm_cell import lstm_cell_step
+    from jlm_tpu_torch.ops.project import (project_candidates, project_candidates_dsoftmax,
+                                           project_lse)
+
+    f32 = torch.float32
+
+    def t(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    out = []
+    B32 = R32 // S32
+    for e, hw in ((E, H), (40, 24)):
+        x, h = t(R32, e, scale=0.3), t(R32, hw, scale=0.5)
+        c, W, b = t(R32, hw), t(e + hw, 4 * hw, scale=0.05), t(4 * hw, scale=0.1)
+        cols, cbias = t(S32, C1, hw, scale=0.05), t(S32, C1, scale=0.1)
+        tag = "" if (e, hw) == (E, H) else f" E{e} H{hw}"
+        out.append((f"cell_cand_step f32{tag}",
+                    lambda x=x, h=h, c=c, W=W, b=b, cols=cols, cbias=cbias: cell_cand_step(
+                        x, h, c, W, b, cols, cbias, B32, 1.0)))
+        if tag:
+            continue
+
+        def split_pair(x=x, h=h, c=c, W=W, b=b, cols=cols, cbias=cbias, hw=hw):
+            c_n, h_n = lstm_cell_step(x, h, c, W, b, 1.0)
+            return c_n, cand_dot(h_n.reshape(S32, B32, hw), cols, cbias)
+
+        w_ih, w_hh, b_ih = torch_gates(W, b)
+        b_hh, cols_t, cb = torch.zeros_like(b_ih), cols.transpose(1, 2), cbias[:, None, :]
+
+        def library_pair(x=x, h=h, c=c, hw=hw):
+            c_l, h_l = torch.lstm_cell(x, (h, c), w_ih, w_hh, b_ih, b_hh)
+            return c_l, torch.baddbmm(cb, h_l.reshape(S32, B32, hw), cols_t)
+
+        out += [("lstm_cell_step f32 + cand_dot f32 (split pair)", split_pair),
+                ("torch.lstm_cell + torch.baddbmm f32 (2 calls)", library_pair)]
+
+    def with_wt(W, b):
+        return {"W": W, "b": b, "WT": W.t().contiguous()}
+
+    head5 = {"blocks": [with_wt(t(d, n, scale=0.5), t(n, scale=0.1)) for n, d in BLOCKS5]}
+    q = torch.randint(-127, 128, (H, V), generator=g, device=dev, dtype=torch.int8)
+    sq = t(V, scale=0.001).abs() + 1e-4
+    head_d = {"W": {"q": q, "scale": sq}, "b": t(V, scale=0.1), "WT": q.t().contiguous()}
+    h32 = t(R32, H, scale=0.5)
+    out += [("project_lse f32 config 5",
+             lambda: project_lse(h32, head5, cfg5, compute_dtype=f32)),
+            ("project_lse dequant f32 50k", lambda: project_lse(h32, head_d, None,
+                                                                 compute_dtype=f32))]
+    hc = t(R_CAND, H, scale=0.3)
+    Wf, bc = t(H, V, scale=0.5), t(V, scale=0.1)
+    head_f = with_wt(Wf, bc)
+    out.append(("project_lse f32 50k R800",
+                lambda: project_lse(hc, head_f, None, compute_dtype=f32)))
+    ids = torch.randint(0, V, (C_CAND,), generator=g, device=dev)
+    ids5 = torch.randint(0, sum(n for n, _ in BLOCKS5), (C_CAND,), generator=g, device=dev)
+    blocks5 = [{"W": blk["W"], "b": blk["b"]} for blk in head5["blocks"]]
+    out += [("project_candidates f32",
+             lambda: project_candidates(hc, Wf, None, bc, ids, compute_dtype=f32)),
+            ("project_candidates dequant f32",
+             lambda: project_candidates(hc, q, sq, bc, ids, compute_dtype=f32)),
+            ("project_candidates dsoftmax f32",
+             lambda: project_candidates_dsoftmax(hc, blocks5, cfg5, ids5, compute_dtype=f32))]
     return out
 
 
