@@ -36,7 +36,10 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
    it instead of rounding ``q * scale`` to bf16 before it (these four
    modes on weights of scale ``PEAKED``); cuDNN's LSTM is timed beside the
    scan kernels as a yardstick (the port never calls it); and the kernels
-   that finish the table: the fp32 fused CE at the training shape,
+   that finish the table: the fp32 fused CE at the training shape (its
+   forward also at a D-softmax block's width, D = 128, a third of the
+   targets owned by no column; the forward's logits without their last K
+   chunk of 16, a trap of its design, too),
    candidate extraction at ``scripts/bench_kernels.py``'s shape in five
    weight modes and on config 5's head, and the fused cell + candidate
    frame kernel in bf16 and fp32 (``port_cases``: TF32 operands, a
@@ -233,6 +236,7 @@ BOUNDS = {  # kernel vs plain version, on the same inputs on the card
     # fp32 compute, weights of scale PEAKED; a plain version on operands
     # rounded to TF32 must read above each bound
     "ce_fwd fp32": 1e-4,        # abs, per-row loss and lse; exact fp32 products
+    "ce_fwd fp32 D128": 1e-4,   # the same at a D-softmax block's width
     "ce_bwd_dh fp32": 1e-4,     # abs error / max |plain|, the mean loss's cotangent;
     "ce_bwd_dw fp32": 1e-4,     # gp is not rounded, so only the sum order differs
     "ce_bwd_dh fp32 p-term": 1e-4,  # the p-term alone; a p-term off by P_SHIFT
@@ -1053,12 +1057,33 @@ def port_cases(dev, rng):
     ga = torch.full((N_CE,), 1.0 / N_CE, device=dev)
     ga_p = t(rng.uniform(0.5, 1.5, N_CE) / N_CE)
     h_r, W_r = tf32(h_ce), tf32(W_ce)
+
+    def fwd_wrong(hh, W, yy):
+        """The fp32 forward's wrong versions: TF32 operands, and the logits
+        without their last K chunk of 16 (the kernel's chunk loop)."""
+        return {"operands rounded to TF32": lambda: ce_fwd_raw_ref(tf32(hh), tf32(W), b_ce, yy,
+                                                                   f32),
+                "the logits without their last K chunk of 16":
+                lambda: ce_fwd_raw_ref(hh[:, :-16], W[:-16], b_ce, yy, f32)}
+
+    # config 5's 50,000 x 128 block: a D-softmax block's width, a third of the
+    # targets owned by another block; its own draws, so the later cases' do
+    # not move
+    rng_ds = np.random.default_rng(DS_D)
+    h_ds = t(rng_ds.uniform(-1, 1, (N_CE, DS_D)))
+    W_ds = t(rng_ds.normal(0, PEAKED, (DS_D, V)))
+    y_ds = y_ce.clone()
+    y_ds[::3] = -1
     cases = [("ce_fwd fp32",
               lambda: ce_fwd_raw(h_ce, W_ce, b_ce, y_ce, f32),
               lambda: ce_fwd_raw_ref(h_ce, W_ce, b_ce, y_ce, f32), ce_fwd_err,
-              {"operands rounded to TF32": lambda: ce_fwd_raw_ref(h_r, W_r, b_ce, y_ce, f32)},
+              fwd_wrong(h_ce, W_ce, y_ce),
               lambda: torch.nn.functional.cross_entropy(torch.addmm(b_ce, h_ce, W_ce), y_ce,
-                                                        reduction="none"))]
+                                                        reduction="none")),
+             (f"ce_fwd fp32 D{DS_D}",
+              lambda: ce_fwd_raw(h_ds, W_ds, b_ce, y_ds, f32),
+              lambda: ce_fwd_raw_ref(h_ds, W_ds, b_ce, y_ds, f32), ce_fwd_err,
+              fwd_wrong(h_ds, W_ds, y_ds), None)]
     for name, kernel, ref in (("ce_bwd_dh", ce_bwd_dh, ce_bwd_dh_ref),
                               ("ce_bwd_dw", ce_bwd_dw, ce_bwd_dw_ref)):
         args = (h_ce, W_ce, b_ce, y_ce, lse_ce, ga, -ga, f32)
@@ -1794,6 +1819,8 @@ def work():
         **{k: (*v, "fp32") for k, v in scan_stage_work(E, H).items()},
         # fp32 compute: the same bytes, the products at the fp32 peak
         "ce_fwd fp32": (ce_in + 3 * N_CE * 4, 2 * N_CE * H * V, "fp32"),
+        f"ce_fwd fp32 D{DS_D}": (N_CE * DS_D * 4 + DS_D * V * 4 + V * 4 + N_CE * 8
+                                 + 3 * N_CE * 4, 2 * N_CE * DS_D * V, "fp32"),
         "ce_bwd_dh fp32": (ce_in + 3 * N_CE * 4 + N_CE * H * 4, 4 * N_CE * H * V, "fp32"),
         "ce_bwd_dw fp32": (ce_in + 3 * N_CE * 4 + H * V * 4 + V * 4, 4 * N_CE * H * V, "fp32"),
         # h (fp32, or bf16 where the product is), the head, scales, biases, ids
@@ -2105,6 +2132,11 @@ def kernel_fn(name: str) -> str:
                 "resident where they fit" + (", 10 of 16 K chunks streamed beside W^T's"
                                              if name.endswith(" D1024") else "")
                 + "; kv tiles through a ring, two accumulators; ms_merge_kernel the splits)")
+    if name.startswith("ce_fwd fp32"):
+        return ("ce_fwd_f32_kernel (exact fp32 FMAs on the scan's fp32 GEMM loop: 128 x 128 "
+                "tiles, 8 x 8 a thread, two blocks an SM, W copied as it lies by cp.async; the "
+                "fp32 head's online-lse epilogue, storing the target logit; ms_merge_kernel the "
+                "splits)")
     if name.endswith(" D1024") and name.startswith("ce_"):
         return kernel_fn(name[:-6]) + " (K in chunks of 512)"
     if name in ("project_lse", "project_lse dsoftmax int8", "project_candidates int8",
@@ -2145,9 +2177,11 @@ CE_COUNTERS = ("ce_fwd", "ce_bwd_dh", "ce_bwd_dw")
 # the training runs also count the step's one cast of W^T (``cast_wt``),
 # which the bf16 forward and backward share
 STEP_COUNTERS = CE_COUNTERS + ("cast_wt",)
-# phase-2 cases that no path of the run launches, so the kernels line has no
-# entry of theirs; phase 2 logs their bound
-PHASE2_ONLY = ("lstm_scan_fwd fp32 B16384", f"ce_fwd bf16 D{DS_D}")
+# phase-2 cases that no path of the run launches on its own count (phase
+# 5c's config-5 run launches the fp32 forward at D = 128 once a forward,
+# under ce_fwd fp32's count), so the kernels line has no entry of theirs;
+# phase 2 logs their bound
+PHASE2_ONLY = ("lstm_scan_fwd fp32 B16384", f"ce_fwd bf16 D{DS_D}", f"ce_fwd fp32 D{DS_D}")
 SCAN_COUNTERS = ("lstm_scan_fwd", "lstm_scan_bwd", "scan_xw", "scan_fwd_recur", "scan_gates",
                  "scan_recur", "scan_dx")
 # the TPU kernel each scan wrapper's kernels replace (jlm_tpu/ops/lstm_scan.py)

@@ -103,8 +103,6 @@ __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-using jlm::gemm::ldg4_at;
-
 // ldg4_at (gemm_f32.cuh) through the L2 only (ld.global.cg), for data that
 // other blocks of the launch write.
 __device__ __forceinline__ float4 ldcg4_at(const float* p, bool ok) {
@@ -153,12 +151,10 @@ scan_gemm_kernel(const float* __restrict__ A, int lda, const float* __restrict__
     for (int p = 0; p < 2; ++p) {
       const int i = tid + THREADS * p;
       ra[p] = kmajor_at(A, lda, m0, M, k0, ke, K, i);
-      if constexpr (KN) {
-        const int kr = k0 + (i >> 5), n = n0 + 4 * (i & 31);
-        rb[p] = ldg4_at(Bm + (size_t)min(kr, K - 1) * ldb + min(n, N - 4), kr < ke && n < N);
-      } else {
+      if constexpr (KN)
+        rb[p] = kn_at(Bm, ldb, k0, ke, K, n0, N, i);
+      else
         rb[p] = kmajor_at(Bm, ldb, n0, N, k0, ke, K, i);
-      }
     }
   };
   auto put = [&](int buf) {  // the registers into stage buf
@@ -167,7 +163,7 @@ scan_gemm_kernel(const float* __restrict__ A, int lda, const float* __restrict__
       const int i = tid + THREADS * p;
       put_kmajor(sA[buf], i, ra[p]);
       if constexpr (KN)
-        *reinterpret_cast<float4*>(sB[buf] + (i >> 5) * BN + 4 * (i & 31)) = rb[p];
+        put_kn(sB[buf], i, rb[p]);
       else
         put_kmajor(sB[buf], i, rb[p]);
     }

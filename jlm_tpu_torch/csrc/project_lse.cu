@@ -225,12 +225,11 @@ __device__ __forceinline__ void cand_store(const Cand& cd, int lo, int hi, int r
 // splits).  The main loop is the scan GEMM's (gemm_f32.cuh; h is A, W^T the
 // K-major B), and the chunk stream runs across the split's tiles: chunk c
 // + 1's loads, the next tile's first where c is a tile's last, are in
-// flight during chunk c's FMAs and the tile's epilogue.  The epilogue adds
-// the bias, masks columns >= V to -inf and folds the tile into the running
-// (m, s) of the thread's 8 rows; those live in shared memory between tiles
-// (the loop's 64 sums and 16 in-flight load registers fill the 128-register
-// cap of two blocks an SM).  CAND: a tile's candidate runs (cand_table) are
-// written during the tile before it, into the other of two buffers.
+// flight during chunk c's FMAs and the tile's epilogue.  The epilogue is
+// gemm_f32.cuh's online lse (lse_tile), whose running (m, s) lives in
+// shared memory.  CAND: a tile's candidate runs (cand_table) are written
+// during the tile before it, into the other of two buffers, and the
+// epilogue's per-logit callback stores the logits they ask for.
 template <bool Q8, bool CAND>
 __global__ void __launch_bounds__(THREADS, 2)
 proj_ms_f32_kernel(const float* __restrict__ h, int ldh, const void* __restrict__ wt,
@@ -241,11 +240,8 @@ proj_ms_f32_kernel(const float* __restrict__ h, int ldh, const void* __restrict_
   extern __shared__ __align__(16) float fsm[];
   float* sA = fsm;                      // [2][TILE] h chunks, [k][row] swizzled
   float* sB = sA + 2 * TILE;            // [2][TILE] W^T chunks, [k][col] swizzled
-  float* sM = sB + 2 * TILE;            // [8][THREADS] running m of each thread's rows
-  float* sS = sM + 8 * THREADS;         // [8][THREADS] running s
-  float* xM = sS + 8 * THREADS;         // [16][8] the second column warp's (m, s)
-  float* xS = xM + 16 * 8;
-  int* sLo = reinterpret_cast<int*>(xS + 16 * 8);  // [2][BN] candidate runs (CAND)
+  float* sL = sB + 2 * TILE;            // [LSE_FLOATS] the online lse's state
+  int* sLo = reinterpret_cast<int*>(sL + LSE_FLOATS);  // [2][BN] candidate runs (CAND)
   int* sHi = sLo + 2 * BN;
   const int tid = threadIdx.x, ty = ty_of(tid), tx = tx_of(tid);
   const int m0 = blockIdx.x * BM;
@@ -294,12 +290,10 @@ proj_ms_f32_kernel(const float* __restrict__ h, int ldh, const void* __restrict_
 
   float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    sM[i * THREADS + tid] = NEG;
-    sS[i * THREADS + tid] = 0.0f;
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-  }
+  lse_init(sL, tid);
   if (total > 0) {
     fetch(0, 0);
     put(0);
@@ -315,86 +309,27 @@ proj_ms_f32_kernel(const float* __restrict__ h, int ldh, const void* __restrict_
                    BN, V);
     }
     chunk_fma<true>(acc, sA + buf * TILE, sB + buf * TILE, ty, tx);
-    if (kc + 1 == nkc) {
-      // ---- tile t's epilogue: column j of the thread is 64 (j / 4) + 4 tx
-      // + j % 4 ----
-      const int n0 = (vt0 + t) * BN;
+    if (kc + 1 == nkc) {  // tile t's epilogue
       const int* lo = sLo + (t & 1) * BN;
       const int* hi = sHi + (t & 1) * BN;
-      float bj[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = n0 + 64 * (j >> 2) + 4 * tx + (j & 3);
-        bj[j] = n < V ? __ldg(bias + n) : -INFINITY;
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float x[8], tmax = NEG;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          x[j] = acc[i][j] + bj[j];  // -inf past V
-          if constexpr (CAND) {
-            const int col = 64 * (j >> 2) + 4 * tx + (j & 3);
-            cand_store(cd, lo[col], hi[col], m0 + row_of(ty, i), R, x[j]);
-          }
-          tmax = fmaxf(tmax, x[j]);
-          acc[i][j] = 0.0f;
+      lse_tile(acc, sL, bias, (vt0 + t) * BN, V, tid, tx, [&](int i, int j, float x) {
+        if constexpr (CAND) {
+          const int col = col_of(tx, j);
+          cand_store(cd, lo[col], hi[col], m0 + row_of(ty, i), R, x);
         }
-        const float m_old = sM[i * THREADS + tid], m_new = fmaxf(m_old, tmax);
-        float s = sS[i * THREADS + tid] * expf(m_old - m_new);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s += expf(x[j] - m_new);
-        sM[i * THREADS + tid] = m_new;
-        sS[i * THREADS + tid] = s;
-      }
+      });
     }
     if (c + 1 < total) put(buf ^ 1);  // buf ^ 1 was last read in chunk c - 1
     __syncthreads();
     t = t1;
     kc = kc1;
   }
-
-  // ---- merge the 8 column lanes of each row group (lane bits 0-2) by
-  // shuffles, then the row's two column warps through shared memory ----
-  float m[8], s[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    m[i] = sM[i * THREADS + tid];
-    s[i] = sS[i * THREADS + tid];
-#pragma unroll
-    for (int off = 1; off <= 4; off <<= 1) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, m[i], off);
-      const float s2 = __shfl_xor_sync(0xffffffffu, s[i], off);
-      merge_ms(m[i], s[i], m2, s2);
-    }
-  }
-  const bool lead = (tid & 7) == 0;
-  if (lead && tx >= 8) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      xM[ty * 8 + i] = m[i];
-      xS[ty * 8 + i] = s[i];
-    }
-  }
-  __syncthreads();
-  if (lead && tx < 8) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      merge_ms(m[i], s[i], xM[ty * 8 + i], xS[ty * 8 + i]);
-      const int row = m0 + row_of(ty, i);
-      if (row < R) {
-        m_part[(size_t)blockIdx.y * R + row] = m[i];
-        s_part[(size_t)blockIdx.y * R + row] = s[i];
-      }
-    }
-  }
+  lse_finish(sL, m_part, s_part, blockIdx.y, m0, R, tid, ty, tx);
 }
 
 // Dynamic shared memory of proj_ms_f32_kernel: the two stages of both
-// operands, the running (m, s), the column warps' exchange, the
-// candidate-run buffers.
-constexpr int F32_SMEM =
-    (4 * jlm::gemm::TILE + 16 * THREADS + 2 * 16 * 8 + 4 * jlm::gemm::BN) * 4;
+// operands, the online lse's state, the candidate-run buffers.
+constexpr int F32_SMEM = (4 * jlm::gemm::TILE + jlm::gemm::LSE_FLOATS + 4 * jlm::gemm::BN) * 4;
 
 // Second pass: merge the vocab splits (of every block) of each row.  Any
 // output may be null; cand [R, C] raw candidate logits become

@@ -126,11 +126,35 @@
 //   halved that traffic and read no faster, so the tiles are bound by
 //   their own latency (the epilogue's exponentials and the two barriers
 //   leave the tensor cores idle), not by the L2.
-// fp32 compute (the *_f32 kernels; the bf16 tiling does not carry over:
-// 128 rows x D of fp32 h would be 256 KB at D = 512):
-// - ce_fwd_f32: a block owns 64 rows, K streams through shared memory in
-//   chunks of 32 (h transposed, W in its own [D, V] layout); each thread
-//   keeps a 4 x 4 tile of logits and an online (m, s) for its 4 rows.
+// fp32 forward design (ce_fwd_f32_kernel; exact fp32 FMAs on the CUDA
+// cores, no TF32 and no tensor-core instruction: the parity mode needs
+// unrounded operands), replacing _ce_fwd_kernel in fp32.
+// - Bound: operations, 2 N D V (0.78 ms at N = 1,024, D = 512, V = 50,000
+//   at 67 TFLOP/s).  W (102 MB in fp32) comes from HBM about once: the row
+//   blocks of a split walk the same W tiles together.
+// - The main loop is the LSTM scan's fp32 GEMM (gemm_f32.cuh): 128 rows x
+//   128 vocab columns a block tile, 8 x 8 a thread, K chunks of 16 through
+//   two shared-memory stages, the next chunk's loads in flight under the
+//   FMAs, one barrier a chunk, two blocks an SM.  h is its K-major A
+//   (through registers, transposed and swizzled on the way in) and W its
+//   [K][N] B, 16 bytes along V a copy, stored as it lies by cp.async: no
+//   register holds it under the FMAs.  The fetch is unconditional, as in
+//   the scan's loop: under a branch (c + 1 < total) the compiler placed it
+//   after the chunk's FMAs, and the loads' latency showed every chunk
+//   (NVIDIA H100 80GB HBM3, 700 W, 50 calls in a row at D = 512: 1.45 ms;
+//   1.24 unconditional; 1.19 with W by cp.async, as the scan's GEMM alone
+//   at the same shape; PERF.md).
+// - The chunk stream runs across the tiles of the block's vocab split, so
+//   a tile's epilogue (bias, mask past V, online (m, s) with accurate expf;
+//   gemm_f32.cuh's lse_tile, shared with the fp32 head) runs under the next
+//   tile's first loads; its callback stores t where a column equals the
+//   row's target (the block's 128 targets in shared memory: the loop fills
+//   the 128-register cap).  A row's target column lies in one tile of one
+//   split, so one thread of the grid writes t: no atomics, and t of a
+//   target outside [0, V) keeps the caller's 0.
+// - Splits: ops/softmax_ce.py::fwd_plan_f32 fills one wave of 2 x 132
+//   blocks (8 row blocks x 33 splits of 12 tiles at N = 1,024, V =
+//   50,000); ms_merge_kernel merges them in split order (deterministic).
 //
 // fp32 backward design (ce_bwd_dh_f32_kernel<Q>, ce_bwd_dw_f32_kernel<Q>:
 // one body, bwd_f32_body<DW, Q>; exact fp32 FMAs on the CUDA cores, no
@@ -177,6 +201,7 @@
 //   blocks, each walking every row tile.  The row blocks of one split
 //   walk the same W tiles together, so W comes from HBM about once.
 #include "common.cuh"
+#include "gemm_f32.cuh"
 #include "hopper.cuh"
 #include "wgmma.cuh"
 
@@ -954,111 +979,91 @@ cast_wt_kernel(const T* __restrict__ W, bf16* __restrict__ wt, int D, int V, int
 
 // ---------------------------------------------------------- fp32 compute
 
-constexpr int G_R = 64, G_V = 64, G_K = 32;  // ce_fwd_f32: rows, columns, K stage
-
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-// Thread (ty, tx) of a 16 x 16 grid owns rows ty*4..ty*4+3 and columns
-// tx*4..tx*4+3 of each 64 x 64 logits tile.
-__global__ void __launch_bounds__(THREADS)
-ce_fwd_f32_kernel(const float* __restrict__ h, const float* __restrict__ W,
+// The fp32 forward (design at the top): h [N, D] (D a multiple of 16), W
+// [D, ldw] as it lies (zero past V up to ldw, a multiple of 4).  Grid: (row
+// blocks of 128, vocab splits of tiles_per_split 128-column tiles).  The
+// main loop is gemm_f32.cuh's: h the K-major A (through registers), W the
+// [K][N] B (cp.async straight into its stage); the chunk stream runs
+// across the split's tiles, so chunk c + 1's loads (the next tile's first
+// where c is a tile's last) are in flight during chunk c's FMAs and the
+// tile's epilogue, the online lse (lse_tile) whose callback stores the one
+// logit of a row that its target names.
+__global__ void __launch_bounds__(THREADS, 2)
+ce_fwd_f32_kernel(const float* __restrict__ h, const float* __restrict__ W, int ldw,
                   const float* __restrict__ bias, const int* __restrict__ y,
                   float* __restrict__ m_part, float* __restrict__ s_part,
-                  float* __restrict__ t_out, int N, int D, int V,
-                  int tiles_per_split) {
-  __shared__ __align__(16) float sA[G_K][G_R];  // [k][row]
-  __shared__ __align__(16) float sB[G_K][G_V];  // [k][col]
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int row0 = blockIdx.x * G_R;
-  const int n_tiles = (V + G_V - 1) / G_V;
-  const int vt_begin = blockIdx.y * tiles_per_split;
-  const int vt_end = min(vt_begin + tiles_per_split, n_tiles);
+                  float* __restrict__ t_out, int N, int D, int V, int tiles_per_split) {
+  using namespace jlm::gemm;
+  extern __shared__ __align__(16) float fsm[];
+  float* sA = fsm;                      // [2][TILE] h chunks, [k][row] swizzled
+  float* sB = sA + 2 * TILE;            // [2][TILE] W chunks, [k][col] as they lie
+  float* sL = sB + 2 * TILE;            // [LSE_FLOATS] the online lse's state
+  int* sY = reinterpret_cast<int*>(sL + LSE_FLOATS);  // [BM] targets, -1 where none
+  const int tid = threadIdx.x, ty = ty_of(tid), tx = tx_of(tid);
+  const int m0 = blockIdx.x * BM;
+  const int n_tiles = (V + BN - 1) / BN, vt0 = blockIdx.y * tiles_per_split;
+  const int nt = max(0, min(vt0 + tiles_per_split, n_tiles) - vt0);
+  const int nkc = D / BK, total = nt * nkc;
 
-  int yr[4];
-  float m_run[4], s_run[4];
+  float4 ra[2];
+  // tile t's chunk kc: W's by cp.async into stage buf, h's into registers
+  auto fetch = [&](int t, int kc, int buf) {
+    const int k0 = kc * BK, n0 = (vt0 + t) * BN;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty * 4 + i;
-    yr[i] = row < N ? y[row] : -1;
-    m_run[i] = NEG;
-    s_run[i] = 0.0f;
+    for (int p = 0; p < 2; ++p)
+      copy_kn(sB + buf * TILE, W, ldw, k0, D, D, n0, ldw, tid + THREADS * p);
+    jlm::cp_async_commit();
+#pragma unroll
+    for (int p = 0; p < 2; ++p) ra[p] = kmajor_at(h, D, m0, N, k0, D, D, tid + THREADS * p);
+  };
+  auto put = [&](int buf) {  // h's registers into stage buf; W's copies landed
+#pragma unroll
+    for (int p = 0; p < 2; ++p) put_kmajor(sA + buf * TILE, tid + THREADS * p, ra[p]);
+    jlm::cp_async_wait<0>();
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  lse_init(sL, tid);
+  if (tid < BM) {  // a target outside [0, V) matches no column, not even one past V
+    const int row = m0 + tid, yr = row < N ? y[row] : -1;
+    sY[tid] = yr >= 0 && yr < V ? yr : -1;
   }
-  for (int vt = vt_begin; vt < vt_end; ++vt) {
-    const int n0 = vt * G_V;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-    for (int k0 = 0; k0 < D; k0 += G_K) {
-      __syncthreads();  // previous stage consumed
-      for (int i = tid; i < G_R * G_K / 4; i += THREADS) {
-        const int r = i % G_R, kq = i / G_R, row = row0 + r;
-        const float4 v = row < N ? ld4(h + (size_t)row * D + k0 + 4 * kq)
-                                 : make_float4(0.f, 0.f, 0.f, 0.f);
-        sA[4 * kq + 0][r] = v.x;
-        sA[4 * kq + 1][r] = v.y;
-        sA[4 * kq + 2][r] = v.z;
-        sA[4 * kq + 3][r] = v.w;
-      }
-      for (int i = tid; i < G_K * G_V; i += THREADS) {
-        const int k = i / G_V, c = i % G_V, n = n0 + c;
-        sB[k][c] = n < V ? W[(size_t)(k0 + k) * V + n] : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int k = 0; k < G_K; ++k) {
-        const float4 a = ld4(&sA[k][ty * 4]), b = ld4(&sB[k][tx * 4]);
-        const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
+  fetch(0, 0, 0);
+  put(0);
+  __syncthreads();
+  for (int c = 0, t = 0, kc = 0; c < total; ++c) {
+    const int buf = c & 1, t1 = kc + 1 == nkc ? t + 1 : t, kc1 = kc + 1 == nkc ? 0 : kc + 1;
+    // unconditional, as in the scan's loop (past the split's last tile it
+    // loads data no tile uses): a fetch under a branch was placed after
+    // the FMAs, its loads' latency exposed every chunk
+    fetch(t1, kc1, buf ^ 1);  // buf ^ 1 was last read in chunk c - 1
+    chunk_fma<false>(acc, sA + buf * TILE, sB + buf * TILE, ty, tx);
+    if (kc + 1 == nkc) {  // tile t's epilogue; one thread of the grid owns a row's target
+      const int n0 = (vt0 + t) * BN;
+      lse_tile(acc, sL, bias, n0, V, tid, tx, [&](int i, int j, float x) {
+        const int r = row_of(ty, i);
+        if (n0 + col_of(tx, j) == sY[r]) t_out[m0 + r] = x;
+      });
     }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float x[4], tmax = NEG;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + tx * 4 + j;
-        x[j] = n < V ? acc[i][j] + bias[n] : -INFINITY;
-        if (n < V && n == yr[i]) t_out[row0 + ty * 4 + i] = x[j];  // the one match
-        tmax = fmaxf(tmax, x[j]);
-      }
-      const float m_new = fmaxf(m_run[i], tmax);
-      float s = s_run[i] * expf(m_run[i] - m_new);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s += expf(x[j] - m_new);
-      m_run[i] = m_new;
-      s_run[i] = s;
-    }
+    put(buf ^ 1);
+    __syncthreads();
+    t = t1;
+    kc = kc1;
   }
-
-  // ---- merge the 16 column threads of each row group (one half-warp) ----
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int off = 1; off <= 8; off <<= 1) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, m_run[i], off);
-      const float s2 = __shfl_xor_sync(0xffffffffu, s_run[i], off);
-      merge_ms(m_run[i], s_run[i], m2, s2);
-    }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + ty * 4 + i;
-      if (row < N) {
-        m_part[(size_t)blockIdx.y * N + row] = m_run[i];
-        s_part[(size_t)blockIdx.y * N + row] = s_run[i];
-      }
-    }
-  }
+  lse_finish(sL, m_part, s_part, blockIdx.y, m0, N, tid, ty, tx);
 }
+
+// Dynamic shared memory of ce_fwd_f32_kernel: the two stages of both
+// operands, the online lse's state and the block's targets.
+constexpr int FWD_F32_SMEM = (4 * jlm::gemm::TILE + jlm::gemm::LSE_FLOATS + jlm::gemm::BM) * 4;
 
 // ------------------------------------------------- backward (fp32): FMAs
 
@@ -1469,18 +1474,25 @@ cudaError_t sum_splits(const float* part, float* out, size_t count, int splits,
 
 extern "C" {
 
-// fp32 compute: h [N, D] and W [D, V] fp32, bias [V] fp32, y [N] int32 (a
-// target outside [0, V) matches no column); m_part/s_part [splits, N]
-// scratch; m_out/s_out [N]; t_out [N] must be zeroed by the caller (rows
-// whose target is in range get their logit written).
+// fp32 compute: h [N, D] (D a multiple of 16) and W [D, ldw] fp32 (zero past
+// V up to ldw, a multiple of 4; rows 16-byte aligned), bias [V] fp32, y [N]
+// int32 (a target outside [0, V) matches no column); m_part/s_part [splits,
+// N] scratch; m_out/s_out [N]; t_out [N] must be zeroed by the caller (rows
+// whose target is in range get their logit written); the plan (splits,
+// tiles_per_split) as ops/softmax_ce.py::fwd_plan_f32 makes it.
 int jlm_ce_fwd_f32(const float* h, const float* W, const float* bias, const int* y,
                    float* m_part, float* s_part, float* m_out, float* s_out, float* t_out,
-                   int N, int D, int V, int splits, int tiles_per_split, void* stream) {
+                   int N, int D, int V, int ldw, int splits, int tiles_per_split,
+                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((N + G_R - 1) / G_R, splits);
-  ce_fwd_f32_kernel<<<grid, THREADS, 0, st>>>(h, W, bias, y, m_part, s_part, t_out, N, D, V,
-                                              tiles_per_split);
-  cudaError_t err = cudaGetLastError();
+  if (D % jlm::gemm::BK || ldw % 4 || ldw < V || splits < 1 || tiles_per_split < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_smem(ce_fwd_f32_kernel, FWD_F32_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + jlm::gemm::BM - 1) / jlm::gemm::BM, splits);
+  ce_fwd_f32_kernel<<<grid, THREADS, FWD_F32_SMEM, st>>>(h, W, ldw, bias, y, m_part, s_part,
+                                                         t_out, N, D, V, tiles_per_split);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   ms_merge_kernel<<<(N + 255) / 256, 256, 0, st>>>(m_part, s_part, m_out, s_out, N, splits);
   return (int)cudaGetLastError();

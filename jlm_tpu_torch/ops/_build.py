@@ -48,7 +48,7 @@ _SIGNATURES = {
                            _I, _I, _I, ctypes.c_float, _P],
     "jlm_cand_dot": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
     "jlm_cell_cand": [_P, _P, _P, _I] + [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P],
-    "jlm_ce_fwd_f32": [_P] * 9 + [_I] * 5 + [_P],
+    "jlm_ce_fwd_f32": [_P] * 9 + [_I] * 6 + [_P],
     "jlm_ce_fwd_bf16": [_P] * 9 + [_I] * 7 + [_P],
     "jlm_ce_bwd_dh_f32": [_P] * 9 + [_I] * 9 + [_P],
     "jlm_ce_bwd_dw_f32": [_P] * 10 + [_I] * 7 + [_P],

@@ -280,8 +280,9 @@ def _block_plan(head, config, H, device, compute_dtype, int8_mxu):
 # Each block's fixed cost in tile times, for vocab_splits: the int8 kernel
 # loads its resident rows (about 4 tiles); the bf16 kernel and the int8
 # kernel past 1,024 stream h with every tile, and pay their ring's fill and
-# their epilogue (about 1); the fp32 kernel streams h too, and pays its
-# first chunk and the merge of its column threads (about 1).
+# their epilogue (about 1); the fp32 kernels (this head's and the fused CE
+# forward's, ops/softmax_ce.py::fwd_plan_f32) stream h too, and pay their
+# first chunk and the merge of their column threads (about 1).
 INT8_BLOCK_TILES = 4
 BF16_BLOCK_TILES = 1
 FP32_BLOCK_TILES = 1

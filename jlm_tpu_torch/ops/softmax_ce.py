@@ -28,6 +28,9 @@ The bf16 forward and backward (``wgmma`` + TMA) read ``W^T`` bf16, which
 :func:`cast_wt` writes in the pass that casts W, once a step for both
 (``ce_loss_fused``), and launch as :func:`fwd_plan` and :func:`bwd_plan`
 lay them out (resident rows, ring slots, vocab splits, slices of D); the
+fp32 forward reads h and W as they are (W padded to a multiple of 4
+columns only where V is not one) and launches as :func:`fwd_plan_f32`
+lays it out (128-row blocks over vocab splits of 128-column tiles); the
 fp32 backward reads W as it is and ``h^T`` (transposed here) and launches
 as :func:`bwd_plan_f32` lays it out (rows and columns a block, the logits
 over all of D up to 1,024, output slices past it).  The plans are pure
@@ -45,11 +48,7 @@ import numpy as np
 import torch
 
 from jlm_tpu_torch.ops import _build
-
-# Block shape of csrc/softmax_ce.cu's ce_fwd_f32: (rows, vocab columns) per
-# block and the blocks an SM runs at once (the other kernels plan with
-# fwd_plan, bwd_plan and bwd_plan_f32).
-_FWD_TILE_F32 = (64, 64, 2)
+from jlm_tpu_torch.ops.project import FP32_BLOCK_TILES, vocab_splits
 
 Tensor = torch.Tensor
 
@@ -134,15 +133,6 @@ def _f32_args(h, W, b, y):
         if t.data_ptr() % 16:
             raise ValueError("h and W must be 16-byte aligned")
     return (hb, Wb, b.float().contiguous(), y.to(torch.int32).contiguous(), N, h.shape[1], V)
-
-
-def _splits(n_tiles: int, row_blocks: int, per_sm: int, device) -> Tuple[int, int]:
-    """Vocab splits over grid.y so one wave of ``per_sm`` blocks per SM is
-    filled; returns ``(splits, tiles_per_split)``."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = max(1, min(n_tiles, per_sm * sms // row_blocks))
-    per_split = -(-n_tiles // splits)
-    return -(-n_tiles // per_split), per_split
 
 
 def _ptr(t: Optional[Tensor]):
@@ -333,16 +323,53 @@ def bwd_plan_f32(kind: str, N: int, D: int, V: int, sms: int):
     return types.MappingProxyType(plan)  # cached: read-only
 
 
+# The fp32 forward's tile (csrc/softmax_ce.cu's ce_fwd_f32_kernel, on
+# gemm_f32.cuh's loop): rows and vocab columns a block, blocks an SM.
+F32_FWD_TILE, F32_FWD_PER_SM = 128, 2
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_plan_f32(N: int, D: int, V: int, sms: int):
+    """Launch plan of the fp32 forward kernel at ``N`` rows, hidden width
+    ``D`` (a multiple of 128), vocabulary ``V`` on ``sms`` SMs; a pure
+    function.
+
+    A block owns 128 rows and walks the 128-column vocab tiles of its
+    split, the K chunks of one tile running on into the next's.  Row
+    blocks x ``splits`` of the vocab tiles (``tiles_per_split`` each, every
+    split at least one), split as ``ops/project.py::vocab_splits`` splits
+    the fp32 head: the fewest tile times over waves of two blocks an SM, a
+    block's first chunk and final merge costing about one tile (8 row
+    blocks x 33 splits of 12 tiles at N = 1,024, V = 50,000, one wave of
+    264 on 132 SMs)."""
+    if D % 128 or D <= 0 or N <= 0 or V <= 0:
+        raise ValueError(f"fwd_plan_f32: D a multiple of 128 and N, V > 0, got {N}, {D}, {V}")
+    q_blocks, n_tiles = -(-N // F32_FWD_TILE), -(-V // F32_FWD_TILE)
+    splits, per_split = vocab_splits(n_tiles, q_blocks, F32_FWD_PER_SM * sms, FP32_BLOCK_TILES,
+                                     max_splits=n_tiles)
+    return types.MappingProxyType(dict(  # cached: read-only
+        rows=F32_FWD_TILE, cols=F32_FWD_TILE, grid=(q_blocks, splits), splits=splits,
+        tiles_per_split=per_split))
+
+
+def _pad_cols4(W: Tensor) -> Tuple[Tensor, int]:
+    """``(W [D, ldw], ldw)``: W zero-padded to a multiple of 4 columns (a
+    copy only where V is not one), so every row is 16-byte aligned."""
+    V = W.shape[1]
+    ldw = -(-V // 4) * 4
+    return (torch.nn.functional.pad(W, (0, ldw - V)).contiguous() if ldw != V else W), ldw
+
+
 def _f32_bwd_operands(h: Tensor, W: Tensor):
     """``(h^T [D, ldh], W [D, ldw], ldh, ldw)`` for the fp32 backward: h
     transposed and W as it is, each zero-padded to a multiple of 4 columns
-    (a copy of W only where V is not one), so every row is 16-byte
-    aligned."""
-    N, V = h.shape[0], W.shape[1]
-    ldh, ldw = -(-N // 4) * 4, -(-V // 4) * 4
+    (:func:`_pad_cols4`: a copy of W only where V is not one), so every row
+    is 16-byte aligned."""
+    N = h.shape[0]
+    ldh = -(-N // 4) * 4
     pad = torch.nn.functional.pad
     hT = (pad(h.t(), (0, ldh - N)) if ldh != N else h.t()).contiguous()
-    Wp = pad(W, (0, ldw - V)).contiguous() if ldw != V else W
+    Wp, ldw = _pad_cols4(W)
     return hT, Wp, ldh, ldw
 
 
@@ -428,12 +455,14 @@ def ce_fwd_raw(h: Tensor, W: Tensor, b: Tensor, y: Tensor,
             _ptr(out[0]), _ptr(out[1]), _ptr(out[2]), N, D, V, plan["n_res"], plan["n_sub"],
             splits, per_split, stream)
     else:
-        rows, cols, per_sm = _FWD_TILE_F32
-        splits, per_split = _splits(-(-V // cols), -(-N // rows), per_sm, h.device)
+        plan = fwd_plan_f32(N, D, V, _sms(h.get_device()))
+        splits = plan["splits"]
+        Wp, ldw = _pad_cols4(Wb)
         part = torch.empty((2, splits, N), dtype=torch.float32, device=h.device)
         err = _build.lib().jlm_ce_fwd_f32(
-            _ptr(hb), _ptr(Wb), _ptr(bf), _ptr(yi), _ptr(part[0]), _ptr(part[1]),
-            _ptr(out[0]), _ptr(out[1]), _ptr(out[2]), N, D, V, splits, per_split, stream)
+            _ptr(hb), _ptr(Wp), _ptr(bf), _ptr(yi), _ptr(part[0]), _ptr(part[1]),
+            _ptr(out[0]), _ptr(out[1]), _ptr(out[2]), N, D, V, ldw, splits,
+            plan["tiles_per_split"], stream)
     _build.check(err, "ce_fwd kernel")
     ce_fwd_raw.launches += 1
     return out[0], out[1], out[2]

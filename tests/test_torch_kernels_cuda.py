@@ -351,15 +351,16 @@ def test_ce_fwd_kernel_vs_plain(cuda, D, N, V):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("N,D,V", [(1024, 512, 50_000), (1000, 1024, 50_000), (7, 128, 1001)])
-def test_ce_forward_is_deterministic(cuda, N, D, V):
-    """Two calls of the bf16 forward on the same inputs give bit-identical
-    (m, s, t): each split's partials are written once and merged in split
-    order, no atomics."""
+def test_ce_forward_is_deterministic(cuda, N, D, V, dtype):
+    """Two calls of the forward (bf16, or exact fp32) on the same inputs
+    give bit-identical (m, s, t): each split's partials are written once and
+    merged in split order, each target logit by one thread, no atomics."""
     from jlm_tpu_torch.ops import softmax_ce as ce
 
     h, W, b, y, _ = _ce_case(cuda, 34, N, D, V, neg_every=4)
-    first, again = (ce.ce_fwd_raw(h, W, b, y, torch.bfloat16) for _ in range(2))
+    first, again = (ce.ce_fwd_raw(h, W, b, y, dtype) for _ in range(2))
     for a, w, name in zip(first, again, "mst"):
         assert torch.equal(a, w), name
 
@@ -740,6 +741,30 @@ def test_ce_fp32_kernels_vs_plain(cuda, N, D, V, neg_every):
     dWp, dbp = ce.ce_bwd_dw_ref(h, W, b, y, lse, g, -g, f32)
     assert dW.shape == (D, V) and db.shape == (V,)
     assert _rel(dW, dWp) <= 1e-5 and _rel(db, dbp) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,V", [(77, 1001), (129, 5003), (300, 1001), (1000, 5003)])
+def test_ce_fwd_fp32_ragged_vs_plain(cuda, N, V):
+    """The fp32 forward at ragged shapes (N not a multiple of the 128-row
+    block, V not of 4, so W is padded, nor of the 128-column tile) at a
+    D-softmax block's width, D = 128, a third of the targets -1 and one
+    target = V, on weights of scale 0.5 (a peaked softmax): m + log s and t
+    within 1e-5 abs of the plain fp32 version with TF32 off (exact fp32
+    products, sums in another order), t = 0 where no column owns the
+    target, one launch a call."""
+    from jlm_tpu_torch.ops import softmax_ce as ce
+
+    f32 = torch.float32
+    h, W, b, y, _ = _ce_case(cuda, 35, N, 128, V, neg_every=3, scale=0.5)
+    y[1] = V
+    n0 = ce.ce_fwd_raw.launches
+    m, s, t = ce.ce_fwd_raw(h, W, b, y, f32)
+    assert ce.ce_fwd_raw.launches == n0 + 1
+    mp, sp, tp = ce.ce_fwd_raw_ref(h, W, b, y, f32)
+    assert float((m + torch.log(s) - mp - torch.log(sp)).abs().max()) <= 1e-5
+    assert float((t - tp).abs().max()) <= 1e-5
+    assert float(t[::3].abs().max()) == 0.0 and float(t[1]) == 0.0
 
 
 @pytest.mark.cuda

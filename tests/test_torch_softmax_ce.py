@@ -333,6 +333,35 @@ def test_bwd_plan_slots():
 
 @pytest.mark.parametrize("N,D,V", [
     (1024, 512, 50_000),    # the training step's head
+    (1024, 128, 50_000),    # config 5's 50,000 x 128 D-softmax block
+    (77, 128, 1_001),       # rows and vocab under a wave, a ragged tile
+    (129, 512, 5_003),      # one row past a block; V not a multiple of 4
+    (1, 1_024, 300),        # one row, three tiles
+])
+def test_fwd_plan_f32_covers_every_row_and_column(N, D, V):
+    """The fp32 forward's launch plan (a pure function of N, D, V and the
+    SM count, here an H100's 132): every row in one 128-row block, every
+    128-column vocab tile in exactly one split (so every row block x tile
+    pair once), no split empty, and the grid at most one wave of two blocks
+    an SM; at the training shape 8 row blocks x 33 splits of 12 tiles."""
+    plan = ce.fwd_plan_f32(N, D, V, 132)
+    q_blocks, splits = plan["grid"]
+    rows, cols, per = plan["rows"], plan["cols"], plan["tiles_per_split"]
+    assert rows == cols == 128 and splits == plan["splits"]
+    assert q_blocks * splits <= 2 * 132
+    np.testing.assert_array_equal(_owners(N, rows, q_blocks, 1), 1)
+    n_tiles = -(-V // cols)
+    np.testing.assert_array_equal(_owners(n_tiles, 1, splits, per), 1)
+    np.testing.assert_array_equal(_owners(V, cols, splits, per), 1)
+    assert (splits - 1) * per < n_tiles  # no split is empty
+    if (N, V) == (1024, 50_000):
+        assert (q_blocks, splits, per) == (8, 33, 12)
+    with pytest.raises(ValueError):
+        ce.fwd_plan_f32(N, 192, V, 132)
+
+
+@pytest.mark.parametrize("N,D,V", [
+    (1024, 512, 50_000),    # the training step's head
     (1024, 1024, 50_000),   # H = 1,024: half of K's q chunks streamed
     (1000, 128, 16_000),    # a D-softmax block's width, ragged rows
     (7, 128, 1001),         # rows and vocab under one block and tile

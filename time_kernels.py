@@ -29,9 +29,13 @@ in training, and casting W itself), ``ce_bwd_dh`` and ``ce_bwd_dw`` (the
 bf16 cast of h and W included), the cast alone and the ``torch.addmm`` +
 ``torch.logsumexp`` pair, and the fp32 backward (``precision="highest"``:
 ``ce_bwd_dh`` and ``ce_bwd_dw`` in fp32, the wrappers' transposed copy of h
-included) beside its plain versions on the card (cuBLAS fp32 products and
-elementwise work), at D = 512 and 1,024 (``--only ce_``), and the fp32
-backward alone at D = 2,048, where its output is cut into two slices.  Each is
+included) and the fp32 forward (``ce_fwd`` in fp32) beside their plain
+versions on the card (cuBLAS fp32 products and elementwise work) and the
+forward beside ``cross_entropy(addmm)``, at D = 512 and 1,024 (``--only
+ce_``), and the fp32 kernels alone at D = 2,048, where the backward's
+output is cut into two slices, and the fp32 forward at a D-softmax
+block's width, D = 128, a third of the targets -1 (``--only ce_fwd``:
+the forwards alone).  Each is
 timed two ways (``chip_smoke``'s helpers): ``one_ms``, the median of 10 calls each between two CUDA events
 (the wrapper's Python before the launch counts), and ``row_ms``, the events
 around 50 calls in a row divided by 50 (the device's time where the device
@@ -132,7 +136,8 @@ def cases(dev):
         out += scan_cases(dev, g, hw, ew, cd)
     for d in (512, 1024):
         out += ce_cases(dev, g, d)
-    out += ce_cases(dev, g, 2048, bf16=False)
+    out += ce_cases(dev, g, 2048, parts=("fp32 fwd", "fp32 bwd"))
+    out += ce_cases(dev, g, 128, parts=("fp32 fwd",), unowned_every=3)
     return out
 
 
@@ -215,17 +220,23 @@ def f32_cases(dev, g, cfg5):
     return out
 
 
-def ce_cases(dev, g, D, bf16=True):
-    """The fused CE's three bf16 kernels through their wrappers at the
-    training rows (N = 1,024, V = 50,000, fp32 master values): ``ce_fwd``
-    casting W itself (``cast_wt``) and, as the trainer's step calls it,
-    with the step's W^T given (``wt``: the kernel alone; a tree whose
-    forward takes no ``wt`` records the refusal); the cast alone; the
-    yardstick pair ``torch.addmm`` bf16 + ``torch.logsumexp`` (2 calls, not
-    ranked); and ``ce_bwd_dh`` and ``ce_bwd_dw`` with the mean loss's
-    cotangent, casting W as before; then ``ce_bwd_dh`` and ``ce_bwd_dw`` in
-    fp32 with the same cotangent, each beside its plain version (only these
-    where ``bf16`` is false)."""
+def ce_cases(dev, g, D, parts=("bf16", "fp32 fwd", "fp32 bwd"), unowned_every=0):
+    """The fused CE's kernels through their wrappers at the training rows
+    (N = 1,024, V = 50,000, fp32 master values), in ``parts``: "bf16", its
+    three kernels: ``ce_fwd`` casting W itself (``cast_wt``) and, as the
+    trainer's step calls it, with the step's W^T given (``wt``: the kernel
+    alone; a tree whose forward takes no ``wt`` records the refusal); the
+    cast alone; the yardstick pair ``torch.addmm`` bf16 +
+    ``torch.logsumexp`` (2 calls, not ranked); and ``ce_bwd_dh`` and
+    ``ce_bwd_dw`` with the mean loss's cotangent, casting W as before;
+    "fp32 fwd", ``ce_fwd`` in fp32 beside its plain version, the fp32 GEMM
+    loop alone on the same operands (``scan_xw``: h @ W by the scan's
+    ``scan_gemm_kernel<KN>``, its [N, V] output written) and, where every
+    target is owned, the yardstick ``cross_entropy(addmm)`` (2 calls, not
+    ranked); "fp32 bwd", ``ce_bwd_dh`` and ``ce_bwd_dw`` in fp32 with the
+    same cotangent, each beside its plain version.  ``unowned_every``: every
+    so many targets -1 (owned by another D-softmax block)."""
+    from jlm_tpu_torch.ops import lstm_scan as ls
     from jlm_tpu_torch.ops import softmax_ce as ce
 
     bf = torch.bfloat16
@@ -233,6 +244,8 @@ def ce_cases(dev, g, D, bf16=True):
     W = torch.randn(D, V, generator=g, device=dev) * 0.05
     b = torch.randn(V, generator=g, device=dev) * 0.1
     y = torch.randint(0, V, (N_CE,), generator=g, device=dev)
+    if unowned_every:
+        y[::unowned_every] = -1
     m, s = ce.ce_fwd_raw_ref(h, W, b, y, bf)[:2]
     lse = m + torch.log(s)
     ga = torch.full((N_CE,), 1.0 / N_CE, device=dev)
@@ -241,19 +254,30 @@ def ce_cases(dev, g, D, bf16=True):
     args32 = (h, W, b, y, m32 + torch.log(s32), ga, -ga, torch.float32)
     wt = ce.cast_wt(W, D)
     hb, Wb, bb = h.to(bf), W.to(bf), b.to(bf)
-    fp32 = [(f"ce_bwd_dh fp32 D{D}", lambda: ce.ce_bwd_dh(*args32)),
-            (f"ce_bwd_dh fp32 plain D{D}", lambda: ce.ce_bwd_dh_ref(*args32)),
-            (f"ce_bwd_dw fp32 D{D}", lambda: ce.ce_bwd_dw(*args32)),
-            (f"ce_bwd_dw fp32 plain D{D}", lambda: ce.ce_bwd_dw_ref(*args32))]
-    if not bf16:
-        return fp32
+    f32 = torch.float32
+    out = []
+    if "fp32 fwd" in parts:
+        out += [(f"ce_fwd fp32 D{D}", lambda: ce.ce_fwd_raw(h, W, b, y, f32)),
+                (f"ce_fwd fp32 plain D{D}", lambda: ce.ce_fwd_raw_ref(h, W, b, y, f32)),
+                (f"ce_fwd fp32 loop alone scan_xw D{D}", lambda: ls.scan_xw(h, W))]
+        if not unowned_every:
+            out.append((f"ce_fwd fp32 yardstick cross_entropy(addmm) D{D} (2 calls)",
+                        lambda: torch.nn.functional.cross_entropy(torch.addmm(b, h, W), y,
+                                                                  reduction="none")))
+    if "fp32 bwd" in parts:
+        out += [(f"ce_bwd_dh fp32 D{D}", lambda: ce.ce_bwd_dh(*args32)),
+                (f"ce_bwd_dh fp32 plain D{D}", lambda: ce.ce_bwd_dh_ref(*args32)),
+                (f"ce_bwd_dw fp32 D{D}", lambda: ce.ce_bwd_dw(*args32)),
+                (f"ce_bwd_dw fp32 plain D{D}", lambda: ce.ce_bwd_dw_ref(*args32))]
+    if "bf16" not in parts:
+        return out
     return [(f"ce_fwd bf16 D{D}", lambda: ce.ce_fwd_raw(h, W, b, y, bf)),
             (f"ce_fwd bf16 D{D} wt", lambda: ce.ce_fwd_raw(h, W, b, y, bf, wt=wt)),
             (f"ce_fwd's cast_wt D{D}", lambda: ce.cast_wt(W, D)),
             (f"ce_fwd yardstick torch.addmm + torch.logsumexp bf16 D{D} (2 calls)",
              lambda: torch.logsumexp(torch.addmm(bb, hb, Wb), dim=1)),
             (f"ce_bwd_dh bf16 D{D}", lambda: ce.ce_bwd_dh(*args)),
-            (f"ce_bwd_dw bf16 D{D}", lambda: ce.ce_bwd_dw(*args))] + fp32
+            (f"ce_bwd_dw bf16 D{D}", lambda: ce.ce_bwd_dw(*args))] + out
 
 
 def scan_cases(dev, g, Hs, Es, cd):
