@@ -89,6 +89,21 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
    and config-5 kernel forward, 50k dequant, 50k fused frame) on head
    weights of scale ``PEAKED``, where an operand rounded to TF32 would
    move a score; each run's launches are counted by the same rule;
+3d. drive per-keystroke serving (BASELINE config 4: the 50k int8 weights,
+   the int8-MXU head) through ``IncrementalDecoder``, ``SessionServer``
+   and ``Suggester`` (``keystroke_run``): the 50 sentences typed one kana
+   at a time in speed mode (final top-1 50/50 vs the int8 oracle), with
+   ``speculate=4`` (the same n-best at every keystroke; hits and misses)
+   and in the parity mode (every prefix's top-1 equal to the fp32
+   ``BeamDecoder``'s, final scores within 1e-3 of the int8 oracle); the
+   server at 64 sessions, probes on and off, every session equal to the
+   single-session decoder's; config 5 typed (final top-1 50/50 vs its int8
+   oracle) and served the same way; the suggester's top 5 vs the oracle;
+   latency p50 / p99 a keystroke and a push, keystrokes/s; every push's
+   ``project_lse`` launches counted by row count (one per head block, two
+   with speculation); phase 2 holds ``project_lse`` to its plain version
+   at these rows (``keystroke_cases``: R = 10, 40, 640 int8-MXU, R = 10
+   dequant fp32, R = 10 and 640 config 5's D-softmax int8);
 5. drive the training path — ``Trainer`` at the same width, batch 32, BPTT
    window 32, Adam, fused CE — for 20 steps over the synthetic corpus, once
    through the CE kernels and once with each swapped for its plain
@@ -116,7 +131,8 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
    sentences fp32 greedy: 50/50 top-1 identity with the oracle on them.
 
 Weights are random (``init_params`` seed 0) before training.  Phases 3c,
-3b and 4b are the serving path's other modes; they run after phase 4.  The line
+3b, 4b and 3d are the serving path's other modes; they run after phase 4,
+3d after 4b.  The line
 before the card's is ``{"kernels": [...]}``: per kernel its launches on the
 main path, its error against the plain version, its time (one call, and
 50 calls in a row: ``row_ms``, ``row_host_ms``), the plain
@@ -159,6 +175,13 @@ R32 = S32 * 8
 # candidate extraction (scripts/bench_kernels.py:48): 50 sentences x 16 beam
 # rows, 65 candidates
 R_CAND, C_CAND = 800, 65
+# the head's rows on the per-keystroke paths (phase 3d): one keystroke's
+# beam, speculate=4's four frames in one forward, the server at 64 events
+KEY_ROWS = {"R10": B, "R40": 4 * B, "R640": 64 * B}
+# config 5's D-softmax int8 head on the same paths: a keystroke, the server
+KEY_ROWS5 = {"R10": B, "R640": 64 * B}
+SESSIONS = 64  # the server's sessions in phase 3d
+SPECULATE = 4
 # weight scale of the fp32 and dequant cases: h in (-1, 1) then gives
 # logits that spread over tens of units, so the largest few set the lse and
 # an operand rounding moves it by about the rounding of one logit; at the
@@ -305,7 +328,24 @@ BOUNDS = {  # kernel vs plain version, on the same inputs on the card
     "lstm_cell_step fp32 E30 H20": 1e-5,
     "cell_cand_step bf16 E40 H24": 1.0,
     "cell_cand_step fp32 E40 H24": 1e-5,
+    # the head at the keystroke paths' rows, each a partial row block (as
+    # project_lse int8 and dequant fp32 above; the dequant fp32 case on
+    # weights of scale PEAKED); each wrong call must read above: beam rows
+    # 8 on read from rows 0 on, the last row read as zeros (a row mask one
+    # short)
+    **{f"project_lse int8 {tag}": 1e-4 for tag in KEY_ROWS},
+    "project_lse dequant fp32 R10": 1e-4,
+    # config 5's three blocks at those rows, as project_lse dsoftmax int8;
+    # a third wrong call: the last block's partials lost (a merge offset
+    # one block short)
+    **{f"project_lse dsoftmax int8 {tag}": 1e-4 for tag in KEY_ROWS5},
 }
+# phase 3d's gates beside the oracle's (abs): "speed" holds speculation
+# against speculate 0 and the server against the single session, the same
+# kernels at 10, 40 or 640 rows, whose fp32 sums run in another order (the
+# sound runs read at most 1.5e-5; a row scattered to the wrong beam slot
+# moves a score by far more); the parity mode's scores; suggest's logp
+KEY_BOUNDS = {"speed": 1e-3, "parity vs oracle": 1e-3, "suggest logp": 1e-4}
 # lse + P_SHIFT in the plain backward: a p-term exp(-0.3) = 0.74 of its value
 P_SHIFT = 0.3
 # forget_bias + F_SHIFT in the plain scan backward: the dc carry and df take
@@ -1699,6 +1739,315 @@ def odd_width_run(dev, vocab, lexicon, kanas):
     return launches
 
 
+def keystroke_cases(dev, rng):
+    """``project_lse`` at the keystroke paths' rows (``KEY_ROWS``): the 50k
+    int8 head, int8 x int8, bf16 activations; the parity mode's dequant
+    fp32 head at one keystroke's rows on weights of scale ``PEAKED``; and
+    config 5's D-softmax int8 head (three blocks, one launch and one split
+    plan each) at ``KEY_ROWS5``.  Each a partial row block; wrong: beam
+    rows 8 on read from rows 0 on, the last row read as zeros, and for the
+    D-softmax head the last block's partials lost."""
+    from jlm_tpu_torch.ops.project import project_lse, project_lse_ref
+    from jlm_tpu_torch.ops.quant import quantize_weight
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev).to(dtype)
+
+    def head(w):
+        q = quantize_weight(w, axis=0)
+        Wq = torch.from_numpy(q["q"]).to(dev)
+        return {"W": {"q": Wq, "scale": t(q["scale"])}, "b": bias, "WT": Wq.t().contiguous()}
+
+    def rows8(hh):
+        hw = hh.clone()
+        hw[8:] = hh[:hh.shape[0] - 8]
+        return hw
+
+    def last_zero(hh):
+        hw = hh.clone()
+        hw[-1] = 0
+        return hw
+
+    w = rng.normal(0, 0.05, (H, V)).astype(np.float32)
+    bias = t(rng.normal(0, 0.1, V))
+    heads = {torch.bfloat16: head(w), torch.float32: head(w * np.float32(PEAKED / w.std()))}
+    cfg5 = config5()
+    head5 = {"blocks": []}
+    for n, d in BLOCKS5:
+        q = quantize_weight(rng.normal(0, 0.05, (d, n)).astype(np.float32), axis=0)
+        Wq = torch.from_numpy(q["q"]).to(dev)
+        head5["blocks"].append({"W": {"q": Wq, "scale": t(q["scale"])},
+                                "b": t(rng.normal(0, 0.1, n)), "WT": Wq.t().contiguous()})
+    lost5 = {"blocks": head5["blocks"][:-1]}
+    cases = []
+    for name, rows, cd, hd, cfg in (
+            [(f"project_lse int8 {tag}", r, torch.bfloat16, heads[torch.bfloat16], None)
+             for tag, r in KEY_ROWS.items()]
+            + [("project_lse dequant fp32 R10", KEY_ROWS["R10"], torch.float32,
+                heads[torch.float32], None)]
+            + [(f"project_lse dsoftmax int8 {tag}", r, torch.bfloat16, head5, cfg5)
+               for tag, r in KEY_ROWS5.items()]):
+        h = t(rng.uniform(-1, 1, (rows, H)), cd)
+        kw = dict(compute_dtype=cd, int8_mxu=cd == torch.bfloat16)
+        wrong = {"beam rows 8 on read from rows 0 on":
+                 lambda h=h, hd=hd, cfg=cfg, kw=kw: project_lse_ref(rows8(h), hd, cfg, **kw),
+                 "the last row read as zeros":
+                 lambda h=h, hd=hd, cfg=cfg, kw=kw: project_lse_ref(last_zero(h), hd, cfg, **kw)}
+        if cfg is not None:
+            wrong["the last block's partials lost"] = (
+                lambda h=h, cfg=cfg, kw=kw: project_lse_ref(h, lost5, cfg, **kw))
+        cases.append((name, lambda h=h, hd=hd, cfg=cfg, kw=kw: project_lse(h, hd, cfg, **kw),
+                      lambda h=h, hd=hd, cfg=cfg, kw=kw: project_lse_ref(h, hd, cfg, **kw),
+                      abs_errs, wrong, None))
+    return cases
+
+
+# the keystroke cases, whose calls are host-bound (row_ms ~ row_host_ms):
+# phase 2 also reads their device time from the profiler
+KEY_CASES = tuple(f"project_lse int8 {tag}" for tag in KEY_ROWS) + (
+    "project_lse dequant fp32 R10",) + tuple(f"project_lse dsoftmax int8 {tag}"
+                                             for tag in KEY_ROWS5)
+
+
+def profiled(fn, n: int = 50):
+    """``(device ms, device ms by kernel name, wall ms)`` a call of ``fn``
+    over ``n`` calls: the CUDA kernels and copies that ``torch.profiler``
+    records, summed; the wall time on the host clock under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n * 1e3
+    by = {}
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA":
+            us = getattr(e, "device_time_total", None) or e.cuda_time_total
+            by[e.key] = by.get(e.key, 0.0) + us / n / 1e3
+    return sum(by.values()), by, wall
+
+
+def pct(secs, q):
+    """The ``q``-th percentile of a list of seconds, in ms."""
+    return float(np.percentile(np.asarray(secs) * 1e3, q))
+
+
+def same_nbest(got, want, tol):
+    """(every n-best's segments equal, max |score difference|)."""
+    same = all([r.segments for r in g] == [r.segments for r in w] for g, w in zip(got, want))
+    worst = max((abs(a.score - b.score) for g, w in zip(got, want) for a, b in zip(g, w)),
+                default=0.0)
+    return same and len(got) == len(want) and worst <= tol, worst
+
+
+def keystroke_run(dev, card, config, vocab, lexicon, qp, kanas, oracle_q_results, data5):
+    """Phase 3d: per-keystroke serving at BASELINE config 4's widths (int8
+    weights, the int8-MXU head) through the entry points a user calls.
+    ``IncrementalDecoder`` types each sentence one kana at a time (reset
+    between): speed mode (final top-1 vs the int8 oracle, 50/50), with
+    ``speculate=SPECULATE`` (the same n-best at every keystroke), and the
+    parity mode (``precision="highest"``, kernel on: every prefix's top-1
+    equals the fp32 ``BeamDecoder``'s, final scores within 1e-3 of the int8
+    oracle); ``SessionServer`` at ``SESSIONS`` sessions (each types sentence
+    i mod 50), probes on and off, at 50k and at config 5 (``data5``): every
+    session equals the single-session decoder's; ``Suggester`` on the typed
+    contexts against the numpy oracle; config 5's typing also against its
+    int8 oracle, 50/50.  ``project_lse``'s launches are counted by row
+    count (``project_lse.rows``, set to 0 before each run): every push
+    launches once per head block at its rows, twice with speculation (the
+    typed frame, then the speculated frames as one call).  Returns the
+    launches by kernels-line name, each the count measured at its rows."""
+    from jlm_tpu_torch.config import EOS_ID
+    from jlm_tpu_torch.decoder import IncrementalDecoder, SessionServer, Suggester
+    from jlm_tpu_torch.decoder.engine import BeamDecoder
+    from jlm_tpu_torch.oracle import OracleLM
+    from jlm_tpu_torch.ops.project import project_lse
+
+    def rows_of(run):
+        """``run(push)`` with ``project_lse.rows`` set to 0 just before;
+        ``push(call, want)`` checks the call's launches by row count against
+        ``want``.  Returns (``run``'s result, its launches by row count,
+        pushes and resets)."""
+        project_lse.rows = {}
+        off = []
+
+        def push(call, want):
+            before = dict(project_lse.rows)
+            out = call()
+            got = {r: n - before.get(r, 0) for r, n in project_lse.rows.items()
+                   if n != before.get(r, 0)}
+            if got != want:
+                off.append((got, want))
+            return out
+
+        out = run(push)
+        check(not off, f"launches by rows a push {off[:3]}")
+        return out, dict(project_lse.rows)
+
+    def typed(dec, sentences, per_push, n_best=1):
+        """Each sentence typed from a reset; (n-best after every keystroke
+        by sentence, seconds a push, launches by rows).  ``per_push``: each
+        push's launches by row count."""
+        dec.reset()
+        for ch in sentences[0]:  # warm-up
+            dec.push(ch)
+        dec.spec_hits = dec.spec_misses = 0
+        secs = []
+
+        def run(push):
+            out = []
+            for kana in sentences:
+                dec.reset()
+                res = []
+                for ch in kana:
+                    t0 = time.perf_counter()
+                    res.append(push(lambda: dec.push(ch, n_best=n_best), per_push))
+                    secs.append(time.perf_counter() - t0)
+                out.append(res)
+            return out
+
+        out, rows = rows_of(run)
+        return out, secs, rows
+
+    def latency(label, secs):
+        log(f"{label}: {len(secs)} keystrokes, per keystroke p50 {pct(secs, 50):.4f} ms, "
+            f"p99 {pct(secs, 99):.4f} ms, mean {1e3 * sum(secs) / len(secs):.4f} ms "
+            f"(host clock) on {card}")
+
+    def serve(srv, sentences, blocks):
+        """SESSIONS sessions typing in one interleaved stream; (final
+        n-best per session, seconds a push, launches by rows, events)."""
+        warm = srv.open()
+        for ch in sentences[0]:
+            srv.push([(warm, ch)])
+        srv.close(warm)
+        texts = [sentences[i % len(sentences)] for i in range(SESSIONS)]
+        sids = [srv.open() for _ in texts]
+        secs, n_events = [], 0
+
+        def run(push):
+            nonlocal n_events
+            for t in range(max(len(x) for x in texts)):
+                events = [(sid, x[t]) for sid, x in zip(sids, texts) if t < len(x)]
+                t0 = time.perf_counter()
+                push(lambda: srv.push(events), {srv._bucket(len(events)) * B_: blocks})
+                secs.append(time.perf_counter() - t0)
+                n_events += len(events)
+
+        _, by_rows = rows_of(run)
+        res = [srv.results(sid, 3) for sid in sids]
+        for sid in sids:
+            srv.close(sid)
+        return res, secs, by_rows, n_events
+
+    def server_run(label, srv, sentences, blocks, single):
+        res, secs, by_rows, n_events = serve(srv, sentences, blocks)
+        ok, worst = same_nbest(res, [single[i % len(single)][-1] for i in range(SESSIONS)],
+                               KEY_BOUNDS["speed"])
+        log(f"{label}: {n_events} keystrokes in {len(secs)} pushes, push p50 "
+            f"{pct(secs, 50):.4f} ms, p99 {pct(secs, 99):.4f} ms, {n_events / sum(secs):.1f} "
+            f"keystrokes/s (host clock) on {card}; launches by rows {by_rows}; vs the "
+            f"single-session decoder: n-best equal {ok}, max |score diff| {worst:.3e}")
+        check(ok, f"{label}: sessions differ from the single-session decoder")
+        return by_rows
+
+    B_ = config.beam_pad
+    launches = {}
+    speed = IncrementalDecoder(qp, lexicon, vocab, config, precision="default", device=dev)
+    res0, secs0, rows0 = typed(speed, kanas, {B_: 1}, n_best=3)
+    latency("keystroke, speed mode, speculate 0", secs0)
+    n = identical([r[-1] for r in res0], oracle_q_results)
+    log(f"keystroke speed mode int8 parity {n}/{len(kanas)} (final top-1 vs int8 oracle)")
+    check(n == len(kanas), "keystroke speed mode int8 parity")
+    log(f"speculate 0: launches by rows {rows0}")
+
+    spec = IncrementalDecoder(qp, lexicon, vocab, config, precision="default",
+                              speculate=SPECULATE, device=dev)
+    res4, secs4, rows4 = typed(spec, kanas, {B_: 1, SPECULATE * B_: 1}, n_best=3)
+    latency(f"keystroke, speed mode, speculate {SPECULATE}", secs4)
+    ok, worst = same_nbest([r for s in res4 for r in s], [r for s in res0 for r in s],
+                           KEY_BOUNDS["speed"])
+    log(f"speculate {SPECULATE}: hits {spec.spec_hits}, misses {spec.spec_misses}; the same "
+        f"n-best as speculate 0 at every keystroke {ok}, max |score diff| {worst:.3e}; "
+        f"launches by rows {rows4} ({len(secs4)} pushes, each one at {B_} and one at "
+        f"{SPECULATE * B_} rows; the rest at {SPECULATE * B_} primed resets)")
+    check(ok, "speculation changed a keystroke's n-best")
+    launches["project_lse R10"] = rows0[B_] + rows4[B_]
+    launches["project_lse R40"] = rows4[SPECULATE * B_]
+    del spec
+
+    parity = IncrementalDecoder(qp, lexicon, vocab, config, precision="highest",
+                                use_kernel=True, device=dev)
+    resp, secsp, rowsp = typed(parity, kanas, {B_: 1})
+    latency("keystroke, parity mode (dequant fp32 head)", secsp)
+    prefixes = [k[:i] for k in kanas for i in range(1, len(k) + 1)]
+    batch = BeamDecoder(qp, lexicon, vocab, config, precision="highest",
+                        device=dev).decode_batch(prefixes)
+    n = identical([r for s in resp for r in s], [b[0] for b in batch])
+    worst = max(abs(s[-1][0].score - o.score) for s, o in zip(resp, oracle_q_results))
+    log(f"keystroke parity mode: {n}/{len(prefixes)} prefixes' top-1 equal the fp32 "
+        f"BeamDecoder's; final scores max |score - int8 oracle| {worst:.3e}")
+    check(n == len(prefixes), "keystroke parity mode vs BeamDecoder")
+    check(worst <= KEY_BOUNDS["parity vs oracle"], f"keystroke parity scores off by {worst}")
+    launches["project_lse dequant fp32 R10"] = rowsp[B_]
+    del parity, batch
+
+    rows640 = 0
+    for probes in (True, False):
+        srv = SessionServer(qp, lexicon, vocab, config, max_sessions=SESSIONS,
+                            precision="default", probes=probes, device=dev)
+        by_rows = server_run(f"server 50k, {SESSIONS} sessions, probes "
+                             f"{'on' if probes else 'off'}", srv, kanas, 1, res0)
+        rows640 += by_rows.get(SESSIONS * B_, 0)
+        del srv
+    launches["project_lse R640"] = rows640
+    check(rows640 > 0, "no push of 64 events")
+
+    cfg5, vocab5, lexicon5, qp5, oracle5_q_results = data5
+    blocks5 = len(cfg5.dsoftmax.block_sizes)
+    inc5 = IncrementalDecoder(qp5, lexicon5, vocab5, cfg5, precision="default", device=dev)
+    res5, secs5, rows5 = typed(inc5, kanas, {B_: blocks5}, n_best=3)
+    latency("keystroke, config 5, speed mode", secs5)
+    n = identical([r[-1] for r in res5], oracle5_q_results)
+    log(f"keystroke config 5 int8 parity {n}/{len(kanas)} (final top-1 vs int8 oracle); "
+        f"launches by rows {rows5}")
+    check(n == len(kanas), "keystroke config 5 int8 parity")
+    launches["project_lse dsoftmax int8 R10"] = rows5[B_]
+    del inc5
+    srv5 = SessionServer(qp5, lexicon5, vocab5, cfg5, max_sessions=SESSIONS,
+                         precision="default", device=dev)
+    by_rows = server_run(f"server config 5, {SESSIONS} sessions, probes on", srv5, kanas,
+                         blocks5, res5)
+    launches["project_lse dsoftmax int8 R640"] = by_rows.get(SESSIONS * B_, 0)
+    check(launches["project_lse dsoftmax int8 R640"] > 0, "config 5: no push of 64 events")
+    del srv5
+
+    sugg = Suggester(qp, vocab, config, device=dev)
+    lm = OracleLM(qp, config)
+    secs, worst, bad = [], 0.0, 0
+    for s in res0[:10]:
+        context = [w for _, w in s[-1][0].segments]
+        t0 = time.perf_counter()
+        ids, vals = sugg.top_k(context, k=5)
+        secs.append(time.perf_counter() - t0)
+        state = lm.initial_state(1)
+        for w in [EOS_ID] + context:
+            logp, state = lm.step(np.asarray([w]), state)
+        logp = logp[0]
+        worst = max(worst, float(np.abs(np.asarray(vals) - logp[ids]).max()))
+        # the oracle's top 5 (up to ties within the bound)
+        bad += int(min(vals) < np.sort(logp)[-5] - KEY_BOUNDS["suggest logp"])
+    log(f"suggest (top 5 of {V}, fp32): {len(secs)} contexts, p50 {pct(secs, 50):.4f} ms "
+        f"on {card}; vs the numpy oracle max |logp diff| {worst:.3e} (bound "
+        f"{KEY_BOUNDS['suggest logp']:g}), outside its top 5: {bad}")
+    check(worst <= KEY_BOUNDS["suggest logp"] and bad == 0, "suggest vs the oracle")
+    return launches
+
+
 # exponentials of each head case: one per logit (R x V)
 EXPS = {
     "project_lse": R * V, "project_lse bf16": R * V, "project_lse bf16 D1024": R * V,
@@ -1712,6 +2061,10 @@ EXPS = {
     **{f"project_lse D{d}": R * V for d in INT8_WIDE},
     # the bf16 CE forward: one per logit of the training rows
     "ce_fwd": N_CE * V, "ce_fwd D1024": N_CE * V, f"ce_fwd bf16 D{DS_D}": N_CE * V,
+    # the keystroke paths' rows
+    **{f"project_lse {tag}": r * V for tag, r in KEY_ROWS.items()},
+    "project_lse dequant fp32 R10": KEY_ROWS["R10"] * V,
+    **{f"project_lse dsoftmax int8 {tag}": r * V5 for tag, r in KEY_ROWS5.items()},
 }
 SFU_PER_CLOCK = 16  # exponentials a clock per SM (the special-function units)
 # exponentials per second of the card: set in main from the SM count and
@@ -1853,6 +2206,15 @@ def work():
         # the width repairs (odd_width_cases' shapes)
         **{f"project_lse D{d}": (R * d * 2 + d * V + V * 8 + R * 4, 2 * R * d * V, "int8")
            for d in INT8_WIDE},
+        # the keystroke paths' rows: as project_lse and project_lse dequant
+        # fp32 (h fp32 there) at r rows
+        **{f"project_lse {tag}": (r * H * 2 + H * V + V * 8 + r * 4, 2 * r * H * V, "int8")
+           for tag, r in KEY_ROWS.items()},
+        "project_lse dequant fp32 R10": (B * H * 4 + H * V + V * 8 + B * 4, 2 * B * H * V,
+                                         "fp32"),
+        **{f"project_lse dsoftmax int8 {tag}": (r * H * 2 + HEAD5 + V5 * 8 + r * 4,
+                                                2 * r * HEAD5, "int8")
+           for tag, r in KEY_ROWS5.items()},
         f"lstm_cell_step E{eo} H{ho}": (R * (eo + 4 * ho) * 2 + (eo + ho) * 4 * ho * 2
                                         + 4 * ho * 4, 2 * R * (eo + ho) * 4 * ho, "bf16"),
         f"lstm_cell_step fp32 E{eo} H{ho}": (R32 * (eo + 4 * ho) * 4 + (eo + ho) * 4 * ho * 4
@@ -2142,6 +2504,12 @@ def kernel_fn(name: str) -> str:
     if name in ("project_lse", "project_lse dsoftmax int8", "project_candidates int8",
                 "project_candidates dsoftmax int8"):
         return "proj_int8_kernel (wgmma + TMA; quantize_rows_kernel before it)"
+    if name in tuple(f"project_lse {tag}" for tag in KEY_ROWS):
+        return ("proj_int8_kernel (wgmma + TMA, the last 256-row block partial; "
+                "quantize_rows_kernel before it)")
+    if name in tuple(f"project_lse dsoftmax int8 {tag}" for tag in KEY_ROWS5):
+        return ("proj_int8_kernel (wgmma + TMA, one launch a block, the last 256-row block "
+                "partial; quantize_rows_kernel before them)")
     if name in tuple(f"project_lse D{d}" for d in INT8_WIDE):
         return ("proj_bf16_kernel<Q8> (wgmma m64n256k32 s8 + TMA; the rows streamed "
                 "with W^T; quantize_rows_kernel before it)")
@@ -2294,7 +2662,7 @@ def main() -> int:
 
     # ---- phase 2: each kernel vs its plain version at its path's shapes ----
     rng = np.random.default_rng(0)
-    measured = {}
+    measured, device_ms = {}, {}
     wrong_p = f"a p-term {1 - math.exp(-P_SHIFT):.0%} low"
     wrongs = {  # what a case's wrong call gets wrong, where it is not wrong_p
         "lstm_scan_bwd fp32": f"a forget gate sigmoid(f + {F_SHIFT:g}) in the backward",
@@ -2312,7 +2680,7 @@ def main() -> int:
     }
     cases, yardsticks = kernel_cases(dev, rng)
     cases += head_mode_cases(dev, rng) + port_cases(dev, rng) + wide_cases(dev, rng)
-    cases += odd_width_cases(dev, rng)
+    cases += odd_width_cases(dev, rng) + keystroke_cases(dev, rng)
     for name, kernel, plain, err_fn, wrong, library in cases:
         want = plain()
         err, max_abs = err_fn(kernel(), want)
@@ -2338,6 +2706,10 @@ def main() -> int:
             log(f"  {name}: {what} reads {caught:.3e}")
             check(caught > BOUNDS[name], f"{name}: bound misses {what} ({caught})")
         measured[name] = (max_abs, ms, plain_ms, lib_ms, row_ms, host_ms, lib_row[0])
+        if name in KEY_CASES:  # host-bound: the device's own time from the profiler
+            device_ms[name] = profiled(kernel)[0]
+            log(f"  {name}: device {device_ms[name]:.4f} ms a call (torch.profiler, "
+                f"its kernels summed)")
         if name in SPLIT_PAIRS:  # the fused frame against the split pair it replaces
             pair = SPLIT_PAIRS[name]
             p_row, p_host = in_a_row(pair)
@@ -2531,7 +2903,8 @@ def main() -> int:
     # ---- phase 4b: config-5 and int8-dequant parity on the 50 sentences ----
     frames_50 = min(engine5._t_bucket(max(len(k) for k in kanas)), cfg5.max_kana_len)
     oracle5_q = OracleDecoder(OracleLM(qp5, cfg5), lexicon5, vocab5, cfg5)
-    n = identical(results5[:len(kanas)], [oracle5_q.decode(k)[0] for k in kanas])
+    oracle5_q_results = [oracle5_q.decode(k)[0] for k in kanas]
+    n = identical(results5[:len(kanas)], oracle5_q_results)
     log(f"config 5 beam-10 int8 parity {n}/{len(kanas)} (kernel path vs int8 oracle)")
     check(n == len(kanas), "config 5 int8 beam parity")
     del engine5
@@ -2600,7 +2973,15 @@ def main() -> int:
                forward_fn=make_fused_frame_forward(greedy_cfg, torch.float32))
     check(not any(m.split(".")[0] in ("jax", "jlm_tpu") for m in sys.modules),
           "the port imported jax or the JAX package")
-    del params5, qp5, pk, pk5, qpk
+    del params5, pk, pk5, qpk
+    torch.cuda.empty_cache()
+
+    # ---- phase 3d: per-keystroke serving (BASELINE config 4) ----
+    t0 = time.perf_counter()
+    launches_key = keystroke_run(dev, card, config, vocab, lexicon, qp, kanas, oracle_q_results,
+                                 (cfg5, vocab5, lexicon5, qp5, oracle5_q_results))
+    log(f"phase 3d: {time.perf_counter() - t0:.1f} s")
+    del qp5
     torch.cuda.empty_cache()
 
     # ---- phase 5: the training path, CE kernels vs their plain versions ----
@@ -2764,6 +3145,17 @@ def main() -> int:
         f"cell_cand_step fp32 E{ODD_FRAME[0]} H{ODD_FRAME[1]}": (
             "jlm_tpu_torch/csrc/cell_cand.cu", "jlm_tpu/ops/frame_step.py:47",
             f"cell_cand_step fp32 E{ODD_FRAME[0]} H{ODD_FRAME[1]}"),
+        # the keystroke paths' rows (launches: phase 3d)
+        **{f"project_lse {tag}": ("jlm_tpu_torch/csrc/project_lse.cu",
+                                  "jlm_tpu/ops/project.py:42", f"project_lse int8 {tag}")
+           for tag in KEY_ROWS},
+        "project_lse dequant fp32 R10": ("jlm_tpu_torch/csrc/project_lse.cu",
+                                         "jlm_tpu/ops/project.py:42",
+                                         "project_lse dequant fp32 R10"),
+        **{f"project_lse dsoftmax int8 {tag}": ("jlm_tpu_torch/csrc/project_lse.cu",
+                                                "jlm_tpu/ops/project.py:42",
+                                                f"project_lse dsoftmax int8 {tag}")
+           for tag in KEY_ROWS5},
     }
     launches.update({
         "project_lse dsoftmax int8": launches5["project_lse"],
@@ -2780,6 +3172,7 @@ def main() -> int:
         **launches_wide,
         "cand_dot fp32": mode_launches["fp32"]["cand_dot"],
         **launches_odd,
+        **launches_key,
     })
     kernels = []
     for name, (src, replaces, case) in sources.items():
@@ -2796,7 +3189,8 @@ def main() -> int:
                         "max_abs_err": err, "ms": ms, "row_ms": row_ms,
                         "row_host_ms": host_ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-                        "library_row_ms": lib_row_ms, "kernel": kernel_fn(name)})
+                        "library_row_ms": lib_row_ms, "kernel": kernel_fn(name),
+                        **({"device_ms": device_ms[case]} if case in device_ms else {})})
     # rule 2's second key: calls on the path x (ms in a row - bound), in the
     # unit of the time beside it
     score = sorted(((k["calls"] * (k["row_ms"] - k["bound_ms"]), k["name"]) for k in kernels),

@@ -69,7 +69,7 @@ _MASK_SHIFT = 29
 _RING = 8  # ring rows of the per-position caches (> max_word_len)
 NEG = -1e30  # dead score; liveness is tested as > NEG / 2
 
-LONG_TODO = "decode_long not ported yet (ROADMAP.md queue 1, item 6)"
+LONG_TODO = "decode_long not ported yet (ROADMAP.md queue 1, item 3)"
 
 
 def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -85,6 +85,15 @@ def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
         idxs.append(i)
         x = torch.where(col == i, float("-inf"), x)
     return torch.cat(vals, dim=1), torch.cat(idxs, dim=1)
+
+
+def upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``; to the card from pinned memory, so the
+    copy does not block the host."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def _set_fp32_matmuls() -> None:
@@ -491,19 +500,13 @@ class BeamDecoder:
         t_bucket = min(self._t_bucket(int(lengths.max())), self.config.max_kana_len)
         return packed[:, :t_bucket], lengths
 
-    def _upload(self, x: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        if self.device.type == "cuda":  # pinned, so the copy does not block
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
-
     def decode_batch_async(self, kanas: List[str]):
         """Enqueue one chunk's search; returns (packed, device outputs)
         without waiting for the device."""
         if any(len(k) > self.config.max_kana_len for k in kanas):
             raise NotImplementedError(LONG_TODO)
         packed, lengths = self._pack(kanas)
-        out = _decode_scan(self.params, self._upload(packed), self._upload(lengths),
+        out = _decode_scan(self.params, upload(packed, self.device), upload(lengths, self.device),
                            config=self.config, forward_fn=self._fwd)
         return packed, out
 

@@ -3,12 +3,14 @@
 Counterpart of :mod:`jlm_tpu.models.lstm`: embedding (per-row int8
 dequant), one fused-cell step through all layers (gate order i, j, f, o;
 ``config.forget_bias`` applied at run time), the output head (full or
-D-softmax, prefix and disjoint), max-subtracted fp32 log-softmax, the full
-LM step, ``forward_hidden``, the training path's loop over a BPTT window,
-and ``forward_hidden_scan``, the same window through the fused scan
-kernels of :mod:`jlm_tpu_torch.ops.lstm_scan`.  The math runs in the dtype
-of the parameters it is given; a caller that needs true fp32 on the card
-turns TF32 off (the engine's parity forward does).
+D-softmax, prefix and disjoint), the lazy column scoring of the
+per-keystroke decoders (``candidate_logits``, ``node_logits``),
+max-subtracted fp32 log-softmax, the full LM step, ``forward_hidden``,
+the training path's loop over a BPTT window, and
+``forward_hidden_scan``, the same window through the fused scan kernels
+of :mod:`jlm_tpu_torch.ops.lstm_scan`.  The math runs in the dtype of the
+parameters it is given; a caller that needs true fp32 on the card turns
+TF32 off (the engine's parity forward does).
 
 The decode engine serves a D-softmax head through these functions (its
 fp32 parity forward) and through the kernel forward, whose decode-side
@@ -83,6 +85,81 @@ def head_logits(params: Dict[str, Any], config: Config,
             outs.append(h_top[:, start:start + d] @ _w(blk["W"]) + blk["b"])
         return torch.cat(outs, dim=1)
     return h_top @ _w(head["W"]) + head["b"]
+
+
+def _block_spans(config: Config):
+    """``(first column of h, width, first vocab id, words)`` of each block
+    of a D-softmax head, in vocab order."""
+    ds = config.dsoftmax
+    spans, offset, base = [], 0, 0
+    for d, size in zip(ds.block_dims, ds.block_sizes):
+        spans.append((0 if ds.mode == "prefix" else offset, d, base, size))
+        offset += 0 if ds.mode == "prefix" else d
+        base += size
+    return spans
+
+
+def _cols(W, ids: torch.Tensor) -> torch.Tensor:
+    """Output columns ``ids`` of a head weight as fp32 ``[d, n]``; an int8
+    weight's columns are dequantized after the gather."""
+    if isinstance(W, dict):
+        return W["q"][:, ids].float() * W["scale"][ids][None, :]
+    return W[:, ids]
+
+
+def candidate_logits(params: Dict[str, Any], config: Config, h_top: torch.Tensor,
+                     words: torch.Tensor) -> torch.Tensor:
+    """Unnormalized logits of the vocab columns ``words [N]`` only:
+    ``h_top [..., H]`` -> ``[..., N]``.  The lazy scoring of the incremental
+    decoder: a gather of the needed output columns instead of the whole
+    projection; with a cached per-path logsumexp a keystroke costs O(N H)."""
+    head = params["head"]
+    if "blocks" not in head:
+        return torch.einsum("...h,hn->...n", h_top, _cols(head["W"], words)) + head["b"][words]
+    out = torch.zeros(h_top.shape[:-1] + (words.shape[0],), dtype=torch.float32,
+                      device=h_top.device)
+    for (start, d, base, size), blk in zip(_block_spans(config), head["blocks"]):
+        in_blk = (words >= base) & (words < base + size)
+        local = (words - base).clamp(0, size - 1)
+        vals = (torch.einsum("...d,dn->...n", h_top[..., start:start + d], _cols(blk["W"], local))
+                + blk["b"][local])
+        out = torch.where(in_blk, vals, out)
+    return out
+
+
+def node_logits(params: Dict[str, Any], config: Config, h_src: torch.Tensor,
+                words: torch.Tensor) -> torch.Tensor:
+    """Raw logit of each node's own word from each beam path: ``h_src [...,
+    N, B, H]`` and ``words [..., N]`` -> ``[..., N, B]``.
+
+    The paired form of :func:`candidate_logits`: node n is scored only
+    against its own column, one column gather and one contraction,
+    O(N B H).  Shared by the incremental decoder and the multi-session
+    server; full and D-softmax heads, int8 columns dequantized in fp32."""
+    lead, N = words.shape[:-1], words.shape[-1]
+    B, H = h_src.shape[-2], h_src.shape[-1]
+    h_src = h_src.reshape(-1, N, B, H)
+    words = words.reshape(-1, N)
+    E = words.shape[0]
+    head = params["head"]
+
+    def cols_of(W, ids):  # -> fp32 [d, E, N]
+        c = _cols(W, ids.reshape(-1))
+        return c.reshape(c.shape[0], E, N)
+
+    if "blocks" not in head:
+        out = (torch.einsum("enbh,hen->enb", h_src, cols_of(head["W"], words))
+               + head["b"][words][:, :, None])
+        return out.reshape(*lead, N, B)
+    out = torch.zeros((E, N, B), dtype=torch.float32, device=h_src.device)
+    for (start, d, base, size), blk in zip(_block_spans(config), head["blocks"]):
+        in_blk = (words >= base) & (words < base + size)
+        local = (words - base).clamp(0, size - 1)
+        vals = (torch.einsum("enbd,den->enb", h_src[..., start:start + d],
+                             cols_of(blk["W"], local))
+                + blk["b"][local][:, :, None])
+        out = torch.where(in_blk[:, :, None], vals, out)
+    return out.reshape(*lead, N, B)
 
 
 def log_softmax(logits: torch.Tensor) -> torch.Tensor:

@@ -288,14 +288,14 @@ BF16_BLOCK_TILES = 1
 FP32_BLOCK_TILES = 1
 
 
-def vocab_splits(n_tiles: int, row_blocks: int, sms: int, fixed: int,
-                 max_splits: int = 64) -> Tuple[int, int]:
-    """``(splits, tiles per split)`` of a kernel's vocab: the split count,
-    up to ``max_splits``, whose waves of ``sms`` blocks (the blocks the card
-    runs at once) take the fewest tile times, each block paying ``fixed``
-    tile times besides its own tiles."""
+def vocab_splits(n_tiles: int, row_blocks: int, sms: int, fixed: int) -> Tuple[int, int]:
+    """``(splits, tiles per split)`` of a kernel's vocab: the split count
+    whose waves of ``sms`` blocks (the blocks the card runs at once) take
+    the fewest tile times, each block paying ``fixed`` tile times besides
+    its own tiles.  A second wave costs a block's fixed time more than it
+    saves, so one row block (a keystroke's rows) gets a whole wave."""
     best = None
-    for sp in range(1, min(n_tiles, max_splits) + 1):
+    for sp in range(1, n_tiles + 1):
         per = -(-n_tiles // sp)
         sp = -(-n_tiles // per)
         cost = -(-row_blocks * sp // sms) * (per + fixed)
@@ -316,9 +316,7 @@ def block_splits(mode: int, dp: int, V: int, R: int, sms: int) -> Tuple[int, int
         rows, cols = _BF16_TILE
         return vocab_splits(-(-V // cols), -(-R // rows), sms, BF16_BLOCK_TILES)
     rows, cols = _FP32_TILE
-    n_tiles = -(-V // cols)
-    return vocab_splits(n_tiles, -(-R // rows), _FP32_PER_SM * sms, FP32_BLOCK_TILES,
-                        max_splits=n_tiles)
+    return vocab_splits(-(-V // cols), -(-R // rows), _FP32_PER_SM * sms, FP32_BLOCK_TILES)
 
 
 def _launch(h, head, config, compute_dtype, int8_mxu, want: str, cand_ids=None):
@@ -397,6 +395,7 @@ def _launch(h, head, config, compute_dtype, int8_mxu, want: str, cand_ids=None):
                 id_base, ptr(cand), stream)
         _build.check(err, "project_lse kernel")
         counter.launches += 1
+        counter.rows[R] = counter.rows.get(R, 0) + 1
         base += splits
         id_base += V
     err = lib.jlm_project_merge(ptr(part[0]), ptr(part[1]), ptr(m), ptr(s), ptr(lse),
@@ -434,7 +433,8 @@ def project_lse(
     """Per-row log-sum-exp of the full output projection: ``[R, 1]``.
 
     ``project_lse.launches`` counts kernel launches from either wrapper:
-    one per block of the head (the merge launch is not counted).
+    one per block of the head (the merge launch is not counted);
+    ``project_lse.rows`` counts the same launches by their row count R.
     """
     if h.is_cuda:
         return _launch(h, head, config, compute_dtype, int8_mxu, "lse")
@@ -455,7 +455,7 @@ def project_candidates(
     """Candidate log-probs ``[R, C]`` fp32: ``log softmax(h @ W + b)[:, cand]``.
 
     ``project_candidates.launches`` counts kernel launches of either
-    candidate wrapper: one per block of the head."""
+    candidate wrapper: one per block of the head (``.rows``: by R)."""
     if h.is_cuda:
         return _launch(h, _full_head(weight, scale, bias), None, compute_dtype, int8_mxu,
                        "cand", cand_ids)
@@ -483,4 +483,6 @@ def project_candidates_dsoftmax(
 
 
 project_lse.launches = 0
+project_lse.rows = {}
 project_candidates.launches = 0
+project_candidates.rows = {}

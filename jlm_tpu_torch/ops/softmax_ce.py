@@ -345,8 +345,7 @@ def fwd_plan_f32(N: int, D: int, V: int, sms: int):
     if D % 128 or D <= 0 or N <= 0 or V <= 0:
         raise ValueError(f"fwd_plan_f32: D a multiple of 128 and N, V > 0, got {N}, {D}, {V}")
     q_blocks, n_tiles = -(-N // F32_FWD_TILE), -(-V // F32_FWD_TILE)
-    splits, per_split = vocab_splits(n_tiles, q_blocks, F32_FWD_PER_SM * sms, FP32_BLOCK_TILES,
-                                     max_splits=n_tiles)
+    splits, per_split = vocab_splits(n_tiles, q_blocks, F32_FWD_PER_SM * sms, FP32_BLOCK_TILES)
     return types.MappingProxyType(dict(  # cached: read-only
         rows=F32_FWD_TILE, cols=F32_FWD_TILE, grid=(q_blocks, splits), splits=splits,
         tiles_per_split=per_split))

@@ -11,6 +11,9 @@ def test_engine_import_is_jax_free_and_builds_nothing():
     code = (
         "import sys\n"
         "import jlm_tpu_torch.decoder.engine\n"
+        "import jlm_tpu_torch.decoder.incremental\n"
+        "import jlm_tpu_torch.decoder.server\n"
+        "import jlm_tpu_torch.decoder.suggest\n"
         "import jlm_tpu_torch.models.params\n"
         "from jlm_tpu_torch.ops import _build\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
@@ -26,14 +29,16 @@ def test_engine_import_is_jax_free_and_builds_nothing():
 
 def test_port_runs_without_the_jax_package():
     """Every module of the port and the root scripts import, and a
-    tiny CPU decode and a tiny ``--pallas-scan`` training step run, with no
-    module of JAX or of ``jlm_tpu`` loaded and no kernel built."""
+    tiny CPU decode, a few keystrokes through the per-keystroke decoder,
+    the server and the suggester, and a tiny ``--pallas-scan`` training
+    step run, with no module of JAX or of ``jlm_tpu`` loaded and no kernel
+    built."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import jlm_tpu_torch\n"
         "for m in pkgutil.walk_packages(jlm_tpu_torch.__path__, 'jlm_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke, profile_serve, profile_train, time_kernels\n"
+        "import chip_smoke, profile_keystroke, profile_serve, profile_train, time_kernels\n"
         "from jlm_tpu_torch.config import Config\n"
         "from jlm_tpu_torch.data import (Lexicon, build_vocab, encode_corpus,\n"
         "                                generate_corpus, split_corpus)\n"
@@ -48,6 +53,16 @@ def test_port_runs_without_the_jax_package():
         "dec = BeamDecoder(init_params(cfg), Lexicon.from_vocab(vocab), vocab, cfg,\n"
         "                  precision='default', device='cpu')\n"
         "assert dec.decode('きょうはいい')[0].surface\n"
+        "from jlm_tpu_torch.decoder import IncrementalDecoder, SessionServer, Suggester\n"
+        "p, lex = init_params(cfg), Lexicon.from_vocab(vocab)\n"
+        "inc = IncrementalDecoder(p, lex, vocab, cfg, precision='default', speculate=2,\n"
+        "                         use_kernel=True, device='cpu')\n"
+        "assert [inc.push(ch) for ch in 'きょう'][-1][0].surface\n"
+        "srv = SessionServer(p, lex, vocab, cfg, max_sessions=2, device='cpu')\n"
+        "sid = srv.open()\n"
+        "srv.push([(sid, 'き')])\n"
+        "assert srv.results(sid)[0].surface\n"
+        "assert len(Suggester(p, vocab, cfg, device='cpu').suggest([5], k=2)) == 2\n"
         "train = split_corpus(encode_corpus(lines, vocab))[0]\n"
         "tr = Trainer(cfg.replace(use_pallas_scan=True, fused_ce=True), device='cpu')\n"
         "assert next(tr.train_steps(train[:400], epoch=0))[0].item() > 0\n"

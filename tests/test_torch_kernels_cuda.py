@@ -1434,3 +1434,119 @@ def test_project_bf16_wgmma_kernel_edges(cuda, weights, R, H, V):
     shifted = torch.where(ids >= 0, (ids + 1) % V, ids)
     assert float((port.project_candidates_ref(h, W, scale, b, shifted, **kw)
                   - want).abs().max()) > bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 10, 40, 640])
+@pytest.mark.parametrize("weights", ["int8_mxu", "int8_dequant_fp32"])
+def test_project_kernel_keystroke_rows(cuda, weights, R):
+    """The head at the per-keystroke paths' rows (one row; a keystroke's
+    beam; four speculated frames; the server at 64 events), each a partial
+    row block, on a head prepared once as ``build_decode_head`` makes it
+    (``"WT"`` kept, the plan cached): within the bound of
+    test_project_kernel_modes_vs_plain, one launch a call; the last row
+    read as zeros reads above it."""
+    cd, _, int8_mxu, bound = _BLOCK_MODES[weights]
+    rng = np.random.default_rng(17)
+    H, V = 512, 5001
+    q = quantize_weight(rng.normal(0, 0.5, (H, V)).astype(np.float32), axis=0)
+    W = torch.from_numpy(q["q"]).to(cuda)
+    head = {"W": {"q": W, "scale": torch.from_numpy(q["scale"]).to(cuda)},
+            "b": torch.from_numpy(rng.normal(0, 0.1, V).astype(np.float32)).to(cuda),
+            "WT": W.t().contiguous()}
+    h = torch.from_numpy(rng.uniform(-1, 1, (R, H)).astype(np.float32)).to(cuda).to(cd)
+    kw = dict(compute_dtype=cd, int8_mxu=int8_mxu)
+    for _ in range(2):  # the second call runs on the cached plan
+        n0 = project_lse.launches
+        got = project_lse(h, head, None, **kw)
+        assert project_lse.launches == n0 + 1
+        ref = project_lse_ref(h, head, **kw)
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=bound)
+    assert "_plan" in head
+    wrong = h.clone()
+    wrong[-1] = 0
+    assert float((project_lse_ref(wrong, head, **kw) - ref).abs().max()) > bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [10, 640])
+def test_project_dsoftmax_int8_keystroke_rows(cuda, R):
+    """The int8-MXU D-softmax head (BASELINE config 5's three blocks of 512,
+    256 and 128 dims, at 8,000 words) at a keystroke's rows and the
+    server's, each block's launch on its own one-wave split plan, its
+    partials merged from its own offset: within 1e-4 of the plain version,
+    one launch a block a call, each counted at R rows; the last block's
+    partials lost reads above."""
+    from jlm_tpu_torch.config import Config, default_dsoftmax_blocks
+    from jlm_tpu_torch.decoder.engine import build_decode_head
+
+    cfg = Config(vocab_size=8000, hidden_size=512, head="dsoftmax",
+                 dsoftmax=default_dsoftmax_blocks(8000, 512))
+    rng = np.random.default_rng(18)
+    blocks = []
+    for s, d in zip(cfg.dsoftmax.block_sizes, cfg.dsoftmax.block_dims):
+        q = quantize_weight(rng.normal(0, 0.5, (d, s)).astype(np.float32), axis=0)
+        blocks.append({"W": {"q": torch.from_numpy(q["q"]).to(cuda),
+                             "scale": torch.from_numpy(q["scale"]).to(cuda)},
+                       "b": torch.from_numpy(rng.normal(0, 0.1, s).astype(np.float32)).to(cuda)})
+    head = build_decode_head({"head": {"blocks": blocks}, "lstm": []}, cfg,
+                             torch.bfloat16)["head_c"]
+    h = torch.from_numpy(rng.uniform(-1, 1, (R, 512)).astype(np.float32)).to(cuda).bfloat16()
+    kw = dict(compute_dtype=torch.bfloat16, int8_mxu=True)
+    n0, r0 = project_lse.launches, project_lse.rows.get(R, 0)
+    got = project_lse(h, head, cfg, **kw)
+    assert project_lse.launches == n0 + 3 and project_lse.rows[R] == r0 + 3
+    ref = project_lse_ref(h, head, cfg, **kw)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=1e-4)
+    lost = {"blocks": head["blocks"][:2]}  # the last block's partials overwritten
+    assert float((project_lse_ref(h, lost, cfg, **kw) - ref).abs().max()) > 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", ["full", "dsoftmax"])
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_keystroke_decoders_on_card_match_cpu(cuda, precision, head):
+    """IncrementalDecoder (plain and speculate=2) and SessionServer with the
+    kernel head on the card give the CPU run's n-best at every keystroke
+    (plain versions there), with a full head and with a D-softmax prefix
+    head (one launch a block): segments equal, scores within the speed
+    mode's int8-MXU tolerance 0.2, or 1e-3 in the parity mode."""
+    from jlm_tpu_torch.config import Config, DSoftmaxConfig
+    from jlm_tpu_torch.data import Lexicon, build_vocab, generate_corpus, generate_test_set
+    from jlm_tpu_torch.decoder import IncrementalDecoder, SessionServer
+    from jlm_tpu_torch.models.params import init_params
+    from jlm_tpu_torch.ops.quant import quantize_params
+
+    cfg = Config(vocab_size=2000, embed_size=32, hidden_size=64, beam_width=4,
+                 max_kana_len=30, seed=3)
+    if head == "dsoftmax":
+        cfg = cfg.replace(head="dsoftmax", dsoftmax=DSoftmaxConfig(
+            block_sizes=(400, 1600), block_dims=(64, 32), mode="prefix"))
+    vocab = build_vocab(generate_corpus(800, seed=1234), cfg.vocab_size)
+    lex = Lexicon.from_vocab(vocab)
+    qp = quantize_params(init_params(cfg))
+    tol = 0.2 if precision == "default" else 1e-3
+    kanas = [k for k, _ in generate_test_set(4, seed=777)]
+
+    def typed(device, **kw):
+        dec = IncrementalDecoder(qp, lex, vocab, cfg, precision=precision, use_kernel=True,
+                                 device=device, **kw)
+        out = []
+        for k in kanas:
+            dec.reset()
+            out += [dec.push(ch, n_best=2) for ch in k]
+        return out
+
+    def served(device):
+        srv = SessionServer(qp, lex, vocab, cfg, max_sessions=4, precision=precision,
+                            use_kernel=True, device=device)
+        sids = [srv.open() for _ in kanas]
+        for t in range(max(map(len, kanas))):
+            srv.push([(s, k[t]) for s, k in zip(sids, kanas) if t < len(k)])
+        return [srv.results(s, 2) for s in sids]
+
+    for got, want in ((typed(cuda), typed("cpu")), (typed(cuda, speculate=2), typed("cpu")),
+                      (served(cuda), served("cpu"))):
+        for g, w in zip(got, want):
+            assert [r.segments for r in g] == [r.segments for r in w]
+            np.testing.assert_allclose([r.score for r in g], [r.score for r in w], atol=tol)

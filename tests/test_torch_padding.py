@@ -205,6 +205,21 @@ def test_int8_split_plan_fills_whole_waves():
     assert 4 * sp >= 66
 
 
+@pytest.mark.parametrize("R,want", [
+    (1, (131, 6)), (10, (131, 6)), (40, (131, 6)),  # one row block: a wave of 131
+    (640, (44, 18)),      # the server at 64 events: 3 row blocks x 44
+    (20_480, (8, 98)),    # the serving rows: the plan a cap of 64 gave
+])
+def test_int8_split_plan_at_keystroke_rows(R, want):
+    """The int8 head's vocab splits at the per-keystroke paths' rows (50k,
+    dp = 512, 132 SMs): one row block spreads the vocab over a whole wave
+    (a cap of 64 splits left 71 SMs idle), and more row blocks keep the
+    plans they had."""
+    sp, per = project.block_splits(project.INT8_MXU, 512, 50_000, R, 132)
+    assert (sp, per) == want
+    assert (sp - 1) * per < 782 <= sp * per
+
+
 @pytest.mark.parametrize("R,V,want", [
     (512, 50_000, (66, 6)),   # the fp32 parity run's rows at 50k: 4 x 66 = 264 blocks
     (512, 16_000, None),      # config 5's blocks
