@@ -104,6 +104,22 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
    with speculation); phase 2 holds ``project_lse`` to its plain version
    at these rows (``keystroke_cases``: R = 10, 40, 640 int8-MXU, R = 10
    dequant fp32, R = 10 and 640 config 5's D-softmax int8);
+3e. drive ``decode_long`` (inputs past ``max_kana_len``: multi-root
+   overlap-save chunks, ``long_run``) through ``BeamDecoder.decode`` on the
+   50 sentences joined into three inputs of about 150 kana and on one with
+   a word across the first cut: int8 speed mode on the random weights
+   (each top-1 reads the input and is the uncapped int8 oracle's or a path
+   within 1e-2 of it where paths tie); on weights where paths do not tie,
+   the int8 speed mode and the exact-fp32 forward each with the same n-best
+   chunked as in one scan (inputs of 42 to 62 kana) and every top-1 the
+   oracle's, three planted chunking faults failing both gates; the fused
+   frame equal to the split one, fp32 greedy and config 5 each equal to
+   its uncapped oracle, one ``decode_batch`` of short and
+   long inputs equal to each input's own call, launches counted for each
+   input; ms per input, chars/s and an idle share; phase 2 holds the
+   kernels at its shapes (``long_cases``: ``project_lse`` int8 and config
+   5's D-softmax int8 at ``score_hidden``'s 50 rows, ``cand_dot`` bf16 at
+   S = 1 and 5, ``lstm_cell_step`` bf16 at 10 rows);
 5. drive the training path — ``Trainer`` at the same width, batch 32, BPTT
    window 32, Adam, fused CE — for 20 steps over the synthetic corpus, once
    through the CE kernels and once with each swapped for its plain
@@ -131,8 +147,8 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
    sentences fp32 greedy: 50/50 top-1 identity with the oracle on them.
 
 Weights are random (``init_params`` seed 0) before training.  Phases 3c,
-3b, 4b and 3d are the serving path's other modes; they run after phase 4,
-3d after 4b.  The line
+3b, 4b, 3d and 3e are the serving path's other modes; they run after phase
+4, 3d after 4b, 3e after 3d.  The line
 before the card's is ``{"kernels": [...]}``: per kernel its launches on the
 main path, its error against the plain version, its time (one call, and
 50 calls in a row: ``row_ms``, ``row_host_ms``), the plain
@@ -181,6 +197,14 @@ KEY_ROWS = {"R10": B, "R40": 4 * B, "R640": 64 * B}
 # config 5's D-softmax int8 head on the same paths: a keystroke, the server
 KEY_ROWS5 = {"R10": B, "R640": 64 * B}
 SESSIONS = 64  # the server's sessions in phase 3d
+# decode_long (phase 3e): the 50 test sentences joined and cut at sentence
+# boundaries into inputs of about LONG_LEN kana (each past T_c + (T_c - M) =
+# 119: a first, a mid and a last chunk); a seeded chunk's score_hidden runs
+# one project_lse over M x B rows (M = max_word_len = 5) and one cand_dot
+# over M "sentences" of B beams; a chunk's frame runs at S = 1
+LONG_LEN, SEED_M = 150, 5
+LONG_ROWS = {"R50": SEED_M * B}
+LONG_CANDS = {"S1": 1, "S5": SEED_M}
 SPECULATE = 4
 # weight scale of the fp32 and dequant cases: h in (-1, 1) then gives
 # logits that spread over tens of units, so the largest few set the lse and
@@ -339,7 +363,39 @@ BOUNDS = {  # kernel vs plain version, on the same inputs on the card
     # a third wrong call: the last block's partials lost (a merge offset
     # one block short)
     **{f"project_lse dsoftmax int8 {tag}": 1e-4 for tag in KEY_ROWS5},
+    # decode_long's shapes (long_cases), each with the bound and the wrong
+    # calls of its serving-frame counterpart above
+    **{f"project_lse int8 {tag}": 1e-4 for tag in LONG_ROWS},
+    **{f"project_lse dsoftmax int8 {tag}": 1e-4 for tag in LONG_ROWS},
+    **{f"cand_dot bf16 {tag}": 1e-3 for tag in LONG_CANDS},
+    "lstm_cell_step bf16 R10": 2.0,
 }
+# phase 3e's gates (abs), the readings from long_witness.py on an H100.
+# Where paths do not tie (weights long_peaked): "witness", each input's
+# n-best chunked at WITNESS_CUTS vs one scan of the same forward (every
+# sound reading 0.0; the planted faults 21.6..93 or an n-best entry lost);
+# each top-1 the uncapped int8 oracle's (float64 sums), its score within
+# "exact fp32 vs oracle" (the exact-fp32 kernel forward, read at most
+# 1.5e-4) or "int8 vs oracle" (the speed mode's bf16 states, read at most
+# 0.091; a wrong seed row's identical path reads 21.6).  On the random
+# weights the 150-kana paths tie to 1e-5..4e-3 (homophones such as 橋/端),
+# which bf16 or fp32 rounding decides: each int8 top-1 reads the input
+# and is the oracle's, its score within "random int8 score" (read at most
+# 2.0e-4), or a path the oracle's LM scores within "random int8 tie" of
+# its best (read at most 3.73e-3; there a wrong seed row reads 9.4e-3 on
+# one input, so this gate alone cannot tell it).  fp32 greedy vs the
+# uncapped fp32 greedy oracle; a batched call vs each input's own call
+LONG_BOUNDS = {"witness": 1e-3, "exact fp32 vs oracle": 1e-3, "int8 vs oracle": 0.15,
+               "random int8 score": 1e-3, "random int8 tie": 1e-2,
+               "fp32 vs oracle": 1e-3, "batch vs own call": 1e-3}
+# decode_long's witness: inputs of WITNESS_LENS kana (one scan at 62 holds
+# each) chunked at WITNESS_CUTS against that one scan, the same forward, on
+# weights where paths do not tie (long_peaked: embedding and head standard
+# deviations LONG_PEAK); and the deliberate faults (planted) it must catch
+WITNESS_LENS = (62, 58, 54, 50, 46, 42)
+WITNESS_CUTS = (41, 16)
+LONG_PEAK = (1.0, 0.5)
+LONG_FAULTS = ("seed rows shifted", "window one kana late", "overlap mask one frame long")
 # phase 3d's gates beside the oracle's (abs): "speed" holds speculation
 # against speculate 0 and the server against the single session, the same
 # kernels at 10, 40 or 640 rows, whose fp32 sums run in another order (the
@@ -564,6 +620,30 @@ def torch_gates(W, b):
     return W[:-H_, perm].t().contiguous(), W[-H_:, perm].t().contiguous(), b[perm]
 
 
+def swap_jf(t):
+    """Gates i, j, f, o -> i, f, j, o: a gate-tile mapping fault."""
+    i, j, f, o = t.chunk(4, dim=-1)
+    return torch.cat([i, f, j, o], dim=-1)
+
+
+def cell_err(k, p):
+    """(bf16 ulps, max abs error) of a cell's (c', h') against its plain."""
+    return (max(bf16_ulps(k[0], p[0]), bf16_ulps(k[1], p[1])),
+            max(abs_err(k[0], p[0]), abs_err(k[1], p[1])))
+
+
+def cand_err(k, p):
+    return abs_err(k, p) / max(1.0, float(p.abs().max())), abs_err(k, p)
+
+
+def second_half_rows(hh):
+    """Beam rows 8 on read from rows 0 on: what the dot gives if its m16
+    tile's second half took the first half's rows."""
+    hw = hh.clone()
+    hw[:, 8:] = hh[:, :hh.shape[1] - 8]
+    return hw
+
+
 def scan_stage_cases(suffix, scan_in, hs, cs, grads, cd):
     """The backward's three kernels as phase-2 cases (``kernel_cases``'
     form) on the saved values of one window: ``scan_gates`` (wrong: h_t in
@@ -755,10 +835,6 @@ def kernel_cases(dev, rng):
         c_new, h_new = lstm_cell_ref(x, h, c, W, b, 1.0)
         return c_new.to(bf), h_new.to(bf)
 
-    def swap_jf(t):  # gates i, j, f, o -> i, f, j, o
-        i, j, f, o = t.chunk(4, dim=-1)
-        return torch.cat([i, f, j, o], dim=-1)
-
     def unmasked_edge():
         """The int8 head's ragged last vocab tile left unmasked: its columns
         past V, which TMA fills with zeros, enter the lse as logits of 0."""
@@ -766,20 +842,6 @@ def kernel_cases(dev, rng):
         logits = (q.float() @ Wq.float()) * s * head_q["W"]["scale"][None, :] + bias[None, :]
         pad = -V % 64
         return torch.logsumexp(torch.nn.functional.pad(logits, (0, pad)), dim=1, keepdim=True)
-
-    def cell_err(k, p):
-        return (max(bf16_ulps(k[0], p[0]), bf16_ulps(k[1], p[1])),
-                max(abs_err(k[0], p[0]), abs_err(k[1], p[1])))
-
-    def cand_err(k, p):
-        return abs_err(k, p) / max(1.0, float(p.abs().max())), abs_err(k, p)
-
-    def second_half_rows(hh):
-        """Beam rows 8 on read from rows 0 on: what the dot gives if its
-        m16 tile's second half took the first half's rows."""
-        hw = hh.clone()
-        hw[:, 8:] = hh[:, :hh.shape[1] - 8]
-        return hw
 
     def cand_case(name, hh, cc):
         return (name, lambda: cand_dot(hh, cc, cbias), lambda: cand_dot_ref(hh, cc, cbias),
@@ -1559,10 +1621,6 @@ def odd_width_cases(dev, rng):
                                                              int8_mxu=True),
                       abs_errs, {"the slice's K past 1,024 dropped": first_1024}, None))
 
-    def cell_err(k, p):
-        return (max(bf16_ulps(k[0], p[0]), bf16_ulps(k[1], p[1])),
-                max(abs_err(k[0], p[0]), abs_err(k[1], p[1])))
-
     Eo, Ho = ODD_CELL
     for cd, rows in ((bf, R), (f32, R32)):
         x, h, c = (t(rng.normal(0, 0.3, (rows, Eo)), cd), t(rng.uniform(-1, 1, (rows, Ho)), cd),
@@ -1739,14 +1797,14 @@ def odd_width_run(dev, vocab, lexicon, kanas):
     return launches
 
 
-def keystroke_cases(dev, rng):
-    """``project_lse`` at the keystroke paths' rows (``KEY_ROWS``): the 50k
-    int8 head, int8 x int8, bf16 activations; the parity mode's dequant
-    fp32 head at one keystroke's rows on weights of scale ``PEAKED``; and
-    config 5's D-softmax int8 head (three blocks, one launch and one split
-    plan each) at ``KEY_ROWS5``.  Each a partial row block; wrong: beam
-    rows 8 on read from rows 0 on, the last row read as zeros, and for the
-    D-softmax head the last block's partials lost."""
+def keystroke_cases(dev, rng, rows=KEY_ROWS, rows5=KEY_ROWS5, parity=True):
+    """``project_lse`` at the keystroke paths' rows (``rows``): the 50k
+    int8 head, int8 x int8, bf16 activations; with ``parity`` the parity
+    mode's dequant fp32 head at one keystroke's rows on weights of scale
+    ``PEAKED``; and config 5's D-softmax int8 head (three blocks, one launch
+    and one split plan each) at ``rows5``.  Each a partial row block;
+    wrong: beam rows 8 on read from rows 0 on, the last row read as zeros,
+    and for the D-softmax head the last block's partials lost."""
     from jlm_tpu_torch.ops.project import project_lse, project_lse_ref
     from jlm_tpu_torch.ops.quant import quantize_weight
 
@@ -1782,11 +1840,11 @@ def keystroke_cases(dev, rng):
     cases = []
     for name, rows, cd, hd, cfg in (
             [(f"project_lse int8 {tag}", r, torch.bfloat16, heads[torch.bfloat16], None)
-             for tag, r in KEY_ROWS.items()]
+             for tag, r in rows.items()]
             + [("project_lse dequant fp32 R10", KEY_ROWS["R10"], torch.float32,
-                heads[torch.float32], None)]
+                heads[torch.float32], None)] * parity
             + [(f"project_lse dsoftmax int8 {tag}", r, torch.bfloat16, head5, cfg5)
-               for tag, r in KEY_ROWS5.items()]):
+               for tag, r in rows5.items()]):
         h = t(rng.uniform(-1, 1, (rows, H)), cd)
         kw = dict(compute_dtype=cd, int8_mxu=cd == torch.bfloat16)
         wrong = {"beam rows 8 on read from rows 0 on":
@@ -1807,6 +1865,62 @@ def keystroke_cases(dev, rng):
 KEY_CASES = tuple(f"project_lse int8 {tag}" for tag in KEY_ROWS) + (
     "project_lse dequant fp32 R10",) + tuple(f"project_lse dsoftmax int8 {tag}"
                                              for tag in KEY_ROWS5)
+
+
+def long_cases(dev):
+    """decode_long's shapes (phase 3e), on their own draws: ``project_lse``
+    at a seeded chunk's ``score_hidden`` rows (``LONG_ROWS``: M x B = 50),
+    on the 50k int8 head and config 5's D-softmax int8 head, as
+    ``keystroke_cases`` builds them; ``cand_dot`` bf16 at a chunk frame's
+    one sentence and at ``score_hidden``'s M = 5 (``LONG_CANDS``), wrong:
+    beam rows 8 on read from rows 0 on; and ``lstm_cell_step`` bf16 at a
+    frame's 10 rows, wrong: gates j and f swapped."""
+    from jlm_tpu_torch.ops.cand_dot import cand_dot, cand_dot_ref
+    from jlm_tpu_torch.ops.lstm_cell import cell_weight_tiles, lstm_cell_ref, lstm_cell_step
+
+    rng = np.random.default_rng(LONG_LEN)
+    cases = keystroke_cases(dev, rng, rows=LONG_ROWS, rows5=LONG_ROWS, parity=False)
+
+    def t(a, dtype=torch.bfloat16):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev).to(dtype)
+
+    for tag, n in LONG_CANDS.items():
+        h3 = t(rng.uniform(-1, 1, (n, B, H)))
+        cols = t(rng.normal(0, 0.05, (n, C1, H)))
+        cb = t(rng.normal(0, 0.1, (n, C1)), torch.float32)
+        cases.append((f"cand_dot bf16 {tag}",
+                      lambda h3=h3, cols=cols, cb=cb: cand_dot(h3, cols, cb),
+                      lambda h3=h3, cols=cols, cb=cb: cand_dot_ref(h3, cols, cb), cand_err,
+                      {"beam rows 8 on read from rows 0 on":
+                       lambda h3=h3, cols=cols, cb=cb: cand_dot_ref(second_half_rows(h3), cols,
+                                                                    cb)},
+                      lambda h3=h3, cols=cols, cb=cb: torch.baddbmm(
+                          cb.to(h3.dtype)[:, None, :], h3, cols.transpose(1, 2))))
+    x, h, c = (t(rng.normal(0, s_, (B, d))) for s_, d in ((0.3, E), (0.3, H), (1.0, H)))
+    W = t(rng.normal(0, 0.05, (E + H, 4 * H)))
+    b = t(rng.normal(0, 0.1, 4 * H), torch.float32)
+    cell_weight_tiles(W, E, H)  # as build_decode_head makes it
+
+    def plain(W=W, b=b):
+        c_new, h_new = lstm_cell_ref(x, h, c, W, b, 1.0)
+        return c_new.to(torch.bfloat16), h_new.to(torch.bfloat16)
+
+    w_ih, w_hh, b_ih = torch_gates(W, b)
+    cases.append(("lstm_cell_step bf16 R10",
+                  lambda: lstm_cell_step(x, h, c, W, b, 1.0, compute_dtype=torch.bfloat16,
+                                         c_out_dtype=torch.bfloat16),
+                  plain, cell_err, {"gates j and f swapped": lambda: plain(swap_jf(W), swap_jf(b))},
+                  lambda: torch.lstm_cell(x, (h, c), w_ih, w_hh, b_ih.to(torch.bfloat16),
+                                          torch.zeros_like(b_ih, dtype=torch.bfloat16))))
+    return cases
+
+
+# decode_long's cases: host-bound as the keystroke cases (device time from
+# the profiler too)
+LONG_CASES = (tuple(f"project_lse int8 {tag}" for tag in LONG_ROWS)
+              + tuple(f"project_lse dsoftmax int8 {tag}" for tag in LONG_ROWS)
+              + tuple(f"cand_dot bf16 {tag}" for tag in LONG_CANDS)
+              + ("lstm_cell_step bf16 R10",))
 
 
 def profiled(fn, n: int = 50):
@@ -2048,6 +2162,366 @@ def keystroke_run(dev, card, config, vocab, lexicon, qp, kanas, oracle_q_results
     return launches
 
 
+def long_inputs(kanas, lexicon, T_c):
+    """Phase 3e's inputs: the 50 test sentences joined in order and cut at
+    sentence boundaries into three of about ``LONG_LEN`` kana (the third
+    takes the rest), then an adversarial one: T_c - 1 kana, a lexicon
+    reading of 3 or more kana across the cut at T_c, then 2 kana."""
+    inputs, cur = [], ""
+    for k in kanas:
+        cur += k
+        if len(cur) >= LONG_LEN and len(inputs) < 2:
+            inputs.append(cur)
+            cur = ""
+    inputs.append(cur)
+    span = next(r for r in sorted(lexicon.by_reading) if len(r) >= 3)
+    return inputs + ["".join(kanas)[:T_c - 1] + span + "のは"]
+
+
+def lm_score(lm, words):
+    """The oracle LM's score of a word path, summed as the engine sums it:
+    ``<eos>``, then each word from a zero state, then ``<eos>`` again."""
+    from jlm_tpu_torch.config import EOS_ID
+
+    state = lm.initial_state(1)
+    ids = [EOS_ID] + list(words)
+    total = 0.0
+    for t in range(len(ids) - 1):
+        logp, state = lm.step(np.asarray(ids[t:t + 1]), state)
+        total += float(logp[0, ids[t + 1]])
+    logp, _ = lm.step(np.asarray(ids[-1:]), state)
+    return total + float(logp[0, EOS_ID])
+
+
+def reads_input(res, kana, vocab) -> bool:
+    """Whether a path's words read the input: each word's reading (an
+    unknown word's kana as they stand), in order."""
+    from jlm_tpu_torch.config import UNK_ID
+
+    return "".join(d if w == UNK_ID else vocab.reading(w) for d, w in res.segments) == kana
+
+
+def witness_inputs(kanas):
+    """The witness's inputs: the 50 test sentences joined, then consecutive
+    pieces of ``WITNESS_LENS`` kana (each fits one scan at 62)."""
+    joined, out, at = "".join(kanas), [], 0
+    for n in WITNESS_LENS:
+        out.append(joined[at:at + n])
+        at += n
+    return out
+
+
+def long_peaked(params):
+    """``params`` with the embedding scaled to standard deviation
+    ``LONG_PEAK[0]`` and every head weight to ``LONG_PEAK[1]`` (the LSTM as
+    it is): the words move the states and the head's log-probs spread by
+    nats, so paths do not tie, while the recurrence stays contracting, so
+    rounding does not grow along a sentence."""
+    def scale(w, std):
+        w = np.asarray(w, np.float32)
+        return w * np.float32(std / w.std())
+
+    head = params["head"]
+    head = ({"blocks": [{**b, "W": scale(b["W"], LONG_PEAK[1])} for b in head["blocks"]]}
+            if "blocks" in head else {**head, "W": scale(head["W"], LONG_PEAK[1])})
+    return {**params, "embedding": scale(params["embedding"], LONG_PEAK[0]), "head": head}
+
+
+@contextlib.contextmanager
+def planted(fault):
+    """``decode_long`` with one deliberate fault of ``LONG_FAULTS``, to
+    read what the long-input gates read on a wrong chunking: the seeds'
+    position rows rolled by one (a seeded row from its neighbour), each
+    seeded chunk's lattice from a window one kana late, or one frame past
+    the overlap cleared (words ending just after it lost)."""
+    from jlm_tpu_torch.decoder import engine as eng
+
+    scan, pack = eng._decode_scan, eng.BeamDecoder._pack_window
+    if fault == "seed rows shifted":
+        def wrong_scan(*a, seed=None, **kw):
+            if seed is not None:
+                seed = {k: v.roll(1, dims=1) for k, v in seed.items()}
+            return scan(*a, seed=seed, **kw)
+        eng._decode_scan = wrong_scan
+    elif fault == "window one kana late":
+        eng.BeamDecoder._pack_window = lambda self, w, m: pack(
+            self, w[1:] + w[-1] if m else w, m)
+    elif fault == "overlap mask one frame long":
+        eng.BeamDecoder._pack_window = lambda self, w, m: pack(self, w, m + 1 if m else 0)
+    else:
+        raise ValueError(fault)
+    try:
+        yield
+    finally:
+        eng._decode_scan, eng.BeamDecoder._pack_window = scan, pack
+
+
+def long_readings(dev, config, vocab, lexicon, weights, shorts, longs, faults=True):
+    """What separates chunking from arithmetic in ``decode_long`` on the
+    int8 quantization of ``weights``, for two forwards with the same
+    weights: the int8 speed mode and the exact-fp32 kernel forward.
+
+    - ``witness``: each of ``shorts`` (at most 62 kana) searched in one
+      scan at ``max_kana_len`` 62 and chunked at each of ``WITNESS_CUTS``,
+      the same forward: (inputs whose n-best (3) are equal, max |score
+      difference|) a cut;
+    - ``short``, ``long``: the top-1 of ``shorts`` (one scan) and of
+      ``longs`` (chunked at 62) against the uncapped int8 oracle (float64
+      sums): inputs equal to it, the paths that read the input, how far the
+      oracle's LM scores each other path below the oracle's best, and max
+      |score - oracle| where the path is the oracle's;
+    - ``faults`` (the speed mode): under each of ``LONG_FAULTS``, the
+      witness at the shortest cut and the ``long`` reading."""
+    from jlm_tpu_torch.decoder.engine import BeamDecoder, make_kernel_forward
+    from jlm_tpu_torch.oracle import OracleDecoder, OracleLM
+    from jlm_tpu_torch.ops.quant import quantize_params
+
+    qw = quantize_params(weights)
+    cfg = config.replace(n_best_max=3)
+    lm = OracleLM(qw, cfg)
+    oracle = OracleDecoder(lm, lexicon, vocab, cfg.replace(max_kana_len=256))
+    refs = {"short": [oracle.decode(k)[0] for k in shorts],
+            "long": [oracle.decode(k)[0] for k in longs]}
+
+    def engine(mode, T_c):
+        c = cfg.replace(max_kana_len=T_c)
+        if mode == "int8":
+            return BeamDecoder(qw, lexicon, vocab, c, precision="default", device=dev)
+        return BeamDecoder(qw, lexicon, vocab, c, device=dev,
+                           forward_fn=make_kernel_forward(c, torch.float32, int8_mxu=False))
+
+    def witness(one, cut):
+        got = [cut.decode(k, n_best=3) for k in shorts]
+        same = sum([r.segments for r in g] == [r.segments for r in w] for g, w in zip(got, one))
+        worst = max((math.inf if len(g) != len(w) else  # an n-best entry lost
+                     max((abs(a.score - b.score) for a, b in zip(g, w)), default=0.0)
+                     for g, w in zip(got, one)), default=0.0)
+        return [same, len(shorts), worst]
+
+    def top1(eng, ins):
+        return [(eng.decode(k) or [None])[0] for k in ins]  # None: no live path
+
+    def vs_oracle(res, ins, key):
+        pairs = [(r, o) for r, o in zip(res, refs[key]) if r is not None]
+        gaps = [math.inf if r is None else 0.0 if r.segments == o.segments else
+                o.score - lm_score(lm, [w for _, w in r.segments]) for r, o in zip(res, refs[key])]
+        same = [abs(r.score - o.score) for r, o in pairs if r.segments == o.segments]
+        return {"equal": len(same), "of": len(ins),
+                "reads": sum(r is not None and reads_input(r, k, vocab) for r, k in zip(res, ins)),
+                "gaps": gaps, "score_diff": max(same, default=None)}
+
+    T_c = config.max_kana_len
+    out = {}
+    for mode in ("int8", "exact fp32"):
+        whole = engine(mode, T_c)
+        one = [whole.decode(k, n_best=3) for k in shorts]
+        out[mode] = {
+            "witness": {cut: witness(one, engine(mode, cut)) for cut in WITNESS_CUTS},
+            "short": vs_oracle([r[0] for r in one], shorts, "short"),
+            "long": vs_oracle(top1(whole, longs), longs, "long")}
+        if mode == "int8" and faults:
+            cut = engine(mode, min(WITNESS_CUTS))
+            out["faults"] = {}
+            for fault in LONG_FAULTS:
+                with planted(fault):
+                    out["faults"][fault] = {
+                        "witness": witness(one, cut),
+                        "long": vs_oracle(top1(whole, longs), longs, "long")}
+    out["oracle scores"] = [o.score for o in refs["long"]]
+    return out
+
+
+def n_chunks(G, T_c, M):
+    """Chunks of a G-kana input: cuts at T_c, then every T_c - M."""
+    return 1 + -(-(G - T_c) // (T_c - M))
+
+
+def long_run(dev, card, config, vocab, lexicon, params, qp, kanas, data5):
+    """Phase 3e: ``decode_long`` (multi-root overlap-save) at the bench's
+    width through ``BeamDecoder.decode`` on three inputs of about 150 kana
+    and one with a word across the first cut (``long_inputs``).  On the
+    bench's random weights, int8 speed mode: each top-1 reads the input and
+    is the uncapped int8 oracle's or, where homophone paths tie, a path the
+    oracle's LM scores within ``LONG_BOUNDS`` of its best.  On weights
+    where paths do not tie (``long_peaked``, ``long_readings``), for the
+    int8 speed mode and the exact-fp32 kernel forward: the witness (inputs
+    of 42 to 62 kana chunked at ``WITNESS_CUTS``, the same n-best as one
+    scan) and every top-1 the uncapped int8 oracle's, short and long; each
+    of ``LONG_FAULTS`` (``planted``) must fail both.  fp32 greedy equal to
+    the uncapped fp32 greedy oracle's, scores within ``LONG_BOUNDS``; the
+    fused frame forward's paths equal to the split one's; config 5 equal
+    to its uncapped int8 oracle on the first input;
+    one ``decode_batch`` of 8 short sentences and the long inputs equal to
+    each input's own call.  Launches are counted for each input: over G
+    kana in n chunks, ``project_lse`` and ``cand_dot`` launch G + 1 + (n -
+    1) times (the root and G frames at R = 10 / S = 1, a seeded chunk's
+    ``score_hidden`` at R = 50 / S = 5; config 5 three a forward), the cell
+    (G + 1) x L.  Logs ms per input (host clock, ending in the fetch),
+    chars/s and, from one profiled input, the device's idle share.  Returns
+    the launches of the kernels line's decode_long rows."""
+    from jlm_tpu_torch.decoder.engine import BeamDecoder, make_fused_frame_forward
+    from jlm_tpu_torch.oracle import OracleDecoder, OracleLM
+    from jlm_tpu_torch.ops.cand_dot import cand_dot
+    from jlm_tpu_torch.ops.frame_step import cell_cand_step
+    from jlm_tpu_torch.ops.lstm_cell import lstm_cell_step
+    from jlm_tpu_torch.ops.project import project_lse
+
+    T_c, M = config.max_kana_len, config.max_word_len
+    check(M == SEED_M, f"max_word_len {M} != {SEED_M}")
+    inputs = long_inputs(kanas, lexicon, T_c)
+    chunks = [n_chunks(len(k), T_c, M) for k in inputs]
+    log(f"decode_long inputs: {[len(k) for k in inputs]} kana, {chunks} chunks")
+    check(all(len(k) > 2 * T_c - M for k in inputs[:3]) and chunks[3] == 2,
+          "decode_long inputs: three of 3+ chunks and the adversarial one of 2")
+    counters = (project_lse, cand_dot, lstm_cell_step, cell_cand_step)
+
+    def counted(run):
+        """``run()`` with every counter set to 0 just before; returns its
+        result, the launches, ``project_lse``'s by rows and ``cand_dot``'s
+        by sentences."""
+        for fn in counters:
+            fn.launches = 0
+        project_lse.rows, cand_dot.sentences = {}, {}
+        out = run()
+        return (out, {fn.__name__: fn.launches for fn in counters}, dict(project_lse.rows),
+                dict(cand_dot.sentences))
+
+    def expect(G, n, layers=1, blocks=1, fused=False):
+        """(launches, project_lse by rows, cand_dot by sentences) of one
+        input: G + 1 forwards (the root and a frame a kana), n - 1
+        ``score_hidden`` calls."""
+        fwd, seeded = G + 1, n - 1
+        return ({"project_lse": (fwd + seeded) * blocks,
+                 "cand_dot": seeded + (0 if fused else fwd),
+                 "lstm_cell_step": 0 if fused else fwd * layers,
+                 "cell_cand_step": fwd if fused else 0},
+                {B: fwd * blocks, SEED_M * B: seeded * blocks},
+                {SEED_M: seeded, **({} if fused else {1: fwd})})
+
+    def run_inputs(label, engine, ins, **kw):
+        """Each input through ``engine.decode``, counted and checked;
+        returns the results, host seconds and summed counts."""
+        results, secs, total = [], [], [{}, {}, {}]
+        for kana, n in zip(ins, chunks):
+            t0 = time.perf_counter()
+            res, *counts = counted(lambda: engine.decode(kana))
+            secs.append(time.perf_counter() - t0)
+            want = expect(len(kana), n, **kw)
+            check(tuple(counts) == want, f"{label}, {len(kana)} kana: launches {counts}, "
+                                          f"expected {want}")
+            for acc, got in zip(total, counts):
+                for k, v in got.items():
+                    acc[k] = acc.get(k, 0) + v
+            results.append(res)
+        n_chars = sum(len(k) for k in ins)
+        log(f"{label}: ms per input {[round(t * 1e3, 3) for t in secs]} (host clock, ending "
+            f"in the fetch), {n_chars / sum(secs):.1f} chars/s on {card}; launches {total}")
+        return results, secs, total
+
+    t_phase = time.perf_counter()
+    engine = BeamDecoder(qp, lexicon, vocab, config, precision="default", device=dev)
+    engine.decode(inputs[0])  # warm-up
+    results, secs, total = run_inputs("decode_long int8 split", engine, inputs)
+    lm_q = OracleLM(qp, config)
+    oracle = OracleDecoder(lm_q, lexicon, vocab, config.replace(max_kana_len=256))
+    refs = [oracle.decode(k)[0] for k in inputs]
+    n = identical(results, refs)
+    gaps = [0.0 if r[0].segments == o.segments else
+            o.score - lm_score(lm_q, [w for _, w in r[0].segments]) for r, o in zip(results, refs)]
+    diff = max((abs(r[0].score - o.score) for r, o in zip(results, refs)
+                if r[0].segments == o.segments), default=0.0)
+    reads = sum(reads_input(r[0], k, vocab) for r, k in zip(results, inputs))
+    log(f"decode_long int8, random weights: {n}/{len(inputs)} the uncapped int8 oracle's, max "
+        f"|score - oracle| {diff:.3e} there (bound {LONG_BOUNDS['random int8 score']:g}); "
+        f"{reads}/{len(inputs)} read the input; the oracle's LM scores each other path below "
+        f"its own by {[round(g, 6) for g in gaps]} (bound {LONG_BOUNDS['random int8 tie']:g})"
+        + "".join(f"; input {i}: {r[0].segments[d:d + 2]} for {o.segments[d:d + 2]}"
+                  for i, (r, o) in enumerate(zip(results, refs)) if r[0].segments != o.segments
+                  for d in [next(j for j, (a, b) in enumerate(zip(r[0].segments, o.segments))
+                                 if a != b)]))
+    check(reads == len(inputs) and diff <= LONG_BOUNDS["random int8 score"]
+          and max(gaps) <= LONG_BOUNDS["random int8 tie"], "decode_long int8 vs the oracle")
+
+    # where paths do not tie: chunking alone (the witness) and each forward
+    # vs the oracle, exact; the planted faults must fail both
+    t_w = time.perf_counter()
+    got = long_readings(dev, config, vocab, lexicon, long_peaked(params), witness_inputs(kanas),
+                        inputs)
+    for mode, bound in (("int8", "int8 vs oracle"), ("exact fp32", "exact fp32 vs oracle")):
+        r = got[mode]
+        log(f"decode_long {mode}, weights {LONG_PEAK} (long_peaked): witness (one scan at "
+            f"{T_c} vs chunked at each cut: inputs with equal n-best, of, max |score diff|) "
+            f"{r['witness']} (bound {LONG_BOUNDS['witness']:g}); vs the uncapped int8 oracle "
+            f"{len(WITNESS_LENS)} inputs of {WITNESS_LENS} kana {r['short']}, the long inputs "
+            f"{r['long']} (bound {LONG_BOUNDS[bound]:g})")
+        check(all(w[0] == w[1] and w[2] <= LONG_BOUNDS["witness"]
+                  for w in r["witness"].values()), f"decode_long {mode}: the witness")
+        check(all(r[k]["equal"] == r[k]["reads"] == r[k]["of"]
+                  and r[k]["score_diff"] <= LONG_BOUNDS[bound] for k in ("short", "long")),
+              f"decode_long {mode} vs the oracle, weights where paths do not tie")
+    for fault, r in got["faults"].items():
+        lo = r["long"]
+        caught = (r["witness"][0] < r["witness"][1],
+                  not (lo["equal"] == lo["reads"] == lo["of"]
+                       and lo["score_diff"] <= LONG_BOUNDS["int8 vs oracle"]))
+        log(f"decode_long planted fault '{fault}': witness {r['witness']}, vs the oracle {lo}; "
+            f"caught by the witness {caught[0]}, by the oracle gate {caught[1]}")
+        check(all(caught), f"decode_long: the planted fault '{fault}' passed a gate")
+    log(f"decode_long witness and oracle gates: {time.perf_counter() - t_w:.1f} s")
+    fused = BeamDecoder(qp, lexicon, vocab, config, device=dev,
+                        forward_fn=make_fused_frame_forward(config))
+    fused.decode(inputs[0])  # warm-up
+    res_f, _, _ = run_inputs("decode_long int8 fused frame", fused, inputs, fused=True)
+    same = sum(a[0].segments == b[0].segments for a, b in zip(res_f, results))
+    log(f"decode_long fused frame: {same}/{len(inputs)} paths equal to the split frame's")
+    check(same == len(inputs), "decode_long fused frame paths")
+    del fused
+
+    greedy_cfg = config.replace(beam_width=1)
+    greedy = BeamDecoder(params, lexicon, vocab, greedy_cfg, precision="highest", device=dev)
+    res_g = [greedy.decode(k) for k in inputs]
+    oracle_g = OracleDecoder(OracleLM(params, greedy_cfg), lexicon, vocab,
+                             greedy_cfg.replace(max_kana_len=256))
+    ref_g = [oracle_g.decode(k)[0] for k in inputs]
+    n = identical(res_g, ref_g)
+    worst = max(abs(r[0].score - o.score) for r, o in zip(res_g, ref_g))
+    log(f"decode_long greedy fp32 parity {n}/{len(inputs)} (vs the uncapped fp32 oracle); max "
+        f"|score - oracle| {worst:.3e} (bound {LONG_BOUNDS['fp32 vs oracle']:g})")
+    check(n == len(inputs) and worst <= LONG_BOUNDS["fp32 vs oracle"], "decode_long fp32 parity")
+    del greedy
+
+    cfg5, vocab5, lexicon5, qp5 = data5
+    engine5 = BeamDecoder(qp5, lexicon5, vocab5, cfg5, precision="default", device=dev)
+    engine5.decode(inputs[0])  # warm-up
+    res5, _, total5 = run_inputs("decode_long config 5 int8", engine5, inputs[:1],
+                                 layers=cfg5.num_layers, blocks=len(cfg5.dsoftmax.block_sizes))
+    oracle5 = OracleDecoder(OracleLM(qp5, cfg5), lexicon5, vocab5, cfg5.replace(max_kana_len=256))
+    n = identical(res5, [oracle5.decode(inputs[0])[0]])
+    log(f"decode_long config 5 int8 parity {n}/1 (vs its uncapped int8 oracle)")
+    check(n == 1, "decode_long config 5 parity")
+    del engine5
+
+    batch = kanas[:8] + inputs
+    t0 = time.perf_counter()
+    res_b = engine.decode_batch(batch)
+    wall_b = time.perf_counter() - t0
+    own = [engine.decode(k) for k in kanas[:8]] + results
+    ok, worst = same_nbest(res_b, own, LONG_BOUNDS["batch vs own call"])
+    log(f"decode_batch of 8 short and {len(inputs)} long inputs: each equal to its own call "
+        f"{ok}, max |score diff| {worst:.3e}; wall {wall_b * 1e3:.3f} ms")
+    check(ok, "decode_batch with long inputs vs each input's own call")
+
+    dev_ms, by, wall = profiled(lambda: engine.decode(inputs[0]), n=3)
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:6]
+    log(f"decode_long profiled ({len(inputs[0])} kana): device busy {dev_ms:.4f} ms of "
+        f"{wall:.4f} ms wall, idle share {1 - dev_ms / wall:.4f}; by kernel "
+        + ", ".join(f"{k[:40]} {v:.4f}" for k, v in top))
+    log(f"phase 3e: {time.perf_counter() - t_phase:.1f} s")
+    return {"project_lse R50": total[1][SEED_M * B], "cand_dot S1": total[2][1],
+            "cand_dot S5": total[2][SEED_M], "lstm_cell_step R10": total[0]["lstm_cell_step"],
+            "project_lse dsoftmax int8 R50": total5[1][SEED_M * B]}
+
+
 # exponentials of each head case: one per logit (R x V)
 EXPS = {
     "project_lse": R * V, "project_lse bf16": R * V, "project_lse bf16 D1024": R * V,
@@ -2065,6 +2539,9 @@ EXPS = {
     **{f"project_lse {tag}": r * V for tag, r in KEY_ROWS.items()},
     "project_lse dequant fp32 R10": KEY_ROWS["R10"] * V,
     **{f"project_lse dsoftmax int8 {tag}": r * V5 for tag, r in KEY_ROWS5.items()},
+    # decode_long's score_hidden rows
+    **{f"project_lse {tag}": r * V for tag, r in LONG_ROWS.items()},
+    **{f"project_lse dsoftmax int8 {tag}": r * V5 for tag, r in LONG_ROWS.items()},
 }
 SFU_PER_CLOCK = 16  # exponentials a clock per SM (the special-function units)
 # exponentials per second of the card: set in main from the SM count and
@@ -2215,6 +2692,17 @@ def work():
         **{f"project_lse dsoftmax int8 {tag}": (r * H * 2 + HEAD5 + V5 * 8 + r * 4,
                                                 2 * r * HEAD5, "int8")
            for tag, r in KEY_ROWS5.items()},
+        # decode_long's shapes (long_cases): the head at score_hidden's rows,
+        # cand_dot at S sentences of B beams, the cell at a frame's B rows
+        **{f"project_lse {tag}": (r * H * 2 + H * V + V * 8 + r * 4, 2 * r * H * V, "int8")
+           for tag, r in LONG_ROWS.items()},
+        **{f"project_lse dsoftmax int8 {tag}": (r * H * 2 + HEAD5 + V5 * 8 + r * 4,
+                                                2 * r * HEAD5, "int8")
+           for tag, r in LONG_ROWS.items()},
+        **{f"cand_dot {tag}": (n * B * H * 2 + n * C1 * H * 2 + n * C1 * 4 + n * B * C1 * 4,
+                               2 * n * B * C1 * H, "bf16") for tag, n in LONG_CANDS.items()},
+        "lstm_cell_step R10": (B * (E + 4 * H) * 2 + (E + H) * 4 * H * 2 + 4 * H * 4,
+                               2 * B * (E + H) * 4 * H, "bf16"),
         f"lstm_cell_step E{eo} H{ho}": (R * (eo + 4 * ho) * 2 + (eo + ho) * 4 * ho * 2
                                         + 4 * ho * 4, 2 * R * (eo + ho) * 4 * ho, "bf16"),
         f"lstm_cell_step fp32 E{eo} H{ho}": (R32 * (eo + 4 * ho) * 4 + (eo + ho) * 4 * ho * 4
@@ -2504,10 +2992,10 @@ def kernel_fn(name: str) -> str:
     if name in ("project_lse", "project_lse dsoftmax int8", "project_candidates int8",
                 "project_candidates dsoftmax int8"):
         return "proj_int8_kernel (wgmma + TMA; quantize_rows_kernel before it)"
-    if name in tuple(f"project_lse {tag}" for tag in KEY_ROWS):
+    if name in tuple(f"project_lse {tag}" for tag in (*KEY_ROWS, *LONG_ROWS)):
         return ("proj_int8_kernel (wgmma + TMA, the last 256-row block partial; "
                 "quantize_rows_kernel before it)")
-    if name in tuple(f"project_lse dsoftmax int8 {tag}" for tag in KEY_ROWS5):
+    if name in tuple(f"project_lse dsoftmax int8 {tag}" for tag in (*KEY_ROWS5, *LONG_ROWS)):
         return ("proj_int8_kernel (wgmma + TMA, one launch a block, the last 256-row block "
                 "partial; quantize_rows_kernel before them)")
     if name in tuple(f"project_lse D{d}" for d in INT8_WIDE):
@@ -2524,7 +3012,7 @@ def kernel_fn(name: str) -> str:
     if name.startswith("cand_dot"):
         return ("cand_dot_kernel (a persistent ring of bulk copies; "
                 + ("exact fp32 dots)" if "fp32" in name else "mma.sync m16n8k16 bf16)"))
-    if name == "lstm_cell_step":
+    if name in ("lstm_cell_step", "lstm_cell_step R10"):
         return "lstm_cell_wgmma_kernel (wgmma + TMA)"
     if name.startswith("project_") and ("fp32" in name):
         return ("proj_ms_f32_kernel (the scan's fp32 GEMM loop, 128 x 128 tiles; "
@@ -2680,7 +3168,7 @@ def main() -> int:
     }
     cases, yardsticks = kernel_cases(dev, rng)
     cases += head_mode_cases(dev, rng) + port_cases(dev, rng) + wide_cases(dev, rng)
-    cases += odd_width_cases(dev, rng) + keystroke_cases(dev, rng)
+    cases += odd_width_cases(dev, rng) + keystroke_cases(dev, rng) + long_cases(dev)
     for name, kernel, plain, err_fn, wrong, library in cases:
         want = plain()
         err, max_abs = err_fn(kernel(), want)
@@ -2706,7 +3194,7 @@ def main() -> int:
             log(f"  {name}: {what} reads {caught:.3e}")
             check(caught > BOUNDS[name], f"{name}: bound misses {what} ({caught})")
         measured[name] = (max_abs, ms, plain_ms, lib_ms, row_ms, host_ms, lib_row[0])
-        if name in KEY_CASES:  # host-bound: the device's own time from the profiler
+        if name in KEY_CASES + LONG_CASES:  # host-bound: the device's time from the profiler
             device_ms[name] = profiled(kernel)[0]
             log(f"  {name}: device {device_ms[name]:.4f} ms a call (torch.profiler, "
                 f"its kernels summed)")
@@ -2981,6 +3469,10 @@ def main() -> int:
     launches_key = keystroke_run(dev, card, config, vocab, lexicon, qp, kanas, oracle_q_results,
                                  (cfg5, vocab5, lexicon5, qp5, oracle5_q_results))
     log(f"phase 3d: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 3e: decode_long, inputs past max_kana_len ----
+    launches_long = long_run(dev, card, config, vocab, lexicon, params, qp, kanas,
+                             (cfg5, vocab5, lexicon5, qp5))
     del qp5
     torch.cuda.empty_cache()
 
@@ -3156,6 +3648,18 @@ def main() -> int:
                                                 "jlm_tpu/ops/project.py:42",
                                                 f"project_lse dsoftmax int8 {tag}")
            for tag in KEY_ROWS5},
+        # decode_long's shapes (launches: phase 3e)
+        **{f"project_lse {tag}": ("jlm_tpu_torch/csrc/project_lse.cu",
+                                  "jlm_tpu/ops/project.py:42", f"project_lse int8 {tag}")
+           for tag in LONG_ROWS},
+        **{f"project_lse dsoftmax int8 {tag}": ("jlm_tpu_torch/csrc/project_lse.cu",
+                                                "jlm_tpu/ops/project.py:42",
+                                                f"project_lse dsoftmax int8 {tag}")
+           for tag in LONG_ROWS},
+        **{f"cand_dot {tag}": ("jlm_tpu_torch/csrc/cand_dot.cu", "jlm_tpu/ops/cand_dot.py:31",
+                               f"cand_dot bf16 {tag}") for tag in LONG_CANDS},
+        "lstm_cell_step R10": ("jlm_tpu_torch/csrc/lstm_cell.cu", "jlm_tpu/ops/lstm_cell.py:38",
+                               "lstm_cell_step bf16 R10"),
     }
     launches.update({
         "project_lse dsoftmax int8": launches5["project_lse"],
@@ -3173,6 +3677,7 @@ def main() -> int:
         "cand_dot fp32": mode_launches["fp32"]["cand_dot"],
         **launches_odd,
         **launches_key,
+        **launches_long,
     })
     kernels = []
     for name, (src, replaces, case) in sources.items():

@@ -2,8 +2,9 @@
 
 The port imports nothing of ``jlm_tpu``: it keeps its own copies of the
 host modules it needs (``config``, ``data``, ``decoder.lattice``, the
-``native`` lattice builder, ``oracle``, ``ops.quant`` and ``init_params``
-in ``models.params``), at the paths of the originals.  Module names follow
+``native`` lattice builder, ``oracle``, ``ops.quant``, ``init_params`` in
+``models.params``, ``eval``, ``utils.logging`` and
+``train.import_reference``), at the paths of the originals.  Module names follow
 the JAX package so each counterpart is easy to find.  Importing the package builds and loads no
 kernel: ``ops/_build.py`` compiles ``csrc/*.cu`` on the first launch.
 
@@ -13,7 +14,10 @@ device, truncated BPTT):
 - ``decoder.engine`` — ``BeamDecoder`` (``decode``, ``decode_batch``,
   ``decode_stream``): host lattice build and pack, one device search per
   chunk (a Python frame loop with no host sync), device backtrack, one
-  result fetch per chunk.
+  result fetch per chunk; ``decode_long`` for inputs past
+  ``max_kana_len`` (overlap-save chunks seeded on the device).
+- ``scripts``        — the conversion, evaluation and export CLIs
+  (``python -m jlm_tpu_torch.scripts.<name>``).
 - ``train``          — ``Trainer`` / ``train_lm`` (``python -m
   jlm_tpu_torch.train``): BPTT loop, optimizer chain (``train.optim``),
   checkpoints in the reference's format (``train.checkpoint``).

@@ -34,8 +34,10 @@ A forward may carry
 every payload leaf is TIME-MAJOR (``[T1, S, ...]``) so a frame's slice is
 contiguous.
 
-Not ported yet (ROADMAP.md): ``decode_long`` and its chain/seed/export
-variants, sharded forwards.
+An input longer than ``max_kana_len`` goes through ``decode_long``
+(``decode`` and ``decode_batch`` route it there): multi-root overlap-save
+chunks whose boundary beams seed the next chunk on the device, stitched on
+the host after one fetch.  Not ported yet (ROADMAP.md): sharded forwards.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ from jlm_tpu_torch.data.corpus import Vocab
 from jlm_tpu_torch.data.lexicon import Lexicon
 from jlm_tpu_torch.decoder.lattice import Lattice, build_lattice
 from jlm_tpu_torch.oracle.decoder import DecodeResult
-from jlm_tpu_torch.models.lstm import _w, embed, step_logp
+from jlm_tpu_torch.models.lstm import _w, embed, head_logits, log_softmax, step_logp
 from jlm_tpu_torch.models.params import params_to_torch, resolve_device
 from jlm_tpu_torch.ops.cand_dot import cand_dot
 from jlm_tpu_torch.ops.frame_step import cell_cand_step
@@ -68,8 +70,6 @@ _MASK_SHIFT = 29
 
 _RING = 8  # ring rows of the per-position caches (> max_word_len)
 NEG = -1e30  # dead score; liveness is tested as > NEG / 2
-
-LONG_TODO = "decode_long not ported yet (ROADMAP.md queue 1, item 3)"
 
 
 def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -96,6 +96,14 @@ def upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+def fetch(tensors: List[torch.Tensor]) -> List[np.ndarray]:
+    """Device int32 tensors as host arrays of their shapes, in ONE
+    device-to-host copy."""
+    host = torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
+    ends = np.cumsum([t.numel() for t in tensors])
+    return [host[e - t.numel():e].reshape(t.shape) for t, e in zip(tensors, ends)]
+
+
 def _set_fp32_matmuls() -> None:
     """True fp32 products on the card: the parity rule (TF32 keeps ~3
     decimal digits and would break path identity)."""
@@ -113,13 +121,24 @@ def full_softmax_forward(params, config: Config, words, state, cand_words):
 
 
 def make_full_softmax_forward(config: Config) -> ForwardFn:
-    """The fp32 parity forward (plain torch, TF32 off)."""
+    """The fp32 parity forward (plain torch, TF32 off), with the
+    ``score_hidden`` hook: ``score_hidden(params, h_top [S, B, H],
+    cand_words [S, C]) -> [S, B, C]`` scores a candidate table from top
+    hidden states already computed (no LSTM step) — the multi-root
+    ``decode_long`` seeding, where a chunk scores its own lookahead from
+    the previous chunk's exported beams."""
     _set_fp32_matmuls()
 
     def forward(params, words, state, cand_words):
         return full_softmax_forward(params, config, words, state, cand_words)
 
+    def score_hidden(params, h_top, cand_words):
+        S, B, H = h_top.shape
+        lp = log_softmax(head_logits(params, config, h_top.reshape(S * B, H))).reshape(S, B, -1)
+        return lp.gather(2, cand_words[:, None, :].expand(S, B, -1))
+
     forward.compute_dtype = torch.float32
+    forward.score_hidden = score_hidden
     return forward
 
 
@@ -219,7 +238,20 @@ def make_kernel_forward(config: Config, compute_dtype=torch.bfloat16,
         logp = raw - lse.reshape(S, B, 1)
         return logp[:, :, :-1], logp[:, :, -1], (torch.stack(new_c), torch.stack(new_h))
 
+    def score_hidden(params, h_top, payload):
+        """Candidate log-probs ``[S, B, C]`` from top hidden states
+        ``h_top [S, B, H]`` (no LSTM step): one ``cand_dot`` and one
+        ``project_lse`` over the S*B rows; ``payload`` is ``prepare``'s
+        output for one position of each of the S rows' windows."""
+        S, B, H = h_top.shape
+        x = h_top.to(compute_dtype).contiguous()
+        lse = project_lse(x.reshape(S * B, H), params["_decode"]["head_c"], config,
+                          compute_dtype=compute_dtype, int8_mxu=int8_mxu)
+        raw = cand_dot(x, payload["cols"], payload["bias"])
+        return (raw - lse.reshape(S, B, 1))[:, :, :-1]
+
     forward.prepare = prepare
+    forward.score_hidden = score_hidden
     forward.compute_dtype = compute_dtype
     return forward
 
@@ -254,6 +286,7 @@ def make_fused_frame_forward(config: Config, compute_dtype=torch.bfloat16,
         return logp[:, :, :-1], logp[:, :, -1], (c_l[None], h_top[None])
 
     forward.prepare = base.prepare
+    forward.score_hidden = base.score_hidden
     forward.compute_dtype = compute_dtype
     return forward
 
@@ -305,18 +338,45 @@ def _at(payload, t: int):
     return payload[t]
 
 
-def _decode_scan(params, packed: torch.Tensor, lengths: torch.Tensor, *,
-                 config: Config, forward_fn: ForwardFn) -> Dict[str, torch.Tensor]:
-    """Search one chunk on the device; returns the walked top-K ``paths``
-    (``[S, K, T, 2]``: (end position, node) per step, end to start) and the
-    packed result ``blob`` (``[S, K*(3 + 2*T)]`` int32: final score bits,
-    root beam, root position, paths)."""
+def _decode_scan(params, packed: torch.Tensor, lengths: torch.Tensor,
+                 root: Optional[Dict[str, torch.Tensor]] = None,
+                 seed: Optional[Dict[str, torch.Tensor]] = None, *,
+                 config: Config, forward_fn: ForwardFn, chain: bool = False,
+                 seed_m: int = 0, export_rings: bool = False,
+                 walk: bool = True) -> Dict[str, torch.Tensor]:
+    """Search one chunk on the device.
+
+    With ``walk`` (the default) returns the walked top-K ``paths`` (``[S,
+    K, T, 2]``: (end position, node) per step, end to start), their
+    ``final_topk`` scores, where each walk stopped (``root_pos``,
+    ``root_beam``: position 0, or a seeded row) and the packed result
+    ``blob`` (``[S, K*(3 + 2*T)]`` int32: final score bits, root beam, root
+    position, paths); without it the raw backpointers ``bp`` (src, path,
+    node, each ``[S, T_scan, B]``) for the host to stitch.
+
+    The long-input arguments (``decode_long``):
+
+    - ``root`` (``{"words", "score" [S, B], "c", "h" [L, S*B, H]}``): the
+      position-0 beam carried from a previous chunk (single-root chaining)
+      in place of ``<eos>`` from a zero state; ``chain`` also returns that
+      beam at the last position (``chain``) and walks every beam slot;
+    - ``seed`` (``{"score" [S, M, B], "c", "h" [S, M, B, L, H]}``) with
+      ``seed_m = M = max_word_len``: multi-root overlap-save, local
+      positions 1..M carry the previous chunk's beams, their candidate
+      rows scored from the seeds' top hidden states by the forward's
+      ``score_hidden`` hook; the frames run from M + 1 and walks stop at a
+      seeded row;
+    - ``export_rings``: the last M positions' beams (scores without
+      ``<eos>``, states in fp32) as ``rings``, the next chunk's seed.
+    """
     S, T_max, N = packed.shape
     B, C = config.beam_pad, config.max_lookahead
     L, H = config.num_layers, config.hidden_size
     R = _RING
     if config.max_word_len >= R:
         raise ValueError(f"max_word_len={config.max_word_len} must be < ring size {R}")
+    if seed_m and (seed is None or seed_m != config.max_word_len):
+        raise ValueError("seed_m needs a seed and must equal config.max_word_len")
     dev = packed.device
     word, start, cidx, mask, look_w, look_m = _unpack_lattice(packed, config)
     word, start, cidx = word.long(), start.long(), cidx.long()
@@ -331,23 +391,47 @@ def _decode_scan(params, packed: torch.Tensor, lengths: torch.Tensor, *,
     def cache_to_state(g):  # [S, B, L, H] -> [L, S*B, H]
         return g.permute(2, 0, 1, 3).reshape(L, S * B, H).contiguous()
 
-    # --- position-0 root beam: path 0 alive, fed <eos> from zero state ---
-    zeros = torch.zeros((L, S * B, H), dtype=torch.float32, device=dev)
-    words0 = torch.full((S, B), EOS_ID, dtype=torch.long, device=dev)
-    score0 = torch.full((S, B), NEG, device=dev)
-    score0[:, 0] = 0.0
-    cand0, _, (c1, h1) = forward_fn(params, words0, (zeros, zeros), _at(payload, 0))
-    cand0 = torch.where(look_m[:, 0][:, None, :], cand0, NEG)
-    cand0 = torch.where(score0[:, :, None] > NEG / 2, cand0, NEG)
-
     score = torch.full((S, R, B), NEG, device=dev)
-    score[:, 0] = score0
     cand_cache = torch.zeros((S, R, B, C), device=dev)
-    cand_cache[:, 0] = cand0
     c_cache = torch.zeros((S, R, B, L, H), dtype=cache_dtype, device=dev)
     h_cache = torch.zeros((S, R, B, L, H), dtype=cache_dtype, device=dev)
-    c_cache[:, 0] = state_to_cache(c1)
-    h_cache[:, 0] = state_to_cache(h1)
+    last_words = None
+    if seed_m == 0:
+        # --- position-0 root beam: path 0 alive, fed <eos> from zero state,
+        # or the beam carried from the previous chunk ---
+        if root is None:
+            c0 = h0 = torch.zeros((L, S * B, H), dtype=torch.float32, device=dev)
+            words0 = torch.full((S, B), EOS_ID, dtype=torch.long, device=dev)
+            score0 = torch.full((S, B), NEG, device=dev)
+            score0[:, 0] = 0.0
+        else:
+            c0, h0, words0, score0 = root["c"], root["h"], root["words"], root["score"]
+        cand0, _, (c1, h1) = forward_fn(params, words0, (c0, h0), _at(payload, 0))
+        cand0 = torch.where(look_m[:, 0][:, None, :], cand0, NEG)
+        cand0 = torch.where(score0[:, :, None] > NEG / 2, cand0, NEG)
+        score[:, 0] = score0
+        cand_cache[:, 0] = cand0
+        c_cache[:, 0] = state_to_cache(c1)
+        h_cache[:, 0] = state_to_cache(h1)
+        last_words = words0
+    else:
+        # --- multi-root seeding: local positions 1..M hold the previous
+        # chunk's beams at its last M positions; their candidate rows are
+        # scored for THIS window's lookahead, so a word may start in the
+        # overlap and end past the cut ---
+        M = seed_m
+        htop = seed["h"][..., L - 1, :].reshape(S * M, B, H)  # [S, M, B, H] flat
+        # the payload is time-major: [M, S, ...] -> [S, M, ...] -> [S*M, ...]
+        pay = {k: v[1:M + 1].transpose(0, 1).reshape((S * M,) + v.shape[2:]).contiguous()
+               for k, v in payload.items()} if isinstance(payload, dict) else \
+            payload[1:M + 1].transpose(0, 1).reshape(S * M, -1)
+        cand_seed = forward_fn.score_hidden(params, htop, pay).reshape(S, M, B, C)
+        cand_seed = torch.where(look_m[:, 1:M + 1][:, :, None, :], cand_seed, NEG)
+        cand_seed = torch.where(seed["score"][..., None] > NEG / 2, cand_seed, NEG)
+        score[:, 1:M + 1] = seed["score"]
+        cand_cache[:, 1:M + 1] = cand_seed
+        c_cache[:, 1:M + 1] = seed["c"].to(cache_dtype)
+        h_cache[:, 1:M + 1] = seed["h"].to(cache_dtype)
     final = torch.full((S, B), NEG, device=dev)
 
     lengths = lengths.long()
@@ -355,7 +439,7 @@ def _decode_scan(params, packed: torch.Tensor, lengths: torch.Tensor, *,
     beam_live = beam < config.beam_width
     s_idx = torch.arange(S, device=dev)[:, None]
     bp_src, bp_p, bp_n = [], [], []
-    for pos in range(1, T_max + 1):
+    for pos in range(seed_m + 1, T_max + 1):
         words_t, starts_t = word[:, pos - 1], start[:, pos - 1]
         mask_t, cidx_t = mask[:, pos - 1], cidx[:, pos - 1]
         ring_t = starts_t & (R - 1)  # [S, N] ring row of each node's start
@@ -397,32 +481,60 @@ def _decode_scan(params, packed: torch.Tensor, lengths: torch.Tensor, *,
         bp_src.append(src_pos)
         bp_p.append(sel_p)
         bp_n.append(sel_n)
+        last_words = new_words
 
-    # --- device backtrack of the top-K final beams ---
+    T_scan = T_max - seed_m
     bp_src, bp_p, bp_n = (torch.stack(b, dim=1) for b in (bp_src, bp_p, bp_n))
-    K = min(config.n_best_max, B)
-    top_vals, top_beams = topk_stable(final, K)  # [S, K]
-    pos, bi = lengths[:, None].expand(S, K), top_beams
-    steps = []
-    for _ in range(T_max):
-        p = (pos - 1).clamp(min=0)
-        valid = pos > 0
+    out: Dict[str, Any] = {}
+    if walk:
+        # --- device backtrack of the top-K final beams (chain mode: every
+        # beam slot; the host learns which matter from later chunks); a
+        # walk stops at a seeded row, whose own chunk's backpointers go on ---
+        if chain:
+            K, top_vals = B, final
+            top_beams = beam[None, :].expand(S, B)
+        else:
+            K = min(config.n_best_max, B)
+            top_vals, top_beams = topk_stable(final, K)  # [S, K]
+        pos, bi = lengths[:, None].expand(S, K), top_beams
+        steps = []
+        for _ in range(T_scan):
+            p = (pos - 1 - seed_m).clamp(min=0)
+            valid = pos > seed_m
 
-        def gather_bp(bp):  # [S, T, B] -> [S, K]
-            return bp.gather(1, p[:, :, None].expand(S, K, B)).gather(2, bi[:, :, None])[..., 0]
+            def gather_bp(bp):  # [S, T_scan, B] -> [S, K]
+                return bp.gather(1, p[:, :, None].expand(S, K, B)).gather(
+                    2, bi[:, :, None])[..., 0]
 
-        node = gather_bp(bp_n)
-        steps.append(torch.where(valid[..., None], torch.stack([pos, node], dim=-1), 0))
-        pos, bi = (torch.where(valid, gather_bp(bp_src), pos),
-                   torch.where(valid, gather_bp(bp_p), bi))
-    paths = torch.stack(steps, dim=2).int()  # [S, K, T, 2], end-to-start
-    blob = torch.cat([
-        top_vals.contiguous().view(torch.int32)[:, :, None],
-        bi.int()[:, :, None],
-        pos.int()[:, :, None],
-        paths.reshape(S, K, 2 * T_max),
-    ], dim=2).reshape(S, K * (3 + 2 * T_max))
-    return {"paths": paths, "blob": blob}
+            node = gather_bp(bp_n)
+            steps.append(torch.where(valid[..., None], torch.stack([pos, node], dim=-1), 0))
+            pos, bi = (torch.where(valid, gather_bp(bp_src), pos),
+                       torch.where(valid, gather_bp(bp_p), bi))
+        paths = torch.stack(steps, dim=2).int()  # [S, K, T_scan, 2], end-to-start
+        out.update({
+            "final_topk": top_vals, "paths": paths, "root_pos": pos, "root_beam": bi,
+            "blob": torch.cat([
+                top_vals.contiguous().view(torch.int32)[:, :, None],
+                bi.int()[:, :, None],
+                pos.int()[:, :, None],
+                paths.reshape(S, K, 2 * T_scan),
+            ], dim=2).reshape(S, K * (3 + 2 * T_scan)),
+        })
+    else:
+        out["bp"] = tuple(b.int() for b in (bp_src, bp_p, bp_n))
+    if export_rings:
+        # the last M positions' beams, resident in the ring (M < R: no
+        # two of them share a row)
+        M = config.max_word_len
+        rows = [(T_max - M + 1 + i) & (R - 1) for i in range(M)]
+        out["rings"] = {"score": score[:, rows],
+                        "c": c_cache[:, rows].float(), "h": h_cache[:, rows].float()}
+    if chain:
+        ring_T = T_max & (R - 1)
+        out["chain"] = {"words": last_words, "score": score[:, ring_T],
+                        "c": cache_to_state(c_cache[:, ring_T]).float(),
+                        "h": cache_to_state(h_cache[:, ring_T]).float()}
+    return out
 
 
 class BeamDecoder:
@@ -502,9 +614,15 @@ class BeamDecoder:
 
     def decode_batch_async(self, kanas: List[str]):
         """Enqueue one chunk's search; returns (packed, device outputs)
-        without waiting for the device."""
-        if any(len(k) > self.config.max_kana_len for k in kanas):
-            raise NotImplementedError(LONG_TODO)
+        without waiting for the device.  Inputs longer than
+        ``config.max_kana_len`` go through ``decode`` / ``decode_batch``
+        (``decode_long``), not here."""
+        too_long = [k for k in kanas if len(k) > self.config.max_kana_len]
+        if too_long:
+            raise ValueError(
+                f"{len(too_long)} input(s) longer than max_kana_len="
+                f"{self.config.max_kana_len}: convert them with decode or decode_batch, "
+                "which chunk them (decode_long)")
         packed, lengths = self._pack(kanas)
         out = _decode_scan(self.params, upload(packed, self.device), upload(lengths, self.device),
                            config=self.config, forward_fn=self._fwd)
@@ -518,41 +636,167 @@ class BeamDecoder:
         blob = out["blob"].cpu().numpy().reshape(S, K, 3 + 2 * T_scan)
         finals = blob[:, :, 0].view(np.float32)
         paths = blob[:, :, 3:].reshape(S, K, T_scan, 2)
-        n = len(kanas)
-        pos = paths[:n, :, :, 0]
-        nodes = paths[:n, :, :, 1]
-        node_vals = packed[np.arange(n)[:, None, None], np.maximum(pos - 1, 0), nodes]
-        words = node_vals & ((1 << _WORD_BITS) - 1)
-        starts = (node_vals >> _START_SHIFT) & 0x3F
-        valid = pos > 0
-        display = self.vocab.display
-        results: List[List[DecodeResult]] = []
-        for i in range(n):
-            res_i: List[DecodeResult] = []
-            for k in range(min(n_best, K)):
-                if finals[i, k] <= -1e29:
-                    continue
-                segs: List[Tuple[str, int]] = []
-                for t in range(T_scan):
-                    if not valid[i, k, t]:
-                        break
-                    w = int(words[i, k, t])
-                    segs.append((
-                        kanas[i][starts[i, k, t]:pos[i, k, t]] if w == UNK_ID else display(w),
-                        w,
-                    ))
-                segs.reverse()
-                res_i.append(DecodeResult(
-                    surface="".join(d for d, _ in segs),
-                    score=float(finals[i, k]),
-                    segments=segs,
-                ))
-            results.append(res_i)
-        return results
+        return [[self._result(self._segments(kana, packed[i], paths[i, k]), finals[i, k])
+                 for k in range(min(n_best, K)) if finals[i, k] > -1e29]
+                for i, kana in enumerate(kanas)]
+
+    @staticmethod
+    def _result(segs: List[Tuple[str, int]], score) -> DecodeResult:
+        return DecodeResult(surface="".join(d for d, _ in segs), score=float(score),
+                            segments=segs)
+
+    def _segments(self, kana: str, packed_row: np.ndarray, path) -> List[Tuple[str, int]]:
+        """One walked path ((end position, node) pairs, end to start, a
+        position <= 0 ending it) as segments in reading order."""
+        segs: List[Tuple[str, int]] = []
+        for pos, n in path:
+            if pos <= 0:
+                break
+            node = int(packed_row[int(pos) - 1, int(n)])
+            word = node & ((1 << _WORD_BITS) - 1)
+            start = (node >> _START_SHIFT) & 0x3F
+            segs.append((kana[start:int(pos)] if word == UNK_ID else self.vocab.display(word),
+                         word))
+        segs.reverse()
+        return segs
 
     def decode_batch(self, kanas: List[str], n_best: int = 1) -> List[List[DecodeResult]]:
-        packed, out = self.decode_batch_async(kanas)
-        return self.materialize(kanas, packed, out, n_best)
+        """Inputs up to ``max_kana_len`` in one batched search; longer ones
+        each through ``decode_long``; results in the input order."""
+        T_c = self.config.max_kana_len
+        short = [k for k in kanas if len(k) <= T_c]
+        if len(short) == len(kanas):
+            packed, out = self.decode_batch_async(kanas)
+            return self.materialize(kanas, packed, out, n_best)
+        done = iter(self.materialize(short, *self.decode_batch_async(short), n_best)
+                    if short else [])
+        return [self.decode_long(k, n_best) if len(k) > T_c else next(done) for k in kanas]
+
+    def decode_long(self, kana: str, n_best: int = 1) -> List[DecodeResult]:
+        """Convert an input longer than ``max_kana_len`` in chunks.
+
+        Multi-root overlap-save: consecutive chunks overlap by
+        ``max_word_len`` = M positions; each chunk exports its beams at its
+        last M positions (scores and states, from the ring caches) and the
+        next seeds its ring with them, admitting nodes that start in the
+        overlap, so words span the cuts and the search equals the unchunked
+        one.  The built-in forwards carry the ``score_hidden`` hook this
+        needs; a forward without it falls back to single-root chaining (a
+        word boundary forced at every ``max_kana_len``-th position).  The
+        seeds stay on the device between chunks."""
+        if getattr(self._fwd, "score_hidden", None) is not None:
+            return self._decode_long_multiroot(kana, n_best)
+        return self._decode_long_chain(kana, n_best)
+
+    def _pack_window(self, window: str, mask_upto: int) -> np.ndarray:
+        """One chunk window's packed lattice ``[1, len(window), N]`` (no time
+        bucket), its frames up to ``mask_upto`` (the overlap the previous
+        chunk searched) cleared, so their nodes are dead."""
+        if self._native is not None:
+            packed, _ = self._native.pack_batch([window])
+        else:
+            packed, _ = pack_lattice_batch(
+                [build_lattice(window, self.lexicon, self.vocab, self.config)])
+        packed = packed[:, :len(window)].copy()
+        packed[:, :mask_upto] = 0
+        return packed
+
+    @staticmethod
+    def _walk_host(bp, entry_pos: int, entry_slot: int, seed_m: int):
+        """Backtrack one chunk on the host from (position, slot) down to a
+        seeded row or the root.  ``bp`` = (src, path, node) ``[T_scan, B]``;
+        returns the (position, node) steps end to start and where the walk
+        stopped."""
+        src, selp, seln = bp
+        pos, b = entry_pos, entry_slot
+        steps = []
+        while pos > seed_m:
+            row = pos - 1 - seed_m
+            steps.append((pos, int(seln[row, b])))
+            pos, b = int(src[row, b]), int(selp[row, b])
+        return steps, pos, b
+
+    def _decode_long_multiroot(self, kana: str, n_best: int = 1) -> List[DecodeResult]:
+        cfg = self.config
+        M, T_c = cfg.max_word_len, cfg.max_kana_len
+        # chunk k searches global positions cut_{k-1} + 1 .. cut_k
+        cuts = [T_c]
+        while cuts[-1] < len(kana):
+            cuts.append(min(cuts[-1] + T_c - M, len(kana)))
+        kind = {"first": dict(export_rings=True, walk=False),
+                "mid": dict(seed_m=M, export_rings=True, walk=False),
+                "last": dict(seed_m=M)}
+        chunks, seed = [], None  # (window, packed, out, seed_m)
+        for k, cut in enumerate(cuts):
+            seed_m = 0 if k == 0 else M
+            window = kana[cuts[k - 1] - M if k else 0:cut]
+            packed = self._pack_window(window, seed_m)
+            lengths = np.asarray([len(window)], np.int32)
+            variant = "first" if k == 0 else "last" if k == len(cuts) - 1 else "mid"
+            out = _decode_scan(self.params, upload(packed, self.device),
+                               upload(lengths, self.device), seed=seed, config=cfg,
+                               forward_fn=self._fwd, **kind[variant])
+            seed = out.get("rings")  # stays on the device
+            chunks.append((window, packed, out, seed_m))
+
+        # one fetch: the last chunk's blob and every earlier chunk's
+        # backpointers (row 0 of each: S = 1)
+        window_l, packed_l, out_l, _ = chunks[-1]
+        K, T_scan = out_l["paths"].shape[1:3]
+        host = fetch([out_l["blob"]] + [b for _, _, out, _ in chunks[:-1] for b in out["bp"]])
+        blob = host[0].reshape(K, 3 + 2 * T_scan)
+        finals, root_beam, root_pos = blob[:, 0].view(np.float32), blob[:, 1], blob[:, 2]
+        paths = blob[:, 3:].reshape(K, T_scan, 2)
+        bps = [tuple(b[0] for b in host[1 + 3 * k:4 + 3 * k]) for k in range(len(chunks) - 1)]
+
+        results = []
+        for j in range(min(n_best, K)):
+            if finals[j] <= -1e29:
+                continue
+            segs = self._segments(window_l, packed_l[0], paths[j])
+            pos, slot = int(root_pos[j]), int(root_beam[j])
+            for k in range(len(chunks) - 2, -1, -1):
+                window_k, packed_k, _, seed_m_k = chunks[k]
+                # a seeded row pos of chunk k + 1 is chunk k's local
+                # position len(window_k) - M + pos
+                steps, pos, slot = self._walk_host(bps[k], len(window_k) - M + pos, slot,
+                                                   seed_m_k)
+                segs = self._segments(window_k, packed_k[0], steps) + segs
+            results.append(self._result(segs, finals[j]))
+        return results
+
+    def _decode_long_chain(self, kana: str, n_best: int = 1) -> List[DecodeResult]:
+        """Single-root chaining, for a forward without ``score_hidden``:
+        each ``max_kana_len`` part's beam at its last position roots the
+        next part (a word boundary forced at every cut)."""
+        T_c = self.config.max_kana_len
+        parts = [kana[i:i + T_c] for i in range(0, len(kana), T_c)]
+        outs, root = [], None
+        for i, part in enumerate(parts):
+            last = i == len(parts) - 1
+            packed, lengths = self._pack([part])
+            out = _decode_scan(self.params, upload(packed, self.device),
+                               upload(lengths, self.device), root, config=self.config,
+                               forward_fn=self._fwd, chain=not last)
+            root = out.get("chain")  # stays on the device
+            outs.append((part, packed, out))
+        blobs = [blob.reshape(out["paths"].shape[1], -1) for (_, _, out), blob in
+                 zip(outs, fetch([out["blob"] for _, _, out in outs]))]  # one fetch
+        walked = [(part, packed, blob[:, 3:].reshape(len(blob), -1, 2), blob[:, 1])
+                  for (part, packed, _), blob in zip(outs, blobs)]
+        finals = blobs[-1][:, 0].view(np.float32)
+        results = []
+        for k in range(min(n_best, len(finals))):
+            if finals[k] <= -1e29:
+                continue
+            part, packed, paths, roots = walked[-1]
+            segs = self._segments(part, packed[0], paths[k])
+            rb = int(roots[k])
+            for part, packed, paths, roots in reversed(walked[:-1]):
+                segs = self._segments(part, packed[0], paths[rb]) + segs
+                rb = int(roots[rb])
+            results.append(self._result(segs, finals[k]))
+        return results
 
     def decode_stream(self, kanas: List[str], chunk_size: int = 128, n_best: int = 1,
                       sort_by_length: bool = True) -> List[List[DecodeResult]]:
@@ -577,4 +821,6 @@ class BeamDecoder:
         return results
 
     def decode(self, kana: str, n_best: int = 1) -> List[DecodeResult]:
+        if len(kana) > self.config.max_kana_len:
+            return self.decode_long(kana, n_best)
         return self.decode_batch([kana], n_best)[0]

@@ -41,7 +41,8 @@ def cand_dot(h3: torch.Tensor, cols: torch.Tensor, bias: torch.Tensor) -> torch.
     """Per-sentence candidate logits ``[S, B, C1]`` fp32 (bias added).
 
     ``cand_dot.launches`` counts kernel launches: one per group of beam
-    rows and candidate columns.
+    rows and candidate columns; ``cand_dot.sentences`` counts the same
+    launches by their sentence count S.
     """
     if not h3.is_cuda:
         return cand_dot_ref(h3, cols, bias)
@@ -74,9 +75,11 @@ def cand_dot(h3: torch.Tensor, cols: torch.Tensor, bias: torch.Tensor) -> torch.
                     S, b1 - b0, c1 - c0, Hp, _build.stream_ptr(h3))
                 _build.check(err, "cand_dot kernel")
                 cand_dot.launches += 1
+                cand_dot.sentences[S] = cand_dot.sentences.get(S, 0) + 1
             parts.append(out)
         rows.append(parts[0] if len(parts) == 1 else torch.cat(parts, dim=2))
     return rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
 
 
 cand_dot.launches = 0
+cand_dot.sentences = {}

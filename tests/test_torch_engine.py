@@ -223,13 +223,20 @@ def test_native_and_python_builders_agree(tiny_params, tiny_config, lexicon, voc
     assert [_segs(r) for r in rn] == [_segs(r) for r in rp]
 
 
-def test_unported_paths_raise(engine, tiny_config, lexicon, vocab):
-    """decode_long (over-length input) is not ported yet and raises
-    NotImplementedError; the D-softmax head, which this test once saw
-    refused too, is served by the kernel forward: top-1 equals the oracle's
-    with the score within the bf16 speed mode's 0.1."""
-    with pytest.raises(NotImplementedError):
-        engine.decode("あ" * (tiny_config.max_kana_len + 1))
+def test_unported_paths_raise(engine, tiny_params, tiny_config, lexicon, vocab):
+    """Two paths this test once saw refused are served now: an over-length
+    input goes through ``decode_long`` (its n-best equals the JAX
+    package's ``decode_long``, scores within 1e-3), and the D-softmax head
+    through the kernel forward (top-1 equals the oracle's with the score
+    within the bf16 speed mode's 0.1)."""
+    from jlm_tpu.data import generate_test_set
+
+    kana = "".join(k for k, _ in generate_test_set(12, seed=5))[:tiny_config.max_kana_len + 9]
+    assert len(kana) > tiny_config.max_kana_len
+    r_t = engine.decode(kana, n_best=2)
+    r_j = jax_engine.BeamDecoder(tiny_params, lexicon, vocab, tiny_config).decode_long(kana, 2)
+    assert r_t and _segs(r_t) == _segs(r_j)
+    np.testing.assert_allclose([r.score for r in r_t], [r.score for r in r_j], atol=1e-3)
     cfg = Config(vocab_size=256, embed_size=32, hidden_size=64, head="dsoftmax",
                  dsoftmax=DSoftmaxConfig(block_sizes=(64, 192), block_dims=(64, 32)),
                  max_kana_len=30, seed=42)

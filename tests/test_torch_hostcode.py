@@ -1,8 +1,10 @@
 """The port's copies of the JAX package's host code vs the originals.
 
-``jlm_tpu_torch`` keeps its own copies of ``config``, ``data``,
-``decoder.lattice``, the ``native`` lattice builder, ``oracle``,
-``ops.quant`` and ``init_params``; each case here builds the same thing
+``jlm_tpu_torch`` keeps its own copies of ``config``, ``data`` (with
+``realistic`` and ``synthetic_ctx``), ``decoder.lattice``, the ``native``
+lattice builder, ``oracle`` (with ``ngram``), ``ops.quant``,
+``init_params``, ``eval`` (``conversion``, ``ceiling``), ``utils.logging``
+and ``train.import_reference``; each case here builds the same thing
 through both and asserts equality (bit-equal arrays, equal files).
 """
 
@@ -173,6 +175,151 @@ def case_data_dirs(tmp_path):
         for a, b in zip(want[1:], got[1:]):
             np.testing.assert_array_equal(a, b)
     assert os.path.exists(os.path.join(bin_dir, "meta.json"))
+
+
+def case_eval_conversion(tmp_path):
+    """``evaluate_conversion`` over each package's oracle decoder: equal
+    counts and n-best accuracy, the same summary up to the timing."""
+    import jlm_tpu.eval as j_eval
+    import jlm_tpu_torch.eval as p_eval
+
+    (_, vj, xj), (_, vp, xp) = _both()
+    cj, cp = _configs(**ARGS)
+    tests = j_data.generate_test_set(8, seed=777)
+    reps = []
+    for ev, orc, params, cfg, x, v in ((j_eval, j_oracle, j_params, cj, xj, vj),
+                                       (p_eval, p_oracle, p_params, cp, xp, vp)):
+        dec = orc.OracleDecoder(orc.OracleLM(params.init_params(cfg), cfg), x, v, cfg)
+        reps.append(ev.evaluate_conversion(dec, tests, n_best=2))
+    a, b = (dataclasses.replace(r, seconds=0.0, chars_per_sec=0.0) for r in reps)
+    assert dataclasses.asdict(a) == dataclasses.asdict(b) and a.exact_match > 0
+    assert a.summary() == b.summary()
+    from jlm_tpu.eval.conversion import _char_correct as cj_
+    from jlm_tpu_torch.eval.conversion import _char_correct as cp_
+    for hyp, ref in (("今日は", "今日も"), ("", "あ"), ("京都", "東京都")):
+        assert cj_(hyp, ref) == cp_(hyp, ref)
+
+
+def case_eval_ceiling(tmp_path):
+    """The exact Bayes ceilings, context-free and topic-conditioned."""
+    from jlm_tpu.data.synthetic_ctx import generate_test_set_ctx
+    from jlm_tpu.eval import ceiling as j_ceiling
+    from jlm_tpu_torch.eval import ceiling as p_ceiling
+
+    tests = j_data.generate_test_set(40, seed=777)
+    assert j_ceiling.bayes_ceiling(tests) == p_ceiling.bayes_ceiling(tests)
+    ctx = generate_test_set_ctx(12, seed=11)
+    assert j_ceiling.bayes_ceiling_ctx(ctx) == p_ceiling.bayes_ceiling_ctx(ctx)
+    kana = ctx[0][0]
+    assert j_ceiling.surface_posteriors_ctx(kana) == p_ceiling.surface_posteriors_ctx(kana)
+
+
+def case_oracle_ngram(tmp_path):
+    """The n-gram baseline: the same rows, sequence NLL and exact Viterbi
+    decodes through each package's oracle decoder."""
+    from jlm_tpu.oracle import ngram as j_ngram
+    from jlm_tpu_torch.oracle import ngram as p_ngram
+
+    (lj, vj, xj), (lp, vp, xp) = _both()
+    cj, cp = _configs(**ARGS)
+    ids = j_data.encode_corpus(lj[:50], vj)
+    for order in (1, 2):
+        mj = j_ngram.NgramLM(vj, order=order).fit_lines(lj, vj)
+        mp = p_ngram.NgramLM(vp, order=order).fit_lines(lp, vp)
+        words = np.asarray([0, 5, 9, 17])
+        for a, b in zip(mj.step(words, mj.initial_state(4)), mp.step(words, mp.initial_state(4))):
+            _assert_tree_equal(a, b)
+        assert mj.sequence_nll(ids) == mp.sequence_nll(ids)
+        dj = j_oracle.OracleDecoder(mj, xj, vj, j_ngram.ngram_config(cj))
+        dp = p_oracle.OracleDecoder(mp, xp, vp, p_ngram.ngram_config(cp))
+        for kana, _ in j_data.generate_test_set(6, seed=777):
+            for a, b in zip(dj.decode(kana, n_best=2), dp.decode(kana, n_best=2)):
+                assert (a.surface, a.score, a.segments) == (b.surface, b.score, b.segments)
+
+
+def case_data_realistic(tmp_path):
+    """The realistic lexicon (at 20,000 words here), its test set, corpus
+    and lattice statistics."""
+    import jlm_tpu.data.realistic as j_real
+    import jlm_tpu_torch.data.realistic as p_real
+
+    vj, vp = (m.generate_realistic_lexicon(20_000, seed=7) for m in (j_real, p_real))
+    assert [t.key for t in vj.tokens] == [t.key for t in vp.tokens] and vj.id_of == vp.id_of
+    np.testing.assert_array_equal(vj.counts, vp.counts)
+    tj = j_real.generate_realistic_test_set(vj, 12, seed=99)
+    assert tj == p_real.generate_realistic_test_set(vp, 12, seed=99)
+    assert (j_real.generate_realistic_corpus(vj, 40, seed=5)
+            == p_real.generate_realistic_corpus(vp, 40, seed=5))
+    cj, cp = _configs(**dict(ARGS, vocab_size=20_000))
+    kanas = [k for k, _ in tj]
+    assert (j_real.lattice_density_stats(kanas, j_data.Lexicon.from_vocab(vj), vj, cj)
+            == p_real.lattice_density_stats(kanas, p_data.Lexicon.from_vocab(vp), vp, cp))
+
+
+def case_data_synthetic_ctx(tmp_path):
+    """The topic-conditioned corpus, test sets and pool probabilities."""
+    import jlm_tpu.data.synthetic_ctx as j_ctx
+    import jlm_tpu_torch.data.synthetic_ctx as p_ctx
+
+    assert j_ctx.generate_corpus_ctx(300, seed=7) == p_ctx.generate_corpus_ctx(300, seed=7)
+    assert j_ctx.generate_test_set_ctx(40, seed=9) == p_ctx.generate_test_set_ctx(40, seed=9)
+    assert (j_ctx.generate_test_tokens_ctx(40, seed=9)
+            == p_ctx.generate_test_tokens_ctx(40, seed=9))
+    assert j_ctx.TOPICS == p_ctx.TOPICS
+    for topic in j_ctx.TOPICS:
+        assert (j_ctx.pool_reading_probs(j_data.SYNTH_WORDS, topic)
+                == p_ctx.pool_reading_probs(p_data.SYNTH_WORDS, topic))
+
+
+def case_utils_logging(tmp_path):
+    """JSONL records of ``log`` and ``timed_span``, up to their times."""
+    import json
+
+    import jlm_tpu.utils.logging as j_log
+    import jlm_tpu_torch.utils as p_utils
+
+    recs = []
+    for mod in (j_log, p_utils):
+        path = str(tmp_path / f"{mod.__name__}.jsonl")
+        logger = mod.JsonlLogger(path, echo=False)
+        rec = logger.log("eval", top1=0.5, n=3)
+        with mod.timed_span(logger, "decode", chunk=2):
+            pass
+        with open(path) as f:
+            lines = [json.loads(l) for l in f]
+        assert lines[0] == rec
+        recs.append([{k: v for k, v in l.items() if k not in ("ts", "seconds")} for l in lines])
+    assert recs[0] == recs[1] and len(recs[0]) == 2
+
+
+def case_train_import_reference(tmp_path):
+    """A TF-style export (pickle and npz) re-keyed onto each package's
+    weight spec: the same parameters and mapping."""
+    import pickle
+
+    import jlm_tpu.train.import_reference as j_imp
+    import jlm_tpu_torch.train.import_reference as p_imp
+
+    for kw in (ARGS, dict(ARGS, num_layers=2)):
+        cj, cp = _configs(**kw)
+        pj = j_params.init_params(cj, seed=4)
+        export = {"model/embedding": np.asarray(pj["embedding"]),
+                  "model/softmax_w": np.asarray(pj["head"]["W"]).T,  # [V, H]: transposed
+                  "model/softmax_b": np.asarray(pj["head"]["b"]),
+                  "global_step": np.asarray(7)}
+        for l, layer in enumerate(pj["lstm"]):
+            export[f"model/rnn/cell_{l}/kernel"] = np.asarray(layer["W"])
+            export[f"model/rnn/cell_{l}/bias"] = np.asarray(layer["b"])
+        pkl, npz = tmp_path / "export.pkl", str(tmp_path / "export.npz")
+        with open(pkl, "wb") as f:
+            pickle.dump(export, f)
+        np.savez(npz, **export)
+        for path in (str(pkl), npz):
+            got_j = j_imp.import_reference_weights(j_imp.load_export(path), cj)
+            got_p = p_imp.import_reference_weights(p_imp.load_export(path), cp)
+            assert got_j[1] == got_p[1]
+            _assert_tree_equal(got_j[0], got_p[0])
+            _assert_tree_equal(got_p[0], pj)
 
 
 CASES = {name[len("case_"):]: fn for name, fn in globals().items() if name.startswith("case_")}

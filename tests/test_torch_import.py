@@ -15,6 +15,12 @@ def test_engine_import_is_jax_free_and_builds_nothing():
         "import jlm_tpu_torch.decoder.server\n"
         "import jlm_tpu_torch.decoder.suggest\n"
         "import jlm_tpu_torch.models.params\n"
+        "import jlm_tpu_torch.data.realistic, jlm_tpu_torch.data.synthetic_ctx\n"
+        "import jlm_tpu_torch.eval.ceiling, jlm_tpu_torch.eval.conversion\n"
+        "import jlm_tpu_torch.oracle.ngram, jlm_tpu_torch.utils.logging\n"
+        "import jlm_tpu_torch.train.import_reference\n"
+        "from jlm_tpu_torch.scripts import (convert, eval_conversion, eval_ppl, export_int8,\n"
+        "                                   import_reference_weights, quality_ceiling)\n"
         "from jlm_tpu_torch.ops import _build\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert _build._lib is None\n"
@@ -28,8 +34,9 @@ def test_engine_import_is_jax_free_and_builds_nothing():
 
 
 def test_port_runs_without_the_jax_package():
-    """Every module of the port and the root scripts import, and a
-    tiny CPU decode, a few keystrokes through the per-keystroke decoder,
+    """Every module of the port (its CLIs among them) and the root scripts
+    import, and a tiny CPU decode (one input past ``max_kana_len``), a few
+    keystrokes through the per-keystroke decoder,
     the server and the suggester, and a tiny ``--pallas-scan`` training
     step run, with no module of JAX or of ``jlm_tpu`` loaded and no kernel
     built."""
@@ -38,7 +45,7 @@ def test_port_runs_without_the_jax_package():
         "import jlm_tpu_torch\n"
         "for m in pkgutil.walk_packages(jlm_tpu_torch.__path__, 'jlm_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke, profile_keystroke, profile_serve, profile_train, time_kernels\n"
+        "import chip_smoke, long_witness, profile_keystroke, profile_serve, profile_train, time_kernels\n"
         "from jlm_tpu_torch.config import Config\n"
         "from jlm_tpu_torch.data import (Lexicon, build_vocab, encode_corpus,\n"
         "                                generate_corpus, split_corpus)\n"
@@ -53,6 +60,7 @@ def test_port_runs_without_the_jax_package():
         "dec = BeamDecoder(init_params(cfg), Lexicon.from_vocab(vocab), vocab, cfg,\n"
         "                  precision='default', device='cpu')\n"
         "assert dec.decode('きょうはいい')[0].surface\n"
+        "assert dec.decode('きょうはいいてんき' * 4)[0].surface  # decode_long\n"
         "from jlm_tpu_torch.decoder import IncrementalDecoder, SessionServer, Suggester\n"
         "p, lex = init_params(cfg), Lexicon.from_vocab(vocab)\n"
         "inc = IncrementalDecoder(p, lex, vocab, cfg, precision='default', speculate=2,\n"
