@@ -120,6 +120,26 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
    kernels at its shapes (``long_cases``: ``project_lse`` int8 and config
    5's D-softmax int8 at ``score_hidden``'s 50 rows, ``cand_dot`` bf16 at
    S = 1 and 5, ``lstm_cell_step`` bf16 at 10 rows);
+3f. (run after phase 5, whose losses it reads) vocab and data
+   parallelism with every rank a process on this one card over Gloo
+   (``shard_run``): BASELINE config 3 (V 50,000, D-softmax 8,000 x 512,
+   17,000 x 256, 25,000 x 128, int8-MXU) on a (1, 4) world and config 5 on
+   (2, 4), the 2,048-lattice chunk through the sharded kernel forward:
+   top-1 50/50 vs the int8 oracle, n-best equal to the one-card kernel
+   forward's with scores within 1e-4, every rank the same batch, launches
+   per rank (per forward one projection a block, one cell a layer, one
+   ``cand_dot``); config 3's fp32 kernel forward greedy on ``PEAKED``
+   heads 50/50 vs the fp32 oracle; ``Suggester(mesh=)``'s top 5 equal to
+   one card's; ``sharded_topk`` on planted ties; ``all_reduce`` MAX on
+   CUDA tensors equal to the gathered max; on the (2, 4) world five
+   ``--fused-ce`` steps at phase 5's width through the CE kernels on
+   vocab shards (losses within ``TRAIN_BOUNDS`` of phase 5's, one launch
+   of each CE kernel a rank, block and step), a step's gradient and a
+   clipped SGD step equal to one card's, and four planted faults
+   (``SHARD_FAULTS``: dh summed twice, never; an owner map off by one
+   block; the clip on a rank's own norm) each failing a gate; ms per chunk
+   and per step, marked as ranks sharing one card; phase 2 holds the
+   kernels at a rank's shapes (``shard_cases``);
 5. drive the training path — ``Trainer`` at the same width, batch 32, BPTT
    window 32, Adam, fused CE — for 20 steps over the synthetic corpus, once
    through the CE kernels and once with each swapped for its plain
@@ -164,6 +184,7 @@ Nothing of JAX or of the JAX package is imported (the oracle is numpy).
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -2729,7 +2750,7 @@ def bound_of(name):
     """(least ms the card could take, "bytes", "operations" or "exp"): the
     largest of the bytes over the memory rate, the operations over their
     peak and, for the head, its R x V exponentials over the SFU rate."""
-    nbytes, ops, kind = work()[name]
+    nbytes, ops, kind = {**work(), **shard_work()}[name]
     terms = [(nbytes / PEAK["bytes"] * 1e3, "bytes"), (ops / PEAK[kind] * 1e3, "operations")]
     if name in EXPS:
         terms.append((EXPS[name] / SFU_RATE["exp"] * 1e3, "exp"))
@@ -2905,15 +2926,20 @@ def fp32_ce_run(dev, rng):
     return total
 
 
+def bench_config():
+    from jlm_tpu_torch.config import Config
+
+    return Config(vocab_size=V, embed_size=E, hidden_size=H, num_layers=1,
+                  beam_width=10, n_best_max=1, seed=0)
+
+
 def bench_data():
     """The bench's config, vocab, lexicon, weights and 50 test sentences."""
-    from jlm_tpu_torch.config import Config
     from jlm_tpu_torch.data import Lexicon, build_vocab, generate_corpus, generate_test_set
     from jlm_tpu_torch.models.params import init_params
     from jlm_tpu_torch.ops.quant import quantize_params
 
-    config = Config(vocab_size=V, embed_size=E, hidden_size=H, num_layers=1,
-                    beam_width=10, n_best_max=1, seed=0)
+    config = bench_config()
     vocab = build_vocab(generate_corpus(2000, seed=1234), config.vocab_size)
     lexicon = Lexicon.from_vocab(vocab)
     params = init_params(config)
@@ -2998,6 +3024,9 @@ def kernel_fn(name: str) -> str:
     if name in tuple(f"project_lse dsoftmax int8 {tag}" for tag in (*KEY_ROWS5, *LONG_ROWS)):
         return ("proj_int8_kernel (wgmma + TMA, one launch a block, the last 256-row block "
                 "partial; quantize_rows_kernel before them)")
+    if name in tuple(f"project_lse dsoftmax int8 {tag} shard" for tag in SHARD_ROWS):
+        return ("proj_int8_kernel (wgmma + TMA, one launch a rank's block, the ragged last "
+                "vocab tile masked; quantize_rows_kernel before them)")
     if name in tuple(f"project_lse D{d}" for d in INT8_WIDE):
         return ("proj_bf16_kernel<Q8> (wgmma m64n256k32 s8 + TMA; the rows streamed "
                 "with W^T; quantize_rows_kernel before it)")
@@ -3037,7 +3066,8 @@ STEP_COUNTERS = CE_COUNTERS + ("cast_wt",)
 # 5c's config-5 run launches the fp32 forward at D = 128 once a forward,
 # under ce_fwd fp32's count), so the kernels line has no entry of theirs;
 # phase 2 logs their bound
-PHASE2_ONLY = ("lstm_scan_fwd fp32 B16384", f"ce_fwd bf16 D{DS_D}", f"ce_fwd fp32 D{DS_D}")
+PHASE2_ONLY = ("lstm_scan_fwd fp32 B16384", f"ce_fwd bf16 D{DS_D}", f"ce_fwd fp32 D{DS_D}",
+               "ce_fwd fp32 V12500", "ce_bwd_dh fp32 V12500", "ce_bwd_dw fp32 V12500")
 SCAN_COUNTERS = ("lstm_scan_fwd", "lstm_scan_bwd", "scan_xw", "scan_fwd_recur", "scan_gates",
                  "scan_recur", "scan_dx")
 # the TPU kernel each scan wrapper's kernels replace (jlm_tpu/ops/lstm_scan.py)
@@ -3106,6 +3136,481 @@ def identical(results, oracle_results) -> int:
     return sum(r[0].segments == o.segments for r, o in zip(results, oracle_results))
 
 
+# ---- vocab and data parallelism (phase 3f) ----
+# BASELINE config 3 (jlm_tpu/config.py:260-266): V 50,000, the D-softmax
+# head of default_dsoftmax_blocks(50_000, 512), vocab sharded 4 ways; config
+# 5 on its (2, 4) mesh.  Every rank of a world shares the one card (Gloo).
+SHARD_N = 4
+BLOCKS3 = ((8_000, 512), (17_000, 256), (25_000, 128))
+HEAD3 = sum(n * d for n, d in BLOCKS3)
+# rows each vocab group's head sees after the h_top gather: config 3's one
+# group the whole chunk, config 5's two groups half of it each
+SHARD_ROWS = {"c3": (R, BLOCKS3), "c5": (R // 2, BLOCKS5)}
+# a (2, 4) training rank's CE: 16 x 32 rows, a quarter of the 50k head
+N_SH, V_SH = TB // 2 * TT, V // SHARD_N
+SHARD_STEPS = 5
+CLIP_NORM = 0.1  # the clip gate's max_grad_norm (SGD at lr 1: the clip sets each update)
+SHARD_BOUNDS = {
+    "scores vs one card": 1e-4,  # abs: only the lse merge's order differs
+    "grads vs one card": 1e-3,   # of max |one card|, a step's LSTM gradient
+    "clip step vs one card": 1e-3,  # of max |one card|, an SGD step's LSTM update
+}
+SHARD_FAULTS = ("dh summed twice", "dh never summed", "owner map off by one block",
+                "clip on the rank-local norm")
+EXPS.update({  # a rank's quarter of the head over its group's rows; the CE's logits
+    **{f"project_lse dsoftmax int8 {tag} shard": rows * sum(n for n, _ in blocks) // SHARD_N
+       for tag, (rows, blocks) in SHARD_ROWS.items()},
+    f"ce_fwd bf16 V{V_SH}": N_SH * V_SH})
+BOUNDS.update({f"project_lse dsoftmax int8 {tag} shard": BOUNDS["project_lse dsoftmax int8"]
+               for tag in SHARD_ROWS})
+BOUNDS.update({f"{k} {cd} V{V_SH}": BOUNDS[f"{k} {cd}"]
+               for k in ("ce_fwd", "ce_bwd_dh", "ce_bwd_dw") for cd in ("bf16", "fp32")})
+
+
+def config3():
+    """BASELINE config 3: V 50,000 (the bench's vocab), E 256, H 512, the
+    D-softmax prefix head, int8-MXU, beam 10, vocab sharded 4 ways."""
+    from jlm_tpu_torch.config import Config, default_dsoftmax_blocks
+
+    cfg = Config(vocab_size=V, embed_size=E, hidden_size=H, num_layers=1, head="dsoftmax",
+                 dsoftmax=default_dsoftmax_blocks(V, H), beam_width=10, n_best_max=1,
+                 seed=0, mesh_vocab=SHARD_N)
+    check(tuple(zip(cfg.dsoftmax.block_sizes, cfg.dsoftmax.block_dims)) == BLOCKS3,
+          f"config 3's blocks {cfg.dsoftmax}")
+    return cfg
+
+
+def bench_data3():
+    """Config 3's config, the bench's vocab and lexicon, weights, int8."""
+    from jlm_tpu_torch.data import Lexicon, build_vocab, generate_corpus
+    from jlm_tpu_torch.models.params import init_params
+    from jlm_tpu_torch.ops.quant import quantize_params
+
+    config = config3()
+    vocab = build_vocab(generate_corpus(2000, seed=1234), V)
+    params = init_params(config)
+    return config, vocab, Lexicon.from_vocab(vocab), params, quantize_params(params)
+
+
+def shard_cases(dev, rng):
+    """The kernels at a rank's shapes under vocab sharding (phase 3f).
+    ``project_lse`` int8-MXU on one rank's quarter of config 3's and config
+    5's D-softmax blocks (2,000 x 512, 4,250 x 256, 6,250 x 128; 4,000 x
+    512, 8,500 x 256, 12,500 x 128) over the rows its vocab group sees, its
+    ``(m, s)`` merged with the other three ranks' partials (plain, made
+    once) into the global lse, as ``_make_sharded_kernel_forward`` merges
+    them; wrong: one block's columns taken one slice on (the next rank's),
+    one rank's ``s`` dropped from the merge.  The fused CE's three kernels,
+    bf16 and fp32, at a (2, 4) training rank's shapes: 512 rows, D 512,
+    12,500 columns, three quarters of the targets -1 (another rank's), the
+    backward from a global lse above the local one; wrong as phase 2's."""
+    from jlm_tpu_torch.config import Config, DSoftmaxConfig
+    from jlm_tpu_torch.ops.project import project_ms, project_ms_ref
+    from jlm_tpu_torch.ops.quant import quantize_weight
+    from jlm_tpu_torch.ops.softmax_ce import (
+        cast_wt, ce_bwd_dh, ce_bwd_dh_ref, ce_bwd_dw, ce_bwd_dw_ref, ce_fwd_raw, ce_fwd_raw_ref)
+
+    bf = torch.bfloat16
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev).to(dtype)
+
+    cases = []
+    for tag, (rows, blocks) in SHARD_ROWS.items():
+        cfg = Config(vocab_size=sum(n for n, _ in blocks), hidden_size=H, head="dsoftmax",
+                     dsoftmax=DSoftmaxConfig(tuple(n for n, _ in blocks),
+                                             tuple(d for _, d in blocks), "prefix"))
+        full = []
+        for n, d in blocks:
+            q = quantize_weight(rng.normal(0, 0.05, (d, n)).astype(np.float32), axis=0)
+            full.append((torch.from_numpy(q["q"]).to(dev), t(q["scale"]), t(rng.normal(0, 0.1, n))))
+
+        def shard(v, shifted=None):
+            out = []
+            for k, ((q, sc, b), (n, _)) in enumerate(zip(full, blocks)):
+                sl = n // SHARD_N
+                lo = ((v + (k == shifted)) % SHARD_N) * sl
+                qk = q[:, lo:lo + sl].contiguous()
+                out.append({"W": {"q": qk, "scale": sc[lo:lo + sl].contiguous()},
+                            "b": b[lo:lo + sl].contiguous(), "WT": qk.t().contiguous()})
+            return {"blocks": out}
+
+        heads = [shard(v) for v in range(SHARD_N)]
+        wrong_head = shard(0, shifted=1)
+        h = t(rng.uniform(-1, 1, (rows, H)), bf)
+        kw = dict(compute_dtype=bf, int8_mxu=True)
+        others = [project_ms_ref(h, heads[v], cfg, **kw) for v in range(1, SHARD_N)]
+
+        def merged(ms0, drop=None, others=others):
+            parts = [ms0] + others
+            m_all = torch.cat([m for m, _ in parts], dim=1)
+            m_g = m_all.amax(dim=1, keepdim=True)
+            s_g = sum(s * torch.exp(m - m_g) for i, (m, s) in enumerate(parts) if i != drop)
+            return m_g + torch.log(s_g)
+
+        cases.append((
+            f"project_lse dsoftmax int8 {tag} shard",
+            lambda h=h, hd=heads[0], cfg=cfg, mg=merged: mg(project_ms(h, hd, cfg, **kw)),
+            lambda h=h, hd=heads[0], cfg=cfg, mg=merged: mg(project_ms_ref(h, hd, cfg, **kw)),
+            abs_errs,
+            {"the second block's columns one slice on": lambda h=h, cfg=cfg, mg=merged,
+             wh=wrong_head: mg(project_ms_ref(h, wh, cfg, **kw)),
+             "one rank's s dropped from the merge": lambda h=h, hd=heads[0], cfg=cfg,
+             mg=merged: mg(project_ms_ref(h, hd, cfg, **kw), drop=SHARD_N - 1)},
+            None))
+    # the fused CE at a training rank's quarter of the 50k head
+    h_sh = t(rng.uniform(-1, 1, (N_SH, H)))
+    b_sh = t(rng.normal(0, 0.1, V_SH))
+    y_sh = torch.from_numpy(np.where(rng.random(N_SH) < 0.75, -1,
+                                     rng.integers(0, V_SH, N_SH))).to(dev)
+    ga = torch.full((N_SH,), 1.0 / N_SH, device=dev)
+    for cd, scale in ((bf, 0.05), (torch.float32, PEAKED)):
+        name = "bf16" if cd == bf else "fp32"
+        W_sh = t(rng.normal(0, scale, (H, V_SH)))
+        wt = cast_wt(W_sh, H) if cd == bf else None
+        m, s = ce_fwd_raw_ref(h_sh, W_sh, b_sh, y_sh, cd)[:2]
+        lse = m + torch.log(s) + math.log(SHARD_N)  # the other ranks' share
+        args = (h_sh, W_sh, b_sh, y_sh, lse, ga, -ga, cd)
+        wrong = (h_sh, W_sh, b_sh, y_sh, lse + P_SHIFT, ga, -ga, cd)
+
+        def no_bias_t(W=W_sh, cd=cd):
+            m, s, t_ = ce_fwd_raw_ref(h_sh, W, b_sh, y_sh, cd)
+            own = (y_sh >= 0) & (y_sh < V_SH)
+            return m, s, t_ - torch.where(own, b_sh[y_sh.clamp(0, V_SH - 1)], 0.0)
+
+        cases.append((f"ce_fwd {name} V{V_SH}",
+                      lambda W=W_sh, cd=cd, wt=wt: ce_fwd_raw(h_sh, W, b_sh, y_sh, cd, wt=wt),
+                      lambda W=W_sh, cd=cd: ce_fwd_raw_ref(h_sh, W, b_sh, y_sh, cd), ce_fwd_err,
+                      {"the target logit without its bias": no_bias_t}, None))
+        for k, kern, ref in (("ce_bwd_dh", ce_bwd_dh, ce_bwd_dh_ref),
+                             ("ce_bwd_dw", ce_bwd_dw, ce_bwd_dw_ref)):
+            cases.append((f"{k} {name} V{V_SH}",
+                          lambda kern=kern, a=args, wt=wt: kern(*a, wt=wt),
+                          lambda ref=ref, a=args: ref(*a), bwd_err,
+                          {f"a p-term {1 - math.exp(-P_SHIFT):.0%} low":
+                           lambda ref=ref, a=wrong: ref(*a)}, None))
+    return cases
+
+
+def shard_work():
+    """``work()``'s entries of ``shard_cases``: a rank's head quarter over
+    its group's rows (int8), the CE at a rank's 512 rows and 12,500 columns."""
+    out = {}
+    for tag, (rows, blocks) in SHARD_ROWS.items():
+        words, weights = sum(n for n, _ in blocks) // SHARD_N, sum(n * d for n, d in blocks)
+        out[f"project_lse dsoftmax int8 {tag} shard"] = (
+            rows * H * 2 + weights // SHARD_N + words * 8 + rows * 4 * 3,
+            2 * rows * weights // SHARD_N, "int8")
+    ce_in = N_SH * H * 4 + H * V_SH * 4 + V_SH * 4 + N_SH * 8
+    for cd in ("bf16", "fp32"):
+        w_in = H * V_SH * (2 if cd == "bf16" else 4)  # bf16 reads the step's W^T
+        out[f"ce_fwd {cd} V{V_SH}"] = (N_SH * H * 4 + w_in + V_SH * 4 + N_SH * 8 + 3 * N_SH * 4,
+                                       2 * N_SH * H * V_SH, cd)
+        out[f"ce_bwd_dh {cd} V{V_SH}"] = (ce_in + 3 * N_SH * 4 + N_SH * H * 4,
+                                          4 * N_SH * H * V_SH, cd)
+        out[f"ce_bwd_dw {cd} V{V_SH}"] = (ce_in + 3 * N_SH * 4 + H * V_SH * 4 + V_SH * 4,
+                                          4 * N_SH * H * V_SH, cd)
+    return out
+
+
+@contextlib.contextmanager
+def shard_fault(fault):
+    """One planted fault of ``SHARD_FAULTS`` in this rank's process."""
+    from jlm_tpu_torch.parallel import comm
+    from jlm_tpu_torch.parallel import sharded_head as sh
+    from jlm_tpu_torch.parallel import train_step as ts
+    from jlm_tpu_torch.train import optim
+
+    keep = sh._reduce_dh, sh._ce_blocks, ts.global_norm
+    if fault == "dh summed twice":
+        sh._reduce_dh = lambda dh, g: comm.all_reduce_sum(comm.all_reduce_sum(dh, g), g)
+    elif fault == "dh never summed":
+        sh._reduce_dh = lambda dh, g: dh
+    elif fault == "owner map off by one block":
+        blocks = keep[1]
+        sh._ce_blocks = lambda cfg, mesh: [
+            (st, d, lo + (s if mesh.vocab_index + 1 < mesh.vocab else -s * (mesh.vocab - 1)), s)
+            for st, d, lo, s in blocks(cfg, mesh)]
+    elif fault == "clip on the rank-local norm":
+        ts.global_norm = lambda g, mesh: optim.global_norm([g[k] for k in sorted(g)])
+    elif fault is not None:
+        raise ValueError(fault)
+    try:
+        yield
+    finally:
+        sh._reduce_dh, sh._ce_blocks, ts.global_norm = keep
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def shard_train_config():
+    """Phase 5's training config on the (2, 4) mesh."""
+    return bench_config().replace(batch_size=TB, num_steps=TT, fused_ce=True, mesh_data=2,
+                                  mesh_vocab=SHARD_N)
+
+
+def first_step(trainer, ids, sgd: bool):
+    """One training step on the first window, on a mesh or one card: the
+    global mean loss and either the gradient of ``lstm/0/W`` (data-synced
+    on a mesh; nothing applied) or, with ``sgd``, its update after one call
+    of the step; the tensor on the last rank only (None elsewhere): the
+    rank of the rarest words' columns, which hold the least of the head's
+    gradient, so a rank-local norm differs most from the tree's there."""
+    from jlm_tpu_torch.models.lstm import initial_state
+    from jlm_tpu_torch.parallel import train_step as ts
+
+    mesh = trainer.mesh
+    x, y = next(iter(trainer._windows(ids)))
+    state = initial_state(trainer.config, trainer.rows, trainer.device)
+    if sgd:
+        before = trainer.flat["lstm/0/W"].detach().clone()
+        _, loss = trainer._train_step(state, x, y, trainer.config.learning_rate)
+        out = trainer.flat["lstm/0/W"].detach() - before
+    else:
+        if mesh is not None:
+            x, y = ts.local_rows(x, mesh), ts.local_rows(y, mesh)
+        loss, _ = trainer._loss(trainer.params, x, y, state)
+        g = torch.autograd.grad(loss, [trainer.flat["lstm/0/W"]])[0]
+        if mesh is not None:
+            g, loss = ts.sync_grads({"k": g}, mesh)["k"], ts.data_mean(loss.detach(), mesh)
+        out = g
+    return float(loss.detach()), out.cpu() if mesh is None or mesh.rank == mesh.world - 1 else None
+
+
+def shard_run(dev, card, kanas, stream, train_ids, params, loss_k, results5, oracle5_q):
+    """Phase 3f: config 3 on a (1, 4) world and config 5 with the training
+    step on a (2, 4) world, every rank on this card (Gloo); the one-card
+    references made here first.  Returns the launches for the ``kernels``
+    line (rank 0's; every rank's are checked)."""
+    from jlm_tpu_torch.decoder.engine import BeamDecoder
+    from jlm_tpu_torch.decoder.suggest import Suggester
+    from jlm_tpu_torch.oracle import OracleDecoder, OracleLM
+    from jlm_tpu_torch.parallel.comm import spawn
+    from jlm_tpu_torch.train import Trainer
+
+    t_ref = time.perf_counter()
+    cfg3, vocab3, lex3, p3, qp3 = bench_data3()
+    one3 = BeamDecoder(qp3, lex3, vocab3, cfg3, precision="default",
+                       device=dev).decode_batch(stream)
+    orc3 = OracleDecoder(OracleLM(qp3, cfg3), lex3, vocab3, cfg3)
+    oracle3 = [orc3.decode(k)[0] for k in kanas]
+    g3 = cfg3.replace(beam_width=1)
+    orc3g = OracleDecoder(OracleLM(peaked(p3), g3), lex3, vocab3, g3)
+    oracle3g = [orc3g.decode(k)[0] for k in kanas]
+    contexts = [[5, 6], [17, 3, 40], [2], []]
+    sugs = {"c3": [Suggester(p3, vocab3, cfg3, device=dev).top_k(c, 5) for c in contexts]}
+    del qp3, orc3, orc3g
+    _, vocab5, _, p5, _ = bench_data5()
+    sugs["c5"] = [Suggester(p5, vocab5, config5(), device=dev).top_k(c, 5) for c in contexts]
+    del p5
+    tcfg = shard_train_config()
+    sgd = tcfg.replace(optimizer="sgd", learning_rate=1.0, max_grad_norm=CLIP_NORM)
+    ref = {"grads": first_step(Trainer(tcfg, params, device=dev), train_ids, False),
+           "clip": first_step(Trainer(sgd, params, device=dev), train_ids, True)}
+    torch.cuda.empty_cache()
+    log(f"phase 3f one-card references: {time.perf_counter() - t_ref:.1f} s")
+
+    t0 = time.perf_counter()
+    w3 = spawn(shard_rank, SHARD_N, device="cuda", args=(("c3",), stream, kanas, contexts, None))
+    t_w3 = time.perf_counter() - t0
+    w8 = spawn(shard_rank, 2 * SHARD_N, device="cuda",
+               args=(("c5", "train"), stream, kanas, contexts, train_ids))
+    log(f"phase 3f worlds: 4 ranks {t_w3:.1f} s, 8 ranks {time.perf_counter() - t0 - t_w3:.1f} s "
+        "(spawns included)")
+    for world in (w3, w8):
+        check(all(r["modules"] == [] for r in world), "a rank imported jax or the JAX package")
+    log(f"Gloo all_reduce MAX on CUDA tensors equals the max of the gathered values: "
+        f"{[r[t]['max_probe'] for r in w3 + w8 for t in r if t in ('c3', 'c5')]}")
+    check(all(r[t]["max_probe"] for r in w3 + w8 for t in r if t in ("c3", "c5")),
+          "all_reduce MAX on CUDA tensors differs from the gathered max")
+    check(all(r[t]["broadcast_probe"] for r in w3 + w8 for t in r if t in ("c3", "c5")),
+          "Gloo broadcast of a CUDA tensor differs from rank 0's gathered copy")
+
+    def same(got, want, tol):
+        return all(g[0] == w[0].segments and abs(g[1] - w[0].score) <= tol
+                   for g, w in zip(got, want))
+
+    def same_top5(got, want):
+        return all(g[0] == w[0] and np.allclose(g[1], w[1], atol=1e-4, rtol=0)
+                   for g, w in zip(got, want))
+
+    for tag, world, one, oracle, layers in (("c3", w3, one3, oracle3, 1),
+                                            ("c5", w8, results5, oracle5_q, 2)):
+        r0 = world[0][tag]
+        n = sum(g[0] == o.segments for g, o in zip(r0["results"], oracle))
+        fwd = r0["forwards"]
+        log(f"phase 3f {tag} on {len(world)} ranks (one card, Gloo): top-1 {n}/{len(kanas)} vs "
+            f"the int8 oracle; n-best vs the one-card kernel forward: "
+            f"{sum(g[0] == w[0].segments for g, w in zip(r0['results'], one))}/{len(one)} "
+            f"paths, max |score diff| "
+            f"{max(abs(g[1] - w[0].score) for g, w in zip(r0['results'], one)):.3e}; "
+            f"{r0['ms']:.1f} ms a 2,048-lattice chunk ({len(world)} ranks on one card, "
+            f"{card}); launches per rank {[r[tag]['launches'] for r in world][:2]}...; "
+            f"{r0['seconds']:.1f} s in the world")
+        check(n == len(kanas), f"phase 3f {tag}: top-1 vs the int8 oracle")
+        check(same(r0["results"], one, SHARD_BOUNDS["scores vs one card"]),
+              f"phase 3f {tag}: n-best vs the one-card kernel forward")
+        check(len({r[tag]["digest"] for r in world}) == 1, f"phase 3f {tag}: ranks disagree")
+        want = {"project_lse": fwd * 3, "lstm_cell_step": fwd * layers, "cand_dot": fwd}
+        check(all(r[tag]["launches"] == want for r in world),
+              f"phase 3f {tag}: launches {[r[tag]['launches'] for r in world]}, expected {want}")
+        check(all(same_top5(r[tag]["suggest"], sugs[tag]) for r in world),
+              f"phase 3f {tag}: the sharded suggester's top 5")
+        check(all(r[tag]["topk_equal"] for r in world), f"phase 3f {tag}: sharded_topk ties")
+    g32 = w3[0]["c3"]["greedy32"]
+    n = sum(g[0] == o.segments for g, o in zip(g32, oracle3g))
+    worst = max(abs(g[1] - o.score) for g, o in zip(g32, oracle3g))
+    log(f"phase 3f c3 greedy fp32 kernel forward, PEAKED head: {n}/{len(kanas)} vs the fp32 "
+        f"oracle, max |score - oracle| {worst:.3e}")
+    check(n == len(kanas) and worst <= 1e-3, "phase 3f c3 greedy fp32 parity")
+
+    tr = [r["train"] for r in w8]
+    losses = tr[0]["losses"]
+    step1, last = abs(losses[0] - loss_k[0]), abs(losses[-1] / loss_k[SHARD_STEPS - 1] - 1)
+    log(f"phase 3f training (2, 4): losses {[round(l, 6) for l in losses]} vs one card "
+        f"{[round(float(l), 6) for l in loss_k[:SHARD_STEPS]]}: step 1 diff {step1:.3e}, step "
+        f"{SHARD_STEPS} rel diff {last:.3e} (bounds {TRAIN_BOUNDS}); {tr[0]['ms']:.2f} ms/step "
+        f"(8 ranks on one card, {card}); CE launches per rank {tr[0]['launches']}")
+    check(step1 <= TRAIN_BOUNDS["step 1 loss"] and last <= TRAIN_BOUNDS["last loss"],
+          "phase 3f: sharded training losses vs one card")
+    check(all(t["losses"] == losses for t in tr), "phase 3f: ranks' losses differ")
+    check(all(t["launches"] == dict(ce_fwd_raw=SHARD_STEPS, ce_bwd_dh=SHARD_STEPS,
+                                    ce_bwd_dw=SHARD_STEPS, cast_wt=SHARD_STEPS) for t in tr),
+          f"phase 3f: CE launches {[t['launches'] for t in tr]}: one a rank, block and step")
+
+    def gate(kind, fault):
+        loss, got = tr[-1][(kind, fault)]
+        loss1, want = ref[kind]
+        err = float((got - want).abs().max() / want.abs().max())
+        bound = SHARD_BOUNDS["grads vs one card" if kind == "grads" else "clip step vs one card"]
+        ok = err <= bound and abs(loss - loss1) <= TRAIN_BOUNDS["step 1 loss"]
+        log(f"  phase 3f {kind} gate, {fault or 'no fault'}: rel err {err:.3e} (bound {bound:g}), "
+            f"loss diff {abs(loss - loss1):.3e}")
+        return ok
+
+    check(gate("grads", None) and gate("clip", None), "phase 3f: the step vs one card")
+    for fault in SHARD_FAULTS:
+        kind = "clip" if fault.startswith("clip") else "grads"
+        check(not gate(kind, fault), f"phase 3f: the gates miss {fault}")
+    return {"project_lse dsoftmax int8 c3 shard": w3[0]["c3"]["launches"]["project_lse"],
+            "project_lse dsoftmax int8 c5 shard": w8[0]["c5"]["launches"]["project_lse"],
+            **{f"{k} bf16 V{V_SH}": tr[0]["launches"][fn] for k, fn in (
+                ("ce_fwd", "ce_fwd_raw"), ("ce_bwd_dh", "ce_bwd_dh"), ("ce_bwd_dw", "ce_bwd_dw"))}}
+
+
+def shard_train(mesh, train_ids):
+    """Phase 3f's training on this rank: ``SHARD_STEPS`` fused-CE Adam
+    steps at phase 5's width (losses, ms, CE launches), then the gates'
+    single steps, good and with each planted fault."""
+    from jlm_tpu_torch.ops import softmax_ce as ce
+    from jlm_tpu_torch.parallel import comm
+    from jlm_tpu_torch.train import Trainer
+
+    tcfg = shard_train_config()
+    counters = (ce.ce_fwd_raw, ce.ce_bwd_dh, ce.ce_bwd_dw, ce.cast_wt)
+    trainer = Trainer(tcfg, mesh=mesh)
+    comm.barrier()
+    for fn in counters:
+        fn.launches = 0
+    steps = trainer.train_steps(train_ids, epoch=0)
+    losses = [next(steps)[0]]
+    sync(mesh.device)
+    t0 = time.perf_counter()
+    losses += [next(steps)[0] for _ in range(SHARD_STEPS - 1)]
+    sync(mesh.device)
+    ms = (time.perf_counter() - t0) * 1e3 / (SHARD_STEPS - 1)
+    out = {"losses": [float(l) for l in losses], "ms": ms,
+           "launches": {fn.__name__: fn.launches for fn in counters}}
+    del trainer, steps
+    sgd = tcfg.replace(optimizer="sgd", learning_rate=1.0, max_grad_norm=CLIP_NORM)
+    for fault in (None,) + SHARD_FAULTS:
+        with shard_fault(fault):
+            if fault is None or not fault.startswith("clip"):
+                out[("grads", fault)] = first_step(Trainer(tcfg, mesh=mesh), train_ids, False)
+            if fault is None or fault.startswith("clip"):
+                out[("clip", fault)] = first_step(Trainer(sgd, mesh=mesh), train_ids, True)
+    return out
+
+
+def shard_serve(mesh, which, stream, kanas, contexts):
+    """Phase 3f's serving on this rank: ``stream`` (one 2,048-lattice
+    chunk) through the sharded kernel forward (int8-MXU, bf16) twice, the
+    second counted and timed; with config 3 also the fp32 kernel forward
+    greedy on ``PEAKED`` heads; the suggester's top 5; ``sharded_topk`` on
+    planted ties; the MAX and broadcast probes."""
+    from jlm_tpu_torch.decoder.engine import BeamDecoder, topk_stable
+    from jlm_tpu_torch.decoder.suggest import Suggester
+    from jlm_tpu_torch.ops.cand_dot import cand_dot
+    from jlm_tpu_torch.ops.lstm_cell import lstm_cell_step
+    from jlm_tpu_torch.ops.project import project_lse
+    from jlm_tpu_torch.parallel import comm, make_sharded_forward, sharded_topk
+    from jlm_tpu_torch.parallel.sharded_head import local_ids
+
+    cfg, vocab, lexicon, params, qp = bench_data3() if which == "c3" else bench_data5()
+    cfg = cfg.replace(mesh_data=mesh.data, mesh_vocab=mesh.vocab)
+    out = {}
+    probe = torch.arange(4, device=mesh.device, dtype=torch.float32) * (mesh.rank + 1) - mesh.rank
+    out["max_probe"] = bool(torch.equal(comm.all_reduce_max(probe),
+                                        comm.all_gather(probe).amax(dim=0)))
+    out["broadcast_probe"] = bool(torch.equal(comm.broadcast(probe), comm.all_gather(probe)[0]))
+    eng = BeamDecoder(qp, lexicon, vocab, cfg, forward_fn=make_sharded_forward(mesh, cfg))
+    eng.decode_batch(stream)  # warm-up
+    counters = (project_lse, lstm_cell_step, cand_dot)
+    sync(mesh.device)
+    comm.barrier()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = eng.decode_batch(stream)
+    out["ms"] = (time.perf_counter() - t0) * 1e3
+    out["launches"] = {fn.__name__: fn.launches for fn in counters}
+    out["forwards"] = min(eng._t_bucket(max(len(k) for k in stream)), cfg.max_kana_len) + 1
+    flat = [(r[0].segments, r[0].score) for r in res]
+    out["digest"] = hashlib.sha256(repr(flat).encode()).hexdigest()
+    if mesh.rank == 0:
+        out["results"] = flat
+    del eng
+    if which == "c3":
+        greedy = cfg.replace(beam_width=1)
+        eng32 = BeamDecoder(peaked(params), lexicon, vocab, greedy,
+                            forward_fn=make_sharded_forward(mesh, greedy,
+                                                            compute_dtype=torch.float32))
+        res32 = eng32.decode_batch(kanas)
+        out["greedy32"] = [(r[0].segments, r[0].score) for r in res32] if mesh.rank == 0 else None
+        del eng32
+    sug = Suggester(params, vocab, cfg, mesh=mesh)
+    out["suggest"] = [sug.top_k(c, 5) for c in contexts]
+    ties = torch.from_numpy(np.random.default_rng(11).integers(0, 8, (4, cfg.vocab_size))
+                            .astype(np.float32)).to(mesh.device)
+    ids = local_ids(cfg, mesh).to(mesh.device)
+    got = sharded_topk(mesh, ties[:, ids], 10, ids)
+    want = topk_stable(ties, 10)
+    out["topk_equal"] = bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+    return out
+
+
+def shard_rank(device, tasks, stream, kanas, contexts, train_ids):
+    """One rank of a phase-3f world: ``tasks`` from ("c3", "c5", "train")."""
+    from jlm_tpu_torch.config import Config
+    from jlm_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shape = (1, SHARD_N) if "c3" in tasks else (2, SHARD_N)
+    mesh = make_mesh(Config(mesh_data=shape[0], mesh_vocab=shape[1]), device)
+    out = {}
+    for task in tasks:
+        t0 = time.perf_counter()
+        out[task] = (shard_train(mesh, train_ids) if task == "train"
+                     else shard_serve(mesh, task, stream, kanas, contexts))
+        out[task]["seconds"] = time.perf_counter() - t0
+    out["modules"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jlm_tpu"))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs one CUDA card",
@@ -3169,6 +3674,7 @@ def main() -> int:
     cases, yardsticks = kernel_cases(dev, rng)
     cases += head_mode_cases(dev, rng) + port_cases(dev, rng) + wide_cases(dev, rng)
     cases += odd_width_cases(dev, rng) + keystroke_cases(dev, rng) + long_cases(dev)
+    cases += shard_cases(dev, rng)
     for name, kernel, plain, err_fn, wrong, library in cases:
         want = plain()
         err, max_abs = err_fn(kernel(), want)
@@ -3501,6 +4007,13 @@ def main() -> int:
     check(not any(launches_p.values()), f"plain run launched {launches_p}")
     launches.update((k, launches_k[k]) for k in CE_COUNTERS)
 
+    # ---- phase 3f: vocab and data parallelism, every rank on this card ----
+    t0 = time.perf_counter()
+    launches_shard = shard_run(dev, card, kanas, stream, train_ids, params, loss_k, results5,
+                               oracle5_q_results)
+    log(f"phase 3f: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
     # ---- phase 5b: --pallas-scan, the scan kernels vs their plain versions ----
     scfg = tcfg.replace(use_pallas_scan=True)
     _, loss_s, ms_s, launches_s, ppl_s = training_run(
@@ -3660,6 +4173,13 @@ def main() -> int:
                                f"cand_dot bf16 {tag}") for tag in LONG_CANDS},
         "lstm_cell_step R10": ("jlm_tpu_torch/csrc/lstm_cell.cu", "jlm_tpu/ops/lstm_cell.py:38",
                                "lstm_cell_step bf16 R10"),
+        # a rank's shapes under vocab sharding (launches: phase 3f, rank 0)
+        **{f"project_lse dsoftmax int8 {tag} shard": (
+            "jlm_tpu_torch/csrc/project_lse.cu", "jlm_tpu/ops/project.py:42",
+            f"project_lse dsoftmax int8 {tag} shard") for tag in SHARD_ROWS},
+        **{f"{k} bf16 V{V_SH}": ("jlm_tpu_torch/csrc/softmax_ce.cu",
+                                 f"jlm_tpu/ops/softmax_ce.py:{ln}", f"{k} bf16 V{V_SH}")
+           for k, ln in zip(CE_COUNTERS, (111, 157, 207))},
     }
     launches.update({
         "project_lse dsoftmax int8": launches5["project_lse"],
@@ -3678,6 +4198,7 @@ def main() -> int:
         **launches_odd,
         **launches_key,
         **launches_long,
+        **launches_shard,
     })
     kernels = []
     for name, (src, replaces, case) in sources.items():

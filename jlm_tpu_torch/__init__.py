@@ -8,8 +8,8 @@ host modules it needs (``config``, ``data``, ``decoder.lattice``, the
 the JAX package so each counterpart is easy to find.  Importing the package builds and loads no
 kernel: ``ops/_build.py`` compiles ``csrc/*.cu`` on the first launch.
 
-Layer map (serving: streaming batched beam-10 conversion; training: one
-device, truncated BPTT):
+Layer map (serving: streaming batched beam-10 conversion; training:
+truncated BPTT, on one device or a mesh of ranks):
 
 - ``decoder.engine`` — ``BeamDecoder`` (``decode``, ``decode_batch``,
   ``decode_stream``): host lattice build and pack, one device search per
@@ -18,6 +18,10 @@ device, truncated BPTT):
   ``max_kana_len`` (overlap-save chunks seeded on the device).
 - ``scripts``        — the conversion, evaluation and export CLIs
   (``python -m jlm_tpu_torch.scripts.<name>``).
+- ``parallel``       — vocab and data parallelism on ``torch.distributed``,
+  one process per rank: the ``(data, vocab)`` mesh, the collectives, the
+  sharded decode forwards, ``sharded_topk``, the vocab-parallel CE and
+  the sharded training step.
 - ``train``          — ``Trainer`` / ``train_lm`` (``python -m
   jlm_tpu_torch.train``): BPTT loop, optimizer chain (``train.optim``),
   checkpoints in the reference's format (``train.checkpoint``).

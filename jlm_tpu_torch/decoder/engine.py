@@ -37,7 +37,13 @@ contiguous.
 An input longer than ``max_kana_len`` goes through ``decode_long``
 (``decode`` and ``decode_batch`` route it there): multi-root overlap-save
 chunks whose boundary beams seed the next chunk on the device, stitched on
-the host after one fetch.  Not ported yet (ROADMAP.md): sharded forwards.
+the host after one fetch.
+
+A vocab-sharded forward (``jlm_tpu_torch.parallel.make_sharded_forward``)
+carries its ``mesh``: every rank builds the same lattices (the packers are
+deterministic), pads the chunk to a multiple of ``min_batch`` (data x
+vocab) sentences, scans its own rows, and gathers the result blobs, so
+every rank returns the whole batch.
 """
 
 from __future__ import annotations
@@ -546,7 +552,10 @@ class BeamDecoder:
     per ``config.int8_mxu``) and ``"highest"`` the fp32 full-softmax parity
     forward.  A forward with a ``prepare`` hook (e.g.
     ``make_kernel_forward(config, torch.float32)``) gets the decode-side
-    head prep in its ``compute_dtype``.
+    head prep in its ``compute_dtype``.  A sharded forward runs on its
+    mesh's device (a ``device`` naming another raises) and keeps what its
+    ``place_params`` returns of ``params`` (the full tree, or one already
+    sharded): this rank's head columns.
     """
 
     def __init__(
@@ -561,6 +570,11 @@ class BeamDecoder:
         *,
         device="cuda",
     ):
+        self._mesh = getattr(forward_fn, "mesh", None)
+        if self._mesh is not None:
+            from jlm_tpu_torch.parallel.mesh import mesh_device
+
+            device = mesh_device(self._mesh, device)
         self.device = resolve_device(device)
         self.params = params_to_torch(params, self.device)
         self.lexicon = lexicon
@@ -582,6 +596,11 @@ class BeamDecoder:
             self._fwd = make_full_softmax_forward(config)
         else:
             raise ValueError(f"precision must be 'default' or 'highest', not {precision!r}")
+        # sharded forwards: S a multiple of data x vocab; this rank's params
+        self._min_batch = int(getattr(self._fwd, "min_batch", 1))
+        place = getattr(self._fwd, "place_params", None)
+        if place is not None:
+            self.params = place(self.params)
         if getattr(self._fwd, "prepare", None) is not None and "_decode" not in self.params:
             self.params["_decode"] = build_decode_head(
                 self.params, config, self._fwd.compute_dtype)
@@ -600,8 +619,10 @@ class BeamDecoder:
         return max(4, -(-n // m) * m)
 
     def _pack(self, kanas: List[str]):
-        """Bucket-pad, build lattices (native if available), time-bucket."""
-        pad = self._bucket(len(kanas)) - len(kanas)
+        """Bucket-pad (to a multiple of ``min_batch``), build lattices
+        (native if available), time-bucket."""
+        mb = self._min_batch
+        pad = -(-self._bucket(len(kanas)) // mb) * mb - len(kanas)
         kanas_padded = list(kanas) + [kanas[-1]] * pad
         if self._native is not None:
             packed, lengths = self._native.pack_batch(kanas_padded)
@@ -624,16 +645,45 @@ class BeamDecoder:
                 f"{self.config.max_kana_len}: convert them with decode or decode_batch, "
                 "which chunk them (decode_long)")
         packed, lengths = self._pack(kanas)
-        out = _decode_scan(self.params, upload(packed, self.device), upload(lengths, self.device),
+        out = _decode_scan(self.params, upload(self._own(packed), self.device),
+                           upload(self._own(lengths), self.device),
                            config=self.config, forward_fn=self._fwd)
         return packed, out
+
+    def _own(self, x: np.ndarray) -> np.ndarray:
+        """This rank's sentence rows of a chunk (all of them without a
+        mesh): rank r scans rows ``[r*S_l, (r+1)*S_l)``, the reference's
+        row sharding over (data, vocab)."""
+        if self._mesh is None:
+            return x
+        S_l = x.shape[0] // self._mesh.world
+        return x[self._mesh.rank * S_l:(self._mesh.rank + 1) * S_l]
+
+    def _first_rank(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Rank 0's copies of a long input's results, on every rank (one
+        broadcast each): each rank scanned the same sentence, but the
+        head's rows may round in the last bit differently per row."""
+        if self._mesh is None:
+            return tensors
+        from jlm_tpu_torch.parallel import comm
+
+        return [comm.broadcast(t.contiguous()) for t in tensors]
+
+    def _blob(self, blob: torch.Tensor) -> np.ndarray:
+        """A chunk's result blob on the host; under a mesh every rank's
+        rows gathered, in row order."""
+        if self._mesh is not None:
+            from jlm_tpu_torch.parallel import comm
+
+            blob = comm.all_gather(blob.contiguous()).reshape(-1, blob.shape[1])
+        return blob.cpu().numpy()
 
     def materialize(self, kanas: List[str], packed: np.ndarray, out,
                     n_best: int = 1) -> List[List[DecodeResult]]:
         """Fetch one chunk's result blob (the only device->host copy) and
         build surfaces."""
-        S, K, T_scan, _ = out["paths"].shape
-        blob = out["blob"].cpu().numpy().reshape(S, K, 3 + 2 * T_scan)
+        S, K, T_scan = len(packed), out["paths"].shape[1], out["paths"].shape[2]
+        blob = self._blob(out["blob"]).reshape(S, K, 3 + 2 * T_scan)
         finals = blob[:, :, 0].view(np.float32)
         paths = blob[:, :, 3:].reshape(S, K, T_scan, 2)
         return [[self._result(self._segments(kana, packed[i], paths[i, k]), finals[i, k])
@@ -683,7 +733,9 @@ class BeamDecoder:
         one.  The built-in forwards carry the ``score_hidden`` hook this
         needs; a forward without it falls back to single-root chaining (a
         word boundary forced at every ``max_kana_len``-th position).  The
-        seeds stay on the device between chunks."""
+        seeds stay on the device between chunks.  Under a mesh every rank
+        scans the same one-sentence windows (``min_batch`` copies of the
+        sentence, one a rank), and every rank returns rank 0's result."""
         if getattr(self._fwd, "score_hidden", None) is not None:
             return self._decode_long_multiroot(kana, n_best)
         return self._decode_long_chain(kana, n_best)
@@ -743,7 +795,8 @@ class BeamDecoder:
         # backpointers (row 0 of each: S = 1)
         window_l, packed_l, out_l, _ = chunks[-1]
         K, T_scan = out_l["paths"].shape[1:3]
-        host = fetch([out_l["blob"]] + [b for _, _, out, _ in chunks[:-1] for b in out["bp"]])
+        host = fetch(self._first_rank([out_l["blob"]] + [b for _, _, out, _ in chunks[:-1]
+                                                        for b in out["bp"]]))
         blob = host[0].reshape(K, 3 + 2 * T_scan)
         finals, root_beam, root_pos = blob[:, 0].view(np.float32), blob[:, 1], blob[:, 2]
         paths = blob[:, 3:].reshape(K, T_scan, 2)
@@ -775,13 +828,14 @@ class BeamDecoder:
         for i, part in enumerate(parts):
             last = i == len(parts) - 1
             packed, lengths = self._pack([part])
+            packed, lengths = self._own(packed), self._own(lengths)
             out = _decode_scan(self.params, upload(packed, self.device),
                                upload(lengths, self.device), root, config=self.config,
                                forward_fn=self._fwd, chain=not last)
             root = out.get("chain")  # stays on the device
             outs.append((part, packed, out))
         blobs = [blob.reshape(out["paths"].shape[1], -1) for (_, _, out), blob in
-                 zip(outs, fetch([out["blob"] for _, _, out in outs]))]  # one fetch
+                 zip(outs, fetch(self._first_rank([out["blob"] for _, _, out in outs])))]
         walked = [(part, packed, blob[:, 3:].reshape(len(blob), -1, 2), blob[:, 1])
                   for (part, packed, _), blob in zip(outs, blobs)]
         finals = blobs[-1][:, 0].view(np.float32)

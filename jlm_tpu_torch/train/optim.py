@@ -17,7 +17,7 @@ fp32 summation order.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -54,10 +54,12 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
     """As ``optax.clip_by_global_norm``: unchanged when ``norm < max_norm``,
-    otherwise ``g / norm * max_norm`` (no epsilon added to the norm)."""
-    norm = global_norm(grads)
+    otherwise ``g / norm * max_norm`` (no epsilon added to the norm);
+    ``norm`` defaults to :func:`global_norm` of ``grads``."""
+    norm = global_norm(grads) if norm is None else norm
     keep = norm < max_norm
     return [torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm) for g in grads]
 
@@ -76,9 +78,12 @@ def _adam(grads: List[torch.Tensor], keys: List[str], state: OptState,
 
 @torch.no_grad()
 def apply_gradients(params: Tensors, grads: Tensors, state: OptState,
-                    config: Config, lr: float) -> None:
+                    config: Config, lr: float,
+                    norm_fn: Optional[Callable[[Tensors], torch.Tensor]] = None) -> None:
     """One optimizer call: accumulate, and on an update step clip, scale
-    and add the updates to ``params`` in place."""
+    and add the updates to ``params`` in place.  ``norm_fn(grads)`` gives
+    the clip's global norm where ``params`` are one rank's shards of a
+    larger tree (``parallel.train_step.global_norm``)."""
     keys = sorted(params)  # the reference's leaf order (sorted dict keys)
     k_acc = config.grad_accum_steps
     if k_acc > 1:
@@ -89,7 +94,8 @@ def apply_gradients(params: Tensors, grads: Tensors, state: OptState,
             state.mini_step = n + 1
             return
         grads = state.acc
-    g = clip_by_global_norm([grads[k] for k in keys], config.max_grad_norm)
+    g = clip_by_global_norm([grads[k] for k in keys], config.max_grad_norm,
+                            None if norm_fn is None else norm_fn(grads))
     if config.optimizer == "adam":
         updates = _adam(g, keys, state, lr)
     else:

@@ -3,8 +3,8 @@
 ``jlm_tpu_torch`` keeps its own copies of ``config``, ``data`` (with
 ``realistic`` and ``synthetic_ctx``), ``decoder.lattice``, the ``native``
 lattice builder, ``oracle`` (with ``ngram``), ``ops.quant``,
-``init_params``, ``eval`` (``conversion``, ``ceiling``), ``utils.logging``
-and ``train.import_reference``; each case here builds the same thing
+``init_params``, ``eval`` (``conversion``, ``ceiling``), ``utils.logging``,
+``train.import_reference`` and ``parallel.comms_model``; each case here builds the same thing
 through both and asserts equality (bit-equal arrays, equal files).
 """
 
@@ -320,6 +320,26 @@ def case_train_import_reference(tmp_path):
             assert got_j[1] == got_p[1]
             _assert_tree_equal(got_j[0], got_p[0])
             _assert_tree_equal(got_p[0], pj)
+
+
+def case_parallel_comms_model(tmp_path):
+    """The analytic collective-traffic model: the same payloads and
+    projections from both copies."""
+    import jlm_tpu.parallel.comms_model as j_cm
+    import jlm_tpu_torch.parallel.comms_model as p_cm
+
+    for kw in (dict(vocab_size=50_000), dict(vocab_size=100_000, beam_width=4)):
+        cj, cp = j_config.Config(**kw), p_config.Config(**kw)
+        for S, n, nd, seq in ((512, 4, 1, False), (2048, 4, 2, True), (64, 8, 1, True)):
+            for hb in (2, 4):
+                assert (j_cm.decode_collective_bytes_per_frame(cj, S, n, nd, seq, hb)
+                        == p_cm.decode_collective_bytes_per_frame(cp, S, n, nd, seq, hb))
+                for gbps in (100.0, 12.5):
+                    args = (S, 8.0, 0.55)
+                    opts = dict(n_vocab=n, n_data=nd, gbps=gbps, seq_shard=seq, htop_bytes=hb)
+                    assert (j_cm.decode_scaling_projection(cj, *args, **opts)
+                            == p_cm.decode_scaling_projection(cp, *args, **opts))
+    assert (j_cm.ICI_GBPS, j_cm.DCN_GBPS) == (p_cm.ICI_GBPS, p_cm.DCN_GBPS)
 
 
 CASES = {name[len("case_"):]: fn for name, fn in globals().items() if name.startswith("case_")}

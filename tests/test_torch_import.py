@@ -19,6 +19,9 @@ def test_engine_import_is_jax_free_and_builds_nothing():
         "import jlm_tpu_torch.eval.ceiling, jlm_tpu_torch.eval.conversion\n"
         "import jlm_tpu_torch.oracle.ngram, jlm_tpu_torch.utils.logging\n"
         "import jlm_tpu_torch.train.import_reference\n"
+        "import jlm_tpu_torch.parallel, jlm_tpu_torch.parallel.comm, jlm_tpu_torch.parallel.mesh\n"
+        "import jlm_tpu_torch.parallel.sharded_head, jlm_tpu_torch.parallel.train_step\n"
+        "import jlm_tpu_torch.parallel.comms_model\n"
         "from jlm_tpu_torch.scripts import (convert, eval_conversion, eval_ppl, export_int8,\n"
         "                                   import_reference_weights, quality_ceiling)\n"
         "from jlm_tpu_torch.ops import _build\n"
@@ -34,8 +37,10 @@ def test_engine_import_is_jax_free_and_builds_nothing():
 
 
 def test_port_runs_without_the_jax_package():
-    """Every module of the port (its CLIs among them) and the root scripts
-    import, and a tiny CPU decode (one input past ``max_kana_len``), a few
+    """Every module of the port (its CLIs and ``parallel`` among them),
+    the root scripts and the sharded tests' rank worker (what a spawned
+    rank imports; tests/test_torch_sharded*.py check every rank's modules
+    too) import, and a tiny CPU decode (one input past ``max_kana_len``), a few
     keystrokes through the per-keystroke decoder,
     the server and the suggester, and a tiny ``--pallas-scan`` training
     step run, with no module of JAX or of ``jlm_tpu`` loaded and no kernel
@@ -74,6 +79,8 @@ def test_port_runs_without_the_jax_package():
         "train = split_corpus(encode_corpus(lines, vocab))[0]\n"
         "tr = Trainer(cfg.replace(use_pallas_scan=True, fused_ce=True), device='cpu')\n"
         "assert next(tr.train_steps(train[:400], epoch=0))[0].item() > 0\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import _torch_dist_worker\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'jlm_tpu'))\n"
         "assert not bad, bad\n"

@@ -9,6 +9,7 @@ within 1e-5).
 
 import numpy as np
 import pytest
+import torch
 
 from jlm_tpu.config import EOS_ID, Config, DSoftmaxConfig
 from jlm_tpu.data import generate_test_set
@@ -220,5 +221,11 @@ def test_suggester_matches_jax(context, tiny_params, tiny_config, vocab):
 
 
 def test_suggester_mesh_not_ported(tiny_params, tiny_config, vocab):
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        Suggester(tiny_params, vocab, tiny_config, mesh=object(), device="cpu")
+    """The mesh option is ported now (tests/test_torch_sharded.py drives it
+    on a four-rank world): a one-rank mesh gives the one-device top-k."""
+    from jlm_tpu_torch.parallel.mesh import Mesh
+
+    one = Suggester(tiny_params, vocab, tiny_config, device="cpu")
+    meshed = Suggester(tiny_params, vocab, tiny_config, mesh=Mesh(1, 1, 0, torch.device("cpu")),
+                       device="cpu")
+    assert meshed.top_k([5, 6], k=5) == one.top_k([5, 6], k=5)
