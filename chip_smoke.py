@@ -140,6 +140,30 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
    block; the clip on a rank's own norm) each failing a gate; ms per chunk
    and per step, marked as ranks sharing one card; phase 2 holds the
    kernels at a rank's shapes (``shard_cases``);
+3g. (after 3f) the time-block pipeline (``--mesh-seq``) with every rank a
+   process on this card over Gloo (``seq_run``): phase 5's width and
+   batch on a seq mesh of ``SEQ_P`` stages, ``SEQ_M`` microbatches, five
+   ``--fused-ce`` Adam steps (losses within ``TRAIN_BOUNDS`` of phase
+   5's, one launch of each bf16 CE kernel a rank and step, the final
+   carries equal on every rank and, after the first window, to one
+   card's), a step's gradient and a clipped SGD step equal to one card's,
+   three planted faults (``SEQ_FAULTS``: the carry cotangent never passed
+   left, the gradients averaged over the seq group, the halo read from
+   the next slot) each failing a gate; then ``python -m
+   jlm_tpu_torch.scripts.prepare_data --stream`` beside its in-memory
+   path (vocab.tsv and ids bit-equal) and ``python -m jlm_tpu_torch.train
+   --mesh-seq 4 --fused-ce`` for one epoch on the streamed data dir; ms a
+   step, marked as ranks sharing one card; phase 2 holds the CE kernels at
+   a stage's rows (``seq_qs_cases``: 256 x 50,000, D 512);
+3h. (after 3g) ``python -m jlm_tpu_torch.scripts.quality_stats --fused-ce``
+   at a reduced size (``QS_ARGS``): BASELINE config 5's shape trained,
+   then decoded through ``BeamDecoder`` (launches counted); on the trained
+   weights the fp32 greedy kernel forward path-identical to the fp32
+   oracle on the first ``QS_GATED`` test sentences, bf16 and int8 beam-10
+   against their oracles reported (paths that differ, score gaps); phase
+   2 holds the kernels at its shapes (``seq_qs_cases``: the D-softmax CE
+   per block at a step's rows, the bf16 D-softmax head, both layers'
+   cells and ``cand_dot`` at its 256-sentence beam-10 chunk);
 5. drive the training path — ``Trainer`` at the same width, batch 32, BPTT
    window 32, Adam, fused CE — for 20 steps over the synthetic corpus, once
    through the CE kernels and once with each swapped for its plain
@@ -185,6 +209,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import io
 import json
 import math
 import os
@@ -2399,16 +2424,16 @@ def long_run(dev, card, config, vocab, lexicon, params, qp, kanas, data5):
     def counted(run):
         """``run()`` with every counter set to 0 just before; returns its
         result, the launches, ``project_lse``'s by rows and ``cand_dot``'s
-        by sentences."""
+        by (sentences, beam rows)."""
         for fn in counters:
             fn.launches = 0
-        project_lse.rows, cand_dot.sentences = {}, {}
+        project_lse.rows, cand_dot.shapes = {}, {}
         out = run()
         return (out, {fn.__name__: fn.launches for fn in counters}, dict(project_lse.rows),
-                dict(cand_dot.sentences))
+                dict(cand_dot.shapes))
 
     def expect(G, n, layers=1, blocks=1, fused=False):
-        """(launches, project_lse by rows, cand_dot by sentences) of one
+        """(launches, project_lse by rows, cand_dot by (sentences, beam rows)) of one
         input: G + 1 forwards (the root and a frame a kana), n - 1
         ``score_hidden`` calls."""
         fwd, seeded = G + 1, n - 1
@@ -2417,7 +2442,7 @@ def long_run(dev, card, config, vocab, lexicon, params, qp, kanas, data5):
                  "lstm_cell_step": 0 if fused else fwd * layers,
                  "cell_cand_step": fwd if fused else 0},
                 {B: fwd * blocks, SEED_M * B: seeded * blocks},
-                {SEED_M: seeded, **({} if fused else {1: fwd})})
+                {(SEED_M, B): seeded, **({} if fused else {(1, B): fwd})})
 
     def run_inputs(label, engine, ins, **kw):
         """Each input through ``engine.decode``, counted and checked;
@@ -2538,8 +2563,8 @@ def long_run(dev, card, config, vocab, lexicon, params, qp, kanas, data5):
         f"{wall:.4f} ms wall, idle share {1 - dev_ms / wall:.4f}; by kernel "
         + ", ".join(f"{k[:40]} {v:.4f}" for k, v in top))
     log(f"phase 3e: {time.perf_counter() - t_phase:.1f} s")
-    return {"project_lse R50": total[1][SEED_M * B], "cand_dot S1": total[2][1],
-            "cand_dot S5": total[2][SEED_M], "lstm_cell_step R10": total[0]["lstm_cell_step"],
+    return {"project_lse R50": total[1][SEED_M * B], "cand_dot S1": total[2][1, B],
+            "cand_dot S5": total[2][SEED_M, B], "lstm_cell_step R10": total[0]["lstm_cell_step"],
             "project_lse dsoftmax int8 R50": total5[1][SEED_M * B]}
 
 
@@ -2593,21 +2618,26 @@ def scan_stage_work(E_, H_):
     }
 
 
+def ce_work(N, D, Vb, cd):
+    """(bytes, operations, type) of the three CE kernels at N rows, width D
+    and Vb columns, computing in ``cd``: h and W read in the type the
+    kernel reads (bf16: h cast and the step's W^T), b, y int64 and three
+    fp32 row terms (the backward's lse, ga, gb; the forward's m, s, t
+    out); dh, or dW and db, written in fp32.  Each backward makes two
+    products (the logits again, then dh or dW)."""
+    e = 2 if cd == "bf16" else 4
+    io = N * D * e + D * Vb * e + Vb * 4 + N * 8 + 3 * N * 4
+    return {"ce_fwd": (io, 2 * N * D * Vb, cd),
+            "ce_bwd_dh": (io + N * D * 4, 4 * N * D * Vb, cd),
+            "ce_bwd_dw": (io + D * Vb * 4 + Vb * 4, 4 * N * D * Vb, cd)}
+
+
 def work():
     """(bytes, operations, type) of each kernel's function on its phase-2
     inputs: every input read once and every output written once, and the
     products' operations (2 per multiply-add) at the peak of their type."""
-    ce_in = N_CE * H * 4 + H * V * 4 + V * 4 + N_CE * 8  # h, W fp32; b; y int64
     scan_in = 4 * (TB * TT * E + (E + H) * 4 * H + 4 * H + 2 * TB * H)  # xs W b c0 h0
-    ce_in_w = N_CE * HW * 4 + HW * V * 4 + V * 4 + N_CE * 8  # the same at D = HW
     scan_in_w = 4 * (TB * TT * HW + 2 * HW * 4 * HW + 4 * HW + 2 * TB * HW)
-    # the bf16 forward reads the step's W^T (bf16) in place of W
-    fwd_in = {d: N_CE * d * 4 + d * V * 2 + V * 4 + N_CE * 8 + 3 * N_CE * 4
-              for d in (H, HW, DS_D)}
-    ce_w = {  # the three CE kernels at D = HW: bytes, operations
-        "ce_fwd": (fwd_in[HW], 2 * N_CE * HW * V),
-        "ce_bwd_dh": (ce_in_w + 3 * N_CE * 4 + N_CE * HW * 4, 4 * N_CE * HW * V),
-        "ce_bwd_dw": (ce_in_w + 3 * N_CE * 4 + HW * V * 4 + V * 4, 4 * N_CE * HW * V)}
     scan_w = {  # the scan kernels at H = E = HW: fp32 products, or (bf16) products
         # of bf16-rounded x, h, W and dz summed in fp32, at the bf16 peak
         "lstm_scan_fwd": (scan_in_w + 4 * (2 * TB * TT * HW + 2 * TB * HW),
@@ -2627,9 +2657,8 @@ def work():
                                    "bf16"),
         "project_lse dequant bf16 D1024": (R * HW * 2 + HW * V + V * 8 + R * 4,
                                            2 * R * HW * V, "bf16"),
-        **{f"{k} D1024": (*ce_w[k], "bf16") for k in ce_w},
-        "ce_fwd fp32 D1024": (ce_in_w + 3 * N_CE * 4, 2 * N_CE * HW * V, "fp32"),
-        **{f"{k} fp32 D1024": (*ce_w[k], "fp32") for k in ce_w if k != "ce_fwd"},
+        **{f"{k} D1024": v for k, v in ce_work(N_CE, HW, V, "bf16").items()},
+        **{f"{k} fp32 D1024": v for k, v in ce_work(N_CE, HW, V, "fp32").items()},
         **{f"{k} H1024": (*scan_w[k], "fp32") for k in scan_w},
         **{f"{k} bf16 H1024": (*scan_w[k], "bf16") for k in scan_w},
         # x, h, c bf16, W bf16, b -> c', h' bf16
@@ -2654,11 +2683,8 @@ def work():
         # x, h, c fp32, W fp32, b -> c', h' fp32
         "lstm_cell_step fp32": (R32 * (E + 4 * H) * 4 + (E + H) * 4 * H * 4 + 4 * H * 4,
                                 2 * R32 * (E + H) * 4 * H, "fp32"),
-        "ce_fwd": (fwd_in[H], 2 * N_CE * H * V, "bf16"),
-        f"ce_fwd bf16 D{DS_D}": (fwd_in[DS_D], 2 * N_CE * DS_D * V, "bf16"),
-        # + lse, ga, gb; two products each (the logits again, then dh or dW)
-        "ce_bwd_dh": (ce_in + 3 * N_CE * 4 + N_CE * H * 4, 4 * N_CE * H * V, "bf16"),
-        "ce_bwd_dw": (ce_in + 3 * N_CE * 4 + H * V * 4 + V * 4, 4 * N_CE * H * V, "bf16"),
+        **ce_work(N_CE, H, V, "bf16"),
+        f"ce_fwd bf16 D{DS_D}": ce_work(N_CE, DS_D, V, "bf16")["ce_fwd"],
         # -> hs, cs [B,T,H], c_T, h_T
         "lstm_scan_fwd": (scan_in + 4 * (2 * TB * TT * H + 2 * TB * H),
                           2 * TB * TT * (E + H) * 4 * H, "fp32"),
@@ -2668,12 +2694,9 @@ def work():
                           4 * TB * TT * (E + H) * 4 * H, "fp32"),
         # the scan's five kernels: each direction's operations sum to its whole's
         **{k: (*v, "fp32") for k, v in scan_stage_work(E, H).items()},
-        # fp32 compute: the same bytes, the products at the fp32 peak
-        "ce_fwd fp32": (ce_in + 3 * N_CE * 4, 2 * N_CE * H * V, "fp32"),
-        f"ce_fwd fp32 D{DS_D}": (N_CE * DS_D * 4 + DS_D * V * 4 + V * 4 + N_CE * 8
-                                 + 3 * N_CE * 4, 2 * N_CE * DS_D * V, "fp32"),
-        "ce_bwd_dh fp32": (ce_in + 3 * N_CE * 4 + N_CE * H * 4, 4 * N_CE * H * V, "fp32"),
-        "ce_bwd_dw fp32": (ce_in + 3 * N_CE * 4 + H * V * 4 + V * 4, 4 * N_CE * H * V, "fp32"),
+        # fp32 compute: h and W read in fp32, the products at the fp32 peak
+        **{f"{k} fp32": v for k, v in ce_work(N_CE, H, V, "fp32").items()},
+        f"ce_fwd fp32 D{DS_D}": ce_work(N_CE, DS_D, V, "fp32")["ce_fwd"],
         # h (fp32, or bf16 where the product is), the head, scales, biases, ids
         # -> [R, C] log-probs
         "project_candidates fp32": (R_CAND * H * 4 + H * V * 4 + V * 4 + cand_io,
@@ -2750,7 +2773,7 @@ def bound_of(name):
     """(least ms the card could take, "bytes", "operations" or "exp"): the
     largest of the bytes over the memory rate, the operations over their
     peak and, for the head, its R x V exponentials over the SFU rate."""
-    nbytes, ops, kind = {**work(), **shard_work()}[name]
+    nbytes, ops, kind = {**work(), **shard_work(), **seq_qs_work()}[name]
     terms = [(nbytes / PEAK["bytes"] * 1e3, "bytes"), (ops / PEAK[kind] * 1e3, "operations")]
     if name in EXPS:
         terms.append((EXPS[name] / SFU_RATE["exp"] * 1e3, "exp"))
@@ -3041,7 +3064,7 @@ def kernel_fn(name: str) -> str:
     if name.startswith("cand_dot"):
         return ("cand_dot_kernel (a persistent ring of bulk copies; "
                 + ("exact fp32 dots)" if "fp32" in name else "mma.sync m16n8k16 bf16)"))
-    if name in ("lstm_cell_step", "lstm_cell_step R10"):
+    if name in ("lstm_cell_step", "lstm_cell_step R10") or name.startswith("lstm_cell_step bf16"):
         return "lstm_cell_wgmma_kernel (wgmma + TMA)"
     if name.startswith("project_") and ("fp32" in name):
         return ("proj_ms_f32_kernel (the scan's fp32 GEMM loop, 128 x 128 tiles; "
@@ -3066,7 +3089,7 @@ STEP_COUNTERS = CE_COUNTERS + ("cast_wt",)
 # 5c's config-5 run launches the fp32 forward at D = 128 once a forward,
 # under ce_fwd fp32's count), so the kernels line has no entry of theirs;
 # phase 2 logs their bound
-PHASE2_ONLY = ("lstm_scan_fwd fp32 B16384", f"ce_fwd bf16 D{DS_D}", f"ce_fwd fp32 D{DS_D}",
+PHASE2_ONLY = ("lstm_scan_fwd fp32 B16384", f"ce_fwd fp32 D{DS_D}",
                "ce_fwd fp32 V12500", "ce_bwd_dh fp32 V12500", "ce_bwd_dw fp32 V12500")
 SCAN_COUNTERS = ("lstm_scan_fwd", "lstm_scan_bwd", "scan_xw", "scan_fwd_recur", "scan_gates",
                  "scan_recur", "scan_dx")
@@ -3301,15 +3324,8 @@ def shard_work():
         out[f"project_lse dsoftmax int8 {tag} shard"] = (
             rows * H * 2 + weights // SHARD_N + words * 8 + rows * 4 * 3,
             2 * rows * weights // SHARD_N, "int8")
-    ce_in = N_SH * H * 4 + H * V_SH * 4 + V_SH * 4 + N_SH * 8
     for cd in ("bf16", "fp32"):
-        w_in = H * V_SH * (2 if cd == "bf16" else 4)  # bf16 reads the step's W^T
-        out[f"ce_fwd {cd} V{V_SH}"] = (N_SH * H * 4 + w_in + V_SH * 4 + N_SH * 8 + 3 * N_SH * 4,
-                                       2 * N_SH * H * V_SH, cd)
-        out[f"ce_bwd_dh {cd} V{V_SH}"] = (ce_in + 3 * N_SH * 4 + N_SH * H * 4,
-                                          4 * N_SH * H * V_SH, cd)
-        out[f"ce_bwd_dw {cd} V{V_SH}"] = (ce_in + 3 * N_SH * 4 + H * V_SH * 4 + V_SH * 4,
-                                          4 * N_SH * H * V_SH, cd)
+        out.update({f"{k} {cd} V{V_SH}": v for k, v in ce_work(N_SH, H, V_SH, cd).items()})
     return out
 
 
@@ -3360,6 +3376,7 @@ def first_step(trainer, ids, sgd: bool):
     rank of the rarest words' columns, which hold the least of the head's
     gradient, so a rank-local norm differs most from the tree's there."""
     from jlm_tpu_torch.models.lstm import initial_state
+    from jlm_tpu_torch.parallel import comm
     from jlm_tpu_torch.parallel import train_step as ts
 
     mesh = trainer.mesh
@@ -3371,25 +3388,47 @@ def first_step(trainer, ids, sgd: bool):
         out = trainer.flat["lstm/0/W"].detach() - before
     else:
         if mesh is not None:
-            x, y = ts.local_rows(x, mesh), ts.local_rows(y, mesh)
+            x, y = trainer._rows(x), trainer._rows(y)
         loss, _ = trainer._loss(trainer.params, x, y, state)
         g = torch.autograd.grad(loss, [trainer.flat["lstm/0/W"]])[0]
-        if mesh is not None:
+        if trainer.seq:  # a rank's share: summed over the seq group
+            g = ts.seq_sum_grads({"k": g}, mesh)["k"]
+            loss = comm.all_reduce_sum(loss.detach(), mesh.group)
+        elif mesh is not None:
             g, loss = ts.sync_grads({"k": g}, mesh)["k"], ts.data_mean(loss.detach(), mesh)
         out = g
     return float(loss.detach()), out.cpu() if mesh is None or mesh.rank == mesh.world - 1 else None
 
 
-def shard_run(dev, card, kanas, stream, train_ids, params, loss_k, results5, oracle5_q):
+def one_card_refs(dev, params, train_ids):
+    """Phase 5's training config on this card alone: the first window's
+    loss and ``lstm/0/W`` gradient, a clipped SGD step's update of it
+    (``first_step``), and the window's final carries; what phases 3f and
+    3g hold their ranks to."""
+    from jlm_tpu_torch.models.lstm import initial_state
+    from jlm_tpu_torch.train import Trainer
+
+    tcfg = shard_train_config()
+    sgd = tcfg.replace(optimizer="sgd", learning_rate=1.0, max_grad_norm=CLIP_NORM)
+    trainer = Trainer(tcfg, params, device=dev)
+    x, y = next(iter(trainer._windows(train_ids)))
+    with torch.no_grad():
+        _, carries = trainer._loss(trainer.params, x, y,
+                                   initial_state(tcfg, trainer.rows, dev))
+    return {"grads": first_step(trainer, train_ids, False),
+            "clip": first_step(Trainer(sgd, params, device=dev), train_ids, True),
+            "carries": tuple(c.cpu() for c in carries)}
+
+
+def shard_run(dev, card, kanas, stream, train_ids, ref, loss_k, results5, oracle5_q):
     """Phase 3f: config 3 on a (1, 4) world and config 5 with the training
-    step on a (2, 4) world, every rank on this card (Gloo); the one-card
-    references made here first.  Returns the launches for the ``kernels``
-    line (rank 0's; every rank's are checked)."""
+    step on a (2, 4) world, every rank on this card (Gloo), against the
+    one-card references (``ref``: ``one_card_refs``).  Returns the launches
+    for the ``kernels`` line (rank 0's; every rank's are checked)."""
     from jlm_tpu_torch.decoder.engine import BeamDecoder
     from jlm_tpu_torch.decoder.suggest import Suggester
     from jlm_tpu_torch.oracle import OracleDecoder, OracleLM
     from jlm_tpu_torch.parallel.comm import spawn
-    from jlm_tpu_torch.train import Trainer
 
     t_ref = time.perf_counter()
     cfg3, vocab3, lex3, p3, qp3 = bench_data3()
@@ -3406,10 +3445,6 @@ def shard_run(dev, card, kanas, stream, train_ids, params, loss_k, results5, ora
     _, vocab5, _, p5, _ = bench_data5()
     sugs["c5"] = [Suggester(p5, vocab5, config5(), device=dev).top_k(c, 5) for c in contexts]
     del p5
-    tcfg = shard_train_config()
-    sgd = tcfg.replace(optimizer="sgd", learning_rate=1.0, max_grad_norm=CLIP_NORM)
-    ref = {"grads": first_step(Trainer(tcfg, params, device=dev), train_ids, False),
-           "clip": first_step(Trainer(sgd, params, device=dev), train_ids, True)}
     torch.cuda.empty_cache()
     log(f"phase 3f one-card references: {time.perf_counter() - t_ref:.1f} s")
 
@@ -3611,6 +3646,470 @@ def shard_rank(device, tasks, stream, kanas, contexts, train_ids):
     return out
 
 
+# ---- the time-block pipeline (phase 3g) and trained config 5 (phase 3h) ----
+# phase 3g: phase 5's training at mesh_seq = SEQ_P, M = SEQ_M pipeline
+# microbatches (every rank on this card, Gloo); a stage's CE rows: the
+# batch times its time block, 32 x 8 = 256
+SEQ_P, SEQ_M, SEQ_STEPS = 4, 8, 5
+N_SEQ = TB * TT // SEQ_P
+SEQ_FAULTS = ("the carry cotangent never passed left", "gradients averaged over the seq group",
+              "the halo read from slot p + 1")
+SEQ_BOUNDS = {"carries vs one card": 1e-5}  # abs, c and h after the first window
+# the --mesh-seq CLI's corpus (python -m jlm_tpu_torch.scripts.prepare_data
+# --stream --dev-frac 0.1): 9 training windows of 32 x 32 and one dev window
+SEQ_CLI_SENTENCES = 2_000
+SEQ_CLI_PREP = ["--vocab-size", str(V), "--dev-frac", "0.1"]
+# phase 3h: scripts/quality_stats.py's config 5 (2 layers, E 256, H 512, the
+# 100k D-softmax head) cut to one seed, 2 epochs over 8,000 sentences at
+# batch 32 (N_CE CE rows a step), 200 tests (the 300 model-selection
+# sentences kept)
+QS_SEED = 3
+QS_ARGS = ["--sentences", "8000", "--tests", "200", "--seeds",
+           str(QS_SEED), "--epochs", "2", "--batch-size", str(TB), "--fused-ce",
+           "--skip-baselines"]
+QS_GATED = 50  # test sentences held to the oracles
+# the decode's shapes there: 200 sentences bucket to 256, beam 10
+QS_S = 256
+R_QS = QS_S * B
+QS_CELLS = (E, H)  # the cell's input width at layer 0 and 1
+EXPS.update({
+    f"ce_fwd bf16 N{N_SEQ}": N_SEQ * V,
+    **{f"ce_fwd bf16 c5 b{k}": N_CE * n for k, (n, _) in enumerate(BLOCKS5[:2])},
+    f"project_lse dsoftmax bf16 R{R_QS}": R_QS * V5})
+BOUNDS.update({f"{k} bf16 N{N_SEQ}": BOUNDS[f"{k} bf16"] for k in CE_COUNTERS})
+BOUNDS.update({f"{k} bf16 c5 b{i}": BOUNDS[f"{k} bf16"]
+               for k in CE_COUNTERS for i in range(len(BLOCKS5))})
+BOUNDS.update({f"project_lse dsoftmax bf16 R{R_QS}": BOUNDS["project_lse dsoftmax bf16"],
+               **{f"lstm_cell_step bf16 R{R_QS} E{e}": BOUNDS["lstm_cell_step bf16"]
+                  for e in QS_CELLS},
+               f"cand_dot bf16 S{QS_S}": BOUNDS["cand_dot bf16"]})
+
+
+def seq_qs_cases(dev, rng):
+    """The kernels at phase 3g's and 3h's shapes, as kernel_cases' cases.
+    The fused CE's three bf16 kernels at a pipeline stage's rows (N_SEQ x
+    the 50k head, D 512, every target owned) and at config 5's D-softmax
+    blocks over a step's N_CE rows (16,000 x 512, 34,000 x 256; the third
+    block's forward is phase 2's ``ce_fwd bf16 D128``), two thirds of a
+    block's targets another block's (-1), the backward from an lse above
+    the block's own; wrong as phase 2's.  The decode kernels at
+    quality_stats' beam-10 chunk (256 sentences, R_QS rows): the bf16
+    D-softmax head (wrong: the second warpgroup's rows from the first's),
+    the bf16 cell at each layer's input width (wrong: gates j and f
+    swapped), ``cand_dot`` (wrong: beam rows 8 on from rows 0 on)."""
+    from jlm_tpu_torch.ops.cand_dot import cand_dot, cand_dot_ref
+    from jlm_tpu_torch.ops.lstm_cell import cell_weight_tiles, lstm_cell_ref, lstm_cell_step
+    from jlm_tpu_torch.ops.project import project_lse, project_lse_ref
+    from jlm_tpu_torch.ops.softmax_ce import (
+        cast_wt, ce_bwd_dh, ce_bwd_dh_ref, ce_bwd_dw, ce_bwd_dw_ref, ce_fwd_raw, ce_fwd_raw_ref)
+
+    bf = torch.bfloat16
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev).to(dtype)
+
+    def ce_cases(tag, N, Vb, D, owned, fwd=True):
+        h = t(rng.uniform(-1, 1, (N, D)))
+        W, b = t(rng.normal(0, 0.05, (D, Vb))), t(rng.normal(0, 0.1, Vb))
+        y = torch.from_numpy(np.where(rng.random(N) < owned, rng.integers(0, Vb, N), -1)).to(dev)
+        wt = cast_wt(W, D)
+        m, s = ce_fwd_raw_ref(h, W, b, y, bf)[:2]
+        lse = m + torch.log(s) + (0.0 if owned == 1.0 else math.log(3.0))
+        ga = torch.full((N,), 1.0 / N, device=dev)
+        args = (h, W, b, y, lse, ga, -ga, bf)
+        wrong = (h, W, b, y, lse + P_SHIFT, ga, -ga, bf)
+        out = []
+        if fwd:
+            def no_bias_t():
+                m, s, t_ = ce_fwd_raw_ref(h, W, b, y, bf)
+                own = (y >= 0) & (y < Vb)
+                return m, s, t_ - torch.where(own, b[y.clamp(0, Vb - 1)], 0.0)
+
+            out.append((f"ce_fwd bf16 {tag}", lambda: ce_fwd_raw(h, W, b, y, bf, wt=wt),
+                        lambda: ce_fwd_raw_ref(h, W, b, y, bf), ce_fwd_err,
+                        {"the second warpgroup's rows from the first's":
+                         lambda: ce_fwd_raw_ref(second_half_fault(h, 64), W, b, y, bf),
+                         "the target logit without its bias": no_bias_t}, None))
+        for k, kern, ref in (("ce_bwd_dh", ce_bwd_dh, ce_bwd_dh_ref),
+                             ("ce_bwd_dw", ce_bwd_dw, ce_bwd_dw_ref)):
+            wrongs = {f"a p-term {1 - math.exp(-P_SHIFT):.0%} low": lambda r=ref: r(*wrong)}
+            wrongs.update(ce_bwd_traps(k, args))
+            out.append((f"{k} bf16 {tag}", lambda kern=kern: kern(*args, wt=wt),
+                        lambda ref=ref: ref(*args), bwd_err, wrongs, None))
+        return out
+
+    cases = ce_cases(f"N{N_SEQ}", N_SEQ, V, H, 1.0)
+    for k, (n, d) in enumerate(BLOCKS5):
+        cases += ce_cases(f"c5 b{k}", N_CE, n, d, 1 / 3, fwd=k < 2)
+
+    cfg = config5()
+    blocks = []
+    for n, d in BLOCKS5:
+        Wb = t(rng.normal(0, 0.05, (d, n)), bf)
+        blocks.append({"W": Wb, "b": t(rng.normal(0, 0.1, n)), "WT": Wb.t().contiguous()})
+    head = {"blocks": blocks}
+    h = t(rng.uniform(-1, 1, (R_QS, H)), bf)
+    cases.append((f"project_lse dsoftmax bf16 R{R_QS}",
+                  lambda: project_lse(h, head, cfg, compute_dtype=bf),
+                  lambda: project_lse_ref(h, head, cfg, compute_dtype=bf), abs_errs,
+                  {"the second warpgroup's rows from the first's":
+                   lambda: project_lse_ref(second_half_fault(h, 64), head, cfg,
+                                           compute_dtype=bf)}, None))
+    hc, cc = t(rng.uniform(-1, 1, (R_QS, H)), bf), t(rng.normal(0, 1.0, (R_QS, H)), bf)
+    for e in QS_CELLS:
+        x = t(rng.normal(0, 0.3, (R_QS, e)), bf)
+        Wc, bc = t(rng.normal(0, 0.05, (e + H, 4 * H)), bf), t(rng.normal(0, 0.1, 4 * H))
+        cell_weight_tiles(Wc, e, H)
+        w_ih, w_hh, b_ih = torch_gates(Wc, bc)
+
+        def plain(x=x, W=Wc, b=bc):
+            c_new, h_new = lstm_cell_ref(x, hc, cc, W, b, 1.0)
+            return c_new.to(bf), h_new.to(bf)
+
+        cases.append((f"lstm_cell_step bf16 R{R_QS} E{e}",
+                      lambda x=x, W=Wc, b=bc: lstm_cell_step(x, hc, cc, W, b, 1.0,
+                                                              compute_dtype=bf, c_out_dtype=bf),
+                      plain, cell_err,
+                      {"gates j and f swapped (a gate-tile mapping fault)":
+                       lambda plain=plain, W=Wc, b=bc: plain(W=swap_jf(W), b=swap_jf(b))},
+                      lambda x=x, w_ih=w_ih, w_hh=w_hh, b_ih=b_ih: torch.lstm_cell(
+                          x, (hc, cc), w_ih, w_hh, b_ih.to(bf), torch.zeros_like(b_ih, dtype=bf))))
+    h3 = t(rng.uniform(-1, 1, (QS_S, B, H)), bf)
+    cols, cbias = t(rng.normal(0, 0.05, (QS_S, C1, H)), bf), t(rng.normal(0, 0.1, (QS_S, C1)))
+    cases.append((f"cand_dot bf16 S{QS_S}", lambda: cand_dot(h3, cols, cbias),
+                  lambda: cand_dot_ref(h3, cols, cbias), cand_err,
+                  {"beam rows 8 on read from rows 0 on (the m16 tile's second half)":
+                   lambda: cand_dot_ref(second_half_rows(h3), cols, cbias)},
+                  lambda: torch.baddbmm(cbias.to(bf)[:, None, :], h3, cols.transpose(1, 2))))
+    return cases
+
+
+def seq_qs_work():
+    """``work()``'s entries of ``seq_qs_cases``, by kernels-line name."""
+    out = {f"{k} bf16 N{N_SEQ}": v for k, v in ce_work(N_SEQ, H, V, "bf16").items()}
+    for i, (n, d) in enumerate(BLOCKS5):
+        out.update({f"{k} bf16 c5 b{i}": v for k, v in ce_work(N_CE, d, n, "bf16").items()})
+    out[f"project_lse dsoftmax bf16 R{R_QS}"] = (R_QS * H * 2 + HEAD5 * 2 + V5 * 4 + R_QS * 4,
+                                                 2 * R_QS * HEAD5, "bf16")
+    for e in QS_CELLS:
+        out[f"lstm_cell_step bf16 R{R_QS} E{e}"] = (
+            R_QS * (e + 4 * H) * 2 + (e + H) * 4 * H * 2 + 4 * H * 4,
+            2 * R_QS * (e + H) * 4 * H, "bf16")
+    out[f"cand_dot bf16 S{QS_S}"] = (QS_S * B * H * 2 + QS_S * C1 * H * 2 + QS_S * C1 * 4
+                                     + QS_S * B * C1 * 4, 2 * QS_S * B * C1 * H, "bf16")
+    return out
+
+
+def seq_train_config():
+    """Phase 5's training config on a SEQ_P-stage seq mesh, SEQ_M microbatches."""
+    return bench_config().replace(batch_size=TB, num_steps=TT, fused_ce=True, mesh_seq=SEQ_P,
+                                  seq_microbatches=SEQ_M)
+
+
+def halo_from_next_slot(x, group=None):
+    """``comm.shift_right`` reading slot ``p + 1`` of the buffer (its own
+    carry) instead of slot ``p`` (the carry of the rank before it)."""
+    import torch.distributed as dist
+
+    from jlm_tpu_torch.parallel import comm
+
+    n, r = comm.group_size(group), comm.group_rank(group)
+    buf = torch.zeros((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    if r + 1 < n:
+        buf[r + 1] = x
+    dist.all_reduce(buf, group=group)
+    return buf[r + 1] if r + 1 < n else torch.zeros_like(x)
+
+
+@contextlib.contextmanager
+def seq_fault(fault):
+    """One planted fault of ``SEQ_FAULTS`` in this rank's process."""
+    from jlm_tpu_torch.parallel import comm
+    from jlm_tpu_torch.parallel import train_step as ts
+
+    keep = comm.shift_left, comm.shift_right, ts.seq_sum_grads
+    if fault == SEQ_FAULTS[0]:
+        comm.shift_left = lambda x, group=None: torch.zeros_like(x)
+    elif fault == SEQ_FAULTS[1]:
+        ts.seq_sum_grads = lambda g, mesh: {k: v / mesh.seq for k, v in keep[2](g, mesh).items()}
+    elif fault == SEQ_FAULTS[2]:
+        comm.shift_right = halo_from_next_slot
+    elif fault is not None:
+        raise ValueError(fault)
+    try:
+        yield
+    finally:
+        comm.shift_left, comm.shift_right, ts.seq_sum_grads = keep
+
+
+def digest(tensors) -> str:
+    return hashlib.sha256(b"".join(t.detach().cpu().numpy().tobytes() for t in tensors)
+                          ).hexdigest()
+
+
+def seq_rank(device, train_ids):
+    """One rank of phase 3g's world: SEQ_STEPS fused-CE Adam steps of the
+    pipeline (losses, ms, CE launches, a digest of the carries), the first
+    window's carries, then the gates' single steps, good and with each
+    planted fault."""
+    from jlm_tpu_torch.config import Config
+    from jlm_tpu_torch.models.lstm import initial_state
+    from jlm_tpu_torch.models.params import init_params
+    from jlm_tpu_torch.ops import softmax_ce as ce
+    from jlm_tpu_torch.parallel import comm, make_seq_mesh
+    from jlm_tpu_torch.train import Trainer, epoch_lr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_seq_mesh(Config(mesh_seq=SEQ_P), device)
+    tcfg = seq_train_config()
+    params = init_params(tcfg)  # phase 5's weights (seed 0), drawn once for every trainer
+
+    def trainer_of(cfg):
+        return Trainer(cfg, params, mesh=mesh, device=mesh.device)
+
+    counters = (ce.ce_fwd_raw, ce.ce_bwd_dh, ce.ce_bwd_dw, ce.cast_wt)
+    trainer = trainer_of(tcfg)
+    windows = iter(trainer._windows(train_ids))
+    state = initial_state(tcfg, trainer.rows, mesh.device)
+    comm.barrier()
+    for fn in counters:
+        fn.launches = 0
+    for fn in counters[:3]:
+        fn.shapes = {}
+    losses = []
+    for i in range(SEQ_STEPS):
+        x, y = next(windows)
+        state, loss = trainer._train_step(state, x, y, epoch_lr(tcfg, 0))
+        losses.append(loss)
+        if i == 0:
+            sync(mesh.device)
+            t0 = time.perf_counter()
+    sync(mesh.device)
+    out = {"losses": [float(l) for l in losses],
+           "ms": (time.perf_counter() - t0) * 1e3 / (SEQ_STEPS - 1),
+           "launches": {fn.__name__: fn.launches for fn in counters},
+           "shapes": {fn.__name__: dict(fn.shapes) for fn in counters[:3]},
+           "digest": digest(state)}
+    del trainer
+    first = trainer_of(tcfg)
+    x, y = next(iter(first._windows(train_ids)))
+    with torch.no_grad():
+        _, carries = first._loss(first.params, x, y, initial_state(tcfg, first.rows, mesh.device))
+    out["first digest"] = digest(carries)
+    out["carries"] = tuple(c.cpu() for c in carries) if mesh.rank == SEQ_P - 1 else None
+    sgd = tcfg.replace(optimizer="sgd", learning_rate=1.0, max_grad_norm=CLIP_NORM)
+    for fault in (None,) + SEQ_FAULTS:
+        with seq_fault(fault):
+            out[("grads", fault)] = first_step(trainer_of(tcfg), train_ids, False)
+    out[("clip", None)] = first_step(trainer_of(sgd), train_ids, True)
+    out["modules"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jlm_tpu"))
+    return out
+
+
+def seq_cli(card):
+    """The ``--mesh-seq`` entry point: a corpus file through ``python -m
+    jlm_tpu_torch.scripts.prepare_data --stream`` and its in-memory path
+    (vocab.tsv and ids bit-equal), then ``python -m jlm_tpu_torch.train
+    --mesh-seq SEQ_P --fused-ce`` for one epoch on the streamed data dir
+    (SEQ_P ranks on this card)."""
+    from jlm_tpu_torch.data import generate_corpus
+    from jlm_tpu_torch.data.io import load_dataset
+    from jlm_tpu_torch.native import encoder_lib
+    from jlm_tpu_torch.scripts import prepare_data
+    from jlm_tpu_torch.train import checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = os.path.join(tmp, "corpus.txt")
+        with open(corpus, "w", encoding="utf-8") as f:
+            f.write("\n".join(generate_corpus(SEQ_CLI_SENTENCES, seed=1234)) + "\n")
+        streamed, mem, exp = (os.path.join(tmp, d) for d in ("streamed", "mem", "exp"))
+        t0 = time.perf_counter()
+        prepare_data.main(["--out", streamed, "--corpus", corpus, "--stream"] + SEQ_CLI_PREP)
+        prepare_data.main(["--out", mem, "--corpus", corpus] + SEQ_CLI_PREP)
+        with open(os.path.join(streamed, "vocab.tsv"), "rb") as a, \
+                open(os.path.join(mem, "vocab.tsv"), "rb") as b:
+            same_vocab = a.read() == b.read()
+        (_, *ids_s), (_, *ids_m) = load_dataset(streamed), load_dataset(mem)
+        same_ids = all(np.array_equal(a, b) for a, b in zip(ids_s, ids_m))
+        log(f"phase 3g prepare_data --stream (native encoder: {encoder_lib.available()}) vs "
+            f"in memory: vocab.tsv equal {same_vocab}, ids equal {same_ids} "
+            f"({sum(len(a) for a in ids_s)} ids; {time.perf_counter() - t0:.1f} s)")
+        check(same_vocab and same_ids, "prepare_data --stream differs from the in-memory path")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "jlm_tpu_torch.train", "--data", streamed, "--exp", exp,
+             "--mesh-seq", str(SEQ_P), "--epochs", "1", "--fused-ce", "--batch-size", str(TB),
+             "--num-steps", str(TT)], capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        secs = time.perf_counter() - t0
+        check(proc.returncode == 0, f"python -m jlm_tpu_torch.train --mesh-seq {SEQ_P} failed: "
+              f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+        records = checkpoint.read_log(exp)
+        _, cfg = checkpoint.load_checkpoint(exp)
+        log(f"phase 3g python -m jlm_tpu_torch.train --mesh-seq {SEQ_P} --fused-ce, one epoch "
+            f"on the streamed data dir: {records} ({secs:.1f} s with its {SEQ_P} ranks on "
+            f"{card})")
+        check(len(records) == 1 and np.isfinite(records[0]["dev_ppl"])
+              and cfg.mesh_seq == SEQ_P, "the --mesh-seq CLI's epoch")
+
+
+def seq_run(dev, card, train_ids, refs, loss_k):
+    """Phase 3g: the time-block pipeline with every rank on this card
+    (Gloo), against phase 5's one-card losses and ``one_card_refs``; the
+    planted faults; then the CLI.  Returns the launches for the ``kernels``
+    line (rank 0's; every rank's are checked)."""
+    from jlm_tpu_torch.parallel.comm import spawn
+
+    t0 = time.perf_counter()
+    world = spawn(seq_rank, SEQ_P, device="cuda", args=(train_ids,))
+    log(f"phase 3g world: {SEQ_P} ranks {time.perf_counter() - t0:.1f} s (spawns included)")
+    check(all(r["modules"] == [] for r in world), "a rank imported jax or the JAX package")
+    losses = world[0]["losses"]
+    step1 = abs(losses[0] - loss_k[0])
+    last = abs(losses[-1] / loss_k[SEQ_STEPS - 1] - 1)
+    log(f"phase 3g training, seq mesh of {SEQ_P} stages, {SEQ_M} microbatches: losses "
+        f"{[round(l, 6) for l in losses]} vs one card "
+        f"{[round(float(l), 6) for l in loss_k[:SEQ_STEPS]]}: step 1 diff {step1:.3e}, step "
+        f"{SEQ_STEPS} rel diff {last:.3e} (bounds {TRAIN_BOUNDS}); {world[0]['ms']:.2f} ms/step "
+        f"({SEQ_P} ranks on one card, Gloo, {card}); CE launches per rank "
+        f"{world[0]['launches']}")
+    check(step1 <= TRAIN_BOUNDS["step 1 loss"] and last <= TRAIN_BOUNDS["last loss"],
+          "phase 3g: pipeline training losses vs one card")
+    check(all(r["losses"] == losses for r in world), "phase 3g: ranks' losses differ")
+    check(all(r["launches"] == dict(ce_fwd_raw=SEQ_STEPS, ce_bwd_dh=SEQ_STEPS,
+                                    ce_bwd_dw=SEQ_STEPS, cast_wt=SEQ_STEPS) for r in world),
+          f"phase 3g: CE launches {[r['launches'] for r in world]}: one a rank and step")
+    check(len({r["digest"] for r in world}) == 1 and len({r["first digest"] for r in world}) == 1,
+          "phase 3g: the final carries differ between ranks")
+    carry_err = max(abs_err(a, b) for a, b in zip(world[-1]["carries"], refs["carries"]))
+    log(f"phase 3g final carries equal on all {SEQ_P} ranks; the first window's vs one card: "
+        f"max abs {carry_err:.3e} (bound {SEQ_BOUNDS['carries vs one card']:g})")
+    check(carry_err <= SEQ_BOUNDS["carries vs one card"], "phase 3g: carries vs one card")
+
+    def gate(kind, fault):
+        loss, got = world[-1][(kind, fault)]
+        loss1, want = refs[kind]
+        err = float((got - want).abs().max() / want.abs().max())
+        bound = SHARD_BOUNDS["grads vs one card" if kind == "grads" else "clip step vs one card"]
+        ok = err <= bound and abs(loss - loss1) <= TRAIN_BOUNDS["step 1 loss"]
+        log(f"  phase 3g {kind} gate, {fault or 'no fault'}: rel err {err:.3e} (bound {bound:g}), "
+            f"loss diff {abs(loss - loss1):.3e}")
+        return ok
+
+    check(gate("grads", None) and gate("clip", None), "phase 3g: the step vs one card")
+    for fault in SEQ_FAULTS:
+        check(not gate("grads", fault), f"phase 3g: the gates miss {fault}")
+    seq_cli(card)
+    return {f"{k} bf16 N{N_SEQ}": world[0]["shapes"][fn].get((N_SEQ, H, V), 0) for k, fn in (
+        ("ce_fwd", "ce_fwd_raw"), ("ce_bwd_dh", "ce_bwd_dh"), ("ce_bwd_dw", "ce_bwd_dw"))}
+
+
+def differing(results, oracle_results):
+    """(top-1 paths that differ from the oracle's, each top-1's |score gap|,
+    the gaps of the differing ones)."""
+    diff = [r[0].segments != o.segments for r, o in zip(results, oracle_results)]
+    gaps = [abs(r[0].score - o.score) for r, o in zip(results, oracle_results)]
+    return sum(diff), gaps, [round(g, 6) for g, d in zip(gaps, diff) if d]
+
+
+def trained_c5_run(dev, card):
+    """Phase 3h: ``python -m jlm_tpu_torch.scripts.quality_stats --fused-ce``
+    at QS_ARGS' size (config 5 trained, then decoded through BeamDecoder),
+    launches counted; on the trained weights fp32 greedy through the kernel
+    forward path-identical to the fp32 oracle on the first QS_GATED test
+    sentences (the gate); bf16 and int8 beam-10 against their oracles
+    reported.  Returns the launches for the ``kernels`` line."""
+    from jlm_tpu_torch.data.corpus import build_vocab
+    from jlm_tpu_torch.data.lexicon import Lexicon
+    from jlm_tpu_torch.data.synthetic_ctx import generate_corpus_ctx, generate_test_set_ctx
+    from jlm_tpu_torch.decoder.engine import BeamDecoder, make_kernel_forward
+    from jlm_tpu_torch.ops import softmax_ce as ce
+    from jlm_tpu_torch.ops.cand_dot import cand_dot
+    from jlm_tpu_torch.ops.lstm_cell import lstm_cell_step
+    from jlm_tpu_torch.ops.project import project_lse
+    from jlm_tpu_torch.ops.quant import quantize_params
+    from jlm_tpu_torch.oracle import OracleDecoder, OracleLM
+    from jlm_tpu_torch.scripts import quality_stats
+    from jlm_tpu_torch.train import load_checkpoint
+
+    t_phase = time.perf_counter()
+    train_counters = (ce.ce_fwd_raw, ce.ce_bwd_dh, ce.ce_bwd_dw, ce.cast_wt)
+    decode_counters = (project_lse, lstm_cell_step, cand_dot)
+    for fn in train_counters + decode_counters:
+        fn.launches = 0
+    for fn in train_counters[:3] + (lstm_cell_step, cand_dot):
+        fn.shapes = {}
+    project_lse.rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "quality.json")
+        printed = io.StringIO()  # its JSON line, kept off the lines this script ends with
+        with contextlib.redirect_stdout(printed):
+            quality_stats.main(QS_ARGS + ["--out", out, "--exp-root", os.path.join(tmp, "exp")])
+        log(f"quality_stats printed: {printed.getvalue().strip()}")
+        with open(out) as f:
+            stats = json.load(f)["config5_stats"]
+        params, cfg = load_checkpoint(os.path.join(tmp, "exp", f"seed{QS_SEED}"))
+    qs_secs = time.perf_counter() - t_phase
+    counts = {fn.__name__: fn.launches for fn in train_counters + decode_counters}
+    shapes = {fn.__name__: dict(fn.shapes)
+              for fn in train_counters[:3] + (lstm_cell_step, cand_dot)}
+    row = stats["per_seed"][0]
+    log(f"phase 3h quality_stats ({' '.join(QS_ARGS)}) on {card}: {qs_secs:.1f} s; dev ppl "
+        f"{row['dev_ppl']}, beam-10 {row['beam10']}, greedy {row['greedy']}, model-selection "
+        f"beam-10 {row['beam10_devsel_acc']}; launches {counts}, project_lse by rows "
+        f"{dict(project_lse.rows)}, by shape {shapes}")
+    check(np.isfinite(row["dev_ppl"]), "phase 3h: dev perplexity")
+    n_ce = counts["ce_fwd_raw"]
+    check(n_ce > 0 and n_ce % len(BLOCKS5) == 0 and counts["cast_wt"] == n_ce
+          and counts["ce_bwd_dh"] == counts["ce_bwd_dw"] > 0
+          and counts["ce_bwd_dh"] % len(BLOCKS5) == 0,
+          f"phase 3h: CE launches {counts}: one of each a block and step (forward also a dev "
+          "window)")
+    check(counts["project_lse"] == len(BLOCKS5) * counts["cand_dot"]
+          and counts["lstm_cell_step"] == 2 * counts["cand_dot"],
+          f"phase 3h: decode launches {counts}: a forward's 3 blocks, 2 cells, one cand_dot")
+
+    corpus = generate_corpus_ctx(int(QS_ARGS[QS_ARGS.index("--sentences") + 1]), seed=1234)
+    vocab = build_vocab(corpus, V5)
+    lexicon = Lexicon.from_vocab(vocab)
+    kanas = [k for k, _ in generate_test_set_ctx(200, seed=777)[:QS_GATED]]
+    beam = cfg.replace(beam_width=10, n_best_max=1)
+    greedy = beam.replace(beam_width=1)
+    t0 = time.perf_counter()
+    eng = BeamDecoder(params, lexicon, vocab, greedy, device=dev,
+                      forward_fn=make_kernel_forward(greedy, torch.float32))
+    oracle_g = OracleDecoder(OracleLM(params, greedy), lexicon, vocab, greedy)
+    n_diff, gaps, _ = differing(eng.decode_batch(kanas), [oracle_g.decode(k)[0] for k in kanas])
+    log(f"phase 3h trained config 5, fp32 greedy kernel forward vs the fp32 oracle: "
+        f"{QS_GATED - n_diff}/{QS_GATED} paths identical, max |score gap| {max(gaps):.3e} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(n_diff == 0, "phase 3h: trained-weights fp32 greedy parity")
+    t0 = time.perf_counter()
+    qp = quantize_params(params)
+    for label, p, oracle_p in (("bf16", params, params), ("int8", qp, qp)):
+        eng = BeamDecoder(p, lexicon, vocab, beam, precision="default", device=dev)
+        oracle = OracleDecoder(OracleLM(oracle_p, beam), lexicon, vocab, beam)
+        n_diff, gaps, diff_gaps = differing(eng.decode_batch(kanas),
+                                            [oracle.decode(k)[0] for k in kanas])
+        log(f"phase 3h trained config 5, {label} beam-10 vs the oracle on "
+            f"{'fp32' if label == 'bf16' else 'int8'} weights: {n_diff}/{QS_GATED} paths "
+            f"differ; |score gap| max {max(gaps):.3e}, median {statistics.median(gaps):.3e}; "
+            f"the differing paths' gaps {diff_gaps}")
+    log(f"phase 3h reports {time.perf_counter() - t0:.1f} s; phase 3h "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    ce_at = {f"{k} bf16 c5 b{i}": shapes[fn].get((N_CE, d, n), 0)
+             for k, fn in (("ce_fwd", "ce_fwd_raw"), ("ce_bwd_dh", "ce_bwd_dh"),
+                           ("ce_bwd_dw", "ce_bwd_dw"))
+             for i, (n, d) in enumerate(BLOCKS5)}
+    ce_at[f"ce_fwd bf16 D{DS_D}"] = ce_at.pop(f"ce_fwd bf16 c5 b{len(BLOCKS5) - 1}")
+    return {**ce_at,
+            f"project_lse dsoftmax bf16 R{R_QS}": project_lse.rows.get(R_QS, 0),
+            **{f"lstm_cell_step bf16 R{R_QS} E{e}": shapes["lstm_cell_step"].get((R_QS, e), 0)
+               for e in QS_CELLS},
+            f"cand_dot bf16 S{QS_S}": shapes["cand_dot"].get((QS_S, B), 0)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs one CUDA card",
@@ -3674,7 +4173,7 @@ def main() -> int:
     cases, yardsticks = kernel_cases(dev, rng)
     cases += head_mode_cases(dev, rng) + port_cases(dev, rng) + wide_cases(dev, rng)
     cases += odd_width_cases(dev, rng) + keystroke_cases(dev, rng) + long_cases(dev)
-    cases += shard_cases(dev, rng)
+    cases += shard_cases(dev, rng) + seq_qs_cases(dev, rng)
     for name, kernel, plain, err_fn, wrong, library in cases:
         want = plain()
         err, max_abs = err_fn(kernel(), want)
@@ -4009,9 +4508,20 @@ def main() -> int:
 
     # ---- phase 3f: vocab and data parallelism, every rank on this card ----
     t0 = time.perf_counter()
-    launches_shard = shard_run(dev, card, kanas, stream, train_ids, params, loss_k, results5,
+    refs = one_card_refs(dev, params, train_ids)
+    launches_shard = shard_run(dev, card, kanas, stream, train_ids, refs, loss_k, results5,
                                oracle5_q_results)
     log(f"phase 3f: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # ---- phase 3g: the time-block pipeline (--mesh-seq), every rank on this card ----
+    t0 = time.perf_counter()
+    launches_seq = seq_run(dev, card, train_ids, refs, loss_k)
+    log(f"phase 3g: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # ---- phase 3h: config 5 trained by quality_stats, then decoded ----
+    launches_qs = trained_c5_run(dev, card)
     torch.cuda.empty_cache()
 
     # ---- phase 5b: --pallas-scan, the scan kernels vs their plain versions ----
@@ -4180,6 +4690,26 @@ def main() -> int:
         **{f"{k} bf16 V{V_SH}": ("jlm_tpu_torch/csrc/softmax_ce.cu",
                                  f"jlm_tpu/ops/softmax_ce.py:{ln}", f"{k} bf16 V{V_SH}")
            for k, ln in zip(CE_COUNTERS, (111, 157, 207))},
+        # a pipeline stage's rows (launches: phase 3g, rank 0), config 5's
+        # D-softmax blocks and decode at quality_stats' shapes (phase 3h)
+        **{f"{k} bf16 N{N_SEQ}": ("jlm_tpu_torch/csrc/softmax_ce.cu",
+                                  f"jlm_tpu/ops/softmax_ce.py:{ln}", f"{k} bf16 N{N_SEQ}")
+           for k, ln in zip(CE_COUNTERS, (111, 157, 207))},
+        **{f"{k} bf16 c5 b{i}": ("jlm_tpu_torch/csrc/softmax_ce.cu",
+                                 f"jlm_tpu/ops/softmax_ce.py:{ln}", f"{k} bf16 c5 b{i}")
+           for k, ln in zip(CE_COUNTERS, (111, 157, 207)) for i in range(len(BLOCKS5))
+           if k != "ce_fwd" or i < 2},
+        f"ce_fwd bf16 D{DS_D}": ("jlm_tpu_torch/csrc/softmax_ce.cu",
+                                 "jlm_tpu/ops/softmax_ce.py:111", f"ce_fwd bf16 D{DS_D}"),
+        f"project_lse dsoftmax bf16 R{R_QS}": ("jlm_tpu_torch/csrc/project_lse.cu",
+                                               "jlm_tpu/ops/project.py:42",
+                                               f"project_lse dsoftmax bf16 R{R_QS}"),
+        **{f"lstm_cell_step bf16 R{R_QS} E{e}": ("jlm_tpu_torch/csrc/lstm_cell.cu",
+                                                  "jlm_tpu/ops/lstm_cell.py:38",
+                                                  f"lstm_cell_step bf16 R{R_QS} E{e}")
+           for e in QS_CELLS},
+        f"cand_dot bf16 S{QS_S}": ("jlm_tpu_torch/csrc/cand_dot.cu", "jlm_tpu/ops/cand_dot.py:31",
+                                   f"cand_dot bf16 S{QS_S}"),
     }
     launches.update({
         "project_lse dsoftmax int8": launches5["project_lse"],
@@ -4199,6 +4729,8 @@ def main() -> int:
         **launches_key,
         **launches_long,
         **launches_shard,
+        **launches_seq,
+        **launches_qs,
     })
     kernels = []
     for name, (src, replaces, case) in sources.items():

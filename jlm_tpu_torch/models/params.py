@@ -107,6 +107,18 @@ def params_to_torch(params: Any, device) -> Any:
     return walk(params)
 
 
+def params_to_numpy(params: Any) -> Any:
+    """A parameter pytree (torch or numpy leaves) as numpy arrays on the
+    host, for the numpy oracle."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [params_to_numpy(v) for v in params]
+    if isinstance(params, torch.Tensor):
+        return params.detach().cpu().numpy()
+    return np.asarray(params)
+
+
 def _unflatten(flat: Dict[str, np.ndarray]) -> Any:
     """Nested pytree from flat ``a/0/b`` keys; all-digit levels become lists."""
     root: Dict = {}

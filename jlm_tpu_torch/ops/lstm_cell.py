@@ -164,6 +164,7 @@ def _launch(x, h, c, W, b, forget_bias, c_out_dtype, tiles: bool = False):
         )
         _build.check(err, "lstm_cell kernel")
         lstm_cell_step.launches += 1
+        lstm_cell_step.shapes[R, E] = lstm_cell_step.shapes.get((R, E), 0) + 1
     return c_new, h_new
 
 
@@ -180,7 +181,9 @@ def lstm_cell_step(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One fused LSTM cell step: returns ``(c', h')``.
 
-    ``lstm_cell_step.launches`` counts kernel launches.
+    ``lstm_cell_step.launches`` counts kernel launches;
+    ``lstm_cell_step.shapes`` counts the same by ``(R, E)``, the rows and
+    the input width as launched (E padded to the kernel's multiple).
     """
     c_out_dtype = torch.float32 if c_out_dtype is None else c_out_dtype
     if x.dtype != compute_dtype:
@@ -199,3 +202,4 @@ def lstm_cell_step(
 
 
 lstm_cell_step.launches = 0
+lstm_cell_step.shapes = {}

@@ -429,7 +429,9 @@ def ce_fwd_raw(h: Tensor, W: Tensor, b: Tensor, y: Tensor,
                compute_dtype=torch.float32, wt: Optional[Tensor] = None):
     """Per-row partial CE triple ``(m, s, t)``, each fp32 ``[N]``.
 
-    ``ce_fwd_raw.launches`` counts launches of the ``ce_fwd`` kernel.  bf16
+    ``ce_fwd_raw.launches`` counts launches of the ``ce_fwd`` kernel and
+    ``ce_fwd_raw.shapes`` the same by ``(N, D, V)`` as launched (D padded
+    to the kernel's multiple).  bf16
     compute reads ``W^T``: ``wt``, the :func:`cast_wt` of W, if the caller
     made it (``ce_loss_fused`` makes it once a step for the forward and the
     backward), else a cast here."""
@@ -464,6 +466,7 @@ def ce_fwd_raw(h: Tensor, W: Tensor, b: Tensor, y: Tensor,
             plan["tiles_per_split"], stream)
     _build.check(err, "ce_fwd kernel")
     ce_fwd_raw.launches += 1
+    ce_fwd_raw.shapes[N, D, V] = ce_fwd_raw.shapes.get((N, D, V), 0) + 1
     return out[0], out[1], out[2]
 
 
@@ -484,7 +487,8 @@ def _plan_args(plan):
 
 def ce_bwd_dh(h, W, b, y, lse, ga, gb, compute_dtype=torch.float32, wt=None) -> Tensor:
     """``dh = gp @ W^T`` in fp32 ``[N, D]``; ``ce_bwd_dh.launches`` counts
-    launches of the ``ce_bwd_dh`` kernel.  bf16 compute may take ``wt``,
+    launches of the ``ce_bwd_dh`` kernel (``.shapes``: by ``(N, D, V)``, as
+    :func:`ce_fwd_raw`'s).  bf16 compute may take ``wt``,
     the :func:`cast_wt` of W, as :func:`ce_fwd_raw` does."""
     if not h.is_cuda:
         return ce_bwd_dh_ref(h, W, b, y, lse, ga, gb, compute_dtype)
@@ -516,6 +520,7 @@ def ce_bwd_dh(h, W, b, y, lse, ga, gb, compute_dtype=torch.float32, wt=None) -> 
             plan["tiles_per_split"], stream)
     _build.check(err, "ce_bwd_dh kernel")
     ce_bwd_dh.launches += 1
+    ce_bwd_dh.shapes[N, D, V] = ce_bwd_dh.shapes.get((N, D, V), 0) + 1
     return dh[:, :D0].contiguous() if D != D0 else dh
 
 
@@ -523,7 +528,8 @@ def ce_bwd_dw(h, W, b, y, lse, ga, gb, compute_dtype=torch.float32,
               wt=None) -> Tuple[Tensor, Tensor]:
     """``dW = h^T @ gp`` fp32 ``[D, V]`` and ``db = sum_rows gp`` fp32
     ``[V]``; ``ce_bwd_dw.launches`` counts launches of the ``ce_bwd_dw``
-    kernel.  bf16 compute may take ``wt`` as :func:`ce_bwd_dh` does."""
+    kernel (``.shapes``: by ``(N, D, V)``, as :func:`ce_fwd_raw`'s).  bf16
+    compute may take ``wt`` as :func:`ce_bwd_dh` does."""
     if not h.is_cuda:
         return ce_bwd_dw_ref(h, W, b, y, lse, ga, gb, compute_dtype)
     D0 = h.shape[1]
@@ -549,12 +555,12 @@ def ce_bwd_dw(h, W, b, y, lse, ga, gb, compute_dtype=torch.float32,
                 _ptr(lse), _ptr(dW), _ptr(db), N, ldh, D, V, ldw, plan["q"], plan["sw"], stream)
         _build.check(err, "ce_bwd_dw kernel")
         ce_bwd_dw.launches += 1
+        ce_bwd_dw.shapes[N, D, V] = ce_bwd_dw.shapes.get((N, D, V), 0) + 1
     return (dW[:D0].contiguous(), db) if D != D0 else (dW, db)
 
 
-ce_fwd_raw.launches = 0
-ce_bwd_dh.launches = 0
-ce_bwd_dw.launches = 0
+ce_fwd_raw.launches = ce_bwd_dh.launches = ce_bwd_dw.launches = 0
+ce_fwd_raw.shapes, ce_bwd_dh.shapes, ce_bwd_dw.shapes = {}, {}, {}
 cast_wt.launches = 0
 
 

@@ -13,11 +13,18 @@ Counterpart of :mod:`jlm_tpu.parallel`:
 ``all_reduce``, and :func:`~jlm_tpu_torch.parallel.comm.spawn`),
 ``sharded_head`` (sharded decode forwards, ``sharded_topk``,
 ``vocab_parallel_nll``), ``train_step`` (the sharded training step),
-``comms_model`` (the analytic traffic model).  Not ported yet: the
-time-block ``seq`` pipeline.
+``comms_model`` (the analytic traffic model), ``seq_pipeline`` (the
+time-block pipeline over a ``('seq',)`` mesh: the BPTT window's time axis
+over the ranks, carries handed to the next rank).
 """
 
-from jlm_tpu_torch.parallel.mesh import Mesh, make_mesh, multihost_init  # noqa: F401
+from jlm_tpu_torch.parallel.mesh import (  # noqa: F401
+    Mesh,
+    SeqMesh,
+    make_mesh,
+    make_seq_mesh,
+    multihost_init,
+)
 from jlm_tpu_torch.parallel.sharded_head import (  # noqa: F401
     make_sharded_forward,
     shard_params,

@@ -14,7 +14,11 @@ calls here.  PyTorch's backend table lists only ``all_reduce`` and
 - :func:`all_reduce_max`: an ``all_reduce`` MAX, which Gloo takes on CUDA
   tensors too (``chip_smoke.py`` phase 3f holds it equal to the max of
   the gathered values on the card);
-- :func:`broadcast`: the first rank's tensor on every rank.
+- :func:`broadcast`: one rank's tensor on every rank;
+- :func:`shift_right` / :func:`shift_left`: the time-block pipeline's
+  halo hand-off (JAX's ``ppermute`` to a neighbour), a SUM over a
+  zero-filled ``[n, ...]`` buffer in which each rank writes the slot of
+  its neighbour and reads its own (exact, as :func:`all_gather`).
 
 A group of one rank (or no process group at all) makes each of them the
 identity.  :func:`reduce_from` is the SUM for a value every rank then
@@ -89,14 +93,37 @@ def all_reduce_max(x: torch.Tensor, group=None) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def broadcast(x: torch.Tensor, group=None) -> torch.Tensor:
-    """Group rank 0's ``x`` on every rank of the group (a new tensor on
-    the others; ``x`` is untouched)."""
+def broadcast(x: torch.Tensor, group=None, src: int = 0) -> torch.Tensor:
+    """Group rank ``src``'s ``x`` on every rank of the group (a new tensor
+    on the others; ``x`` is untouched)."""
     if group_size(group) == 1:
         return x
     y = _wire(x)
-    dist.broadcast(y, src=0 if group is None else dist.get_global_rank(group, 0), group=group)
+    dist.broadcast(y, src=src if group is None else dist.get_global_rank(group, src),
+                   group=group)
     return y.to(x.dtype)
+
+
+def _shift(x: torch.Tensor, group, step: int) -> torch.Tensor:
+    n, r = group_size(group), group_rank(group)
+    buf = torch.zeros((n,) + tuple(x.shape), dtype=_wire_dtype(x.dtype), device=x.device)
+    if 0 <= r + step < n:
+        buf[r + step] = x
+    if n > 1:
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    return buf[r].to(x.dtype)
+
+
+def shift_right(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Group rank ``r - 1``'s ``x`` on rank ``r``; zeros on rank 0 (the
+    last rank's ``x`` goes nowhere).  Every rank of the group calls it."""
+    return _shift(x, group, 1)
+
+
+def shift_left(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Group rank ``r + 1``'s ``x`` on rank ``r``; zeros on the last rank
+    (rank 0's ``x`` goes nowhere).  Every rank of the group calls it."""
+    return _shift(x, group, -1)
 
 
 def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:

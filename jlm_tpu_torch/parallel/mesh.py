@@ -1,4 +1,5 @@
-"""The ``(data, vocab)`` layout of ranks, and the process-group bootstrap.
+"""The ``(data, vocab)`` and ``('seq',)`` layouts of ranks, and the
+process-group bootstrap.
 
 Counterpart of :mod:`jlm_tpu.parallel.mesh`.  JAX runs one process over
 a device mesh; the port runs one process per rank on ``torch.distributed``,
@@ -7,7 +8,10 @@ view of the layout: the world size, its ``(data, vocab)`` coordinates
 (vocab minor, as ``make_mesh`` lays devices out), its device, and two
 process subgroups: the ranks of its data row (``vocab_group``: the vocab
 axis's collectives) and the ranks of its vocab column (``data_group``).
-Every rank creates every subgroup, in the same order.
+Every rank creates every subgroup, in the same order.  A
+:class:`SeqMesh` is the one-axis layout of the time-block pipeline
+(:mod:`jlm_tpu_torch.parallel.seq_pipeline`): rank ``p`` owns time block
+``p`` of the BPTT window, and the seq group is the whole world.
 
 The backend rule (:func:`backend_for`): ``gloo`` on the CPU; on the card
 ``nccl`` where every rank has a GPU of its own, else ``gloo`` (NCCL
@@ -29,6 +33,7 @@ from jlm_tpu_torch.parallel.comm import rank_device
 
 DATA_AXIS = "data"
 VOCAB_AXIS = "vocab"
+SEQ_AXIS = "seq"
 
 
 @dataclasses.dataclass
@@ -64,7 +69,27 @@ class Mesh:
         return self.rank % self.vocab
 
 
-def mesh_device(mesh: Mesh, device) -> torch.device:
+@dataclasses.dataclass
+class SeqMesh:
+    """This rank's place in a ``('seq',)`` layout: stage ``rank`` of
+    ``seq`` pipeline stages, each the owner of one time block.  ``group``
+    is the seq group (``None``: the whole world, or a one-rank mesh)."""
+
+    seq: int
+    rank: int
+    device: torch.device
+    group: Any = None
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {SEQ_AXIS: self.seq}
+
+    @property
+    def world(self) -> int:
+        return self.seq
+
+
+def mesh_device(mesh, device) -> torch.device:
     """The device of a model object built on ``mesh``: the mesh's.  Raises
     if ``device`` names another (a different type, or another index):
     nothing runs on a device its caller did not ask for."""
@@ -86,12 +111,14 @@ def backend_for(device, world: int) -> str:
     return "nccl" if torch.cuda.device_count() >= world else "gloo"
 
 
-def multihost_init(init_method: str, world_size: int, rank: int, device="cpu") -> str:
+def multihost_init(init_method: str, world_size: int, rank: int, device="cuda") -> str:
     """``init_process_group`` with an explicit ``init_method``
     (``file://...`` or ``tcp://host:port``); no-op for one process.
+    ``device`` (this rank's) defaults to the card, as every entry point
+    of the port (raises without a GPU); ``"cpu"`` picks ``gloo``.
     Returns the backend :func:`backend_for` picks, and logs it on rank 0.
     A collective that waits ten minutes raises (a rank that died)."""
-    backend = backend_for(device, world_size)
+    backend = backend_for(resolve_device(device), world_size)
     if world_size <= 1:
         return backend
     dist.init_process_group(backend, init_method=init_method, world_size=world_size,
@@ -133,3 +160,24 @@ def make_mesh(config: Config, device="cuda") -> Mesh:
         if v == mesh.vocab_index:
             mesh.data_group = g
     return mesh
+
+
+def make_seq_mesh(config: Config, device="cuda") -> SeqMesh:
+    """This rank's ``('seq',)`` mesh of ``config.mesh_seq`` stages.
+
+    Needs a process group of exactly that world size (or none, for one
+    stage); the seq group is the whole world.  ``device`` defaults to the
+    card, rank r's ``cuda:(r % device_count)``; ``"cpu"`` keeps the rank
+    on the CPU."""
+    n = config.mesh_seq
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    dev = rank_device(resolve_device(device), rank)
+    if not dist.is_initialized():
+        if n != 1:
+            raise RuntimeError(f"a seq mesh of {n} stages needs a process group of {n} ranks: "
+                               "call multihost_init (or parallel.comm.spawn) first")
+        return SeqMesh(1, 0, dev)
+    world = dist.get_world_size()
+    if world != n:
+        raise ValueError(f"seq mesh of {n} stages needs {n} ranks, the process group has {world}")
+    return SeqMesh(n, rank, dev)

@@ -2,8 +2,8 @@
 
   python -m jlm_tpu_torch.train --data data/ --exp exp/h512-v50k \\
       --fused-ce [--pallas-scan] [--bf16] [--dsoftmax] [--sampled-softmax 1024] \\
-      [--grad-accum 4] [--remat] [--resume] [--mesh-data 2 --mesh-vocab 4] \\
-      [--device cuda]
+      [--grad-accum 4] [--remat] [--resume] [--mesh-data 2 --mesh-vocab 4 |
+      --mesh-seq 4 [--seq-microbatches 8]] [--device cuda]
 
 ``--pallas-scan`` runs the LSTM through the fused scan kernels on a CUDA
 device (their plain versions with ``--device cpu``).  ``--mesh-data`` /
@@ -11,19 +11,19 @@ device (their plain versions with ``--device cpu``).  ``--mesh-data`` /
 (``parallel.comm.spawn``): rank r on ``cuda:(r % device_count)``, or on
 the CPU with ``--device cpu``, over the backend ``parallel.mesh.backend_for``
 picks (``gloo`` on the CPU and where ranks share a GPU, else ``nccl``).
-The model vocab pads to a multiple of ``--mesh-vocab``.  ``--mesh-seq``
-(the time-block pipeline) is not ported yet and raises
-``NotImplementedError``.
+The model vocab pads to a multiple of ``--mesh-vocab``.  ``--mesh-seq P``
+(exclusive with both) spawns P ranks of the time-block pipeline: the BPTT
+window's time axis cut into P blocks, ``--seq-microbatches`` pipeline
+streams a step (default ``max(P, min(batch, 2P))``); ``--num-steps``
+must divide by P.
 """
 
 import argparse
 
 from jlm_tpu_torch.config import Config, default_dsoftmax_blocks, pad_vocab_size
 from jlm_tpu_torch.data.io import load_dataset
+from jlm_tpu_torch.parallel.train_step import check_mesh_flags
 from jlm_tpu_torch.train.trainer import train_lm, train_rank
-
-SEQ_TODO = ("the time-block pipeline (--mesh-seq) is not ported yet "
-            "(ROADMAP.md queue 1, parallelism)")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -46,8 +46,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="data-parallel ranks (batch rows split over them)")
     ap.add_argument("--mesh-vocab", type=int, default=1,
                     help="vocab-parallel ranks (the output head's columns split over them)")
-    ap.add_argument("--mesh-seq", type=int, default=1, help="not ported: must be 1")
-    ap.add_argument("--seq-microbatches", type=int, default=0)
+    ap.add_argument("--mesh-seq", type=int, default=1,
+                    help="time-block pipeline ranks (the BPTT window's time axis split over "
+                         "them; exclusive with --mesh-data/--mesh-vocab)")
+    ap.add_argument("--seq-microbatches", type=int, default=0,
+                    help="pipeline streams per step (0 = auto ~2x mesh-seq)")
     ap.add_argument("--bf16", action="store_true",
                     help="bf16 forward/backward with fp32 master params")
     ap.add_argument("--grad-accum", type=int, default=1,
@@ -87,6 +90,7 @@ def _config(args, n_words: int) -> Config:
         seed=args.seed,
         mesh_data=args.mesh_data,
         mesh_vocab=args.mesh_vocab,
+        mesh_seq=args.mesh_seq,
         seq_microbatches=args.seq_microbatches,
         compute_dtype="bfloat16" if args.bf16 else "float32",
         grad_accum_steps=args.grad_accum,
@@ -98,14 +102,14 @@ def _config(args, n_words: int) -> Config:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.mesh_seq > 1:
-        raise NotImplementedError(SEQ_TODO)
+    check_mesh_flags(args.mesh_seq, args.mesh_data, args.mesh_vocab, args.num_steps)
     vocab, train, dev, _ = load_dataset(args.data)
     cfg = _config(args, len(vocab))
-    if args.mesh_data * args.mesh_vocab > 1:
+    world = cfg.mesh_seq * cfg.mesh_data * cfg.mesh_vocab
+    if world > 1:
         from jlm_tpu_torch.parallel.comm import spawn
 
-        spawn(train_rank, cfg.mesh_data * cfg.mesh_vocab, device=args.device,
+        spawn(train_rank, world, device=args.device,
               args=(cfg, args.data, args.exp, args.resume))
         return
     train_lm(cfg, train, dev, exp_dir=args.exp, resume=args.resume, device=args.device)

@@ -25,8 +25,11 @@ of more than one rank) the same loop runs the sharded step of
 batch's rows split over the data axis, the head's columns over the vocab
 axis (vocab-parallel CE, through the CE kernels with ``fused_ce``), the
 gradients summed over the data group and the clip on the whole tree's
-norm.  Checkpoints hold the full tree whatever the mesh: the head's
-shards are gathered on save (rank 0 writes) and sliced again on load.
+norm.  With a ``('seq',)`` :class:`jlm_tpu_torch.parallel.SeqMesh` it runs
+the time-block pipeline's step (every parameter replicated, the window's
+time axis over the ranks, the gradients summed over the seq group).
+Checkpoints hold the full tree whatever the mesh: the head's shards are
+gathered on save (rank 0 writes) and sliced again on load.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ from jlm_tpu_torch.models.lstm import (
 from jlm_tpu_torch.models.params import init_params, params_to_torch, resolve_device
 from jlm_tpu_torch.parallel import comm
 from jlm_tpu_torch.parallel import train_step as sharded
+from jlm_tpu_torch.parallel.mesh import SeqMesh
 from jlm_tpu_torch.train import checkpoint, optim
 
 
@@ -98,20 +102,27 @@ class Trainer:
         self.device = resolve_device(device)
         params = params_to_torch(init_params(config) if params is None else params,
                                  self.device)
-        if self.mesh:
+        self.seq = isinstance(self.mesh, SeqMesh)
+        apply = (lambda flat, grads, lr, norm_fn: optim.apply_gradients(
+            flat, grads, self.opt_state, self.config, lr, norm_fn))
+        if self.seq:
+            self._seq_loss = sharded.make_seq_loss_fn(self.mesh, config,
+                                                      config.seq_microbatches)
+            rank_loss = lambda x, y, st: self._seq_loss(self.params, x, y, st)  # noqa: E731
+            self._step = sharded.make_seq_train_step(self.mesh, rank_loss, apply)
+            self._eval = sharded.make_seq_eval_step(self.mesh, rank_loss)
+        elif self.mesh:
             self._head_loss = sharded.make_loss_fn(self.mesh, config)
             params = sharded.init_sharded_training(params, config, self.mesh)
             self._step = sharded.make_sharded_train_step(
-                self.mesh, config, lambda x, y, st: self._loss(self.params, x, y, st),
-                lambda flat, grads, lr, norm_fn: optim.apply_gradients(
-                    flat, grads, self.opt_state, self.config, lr, norm_fn))
+                self.mesh, config, lambda x, y, st: self._loss(self.params, x, y, st), apply)
             self._eval = sharded.make_sharded_eval_step(self.mesh, self._eval_rows)
         self.params = _tree_map(lambda p: p.detach().clone().requires_grad_(True), params)
         self.flat = checkpoint.flatten(self.params)  # path -> the same leaves
         self.opt_state = optim.init_state(config, self.flat)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed)
-        self.rows = config.batch_size // (self.mesh.data if self.mesh else 1)
+        self.rows = config.batch_size // (self.mesh.data if self.mesh and not self.seq else 1)
 
     # --- one window ----------------------------------------------------
     def _forward(self, params, x, state: State) -> Tuple[torch.Tensor, State]:
@@ -131,6 +142,8 @@ class Trainer:
 
     def _loss(self, params, x, y, state: State) -> Tuple[torch.Tensor, State]:
         cfg = self.config
+        if self.seq:  # this rank's share of the loss
+            return self._seq_loss(params, x, y, state)
         hs, state = self._forward(params, x, state)
         if cfg.compute_dtype == "bfloat16" and not cfg.use_pallas_scan:
             params = cast_floats(params, torch.bfloat16)
@@ -147,8 +160,7 @@ class Trainer:
         state (detached) and the loss (under a mesh: this rank's rows of
         the batch; the global batch's mean loss)."""
         if self.mesh:
-            return self._step(self.flat, sharded.local_rows(x, self.mesh),
-                              sharded.local_rows(y, self.mesh), state, lr)
+            return self._step(self.flat, self._rows(x), self._rows(y), state, lr)
         loss, state = self._loss(self.params, x, y, state)
         keys = list(self.flat)
         grads = torch.autograd.grad(loss, [self.flat[k] for k in keys])
@@ -166,9 +178,14 @@ class Trainer:
     @torch.no_grad()
     def _eval_step(self, state: State, x, y) -> Tuple[torch.Tensor, State]:
         if self.mesh:
-            return self._eval(sharded.local_rows(x, self.mesh), sharded.local_rows(y, self.mesh),
-                              state)
+            return self._eval(self._rows(x), self._rows(y), state)
         return self._eval_rows(x, y, state)
+
+    def _rows(self, x):
+        """This rank's rows of a global batch: a ``(data, vocab)`` rank's
+        data shard; all of them on a seq mesh (the loss cuts the time
+        block)."""
+        return x if self.seq else sharded.local_rows(x, self.mesh)
 
     # --- loops -----------------------------------------------------------
     def _windows(self, ids: np.ndarray):
@@ -219,12 +236,13 @@ class Trainer:
         it: the head's shards and moments are gathered into the full tree,
         rank 0 writes, and every rank returns once the files are there."""
         params, state = self.params, self.opt_state
-        if self.mesh:
+        if self.mesh and not self.seq:
             params = sharded.gather_head(self.flat, self.mesh)
             state = optim.OptState(
                 count=state.count, mini_step=state.mini_step,
                 **{name: sharded.gather_head(getattr(state, name), self.mesh)
                    for name in ("mu", "nu", "acc")})
+        if self.mesh:
             if self.mesh.rank != 0:
                 comm.barrier()
                 return ""
@@ -240,7 +258,7 @@ class Trainer:
         when the directory holds no optimizer state of the port)."""
         params, _ = checkpoint.load_checkpoint(exp_dir, tag="latest")
         loaded = checkpoint.flatten(params)
-        if self.mesh:  # the full tree's head sliced to this rank's columns
+        if self.mesh and not self.seq:  # the full tree's head sliced to this rank's columns
             loaded = sharded.slice_head(loaded, self.config, self.mesh)
         with torch.no_grad():
             for k, p in self.flat.items():
@@ -250,7 +268,7 @@ class Trainer:
             self.opt_state = optim.init_state(self.config, self.flat)
             return 0
         self.opt_state, epoch = restored
-        if self.mesh:
+        if self.mesh and not self.seq:
             for name in ("mu", "nu", "acc"):
                 setattr(self.opt_state, name, {
                     k: v.contiguous() for k, v in sharded.slice_head(
@@ -315,13 +333,21 @@ def train_lm(config: Config, train_ids: np.ndarray, dev_ids: np.ndarray,
     return trainer.params, history
 
 
+def rank_mesh(config: Config, device):
+    """This rank's mesh: the ``('seq',)`` pipeline's with ``config.mesh_seq
+    > 1``, else the ``(data, vocab)`` one."""
+    from jlm_tpu_torch.parallel import make_mesh, make_seq_mesh
+
+    return (make_seq_mesh(config, device) if config.mesh_seq > 1
+            else make_mesh(config, device))
+
+
 def train_rank(device, config: Config, data_dir: str, exp_dir: str, resume: bool) -> None:
-    """One rank of a ``(config.mesh_data, config.mesh_vocab)`` training run
-    (``parallel.comm.spawn`` calls it in each rank's process): the
-    dataset from ``data_dir``, this rank's mesh, :func:`train_lm`."""
+    """One rank of a training run on ``config``'s mesh (``parallel.comm.spawn``
+    calls it in each rank's process): the dataset from ``data_dir``, this
+    rank's mesh, :func:`train_lm`."""
     from jlm_tpu_torch.data.io import load_dataset
-    from jlm_tpu_torch.parallel import make_mesh
 
     _, train, dev, _ = load_dataset(data_dir)
     train_lm(config, train, dev, exp_dir=exp_dir, resume=resume,
-             mesh=make_mesh(config, device), device=device)
+             mesh=rank_mesh(config, device), device=device)

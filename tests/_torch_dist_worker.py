@@ -3,9 +3,10 @@ on the CPU (``jlm_tpu_torch.parallel.comm.spawn``).
 
 This module imports only ``jlm_tpu_torch`` (a spawned child imports the
 module of the function it runs, so the JAX side stays in the test files).
-:func:`run` takes a list of ``(case id, function name, kwargs)`` and
-returns, for this rank, ``{case id: result}`` with numpy leaves; the test
-files read every case from one world.
+:func:`run` (a ``(data, vocab)`` mesh) and :func:`run_seq` (a ``('seq',)``
+mesh) take a list of ``(case id, function name, kwargs)`` and return, for
+this rank, ``{case id: result}`` with numpy leaves; the test files read
+every case from one world.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import torch
 
 from jlm_tpu_torch.config import Config, DSoftmaxConfig
 from jlm_tpu_torch.models.params import params_to_torch
-from jlm_tpu_torch.parallel import comm, make_mesh, make_sharded_forward, sharded_topk
+from jlm_tpu_torch.parallel import (comm, make_mesh, make_seq_mesh, make_sharded_forward,
+                                    sharded_topk)
 from jlm_tpu_torch.parallel import sharded_head, train_step
 from jlm_tpu_torch.parallel.sharded_head import local_ids, shard_params, vocab_parallel_nll
 
@@ -229,6 +231,65 @@ def run(device, mesh_shape, cases):
         import time as _t; _c = _t.process_time()
         out[case_id] = globals()[fn](mesh, cfg, **kw)
         out.setdefault("_cpu", {})[case_id] = _t.process_time() - _c
+    out["_modules"] = sorted(m for m in sys.modules
+                             if m.split(".")[0] in ("jax", "jaxlib", "optax", "jlm_tpu"))
+    return out
+
+
+# ------------------------------------------------------- the seq pipeline
+
+def pipeline(mesh, xs, layers, c0, h0, g_hs, g_c, g_h):
+    """``make_seq_pipeline_scan`` on this rank's time block of ``xs``: the
+    block's ``hs``, the final carries and the VJP of every input (each
+    rank's share summed over the group) under the cotangents ``g_hs`` (on
+    each rank its block) and ``g_c``, ``g_h`` (every rank holds the final
+    carries; each takes 1/P of their term, so the ranks' terms sum to
+    one)."""
+    from jlm_tpu_torch.parallel.seq_pipeline import make_seq_pipeline_scan
+
+    P, p = mesh.seq, mesh.rank
+    TB = xs.shape[2] // P
+    leaves = [torch.from_numpy(a).requires_grad_(True)
+              for a in [xs, c0, h0] + [t for W_b in layers for t in W_b]]
+    pairs = [(leaves[3 + 2 * l], leaves[4 + 2 * l]) for l in range(len(layers))]
+    block = slice(p * TB, (p + 1) * TB)
+    fn = make_seq_pipeline_scan(mesh, num_layers=len(layers))
+    hs, c_T, h_T = fn(leaves[0][:, :, block], pairs, leaves[1], leaves[2])
+    term = ((hs * torch.from_numpy(g_hs[:, :, block])).sum()
+            + ((c_T * torch.from_numpy(g_c)).sum() + (h_T * torch.from_numpy(g_h)).sum()) / P)
+    grads = [comm.all_reduce_sum(g) for g in torch.autograd.grad(term, leaves)]
+    return {"hs": _np(hs), "c": _np(c_T), "h": _np(h_T), "grads": _np(grads)}
+
+
+def seq_train(mesh, cfg, train_ids, dev_ids, exp=None):
+    """One epoch of ``Trainer(cfg, mesh=mesh)`` on the seq mesh: dev PPL
+    before and after, the params; with ``exp`` the state saved there and
+    loaded by a fresh trainer."""
+    from jlm_tpu_torch.train import Trainer
+
+    tr = Trainer(cfg, mesh=mesh, device=mesh.device)
+    out = {"ppl0": tr.evaluate_ppl(dev_ids), "train_ppl": tr.run_epoch(train_ids, 0)}
+    out["params"] = _np(tr.params)
+    out["dev_ppl"] = tr.evaluate_ppl(dev_ids)
+    if exp is not None:
+        tr.save_state(exp, epoch=0)
+        tr2 = Trainer(cfg, mesh=mesh, device=mesh.device)
+        out["resumed_epoch"] = tr2.load_state(exp)
+        out["resumed_equal"] = all(torch.equal(tr.flat[k].detach(), tr2.flat[k].detach())
+                                   for k in tr.flat)
+    return out
+
+
+def run_seq(device, P, cases):
+    """Every case on this rank of a ``('seq',)`` mesh of ``P`` ranks, as
+    :func:`run`."""
+    mesh = make_seq_mesh(Config(mesh_seq=P), device)
+    out = {}
+    for case_id, fn, kw in cases:
+        kw = dict(kw)
+        if "cfg" in kw:
+            kw["cfg"] = config(**{**kw["cfg"], "mesh_seq": P})
+        out[case_id] = globals()[fn](mesh, **kw)
     out["_modules"] = sorted(m for m in sys.modules
                              if m.split(".")[0] in ("jax", "jaxlib", "optax", "jlm_tpu"))
     return out

@@ -190,3 +190,42 @@ def test_quality_ceiling(capsys):
     argv = ["--n", "60", "--seed", "777"]
     got = _run(quality_ceiling.main, argv, capsys)
     assert got == _run(ref.main, argv, capsys) and len(got) == 5
+
+
+@pytest.mark.parametrize("mode", ["corpus", "synthetic", "stream"])
+def test_prepare_data(capsys, tmp_path, mode):
+    """``prepare_data`` in memory (from a corpus file or the synthetic
+    generator) and ``--stream``: the same output line and a data dir that
+    loads to the same vocab and ids as its original's, the streamed files
+    byte-equal, and the streamed ids the in-memory path's."""
+    import prepare_data as ref
+    from jlm_tpu.data.io import load_dataset as j_load
+    from jlm_tpu_torch.data.io import load_dataset as p_load
+    from jlm_tpu_torch.scripts import prepare_data
+
+    corpus = tmp_path / "corpus.txt"
+    corpus.write_text("\n".join(generate_corpus(400, seed=99) + ["", "未知語/みちご/名詞"]) + "\n",
+                      encoding="utf-8")
+    flags = {"corpus": ["--corpus", str(corpus)], "synthetic": ["--synthetic-sentences", "300"],
+             "stream": ["--corpus", str(corpus), "--stream"]}[mode] + ["--vocab-size", "256"]
+    p_dir, j_dir = str(tmp_path / "port"), str(tmp_path / "ref")
+    got = _run(prepare_data.main, ["--out", p_dir] + flags, capsys)
+    want = _run(ref.main, ["--out", j_dir] + flags, capsys)
+    assert [line.replace(p_dir, j_dir) for line in got] == want
+    names = ["vocab.tsv"] + (["corpus.bin", "meta.json"] if mode == "stream" else [])
+    for name in names:
+        with open(os.path.join(p_dir, name), "rb") as a, open(os.path.join(j_dir, name), "rb") as b:
+            assert a.read() == b.read(), name
+    (vp, *ids_p), (vj, *ids_j) = p_load(p_dir), j_load(j_dir)
+    assert [t.key for t in vp.tokens] == [t.key for t in vj.tokens]
+    for a, b in zip(ids_p, ids_j):
+        assert len(a) > 0
+        np.testing.assert_array_equal(a, b)
+    if mode == "stream":  # the in-memory path on the same file
+        mem = str(tmp_path / "mem")
+        prepare_data.main(["--out", mem, "--corpus", str(corpus), "--vocab-size", "256"])
+        with open(os.path.join(mem, "vocab.tsv"), "rb") as a, \
+                open(os.path.join(p_dir, "vocab.tsv"), "rb") as b:
+            assert a.read() == b.read()
+        for a, b in zip(p_load(mem)[1:], ids_p):
+            np.testing.assert_array_equal(a, b)

@@ -342,6 +342,66 @@ def case_parallel_comms_model(tmp_path):
     assert (j_cm.ICI_GBPS, j_cm.DCN_GBPS) == (p_cm.ICI_GBPS, p_cm.DCN_GBPS)
 
 
+def case_streaming(tmp_path):
+    """The streaming prep's functions from both copies on one corpus file
+    (mid-line chunk cuts, blank lines, 0/1/2-slash tokens, unknown words):
+    the same chunks, vocab and ids (native and Python encoders), and
+    byte-equal data dirs."""
+    import jlm_tpu_torch.data.streaming as p_streaming
+
+    lines = j_data.generate_corpus(300, seed=99) + [
+        "今日/きょう/名詞 は/は/助詞", "", "   ", "a/b  c/d/e\tf", "x//y/名詞", "未知語/みちご/名詞"]
+    corpus = tmp_path / "corpus.txt"
+    corpus.write_text("\n".join(lines) + "\n", encoding="utf-8")
+    path = str(corpus)
+    assert list(j_streaming.stream_lines(path)) == list(p_streaming.stream_lines(path))
+    for cb in (17, 256, 1 << 20):
+        assert (list(j_streaming.iter_line_chunks(path, cb))
+                == list(p_streaming.iter_line_chunks(path, cb)))
+    vj, vp = j_streaming.build_vocab_file(path, 256), p_streaming.build_vocab_file(path, 256)
+    assert [t.key for t in vj.tokens] == [t.key for t in vp.tokens]
+    np.testing.assert_array_equal(vj.counts, vp.counts)
+    for native in (False, True):
+        for cb in (64, 1 << 20):
+            outs = [str(tmp_path / f"{who}_{native}_{cb}.bin") for who in "jp"]
+            n_j = j_streaming.encode_corpus_file(path, vj, outs[0], cb, native)
+            n_p = p_streaming.encode_corpus_file(path, vp, outs[1], cb, native)
+            assert n_j == n_p
+            assert open(outs[0], "rb").read() == open(outs[1], "rb").read()
+    for native in (False, True):
+        dirs = [str(tmp_path / f"{who}_dir_{native}") for who in "jp"]
+        j_streaming.save_dataset_streamed(dirs[0], path, 256, use_native=native)
+        p_streaming.save_dataset_streamed(dirs[1], path, 256, use_native=native)
+        for f in ("vocab.tsv", "corpus.bin", "meta.json"):
+            assert (open(os.path.join(dirs[0], f), "rb").read()
+                    == open(os.path.join(dirs[1], f), "rb").read()), f
+        for a, b in zip(j_streaming.load_dataset_bin(dirs[0])[1:],
+                        p_streaming.load_dataset_bin(dirs[1])[1:]):
+            np.testing.assert_array_equal(a, b)
+
+
+def case_native_encoder(tmp_path):
+    """``NativeEncoder`` of both copies (``encoder.cpp`` is the same
+    source) writes the same ids, which are ``encode_corpus``'s."""
+    import jlm_tpu.native.encoder_lib as j_enc
+    import jlm_tpu_torch.native.encoder_lib as p_enc
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "..", "jlm_tpu", "native", "encoder.cpp"), "rb") as a, \
+            open(os.path.join(os.path.dirname(p_enc.__file__), "encoder.cpp"), "rb") as b:
+        assert a.read() == b.read()
+    assert j_enc.available() == p_enc.available()
+    if not p_enc.available():
+        return
+    (lj, vj, _), (lp, vp, _) = _both()
+    text = ("\n".join(lp + ["", "a/b  c/d/e\tf", "未知語/みちご/名詞"]) + "\n").encode("utf-8")
+    got_j = j_enc.NativeEncoder(vj).encode_chunk(text)
+    got_p = p_enc.NativeEncoder(vp).encode_chunk(text)
+    assert got_p.dtype == got_j.dtype == np.int32
+    np.testing.assert_array_equal(got_j, got_p)
+    np.testing.assert_array_equal(got_p, p_data.encode_corpus(text.decode("utf-8").split("\n"), vp))
+
+
 CASES = {name[len("case_"):]: fn for name, fn in globals().items() if name.startswith("case_")}
 
 

@@ -2,7 +2,7 @@
 the port's one-device trainer.
 
 Mirrors tests/test_sharded.py's training cases on the port (the seq
-pipeline's two are not ported).  The port's ranks run in Gloo worlds on
+pipeline's two are tests/test_torch_seq_pipeline.py's).  The port's ranks run in Gloo worlds on
 the CPU through tests/_torch_dist_worker.py (imports only
 ``jlm_tpu_torch``): the (2, 4) cases in the world that
 tests/_torch_sharded_cases.py shares with the serving tests, the

@@ -342,14 +342,30 @@ def test_trainer_variants_improve(encoded, kind):
     assert tr.evaluate_ppl(dev[:400]) < ppl0
 
 
-def test_cli_rejects_unported_options(tmp_path):
+def test_cli_rejects_unported_options(encoded, vocab, tmp_path):
+    """``--mesh-seq`` is exclusive with ``--mesh-data`` / ``--mesh-vocab``
+    and needs ``--num-steps`` to divide by it (``scripts/train.py``'s
+    rules, checked before the data loads); ``--mesh-seq 2`` alone trains
+    (two ranks on the CPU) and writes the reference's experiment layout."""
+    from jlm_tpu_torch.data.io import save_dataset
     from jlm_tpu_torch.train.__main__ import main
 
-    # --mesh-data / --mesh-vocab are ported (tests/test_torch_sharded_train.py);
-    # the time-block pipeline is not
-    for flag in (["--mesh-seq", "2"], ["--mesh-seq", "2", "--mesh-data", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for flag, what in ((["--mesh-seq", "2", "--mesh-data", "2"], "exclusive"),
+                       (["--mesh-seq", "2", "--mesh-vocab", "4"], "exclusive"),
+                       (["--mesh-seq", "3"], "divide")):
+        with pytest.raises(ValueError, match=what):
             main(["--data", str(tmp_path), "--exp", str(tmp_path / "e"), *flag])
+    train, dev, test = encoded
+    data, exp = str(tmp_path / "data"), str(tmp_path / "exp")
+    save_dataset(data, vocab, train[:800], dev[:200], test[:200])
+    main(["--data", data, "--exp", exp, "--embed-size", "16", "--hidden-size", "32",
+          "--batch-size", "4", "--num-steps", "8", "--epochs", "1", "--mesh-seq", "2",
+          "--device", "cpu"])
+    assert sorted(os.listdir(exp)) == ["ckpt-latest.npz", "config.json", "log.jsonl",
+                                       checkpoint.OPT_STATE_FILE]
+    with open(os.path.join(exp, "config.json")) as f:
+        assert json.load(f)["mesh_seq"] == 2
+    assert np.isfinite(checkpoint.read_log(exp)[0]["dev_ppl"])
 
 
 def test_cli_trains_from_a_data_dir(encoded, vocab, tmp_path):
