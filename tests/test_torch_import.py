@@ -22,8 +22,10 @@ def test_engine_import_is_jax_free_and_builds_nothing():
         "import jlm_tpu_torch.parallel, jlm_tpu_torch.parallel.comm, jlm_tpu_torch.parallel.mesh\n"
         "import jlm_tpu_torch.parallel.sharded_head, jlm_tpu_torch.parallel.train_step\n"
         "import jlm_tpu_torch.parallel.comms_model\n"
-        "from jlm_tpu_torch.scripts import (convert, eval_conversion, eval_ppl, export_int8,\n"
-        "                                   import_reference_weights, quality_ceiling)\n"
+        "from jlm_tpu_torch.scripts import (bench_all, bench_server, convert, eval_conversion,\n"
+        "                                   eval_ppl, export_int8, import_reference_weights,\n"
+        "                                   quality_ceiling)\n"
+        "import jlm_tpu_torch.utils.profiling\n"
         "from jlm_tpu_torch.ops import _build\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert _build._lib is None\n"
