@@ -39,6 +39,12 @@ An input longer than ``max_kana_len`` goes through ``decode_long``
 chunks whose boundary beams seed the next chunk on the device, stitched on
 the host after one fetch.
 
+While the tracer of :mod:`jlm_tpu_torch.utils.profiling` is on,
+``decode_stream`` is the span ``decode.job`` and each chunk's phases its
+spans ``decode.pack``, ``decode.enqueue``, ``decode.fetch`` (the blob's copy,
+which waits for the device) and ``decode.surfaces``; ``_pack`` counts the
+chunk's sentences, kana and real nodes against the slots the search scans.
+
 A vocab-sharded forward (``jlm_tpu_torch.parallel.make_sharded_forward``)
 carries its ``mesh``: every rank builds the same lattices (the packers are
 deterministic), pads the chunk to a multiple of ``min_batch`` (data x
@@ -64,6 +70,7 @@ from jlm_tpu_torch.ops.cand_dot import cand_dot
 from jlm_tpu_torch.ops.frame_step import cell_cand_step
 from jlm_tpu_torch.ops.lstm_cell import cell_weight_tiles, lstm_cell_step
 from jlm_tpu_torch.ops.project import head_blocks, project_lse
+from jlm_tpu_torch.utils import profiling
 
 ForwardFn = Callable[..., Tuple[torch.Tensor, torch.Tensor, Any]]
 
@@ -315,6 +322,20 @@ def pack_lattice_batch(lattices: List[Lattice]) -> Tuple[np.ndarray, np.ndarray]
     )
     lengths = np.asarray([l.length for l in lattices], np.int32)
     return packed.astype(np.int32), lengths
+
+
+def _count_chunk(packed: np.ndarray, lengths: np.ndarray, n: int) -> None:
+    """The tracer's counters of one packed chunk ``[rows, t_bucket, N]`` whose
+    first ``n`` rows are real sentences (the rest bucket padding): kana and
+    real nodes against the frame and node slots the search scans."""
+    rows, T, N = packed.shape
+    profiling.count("decode.chunks", 1)
+    profiling.count("decode.sentences", n)
+    profiling.count("decode.rows", rows)
+    profiling.count("decode.kana", int(lengths[:n].sum()))
+    profiling.count("decode.frame_slots", rows * T)
+    profiling.count("decode.nodes", np.count_nonzero(packed[:n] & (1 << _MASK_SHIFT)))
+    profiling.count("decode.node_slots", rows * T * N)
 
 
 def _unpack_lattice(packed: torch.Tensor, config: Config):
@@ -619,19 +640,26 @@ class BeamDecoder:
         return max(4, -(-n // m) * m)
 
     def _pack(self, kanas: List[str]):
-        """Bucket-pad (to a multiple of ``min_batch``), build lattices
-        (native if available), time-bucket."""
-        mb = self._min_batch
-        pad = -(-self._bucket(len(kanas)) // mb) * mb - len(kanas)
-        kanas_padded = list(kanas) + [kanas[-1]] * pad
-        if self._native is not None:
-            packed, lengths = self._native.pack_batch(kanas_padded)
-        else:
-            lattices = [build_lattice(k, self.lexicon, self.vocab, self.config)
-                        for k in kanas_padded]
-            packed, lengths = pack_lattice_batch(lattices)
-        t_bucket = min(self._t_bucket(int(lengths.max())), self.config.max_kana_len)
-        return packed[:, :t_bucket], lengths
+        """Build lattices (native if available), time-bucket, and bucket-pad
+        (to a multiple of ``min_batch``) with copies of the last row, so a
+        node cut from the last lattice is reported once."""
+        with profiling.span("decode.pack"):
+            mb = self._min_batch
+            pad = -(-self._bucket(len(kanas)) // mb) * mb - len(kanas)
+            if self._native is not None:
+                packed, lengths = self._native.pack_batch(list(kanas))
+            else:
+                lattices = [build_lattice(k, self.lexicon, self.vocab, self.config)
+                            for k in kanas]
+                packed, lengths = pack_lattice_batch(lattices)
+            t_bucket = min(self._t_bucket(int(lengths.max())), self.config.max_kana_len)
+            packed = packed[:, :t_bucket]
+            if pad:
+                packed = np.concatenate([packed, np.repeat(packed[-1:], pad, axis=0)])
+                lengths = np.concatenate([lengths, np.repeat(lengths[-1:], pad)])
+            if profiling.enabled():
+                _count_chunk(packed, lengths, len(kanas))
+            return packed, lengths
 
     def decode_batch_async(self, kanas: List[str]):
         """Enqueue one chunk's search; returns (packed, device outputs)
@@ -645,9 +673,10 @@ class BeamDecoder:
                 f"{self.config.max_kana_len}: convert them with decode or decode_batch, "
                 "which chunk them (decode_long)")
         packed, lengths = self._pack(kanas)
-        out = _decode_scan(self.params, upload(self._own(packed), self.device),
-                           upload(self._own(lengths), self.device),
-                           config=self.config, forward_fn=self._fwd)
+        with profiling.span("decode.enqueue"):
+            out = _decode_scan(self.params, upload(self._own(packed), self.device),
+                               upload(self._own(lengths), self.device),
+                               config=self.config, forward_fn=self._fwd)
         return packed, out
 
     def _own(self, x: np.ndarray) -> np.ndarray:
@@ -683,12 +712,14 @@ class BeamDecoder:
         """Fetch one chunk's result blob (the only device->host copy) and
         build surfaces."""
         S, K, T_scan = len(packed), out["paths"].shape[1], out["paths"].shape[2]
-        blob = self._blob(out["blob"]).reshape(S, K, 3 + 2 * T_scan)
-        finals = blob[:, :, 0].view(np.float32)
-        paths = blob[:, :, 3:].reshape(S, K, T_scan, 2)
-        return [[self._result(self._segments(kana, packed[i], paths[i, k]), finals[i, k])
-                 for k in range(min(n_best, K)) if finals[i, k] > -1e29]
-                for i, kana in enumerate(kanas)]
+        with profiling.span("decode.fetch"):
+            blob = self._blob(out["blob"]).reshape(S, K, 3 + 2 * T_scan)
+        with profiling.span("decode.surfaces"):
+            finals = blob[:, :, 0].view(np.float32)
+            paths = blob[:, :, 3:].reshape(S, K, T_scan, 2)
+            return [[self._result(self._segments(kana, packed[i], paths[i, k]), finals[i, k])
+                     for k in range(min(n_best, K)) if finals[i, k] > -1e29]
+                    for i, kana in enumerate(kanas)]
 
     @staticmethod
     def _result(segs: List[Tuple[str, int]], score) -> DecodeResult:
@@ -863,15 +894,16 @@ class BeamDecoder:
             order = sorted(range(len(kanas)), key=lambda i: len(kanas[i]))
         else:
             order = list(range(len(kanas)))
-        inflight = []
-        for i in range(0, len(order), chunk_size):
-            idxs = order[i:i + chunk_size]
-            chunk = [kanas[j] for j in idxs]
-            inflight.append((chunk, idxs, *self.decode_batch_async(chunk)))
-        results: List[Optional[List[DecodeResult]]] = [None] * len(kanas)
-        for chunk, idxs, packed, out in inflight:
-            for i, r in zip(idxs, self.materialize(chunk, packed, out, n_best)):
-                results[i] = r
+        with profiling.span("decode.job"):
+            inflight = []
+            for i in range(0, len(order), chunk_size):
+                idxs = order[i:i + chunk_size]
+                chunk = [kanas[j] for j in idxs]
+                inflight.append((chunk, idxs, *self.decode_batch_async(chunk)))
+            results: List[Optional[List[DecodeResult]]] = [None] * len(kanas)
+            for chunk, idxs, packed, out in inflight:
+                for i, r in zip(idxs, self.materialize(chunk, packed, out, n_best)):
+                    results[i] = r
         return results
 
     def decode(self, kana: str, n_best: int = 1) -> List[DecodeResult]:

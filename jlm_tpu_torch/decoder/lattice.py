@@ -37,6 +37,7 @@ import numpy as np
 from jlm_tpu_torch.config import Config, EOS_ID, UNK_ID
 from jlm_tpu_torch.data.corpus import Vocab
 from jlm_tpu_torch.data.lexicon import Lexicon
+from jlm_tpu_torch.utils import profiling
 
 
 def handle_node_overflow(dropped: int, config: Config, where: str) -> None:
@@ -44,7 +45,11 @@ def handle_node_overflow(dropped: int, config: Config, where: str) -> None:
 
     The reference's lattices are uncapped (SURVEY.md §4.5); dropping nodes
     can lose the gold path, so drops must never be silent by default.
+    Whatever the policy, the drops add to the tracer's
+    ``decode.dropped_nodes`` counter.
     """
+    if dropped > 0:
+        profiling.count("decode.dropped_nodes", dropped)
     if dropped <= 0 or config.node_overflow == "ignore":
         return
     msg = (

@@ -30,6 +30,10 @@ the time-block pipeline's step (every parameter replicated, the window's
 time axis over the ranks, the gradients summed over the seq group).
 Checkpoints hold the full tree whatever the mesh: the head's shards are
 gathered on save (rank 0 writes) and sliced again on load.
+
+On one device a step's loss, gradients and optimizer call are the tracer's
+spans ``train.forward``, ``train.backward`` and ``train.optimizer``
+(:mod:`jlm_tpu_torch.utils.profiling`).
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ from jlm_tpu_torch.parallel import comm
 from jlm_tpu_torch.parallel import train_step as sharded
 from jlm_tpu_torch.parallel.mesh import SeqMesh
 from jlm_tpu_torch.train import checkpoint, optim
+from jlm_tpu_torch.utils import profiling
 
 
 def _tree_map(fn, tree: Any) -> Any:
@@ -161,11 +166,14 @@ class Trainer:
         the batch; the global batch's mean loss)."""
         if self.mesh:
             return self._step(self.flat, self._rows(x), self._rows(y), state, lr)
-        loss, state = self._loss(self.params, x, y, state)
+        with profiling.span("train.forward"):
+            loss, state = self._loss(self.params, x, y, state)
         keys = list(self.flat)
-        grads = torch.autograd.grad(loss, [self.flat[k] for k in keys])
-        optim.apply_gradients(self.flat, dict(zip(keys, grads)), self.opt_state,
-                              self.config, lr)
+        with profiling.span("train.backward"):
+            grads = torch.autograd.grad(loss, [self.flat[k] for k in keys])
+        with profiling.span("train.optimizer"):
+            optim.apply_gradients(self.flat, dict(zip(keys, grads)), self.opt_state,
+                                  self.config, lr)
         return (state[0].detach(), state[1].detach()), loss.detach()
 
     def _eval_rows(self, x, y, state: State) -> Tuple[torch.Tensor, State]:

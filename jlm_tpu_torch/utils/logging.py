@@ -16,6 +16,8 @@ import sys
 import time
 from typing import Any, Dict, Optional
 
+from jlm_tpu_torch.utils import profiling
+
 
 class JsonlLogger:
     def __init__(self, path: Optional[str] = None, echo: bool = True):
@@ -35,8 +37,11 @@ class JsonlLogger:
 
 @contextlib.contextmanager
 def timed_span(logger: JsonlLogger, name: str, **fields):
-    """Wall-clock span logging — the reference's ``time.time()`` prints,
-    structured (SURVEY.md §7 "Tracing")."""
-    t0 = time.time()
-    yield
-    logger.log("span", name=name, seconds=time.time() - t0, **fields)
+    """The reference's ``time.time()`` prints, structured (SURVEY.md §7
+    "Tracing"): one ``span`` record of the block's seconds on the monotonic
+    clock.  The block is also the tracer's span ``name``
+    (:func:`jlm_tpu_torch.utils.profiling.span`)."""
+    t0 = time.perf_counter()
+    with profiling.span(name):
+        yield
+    logger.log("span", name=name, seconds=time.perf_counter() - t0, **fields)
