@@ -57,7 +57,14 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, none of them caught:
    H = 20 and the fused frame at E = 40, H = 24, wrong: W padded at its
    end instead of per gate); every case is timed one call at a time and 50
    calls in a row (``in_a_row``), the fused frame beside the split pair it
-   replaces;
+   replaces; and the optimizer's two kernels (``adam_run``: the global
+   norm and the fused clip + Adam update against the plain chain of
+   ``train/optim.py``, at the training cell's leaves, config 5's and
+   ragged ones, clip engaged and not, at counts 1 and 3: p, mu and nu to
+   the bit given the same norm, or within ``ADAM_ULPS``; the norm within
+   ``ADAM_NORM_REL``; three planted faults above the bound; ms beside the
+   bound, the plain chain and ``torch.optim.Adam(fused=True)``); phase 5's
+   training runs count one launch of each a step;
 2b. candidate extraction through ``project_candidates`` and
    ``project_candidates_dsoftmax`` as ``scripts/bench_kernels.py`` drives
    them, one launch per block counted;
@@ -2794,6 +2801,198 @@ def bound_of(name):
     return max(terms, key=lambda t: t[0])
 
 
+# the optimizer (phase 2, ``adam_run``): the fused clip + Adam kernels
+# (ops/adam.py) against the plain chain (train/optim.py) on the same leaves
+ADAM_ULPS = 1         # p, mu and nu given the same norm: bit for bit, else 1 ulp
+ADAM_NORM_REL = 1e-6  # the norm: the sums' order
+ADAM_CLIP = 5.0       # the clip's max_norm (Config.max_grad_norm)
+ADAM_LR = 1e-3
+ADAM_BIAS = "the bias correction off by one count"
+ADAM_NU = "nu from the unclipped g"
+ADAM_TAIL = "the last chunk's tail skipped"
+
+
+def adam_leaf_sets():
+    """Name -> leaf sizes in the tree's sorted order: the training cell's
+    five leaves (the 50k model), config 5's eleven, and ragged leaves
+    (sizes off multiples of 4, one element, past a chunk), once as their
+    own tensors and once with gradients that ``adam_case`` hands as
+    unaligned slices of one buffer, as the sharded and pipeline steps do."""
+    from jlm_tpu_torch.models.params import init_params
+    from jlm_tpu_torch.train import checkpoint
+
+    def sizes(cfg):
+        flat = checkpoint.flatten(init_params(cfg))
+        return [int(np.prod(np.shape(flat[k]))) for k in sorted(flat)]
+
+    ragged = [1, 15, 4097, 12297]
+    return {"50k": sizes(bench_config()), "config 5": sizes(config5()), "ragged": ragged,
+            "ragged, unaligned": ragged}
+
+
+def adam_plain(g, p_in, mu, nu, norm, count, fault=None):
+    """The optimizer's plain version on the card (``train/optim.py``:
+    ``clip_by_global_norm`` on ``norm``, ``_adam``, the add) on copies of
+    the leaves ``p_in``, ``mu`` and ``nu`` (Adam's count before the step
+    ``count - 1``); returns the three lists.  ``fault`` plants one of
+    ``ADAM_BIAS``, ``ADAM_NU``, ``ADAM_TAIL``."""
+    from jlm_tpu_torch.ops.adam import chunk_table
+    from jlm_tpu_torch.train import optim
+
+    keys = [str(i) for i in range(len(g))]
+    p = [x.clone() for x in p_in]
+    state = optim.OptState(count=count - 1 + (fault == ADAM_BIAS),
+                           mu={k: x.clone() for k, x in zip(keys, mu)},
+                           nu={k: x.clone() for k, x in zip(keys, nu)}, acc={})
+    clipped = optim.clip_by_global_norm(g, ADAM_CLIP, norm)
+    if fault == ADAM_NU:  # _adam's body, nu from g
+        state.count += 1
+        bc1, bc2 = 1.0 - optim.B1 ** state.count, 1.0 - optim.B2 ** state.count
+        updates = []
+        for k, gc, gr in zip(keys, clipped, g):
+            m = state.mu[k].mul_(optim.B1).add_((1 - optim.B1) * gc)
+            v = state.nu[k].mul_(optim.B2).add_((1 - optim.B2) * (gr * gr))
+            updates.append((m / bc1) / (torch.sqrt(v / bc2) + optim.EPS) * -ADAM_LR)
+    else:
+        updates = optim._adam(clipped, keys, state, ADAM_LR)
+    for x, u in zip(p, updates):
+        x += u
+    out = p, [state.mu[k] for k in keys], [state.nu[k] for k in keys]
+    if fault == ADAM_TAIL:  # the table's last chunk stops one float4 (or its tail) short
+        leaf, start, n = (int(v) for v in chunk_table([x.numel() for x in g])[-1])
+        tail = slice(start + n - (n % 4 or 4), start + n)
+        for got, was in zip(out, (p_in, mu, nu)):
+            got[leaf].view(-1)[tail] = was[leaf].view(-1)[tail]
+    return out
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance of two fp32 tensors in units in the last place."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def adam_leaves(dev, rng, sizes, clip, count, unaligned=False):
+    """(g, p, mu, nu) leaf lists of ``sizes`` on the card: p ~ U(-0.1, 0.1);
+    g normal, scaled to a global norm of 8 (``clip``: past ADAM_CLIP) or 2;
+    at ``count`` > 1 moments as after some steps (mu ~ 1e-3, nu ~ 1e-6), at
+    1 zeros.  ``unaligned``: the gradients are slices of one buffer from its
+    second element on, so no gradient is 16-byte aligned."""
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    n = sum(sizes)
+    flat = rng.standard_normal(n + 1).astype(np.float32)
+    flat *= np.float32((8.0 if clip else 2.0) / np.linalg.norm(flat[1:].astype(np.float64)))
+    buf, offs = t(flat), np.cumsum([1] + list(sizes))
+    g = [buf[o:o + s] for o, s in zip(offs, sizes)]
+    if not unaligned:
+        g = [x.clone() for x in g]
+    p = [t(rng.uniform(-0.1, 0.1, s)) for s in sizes]
+    on = float(count > 1)
+    mu = [t(rng.normal(0, 1e-3, s) * on) for s in sizes]
+    nu = [t(np.abs(rng.normal(0, 1e-6, s)) * on) for s in sizes]
+    return g, p, mu, nu
+
+
+def adam_case(dev, rng, name, sizes, clip, count):
+    """One comparison: the norm kernel against ``optim.global_norm``, and
+    ``adam_clip`` given the plain norm against ``adam_plain`` (ulps of p, mu
+    and nu, and how many elements differ at all), each planted fault read
+    the same way; returns the readings."""
+    from jlm_tpu_torch.ops import adam
+    from jlm_tpu_torch.train import optim
+
+    g, p, mu, nu = adam_leaves(dev, rng, sizes, clip, count, unaligned="unaligned" in name)
+    plain_norm = optim.global_norm(g)
+    norm = adam.sumsq_norm(g)
+    again = adam.sumsq_norm(g)
+    check(bool(torch.equal(norm, again)), f"optimizer {name}: the norm kernel not repeatable")
+    norm_rel = abs(float(norm) / float(plain_norm) - 1)
+    want = adam_plain(g, p, mu, nu, plain_norm, count)
+    got = [x.clone() for x in p], [x.clone() for x in mu], [x.clone() for x in nu]
+    adam.adam_clip(*got[:1], g, *got[1:], plain_norm, count=count, lr=ADAM_LR,
+                   max_norm=ADAM_CLIP, b1=optim.B1, b2=optim.B2, eps=optim.EPS)
+    torch.cuda.synchronize()
+
+    def err(a, b):
+        return max(ulps(x, y) for xs, ys in zip(a, b) for x, y in zip(xs, ys))
+
+    differ = sum(int((x != y).sum()) for xs, ys in zip(got, want) for x, y in zip(xs, ys))
+    faults = [ADAM_BIAS, ADAM_TAIL] + ([ADAM_NU] if clip else [])
+    caught = {f: err(got, adam_plain(g, p, mu, nu, plain_norm, count, f)) for f in faults}
+    label = f"optimizer {name}, {'clip' if clip else 'no clip'}, count {count}"
+    log(f"{label}: p, mu, nu {err(got, want)} ulp (bound {ADAM_ULPS}; {differ} of "
+        f"{3 * sum(sizes)} elements differ); norm {float(norm):.7g} vs plain "
+        f"{float(plain_norm):.7g}, rel {norm_rel:.3e} (bound {ADAM_NORM_REL:g})"
+        + "".join(f"; {f} reads {c} ulp" for f, c in caught.items()))
+    check(err(got, want) <= ADAM_ULPS, f"{label}: p, mu, nu off the plain version")
+    check(norm_rel <= ADAM_NORM_REL, f"{label}: norm off the plain version")
+    for f, c in caught.items():
+        check(c > ADAM_ULPS, f"{label}: the bound misses {f} ({c})")
+    return {"ulps": err(got, want), "differ": differ, "norm_rel": norm_rel, "faults": caught}
+
+
+def adam_run(dev, rng):
+    """Phase 2's optimizer case: ``adam_case`` on each leaf set of
+    ``adam_leaf_sets``, clip engaged and not, at counts 1 and 3; then, at
+    the training cell's leaves, the two launches' ms one call (CUDA events)
+    and 50 in a row, each kernel's too, beside their bound (32 B an element
+    at the memory rate), the plain chain's ms and
+    ``torch.optim.Adam(fused=True)``'s (``library_ms``: Adam alone, without
+    the clip; a yardstick, the port never calls it).  Returns a dict for
+    the run's output."""
+    from jlm_tpu_torch.ops import adam
+    from jlm_tpu_torch.train import optim
+
+    sets = adam_leaf_sets()
+    out = {"cases": {f"{name}, clip {clip}, count {count}":
+                     adam_case(dev, rng, name, sizes, clip, count)
+                     for name, sizes in sets.items() for clip in (False, True)
+                     for count in (1, 3)}}
+    sizes = sets["50k"]
+    n = sum(sizes)
+    g, p, mu, nu = adam_leaves(dev, rng, sizes, True, 3)
+    keys = [str(i) for i in range(len(sizes))]
+    state = optim.OptState(count=3, mu=dict(zip(keys, mu)), nu=dict(zip(keys, nu)), acc={})
+    norm = adam.sumsq_norm(g)
+
+    def step(nrm):
+        state.count += 1
+        adam.adam_clip(p, g, mu, nu, nrm, count=state.count, lr=ADAM_LR, max_norm=ADAM_CLIP,
+                       b1=optim.B1, b2=optim.B2, eps=optim.EPS)
+
+    def plain():  # the optimizer's plain version on the card, in place
+        clipped = optim.clip_by_global_norm(g, ADAM_CLIP)
+        for x, u in zip(p, optim._adam(clipped, keys, state, ADAM_LR)):
+            x += u
+
+    lib_p = [x.clone().requires_grad_(True) for x in p]
+    for x, gr in zip(lib_p, g):
+        x.grad = gr.clone()
+    lib = torch.optim.Adam(lib_p, lr=ADAM_LR, betas=(optim.B1, optim.B2), eps=optim.EPS,
+                           fused=True)
+    runs = {"kernels": lambda: step(adam.sumsq_norm(g)), "sumsq": lambda: adam.sumsq_norm(g),
+            "adam_clip": lambda: step(norm), "plain": plain, "library": lib.step}
+    for what, run in runs.items():
+        ms = cuda_ms(run)
+        row_ms, host_ms = in_a_row(run)
+        out[what] = {"ms": ms, "row_ms": row_ms, "row_host_ms": host_ms}
+    bound = {"kernels": 32, "sumsq": 4, "adam_clip": 28}
+    for what, nbytes in bound.items():
+        out[what]["bound_ms"] = nbytes * n / PEAK["bytes"] * 1e3
+    log(f"optimizer at the 50k training step's {len(sizes)} leaves ({n:,} elements): "
+        + "; ".join(f"{what} {r['ms']:.4f} ms one call, {r['row_ms']:.4f} in a row (host "
+                    f"{r['row_host_ms']:.4f})"
+                    + (f", bound {r['bound_ms']:.4f} (bytes)" if "bound_ms" in r else "")
+                    for what, r in out.items() if what != "cases")
+        + " (library: torch.optim.Adam(fused=True), Adam without the clip)")
+    del lib, lib_p, g, p, mu, nu, state
+    return out
+
+
 def dsoftmax_case(dev, rng):
     """The D-softmax fused CE (one kernel call per block on its hidden
     slice) at the 100k head of BASELINE config 5: the mean loss and the
@@ -3124,6 +3323,7 @@ def training_run(dev, config, params, train_ids, dev_ids, label, swap=None):
     trainer, the per-step losses, ms per step (steps 2 on, host clock
     ending in a synchronize), the CE (with ``cast_wt``) and scan launch
     counts of the steps, and dev perplexity."""
+    from jlm_tpu_torch.ops import adam
     from jlm_tpu_torch.ops import lstm_scan as ls
     from jlm_tpu_torch.ops import softmax_ce as ce
     from jlm_tpu_torch.train import Trainer
@@ -3136,6 +3336,7 @@ def training_run(dev, config, params, train_ids, dev_ids, label, swap=None):
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
+    opt0 = adam.sumsq_norm.launches, adam.adam_clip.launches
     with swap() if swap else contextlib.nullcontext():
         steps = trainer.train_steps(train_ids, epoch=0)
         losses = [next(steps)[0]]
@@ -3145,13 +3346,16 @@ def training_run(dev, config, params, train_ids, dev_ids, label, swap=None):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / (len(losses) - 1)
         launches = {name: fn.launches for name, fn in counters.items()}
+        opt = adam.sumsq_norm.launches - opt0[0], adam.adam_clip.launches - opt0[1]
         peak = torch.cuda.max_memory_allocated() / 2**30
         ppl = trainer.evaluate_ppl(dev_ids)
     losses = torch.stack(losses).cpu().numpy()
     log(f"training ({label}): {len(losses)} steps, "
         f"loss {losses[0]:.6f} -> {losses[-1]:.6f}; {ms:.3f} ms/step, "
-        f"{N_CE / ms * 1e3:.1f} tokens/s; launches {launches}; peak device memory "
-        f"{peak:.2f} GiB; dev ppl {ppl:.4f}")
+        f"{N_CE / ms * 1e3:.1f} tokens/s; launches {launches}, optimizer (sumsq, adam_clip) "
+        f"{opt}; peak device memory {peak:.2f} GiB; dev ppl {ppl:.4f}")
+    check(opt == ((len(losses),) * 2 if config.optimizer == "adam" else (0, 0)),
+          f"training ({label}): optimizer launches {opt}: one of each kernel a step")
     return trainer, losses, ms, launches, ppl
 
 
@@ -4442,6 +4646,8 @@ def main() -> int:
     log(f"ce_loss_fused_dsoftmax fwd+bwd: kernels {ds_ms:.4f} ms, "
         f"plain fp32 CE {ds_plain_ms:.4f} ms")
     torch.cuda.empty_cache()
+    optimizer = adam_run(dev, rng)
+    torch.cuda.empty_cache()
 
     # ---- phase 2b: candidate extraction through its entry points ----
     launches_cand = candidate_run(dev, rng)
@@ -4983,6 +5189,7 @@ def main() -> int:
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     check(not idle, f"kernels the paths never launched: {idle}")
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"optimizer": optimizer}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

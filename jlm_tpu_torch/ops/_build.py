@@ -59,6 +59,8 @@ _SIGNATURES = {
     "jlm_scan_recur_max_blocks": [_I] * 6,
     "jlm_scan_fwd_recur": [_P] * 9 + [_I] * 3 + [ctypes.c_float] + [_I] * 5 + [_P],
     "jlm_scan_recur": [_P] * 11 + [_I] * 3 + [ctypes.c_float] + [_I] * 5 + [_P],
+    "jlm_adam_sumsq": [_P, _I, _P, _I, _P, _P, _P, _P],
+    "jlm_adam_clip": [_P] * 4 + [_I, _P, _I, _P] + [ctypes.c_float] * 9 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

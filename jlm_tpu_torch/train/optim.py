@@ -12,6 +12,15 @@ Parameters and state are dictionaries keyed by the checkpoint's flat
 parameter paths (``lstm/0/W``); updates are in place.  Each step follows
 optax's arithmetic in the same order, so a run matches the reference to
 fp32 summation order.
+
+Adam on CUDA leaves runs the clip and the update as two kernel launches
+over every leaf (:mod:`jlm_tpu_torch.ops.adam`): the global norm
+(``norm_fn``'s where given), then one pass that clips, updates the moments
+and moves the parameters, with the plain functions' arithmetic on the
+card.  CPU tensors, SGD and the accumulation's running mean take the plain
+functions below.  While the tracer is on, every call counts one
+``optim.kernel_calls`` or ``optim.plain_calls`` by the path its update
+takes (:mod:`jlm_tpu_torch.utils.profiling`).
 """
 
 from __future__ import annotations
@@ -22,6 +31,8 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from jlm_tpu_torch.config import Config
+from jlm_tpu_torch.ops import adam as adam_kernels
+from jlm_tpu_torch.utils import profiling
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -85,6 +96,8 @@ def apply_gradients(params: Tensors, grads: Tensors, state: OptState,
     the clip's global norm where ``params`` are one rank's shards of a
     larger tree (``parallel.train_step.global_norm``)."""
     keys = sorted(params)  # the reference's leaf order (sorted dict keys)
+    kernel = config.optimizer == "adam" and params[keys[0]].is_cuda
+    profiling.count("optim.kernel_calls" if kernel else "optim.plain_calls", 1)
     k_acc = config.grad_accum_steps
     if k_acc > 1:
         n = state.mini_step
@@ -94,14 +107,22 @@ def apply_gradients(params: Tensors, grads: Tensors, state: OptState,
             state.mini_step = n + 1
             return
         grads = state.acc
-    g = clip_by_global_norm([grads[k] for k in keys], config.max_grad_norm,
-                            None if norm_fn is None else norm_fn(grads))
-    if config.optimizer == "adam":
-        updates = _adam(g, keys, state, lr)
+    g = [grads[k] for k in keys]
+    norm = None if norm_fn is None else norm_fn(grads)
+    if kernel:
+        norm = adam_kernels.sumsq_norm(g) if norm is None else norm
+        state.count += 1
+        adam_kernels.adam_clip([params[k] for k in keys], g, [state.mu[k] for k in keys],
+                               [state.nu[k] for k in keys], norm, count=state.count, lr=lr,
+                               max_norm=config.max_grad_norm, b1=B1, b2=B2, eps=EPS)
     else:
-        updates = [gi * -lr for gi in g]
-    for k, u in zip(keys, updates):
-        params[k] += u
+        g = clip_by_global_norm(g, config.max_grad_norm, norm)
+        if config.optimizer == "adam":
+            updates = _adam(g, keys, state, lr)
+        else:
+            updates = [gi * -lr for gi in g]
+        for k, u in zip(keys, updates):
+            params[k] += u
     if k_acc > 1:
         state.acc = {k: torch.zeros_like(v) for k, v in state.acc.items()}
         state.mini_step = 0

@@ -13,6 +13,8 @@ the benchmark reads them (its reduction given the profile without the
 program's ranges, ``benchmark/core/spans.py``), and with the tracer on
 
 - ``timed``: the timed window's span totals and counters;
+- ``profiled``: the profiled window's counters (a training cell's
+  ``optim.kernel_calls`` against its profiled steps);
 - ``spans``: the profiled window's device seconds and idle seconds by the
   innermost program span (``reduce_spans``);
 - ``readings``: serve cells: ``fetch_wait_ms_per_chunk`` and
@@ -147,6 +149,7 @@ def main(argv=None) -> int:
 
     def reduce_profile(prof, *a, **kw):
         if args.tracer:
+            got["profiled"] = profiling.snapshot()["counters"]
             profiling.enable(False)
             got["spans"] = spans.reduce_spans(prof)
         return bench_trace.reduce_profile(spans.without_program_ranges(prof), *a, **kw)
@@ -165,6 +168,7 @@ def main(argv=None) -> int:
     if args.tracer:
         t, sw = out["trace"], got["spans"]
         rec["timed"] = {"totals": got["timed"]["totals"], "counters": got["timed"]["counters"]}
+        rec["profiled"] = {"counters": got["profiled"]}
         rec["spans"] = {"busy_s": sw.busy_s, "idle_s": sw.idle_s,
                         "device_s_by_span": sw.device_s_by_span,
                         "idle_by_span": sw.idle_by_span}

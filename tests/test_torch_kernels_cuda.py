@@ -1550,3 +1550,83 @@ def test_keystroke_decoders_on_card_match_cpu(cuda, precision, head):
         for g, w in zip(got, want):
             assert [r.segments for r in g] == [r.segments for r in w]
             np.testing.assert_allclose([r.score for r in g], [r.score for r in w], atol=tol)
+
+
+def _adam_leaves(cuda, sizes, scale, count, seed, unaligned=False):
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+
+    buf = t(rng.normal(0, scale, sum(sizes) + 1))
+    offs = np.cumsum([1] + list(sizes))
+    g = [buf[o:o + s] if unaligned else buf[o:o + s].clone() for o, s in zip(offs, sizes)]
+    p = [t(rng.uniform(-0.1, 0.1, s)) for s in sizes]
+    mu = [t(rng.normal(0, 1e-3, s) * (count > 1)) for s in sizes]
+    nu = [t(np.abs(rng.normal(0, 1e-6, s)) * (count > 1)) for s in sizes]
+    return g, p, mu, nu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unaligned", [False, True])
+@pytest.mark.parametrize("scale", [1e-3, 0.1])  # norm under the clip's 5, and past it
+@pytest.mark.parametrize("count", [1, 3])
+def test_adam_kernels_vs_plain(cuda, count, scale, unaligned):
+    """``sumsq_norm`` within 1e-6 of the plain norm and the same bits on a
+    rerun; ``adam_clip`` given the plain norm: p, mu and nu the plain
+    chain's (``train/optim.py`` on the card) to the bit, ragged sizes, a
+    one-element leaf, gradients as unaligned slices of one buffer too."""
+    from jlm_tpu_torch.ops import adam
+    from jlm_tpu_torch.train import optim
+
+    sizes = [1, 15, 4097, 12297, 3 * adam.CHUNK]
+    g, p, mu, nu = _adam_leaves(cuda, sizes, scale, count, seed=count, unaligned=unaligned)
+    plain_norm = optim.global_norm(g)
+    norm = adam.sumsq_norm(g)
+    assert torch.equal(norm, adam.sumsq_norm(g))
+    assert abs(float(norm) / float(plain_norm) - 1) <= 1e-6
+    assert (float(plain_norm) >= 5.0) == (scale == 0.1)
+    keys = [str(i) for i in range(len(sizes))]
+    state = optim.OptState(count=count - 1, mu={k: m.clone() for k, m in zip(keys, mu)},
+                           nu={k: v.clone() for k, v in zip(keys, nu)}, acc={})
+    updates = optim._adam(optim.clip_by_global_norm(g, 5.0, plain_norm), keys, state, 1e-3)
+    want_p = [x + u for x, u in zip(p, updates)]
+    n0 = adam.adam_clip.launches
+    adam.adam_clip(p, g, mu, nu, plain_norm, count=count, lr=1e-3, max_norm=5.0, b1=optim.B1,
+                   b2=optim.B2, eps=optim.EPS)
+    assert adam.adam_clip.launches == n0 + 1
+    for k, x, m, v, w in zip(keys, p, mu, nu, want_p):
+        assert torch.equal(x, w) and torch.equal(m, state.mu[k]) and torch.equal(v, state.nu[k])
+
+
+@pytest.mark.cuda
+def test_trainer_steps_take_the_adam_kernels(cuda):
+    """A CUDA trainer's optimizer calls launch each kernel once a step and
+    count ``optim.kernel_calls`` (tracer on); the losses follow the CPU
+    trainer's."""
+    from jlm_tpu_torch.config import Config
+    from jlm_tpu_torch.data import build_vocab, encode_corpus, generate_corpus
+    from jlm_tpu_torch.models.params import init_params
+    from jlm_tpu_torch.ops import adam
+    from jlm_tpu_torch.train import Trainer
+    from jlm_tpu_torch.utils import profiling
+
+    lines = generate_corpus(200, seed=3)
+    ids = np.asarray(encode_corpus(lines, build_vocab(lines, 256))[:2048])
+    cfg = Config(vocab_size=256, embed_size=16, hidden_size=32, batch_size=4, num_steps=8,
+                 seed=5)
+    params = init_params(cfg)
+    n0 = adam.sumsq_norm.launches, adam.adam_clip.launches
+    profiling.reset()
+    profiling.enable(True)
+    try:
+        got = [float(loss) for loss, _ in Trainer(cfg, params, device=cuda).train_steps(ids, 0)]
+        counters = profiling.snapshot()["counters"]
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    want = [float(loss) for loss, _ in Trainer(cfg, params, device="cpu").train_steps(ids, 0)]
+    steps = len(got)
+    assert (adam.sumsq_norm.launches - n0[0], adam.adam_clip.launches - n0[1]) == (steps, steps)
+    assert counters.get("optim.kernel_calls") == steps and "optim.plain_calls" not in counters
+    np.testing.assert_allclose(got, want, rtol=1e-4)

@@ -199,6 +199,7 @@ def test_trainer_step_records_its_three_phases():
     _, snap = _traced(next, steps)
     spans = snap["spans"]
     assert [s["name"] for s in spans] == ["train.forward", "train.backward", "train.optimizer"]
+    assert snap["counters"] == {"optim.plain_calls": 1}  # CPU leaves: the plain optimizer
     assert all(s["parent"] == -1 for s in spans)
     for a, b in zip(spans, spans[1:]):
         assert a["end_ns"] <= b["start_ns"]
