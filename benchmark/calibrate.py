@@ -6,10 +6,10 @@
 For each of ``--seeds``: one run of the cell as ``run.py`` makes it (a
 short window), its check's numbers.  For each of ``--control-seeds``: the
 control, the reference put in the program's place one precision lower
-(serve: int4 weights and fp8 activations; train: bf16 cell products and
-fp8 head products), judged by the same comparison; for a train cell also
-the planted fault "half of the batch left out".  One JSON line a reading;
-the benchmark's own runs never run this.
+(the model family's ``control_lm`` and ``train_controls``), judged by the
+same comparison; for a train cell also the planted faults the family's
+``train_controls`` names.  One JSON line a reading; the benchmark's own runs
+never run this.
 """
 
 from __future__ import annotations
@@ -28,13 +28,13 @@ if ROOT not in sys.path:
 
 def control_serve(cell, cfg, kind, seed: int, device):
     import numpy as np
-    import torch
 
+    from benchmark.core import registry
     from benchmark.core.serve import compare
     from benchmark.core.weights import dequantize_params, make_weights, quantize_params
     from benchmark.reference.beam import beam_search
-    from benchmark.reference.lm import RefLM, round_to
 
+    family = registry.family_of(cfg)
     model, serve, tp = cfg["model"], cfg["serve"], cell["traffic"]
     traffic = kind.build(tp, model, seed)
     kanas = traffic.job(0)
@@ -42,10 +42,10 @@ def control_serve(cell, cfg, kind, seed: int, device):
     longest = max(kanas, key=len)
     sample = [longest] + [kanas[i] for i in rng.choice(len(kanas), tp["check_sentences"] - 1,
                                                        replace=False)]
-    weights = make_weights(model, cfg["weights"], seed, device)
-    ref = RefLM(dequantize_params(quantize_params(weights, 8)), model)
-    ctrl = RefLM(dequantize_params(quantize_params(weights, 4)), model,
-                 operand=round_to(torch.float8_e4m3fn))
+    leaves = family.leaves(model)
+    weights = make_weights(leaves, cfg["weights"], seed, device)
+    ref = family.reference_lm(dequantize_params(quantize_params(weights, leaves), leaves), model)
+    ctrl = family.control_lm(weights, model)
     M, N = serve["max_word_len"], tp["max_nodes_per_frame"]
     served = [(s, [w for w, _ in nodes]) for s, nodes in
               beam_search(ctrl, sample, traffic.lexicon, serve["beam_width"], M, N, device)]
@@ -54,22 +54,19 @@ def control_serve(cell, cfg, kind, seed: int, device):
 
 
 def control_train(cell, cfg, kind, seed: int, device):
-    import torch
-
+    from benchmark.core import registry
     from benchmark.core.weights import flatten, make_weights
-    from benchmark.reference.lm import round_to
-    from benchmark.reference.train import compare_steps, reference_steps
+    from benchmark.reference.train import compare_steps
 
+    family = registry.family_of(cfg)
     model, tsec, tp = cfg["model"], cfg["train"], cell["traffic"]
     traffic = kind.build(tp, model, seed)
-    init = flatten(make_weights(model, cfg["weights"], seed, device))
+    init = flatten(make_weights(family.leaves(model), cfg["weights"], seed, device))
     ids = traffic.ids(-1, tp["setup_steps"])
-    ref = reference_steps(init, model, tsec, ids, tp, device)
+    ref = family.reference_steps(init, model, tsec, ids, tp, device)
     out = {}
-    for name, kw in (("control", dict(scan_operand=round_to(torch.bfloat16),
-                                      ce_operand=round_to(torch.float8_e4m3fn))),
-                     ("half_batch", dict(half_batch=True))):
-        r = reference_steps(init, model, tsec, ids, tp, device, **kw)
+    for name, kw in family.train_controls().items():
+        r = family.reference_steps(init, model, tsec, ids, tp, device, **kw)
         out[name] = compare_steps(r["losses"], r["grad1"], r["delta"], ref)
     return out
 

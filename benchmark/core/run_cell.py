@@ -5,16 +5,17 @@ from __future__ import annotations
 import math
 from typing import Any, Dict
 
-from benchmark.core import serve, train
+from benchmark.core import registry, serve, train
 
 RUNNERS = {"serve": serve.run, "train": train.run}
 
 
 def run(cell: Dict[str, Any], cfg: Dict[str, Any], kind, seed: int, seconds: float,
         trace: bool, device, t_start: float, build_dir: str) -> Dict[str, Any]:
+    family = registry.family_of(cfg)
     traffic = kind.build(cell["traffic"], cfg["model"], seed)
-    return RUNNERS[kind.RUNNER](cell, cfg, traffic, seed, seconds, trace, device, t_start,
-                                build_dir)
+    return RUNNERS[kind.RUNNER](cell, cfg, family, traffic, seed, seconds, trace, device,
+                                t_start, build_dir)
 
 
 def correct(checks: Dict[str, Dict[str, float]]) -> bool:

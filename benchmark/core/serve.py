@@ -23,18 +23,6 @@ from benchmark.core import program
 from benchmark.core.trace import Recorder, Trace, reduce_profile
 from benchmark.core.weights import dequantize_params, make_weights, quantize_params
 from benchmark.reference.beam import beam_search, rescore, valid_path
-from benchmark.reference.lm import RefLM
-
-
-def _rows(x, *args, **kwargs):
-    return int(x.shape[0])
-
-
-def _cell_shape(x, h, *args, **kwargs):
-    return (int(x.shape[0]), int(x.shape[1]), int(h.shape[1]))
-
-
-SHAPES = {"project_lse": _rows, "lstm_cell": _cell_shape}
 
 
 def quantile(values: List[float], q: float) -> float:
@@ -57,42 +45,16 @@ def lookahead_counts(kana: str, by_reading: Dict[str, List[int]], M: int) -> Lis
     return out
 
 
-def useful_ops(kanas: List[str], model: Dict[str, Any], serve: Dict[str, Any],
-               by_reading: Dict[str, List[int]], max_word_len: int) -> Dict[str, float]:
-    """Operations the inputs need, by precision: per sentence of T kana, T + 1
-    forwards (the root's and one a position) of ``beam_width`` rows through
-    every layer's cell (bf16) and the head (int8 with int8 weights, else
-    bf16), and per row the candidate dots of the words starting there and
-    ``<eos>`` (bf16)."""
-    E, H, L, V = (model["embed_size"], model["hidden_size"], model["num_layers"],
-                  model["vocab_size"])
-    B = serve["beam_width"]
-    cell = sum(2 * ((E if l == 0 else H) + H) * 4 * H for l in range(L))
-    if model["head"] == "dsoftmax":
-        ds = model["dsoftmax"]
-        head = sum(2 * d * s for s, d in zip(ds["block_sizes"], ds["block_dims"]))
-    else:
-        head = 2 * H * V
-    head_kind = "int8" if serve.get("quantize") and serve.get("int8_mxu", True) else "bf16"
-    M = min(max_word_len, max(len(r) for r in by_reading))
-    out = {"bf16": 0.0, head_kind: 0.0}
-    for kana in kanas:
-        rows = (len(kana) + 1) * B
-        cands = sum(c + 1 for c in lookahead_counts(kana, by_reading, M)) + 1
-        out["bf16"] += rows * cell + B * cands * 2 * H
-        out[head_kind] += rows * head
-    return out
-
-
-def run(cell: Dict[str, Any], cfg: Dict[str, Any], traffic, seed: int, seconds: float,
+def run(cell: Dict[str, Any], cfg: Dict[str, Any], family, traffic, seed: int, seconds: float,
         trace: bool, device, t_start: float, build_dir: str) -> Dict[str, Any]:
     model, serve, tp = cfg["model"], cfg["serve"], cell["traffic"]
     program.use_build_dir(build_dir)
-    config = program.make_config(model, serve, max_nodes_per_frame=tp["max_nodes_per_frame"])
-    weights = make_weights(model, cfg["weights"], seed, device)
-    params = quantize_params(weights) if serve.get("quantize") else weights
+    config = family.make_config(model, serve, max_nodes_per_frame=tp["max_nodes_per_frame"])
+    leaves = family.leaves(model)
+    weights = make_weights(leaves, cfg["weights"], seed, device)
+    params = quantize_params(weights, leaves) if serve.get("quantize") else weights
     del weights
-    decoder = program.make_decoder(params, traffic.lexicon, config, serve["precision"], device)
+    decoder = family.make_decoder(params, traffic.lexicon, config, serve["precision"], device)
     chunk, n_best = tp["chunk_size"], tp["n_best"]
     for j in range(tp["warm_jobs"]):
         decoder.decode_stream(traffic.job(-1 - j), chunk_size=chunk, n_best=n_best)
@@ -104,8 +66,8 @@ def run(cell: Dict[str, Any], cfg: Dict[str, Any], traffic, seed: int, seconds: 
 
     rec = Recorder()
     if trace:
-        for owner, attr, label in program.serve_patch_points():
-            rec.wrap(owner, attr, label, SHAPES.get(label))
+        for owner, attr, label, shape in family.serve_patch_points():
+            rec.wrap(owner, attr, label, shape)
         rec.timing = True
     lat, chars, attempted, failed = [], 0, 0, 0
     done: List[Tuple[float, int]] = []  # (completion time, chars) of each job
@@ -140,7 +102,7 @@ def run(cell: Dict[str, Any], cfg: Dict[str, Any], traffic, seed: int, seconds: 
                                        "setup_s": (setup_s, "s")},
                            "jobs": j, "window_s": window, "rate_by_fifth": by_fifth(done, window)}
     if trace:
-        out["trace"] = _profile(rec, decoder, traffic, cell, cfg, config,
+        out["trace"] = _profile(rec, decoder, family, traffic, cell, cfg, config,
                                 {"jobs": j, "chars": chars}, window, device)
     rec.restore()
     out["memory_peak_bytes"] = (torch.cuda.max_memory_allocated(device)
@@ -150,7 +112,7 @@ def run(cell: Dict[str, Any], cfg: Dict[str, Any], traffic, seed: int, seconds: 
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    lm = RefLM(dequantize_params(params), model)
+    lm = family.reference_lm(dequantize_params(params, leaves), model)
     out["checks"] = compare(lm, [longest] + sample.items, traffic.lexicon, serve["beam_width"],
                             config.max_word_len, tp["max_nodes_per_frame"], device, failed,
                             cell["limits"])
@@ -194,7 +156,7 @@ class Reservoir:
         self.items = [new if t else old for old, new, t in zip(self.items, items, take)]
 
 
-def compare(lm: RefLM, sample, lex, beam: int, max_word_len: int, max_nodes: int, device,
+def compare(lm, sample, lex, beam: int, max_word_len: int, max_nodes: int, device,
             failed: int, limits: Dict[str, float],
             served: Optional[List[Tuple[float, List[int]]]] = None) -> Dict[str, Dict[str, float]]:
     """The output check.  ``sample``: (kana, the program's n-best) pairs;
@@ -225,7 +187,7 @@ def compare(lm: RefLM, sample, lex, beam: int, max_word_len: int, max_nodes: int
     return {k: {"value": v, "limit": limits[k]} for k, v in values.items()}
 
 
-def _profile(rec: Recorder, decoder, traffic, cell, cfg, config, timed: Dict[str, int],
+def _profile(rec: Recorder, decoder, family, traffic, cell, cfg, config, timed: Dict[str, int],
              timed_s: float, device) -> Trace:
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -244,12 +206,13 @@ def _profile(rec: Recorder, decoder, traffic, cell, cfg, config, timed: Dict[str
     by_reading = traffic.lexicon.by_reading()
     ops: Dict[str, float] = {}
     for kanas in jobs:
-        for k, v in useful_ops(kanas, cfg["model"], cfg["serve"], by_reading,
-                               config.max_word_len).items():
+        for k, v in family.serve_ops(kanas, cfg["model"], cfg["serve"], by_reading,
+                                     config.max_word_len).items():
             ops[k] = ops.get(k, 0.0) + v
     from benchmark.core.peaks import peaks
 
-    return Trace(kind="serve", model=cfg["model"], spans=dict(rec.spans), calls=dict(rec.calls),
+    return Trace(kind="serve", head_blocks=family.head_blocks(cfg["model"]),
+                 spans=dict(rec.spans), calls=dict(rec.calls),
                  timed_units=timed, timed_s=timed_s,
                  profiled_units={"jobs": len(jobs),
                                  "chunks": sum(-(-len(k) // chunk) for k in jobs),

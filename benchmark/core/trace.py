@@ -173,14 +173,15 @@ def reduce_profile(prof, window_label: str = "window", top: int = 10) -> DeviceW
 @dataclasses.dataclass
 class Trace:
     """What a per-layer metric's reader gets: the cell's kind (``serve`` or
-    ``train``), its configuration, the host spans and call counts of the
-    wrappers, the units of work done (``chunks``, ``chars``, ``steps``,
-    ``jobs``) in the timed and in the profiled part, the timed window's
-    seconds, the useful operations of the profiled part by precision, the
-    peaks, and the device window."""
+    ``train``), its model's head blocks (``(D, V)`` each, the family's
+    ``head_blocks``), the host spans and call counts of the wrappers, the
+    units of work done (``chunks``, ``chars``, ``steps``, ``jobs``) in the
+    timed and in the profiled part, the timed window's seconds, the useful
+    operations of the profiled part by precision, the peaks, and the device
+    window."""
 
     kind: str
-    model: Dict[str, Any]
+    head_blocks: List[Tuple[int, int]]
     spans: Dict[str, List[float]]
     calls: Dict[str, collections.Counter]
     timed_units: Dict[str, int]

@@ -20,53 +20,26 @@ import torch
 from benchmark.core import program
 from benchmark.core.trace import Recorder, Trace, reduce_profile
 from benchmark.core.weights import flatten, make_weights
-from benchmark.reference.train import compare_steps, reference_steps
+from benchmark.reference.train import compare_steps
 
 
-def _ce_shape(tag):
-    def shape(h, W, *args, **kwargs):
-        return (tag, int(h.shape[0]), int(h.shape[1]), int(W.shape[1]))
-    return shape
-
-
-def _scan_shape(tag):
-    def shape(xs, W, b, c0, h0, *args, **kwargs):
-        return (tag, int(xs.shape[0]), int(xs.shape[1]), int(xs.shape[2]), int(h0.shape[-1]))
-    return shape
-
-
-SHAPES = {("softmax_ce", "ce_loss_fused"): _ce_shape("fwd"),
-          ("softmax_ce", "ce_bwd"): _ce_shape("bwd"),
-          ("lstm_scan", "lstm_scan_fwd"): _scan_shape("fwd"),
-          ("lstm_scan", "lstm_scan_bwd"): _scan_shape("bwd")}
-
-
-def useful_ops(model: Dict[str, Any], tp: Dict[str, Any], steps: int) -> Dict[str, float]:
-    """A step's forward and backward of every layer's cell over the window
-    (fp32: the forward's product, the backward's dx/dh and dW) and of the
-    head (bf16: the logits, dh and dW once each)."""
-    E, H, L, V = (model["embed_size"], model["hidden_size"], model["num_layers"],
-                  model["vocab_size"])
-    N = tp["batch"] * tp["window"]
-    cell = sum(3 * 2 * N * ((E if l == 0 else H) + H) * 4 * H for l in range(L))
-    return {"fp32": float(cell * steps), "bf16": float(3 * 2 * N * H * V * steps)}
-
-
-def run(cell: Dict[str, Any], cfg: Dict[str, Any], traffic, seed: int, seconds: float,
+def run(cell: Dict[str, Any], cfg: Dict[str, Any], family, traffic, seed: int, seconds: float,
         trace: bool, device, t_start: float, build_dir: str) -> Dict[str, Any]:
     model, tsec, tp = cfg["model"], cfg["train"], cell["traffic"]
-    config = program.make_config(model, tsec, batch_size=tp["batch"], num_steps=tp["window"])
-    weights = make_weights(model, cfg["weights"], seed, device)
+    if family.reference_steps is None:
+        raise ValueError(f"model family of {cfg['name']!r} has no training reference")
+    config = family.make_config(model, tsec, batch_size=tp["batch"], num_steps=tp["window"])
+    weights = make_weights(family.leaves(model), cfg["weights"], seed, device)
     init = flatten(weights)  # the trainer copies its leaves: these stay as made
-    trainer = program.make_trainer(config, weights, device)
+    trainer = family.make_trainer(config, weights, device)
     setup_ids = traffic.ids(-1, tp["setup_steps"])
     losses: List[torch.Tensor] = []
     for k, (loss, _) in enumerate(trainer.train_steps(setup_ids, epoch=0)):
         losses.append(loss.clone())
         if k == 0:
             grad1 = {n: m.detach() / (1 - program.ADAM_B1)
-                     for n, m in program.first_moments(trainer).items()}
-    after = {n: p.detach().clone() for n, p in program.flat_params(trainer).items()}
+                     for n, m in family.first_moments(trainer).items()}
+    after = {n: p.detach().clone() for n, p in family.flat_params(trainer).items()}
     sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
     sync()
     setup_s = time.perf_counter() - t_start
@@ -75,8 +48,8 @@ def run(cell: Dict[str, Any], cfg: Dict[str, Any], traffic, seed: int, seconds: 
 
     rec = Recorder()
     if trace:
-        for owner, attr, label in program.train_patch_points():
-            rec.wrap(owner, attr, label, SHAPES.get((label, attr)))
+        for owner, attr, label, shape in family.train_patch_points():
+            rec.wrap(owner, attr, label, shape)
         rec.timing = True
     steps, call = 0, 0
     t0 = time.perf_counter()
@@ -98,7 +71,7 @@ def run(cell: Dict[str, Any], cfg: Dict[str, Any], traffic, seed: int, seconds: 
                                        "setup_s": (setup_s, "s")},
                            "steps": steps, "window_s": window}
     if trace:
-        out["trace"] = _profile(rec, trainer, traffic, cell, cfg, steps, window, device)
+        out["trace"] = _profile(rec, trainer, family, traffic, cell, cfg, steps, window, device)
     rec.restore()
     out["memory_peak_bytes"] = (torch.cuda.max_memory_allocated(device)
                                 if device.type == "cuda" else 0)
@@ -107,7 +80,7 @@ def run(cell: Dict[str, Any], cfg: Dict[str, Any], traffic, seed: int, seconds: 
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    ref = reference_steps(init, model, tsec, setup_ids, tp, device)
+    ref = family.reference_steps(init, model, tsec, setup_ids, tp, device)
     readings = compare_steps([float(l) for l in losses], grad1,
                              {n: after[n] - init[n] for n in init}, ref)
     out["checks"] = {k: {"value": v, "limit": cell["limits"][k]} for k, v in readings.items()}
@@ -115,7 +88,7 @@ def run(cell: Dict[str, Any], cfg: Dict[str, Any], traffic, seed: int, seconds: 
     return out
 
 
-def _profile(rec: Recorder, trainer, traffic, cell, cfg, steps0: int, timed_s: float,
+def _profile(rec: Recorder, trainer, family, traffic, cell, cfg, steps0: int, timed_s: float,
              device) -> Trace:
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -132,7 +105,8 @@ def _profile(rec: Recorder, trainer, traffic, cell, cfg, steps0: int, timed_s: f
                 pass
             torch.cuda.synchronize(device)
     rec.profiling = False
-    return Trace(kind="train", model=cfg["model"], spans=dict(rec.spans), calls=dict(rec.calls),
+    return Trace(kind="train", head_blocks=family.head_blocks(cfg["model"]),
+                 spans=dict(rec.spans), calls=dict(rec.calls),
                  timed_units={"steps": steps0}, timed_s=timed_s, profiled_units={"steps": n},
-                 useful_ops=useful_ops(cfg["model"], tp, n), peaks=peaks(device.index or 0),
+                 useful_ops=family.train_ops(cfg["model"], tp, n), peaks=peaks(device.index or 0),
                  device=reduce_profile(prof))

@@ -2,60 +2,51 @@
 
 The weights are the benchmark's input: one ``torch.Generator`` on the
 device draws every fp32 leaf in one call, each leaf scaled to the uniform
-range its configuration file gives under ``weights``.  The int8 format is
-BASELINE config 4's (symmetric, an fp32 scale per output column of a matmul
-weight and per row of the embedding), computed here from the fp32 weights so
-that both the program and the reference are handed the same int8 leaves.
+range its configuration file gives under ``weights``.  Which leaves there
+are, and which are int8 on which axis, is the model family's table
+(:class:`Leaf`).  The int8 format is BASELINE config 4's (symmetric, an fp32
+scale per slice along the leaf's axis: per output column of a matmul weight,
+per row of an embedding), computed here from the fp32 weights so that both
+the program and the reference are handed the same int8 leaves.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 Params = Dict[str, Any]
 
 
-def leaf_shapes(model: Dict[str, Any]) -> List[Tuple[str, Tuple[int, ...]]]:
-    """``(name, shape)`` of every leaf in the program's parameter layout."""
-    V, E, H, L = (model["vocab_size"], model["embed_size"], model["hidden_size"],
-                  model["num_layers"])
-    out: List[Tuple[str, Tuple[int, ...]]] = [("embedding", (V, E))]
-    for l in range(L):
-        out += [(f"lstm/{l}/W", ((E if l == 0 else H) + H, 4 * H)), (f"lstm/{l}/b", (4 * H,))]
-    if model["head"] == "dsoftmax":
-        ds = model["dsoftmax"]
-        for k, (s, d) in enumerate(zip(ds["block_sizes"], ds["block_dims"])):
-            out += [(f"head/blocks/{k}/W", (d, s)), (f"head/blocks/{k}/b", (s,))]
-    else:
-        out += [("head/W", (H, V)), ("head/b", (V,))]
-    return out
+class Leaf(NamedTuple):
+    """One leaf of a model family's parameter tree (``families/<family>.py``'s
+    ``leaves``): its ``a/0/b`` name and shape in the program's layout, its key
+    into the configuration's ``weights`` scales, and the axis its int8 scale
+    reduces over in the served format (None: the leaf stays fp32)."""
+
+    name: str
+    shape: Tuple[int, ...]
+    scale: str
+    int8_axis: Optional[int]
 
 
-def _scale_key(name: str) -> str:
-    kind = name.rsplit("/", 1)[-1]
-    if name == "embedding":
-        return "embedding"
-    return ("lstm_" if name.startswith("lstm") else "head_") + kind
-
-
-def make_weights(model: Dict[str, Any], scales: Dict[str, float], seed: int,
+def make_weights(leaves: Sequence[Leaf], scales: Dict[str, float], seed: int,
                  device) -> Params:
-    """fp32 weights ``U(-a, a)`` per leaf, ``a = scales[...]``, drawn by one
-    generator on ``device`` in one call; nested as the program lays them out."""
-    shapes = leaf_shapes(model)
-    total = sum(int(torch.Size(s).numel()) for _, s in shapes)
+    """fp32 weights ``U(-a, a)`` per leaf, ``a = scales[leaf.scale]``, drawn in
+    the leaves' order by one generator on ``device`` in one call; nested as the
+    program lays them out."""
+    total = sum(int(torch.Size(lf.shape).numel()) for lf in leaves)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed % (1 << 63))
     flat = torch.rand(total, generator=gen, device=device, dtype=torch.float32)
     flat.mul_(2.0).sub_(1.0)
-    leaves, off = {}, 0
-    for name, shape in shapes:
-        n = int(torch.Size(shape).numel())
-        leaves[name] = flat[off:off + n].view(shape).mul_(scales[_scale_key(name)])
+    out, off = {}, 0
+    for lf in leaves:
+        n = int(torch.Size(lf.shape).numel())
+        out[lf.name] = flat[off:off + n].view(lf.shape).mul_(scales[lf.scale])
         off += n
-    return unflatten(leaves)
+    return unflatten(out)
 
 
 def unflatten(flat: Dict[str, torch.Tensor]) -> Params:
@@ -105,26 +96,20 @@ def dequantize(leaf: Dict[str, torch.Tensor], axis: int) -> torch.Tensor:
     return leaf["q"].float() * leaf["scale"].unsqueeze(axis)
 
 
-def quantize_params(params: Params, bits: int = 8) -> Params:
-    """Every weight quantized (the embedding per row, matmul weights per
-    column); biases stay fp32."""
+def quantize_params(params: Params, leaves: Sequence[Leaf], bits: int = 8) -> Params:
+    """Each leaf with an ``int8_axis`` quantized over that axis; the others
+    stay fp32."""
+    axis = {lf.name: lf.int8_axis for lf in leaves}
     out = {}
     for name, t in flatten(params).items():
-        if name == "embedding":
-            out[name] = quantize(t, 1, bits)
-        elif name.endswith("/W"):
-            out[name] = quantize(t, 0, bits)
-        else:
-            out[name] = t
+        out[name] = t if axis[name] is None else quantize(t, axis[name], bits)
     return unflatten(out)
 
 
-def dequantize_params(params: Params) -> Params:
+def dequantize_params(params: Params, leaves: Sequence[Leaf]) -> Params:
     """fp32 weights of a quantized tree (an fp32 tree passes through)."""
+    axis = {lf.name: lf.int8_axis for lf in leaves}
     out = {}
     for name, t in flatten(params).items():
-        if isinstance(t, dict):
-            out[name] = dequantize(t, 1 if name == "embedding" else 0)
-        else:
-            out[name] = t
+        out[name] = dequantize(t, axis[name]) if isinstance(t, dict) else t
     return unflatten(out)

@@ -1,8 +1,8 @@
 """The whole serving step's share of the card's peak: the operations the
-profiled jobs' inputs need (``serve.useful_ops``: beam rows through each
-layer's cell, the head, the candidate dots), each precision's over its
-dense peak, summed, over the seconds that the timed window, which runs
-without the profiler, took for as much work (by chars)."""
+profiled jobs' inputs need (the model family's ``serve_ops``; the LSTM's:
+beam rows through each layer's cell, the head, the candidate dots), each
+precision's over its dense peak, summed, over the seconds that the timed
+window, which runs without the profiler, took for as much work (by chars)."""
 
 LAYER = "device"
 UNIT = "%"

@@ -1,8 +1,8 @@
 """The whole training step's share of the card's peak: each profiled
-step's forward and backward of the cell (fp32) and of the head (bf16)
-(``train.useful_ops``), each precision's over its dense peak, summed, over
-the seconds that the timed window, which runs without the profiler, took
-for as many steps."""
+step's forward and backward by precision (the model family's
+``train_ops``; the LSTM's: the cell in fp32, the head in bf16), each
+precision's over its dense peak, summed, over the seconds that the timed
+window, which runs without the profiler, took for as many steps."""
 
 LAYER = "device"
 UNIT = "%"

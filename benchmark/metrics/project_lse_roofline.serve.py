@@ -10,22 +10,18 @@ LAYER = "kernels"
 UNIT = "%"
 
 
-def work(R: int, model, int8: bool = True):
+def work(R: int, blocks, int8: bool = True):
     """(bytes, operations, type, exponentials) of the head's log-normalizer
-    over R rows: h read in bf16, the head's weights (int8, or bf16), a
-    scale and a bias a column, the lse written in fp32; 2 R d s operations
-    and R s exponentials over every block of d inputs and s columns."""
-    H = model["hidden_size"]
-    if model["head"] == "dsoftmax":
-        ds = model["dsoftmax"]
-        blocks = list(zip(ds["block_dims"], ds["block_sizes"]))
-    else:
-        blocks = [(H, model["vocab_size"])]
+    over R rows and the head's ``blocks`` (``(d, s)``: d inputs, s columns):
+    h read in bf16 at the head's input width (the widest block's d), the
+    weights (int8, or bf16), a scale and a bias a column, the lse written in
+    fp32; 2 R d s operations and R s exponentials over every block."""
     w = 1 if int8 else 2
     cols = sum(s for _, s in blocks)
-    nbytes = R * H * 2 + sum(d * s for d, s in blocks) * w + cols * (8 if int8 else 4) + R * 4
-    ops = 2 * R * sum(d * s for d, s in blocks)
-    return nbytes, ops, ("int8" if int8 else "bf16"), R * cols
+    width = max(d for d, _ in blocks)
+    weights = sum(d * s for d, s in blocks)
+    nbytes = R * width * 2 + weights * w + cols * (8 if int8 else 4) + R * 4
+    return nbytes, 2 * R * weights, ("int8" if int8 else "bf16"), R * cols
 
 
 def read(trace):
@@ -37,6 +33,6 @@ def read(trace):
         return None
     least = 0.0
     for R, n in calls.items():
-        nbytes, ops, kind, exps = work(R, trace.model)
+        nbytes, ops, kind, exps = work(R, trace.head_blocks)
         least += n * bound_s(nbytes, ops, kind, trace.peaks, exps)[0]
     return least / dev * 100.0

@@ -1,26 +1,32 @@
-"""Reference lattice beam search and path rescoring over :class:`RefLM`.
+"""Reference lattice beam search and path rescoring over a model family's
+reference LM.
 
 A frozen copy of the oracle's algorithm (``jlm_tpu_torch/oracle/decoder.py``,
 ``decoder/lattice.py``), written against the raw lexicon: every lexicon word
 whose reading is ``kana[i:j]`` (``j - i <= max_word_len``) is a node ending
 at ``j``, an unmatched single kana an ``<unk>`` node; a frame keeps its
 nodes by start position (then frequency), truncated to ``max_nodes``.  The
-beam at position 0 is ``<eos>`` from a zero state; a frame enumerates
+beam at position 0 is ``<eos>`` from the LM's initial state; a frame enumerates
 extensions node-major, path-minor, keeps the best ``beam`` (stable), and
 feeds each kept path's word; the final score adds ``log p(<eos>)``.  The LM
 steps of all sentences run batched, one per position; the search itself is
 plain Python.
+
+The LM is the family's (``reference_lm``); its state is opaque here.  It
+gives ``initial_state(rows, device)``, ``step(words, state) -> (logp [R, V],
+state)`` and ``select(states, pos, rows)``: the state whose row k is row
+``rows[k]`` of ``states[pos[k]]``.  The search keeps each position's state as
+the LM returned it and moves rows only through ``select``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from benchmark.data.lexicon import EOS_ID, UNK_ID, RawLexicon
-from benchmark.reference.lm import RefLM
 
 Node = Tuple[int, int]  # (word id, start)
 
@@ -44,17 +50,14 @@ def lattice(kana: str, by_reading: Dict[str, List[int]], max_word_len: int,
     return frames
 
 
-def beam_search(lm: RefLM, kanas: Sequence[str], lex: RawLexicon, beam: int,
+def beam_search(lm: Any, kanas: Sequence[str], lex: RawLexicon, beam: int,
                 max_word_len: int, max_nodes: int, device) -> List[Tuple[float, List[Node]]]:
     """Best final path of each sentence: ``(score, [(word, start), ...])``."""
     by_reading = lex.by_reading()
     S, B = len(kanas), beam
     frames = [lattice(k, by_reading, max_word_len, max_nodes) for k in kanas]
     T = max(len(k) for k in kanas)
-    L, H = lm.model["num_layers"], lm.model["hidden_size"]
-    # states after each position's forward: rows s * B + path
-    c_store = torch.zeros((T + 1, S * B, L, H), device=device)
-    h_store = torch.zeros_like(c_store)
+    states: List[Any] = []  # after each position's forward: rows s * B + path
     # per position: each sentence's needed columns (words starting there + <eos>)
     cols: List[List[List[int]]] = []
     for p in range(T + 1):
@@ -69,9 +72,10 @@ def beam_search(lm: RefLM, kanas: Sequence[str], lex: RawLexicon, beam: int,
     logp_at: List[List[Optional[np.ndarray]]] = [[None] * (T + 1) for _ in range(S)]
     col_of: List[List[Dict[int, int]]] = [[{} for _ in range(T + 1)] for _ in range(S)]
 
-    def forward(p: int, words: torch.Tensor, rows_c, rows_h):
-        logp, (c, h) = lm.step(words, (rows_c.permute(1, 0, 2), rows_h.permute(1, 0, 2)))
-        c_store[p], h_store[p] = c.permute(1, 0, 2), h.permute(1, 0, 2)
+    def forward(words: torch.Tensor, state) -> None:
+        p = len(states)
+        logp, state = lm.step(words, state)
+        states.append(state)
         width = max(len(cols[p][s]) for s in range(S))
         idx = torch.zeros((S, width), dtype=torch.long)
         for s in range(S):
@@ -85,11 +89,11 @@ def beam_search(lm: RefLM, kanas: Sequence[str], lex: RawLexicon, beam: int,
     for s in range(S):
         beams[s][0] = [(0.0, None, None)]
     words = torch.full((S * B,), EOS_ID, dtype=torch.long, device=device)
-    zeros = torch.zeros((S * B, L, H), device=device)
-    forward(0, words, zeros, zeros)
+    forward(words, lm.initial_state(S * B, device))
     for p in range(1, T + 1):
         words = torch.full((S * B,), EOS_ID, dtype=torch.long)
-        src = torch.zeros(S * B, dtype=torch.long)  # flat (position, row) of each row's state
+        pos = torch.zeros(S * B, dtype=torch.long)  # (position, row) of each row's state
+        rows = torch.zeros(S * B, dtype=torch.long)
         for s in range(S):
             if p > len(kanas[s]):
                 continue
@@ -104,9 +108,8 @@ def beam_search(lm: RefLM, kanas: Sequence[str], lex: RawLexicon, beam: int,
             beams[s][p] = [exts[i] for i in order]
             for k, (_, (st, pi), (w, _)) in enumerate(beams[s][p]):
                 words[s * B + k] = w
-                src[s * B + k] = st * S * B + s * B + pi
-        src = src.to(device)
-        forward(p, words.to(device), c_store.view(-1, L, H)[src], h_store.view(-1, L, H)[src])
+                pos[s * B + k], rows[s * B + k] = st, s * B + pi
+        forward(words.to(device), lm.select(states, pos.to(device), rows.to(device)))
 
     out = []
     for s, kana in enumerate(kanas):
@@ -123,9 +126,9 @@ def beam_search(lm: RefLM, kanas: Sequence[str], lex: RawLexicon, beam: int,
     return out
 
 
-def rescore(lm: RefLM, paths: Sequence[Sequence[int]], device) -> List[float]:
+def rescore(lm: Any, paths: Sequence[Sequence[int]], device) -> List[float]:
     """Each word sequence's score: ``sum log p(w_k | w_<k) + log p(<eos> | w)``
-    from ``<eos>`` at a zero state, the sequences batched."""
+    from ``<eos>`` at the LM's initial state, the sequences batched."""
     S = len(paths)
     n = max(len(p) for p in paths)
     feed = torch.full((n + 1, S), EOS_ID, dtype=torch.long)

@@ -1,28 +1,26 @@
 """Reference training steps and the comparison that judges the program's.
 
-Plain PyTorch in fp32 (TF32 off), independent of the program: the LSTM
-stepped in a Python loop over the window, the full-softmax cross-entropy
-over materialised logits, autograd, the clip by the global norm
-(``optax.clip_by_global_norm``: unchanged under the limit, else scaled to
-it) and Adam (b1 0.9, b2 0.999, eps 1e-8, bias-corrected), over the same
+Plain PyTorch in fp32 (TF32 off), independent of the program: the model
+family's loss of each window (``loss_fn``), autograd, the clip by the global
+norm (``optax.clip_by_global_norm``: unchanged under the limit, else scaled
+to it) and Adam (b1 0.9, b2 0.999, eps 1e-8, bias-corrected), over the same
 truncated-BPTT windows as the trainer (the id stream cut to ``[batch, -1]``,
-windows of ``window`` steps, the state carried between windows, detached).
-
-``scan_operand`` and ``ce_operand`` round the products' operands of the
-cell and of the head (the control: one precision lower); ``half_batch``
-takes the loss over the first half of the rows (a planted fault).
+windows of ``window`` steps; a loss that carries state between windows
+keeps it itself).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from benchmark.reference.lm import Rounding, fp32_products
+from benchmark.reference.precision import fp32_products
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
+
+Loss = Callable[[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 def _windows(ids: np.ndarray, batch: int, window: int):
@@ -33,47 +31,22 @@ def _windows(ids: np.ndarray, batch: int, window: int):
         yield xs[:, start:start + window], ys[:, start:start + window]
 
 
-def reference_steps(init: Dict[str, torch.Tensor], model: Dict[str, Any],
-                    train: Dict[str, Any], ids: np.ndarray, tp: Dict[str, Any], device,
-                    scan_operand: Rounding = None, ce_operand: Rounding = None,
-                    half_batch: bool = False) -> Dict[str, Any]:
-    """Losses of every window of ``ids``, the first step's clipped gradient
-    and each leaf's change after the last step."""
+def adam_steps(init: Dict[str, torch.Tensor], loss_fn: Loss, train: Dict[str, Any],
+               ids: np.ndarray, tp: Dict[str, Any], device) -> Dict[str, Any]:
+    """Losses of every window of ``ids`` (``loss_fn(params, x, y)``, the
+    parameters by ``a/0/b`` name), the first step's clipped gradient and each
+    leaf's change after the last step."""
     fp32_products()
-    if model["head"] != "full":
-        raise ValueError("the reference trains the full head only")
-    rs = scan_operand or (lambda t: t)
-    rc = ce_operand or (lambda t: t)
     p = {k: v.detach().clone().float().requires_grad_(True) for k, v in init.items()}
     keys = sorted(p)
     mu = {k: torch.zeros_like(v) for k, v in p.items()}
     nu = {k: torch.zeros_like(v) for k, v in p.items()}
-    L, H, fb = model["num_layers"], model["hidden_size"], model["forget_bias"]
-    B, T = tp["batch"], tp["window"]
-    c = [torch.zeros((B, H), device=device) for _ in range(L)]
-    h = [torch.zeros((B, H), device=device) for _ in range(L)]
     losses: List[float] = []
     grad1: Optional[Dict[str, torch.Tensor]] = None
-    for count, (x, y) in enumerate(_windows(ids, B, T), start=1):
+    for count, (x, y) in enumerate(_windows(ids, tp["batch"], tp["window"]), start=1):
         x = torch.from_numpy(np.ascontiguousarray(x)).to(device)
         y = torch.from_numpy(np.ascontiguousarray(y)).to(device)
-        seq = p["embedding"][x]  # [B, T, E]
-        for l in range(L):
-            W, b = p[f"lstm/{l}/W"], p[f"lstm/{l}/b"]
-            outs = []
-            cl, hl = c[l], h[l]
-            for t in range(T):
-                z = rs(torch.cat([seq[:, t], hl], dim=1)) @ rs(W) + b
-                i, j, f, o = z[:, :H], z[:, H:2 * H], z[:, 2 * H:3 * H], z[:, 3 * H:]
-                cl = torch.sigmoid(f + fb) * cl + torch.sigmoid(i) * torch.tanh(j)
-                hl = torch.sigmoid(o) * torch.tanh(cl)
-                outs.append(hl)
-            c[l], h[l] = cl.detach(), hl.detach()
-            seq = torch.stack(outs, dim=1)
-        rows = B // 2 if half_batch else B
-        hs = seq[:rows].reshape(rows * T, H)
-        logits = rc(hs) @ rc(p["head/W"]) + p["head/b"]
-        loss = torch.nn.functional.cross_entropy(logits, y[:rows].reshape(-1))
+        loss = loss_fn(p, x, y)
         grads = torch.autograd.grad(loss, [p[k] for k in keys])
         with torch.no_grad():
             norm = torch.sqrt(sum((g ** 2).sum() for g in grads))

@@ -58,6 +58,10 @@ def main(argv=None) -> None:
         fail(f"the program under test is missing: {e}")
     cell = registry.workload(args.workload)
     cfg = registry.config(cell["config"])
+    try:
+        registry.family_of(cfg)
+    except (FileNotFoundError, ValueError) as e:
+        fail(str(e))
     kind = registry.traffic(cell["traffic"]["kind"])
 
     import torch

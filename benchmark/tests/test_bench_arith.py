@@ -9,8 +9,9 @@ import pytest
 from benchmark.core import registry
 from benchmark.core.trace import DeviceWindow, Trace
 from benchmark.core.peaks import PEAK, bound_s
-from benchmark.core.serve import useful_ops as serve_ops
-from benchmark.core.train import useful_ops as train_ops
+
+LSTM = registry.family("lstm")
+serve_ops, train_ops = LSTM.serve_ops, LSTM.train_ops
 
 
 def metric(name):
@@ -23,13 +24,14 @@ M100 = registry.config("jlm-100k-2l-dsoftmax")["model"]
 
 def test_project_lse_bound_at_the_serving_frame():
     # R = 2,048 sentences x beam 10; chip_smoke.py row 1: 0.5299 ms (ops)
-    nbytes, ops, kind, exps = metric("project_lse_roofline.serve").work(20480, M50)
+    work = metric("project_lse_roofline.serve").work
+    nbytes, ops, kind, exps = work(20480, LSTM.head_blocks(M50))
     assert ops == 2 * 20480 * 512 * 50000 and kind == "int8" and exps == 20480 * 50000
     assert nbytes == 20480 * 512 * 2 + 512 * 50000 + 50000 * 8 + 20480 * 4
     assert bound_s(nbytes, ops, kind, PEAK) == pytest.approx((ops / 1979e12, "operations"))
     assert bound_s(nbytes, ops, kind, PEAK)[0] * 1e3 == pytest.approx(0.5299, abs=1e-4)
     # config 5's blocks: 16,000 x 512 + 34,000 x 256 + 50,000 x 128 = 23.3 M weights
-    nb5, ops5, _, exps5 = metric("project_lse_roofline.serve").work(20480, M100)
+    nb5, ops5, _, exps5 = work(20480, LSTM.head_blocks(M100))
     assert ops5 == 2 * 20480 * (16000 * 512 + 34000 * 256 + 50000 * 128)
     assert exps5 == 20480 * 100000
     # with the exponential rate of 16 a clock on 132 SMs at 1,980 MHz it is exp-bound
@@ -79,8 +81,8 @@ def test_mfu_counts():
 def _trace(kind, timed_units, timed_s, profiled_units, busy_s, window_s, ops):
     dev = DeviceWindow(window_s=window_s, busy_s=busy_s, activities=1, device_s_by_range={},
                        device_ops=[], idle_by_host=[])
-    return Trace(kind=kind, model=M50, spans={}, calls={}, timed_units=timed_units,
-                 timed_s=timed_s, profiled_units=profiled_units, useful_ops=ops,
+    return Trace(kind=kind, head_blocks=LSTM.head_blocks(M50), spans={}, calls={},
+                 timed_units=timed_units, timed_s=timed_s, profiled_units=profiled_units, useful_ops=ops,
                  peaks=dict(PEAK), device=dev)
 
 

@@ -5,17 +5,18 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark.core import program
+from benchmark.core import program, registry
 from benchmark.core.weights import flatten, make_weights
 from benchmark.data.lexicon import synthetic_lexicon
 from benchmark.data.synthetic import generate_test_set
 from benchmark.reference.beam import beam_search, rescore
-from benchmark.reference.lm import RefLM
-from benchmark.reference.train import compare_steps, reference_steps
+from benchmark.reference.lstm import RefLM, reference_steps
+from benchmark.reference.train import compare_steps
 from benchmark.tests.conftest import TINY_DSOFTMAX, TINY_MODEL, run_tiny, tiny_cell
 
 SCALES = {"embedding": 1.0, "lstm_W": 0.3, "lstm_b": 0.1, "head_W": 0.5, "head_b": 0.5}
 CPU = torch.device("cpu")
+LSTM = registry.family("lstm")
 
 
 @pytest.mark.parametrize("model", [TINY_MODEL, TINY_DSOFTMAX], ids=["full", "dsoftmax"])
@@ -23,11 +24,11 @@ def test_beam_search_equals_the_ports_fp32_path(model):
     """The port's fp32 parity decoder (plain torch on the CPU) and the
     reference find the same top paths, with scores within 1e-4."""
     lex = synthetic_lexicon(model["vocab_size"])
-    weights = make_weights(model, SCALES, 31, CPU)
+    weights = make_weights(LSTM.leaves(model), SCALES, 31, CPU)
     serve = {"beam_width": 6, "n_best_max": 1, "max_word_len": 5, "max_kana_len": 62,
              "max_lookahead": 64}
-    config = program.make_config(model, serve, max_nodes_per_frame=16)
-    dec = program.make_decoder(weights, lex, config, "highest", CPU)
+    config = LSTM.make_config(model, serve, max_nodes_per_frame=16)
+    dec = LSTM.make_decoder(weights, lex, config, "highest", CPU)
     kanas = [k for k, _ in generate_test_set(24, seed=3)]
     got = dec.decode_batch(kanas)
     ref = beam_search(RefLM(weights, model), kanas, lex, 6, 5, 16, CPU)
@@ -46,10 +47,10 @@ def test_training_steps_equal_the_ports_plain_path():
     cell, cfg, kind = tiny_cell("train.jlm50k.b256x32")
     tp = cell["traffic"]
     train = dict(cfg["train"], fused_ce=False, use_pallas_scan=False)
-    config = program.make_config(model, train, batch_size=tp["batch"], num_steps=tp["window"])
-    weights = make_weights(model, SCALES, 17, CPU)
+    config = LSTM.make_config(model, train, batch_size=tp["batch"], num_steps=tp["window"])
+    weights = make_weights(LSTM.leaves(model), SCALES, 17, CPU)
     init = {k: v.clone() for k, v in flatten(weights).items()}
-    trainer = program.make_trainer(config, weights, CPU)
+    trainer = LSTM.make_trainer(config, weights, CPU)
     ids = kind.build(tp, model, 17).ids(-1, 3)
     losses, grad1 = [], None
     for k, (loss, _) in enumerate(trainer.train_steps(ids, epoch=0)):

@@ -17,6 +17,11 @@ from benchmark.core.serve import latency_metric
 BENCH = registry.BENCH
 ROOT = registry.ROOT
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+# what a model family gives the shared code (core/registry.py)
+FAMILY_NAMES = ("leaves", "head_blocks", "make_config", "make_decoder", "make_trainer",
+                "flat_params", "first_moments", "serve_patch_points", "train_patch_points",
+                "reference_lm", "control_lm", "reference_steps", "train_controls", "serve_ops",
+                "train_ops")
 
 
 def spec():
@@ -39,10 +44,20 @@ def test_every_file_is_found_by_name():
             # the latency quantile the traffic names is the metric the cell reports
             lat = latency_metric(cell["traffic"]["latency_quantile"])
             assert w["name"] in {m["name"]: m for m in s["end_to_end"]}[lat]["workloads"]
+    families = set()
     for c in s["configs"]:
         cfg = registry.config(c["name"])
         assert c["file"] == f"benchmark/configs/{c['name']}.json"
         assert (cfg["source"], cfg["reduced"]) == (c["source"], c["reduced"])
+        assert registry.family_of(cfg).__file__ == os.path.join(BENCH, "families",
+                                                                 f"{cfg['family']}.py")
+        families.add(cfg["family"])
+    # every family is some configuration's, and gives what the shared code calls
+    assert sorted(families) == registry.names("families")
+    for name in families:
+        fam = registry.family(name)
+        for attr in FAMILY_NAMES:
+            assert hasattr(fam, attr), (name, attr)
     mods = registry.metrics()
     for m in s["per_layer"]:
         assert (mods[m["name"]].UNIT, mods[m["name"]].LAYER) == (m["unit"], m["layer"])
@@ -129,9 +144,14 @@ def test_nothing_imports_jax_or_the_jax_package():
 
 
 def test_only_the_program_adapter_imports_the_program():
+    """The program adapter is ``core/program.py`` and each model family's
+    file; nothing else imports the program, the reference least of all."""
+    adapters = {os.path.join("core", "program.py")} | {
+        os.path.join("families", f"{n}.py") for n in registry.names("families")}
     users = {os.path.relpath(p, BENCH) for p in _sources()
              if any(m.split(".")[0] == "jlm_tpu_torch" for m in _imports(p))}
-    assert users == {os.path.join("core", "program.py")}
+    assert users <= adapters
+    assert {os.path.join("core", "program.py"), os.path.join("families", "lstm.py")} <= users
     for path in _sources("reference"):
         assert all(m.split(".")[0] != "jlm_tpu_torch" for m in _imports(path))
 

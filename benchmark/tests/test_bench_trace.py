@@ -100,7 +100,7 @@ def _trace(kind, dw):
               "lstm_scan": collections.Counter({("fwd", 32, 256, 256, 512): 2,
                                                 ("bwd", 32, 256, 256, 512): 2})})
     units = {"chunks": 6, "chars": 120000, "jobs": 3} if serve else {"steps": 2}
-    return Trace(kind=kind, model=model,
+    return Trace(kind=kind, head_blocks=registry.family("lstm").head_blocks(model),
                  spans={"pack": [0.04] * 12, "materialize": [0.03] * 12,
                         "decode_scan": [0.035] * 12},
                  calls=calls, timed_units={k: 2 * v for k, v in units.items()}, timed_s=1.5,
