@@ -34,16 +34,31 @@ A forward may carry
 every payload leaf is TIME-MAJOR (``[T1, S, ...]``) so a frame's slice is
 contiguous.
 
+The search's path state is the forward's business, through three hooks
+of the object ``forward_fn.path_state(params, S, B, T_max, device)``
+returns: ``root()`` (the state the position-0 rows feed), ``select(pos,
+src_pos, sel_p)`` (the state of the kept extensions, each the child of row
+``sel_p`` at position ``src_pos``, feeding at ``pos``) and ``write(pos,
+state)`` (keep what the forward returned at ``pos`` for the frames that
+extend it).  A forward without the hook keeps the LSTM's ``(c, h)`` in ring
+caches (:class:`RingState`); a transformer's state is its paths' history
+(:class:`jlm_tpu_torch.decoder.path_cache.LatentPaths`).  A forward may
+also carry ``build_head(params, config, compute_dtype)``, its decode-side
+weight prep (default :func:`build_decode_head`).
+
 An input longer than ``max_kana_len`` goes through ``decode_long``
 (``decode`` and ``decode_batch`` route it there): multi-root overlap-save
 chunks whose boundary beams seed the next chunk on the device, stitched on
-the host after one fetch.
+the host after one fetch.  It, chaining, seeding and ``export_rings``
+carry ``(c, h)`` between chunks, and are the LSTM's alone.
 
 While the tracer of :mod:`jlm_tpu_torch.utils.profiling` is on,
 ``decode_stream`` is the span ``decode.job`` and each chunk's phases its
 spans ``decode.pack``, ``decode.enqueue``, ``decode.fetch`` (the blob's copy,
 which waits for the device) and ``decode.surfaces``; ``_pack`` counts the
 chunk's sentences, kana and real nodes against the slots the search scans.
+A path state's device counters of a chunk (``stats()``) come back in the
+blob's copy and are added to the tracer's counters there.
 
 A vocab-sharded forward (``jlm_tpu_torch.parallel.make_sharded_forward``)
 carries its ``mesh``: every rank builds the same lattices (the packers are
@@ -223,14 +238,6 @@ def make_kernel_forward(config: Config, compute_dtype=torch.bfloat16,
     if int8_mxu is None:
         int8_mxu = config.int8_mxu
 
-    def prepare(params, look_w):
-        """[S, T1, C] ids -> time-major cols [T1, S, C+1, H], bias [T1, S, C+1]."""
-        dec = params["_decode"]
-        S, T1, C = look_w.shape
-        eos = torch.full((S, T1, 1), EOS_ID, dtype=look_w.dtype, device=look_w.device)
-        ids = torch.cat([look_w, eos], dim=2).transpose(0, 1).contiguous()
-        return {"cols": dec["head_T"][ids], "bias": dec["bias"][ids]}
-
     def forward(params, words, state, payload):
         S, B = words.shape
         dec = params["_decode"]
@@ -263,10 +270,21 @@ def make_kernel_forward(config: Config, compute_dtype=torch.bfloat16,
         raw = cand_dot(x, payload["cols"], payload["bias"])
         return (raw - lse.reshape(S, B, 1))[:, :, :-1]
 
-    forward.prepare = prepare
+    forward.prepare = prepare_candidates
     forward.score_hidden = score_hidden
     forward.compute_dtype = compute_dtype
     return forward
+
+
+def prepare_candidates(params, look_w):
+    """A chunk's candidate head rows, once: ``look_w [S, T1, C]`` word ids ->
+    time-major ``cols [T1, S, C+1, H]`` (``<eos>`` last) gathered from
+    ``params["_decode"]["head_T"]``, and their ``bias [T1, S, C+1]``."""
+    dec = params["_decode"]
+    S, T1, C = look_w.shape
+    eos = torch.full((S, T1, 1), EOS_ID, dtype=look_w.dtype, device=look_w.device)
+    ids = torch.cat([look_w, eos], dim=2).transpose(0, 1).contiguous()
+    return {"cols": dec["head_T"][ids], "bias": dec["bias"][ids]}
 
 
 def make_fused_frame_forward(config: Config, compute_dtype=torch.bfloat16,
@@ -278,6 +296,7 @@ def make_fused_frame_forward(config: Config, compute_dtype=torch.bfloat16,
     ``prepare``, ``compute_dtype`` and ``int8_mxu`` as in
     :func:`make_kernel_forward`, which stays the default forward, as the
     reference engine keeps the split frame."""
+    lstm_only("the fused frame", config=config)
     if config.num_layers != 1:
         raise ValueError(f"the fused frame takes one layer, not {config.num_layers}")
     base = make_kernel_forward(config, compute_dtype, int8_mxu)
@@ -365,6 +384,59 @@ def _at(payload, t: int):
     return payload[t]
 
 
+class RingState:
+    """The LSTM's path state: each position's beam rows' ``(c, h)`` in ring
+    caches ``c``, ``h`` ``[S, R, B, L, H]`` of ``R = _RING`` rows (a parent
+    lies at most ``max_word_len < R`` positions back), in ``dtype`` (bf16 in
+    speed mode).  The forward takes and returns ``(c, h)`` ``[L, S*B, H]``."""
+
+    def __init__(self, S: int, B: int, L: int, H: int, dtype, device):
+        self.S, self.B, self.L, self.H = S, B, L, H
+        self.dtype, self.device = dtype, device
+        self.c = torch.zeros((S, _RING, B, L, H), dtype=dtype, device=device)
+        self.h = torch.zeros((S, _RING, B, L, H), dtype=dtype, device=device)
+        self._s_idx = torch.arange(S, device=device)[:, None]
+
+    def to_cache(self, x):  # [L, S*B, H] -> [S, B, L, H]
+        S, B, L, H = self.S, self.B, self.L, self.H
+        return x.reshape(L, S, B, H).permute(1, 2, 0, 3).to(self.dtype)
+
+    def to_state(self, g):  # [S, B, L, H] -> [L, S*B, H]
+        S, B, L, H = self.S, self.B, self.L, self.H
+        return g.permute(2, 0, 1, 3).reshape(L, S * B, H).contiguous()
+
+    def root(self):
+        """``<eos>``'s state: zeros."""
+        z = torch.zeros((self.L, self.S * self.B, self.H), dtype=torch.float32,
+                        device=self.device)
+        return z, z
+
+    def select(self, pos: int, src_pos: torch.Tensor, sel_p: torch.Tensor):
+        S, B, L, H = self.S, self.B, self.L, self.H
+        flat = (src_pos & (_RING - 1)) * B + sel_p  # [S, B] ring row * B + path
+        csel = self.c.reshape(S, _RING * B, L, H)[self._s_idx, flat]
+        hsel = self.h.reshape(S, _RING * B, L, H)[self._s_idx, flat]
+        return self.to_state(csel), self.to_state(hsel)
+
+    def write(self, pos: int, state) -> None:
+        c, h = state
+        self.c[:, pos & (_RING - 1)] = self.to_cache(c)
+        self.h[:, pos & (_RING - 1)] = self.to_cache(h)
+
+    def stats(self):
+        return None
+
+
+def lstm_only(what: str, forward_fn: Optional[ForwardFn] = None, config=None) -> None:
+    """Raise for a forward (or a config) whose path state is not the LSTM's
+    ``(c, h)``: ``what`` carries that state and runs for the LSTM alone."""
+    if (getattr(forward_fn, "path_state", None) is not None
+            or getattr(config, "family", "lstm") != "lstm"):
+        raise ValueError(f"{what} carries the LSTM's (c, h) state, and this model has none "
+                         "(its path state is the forward's own): only decode_stream, "
+                         "decode_batch and decode serve it")
+
+
 def _decode_scan(params, packed: torch.Tensor, lengths: torch.Tensor,
                  root: Optional[Dict[str, torch.Tensor]] = None,
                  seed: Optional[Dict[str, torch.Tensor]] = None, *,
@@ -398,12 +470,13 @@ def _decode_scan(params, packed: torch.Tensor, lengths: torch.Tensor,
     """
     S, T_max, N = packed.shape
     B, C = config.beam_pad, config.max_lookahead
-    L, H = config.num_layers, config.hidden_size
     R = _RING
     if config.max_word_len >= R:
         raise ValueError(f"max_word_len={config.max_word_len} must be < ring size {R}")
     if seed_m and (seed is None or seed_m != config.max_word_len):
         raise ValueError("seed_m needs a seed and must equal config.max_word_len")
+    if root is not None or seed is not None or chain or export_rings:
+        lstm_only("chaining, seeding and export_rings", forward_fn)
     dev = packed.device
     word, start, cidx, mask, look_w, look_m = _unpack_lattice(packed, config)
     word, start, cidx = word.long(), start.long(), cidx.long()
@@ -412,34 +485,31 @@ def _decode_scan(params, packed: torch.Tensor, lengths: torch.Tensor,
                else look_w.long().transpose(0, 1))
     cache_dtype = getattr(forward_fn, "compute_dtype", torch.float32)
 
-    def state_to_cache(x):  # [L, S*B, H] -> [S, B, L, H]
-        return x.reshape(L, S, B, H).permute(1, 2, 0, 3).to(cache_dtype)
-
-    def cache_to_state(g):  # [S, B, L, H] -> [L, S*B, H]
-        return g.permute(2, 0, 1, 3).reshape(L, S * B, H).contiguous()
-
     score = torch.full((S, R, B), NEG, device=dev)
     cand_cache = torch.zeros((S, R, B, C), device=dev)
-    c_cache = torch.zeros((S, R, B, L, H), dtype=cache_dtype, device=dev)
-    h_cache = torch.zeros((S, R, B, L, H), dtype=cache_dtype, device=dev)
+    path_state = getattr(forward_fn, "path_state", None)
+    if path_state is not None:
+        ring = path_state(params, S, B, T_max, dev)
+    else:
+        L, H = config.num_layers, config.hidden_size
+        ring = RingState(S, B, L, H, cache_dtype, dev)
     last_words = None
     if seed_m == 0:
-        # --- position-0 root beam: path 0 alive, fed <eos> from zero state,
-        # or the beam carried from the previous chunk ---
+        # --- position-0 root beam: path 0 alive, fed <eos> from the root
+        # state, or the beam carried from the previous chunk ---
         if root is None:
-            c0 = h0 = torch.zeros((L, S * B, H), dtype=torch.float32, device=dev)
+            state0 = ring.root()
             words0 = torch.full((S, B), EOS_ID, dtype=torch.long, device=dev)
             score0 = torch.full((S, B), NEG, device=dev)
             score0[:, 0] = 0.0
         else:
-            c0, h0, words0, score0 = root["c"], root["h"], root["words"], root["score"]
-        cand0, _, (c1, h1) = forward_fn(params, words0, (c0, h0), _at(payload, 0))
+            state0, words0, score0 = (root["c"], root["h"]), root["words"], root["score"]
+        cand0, _, state1 = forward_fn(params, words0, state0, _at(payload, 0))
         cand0 = torch.where(look_m[:, 0][:, None, :], cand0, NEG)
         cand0 = torch.where(score0[:, :, None] > NEG / 2, cand0, NEG)
         score[:, 0] = score0
         cand_cache[:, 0] = cand0
-        c_cache[:, 0] = state_to_cache(c1)
-        h_cache[:, 0] = state_to_cache(h1)
+        ring.write(0, state1)
         last_words = words0
     else:
         # --- multi-root seeding: local positions 1..M hold the previous
@@ -447,6 +517,7 @@ def _decode_scan(params, packed: torch.Tensor, lengths: torch.Tensor,
         # scored for THIS window's lookahead, so a word may start in the
         # overlap and end past the cut ---
         M = seed_m
+        L, H = config.num_layers, config.hidden_size
         htop = seed["h"][..., L - 1, :].reshape(S * M, B, H)  # [S, M, B, H] flat
         # the payload is time-major: [M, S, ...] -> [S, M, ...] -> [S*M, ...]
         pay = {k: v[1:M + 1].transpose(0, 1).reshape((S * M,) + v.shape[2:]).contiguous()
@@ -457,14 +528,13 @@ def _decode_scan(params, packed: torch.Tensor, lengths: torch.Tensor,
         cand_seed = torch.where(seed["score"][..., None] > NEG / 2, cand_seed, NEG)
         score[:, 1:M + 1] = seed["score"]
         cand_cache[:, 1:M + 1] = cand_seed
-        c_cache[:, 1:M + 1] = seed["c"].to(cache_dtype)
-        h_cache[:, 1:M + 1] = seed["h"].to(cache_dtype)
+        ring.c[:, 1:M + 1] = seed["c"].to(cache_dtype)
+        ring.h[:, 1:M + 1] = seed["h"].to(cache_dtype)
     final = torch.full((S, B), NEG, device=dev)
 
     lengths = lengths.long()
     beam = torch.arange(B, device=dev)
     beam_live = beam < config.beam_width
-    s_idx = torch.arange(S, device=dev)[:, None]
     bp_src, bp_p, bp_n = [], [], []
     for pos in range(seed_m + 1, T_max + 1):
         words_t, starts_t = word[:, pos - 1], start[:, pos - 1]
@@ -488,13 +558,8 @@ def _decode_scan(params, packed: torch.Tensor, lengths: torch.Tensor,
         src_pos = starts_t.gather(1, sel_n)  # [S, B]
         new_words = words_t.gather(1, sel_n)
 
-        flat2 = (src_pos & (R - 1)) * B + sel_p  # [S, B] ring row * B + path
-        csel = c_cache.reshape(S, R * B, L, H)[s_idx, flat2]
-        hsel = h_cache.reshape(S, R * B, L, H)[s_idx, flat2]
-        cand_new, eos_new, (c_new, h_new) = forward_fn(
-            params, new_words, (cache_to_state(csel), cache_to_state(hsel)),
-            _at(payload, pos),
-        )
+        cand_new, eos_new, state_new = forward_fn(
+            params, new_words, ring.select(pos, src_pos, sel_p), _at(payload, pos))
         cand_new = torch.where(look_m[:, pos][:, None, :], cand_new, NEG)
         cand_new = torch.where((top_scores > NEG / 2)[:, :, None], cand_new, NEG)
         # final <eos> rescoring at each sentence's true length
@@ -503,8 +568,7 @@ def _decode_scan(params, packed: torch.Tensor, lengths: torch.Tensor,
         ring_w = pos & (R - 1)
         score[:, ring_w] = top_scores
         cand_cache[:, ring_w] = cand_new
-        c_cache[:, ring_w] = state_to_cache(c_new)
-        h_cache[:, ring_w] = state_to_cache(h_new)
+        ring.write(pos, state_new)
         bp_src.append(src_pos)
         bp_p.append(sel_p)
         bp_n.append(sel_n)
@@ -555,12 +619,15 @@ def _decode_scan(params, packed: torch.Tensor, lengths: torch.Tensor,
         M = config.max_word_len
         rows = [(T_max - M + 1 + i) & (R - 1) for i in range(M)]
         out["rings"] = {"score": score[:, rows],
-                        "c": c_cache[:, rows].float(), "h": h_cache[:, rows].float()}
+                        "c": ring.c[:, rows].float(), "h": ring.h[:, rows].float()}
     if chain:
         ring_T = T_max & (R - 1)
         out["chain"] = {"words": last_words, "score": score[:, ring_T],
-                        "c": cache_to_state(c_cache[:, ring_T]).float(),
-                        "h": cache_to_state(h_cache[:, ring_T]).float()}
+                        "c": ring.to_state(ring.c[:, ring_T]).float(),
+                        "h": ring.to_state(ring.h[:, ring_T]).float()}
+    stats = ring.stats()
+    if stats:
+        out["stats"] = stats
     return out
 
 
@@ -573,7 +640,8 @@ class BeamDecoder:
     per ``config.int8_mxu``) and ``"highest"`` the fp32 full-softmax parity
     forward.  A forward with a ``prepare`` hook (e.g.
     ``make_kernel_forward(config, torch.float32)``) gets the decode-side
-    head prep in its ``compute_dtype``.  A sharded forward runs on its
+    head prep in its ``compute_dtype`` (its own ``build_head``, else
+    :func:`build_decode_head`).  A sharded forward runs on its
     mesh's device (a ``device`` naming another raises) and keeps what its
     ``place_params`` returns of ``params`` (the full tree, or one already
     sharded): this rank's head columns.
@@ -623,8 +691,8 @@ class BeamDecoder:
         if place is not None:
             self.params = place(self.params)
         if getattr(self._fwd, "prepare", None) is not None and "_decode" not in self.params:
-            self.params["_decode"] = build_decode_head(
-                self.params, config, self._fwd.compute_dtype)
+            build = getattr(self._fwd, "build_head", build_decode_head)
+            self.params["_decode"] = build(self.params, config, self._fwd.compute_dtype)
 
     @staticmethod
     def _bucket(n: int) -> int:
@@ -713,7 +781,14 @@ class BeamDecoder:
         build surfaces."""
         S, K, T_scan = len(packed), out["paths"].shape[1], out["paths"].shape[2]
         with profiling.span("decode.fetch"):
-            blob = self._blob(out["blob"]).reshape(S, K, 3 + 2 * T_scan)
+            stats = out.get("stats")
+            if stats:  # the path state's counters, in the blob's one copy
+                blob, *values = fetch([out["blob"], *stats.values()])
+                for name, v in zip(stats, values):
+                    profiling.count(name, int(v.sum()))
+            else:
+                blob = self._blob(out["blob"])
+            blob = blob.reshape(S, K, 3 + 2 * T_scan)
         with profiling.span("decode.surfaces"):
             finals = blob[:, :, 0].view(np.float32)
             paths = blob[:, :, 3:].reshape(S, K, T_scan, 2)
@@ -767,6 +842,7 @@ class BeamDecoder:
         seeds stay on the device between chunks.  Under a mesh every rank
         scans the same one-sentence windows (``min_batch`` copies of the
         sentence, one a rank), and every rank returns rank 0's result."""
+        lstm_only("decode_long", self._fwd, self.config)
         if getattr(self._fwd, "score_hidden", None) is not None:
             return self._decode_long_multiroot(kana, n_best)
         return self._decode_long_chain(kana, n_best)

@@ -38,7 +38,7 @@ from jlm_tpu_torch.config import Config, EOS_ID
 from jlm_tpu_torch.data.corpus import Vocab
 from jlm_tpu_torch.data.lexicon import Lexicon
 from jlm_tpu_torch.decoder.engine import (
-    NEG, _set_fp32_matmuls, build_decode_head, topk_stable, upload)
+    NEG, _set_fp32_matmuls, build_decode_head, lstm_only, topk_stable, upload)
 from jlm_tpu_torch.decoder.lattice import Node, handle_node_overflow
 from jlm_tpu_torch.models.lstm import (
     candidate_logits, embed, head_logits, initial_state, lstm_step, node_logits)
@@ -408,6 +408,7 @@ class IncrementalDecoder:
         *,
         device="cuda",
     ):
+        lstm_only("IncrementalDecoder", config=config)
         self.device = resolve_device(device)
         self.params, kernel = prepare_params(params, config, precision, use_kernel,
                                              self.device)

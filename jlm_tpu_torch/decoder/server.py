@@ -28,7 +28,7 @@ import torch
 from jlm_tpu_torch.config import Config, EOS_ID
 from jlm_tpu_torch.data.corpus import Vocab
 from jlm_tpu_torch.data.lexicon import Lexicon
-from jlm_tpu_torch.decoder.engine import NEG, upload
+from jlm_tpu_torch.decoder.engine import NEG, lstm_only, upload
 from jlm_tpu_torch.decoder.incremental import (
     _forward_with_lse, _frame_rows, build_probe_arrays, frame_nodes, nbest, prepare_params,
     rolled)
@@ -93,6 +93,7 @@ class SessionServer:
         *,
         device="cuda",
     ):
+        lstm_only("SessionServer", config=config)
         self.device = resolve_device(device)
         self.params, kernel = prepare_params(params, config, precision, use_kernel,
                                              self.device)

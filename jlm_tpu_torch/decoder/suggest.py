@@ -18,7 +18,7 @@ import torch
 
 from jlm_tpu_torch.config import Config, EOS_ID
 from jlm_tpu_torch.data.corpus import Vocab
-from jlm_tpu_torch.decoder.engine import _set_fp32_matmuls, topk_stable
+from jlm_tpu_torch.decoder.engine import _set_fp32_matmuls, lstm_only, topk_stable
 from jlm_tpu_torch.models.lstm import embed, head_logits, initial_state, log_softmax, lstm_step
 from jlm_tpu_torch.models.params import params_to_torch, resolve_device
 
@@ -31,6 +31,7 @@ class Suggester:
 
     def __init__(self, params, vocab: Vocab, config: Config, mesh=None,
                  precision: str = "highest", *, device="cuda"):
+        lstm_only("Suggester", config=config)
         self.mesh = mesh if mesh is not None and mesh.vocab > 1 else None
         if mesh is not None:
             from jlm_tpu_torch.parallel.mesh import mesh_device

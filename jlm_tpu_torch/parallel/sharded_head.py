@@ -189,6 +189,9 @@ def make_sharded_forward(
     ``place_params`` (the params this rank keeps), ``min_batch`` (the
     engine pads a chunk to a multiple of ``data * vocab`` sentences) and
     ``mesh``."""
+    from jlm_tpu_torch.decoder.engine import lstm_only
+
+    lstm_only("the vocab-sharded forward", config=config)
     if not seq_shard:
         raise ValueError(SEQ_SHARD_ONLY)
     if use_kernels is None:
