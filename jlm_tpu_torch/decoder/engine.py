@@ -56,8 +56,9 @@ While the tracer of :mod:`jlm_tpu_torch.utils.profiling` is on,
 ``decode_stream`` is the span ``decode.job`` and each chunk's phases its
 spans ``decode.pack``, ``decode.enqueue``, ``decode.fetch`` (the blob's copy,
 which waits for the device) and ``decode.surfaces``; ``_pack`` counts the
-chunk's sentences, kana and real nodes against the slots the search scans.
-A path state's device counters of a chunk (``stats()``) come back in the
+chunk's sentences, kana and real nodes against the slots the search scans,
+and its native packer calls (``decode.pack_calls``: 1 a chunk, 0 where the
+Python builder ran).  A path state's device counters of a chunk (``stats()``) come back in the
 blob's copy and are added to the tracer's counters there.
 
 A vocab-sharded forward (``jlm_tpu_torch.parallel.make_sharded_forward``)
@@ -714,14 +715,15 @@ class BeamDecoder:
         with profiling.span("decode.pack"):
             mb = self._min_batch
             pad = -(-self._bucket(len(kanas)) // mb) * mb - len(kanas)
+            t_bucket = min(self._t_bucket(max(map(len, kanas))), self.config.max_kana_len)
             if self._native is not None:
-                packed, lengths = self._native.pack_batch(list(kanas))
+                packed, lengths = self._native.pack_batch(list(kanas), width=t_bucket)
             else:
                 lattices = [build_lattice(k, self.lexicon, self.vocab, self.config)
                             for k in kanas]
                 packed, lengths = pack_lattice_batch(lattices)
-            t_bucket = min(self._t_bucket(int(lengths.max())), self.config.max_kana_len)
-            packed = packed[:, :t_bucket]
+                packed = packed[:, :t_bucket]
+            profiling.count("decode.pack_calls", self._native is not None)
             if pad:
                 packed = np.concatenate([packed, np.repeat(packed[-1:], pad, axis=0)])
                 lengths = np.concatenate([lengths, np.repeat(lengths[-1:], pad)])
@@ -852,11 +854,11 @@ class BeamDecoder:
         bucket), its frames up to ``mask_upto`` (the overlap the previous
         chunk searched) cleared, so their nodes are dead."""
         if self._native is not None:
-            packed, _ = self._native.pack_batch([window])
+            packed, _ = self._native.pack_batch([window], width=len(window))
         else:
             packed, _ = pack_lattice_batch(
                 [build_lattice(window, self.lexicon, self.vocab, self.config)])
-        packed = packed[:, :len(window)].copy()
+            packed = packed[:, :len(window)].copy()
         packed[:, :mask_upto] = 0
         return packed
 

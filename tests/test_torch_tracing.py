@@ -75,7 +75,7 @@ def test_decode_spans_nest_under_one_job(engine):
 
 def test_counters_equal_the_packed_chunks(engine, tiny_config, lexicon, vocab):
     chunks = [KANAS[:4], KANAS[4:]]
-    want = collections.Counter()
+    want = collections.Counter({"decode.pack_calls": 0})
     for chunk in chunks:
         packed, _ = engine._pack(chunk)  # tracer off: counts nothing
         rows, T, N = packed.shape
@@ -84,7 +84,8 @@ def test_counters_equal_the_packed_chunks(engine, tiny_config, lexicon, vocab):
                     for k in chunk)
         want.update({"decode.chunks": 1, "decode.sentences": len(chunk), "decode.rows": rows,
                      "decode.kana": sum(len(k) for k in chunk), "decode.frame_slots": rows * T,
-                     "decode.nodes": nodes, "decode.node_slots": rows * T * N})
+                     "decode.nodes": nodes, "decode.node_slots": rows * T * N,
+                     "decode.pack_calls": engine._native is not None})
     assert not profiling.snapshot()["counters"]
     _, snap = _traced(engine.decode_stream, KANAS, chunk_size=4, sort_by_length=False)
     assert snap["counters"] == dict(want)
@@ -120,6 +121,20 @@ def test_dropped_nodes_count_the_real_rows_of_a_padded_chunk(native, tiny_params
     np.testing.assert_array_equal(packed[3], packed[2])
     assert lengths.tolist() == [len(k) for k in kanas] + [len(kanas[-1])]
     assert results[0] == results[2]
+
+
+@pytest.mark.parametrize("native", [False, True])
+def test_pack_calls_count_one_native_call_a_chunk(native, tiny_params, tiny_config, lexicon,
+                                                  vocab):
+    from jlm_tpu_torch import native as native_mod
+
+    if native and not native_mod.available():
+        pytest.skip("no native toolchain")
+    dec = BeamDecoder(tiny_params, lexicon, vocab, tiny_config, use_native=native, device="cpu")
+    _, snap = _traced(dec.decode_stream, KANAS, chunk_size=3)
+    chunks = snap["counters"]["decode.chunks"]
+    assert chunks == -(-len(KANAS) // 3)
+    assert snap["counters"]["decode.pack_calls"] == (chunks if native else 0)
 
 
 def test_by_request_sums_each_jobs_phases(engine):
